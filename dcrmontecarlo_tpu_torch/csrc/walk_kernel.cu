@@ -1,0 +1,652 @@
+// Fused Walk-on-Stars walk kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel dcrmontecarlo_tpu/ops/pallas_walk.py ::
+// make_pallas_walk (its `kernel` step body and the `pl.pallas_call` in
+// `launch`), in the variant the DCR survey's main path runs: delta
+// tracking, a Neumann wall without silhouette vertices, source next-event
+// estimation without MIS, the exact screened-radius rejection with its
+// importance-weighted final round, low-weight roulette, common random
+// numbers and boundary-snap starts.
+//
+// Design: one thread per walker lane. A thread loads its lane's planes
+// into registers once, runs `for (i < budget && quota > 0)` steps, and
+// writes back once, so the ~23 planes x 4 B move once per launch. The
+// work is bound by FP32 and SFU throughput per step (Bessel polynomials,
+// sqrt/log/exp/sin/cos, the segment scans), not by memory. A lane whose
+// quota drains exits on its own; that is exact, because a step of a lane
+// without quota changes nothing (the TPU kernel's per-block exit relies on
+// the same fact). Threads of a warp whose quota drained idle while the
+// rest of the warp walks on: that divergence is what a later change
+// should attack (lane recycling across warps).
+//
+// Arithmetic follows the plain version (ops/walk_kernel.py::walk_plain)
+// op for op and is built with -fmad=false and without fast math, so the
+// two track each other: the divide in the closest-point projection, the
+// reciprocal-multiply in the first hit, selects instead of masks, the
+// u32 counter ndone*(max_steps+2)+steps, the round and roulette stream
+// seeds. Constants are written as double literals cast to float, which
+// rounds them the way the Python side does.
+//
+// Interface: plain C (walk_launch), loaded with ctypes. Parameters and
+// plane pointers go to __constant__ memory with an async copy on the
+// launch stream, so launches on one stream are ordered; two streams must
+// not launch concurrently.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#define F(x) ((float)(x))
+
+namespace {
+
+constexpr int MAX_SEG = 32;
+constexpr int MAX_SRC = 4;
+constexpr int MAX_BUMPS = 8;
+constexpr int MAX_FP = 1 + 6 * MAX_BUMPS;
+constexpr int F_BC = 0, F_ALPHA = 1, F_SIGMA = 2, F_SRC0 = 3;
+constexpr int N_FIELDS = 3 + MAX_SRC;
+constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2;
+constexpr int N_PLANES = 6 + 5 + 3 * MAX_SRC + 9;
+constexpr int THREADS = 128;
+
+struct Field {
+  int kind;
+  int n;
+  float p[MAX_FP];
+};
+
+struct Planes {
+  const float *p0x, *p0y;
+  const int *sid, *ob0;
+  const float *n0x, *n0y;
+  float *px, *py, *nx, *ny, *atten;
+  float *acc[MAX_SRC], *asum[MAX_SRC], *asq[MAX_SRC];
+  int *quota, *steps, *ndone, *ob, *life;
+  float *tn, *tw, *wmax, *bmax;
+};
+
+struct WalkConst {
+  uint32_t seed;
+  int max_steps, rounds, roulette, project, snap, n_src, has_source;
+  int n_dir, n_neu;
+  float eps, rmin, t_min, sigma_bar, roulette_thr;
+  float dir[MAX_SEG][5];  // ax, ay, ux, uy, uu
+  float neu[MAX_SEG][6];  // ax, ay, ux, uy, nx, ny
+  Field field[N_FIELDS];  // bc, alpha, sigma, sources
+  Planes pl;
+};
+
+__constant__ WalkConst C;
+
+// ---- counter-hash RNG (sampling/rng.py) --------------------------------
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ uint32_t hash_base(uint32_t seed, uint32_t ctr) {
+  return mix32(seed ^ (0x85EBCA6Bu * ctr));
+}
+
+__device__ __forceinline__ float uni(uint32_t base, uint32_t sid, uint32_t k) {
+  uint32_t h = mix32(sid ^ (0x9E3779B9u * k) ^ base);
+  return (float)(h >> 8) * F(5.9604644775390625e-08);  // 2^-24
+}
+
+// ---- Bessel functions (ops/bessel.py) ----------------------------------
+
+__constant__ float I0_SMALL[7] = {F(1.0), F(3.5156229), F(3.0899424),
+                                  F(1.2067492), F(0.2659732), F(0.0360768),
+                                  F(0.0045813)};
+__constant__ float I0_LARGE[9] = {F(0.39894228), F(0.01328592),
+                                  F(0.00225319), F(-0.00157565),
+                                  F(0.00916281), F(-0.02057706),
+                                  F(0.02635537), F(-0.01647633),
+                                  F(0.00392377)};
+__constant__ float K0_SMALL[7] = {F(-0.57721566), F(0.42278420),
+                                  F(0.23069756), F(0.03488590),
+                                  F(0.00262698), F(0.00010750),
+                                  F(0.00000740)};
+__constant__ float K0_LARGE[7] = {F(1.25331414), F(-0.07832358),
+                                  F(0.02189568), F(-0.01062446),
+                                  F(0.00587872), F(-0.00251540),
+                                  F(0.00053208)};
+
+template <int N>
+__device__ __forceinline__ float polyval(const float (&c)[N], float t) {
+  float a = c[N - 1];
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) a = a * t + c[i];
+  return a;
+}
+
+__device__ __forceinline__ float i0_small(float x) {
+  float t = x / F(3.75);
+  return polyval(I0_SMALL, t * t);
+}
+
+__device__ __forceinline__ float i0e_large(float x) {
+  return polyval(I0_LARGE, F(3.75) / x) / sqrtf(x);
+}
+
+__device__ float i0e(float x) {
+  x = fabsf(x);
+  if (x < F(3.75)) return i0_small(x) * expf(-x);
+  return i0e_large(x);
+}
+
+__device__ float k0_small(float x) {
+  float t = x / F(2.0);
+  return -logf(x / F(2.0)) * i0_small(x) + polyval(K0_SMALL, t * t);
+}
+
+__device__ float k0e(float x) {
+  float xc = fmaxf(x, F(1e-30));
+  if (xc <= F(2.0)) return k0_small(xc) * expf(xc);
+  return polyval(K0_LARGE, F(2.0) / xc) / sqrtf(xc);
+}
+
+// 1 - 1/I0(z) from i0e(z), cancellation-safe (ops/greens.py)
+__device__ float one_minus_inv_i0_scaled(float z, float i0e_z) {
+  float t = z * z * F(0.25);
+  float s = t * (F(1.0) + t * (F(0.25) + t / F(36.0)));
+  if (z < F(0.25)) return s / (F(1.0) + s);
+  return F(1.0) - expf(-z) / fmaxf(i0e_z, F(1e-30));
+}
+
+__device__ float interior_prob(float R, float sb) {
+  float z = R * sqrtf(sb);
+  return one_minus_inv_i0_scaled(z, i0e(z));
+}
+
+__device__ float screened_norm(float R, float sb) {
+  return interior_prob(R, sb) / sb;
+}
+
+// ---- fields (problems/fields.py) ---------------------------------------
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return F(1.0) / (F(1.0) + expf(-v));
+}
+
+__device__ float field_value(int f, float x, float y) {
+  const Field& fd = C.field[f];
+  const float* p = fd.p;
+  if (fd.kind == K_CONST) return p[0] + F(0.0) * x;
+  if (fd.kind == K_DIPOLE) {
+    float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3];
+    float dp = epx * epx + epy * epy;
+    float dn = enx * enx + eny * eny;
+    return p[4] * (expf(-dp / p[5]) - expf(-dn / p[5]));
+  }
+  float total = p[0] + F(0.0) * x;
+  const int nb = (fd.n - 1) / 6;
+  for (int b = 0; b < nb; ++b) {
+    const float* q = p + 1 + 6 * b;  // amp, cx, cy, radius, k, w2
+    float ex = x - q[1], ey = y - q[2];
+    float rho = sqrtf((ex * ex + ey * ey) + q[5]);
+    total = total + q[0] * sigmoid(-q[4] * (rho - q[3]));
+  }
+  return total;
+}
+
+__device__ __forceinline__ float alpha_c(float x, float y) {
+  return fmaxf(field_value(F_ALPHA, x, y), F(1e-8));
+}
+
+// sigma' = sigma/a + (lap a / a - |grad ln a|^2 / 2) / 2 with hand-derived
+// derivatives of the bump sum (fields.BumpSum.value_grad_lap)
+__device__ float sigma_prime(float x, float y) {
+  const Field& fd = C.field[F_ALPHA];
+  const float* p = fd.p;
+  float z0 = F(0.0) * x;
+  float a = p[0] + z0, gx = z0, gy = z0, lap = z0;
+  if (fd.kind == K_BUMPS) {
+    const int nb = (fd.n - 1) / 6;
+    for (int b = 0; b < nb; ++b) {
+      const float* q = p + 1 + 6 * b;
+      float k = q[4];
+      float ex = x - q[1], ey = y - q[2];
+      float d2 = ex * ex + ey * ey;
+      float rho = sqrtf(d2 + q[5]);
+      float s = sigmoid(-k * (rho - q[3]));
+      float ds = -k * (s * (F(1.0) - s));
+      float d2s = k * (k * (s * (F(1.0) - s) * (F(1.0) - F(2.0) * s)));
+      a = a + q[0] * s;
+      gx = gx + q[0] * (ds * ex / rho);
+      gy = gy + q[0] * (ds * ey / rho);
+      lap = lap + q[0] * (d2s * (d2 / (rho * rho)) +
+                          ds * ((d2 + F(2.0) * q[5]) / (rho * rho * rho)));
+    }
+  }
+  bool live = a > F(1e-8);
+  float ac = fmaxf(a, F(1e-8));
+  if (!live) { gx = F(0.0); gy = F(0.0); lap = F(0.0); }
+  float la = ac + F(1e-8);
+  float glx = gx / la, gly = gy / la;
+  float gn2 = glx * glx + gly * gly;
+  return field_value(F_SIGMA, x, y) / ac +
+         F(0.5) * (lap / ac - gn2 / F(2.0));
+}
+
+// ---- screened-radius rejection (sampling/radial.py::_exact_rejection) --
+
+struct Rej {
+  float z, k0e_z, i0e_z;
+  bool small;
+};
+
+__device__ float accept_prob(const Rej& q, float x, float s) {
+  float ratio = (q.k0e_z * i0e(x)) / (q.i0e_z * k0e(x)) *
+                expf(F(-2.0) * fmaxf(q.z - x, F(0.0)));
+  if (q.small) {
+    float k0x = k0e(x) * expf(-x);
+    float num = k0x * (F(1.0) - ratio);
+    float ln_s = -logf(fminf(fmaxf(s, F(1e-12)), F(1.0 - 1e-7)));
+    return fminf(fmaxf(num / fmaxf(ln_s, F(1e-12)), F(0.0)), F(1.0));
+  }
+  return x <= q.z ? fminf(fmaxf(F(1.0) - ratio, F(0.0)), F(1.0)) : F(0.0);
+}
+
+__device__ __forceinline__ void candidate(const Rej& q, uint32_t seed,
+                                          uint32_t ctr, uint32_t sid,
+                                          uint32_t round, float& x, float& s,
+                                          float& ua) {
+  uint32_t sd = seed ^ 0xA5A5A5A5u ^ (round * 0x68E31DA4u);
+  uint32_t base = hash_base(sd, ctr);
+  float u0 = fmaxf(uni(base, sid, 1), F(1e-7));
+  float u1 = fmaxf(uni(base, sid, 2), F(1e-7));
+  float u2 = fmaxf(uni(base, sid, 3), F(1e-7));
+  ua = uni(base, sid, 4);
+  if (q.small) {
+    s = sqrtf(u0 * u1);
+    x = q.z * s;
+  } else {
+    x = -logf(u1 * u2) * sqrtf(fmaxf(F(1.0) - u0 * u0, F(1e-12)));
+    s = x / q.z;
+  }
+}
+
+// returns the radius; multiplies the importance weight into w
+__device__ float screened_radius(float R, float sb, uint32_t seed,
+                                 uint32_t ctr, uint32_t sid, int rounds,
+                                 float& w) {
+  Rej q;
+  q.z = fmaxf(R * sqrtf(sb), F(1e-12));
+  q.small = q.z < F(2.0);
+  q.k0e_z = k0e(q.z);
+  q.i0e_z = i0e(q.z);
+  float p_ii = one_minus_inv_i0_scaled(q.z, q.i0e_z);
+  float a_rate = fmaxf(q.small ? F(4.0) * p_ii / (q.z * q.z) : p_ii,
+                       F(1e-12));
+  float x, s, ua;
+  candidate(q, seed, ctr, sid, 0u, x, s, ua);
+  float s_round0 = s;
+  float A = accept_prob(q, x, s);
+  bool acc;
+  float w_r;
+  if (rounds == 1) {
+    acc = true;  // pure importance sampling
+    w_r = A / a_rate;
+  } else {
+    acc = ua < A;
+    w_r = F(1.0);
+  }
+  float s_cur = s;
+  // redraw round i draws stream round i + 1, as the reference loop does
+  for (int i = 1; i < rounds && !acc; ++i) {
+    candidate(q, seed, ctr, sid, (uint32_t)(i + 1), x, s, ua);
+    A = accept_prob(q, x, s);
+    bool is_final = i >= rounds - 1;
+    if (ua < A || is_final) {
+      s_cur = s;
+      w_r = is_final ? A / a_rate : F(1.0);
+      acc = true;
+    }
+  }
+  if (q.z < F(1e-3)) {  // below any screening: round 0's unscreened draw
+    s_cur = s_round0;
+    w_r = F(1.0);
+  }
+  w = w_r;
+  return fminf(fmaxf(s_cur, F(0.0)), F(1.0)) * R;
+}
+
+// ---- the walk ------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+walk_kernel(int n_lanes, int budget) {
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const Planes& P = C.pl;
+  int quota = P.quota[lane];
+  if (quota <= 0 || budget <= 0) return;  // a no-op lane: nothing to write
+
+  const int n_src = C.n_src;
+  const uint32_t seed = C.seed;
+  const uint32_t sid = (uint32_t)P.sid[lane];
+  const float p0x = P.p0x[lane], p0y = P.p0y[lane];
+  const bool snap = C.snap != 0;
+  const bool ob0 = snap ? P.ob0[lane] != 0 : false;
+  const float n0x = snap ? P.n0x[lane] : F(0.0);
+  const float n0y = snap ? P.n0y[lane] : F(0.0);
+
+  float px = P.px[lane], py = P.py[lane], nx = P.nx[lane], ny = P.ny[lane];
+  float atten = P.atten[lane];
+  float acc[MAX_SRC], asum[MAX_SRC], asq[MAX_SRC];
+#pragma unroll
+  for (int i = 0; i < MAX_SRC; ++i) {
+    acc[i] = i < n_src ? P.acc[i][lane] : F(0.0);
+    asum[i] = i < n_src ? P.asum[i][lane] : F(0.0);
+    asq[i] = i < n_src ? P.asq[i][lane] : F(0.0);
+  }
+  int steps = P.steps[lane], ndone = P.ndone[lane], life = P.life[lane];
+  bool ob = P.ob[lane] != 0;
+  float tn = P.tn[lane], tw = P.tw[lane], wmax = P.wmax[lane];
+  float bmax = P.bmax[lane];
+
+  const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
+  const float sbar = C.sigma_bar;
+  const int max_steps = C.max_steps;
+  const float a_p0 = alpha_c(p0x, p0y);
+  float a_cur = alpha_c(px, py);
+
+  for (int it = 0; it < budget && quota > 0; ++it) {
+    const uint32_t ctr =
+        (uint32_t)ndone * (uint32_t)(max_steps + 2) + (uint32_t)steps;
+    const uint32_t base = hash_base(seed, ctr);
+    const float u1 = uni(base, sid, 1);
+    const float u4 = uni(base, sid, 4);
+
+    // closest point on the Dirichlet boundary (divide, not reciprocal)
+    float best = F(3e38), cx = F(0.0), cy = F(0.0);
+    for (int sgi = 0; sgi < C.n_dir; ++sgi) {
+      const float* g = C.dir[sgi];
+      float vx = px - g[0], vy = py - g[1];
+      float t = fminf(fmaxf((vx * g[2] + vy * g[3]) / g[4], F(0.0)), F(1.0));
+      float qx = g[0] + t * g[2], qy = g[1] + t * g[3];
+      float ex = qx - px, ey = qy - py;
+      float d2 = ex * ex + ey * ey;
+      if (d2 < best) { best = d2; cx = qx; cy = qy; }
+    }
+    const float dD = sqrtf(best);
+    const bool done_eps = dD <= eps;
+
+    if (done_eps || steps >= max_steps) {
+      // bank the walk, then recycle the slot into its next walk; the rest
+      // of this step is masked off for the lane
+      float bx = (C.project && done_eps) ? cx : px;
+      float by = (C.project && done_eps) ? cy : py;
+      float g_bc = field_value(F_BC, bx, by) * atten;
+      float bank_mag = F(0.0);
+#pragma unroll
+      for (int i = 0; i < MAX_SRC; ++i) {
+        if (i < n_src) {
+          float contrib = acc[i] + g_bc;
+          asum[i] = asum[i] + contrib;
+          asq[i] = asq[i] + contrib * contrib;
+          bank_mag = fmaxf(bank_mag, fabsf(contrib));
+          acc[i] = F(0.0);
+        }
+      }
+      bmax = fmaxf(bmax, bank_mag);
+      ndone += 1;
+      quota -= 1;
+      if (!done_eps && fabsf(atten) > F(0.0)) {
+        tn = tn + F(1.0);
+        tw = tw + fabsf(atten);
+      }
+      px = p0x;
+      py = p0y;
+      atten = F(1.0);
+      if (snap) {
+        ob = ob0;
+        nx = n0x;
+        ny = n0y;
+      } else {
+        ob = false;
+      }
+      steps = 0;
+      a_cur = a_p0;
+      continue;
+    }
+
+    const float r = fmaxf(rmin, dD);
+
+    // one sin/cos pair: free direction at 2 phi, hemisphere at phi
+    const float phi = F(3.141592653589793) * u1;
+    const float cphi = cosf(phi), sphi = sinf(phi);
+    float dx = F(1.0) - F(2.0) * sphi * sphi;
+    float dy = F(2.0) * sphi * cphi;
+
+    float hx, hy, hnx = F(0.0), hny = F(0.0), t_hit = r;
+    bool hit = false;
+    if (C.n_neu > 0) {
+      if (ob) {
+        const float cb = sphi, sb = -cphi;
+        const float hdx = nx * cb - ny * sb;
+        const float hdy = ny * cb + nx * sb;
+        dx = hdx;
+        dy = hdy;
+      }
+      const float tmw = ob ? t_min : F(0.0);
+      float t_best = F(3e38), fnx = F(0.0), fny = F(0.0);
+      float hxs = F(0.0), hys = F(0.0);
+      for (int sgi = 0; sgi < C.n_neu; ++sgi) {
+        const float* g = C.neu[sgi];
+        float wx = px - g[0], wy = py - g[1];
+        float den = dx * g[3] - dy * g[2];
+        float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
+        float inv_den = F(1.0) / den_safe;
+        float t = (g[2] * wy - g[3] * wx) * inv_den;
+        float sp = (dx * wy - dy * wx) * inv_den;
+        bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw &&
+                  fabsf(den) > F(1e-30);
+        if (ok && t < t_best) {
+          t_best = t;
+          fnx = g[4];
+          fny = g[5];
+          hxs = g[0] + sp * g[2];
+          hys = g[1] + sp * g[3];
+        }
+      }
+      hit = t_best <= r;
+      if (hit) {
+        t_hit = t_best;
+        const bool flip = (fnx * dx + fny * dy) > F(0.0);
+        hnx = flip ? -fnx : fnx;
+        hny = flip ? -fny : fny;
+        hx = hxs;
+        hy = hys;
+      } else {
+        hx = px + r * dx;
+        hy = py + r * dy;
+      }
+    } else {
+      hx = px + r * dx;
+      hy = py + r * dy;
+    }
+
+    float w_rej;
+    const float r_s =
+        screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
+    atten = atten * w_rej;
+    const bool beyond = r_s > t_hit;
+    const float sx = beyond ? hx : px + r_s * dx;
+    const float sy = beyond ? hy : py + r_s * dy;
+
+    const float a_p = a_cur;
+    const float a_s = alpha_c(sx, sy);
+    if (C.has_source && !beyond) {
+      const float w_src = screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+#pragma unroll
+      for (int i = 0; i < MAX_SRC; ++i)
+        if (i < n_src)
+          acc[i] = acc[i] + field_value(F_SRC0 + i, sx, sy) * w_src;
+    }
+
+    const bool interior = u4 < interior_prob(r, sbar);
+    const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
+    float a_next;
+    if (collide) {
+      // signed null-collision factor: no zero clamp
+      const float scale_int =
+          sqrtf(a_s / a_p) * (F(1.0) - sigma_prime(sx, sy) / sbar);
+      atten = atten * scale_int;
+      px = sx;
+      py = sy;
+      a_next = a_s;
+    } else {
+      const float a_h = alpha_c(hx, hy);
+      atten = atten * sqrtf(a_h / a_p);
+      px = hx;
+      py = hy;
+      a_next = a_h;
+    }
+    ob = hit && !collide;
+    if (hit) {
+      nx = hnx;
+      ny = hny;
+    }
+    steps += 1;
+
+    if (C.roulette) {
+      const float thr = C.roulette_thr;
+      const float u_r = uni(hash_base(seed ^ 0x0F1E2D3Cu, ctr), sid, 1);
+      if (fabsf(atten) < thr) {
+        const bool survive = u_r * thr < fabsf(atten);
+        atten = survive ? (atten < F(0.0) ? -thr : thr) : F(0.0);
+        if (!survive) steps = max_steps;
+      }
+    }
+    life += 1;
+    wmax = fmaxf(wmax, fabsf(atten));
+    a_cur = a_next;
+  }
+
+  P.px[lane] = px;
+  P.py[lane] = py;
+  P.nx[lane] = nx;
+  P.ny[lane] = ny;
+  P.atten[lane] = atten;
+#pragma unroll
+  for (int i = 0; i < MAX_SRC; ++i) {
+    if (i < n_src) {
+      P.acc[i][lane] = acc[i];
+      P.asum[i][lane] = asum[i];
+      P.asq[i][lane] = asq[i];
+    }
+  }
+  P.quota[lane] = quota;
+  P.steps[lane] = steps;
+  P.ndone[lane] = ndone;
+  P.ob[lane] = ob ? 1 : 0;
+  P.life[lane] = life;
+  P.tn[lane] = tn;
+  P.tw[lane] = tw;
+  P.wmax[lane] = wmax;
+  P.bmax[lane] = bmax;
+}
+
+}  // namespace
+
+// fp: eps, rmin, t_min, sigma_bar, roulette_thr, dir (n_dir x 5),
+//     neu (n_neu x 6), then each field's parameters in field order.
+// ip: seed, max_steps, rounds, roulette, project, snap, n_src, has_source,
+//     n_dir, n_neu, then (kind, n_params) per field: bc, alpha, sigma,
+//     sources[n_src if has_source].
+// planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
+extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
+                           int n_ip, void* const* planes, int n_planes,
+                           int n_lanes, int budget, void* stream) {
+  WalkConst h;  // pageable: the async copy stages it before returning
+  memset(&h, 0, sizeof(h));
+  if (n_ip < 10 || n_fp < 5 || n_planes != N_PLANES)
+    return (int)cudaErrorInvalidValue;
+  h.seed = (uint32_t)ip[0];
+  h.max_steps = ip[1];
+  h.rounds = ip[2];
+  h.roulette = ip[3];
+  h.project = ip[4];
+  h.snap = ip[5];
+  h.n_src = ip[6];
+  h.has_source = ip[7];
+  h.n_dir = ip[8];
+  h.n_neu = ip[9];
+  h.eps = fp[0];
+  h.rmin = fp[1];
+  h.t_min = fp[2];
+  h.sigma_bar = fp[3];
+  h.roulette_thr = fp[4];
+  const int n_fields = 3 + (h.has_source ? h.n_src : 0);
+  if (h.n_src < 1 || h.n_src > MAX_SRC || h.n_dir > MAX_SEG ||
+      h.n_neu > MAX_SEG || h.n_dir < 1 || h.n_neu < 0 || h.rounds < 1 ||
+      n_ip != 10 + 2 * n_fields)
+    return (int)cudaErrorInvalidValue;
+  int off = 5;
+  if (n_fp < off + 5 * h.n_dir + 6 * h.n_neu) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < h.n_dir; ++s)
+    for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
+  for (int s = 0; s < h.n_neu; ++s)
+    for (int k = 0; k < 6; ++k) h.neu[s][k] = fp[off++];
+  for (int f = 0; f < n_fields; ++f) {
+    const int kind = ip[10 + 2 * f], n = ip[11 + 2 * f];
+    if (n < 1 || n > MAX_FP || off + n > n_fp ||
+        (kind == K_CONST && n != 1) || (kind == K_DIPOLE && n != 6) ||
+        (kind == K_BUMPS && (n - 1) % 6 != 0) ||
+        (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE))
+      return (int)cudaErrorInvalidValue;
+    h.field[f].kind = kind;
+    h.field[f].n = n;
+    for (int k = 0; k < n; ++k) h.field[f].p[k] = fp[off++];
+  }
+  if (off != n_fp) return (int)cudaErrorInvalidValue;
+
+  Planes& pl = h.pl;
+  int q = 0;
+  pl.p0x = (const float*)planes[q++];
+  pl.p0y = (const float*)planes[q++];
+  pl.sid = (const int*)planes[q++];
+  pl.ob0 = (const int*)planes[q++];
+  pl.n0x = (const float*)planes[q++];
+  pl.n0y = (const float*)planes[q++];
+  pl.px = (float*)planes[q++];
+  pl.py = (float*)planes[q++];
+  pl.nx = (float*)planes[q++];
+  pl.ny = (float*)planes[q++];
+  pl.atten = (float*)planes[q++];
+  for (int i = 0; i < MAX_SRC; ++i) pl.acc[i] = (float*)planes[q++];
+  for (int i = 0; i < MAX_SRC; ++i) pl.asum[i] = (float*)planes[q++];
+  for (int i = 0; i < MAX_SRC; ++i) pl.asq[i] = (float*)planes[q++];
+  pl.quota = (int*)planes[q++];
+  pl.steps = (int*)planes[q++];
+  pl.ndone = (int*)planes[q++];
+  pl.ob = (int*)planes[q++];
+  pl.life = (int*)planes[q++];
+  pl.tn = (float*)planes[q++];
+  pl.tw = (float*)planes[q++];
+  pl.wmax = (float*)planes[q++];
+  pl.bmax = (float*)planes[q++];
+  if (!pl.p0x || !pl.p0y || !pl.sid || !pl.px || !pl.quota || !pl.bmax ||
+      (h.snap && (!pl.ob0 || !pl.n0x || !pl.n0y)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < h.n_src; ++i)
+    if (!pl.acc[i] || !pl.asum[i] || !pl.asq[i])
+      return (int)cudaErrorInvalidValue;
+
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e =
+      cudaMemcpyToSymbolAsync(C, &h, sizeof(h), 0, cudaMemcpyHostToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  if (n_lanes > 0 && budget > 0) {
+    const int grid = (n_lanes + THREADS - 1) / THREADS;
+    walk_kernel<<<grid, THREADS, 0, st>>>(n_lanes, budget);
+  }
+  return (int)cudaGetLastError();
+}

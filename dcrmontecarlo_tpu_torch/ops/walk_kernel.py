@@ -1,0 +1,584 @@
+"""The fused Walk-on-Stars walk: CUDA kernel wrapper and its plain version.
+
+Port of the JAX package's one Pallas kernel,
+``dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk`` (its
+``pl.pallas_call`` and step body), in the variant the DCR survey's main
+path runs: delta tracking, a Neumann wall without silhouette vertices,
+source next-event estimation without MIS, the exact screened-radius
+rejection at any round cap, roulette, common random numbers and
+boundary-snap starts. The kernel is ``csrc/walk_kernel.cu`` (one thread
+per walker lane); :func:`walk_plain` is the same step, op for op, on
+tensors of lanes, on any device.
+
+:func:`run_walk` advances every lane by up to ``inner_steps`` steps and
+updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
+state launches the kernel, built from the checkout's source at first use
+(``nvcc``, plain C interface, ``ctypes``). There is no fallback between
+the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..problems import fields
+from ..sampling import rng
+from ..sampling.radial import _exact_rejection
+from ..solver.state import CONST_PLANES, LANES, SNAP_PLANES, plane_dtype, \
+    state_planes
+from .greens import screened_greens_norm_2d, screened_interior_prob
+
+__all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_SEG", "WalkParams",
+           "make_walk_params", "stream_ids", "run_walk", "walk_plain",
+           "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
+           "build_library", "NVCC_FLAGS"]
+
+EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
+                     # a step of a lane without quota mutates nothing
+PLANE_RTOL = 1e-4    # compare_planes: per-lane relative tolerance,
+PLANE_FLOOR = 1e-6   # absolute floor as a fraction of the plane's scale,
+PLANE_MIN_FRAC = 0.99  # and the share of lanes that must agree per plane
+MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
+MAX_SEG = 32
+_BIG = float(np.float32(3e38))
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+
+# ---------------------------------------------------------------------- #
+# parameters                                                             #
+# ---------------------------------------------------------------------- #
+
+def _dir_table(poly) -> np.ndarray:
+    """``(S, 5)`` float32 ``[ax, ay, ux, uy, uu]``: edge vector and squared
+    length formed in float64 and rounded once, as the JAX kernel's static
+    unroll does (``ops/pallas_walk.py:139-160``)."""
+    rows = []
+    for ax, ay, bx, by in poly.valid_segments().astype(np.float64):
+        ux, uy = bx - ax, by - ay
+        rows.append((ax, ay, ux, uy, max(ux * ux + uy * uy, 1e-30)))
+    return np.asarray(rows, np.float32).reshape(-1, 5)
+
+
+def _neu_table(poly) -> np.ndarray:
+    """``(S, 6)`` float32 ``[ax, ay, ux, uy, nx, ny]`` with the CCW normal
+    computed in float32 (``ops/pallas_walk.py:230-238``)."""
+    rows = []
+    for ax, ay, bx, by in poly.valid_segments().astype(np.float64):
+        ux32, uy32 = np.float32(bx - ax), np.float32(by - ay)
+        ulen = np.float32(np.sqrt(np.float32(np.maximum(
+            ux32 * ux32 + uy32 * uy32, np.float32(1e-30)))))
+        rows.append((ax, ay, ux32, uy32, np.float32(-uy32 / ulen),
+                     np.float32(ux32 / ulen)))
+    return np.asarray(rows, np.float32).reshape(-1, 6)
+
+
+@dataclass(frozen=True)
+class WalkParams:
+    """Everything one launch needs besides the planes."""
+
+    seed: int                    # int32 bit pattern of the stream seed
+    eps: float
+    rmin: float
+    t_min: float
+    max_steps: int
+    sigma_bar: float
+    rejection_rounds: int
+    roulette_threshold: Optional[float]
+    project: bool
+    snap: bool
+    dir_table: np.ndarray        # (S, 5) float32
+    neu_table: np.ndarray        # (S, 6) float32, S may be 0
+    bc: Callable
+    sources: Tuple[Callable, ...]
+    alpha_c: Callable
+    sigma_prime: Callable
+    specs: Optional[tuple]       # (bc, alpha, sigma, *sources) FieldSpecs
+                                 # when every field is one, else None
+
+    @property
+    def n_src(self) -> int:
+        return max(1, len(self.sources))
+
+    def pack(self):
+        """Kernel parameter buffers ``(float32 array, int32 array)`` in the
+        layout ``walk_launch`` unpacks (``csrc/walk_kernel.cu``)."""
+        if self.specs is None:
+            raise NotImplementedError(
+                "the CUDA walk evaluates field specs only "
+                "(dcrmontecarlo_tpu_torch.problems.fields); arbitrary "
+                "callables run on CPU tensors")
+        if self.specs[1].kind not in (fields.CONST, fields.BUMPS):
+            raise NotImplementedError(
+                "the CUDA walk takes a constant or bump-sum conductivity")
+        if (len(self.sources) > MAX_SRC or len(self.dir_table) > MAX_SEG
+                or len(self.neu_table) > MAX_SEG):
+            raise NotImplementedError(
+                f"the CUDA walk holds up to {MAX_SRC} sources and {MAX_SEG} "
+                "segments per boundary; reference: "
+                "dcrmontecarlo_tpu/ops/pallas_walk.py::_closest_point_smem")
+        ip = [self.seed, self.max_steps, self.rejection_rounds,
+              int(self.roulette_threshold is not None), int(self.project),
+              int(self.snap), self.n_src, int(len(self.sources) > 0),
+              len(self.dir_table), len(self.neu_table)]
+        fp = [self.eps, self.rmin, self.t_min, self.sigma_bar,
+              0.0 if self.roulette_threshold is None
+              else self.roulette_threshold]
+        fp += self.dir_table.ravel().tolist() + self.neu_table.ravel().tolist()
+        for spec in self.specs:
+            kind, params = spec.table()
+            ip += [kind, len(params)]
+            fp += list(params)
+        return np.asarray(fp, np.float32), np.asarray(ip, np.int32)
+
+
+def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
+                     rejection_rounds, roulette_threshold, snap,
+                     seed) -> WalkParams:
+    """Walk parameters for a delta-tracking ``problem``."""
+    sources = tuple(problem.source_fields)
+    all_fields = (problem.bc_dirichlet, problem.alpha, problem.sigma) + sources
+    specs = (all_fields if all(fields.is_spec(f) for f in all_fields)
+             else None)
+    neu = (_neu_table(problem.neumann) if problem.neumann is not None
+           else np.zeros((0, 6), np.float32))
+    return WalkParams(
+        seed=int(seed), eps=float(eps), rmin=float(rmin), t_min=float(t_min),
+        max_steps=int(max_steps), sigma_bar=float(problem.sigma_bar),
+        rejection_rounds=int(rejection_rounds),
+        roulette_threshold=(None if roulette_threshold is None
+                            else float(roulette_threshold)),
+        project=bool(project), snap=bool(snap),
+        dir_table=_dir_table(problem.dirichlet), neu_table=neu,
+        bc=problem.bc_dirichlet, sources=sources, alpha_c=problem.alpha_c,
+        sigma_prime=problem.sigma_prime, specs=specs)
+
+
+def stream_ids(rows: int, crn=None, device=None):
+    """Per-lane RNG stream ids for a ``(rows, 128)`` state: the lane index,
+    or the common-random-numbers map ``(mode, period, reps)`` — ``"tile"``
+    (point-major, ``lane % period``) or slot-major (``lane // reps``)."""
+    ids = torch.arange(rows * LANES, dtype=torch.int64, device=device)
+    if crn is not None:
+        mode, period, reps = crn
+        ids = ids % period if mode == "tile" else ids // reps
+    return ids.to(torch.int32).reshape(rows, LANES)
+
+
+# ---------------------------------------------------------------------- #
+# plain version                                                          #
+# ---------------------------------------------------------------------- #
+
+def _uniforms(seed: int, ctr, sid, streams):
+    """Counter-hash uniforms for stream indices ``streams`` (1-based),
+    stacked on a leading axis: one hash over every stream at once."""
+    base = rng.mix32((seed & rng.MASK32) ^ rng.mul32(ctr, rng.C_COUNTER))
+    ks = torch.tensor([(rng.C_STREAM * k) & rng.MASK32 for k in streams],
+                      dtype=torch.int64, device=ctr.device)
+    ks = ks.view((-1,) + (1,) * ctr.dim())
+    return rng._to_unit(rng.mix32((sid ^ base)[None] ^ ks))
+
+
+def _closest_point(table, px, py):
+    best = torch.full_like(px, _BIG)
+    bcx = torch.zeros_like(px)
+    bcy = torch.zeros_like(px)
+    for ax, ay, ux, uy, uu in table.tolist():
+        vx = px - ax
+        vy = py - ay
+        # divide, not reciprocal-multiply: a 1-ulp t flips dD at the shell
+        t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
+        cx = ax + t * ux
+        cy = ay + t * uy
+        ex, ey = cx - px, cy - py
+        d2 = ex * ex + ey * ey
+        pick = d2 < best
+        best = torch.where(pick, d2, best)
+        bcx = torch.where(pick, cx, bcx)
+        bcy = torch.where(pick, cy, bcy)
+    return torch.sqrt(best), bcx, bcy
+
+
+def _first_hit(table, px, py, dx, dy, r, t_min):
+    t_best = torch.full_like(px, _BIG)
+    nx = torch.zeros_like(px)
+    ny = torch.zeros_like(px)
+    hxs = torch.zeros_like(px)
+    hys = torch.zeros_like(px)
+    for ax, ay, ux, uy, nxs, nys in table.tolist():
+        wx = px - ax
+        wy = py - ay
+        den = dx * uy - dy * ux
+        den_safe = torch.where(torch.abs(den) < 1e-30, 1e-30, den)
+        inv_den = 1.0 / den_safe
+        t = (ux * wy - uy * wx) * inv_den
+        s = (dx * wy - dy * wx) * inv_den
+        ok = (s >= 0.0) & (s <= 1.0) & (t >= t_min) & (torch.abs(den) > 1e-30)
+        t = torch.where(ok, t, _BIG)
+        pick = t < t_best
+        t_best = torch.where(pick, t, t_best)
+        nx = torch.where(pick, nxs, nx)
+        ny = torch.where(pick, nys, ny)
+        hxs = torch.where(pick, ax + s * ux, hxs)
+        hys = torch.where(pick, ay + s * uy, hys)
+    hit = t_best <= r
+    t_hit = torch.where(hit, t_best, r)
+    flip = (nx * dx + ny * dy) > 0.0
+    nx = torch.where(flip, -nx, nx)
+    ny = torch.where(flip, -ny, ny)
+    nx = torch.where(hit, nx, 0.0)
+    ny = torch.where(hit, ny, 0.0)
+    hx = torch.where(hit, hxs, px + r * dx)
+    hy = torch.where(hit, hys, py + r * dy)
+    return hx, hy, nx, ny, t_hit, hit
+
+
+def _step(s, P: WalkParams, consts, a_p0, a_cur):
+    """One walk step over every lane (the kernel's step body, masked)."""
+    p0x, p0y, sid, ob0, n0x, n0y = consts
+    n_src = P.n_src
+    px, py, nxv, nyv, atten = s["px"], s["py"], s["nx"], s["ny"], s["atten"]
+    accs = [s[f"acc{i}"] for i in range(n_src)]
+    quota, steps, ndone = s["quota"], s["steps"], s["ndone"]
+    ob = s["ob"] != 0
+    act = quota > 0
+
+    # per-lane (walk#, step#) counter, u32
+    ctr = (rng.mul32(ndone.to(torch.int64), P.max_steps + 2)
+           + steps.to(torch.int64)) & rng.MASK32
+    u1, u4 = _uniforms(P.seed, ctr, sid, (1, 4))
+
+    dD, cx, cy = _closest_point(P.dir_table, px, py)
+    done_eps = dD <= P.eps
+    walk_done = act & (done_eps | (steps >= P.max_steps))
+    if P.project:
+        bx = torch.where(done_eps, cx, px)
+        by = torch.where(done_eps, cy, py)
+    else:
+        bx, by = px, py
+    g_bc = P.bc(bx, by) * atten
+    bank_mag = torch.zeros_like(g_bc)
+    for i in range(n_src):
+        contrib = accs[i] + g_bc
+        s[f"asum{i}"] = s[f"asum{i}"] + torch.where(walk_done, contrib, 0.0)
+        s[f"asq{i}"] = s[f"asq{i}"] + torch.where(
+            walk_done, contrib * contrib, 0.0)
+        bank_mag = torch.maximum(bank_mag, torch.abs(contrib))
+    s["bmax"] = torch.maximum(s["bmax"], torch.where(walk_done, bank_mag, 0.0))
+    wd_i = walk_done.to(torch.int32)
+    s["ndone"] = ndone + wd_i
+    s["quota"] = quota - wd_i
+    truncated = walk_done & ~done_eps & (torch.abs(atten) > 0.0)
+    s["tn"] = s["tn"] + truncated.to(torch.float32)
+    s["tw"] = s["tw"] + torch.where(truncated, torch.abs(atten), 0.0)
+
+    px = torch.where(walk_done, p0x, px)
+    py = torch.where(walk_done, p0y, py)
+    accs = [torch.where(walk_done, 0.0, a) for a in accs]
+    atten = torch.where(walk_done, 1.0, atten)
+    if P.snap:
+        ob = (walk_done & ob0) | (ob & ~walk_done)
+        nxv = torch.where(walk_done, n0x, nxv)
+        nyv = torch.where(walk_done, n0y, nyv)
+    else:
+        ob = ob & ~walk_done
+    steps = torch.where(walk_done, 0, steps)
+    stepping = act & ~walk_done
+
+    r = torch.clamp(dD, min=P.rmin)
+    sbar = P.sigma_bar
+
+    # one sin/cos pair: free direction at 2 phi, hemisphere rotation at phi
+    phi = math.pi * u1
+    cphi = torch.cos(phi)
+    sphi = torch.sin(phi)
+    dx = 1.0 - 2.0 * sphi * sphi
+    dy = 2.0 * sphi * cphi
+    has_neumann = len(P.neu_table) > 0
+    if has_neumann:
+        cb = sphi
+        sb = -cphi
+        hdx = nxv * cb - nyv * sb
+        hdy = nyv * cb + nxv * sb
+        dx = torch.where(ob, hdx, dx)
+        dy = torch.where(ob, hdy, dy)
+        t_min_w = torch.where(ob, P.t_min, 0.0)
+        hx, hy, hnx, hny, t_hit, hit = _first_hit(
+            P.neu_table, px, py, dx, dy, r, t_min_w)
+    else:
+        hx = px + r * dx
+        hy = py + r * dy
+        hnx = torch.zeros_like(px)
+        hny = torch.zeros_like(px)
+        t_hit = r
+        hit = torch.zeros_like(ob)
+
+    def draw_r(round_idx):
+        sd = (P.seed ^ 0xA5A5A5A5 ^ (round_idx * 0x68E31DA4)) & rng.MASK32
+        return _uniforms(sd, ctr, sid, (1, 2, 3, 4))
+
+    r_s, w_rej = _exact_rejection(draw_r, r, sbar, P.rejection_rounds,
+                                  with_weight=True)
+    atten = torch.where(stepping, atten * w_rej, atten)
+    beyond = r_s > t_hit
+    sx = torch.where(beyond, hx, px + r_s * dx)
+    sy = torch.where(beyond, hy, py + r_s * dy)
+
+    a_p = torch.where(walk_done, a_p0, a_cur)
+    a_s = P.alpha_c(sx, sy)
+    if P.sources:
+        w_src = (screened_greens_norm_2d(r, sbar) / torch.sqrt(a_s * a_p)
+                 * atten)
+        live = stepping & ~beyond
+        w_eff = torch.where(live, w_src, 0.0)
+        for i, f in enumerate(P.sources):
+            accs[i] = accs[i] + torch.where(live, f(sx, sy) * w_eff, 0.0)
+
+    p_int = screened_interior_prob(r, sbar)
+    interior = u4 < p_int
+    collide = interior & ~(hit & (r_s >= t_hit - P.t_min))
+    a_h = P.alpha_c(hx, hy)
+    sp_s = P.sigma_prime(sx, sy)
+    # signed null-collision factor: no zero clamp (weighted delta tracking)
+    scale_int = torch.sqrt(a_s / a_p) * (1.0 - sp_s / sbar)
+    scale_edge = torch.sqrt(a_h / a_p)
+    atten = torch.where(
+        stepping, atten * torch.where(collide, scale_int, scale_edge), atten)
+    newx = torch.where(collide, sx, hx)
+    newy = torch.where(collide, sy, hy)
+    a_next = torch.where(collide, a_s, a_h)
+    new_ob = hit & ~collide
+
+    px = torch.where(stepping, newx, px)
+    py = torch.where(stepping, newy, py)
+    ob = (stepping & new_ob) | (~stepping & ob)
+    upd_n = stepping & hit
+    nxv = torch.where(upd_n, hnx, nxv)
+    nyv = torch.where(upd_n, hny, nyv)
+    steps = steps + stepping.to(torch.int32)
+
+    if P.roulette_threshold is not None:
+        thr = P.roulette_threshold
+        (u_r,) = _uniforms(P.seed ^ 0x0F1E2D3C, ctr, sid, (1,))
+        low = stepping & (torch.abs(atten) < thr)
+        survive = u_r * thr < torch.abs(atten)
+        atten = torch.where(
+            low,
+            torch.where(survive, torch.where(atten < 0.0, -thr, thr), 0.0),
+            atten)
+        steps = torch.where(low & ~survive, P.max_steps, steps)
+
+    s["life"] = s["life"] + stepping.to(torch.int32)
+    s["wmax"] = torch.maximum(
+        s["wmax"], torch.where(stepping, torch.abs(atten), 0.0))
+    a_cur = torch.where(stepping, a_next, torch.where(walk_done, a_p0, a_cur))
+    s.update(px=px, py=py, nx=nxv, ny=nyv, atten=atten, steps=steps,
+             ob=ob.to(torch.int32))
+    for i in range(n_src):
+        s[f"acc{i}"] = accs[i]
+    return a_cur
+
+
+def walk_plain(state: dict, params: WalkParams, inner_steps: int) -> dict:
+    """The plain PyTorch version of the walk kernel, on any device.
+
+    Same step, op for op, as ``csrc/walk_kernel.cu``. Every ``EXIT_CHECK``
+    steps the lanes that still hold quota are gathered and only those are
+    stepped until the next check: exact, because a step of a lane without
+    quota changes nothing (the kernel's per-thread exit rests on the same
+    fact). Updates the mutable planes of ``state`` in place and returns it.
+    """
+    P = params
+    names = state_planes(P.n_src)
+    flat = {k: v.reshape(-1) for k, v in state.items()}
+    flat["a_p0"] = P.alpha_c(flat["p0x"], flat["p0y"])
+    flat["a_cur"] = P.alpha_c(flat["px"], flat["py"])
+    flat["sid64"] = flat["sid"].to(torch.int64) & rng.MASK32
+    carried = list(names) + ["a_cur"]
+    idx, sub = None, None
+    for i in range(int(inner_steps)):
+        if i % EXIT_CHECK == 0:
+            if sub is not None:
+                for k in carried:
+                    flat[k][idx] = sub[k]
+            idx = torch.nonzero(flat["quota"] > 0).squeeze(1)
+            if idx.numel() == 0:
+                sub = None
+                break
+            sub = {k: flat[k][idx] for k in carried}
+            consts = (flat["p0x"][idx], flat["p0y"][idx], flat["sid64"][idx],
+                      flat["ob0"][idx] != 0 if P.snap else None,
+                      flat["n0x"][idx] if P.snap else None,
+                      flat["n0y"][idx] if P.snap else None)
+            a_p0 = flat["a_p0"][idx]
+        sub["a_cur"] = _step(sub, P, consts, a_p0, sub["a_cur"])
+    if sub is not None:
+        for k in carried:
+            flat[k][idx] = sub[k]
+    for k in names:  # a no-op for contiguous planes, whose flat form is a view
+        state[k] = flat[k].view(state[k].shape)
+    return state
+
+
+def compare_planes(a: dict, b: dict, names):
+    """How closely two walker states agree, plane by plane.
+
+    Integer planes agree on a lane when they are equal. Float planes agree
+    where ``|a - b| <= PLANE_RTOL * max(|a|, |b|) + PLANE_FLOOR * max|b|``
+    over the plane, after values below float32's smallest normal are
+    flushed to zero. The floor and the flush serve the accumulator
+    planes: far from the electrodes the source is a Gaussian tail (e^-85
+    at 6.5 m from a 0.5 m wide electrode), where one-ulp sin/cos/exp
+    differences between math libraries grow to ~3e-4 relative on values
+    1e-6 of the plane's scale and below; XLA's CPU backend also flushes
+    subnormal results to zero where PyTorch keeps them. Two walks match when every plane agrees
+    on at least ``PLANE_MIN_FRAC`` of the lanes and all values are finite
+    (rare one-ulp trajectory flips are allowed).
+
+    Returns ``(frac, max_err, finite)``: the agreeing fraction of lanes per
+    plane, the largest ``|a - b|`` over agreeing float lanes, and whether
+    every float value of both states is finite.
+    """
+    tiny = torch.finfo(torch.float32).tiny
+    frac, max_err, finite = {}, 0.0, True
+    for k in names:
+        x, y = a[k].reshape(-1), b[k].reshape(-1)
+        if x.dtype.is_floating_point:
+            finite &= bool(torch.isfinite(x).all() & torch.isfinite(y).all())
+            x = torch.where(x.abs() < tiny, 0.0, x.double())
+            y = torch.where(y.abs() < tiny, 0.0, y.double())
+            err = (x - y).abs()
+            ok = err <= PLANE_RTOL * torch.maximum(x.abs(), y.abs()) \
+                + PLANE_FLOOR * y.abs().max()
+            if bool(ok.any()):
+                max_err = max(max_err, float(err[ok].max()))
+        else:
+            ok = x == y
+        frac[k] = float(ok.double().mean())
+    return frac, max_err, finite
+
+
+# ---------------------------------------------------------------------- #
+# CUDA kernel: build, bind, launch                                       #
+# ---------------------------------------------------------------------- #
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return "/usr/local/cuda/bin/nvcc"
+
+
+def _library_path() -> Path:
+    key = hashlib.sha256(_SRC.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"walk_kernel-{key}.so"
+
+
+def build_library():
+    """Compile ``csrc/walk_kernel.cu`` into ``_build/`` unless a library of
+    the same source and flags is there. Returns ``(path, seconds, log)``;
+    ``log`` holds nvcc's resource report (empty when nothing was built)."""
+    so = _library_path()
+    if so.exists():
+        return so, 0.0, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+    return so, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    so, _, _ = build_library()
+    lib = ctypes.CDLL(str(so))
+    lib.walk_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,   # fp
+                                ctypes.c_void_p, ctypes.c_int,   # ip
+                                ctypes.c_void_p, ctypes.c_int,   # planes
+                                ctypes.c_int, ctypes.c_int,      # lanes,
+                                ctypes.c_void_p]                 # budget,
+                                                                 # stream
+    lib.walk_launch.restype = ctypes.c_int
+    return lib
+
+
+_PLANE_ORDER = (CONST_PLANES + SNAP_PLANES
+                + tuple(state_planes(MAX_SRC)))
+
+
+def _launch_cuda(state: dict, params: WalkParams, inner_steps: int) -> dict:
+    px = state["px"]
+    if px.device.type != "cuda":
+        raise RuntimeError(
+            f"run_walk takes CPU or CUDA tensors, got {px.device}")
+    fp, ip = params.pack()
+    names = set(CONST_PLANES) | set(state_planes(params.n_src))
+    if params.snap:
+        names |= set(SNAP_PLANES)
+    ptrs = []
+    for name in _PLANE_ORDER:
+        if name not in names:
+            ptrs.append(None)
+            continue
+        t = state[name]
+        if (t.device != px.device or t.dtype != plane_dtype(name)
+                or t.shape != px.shape or not t.is_contiguous()):
+            raise ValueError(
+                f"plane {name!r}: expected contiguous {plane_dtype(name)} "
+                f"{tuple(px.shape)} on {px.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+        ptrs.append(t.data_ptr())
+    lib = _library()
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    budget = int(min(max(int(inner_steps), 0), 2**31 - 1))
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.walk_launch(fp.ctypes.data, len(fp), ip.ctypes.data,
+                              len(ip), arr, len(ptrs), px.numel(),
+                              budget, stream)
+    if err != 0:
+        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
+    run_walk.launches += 1
+    return state
+
+
+def run_walk(state: dict, params: WalkParams, inner_steps: int) -> dict:
+    """Advance every lane by up to ``inner_steps`` steps, in place.
+
+    CPU planes run :func:`walk_plain`; CUDA planes launch the kernel (one
+    launch, counted in ``run_walk.launches``) or raise.
+    """
+    if state["px"].device.type == "cpu":
+        return walk_plain(state, params, inner_steps)
+    return _launch_cuda(state, params, inner_steps)
+
+
+run_walk.launches = 0

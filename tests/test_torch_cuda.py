@@ -1,0 +1,120 @@
+"""The CUDA walk kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The module
+imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Kernel and plain version run the same launch from one state on the card:
+every plane must agree on >= 99% of the lanes to rel 1e-4 (integers
+exactly; ``walk_kernel.compare_planes`` states the floor under tiny
+accumulator values), and all values must be finite. Whole solves draw the
+same counter-hash streams in both, so their means agree to rounding and
+their step counts exactly. The variants cover what the survey's main
+path does not: more than one source, no Neumann wall, no boundary snap,
+no projection, and the round caps 1, 2 and 64.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dcrmontecarlo_tpu_torch.geometry import square_loop
+from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
+from dcrmontecarlo_tpu_torch.problems import Problem, fields
+from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
+from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+pytestmark = pytest.mark.cuda
+
+EPS = 0.9
+ELECTRODES = np.stack([np.linspace(-40, 40, 9), np.full(9, -0.1)],
+                      1).astype(np.float32)
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _survey_problem(n_sources=1):
+    prob = geophysical_scenario()[0].build_problem()
+    if n_sources > 1:
+        prob.set_source_term([
+            fields.gaussian_dipole((-10.0 - 5 * i, -1.0), (10.0 + 5 * i, -1.0))
+            for i in range(n_sources)])
+    return prob
+
+
+def _box_problem():
+    return Problem(dirichlet=square_loop(20.0),
+                   bc_dirichlet=fields.constant(0.5),
+                   source=fields.constant(0.01),
+                   alpha=fields.bump_sum(1.0, [
+                       (2.0, fields.smooth_circle((3.0, -2.0), 5.0, 1.0))]))
+
+
+def _compare(a, b, names):
+    frac, _, finite = wk.compare_planes(a, b, names)
+    assert finite
+    assert min(frac.values()) >= wk.PLANE_MIN_FRAC, frac
+
+
+CASES = {
+    "survey_defaults": (_survey_problem, dict(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2)),
+    "survey_rounds64_no_snap": (_survey_problem, dict(
+        rejection_rounds=64, boundary_snap=None)),
+    "survey_rounds1_no_projection": (_survey_problem, dict(
+        rejection_rounds=1, project_to_boundary=False)),
+    "three_sources": (lambda: _survey_problem(3), dict(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2)),
+    "box_no_neumann": (_box_problem, dict(rejection_rounds=4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain_one_launch(device, case):
+    make, opts = CASES[case]
+    prob = make()
+    pts = (ELECTRODES if prob.neumann is not None
+           else np.array([[0.0, 0.0], [15.0, -12.0], [-19.0, 3.0]],
+                         np.float32))
+    solver = WoStSolver(prob, SolverOptions(target_slots=8192, **opts),
+                        device=device)
+    state, params, _, _ = solver._setup(pts, 4096, 60, EPS, 3)
+    wk.walk_plain(state, params, 100)  # mid-walk states, some recycled
+    ref = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.launches
+    wk.run_walk(state, params, 48)
+    torch.cuda.synchronize()
+    assert wk.run_walk.launches == launches + 1
+    wk.walk_plain(ref, params, 48)
+    _compare(state, ref, state_planes(params.n_src))
+    assert bool((state["ndone"] > 0).any())
+
+
+def test_kernel_whole_solve_matches_plain(device):
+    solver = WoStSolver(_survey_problem(2), SolverOptions(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2), device=device)
+    rk = solver._solve_raw(ELECTRODES, 128, 300, EPS, 5)
+    rp = solver._solve_raw(ELECTRODES, 128, 300, EPS, 5, walk=wk.walk_plain)
+    assert rk.mean.shape == (2, 9)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_kernel_rejects_what_it_cannot_run(device):
+    prob = Problem(dirichlet=square_loop(1.0),
+                   alpha=lambda x, y: 1.0 + 0.0 * x, sigma_bar_override=0.1)
+    solver = WoStSolver(prob, device=device)
+    with pytest.raises(NotImplementedError, match="field specs"):
+        solver.solve([[0.0, 0.0]], n_walks=8, max_steps=10, eps=1e-2)
