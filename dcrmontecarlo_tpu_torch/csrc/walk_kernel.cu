@@ -2,11 +2,20 @@
 //
 // Replaces the TPU kernel dcrmontecarlo_tpu/ops/pallas_walk.py ::
 // make_pallas_walk (its `kernel` step body and the `pl.pallas_call` in
-// `launch`), in the variant the DCR survey's main path runs: delta
-// tracking, a Neumann wall without silhouette vertices, source next-event
-// estimation without MIS, the exact screened-radius rejection with its
+// `launch`), in the variants the DCR surveys run: delta tracking, a
+// Neumann wall without silhouette vertices, source next-event estimation
+// without MIS, the exact screened-radius rejection with its
 // importance-weighted final round, low-weight roulette, common random
-// numbers and boundary-snap starts.
+// numbers and boundary-snap starts; and the notebook survey's accuracy
+// path on top: the Robin correction (the chord chain, pallas_walk.py:
+// 820-850, 1016-1099, with the chord frame _chord_frame_unrolled, or the
+// reflectance fold) and the two-level local majorant (:807-818).
+//
+// Variants are compile-time: walk_kernel<ROBIN, MAJ> is instantiated
+// once per Robin mode (off, chain, reflectance) and majorant switch, and
+// the host picks one per launch. walk_kernel<ROBIN_OFF, false> is the
+// survey's main path and carries none of the accuracy path's code or
+// registers.
 //
 // Design: one thread per walker lane. A thread loads its lane's planes
 // into registers once, runs `for (i < budget && quota > 0)` steps, and
@@ -17,7 +26,11 @@
 // without quota changes nothing (the TPU kernel's per-block exit relies on
 // the same fact). Threads of a warp whose quota drained idle while the
 // rest of the warp walks on: that divergence is what a later change
-// should attack (lane recycling across warps).
+// should attack (lane recycling across warps). On the accuracy path the
+// chord mass (a Bessel-integral series per shrink round) runs only on
+// lanes standing on the wall, and the chord branch's extra work (frame
+// scan, three field evaluations, a screened Green's function) only on
+// lanes that take the branch, a few percent of wall visits.
 //
 // Arithmetic follows the plain version (ops/walk_kernel.py::walk_plain)
 // op for op and is built with -fmad=false and without fast math, so the
@@ -49,6 +62,9 @@ constexpr int N_FIELDS = 3 + MAX_SRC;
 constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2;
 constexpr int N_PLANES = 6 + 5 + 3 * MAX_SRC + 9;
 constexpr int THREADS = 128;
+constexpr int MAX_BOXES = 8, MAX_BANDS = 8;  // problems/majorant.py
+constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
+constexpr int N_IP = 14, N_FP = 10;  // header lengths of ip and fp
 
 struct Field {
   int kind;
@@ -71,10 +87,17 @@ struct WalkConst {
   int max_steps, rounds, roulette, project, snap, n_src, has_source;
   int n_dir, n_neu;
   float eps, rmin, t_min, sigma_bar, roulette_thr;
-  float dir[MAX_SEG][5];  // ax, ay, ux, uy, uu
-  float neu[MAX_SEG][6];  // ax, ay, ux, uy, nx, ny
-  Field field[N_FIELDS];  // bc, alpha, sigma, sources
+  float dir[MAX_SEG][5];    // ax, ay, ux, uy, uu
+  float neu[MAX_SEG][6];    // ax, ay, ux, uy, nx, ny
+  Field field[N_FIELDS];    // bc, alpha, sigma, sources
   Planes pl;
+  // the accuracy path (after the survey path's fields, whose offsets and
+  // so whose compiled code stay as they were)
+  int robin, majorant, n_box, n_band;
+  float gamma_floor, arrival_clamp, sb_bg, mfp_bg, mfp_gl;
+  float chord[MAX_SEG][8];  // ax, ay, ux, uy, uu, ul, tx, ty (f32-formed)
+  float box[MAX_BOXES][4];  // x0, x1, y0, y1
+  float band[MAX_BANDS][2]; // y_lo, y_hi
 };
 
 __constant__ WalkConst C;
@@ -169,6 +192,146 @@ __device__ float screened_norm(float R, float sb) {
   return interior_prob(R, sb) / sb;
 }
 
+// ---- the Robin correction's Bessel functions and Green's kernels ------
+// (ops/bessel.py, ops/greens.py: A&S 9.8.3-9.8.8 for order 1; the series
+// and fits of int_0^z I0 and int_0^z K0)
+
+__constant__ float I1_SMALL[7] = {F(0.5), F(0.87890594), F(0.51498869),
+                                  F(0.15084934), F(0.02658733),
+                                  F(0.00301532), F(0.00032411)};
+__constant__ float I1_LARGE[9] = {F(0.39894228), F(-0.03988024),
+                                  F(-0.00362018), F(0.00163801),
+                                  F(-0.01031555), F(0.02282967),
+                                  F(-0.02895312), F(0.01787654),
+                                  F(-0.00420059)};
+__constant__ float K1_SMALL[7] = {F(1.0), F(0.15443144), F(-0.67278579),
+                                  F(-0.18156897), F(-0.01919402),
+                                  F(-0.00110404), F(-4.686e-05)};
+__constant__ float K1_LARGE[7] = {F(1.25331414), F(0.23498619),
+                                  F(-0.0365562), F(0.01504268),
+                                  F(-0.00780353), F(0.00325614),
+                                  F(-0.00068245)};
+// (int_0^z I0) / z, the K0 integral's regular sum over z, and T / z^2 with
+// K0 = -(ln(z/2) + gamma_E) I0 + T: series in z^2 (bessel.py
+// _int_series_coeffs, 11 terms)
+__constant__ float II0_SER[11] = {
+    F(1.0), F(0.08333333333333333), F(0.003125), F(6.200396825396825e-05),
+    F(7.535204475308642e-07), F(6.165167297979798e-09),
+    F(3.622694459283001e-11), F(1.6018716996829596e-13),
+    F(5.521157053135201e-16), F(1.5246859958300589e-18),
+    F(3.4486945143775135e-21)};
+__constant__ float IK0_SER[11] = {
+    F(1.0), F(0.1111111111111111), F(0.0053124999999999995),
+    F(0.0001225316515495087), F(1.6535587598593962e-06),
+    F(1.463760175141567e-08), F(9.154270229803582e-11),
+    F(4.2602159251092045e-13), F(1.533049007800167e-15),
+    F(4.3935349108326865e-18), F(1.0265340298549894e-20)};
+__constant__ float K0REG_SER[10] = {
+    F(0.25), F(0.0234375), F(0.0007957175925925925), F(1.41285083912037e-05),
+    F(1.5484845196759258e-07), F(1.1538281852816358e-09),
+    F(6.23013671769551e-12), F(2.5509717427289318e-14),
+    F(8.195247730999098e-17), F(2.1212345175517024e-19)};
+__constant__ float II0E_LARGE[10] = {
+    F(0.39892117833666013), F(0.0683659380497933), F(-0.019199593449555692),
+    F(0.5493053727171856), F(-2.987467946770637), F(9.326451372102712),
+    F(-15.800573705385947), F(14.685752682422835), F(-7.138285073342126),
+    F(1.4282994561660782)};
+__constant__ float IK0_TAIL[8] = {
+    F(1.2532603568891372), F(-0.39012360170047267), F(0.29878153845917976),
+    F(-0.30142804207123175), F(0.2850220058180192), F(-0.2003588389084528),
+    F(0.08645137263695717), F(-0.0167236317256414)};
+
+constexpr double TWO_PI = 6.283185307179586;
+
+__device__ float i0(float x) {
+  x = fabsf(x);
+  if (x < F(3.75)) return i0_small(x);
+  return i0e_large(x) * expf(x);
+}
+
+__device__ float k0(float x) {
+  float xc = fmaxf(x, F(1e-30));
+  if (xc <= F(2.0)) return k0_small(xc);
+  return polyval(K0_LARGE, F(2.0) / xc) / sqrtf(xc) * expf(-xc);
+}
+
+__device__ __forceinline__ float i1_small(float x) {
+  float t = x / F(3.75);
+  return x * polyval(I1_SMALL, t * t);
+}
+
+__device__ float i1e(float x) {
+  x = fabsf(x);
+  if (x < F(3.75)) return i1_small(x) * expf(-x);
+  return polyval(I1_LARGE, F(3.75) / x) / sqrtf(x);
+}
+
+__device__ float k1e(float x) {
+  float xc = fmaxf(x, F(1e-30));
+  if (xc <= F(2.0)) {
+    float t = xc / F(2.0);
+    float k1 = logf(xc / F(2.0)) * i1_small(xc) +
+               polyval(K1_SMALL, t * t) / xc;
+    return k1 * expf(xc);
+  }
+  return polyval(K1_LARGE, F(2.0) / xc) / sqrtf(xc);
+}
+
+// e^{-z} int_0^z I0
+__device__ float ii0e(float z) {
+  z = fabsf(z);
+  if (z < F(3.75)) return z * polyval(II0_SER, z * z) * expf(-z);
+  return polyval(II0E_LARGE, F(3.75) / z) / sqrtf(z);
+}
+
+// int_0^z K0
+__device__ float ik0(float z) {
+  float zc = fmaxf(z, F(1e-30));
+  if (zc <= F(2.0)) {
+    float z2 = zc * zc;
+    float L = logf(F(0.5) * zc) + F(0.5772156649015329);
+    return zc * (polyval(IK0_SER, z2) - L * polyval(II0_SER, z2));
+  }
+  return F(1.5707963267948966) -
+         expf(-zc) / sqrtf(zc) * polyval(IK0_TAIL, F(2.0) / zc);
+}
+
+// the screened ball Green's function G_s(r) in a ball of radius R
+__device__ float screened_greens(float r, float R, float sb) {
+  float s = sqrtf(sb);
+  float z = R * s;
+  float rz = fmaxf(r, F(1e-12)) * s;
+  return (k0(rz) - (k0(z) / i0(z)) * i0(rz)) / F(TWO_PI);
+}
+
+// G_s(d) / |dG_s/dd (d)|: the Robin wall-arrival kernel ratio
+__device__ float wall_ratio(float d, float R, float sb) {
+  float q = sqrtf(sb);
+  float zd = fmaxf(d, F(1e-12)) * q;
+  float zr = R * q;
+  float ratio_c = (k0e(zr) / i0e(zr)) * expf(F(2.0) * fminf(zd - zr, F(0.0)));
+  float num = k0e(zd) - ratio_c * i0e(zd);
+  float den = q * (k1e(zd) + ratio_c * i1e(zd));
+  return fmaxf(num, F(0.0)) / fmaxf(den, F(1e-30));
+}
+
+// J(r) = int_0^r G_s(t) dt, both branches of the reference's z <= 2 select
+// (the series keeps the limit J -> r / 2 pi as sigma_bar -> 0)
+__device__ float chord_integral(float r, float sb) {
+  float q = sqrtf(fmaxf(sb, F(0.0)));
+  float z = r * q;
+  if (z <= F(2.0)) {
+    float zs = fminf(z, F(2.0));
+    float z2 = zs * zs;
+    return (polyval(IK0_SER, z2) -
+            z2 * polyval(K0REG_SER, z2) * polyval(II0_SER, z2) / i0(zs)) *
+           (r / F(TWO_PI));
+  }
+  float zl = fmaxf(z, F(2.0));
+  float cross = k0e(zl) * ii0e(zl) * expf(-zl) / i0e(zl);
+  return (ik0(zl) - cross) / (F(TWO_PI) * fmaxf(q, F(1e-30)));
+}
+
 // ---- fields (problems/fields.py) ---------------------------------------
 
 __device__ __forceinline__ float sigmoid(float v) {
@@ -200,13 +363,20 @@ __device__ __forceinline__ float alpha_c(float x, float y) {
   return fmaxf(field_value(F_ALPHA, x, y), F(1e-8));
 }
 
-// sigma' = sigma/a + (lap a / a - |grad ln a|^2 / 2) / 2 with hand-derived
-// derivatives of the bump sum (fields.BumpSum.value_grad_lap)
-__device__ float sigma_prime(float x, float y) {
+// alpha_c = max(alpha, 1e-8) with its gradient (and, for LAP, Laplacian),
+// zero where the clamp is active: hand-derived derivatives of the bump sum
+// (fields.BumpSum.value_grad_lap, fields._alpha_parts)
+template <bool LAP>
+__device__ __forceinline__ void alpha_parts(float x, float y, float& ac,
+                                            float& gx, float& gy,
+                                            float& lap) {
   const Field& fd = C.field[F_ALPHA];
   const float* p = fd.p;
   float z0 = F(0.0) * x;
-  float a = p[0] + z0, gx = z0, gy = z0, lap = z0;
+  float a = p[0] + z0;
+  gx = z0;
+  gy = z0;
+  lap = z0;
   if (fd.kind == K_BUMPS) {
     const int nb = (fd.n - 1) / 6;
     for (int b = 0; b < nb; ++b) {
@@ -217,22 +387,82 @@ __device__ float sigma_prime(float x, float y) {
       float rho = sqrtf(d2 + q[5]);
       float s = sigmoid(-k * (rho - q[3]));
       float ds = -k * (s * (F(1.0) - s));
-      float d2s = k * (k * (s * (F(1.0) - s) * (F(1.0) - F(2.0) * s)));
+      float d2s = F(0.0);
+      if constexpr (LAP)
+        d2s = k * (k * (s * (F(1.0) - s) * (F(1.0) - F(2.0) * s)));
       a = a + q[0] * s;
       gx = gx + q[0] * (ds * ex / rho);
       gy = gy + q[0] * (ds * ey / rho);
-      lap = lap + q[0] * (d2s * (d2 / (rho * rho)) +
-                          ds * ((d2 + F(2.0) * q[5]) / (rho * rho * rho)));
+      if constexpr (LAP)
+        lap = lap + q[0] * (d2s * (d2 / (rho * rho)) +
+                            ds * ((d2 + F(2.0) * q[5]) / (rho * rho * rho)));
     }
   }
   bool live = a > F(1e-8);
-  float ac = fmaxf(a, F(1e-8));
+  ac = fmaxf(a, F(1e-8));
   if (!live) { gx = F(0.0); gy = F(0.0); lap = F(0.0); }
+}
+
+// sigma' = sigma/a + (lap a / a - |grad ln a|^2 / 2) / 2
+__device__ float sigma_prime(float x, float y) {
+  float ac, gx, gy, lap;
+  alpha_parts<true>(x, y, ac, gx, gy, lap);
   float la = ac + F(1e-8);
   float glx = gx / la, gly = gy / la;
   float gn2 = glx * glx + gly * gly;
   return field_value(F_SIGMA, x, y) / ac +
          F(0.5) * (lap / ac - gn2 / F(2.0));
+}
+
+// grad ln(alpha_c + 1e-8) (fields.grad_log_alpha_fn)
+__device__ void grad_log_alpha(float x, float y, float& glx, float& gly) {
+  float ac, gx, gy, lap;
+  alpha_parts<false>(x, y, ac, gx, gy, lap);
+  float la = ac + F(1e-8);
+  glx = gx / la;
+  gly = gy / la;
+}
+
+// ---- geometry of the accuracy path --------------------------------------
+
+// the nearest Neumann segment's unit tangent and the chord interval
+// [s_lo, s_hi] keeping foot + s t_hat on it (_chord_frame_unrolled)
+__device__ void chord_frame(float px, float py, float& tx, float& ty,
+                            float& s_lo, float& s_hi) {
+  float best = F(3e38);
+  tx = F(0.0);
+  ty = F(0.0);
+  s_lo = F(0.0);
+  s_hi = F(0.0);
+  for (int sgi = 0; sgi < C.n_neu; ++sgi) {
+    const float* g = C.chord[sgi];
+    float vx = px - g[0], vy = py - g[1];
+    float t = fminf(fmaxf((vx * g[2] + vy * g[3]) / g[4], F(0.0)), F(1.0));
+    float ex = (g[0] + t * g[2]) - px, ey = (g[1] + t * g[3]) - py;
+    float d2 = ex * ex + ey * ey;
+    if (d2 < best) {
+      best = d2;
+      tx = g[6];
+      ty = g[7];
+      s_lo = -t * g[5];
+      s_hi = (F(1.0) - t) * g[5];
+    }
+  }
+}
+
+// distance to the nearest high-sigma' region of the local majorant, 0
+// inside (majorant.py LocalMajorant.distance)
+__device__ float majorant_distance(float x, float y) {
+  float d = F(3e38);
+  for (int b = 0; b < C.n_box; ++b) {
+    const float* q = C.box[b];
+    float dx = fmaxf(fmaxf(q[0] - x, x - q[1]), F(0.0));
+    float dy = fmaxf(fmaxf(q[2] - y, y - q[3]), F(0.0));
+    d = fminf(d, sqrtf(dx * dx + dy * dy));
+  }
+  for (int b = 0; b < C.n_band; ++b)
+    d = fminf(d, fmaxf(C.band[b][0] - y, y - C.band[b][1]));
+  return fmaxf(d, F(0.0));
 }
 
 // ---- screened-radius rejection (sampling/radial.py::_exact_rejection) --
@@ -320,6 +550,7 @@ __device__ float screened_radius(float R, float sb, uint32_t seed,
 
 // ---- the walk ------------------------------------------------------------
 
+template <int ROBIN, bool MAJ>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget) {
   const int lane = blockIdx.x * THREADS + threadIdx.x;
@@ -352,7 +583,7 @@ walk_kernel(int n_lanes, int budget) {
   float bmax = P.bmax[lane];
 
   const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
-  const float sbar = C.sigma_bar;
+  const float sigma_bar = C.sigma_bar;
   const int max_steps = C.max_steps;
   const float a_p0 = alpha_c(p0x, p0y);
   float a_cur = alpha_c(px, py);
@@ -417,7 +648,45 @@ walk_kernel(int n_lanes, int budget) {
       continue;
     }
 
-    const float r = fmaxf(rmin, dD);
+    float r = fmaxf(rmin, dD);
+    float sbar = sigma_bar;
+    if constexpr (MAJ) {
+      // two-level local majorant: shrink the ball out of the high-sigma'
+      // regions and walk at the background majorant where that promises
+      // more progress min(radius, 1/sqrt(sigma_bar))
+      const float d_far = majorant_distance(px, py);
+      const float rB = fminf(r, d_far);
+      if (d_far >= rmin && fminf(rB, C.mfp_bg) > fminf(r, C.mfp_gl)) {
+        r = rB;
+        sbar = C.sb_bg;
+      }
+    }
+    // on-boundary Robin chord mass c = 4 gamma J(r), the radius shrunk
+    // until |c| <= 1/2: the chain's branch rate, or the reflectance fold
+    float c_mag = F(0.0);
+    if constexpr (ROBIN != ROBIN_OFF) {
+      if (ob) {
+        float glx0, gly0;
+        grad_log_alpha(px, py, glx0, gly0);
+        const float gamma0 = F(-0.5) * (nx * glx0 + ny * gly0);
+        const float g_eff = fmaxf(fabsf(gamma0), C.gamma_floor);
+        float chord_j = chord_integral(r, sbar);
+        c_mag = F(4.0) * g_eff * chord_j;
+        for (int k = 0; k < 4; ++k) {
+          if (c_mag > F(0.5)) {
+            r = fmaxf(rmin, r * (F(0.5) / fmaxf(c_mag, F(1e-12))));
+            chord_j = chord_integral(r, sbar);
+            c_mag = F(4.0) * g_eff * chord_j;
+          }
+        }
+        c_mag = fminf(c_mag, F(0.9));
+        if constexpr (ROBIN == ROBIN_REFLECT) {
+          const float c_ch =
+              fminf(fmaxf(F(4.0) * gamma0 * chord_j, F(-0.9)), F(0.9));
+          atten = atten / (F(1.0) - c_ch);
+        }
+      }
+    }
 
     // one sin/cos pair: free direction at 2 phi, hemisphere at phi
     const float phi = F(3.141592653589793) * u1;
@@ -493,24 +762,86 @@ walk_kernel(int n_lanes, int budget) {
 
     const bool interior = u4 < interior_prob(r, sbar);
     const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
-    float a_next;
+    const float atten_pre = atten;  // chord-branch lanes skip the scale
+    float a_next, newx, newy;
     if (collide) {
       // signed null-collision factor: no zero clamp
       const float scale_int =
           sqrtf(a_s / a_p) * (F(1.0) - sigma_prime(sx, sy) / sbar);
       atten = atten * scale_int;
-      px = sx;
-      py = sy;
+      newx = sx;
+      newy = sy;
       a_next = a_s;
     } else {
       const float a_h = alpha_c(hx, hy);
-      atten = atten * sqrtf(a_h / a_p);
-      px = hx;
-      py = hy;
+      float scale_edge = sqrtf(a_h / a_p);
+      if constexpr (ROBIN != ROBIN_OFF) {
+        if (hit) {
+          // Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
+          // the grazing cosine clamped
+          float glx, gly;
+          grad_log_alpha(hx, hy, glx, gly);
+          const float gamma = F(-0.5) * (hnx * glx + hny * gly);
+          const float cosphi = fmaxf(-(dx * hnx + dy * hny), C.arrival_clamp);
+          const float rho = wall_ratio(t_hit, r, sbar);
+          scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);
+        }
+      }
+      atten = atten * scale_edge;
+      newx = hx;
+      newy = hy;
       a_next = a_h;
     }
-    ob = hit && !collide;
-    if (hit) {
+    bool new_ob = hit && !collide;
+    bool branch = false;
+    if constexpr (ROBIN == ROBIN_CHAIN) {
+      if (ob) {
+        // chord continuation along the wall: branch with q = min(1/2, |c|)
+        // to z = x + zeta t_hat, weight 2 gamma(z) G_s / p_mix / q; the
+        // other wall lanes pay 1 / (1 - q)
+        const float q_c = fminf(F(0.5), c_mag);
+        branch = uni(base, sid, 9) < q_c && q_c > F(1e-6);
+        if (branch) {
+          const float u10 = uni(base, sid, 10), u11 = uni(base, sid, 11);
+          const float q_scr = sqrtf(fmaxf(sbar, F(1e-12)));
+          const float side = u10 < F(0.5) ? F(-1.0) : F(1.0);
+          const float v = fabsf(F(2.0) * u10 - F(1.0));
+          const float u2 = fabsf(F(2.0) * u11 - F(1.0));
+          const float z_log = r * fmaxf(v * u2, F(1e-12));
+          const float trunc = F(1.0) - expf(-q_scr * r);
+          const float z_exp =
+              -logf(fmaxf(F(1.0) - v * trunc, F(1e-12))) / q_scr;
+          const float az = fminf(u11 < F(0.5) ? z_log : z_exp, r);
+          const float zeta = side * az;
+          const float p_log = -logf(fmaxf(az / r, F(1e-12))) / (F(2.0) * r);
+          const float p_exp = q_scr * expf(-q_scr * az) /
+                              (F(2.0) * fmaxf(trunc, F(1e-12)));
+          const float p_mix = F(0.5) * (p_log + p_exp);
+          const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
+          float t_cx, t_cy, s_lo, s_hi;
+          chord_frame(px, py, t_cx, t_cy, s_lo, s_hi);
+          const float zx = px + zeta * t_cx, zy = py + zeta * t_cy;
+          float glxz, glyz;
+          grad_log_alpha(zx, zy, glxz, glyz);
+          const float gamma_z = F(-0.5) * (nx * glxz + ny * glyz);
+          const float a_z = alpha_c(zx, zy);
+          float w_ch = F(2.0) * gamma_z * g_ch / fmaxf(p_mix, F(1e-30)) *
+                       sqrtf(a_z / a_p);
+          if (!(zeta >= s_lo && zeta <= s_hi)) w_ch = F(0.0);
+          atten = atten_pre * w_ch / fmaxf(q_c, F(1e-6));
+          newx = zx;
+          newy = zy;
+          a_next = a_z;
+          new_ob = true;
+        } else if (q_c > F(1e-6)) {
+          atten = atten * (F(1.0) / (F(1.0) - q_c));
+        }
+      }
+    }
+    px = newx;
+    py = newy;
+    ob = new_ob;
+    if (hit && !branch) {  // a chord stays on its own wall
       nx = hnx;
       ny = hny;
     }
@@ -556,18 +887,25 @@ walk_kernel(int n_lanes, int budget) {
 
 }  // namespace
 
-// fp: eps, rmin, t_min, sigma_bar, roulette_thr, dir (n_dir x 5),
-//     neu (n_neu x 6), then each field's parameters in field order.
+template <int ROBIN, bool MAJ>
+void launch(int grid, cudaStream_t st, int n_lanes, int budget) {
+  walk_kernel<ROBIN, MAJ><<<grid, THREADS, 0, st>>>(n_lanes, budget);
+}
+
+// fp: eps, rmin, t_min, sigma_bar, roulette_thr, gamma_floor,
+//     arrival_clamp, sb_bg, mfp_bg, mfp_gl, dir (n_dir x 5), neu (n_neu x
+//     6), chord (n_neu x 8), boxes (n_box x 4), bands (n_band x 2), then
+//     each field's parameters in field order.
 // ip: seed, max_steps, rounds, roulette, project, snap, n_src, has_source,
-//     n_dir, n_neu, then (kind, n_params) per field: bc, alpha, sigma,
-//     sources[n_src if has_source].
+//     n_dir, n_neu, robin, majorant, n_box, n_band, then (kind, n_params)
+//     per field: bc, alpha, sigma, sources[n_src if has_source].
 // planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
 extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            int n_ip, void* const* planes, int n_planes,
                            int n_lanes, int budget, void* stream) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
-  if (n_ip < 10 || n_fp < 5 || n_planes != N_PLANES)
+  if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES)
     return (int)cudaErrorInvalidValue;
   h.seed = (uint32_t)ip[0];
   h.max_steps = ip[1];
@@ -579,24 +917,45 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   h.has_source = ip[7];
   h.n_dir = ip[8];
   h.n_neu = ip[9];
+  h.robin = ip[10];
+  h.majorant = ip[11];
+  h.n_box = ip[12];
+  h.n_band = ip[13];
   h.eps = fp[0];
   h.rmin = fp[1];
   h.t_min = fp[2];
   h.sigma_bar = fp[3];
   h.roulette_thr = fp[4];
+  h.gamma_floor = fp[5];
+  h.arrival_clamp = fp[6];
+  h.sb_bg = fp[7];
+  h.mfp_bg = fp[8];
+  h.mfp_gl = fp[9];
   const int n_fields = 3 + (h.has_source ? h.n_src : 0);
   if (h.n_src < 1 || h.n_src > MAX_SRC || h.n_dir > MAX_SEG ||
       h.n_neu > MAX_SEG || h.n_dir < 1 || h.n_neu < 0 || h.rounds < 1 ||
-      n_ip != 10 + 2 * n_fields)
+      h.robin < ROBIN_OFF || h.robin > ROBIN_REFLECT ||
+      (h.robin != ROBIN_OFF && h.n_neu < 1) || h.majorant < 0 ||
+      h.majorant > 1 || h.n_box < 0 || h.n_box > MAX_BOXES ||
+      h.n_band < 0 || h.n_band > MAX_BANDS ||
+      (!h.majorant && (h.n_box || h.n_band)) ||
+      n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
-  int off = 5;
-  if (n_fp < off + 5 * h.n_dir + 6 * h.n_neu) return (int)cudaErrorInvalidValue;
+  int off = N_FP;
+  if (n_fp < off + 5 * h.n_dir + 14 * h.n_neu + 4 * h.n_box + 2 * h.n_band)
+    return (int)cudaErrorInvalidValue;
   for (int s = 0; s < h.n_dir; ++s)
     for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
   for (int s = 0; s < h.n_neu; ++s)
     for (int k = 0; k < 6; ++k) h.neu[s][k] = fp[off++];
+  for (int s = 0; s < h.n_neu; ++s)
+    for (int k = 0; k < 8; ++k) h.chord[s][k] = fp[off++];
+  for (int b = 0; b < h.n_box; ++b)
+    for (int k = 0; k < 4; ++k) h.box[b][k] = fp[off++];
+  for (int b = 0; b < h.n_band; ++b)
+    for (int k = 0; k < 2; ++k) h.band[b][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
-    const int kind = ip[10 + 2 * f], n = ip[11 + 2 * f];
+    const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
     if (n < 1 || n > MAX_FP || off + n > n_fp ||
         (kind == K_CONST && n != 1) || (kind == K_DIPOLE && n != 6) ||
         (kind == K_BUMPS && (n - 1) % 6 != 0) ||
@@ -646,7 +1005,14 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   if (e != cudaSuccess) return (int)e;
   if (n_lanes > 0 && budget > 0) {
     const int grid = (n_lanes + THREADS - 1) / THREADS;
-    walk_kernel<<<grid, THREADS, 0, st>>>(n_lanes, budget);
+    switch (h.robin * 2 + h.majorant) {
+      case 0: launch<ROBIN_OFF, false>(grid, st, n_lanes, budget); break;
+      case 1: launch<ROBIN_OFF, true>(grid, st, n_lanes, budget); break;
+      case 2: launch<ROBIN_CHAIN, false>(grid, st, n_lanes, budget); break;
+      case 3: launch<ROBIN_CHAIN, true>(grid, st, n_lanes, budget); break;
+      case 4: launch<ROBIN_REFLECT, false>(grid, st, n_lanes, budget); break;
+      default: launch<ROBIN_REFLECT, true>(grid, st, n_lanes, budget);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,23 @@
-"""Carry-over of boundary data and walker state from numpy arrays.
+"""Carry-over of boundary data, walker state and options from the JAX package.
 
 The JAX package's ``Polyline`` fields and walker planes, taken with
-``np.asarray``, become the port's tensors here (and back), so the same
-inputs can be fed to both implementations.
+``np.asarray``, become the port's tensors here (and back); its local
+majorant and Robin settings become the port's. The same inputs can then
+be fed to both implementations. Nothing here imports the JAX package: the
+objects are read by their attributes.
 """
 
 import numpy as np
 import torch
 
 from .geometry.polyline import Polyline
+from .problems.majorant import LocalMajorant
 from .solver.state import plane_dtype
 
-__all__ = ["polyline_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["polyline_from_numpy", "state_from_numpy", "state_to_numpy",
+           "local_majorant_from", "robin_options_from"]
+
+_ROBIN_FIELDS = ("robin_correction", "robin_interior", "robin_arrival_clamp")
 
 
 def polyline_from_numpy(seg_a, seg_b, seg_valid, vert_abc, vert_valid,
@@ -40,3 +46,21 @@ def state_from_numpy(planes: dict, device="cpu") -> dict:
 def state_to_numpy(state: dict) -> dict:
     """Walker planes as numpy arrays on the host."""
     return {name: t.detach().cpu().numpy() for name, t in state.items()}
+
+
+def local_majorant_from(majorant):
+    """The port's :class:`LocalMajorant` from the JAX package's (its
+    ``boxes``, ``bands`` and ``sigma_bar_bg`` as Python floats); ``None``
+    stays ``None``."""
+    if majorant is None:
+        return None
+    return LocalMajorant(
+        boxes=tuple(tuple(float(v) for v in b) for b in majorant.boxes),
+        bands=tuple(tuple(float(v) for v in b) for b in majorant.bands),
+        sigma_bar_bg=float(majorant.sigma_bar_bg))
+
+
+def robin_options_from(options) -> dict:
+    """The Robin settings of the JAX package's ``SolverOptions``, as keyword
+    arguments of the port's ``SolverOptions``."""
+    return {k: getattr(options, k) for k in _ROBIN_FIELDS}

@@ -52,8 +52,9 @@ def geophysical_scenario(sharpness: float = 0.5) -> Tuple[DCRSurvey, np.ndarray]
 
 def notebook_survey(sharpness: float = 0.1) -> Tuple[DCRSurvey, np.ndarray]:
     """1000 m dipole-dipole survey, electrodes at y = -0.1. Its Robin
-    ``auto`` mode resolves to the chord chain, which is not ported yet, so
-    ``run()`` raises."""
+    ``auto`` mode resolves to the chord chain; set
+    ``survey.local_majorant = "auto"`` for the accuracy configuration of
+    ``bench.py --preset accuracy`` (two boxes around the anomalies)."""
     conductivity = _anomalous_conductivity(
         background=1e-2,
         anomalies=[

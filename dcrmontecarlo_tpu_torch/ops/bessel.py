@@ -3,7 +3,8 @@
 Port of ``dcrmontecarlo_tpu/ops/bessel.py``: the same Abramowitz & Stegun
 9.8.1-9.8.8 polynomials and coefficient tables, evaluated op for op in
 float32 (Horner order, branch guards and clamps unchanged), plus the
-integrals ``ii0e`` / ``ik0`` the Robin chord term uses. The walk kernel
+integrals ``ii0e`` / ``ik0`` and their small-argument series, which the
+Robin chord integral (``greens.screened_chord_integral``) uses. The walk kernel
 (``csrc/walk_kernel.cu``) carries the same polynomials as device
 functions.
 """
@@ -192,10 +193,25 @@ _IK0_TAIL = (
 )
 
 
+def _ii0_over_z_series(z2):
+    """``(int_0^z I0) / z`` as a series in ``z^2`` (z <= 3.75)."""
+    return _polyval(_II0_SER, z2)
+
+
+def _ik0_reg_over_z_series(z2):
+    """The K0-integral's regular sum over z: ``P_B(z^2)`` (z <= 2)."""
+    return _polyval(_IK0_SER, z2)
+
+
+def _k0_reg_over_z2_series(z2):
+    """``T(z)/z^2`` where ``K0 = -(ln(z/2)+gamma_E) I0 + T`` (z <= 2)."""
+    return _polyval(_K0REG_SER, z2)
+
+
 def ii0e(z):
     """Exponentially scaled integral: ``e^{-|z|} \\int_0^z I0(s) ds``."""
     z = torch.abs(z)
-    small = z * _polyval(_II0_SER, z * z) * torch.exp(-z)
+    small = z * _ii0_over_z_series(z * z) * torch.exp(-z)
     zs = torch.clamp(z, min=3.75)
     large = _polyval(_II0E_LARGE, 3.75 / zs) / torch.sqrt(zs)
     return torch.where(z < 3.75, small, large)
@@ -207,7 +223,8 @@ def ik0(z):
     zsm = torch.clamp(zc, max=2.0)
     z2 = zsm * zsm
     L = torch.log(0.5 * zsm) + _GAMMA_E
-    small = zsm * (_polyval(_IK0_SER, z2) - L * _polyval(_II0_SER, z2))
+    small = zsm * (_ik0_reg_over_z_series(z2)
+                   - L * _ii0_over_z_series(z2))
     zs = torch.clamp(zc, min=2.0)
     large = _HALF_PI - torch.exp(-zs) / torch.sqrt(zs) * _polyval(
         _IK0_TAIL, 2.0 / zs)

@@ -2,13 +2,16 @@
 
 Port of the JAX package's one Pallas kernel,
 ``dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk`` (its
-``pl.pallas_call`` and step body), in the variant the DCR survey's main
-path runs: delta tracking, a Neumann wall without silhouette vertices,
-source next-event estimation without MIS, the exact screened-radius
-rejection at any round cap, roulette, common random numbers and
-boundary-snap starts. The kernel is ``csrc/walk_kernel.cu`` (one thread
-per walker lane); :func:`walk_plain` is the same step, op for op, on
-tensors of lanes, on any device.
+``pl.pallas_call`` and step body), in the variants the DCR surveys run:
+delta tracking, a Neumann wall without silhouette vertices, source
+next-event estimation without MIS, the exact screened-radius rejection at
+any round cap, roulette, common random numbers and boundary-snap starts;
+and on top of those, the notebook survey's accuracy path: the Robin
+correction (the chord chain or the reflectance fold, with the wall-arrival
+weight) and the two-level local majorant. The kernel is
+``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
+instantiation per Robin mode and majorant switch); :func:`walk_plain` is
+the same step, op for op, on tensors of lanes, on any device.
 
 :func:`run_walk` advances every lane by up to ``inner_steps`` steps and
 updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
@@ -36,16 +39,24 @@ import numpy as np
 import torch
 
 from ..problems import fields
+from ..problems.majorant import MAX_BANDS, MAX_BOXES, LocalMajorant
 from ..sampling import rng
 from ..sampling.radial import _exact_rejection
 from ..solver.state import CONST_PLANES, LANES, SNAP_PLANES, plane_dtype, \
     state_planes
-from .greens import screened_greens_norm_2d, screened_interior_prob
+from .greens import (
+    screened_chord_integral,
+    screened_greens_2d,
+    screened_greens_norm_2d,
+    screened_greens_wall_ratio,
+    screened_interior_prob,
+)
 
 __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_SEG", "WalkParams",
            "make_walk_params", "stream_ids", "run_walk", "walk_plain",
            "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
-           "build_library", "NVCC_FLAGS"]
+           "build_library", "NVCC_FLAGS", "ROBIN_OFF", "ROBIN_CHAIN",
+           "ROBIN_REFLECTANCE"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -54,6 +65,12 @@ PLANE_FLOOR = 1e-6   # absolute floor as a fraction of the plane's scale,
 PLANE_MIN_FRAC = 0.99  # and the share of lanes that must agree per plane
 MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
 MAX_SEG = 32
+# Robin realization, as the kernel's template parameter: off, the chord
+# chain (``True`` means the chain, as in the JAX package), the
+# reflectance fold
+ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
+_ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
+                "reflectance": ROBIN_REFLECTANCE}
 _BIG = float(np.float32(3e38))
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -90,6 +107,24 @@ def _neu_table(poly) -> np.ndarray:
     return np.asarray(rows, np.float32).reshape(-1, 6)
 
 
+def _chord_table(poly) -> np.ndarray:
+    """``(S, 8)`` float32 ``[ax, ay, ux, uy, uu, ul, tx, ty]``: the Robin
+    chord frame's segment data in float32 arithmetic from float32
+    endpoints, as ``ops/pallas_walk.py::_chord_frame_unrolled`` forms it
+    (``:180-188``)."""
+    rows = []
+    for ax, ay, bx, by in poly.valid_segments().astype(np.float64):
+        ax32, ay32 = np.float32(ax), np.float32(ay)
+        ux32 = np.float32(np.float32(bx) - ax32)
+        uy32 = np.float32(np.float32(by) - ay32)
+        uu32 = np.float32(np.maximum(ux32 * ux32 + uy32 * uy32,
+                                     np.float32(1e-30)))
+        ul32 = np.float32(np.sqrt(uu32))
+        rows.append((ax32, ay32, ux32, uy32, uu32, ul32,
+                     np.float32(ux32 / ul32), np.float32(uy32 / ul32)))
+    return np.asarray(rows, np.float32).reshape(-1, 8)
+
+
 @dataclass(frozen=True)
 class WalkParams:
     """Everything one launch needs besides the planes."""
@@ -112,6 +147,15 @@ class WalkParams:
     sigma_prime: Callable
     specs: Optional[tuple]       # (bc, alpha, sigma, *sources) FieldSpecs
                                  # when every field is one, else None
+    robin: int = ROBIN_OFF       # ROBIN_OFF | ROBIN_CHAIN | ROBIN_REFLECTANCE
+    robin_arrival_clamp: float = 0.02
+    gamma_floor: float = 0.0     # chord branch-rate floor
+    chord_table: np.ndarray = None   # (S, 8) float32, with neu_table's S
+    grad_log_alpha: Optional[Callable] = None
+    majorant: Optional[LocalMajorant] = None
+    sb_bg: float = 0.0           # the majorant's background sigma_bar and
+    mfp_bg: float = 0.0          # the two progress scales 1/sqrt(sigma_bar)
+    mfp_gl: float = 0.0
 
     @property
     def n_src(self) -> int:
@@ -134,14 +178,28 @@ class WalkParams:
                 f"the CUDA walk holds up to {MAX_SRC} sources and {MAX_SEG} "
                 "segments per boundary; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::_closest_point_smem")
+        mj = self.majorant
+        boxes, bands = (mj.table() if mj is not None
+                        else (np.zeros((0, 4), np.float32),
+                              np.zeros((0, 2), np.float32)))
+        if len(boxes) > MAX_BOXES or len(bands) > MAX_BANDS:
+            raise NotImplementedError(
+                f"the CUDA walk holds a local majorant of up to {MAX_BOXES} "
+                f"boxes and {MAX_BANDS} bands, got {len(boxes)} and "
+                f"{len(bands)}; reference: "
+                "dcrmontecarlo_tpu/problems/majorant.py::LocalMajorant")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
               int(self.snap), self.n_src, int(len(self.sources) > 0),
-              len(self.dir_table), len(self.neu_table)]
+              len(self.dir_table), len(self.neu_table), self.robin,
+              int(mj is not None), len(boxes), len(bands)]
         fp = [self.eps, self.rmin, self.t_min, self.sigma_bar,
               0.0 if self.roulette_threshold is None
-              else self.roulette_threshold]
+              else self.roulette_threshold, self.gamma_floor,
+              self.robin_arrival_clamp, self.sb_bg, self.mfp_bg, self.mfp_gl]
         fp += self.dir_table.ravel().tolist() + self.neu_table.ravel().tolist()
+        fp += self.chord_table.ravel().tolist()
+        fp += boxes.ravel().tolist() + bands.ravel().tolist()
         for spec in self.specs:
             kind, params = spec.table()
             ip += [kind, len(params)]
@@ -150,15 +208,38 @@ class WalkParams:
 
 
 def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
-                     rejection_rounds, roulette_threshold, snap,
-                     seed) -> WalkParams:
-    """Walk parameters for a delta-tracking ``problem``."""
+                     rejection_rounds, roulette_threshold, snap, seed,
+                     robin_correction=False,
+                     robin_arrival_clamp=0.02) -> WalkParams:
+    """Walk parameters for a delta-tracking ``problem``.
+
+    ``robin_correction`` is the RESOLVED mode (``WoStSolver._robin_enabled``:
+    False, ``"chain"`` or ``"reflectance"``); the local majorant is the
+    problem's.
+    """
     sources = tuple(problem.source_fields)
     all_fields = (problem.bc_dirichlet, problem.alpha, problem.sigma) + sources
     specs = (all_fields if all(fields.is_spec(f) for f in all_fields)
              else None)
-    neu = (_neu_table(problem.neumann) if problem.neumann is not None
-           else np.zeros((0, 6), np.float32))
+    if robin_correction not in _ROBIN_CODES:
+        raise ValueError(f"unknown Robin mode {robin_correction!r}")
+    robin = (_ROBIN_CODES[robin_correction] if problem.neumann is not None
+             else ROBIN_OFF)
+    if problem.neumann is not None:
+        neu = _neu_table(problem.neumann)
+        chord = _chord_table(problem.neumann)
+    else:
+        neu = np.zeros((0, 6), np.float32)
+        chord = np.zeros((0, 8), np.float32)
+    mj = problem.local_majorant
+    if mj is not None:
+        # the progress scales in float64, rounded once (pallas_walk.py:559-563)
+        maj = dict(majorant=mj, sb_bg=float(max(mj.sigma_bar_bg, 1e-12)),
+                   mfp_bg=float(1.0 / np.sqrt(max(mj.sigma_bar_bg, 1e-12))),
+                   mfp_gl=float(1.0 / np.sqrt(max(problem.sigma_bar,
+                                                  1e-30))))
+    else:
+        maj = {}
     return WalkParams(
         seed=int(seed), eps=float(eps), rmin=float(rmin), t_min=float(t_min),
         max_steps=int(max_steps), sigma_bar=float(problem.sigma_bar),
@@ -168,7 +249,11 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         project=bool(project), snap=bool(snap),
         dir_table=_dir_table(problem.dirichlet), neu_table=neu,
         bc=problem.bc_dirichlet, sources=sources, alpha_c=problem.alpha_c,
-        sigma_prime=problem.sigma_prime, specs=specs)
+        sigma_prime=problem.sigma_prime, specs=specs, robin=robin,
+        robin_arrival_clamp=float(robin_arrival_clamp),
+        gamma_floor=(float(0.25 * problem.max_boundary_gamma())
+                     if robin != ROBIN_OFF else 0.0),
+        chord_table=chord, grad_log_alpha=problem.grad_log_alpha, **maj)
 
 
 def stream_ids(rows: int, crn=None, device=None):
@@ -250,6 +335,86 @@ def _first_hit(table, px, py, dx, dy, r, t_min):
     return hx, hy, nx, ny, t_hit, hit
 
 
+def _chord_frame(table, px, py):
+    """The nearest segment's unit tangent and the chord interval
+    ``[s_lo, s_hi]`` keeping ``foot + s * t_hat`` on it."""
+    best = torch.full_like(px, _BIG)
+    btx = torch.zeros_like(px)
+    bty = torch.zeros_like(px)
+    bslo = torch.zeros_like(px)
+    bshi = torch.zeros_like(px)
+    for ax, ay, ux, uy, uu, ul, tx, ty in table.tolist():
+        vx = px - ax
+        vy = py - ay
+        t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
+        ex = (ax + t * ux) - px
+        ey = (ay + t * uy) - py
+        d2 = ex * ex + ey * ey
+        pick = d2 < best
+        best = torch.where(pick, d2, best)
+        btx = torch.where(pick, tx, btx)
+        bty = torch.where(pick, ty, bty)
+        bslo = torch.where(pick, -t * ul, bslo)
+        bshi = torch.where(pick, (1.0 - t) * ul, bshi)
+    return btx, bty, bslo, bshi
+
+
+def _robin_chord_mass(P: WalkParams, px, py, nxv, nyv, ob, r, sbar):
+    """On-boundary Robin chord mass ``c = 4 gamma J(r)`` with the radius
+    shrunk (4 rounds) until ``|c| <= 1/2``; returns ``(r, c_mag, c_ch)``:
+    the shrunk radius, the branch-rate magnitude (|gamma| floored at
+    ``gamma_floor``) and the signed mass, both zero off the wall."""
+    glx0, gly0 = P.grad_log_alpha(px, py)
+    gamma0 = -0.5 * (nxv * glx0 + nyv * gly0)
+    g_eff = torch.clamp(torch.abs(gamma0), min=P.gamma_floor)
+    chord_j = screened_chord_integral(r, sbar)
+    c_mag = 4.0 * g_eff * chord_j
+    for _ in range(4):
+        shrink = ob & (c_mag > 0.5)
+        r_new = torch.clamp(r * (0.5 / torch.clamp(c_mag, min=1e-12)),
+                            min=P.rmin)
+        r = torch.where(shrink, r_new, r)
+        chord_j = torch.where(shrink, screened_chord_integral(r, sbar),
+                              chord_j)
+        c_mag = torch.where(shrink, 4.0 * g_eff * chord_j, c_mag)
+    c_ch = 4.0 * gamma0 * chord_j
+    c_mag = torch.where(ob, torch.clamp(c_mag, max=0.9), 0.0)
+    c_ch = torch.where(ob, torch.clamp(c_ch, -0.9, 0.9), 0.0)
+    return r, c_mag, c_ch
+
+
+def _chord_branch(P: WalkParams, u10, u11, px, py, nxv, nyv, r, sbar, a_p):
+    """The chord continuation's point ``z`` on the wall, its weight
+    ``2 gamma(z) G_s(|zeta|) / p_mix(zeta) * sqrt(alpha_z / alpha_x)``
+    (zero past the segment's ends) and ``alpha_z``: ``|zeta|`` from the
+    balanced mixture of a log sampler and a truncated exponential."""
+    q_scr = torch.sqrt(torch.clamp(sbar, min=1e-12))
+    side = torch.where(u10 < 0.5, -1.0, 1.0)
+    v = torch.abs(2.0 * u10 - 1.0)
+    tech_log = u11 < 0.5
+    u2 = torch.abs(2.0 * u11 - 1.0)
+    z_log = r * torch.clamp(v * u2, min=1e-12)
+    trunc = 1.0 - torch.exp(-q_scr * r)
+    z_exp = -torch.log(torch.clamp(1.0 - v * trunc, min=1e-12)) / q_scr
+    az = torch.minimum(torch.where(tech_log, z_log, z_exp), r)
+    zeta = side * az
+    p_log = -torch.log(torch.clamp(az / r, min=1e-12)) / (2.0 * r)
+    p_exp = q_scr * torch.exp(-q_scr * az) / (
+        2.0 * torch.clamp(trunc, min=1e-12))
+    p_mix = 0.5 * (p_log + p_exp)
+    g_ch = torch.clamp(screened_greens_2d(az, r, sbar), min=0.0)
+    t_cx, t_cy, s_lo, s_hi = _chord_frame(P.chord_table, px, py)
+    zx = px + zeta * t_cx
+    zy = py + zeta * t_cy
+    glxz, glyz = P.grad_log_alpha(zx, zy)
+    gamma_z = -0.5 * (nxv * glxz + nyv * glyz)
+    a_z = P.alpha_c(zx, zy)
+    w_ch = (2.0 * gamma_z * g_ch / torch.clamp(p_mix, min=1e-30)
+            * torch.sqrt(a_z / a_p))
+    w_ch = torch.where((zeta >= s_lo) & (zeta <= s_hi), w_ch, 0.0)
+    return zx, zy, w_ch, a_z
+
+
 def _step(s, P: WalkParams, consts, a_p0, a_cur):
     """One walk step over every lane (the kernel's step body, masked)."""
     p0x, p0y, sid, ob0, n0x, n0y = consts
@@ -263,7 +428,10 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
     # per-lane (walk#, step#) counter, u32
     ctr = (rng.mul32(ndone.to(torch.int64), P.max_steps + 2)
            + steps.to(torch.int64)) & rng.MASK32
-    u1, u4 = _uniforms(P.seed, ctr, sid, (1, 4))
+    chain = P.robin == ROBIN_CHAIN
+    # the chain draws streams 9/10/11 (branch, side + U1, technique + U2)
+    u = _uniforms(P.seed, ctr, sid, (1, 4, 9, 10, 11) if chain else (1, 4))
+    u1, u4 = u[0], u[1]
 
     dD, cx, cy = _closest_point(P.dir_table, px, py)
     done_eps = dD <= P.eps
@@ -303,7 +471,23 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
     stepping = act & ~walk_done
 
     r = torch.clamp(dD, min=P.rmin)
-    sbar = P.sigma_bar
+    if P.majorant is not None:
+        # two-level local majorant: shrink the ball out of the high-sigma'
+        # regions and walk at the background majorant where that promises
+        # more progress min(radius, 1/sqrt(sigma_bar))
+        d_far = P.majorant.distance(px, py)
+        rB = torch.minimum(r, d_far)
+        useB = (d_far >= P.rmin) & (torch.clamp(rB, max=P.mfp_bg)
+                                    > torch.clamp(r, max=P.mfp_gl))
+        r = torch.where(useB, rB, r)
+        sbar = torch.where(useB, torch.full_like(r, P.sb_bg),
+                           torch.full_like(r, P.sigma_bar))
+    else:
+        sbar = torch.full_like(r, P.sigma_bar)
+    if P.robin != ROBIN_OFF:
+        r, c_mag, c_ch = _robin_chord_mass(P, px, py, nxv, nyv, ob, r, sbar)
+        if P.robin == ROBIN_REFLECTANCE:
+            atten = torch.where(stepping & ob, atten / (1.0 - c_ch), atten)
 
     # one sin/cos pair: free direction at 2 phi, hemisphere rotation at phi
     phi = math.pi * u1
@@ -359,17 +543,46 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
     # signed null-collision factor: no zero clamp (weighted delta tracking)
     scale_int = torch.sqrt(a_s / a_p) * (1.0 - sp_s / sbar)
     scale_edge = torch.sqrt(a_h / a_p)
+    atten_pre = atten  # chord-branch lanes skip the move's scale
+    if P.robin != ROBIN_OFF:
+        # Robin wall-arrival weight 1 + gamma rho / cos(phi): signed, with
+        # the grazing cosine clamped
+        glx, gly = P.grad_log_alpha(hx, hy)
+        gamma = -0.5 * (hnx * glx + hny * gly)
+        cosphi = torch.clamp(-(dx * hnx + dy * hny),
+                             min=P.robin_arrival_clamp)
+        rho = screened_greens_wall_ratio(t_hit, r, sbar)
+        scale_edge = scale_edge * torch.where(hit, 1.0 + gamma * rho / cosphi,
+                                              1.0)
     atten = torch.where(
         stepping, atten * torch.where(collide, scale_int, scale_edge), atten)
     newx = torch.where(collide, sx, hx)
     newy = torch.where(collide, sy, hy)
     a_next = torch.where(collide, a_s, a_h)
     new_ob = hit & ~collide
+    if chain:
+        # on-boundary chord continuation: branch with q = min(1/2, |c|);
+        # the branch weight is an O(1) density ratio, the other lanes of
+        # the wall pay 1 / (1 - q)
+        q_c = torch.where(ob, torch.clamp(c_mag, max=0.5), 0.0)
+        branch = stepping & (u[2] < q_c) & (q_c > 1e-6)
+        zx, zy, w_ch, a_z = _chord_branch(P, u[3], u[4], px, py, nxv, nyv,
+                                          r, sbar, a_p)
+        newx = torch.where(branch, zx, newx)
+        newy = torch.where(branch, zy, newy)
+        a_next = torch.where(branch, a_z, a_next)
+        new_ob = new_ob | branch
+        atten = torch.where(
+            branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
+            atten * torch.where(stepping & ob & (q_c > 1e-6),
+                                1.0 / (1.0 - q_c), 1.0))
 
     px = torch.where(stepping, newx, px)
     py = torch.where(stepping, newy, py)
     ob = (stepping & new_ob) | (~stepping & ob)
     upd_n = stepping & hit
+    if chain:
+        upd_n = upd_n & ~branch  # a chord stays on its own wall
     nxv = torch.where(upd_n, hnx, nxv)
     nyv = torch.where(upd_n, hny, nyv)
     steps = steps + stepping.to(torch.int32)

@@ -10,7 +10,9 @@ When ``alpha`` and ``sigma`` are field specs (``problems/fields.py``),
 ``sigma'`` and ``grad ln alpha`` are the hand-derived expressions the walk
 kernel also evaluates; other callables are differentiated with
 ``torch.func`` and run on the CPU path only. The majorant ``sigma_bar`` is
-the same grid scan plus subgrid extrema refinement as the JAX package's.
+the same grid scan plus subgrid extrema refinement as the JAX package's;
+``local_majorant="auto"`` derives the two-level majorant
+(``problems/majorant.py``) from that scan.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..geometry.polyline import Polyline
 from ..utils.autodiff import gradient, laplacian
 from ..utils.gridscan import grid_min_max
 from . import fields
+from .majorant import LocalMajorant, derive_local_majorant
 
 __all__ = ["Problem"]
 
@@ -45,7 +48,8 @@ class Problem:
     source_importance: Optional[object] = None    # MIS mixture (not ported)
     sigma_bar_resolution: int = 128               # base grid scan res.
     sigma_bar_override: Optional[float] = None    # skip the grid scan
-    local_majorant: object = None                 # not ported: must be None
+    local_majorant: object = None                 # None | "auto" |
+                                                  # majorant.LocalMajorant
 
     version: int = field(init=False, default=0)
     use_delta_tracking: bool = field(init=False, default=False)
@@ -56,10 +60,10 @@ class Problem:
     domain_bounds: tuple = field(init=False, default=None)
 
     def __post_init__(self):
-        if self.local_majorant is not None:
-            raise NotImplementedError(
-                "local_majorant is not ported yet; reference: "
-                "dcrmontecarlo_tpu/problems/majorant.py")
+        if not (self.local_majorant is None or self.local_majorant == "auto"
+                or isinstance(self.local_majorant, LocalMajorant)):
+            raise ValueError("local_majorant must be None, 'auto' or a "
+                             f"LocalMajorant; got {self.local_majorant!r}")
         if self.bc_dirichlet is None:
             self.bc_dirichlet = fields.constant(0.0)  # zero Dirichlet BC
 
@@ -82,6 +86,7 @@ class Problem:
                     "add the missing walls.")
 
         if self.alpha is None and self.sigma is None:
+            self.local_majorant = None  # meaningless without delta tracking
             return
         self.alpha = self.alpha if self.alpha is not None else fields.constant(1.0)
         self.sigma = self.sigma if self.sigma is not None else fields.constant(0.0)
@@ -100,6 +105,10 @@ class Problem:
 
         if self.sigma_bar_override is not None:
             self.sigma_bar = max(float(self.sigma_bar_override), 1e-6)
+            if self.local_majorant == "auto":
+                v = self._sigma_prime_grid()  # the override skipped the scan
+                _, _, refined_pts = self._refine_sigma_extrema(v)
+                self._derive_majorant(v, refined_pts)
             return
         a_mn, _, _, _ = grid_min_max(alpha_c, bounds, self.sigma_bar_resolution)
         if a_mn <= 2.0 * _ALPHA_EPS:
@@ -118,7 +127,7 @@ class Problem:
                 "grid points; the global majorant is priced from the finite "
                 "cells only. Smooth the coefficient field or set "
                 "sigma_bar_override.")
-        mn, mx, _ = self._refine_sigma_extrema(v)
+        mn, mx, refined_pts = self._refine_sigma_extrema(v)
         sb = (max(mx, 0.0) - mn) if mn < 0 else mx
         if sb <= 1e-12:
             sb = 1e-6  # unscreened limit: pure WoSt
@@ -128,6 +137,16 @@ class Problem:
                 "will take O(sigma_bar * L^2) steps. Smooth the coefficient "
                 "field or set sigma_bar_override.")
         self.sigma_bar = float(sb)
+        if self.local_majorant == "auto":
+            self._derive_majorant(v, refined_pts)
+
+    def _derive_majorant(self, v, refined_pts):
+        """Resolve ``local_majorant="auto"`` from the scan grid ``v`` and
+        the extrema-refinement samples (None when localizing cannot
+        help)."""
+        xs, ys = self._grid_axes()
+        self.local_majorant = derive_local_majorant(
+            v, xs, ys, self.sigma_bar, extra_points=refined_pts)
 
     def _autodiff_fields(self):
         """``grad ln alpha_c`` and ``sigma'`` of arbitrary callables through

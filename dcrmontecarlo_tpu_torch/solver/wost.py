@@ -46,9 +46,10 @@ class SolverOptions:
     The port runs ``rejection_rounds``, ``min_quota``, ``target_slots``,
     ``common_random_numbers``, ``roulette_threshold``, ``boundary_snap``,
     ``project_to_boundary``, ``t_min_frac``, ``rmin_factor``,
-    ``adaptive_launches``, ``pallas_inner_steps`` and
-    ``pallas_block_rows``; the others raise when set away from their
-    inert values.
+    ``robin_correction`` (off, ``"chain"``, ``"reflectance"``, ``"auto"``),
+    ``robin_arrival_clamp``, ``adaptive_launches``,
+    ``pallas_inner_steps`` and ``pallas_block_rows``; the others raise
+    when set away from their inert values.
     """
 
     target_slots: int = 65536
@@ -243,9 +244,13 @@ class WoStSolver:
             raise _unported("a Neumann polyline with silhouette vertices",
                             "ops/pallas_walk.py::_silhouette_unrolled")
         robin = self._robin_enabled()
-        if robin:
-            raise _unported(f"robin_correction={robin!r}",
-                            "ops/pallas_walk.py::make_pallas_walk (use_robin)")
+        if robin == "arrival-only":
+            # the reference runs this diagnostic arm on its XLA path only
+            raise _unported("robin_correction='arrival-only'",
+                            "solver/wost.py::_make_step_core")
+        if robin == "chain" and o.robin_interior != "arrival":
+            raise _unported(f"robin_interior={o.robin_interior!r}",
+                            "solver/wost.py::_make_step_core")
         if o.screened_sampler == "transport":
             raise _unported("screened_sampler='transport'",
                             "sampling/radial.py::"
@@ -295,7 +300,9 @@ class WoStSolver:
             project=opts.project_to_boundary,
             rejection_rounds=opts.rejection_rounds,
             roulette_threshold=opts.roulette_threshold,
-            snap=snap_tol is not None, seed=stream_seed(seed))
+            snap=snap_tol is not None, seed=stream_seed(seed),
+            robin_correction=self._robin_enabled(),
+            robin_arrival_clamp=opts.robin_arrival_clamp)
         n_src = params.n_src
 
         quotas = np.zeros((rows * LANES,), np.int32)

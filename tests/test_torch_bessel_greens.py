@@ -100,3 +100,62 @@ def test_weak_screening_limit_is_unscreened_norm():
     R = torch.tensor([0.5, 2.0, 10.0])
     got = tg.screened_greens_norm_2d(R, 1e-10)
     np.testing.assert_allclose(got.numpy(), (R * R / 4).numpy(), rtol=1e-4)
+
+
+# The Robin correction's kernels over the accuracy path's range: radii
+# 1e-3..500 m and majorants from 0 (the chord integral's r/2pi limit) to
+# 100, so z = r sqrt(sigma_bar) lies on both sides of the z <= 2 select
+# (the notebook's background majorant 6.8e-5 keeps z < 0.05 below 6 m and
+# reaches 4.1 at 500 m). Chord integral: rel 1e-6 (measured <= 1.6e-7).
+# Wall ratio: rel 5e-5 above an absolute floor of 1e-6 x its largest value
+# (measured <= 1.3e-5: num = K0e(zd) - c I0e(zd) cancels as d -> R).
+R_WALK = np.geomspace(1e-3, 500.0, 3000).astype(np.float32)
+SIGMA_BARS = [0.0, 1e-8, 6.8e-5, 2.7e-3, 1.0, 100.0]
+
+
+@pytest.mark.parametrize("sb", SIGMA_BARS)
+def test_chord_integral_matches_jax(sb):
+    got, want = _both(jg.screened_chord_integral, tg.screened_chord_integral,
+                      R_WALK, sb)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    z = R_WALK * np.sqrt(sb)
+    if sb >= 6.8e-5:
+        assert (z <= 2.0).any() and (z > 2.0).any()
+    if sb == 0.0:  # the unscreened ball: J = r / 2 pi exactly
+        np.testing.assert_allclose(got, R_WALK / np.float32(2 * np.pi),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("sb", SIGMA_BARS)
+@pytest.mark.parametrize("R", [1.0, 60.0, 500.0])
+def test_wall_ratio_matches_jax(sb, R):
+    d = (R * np.geomspace(1e-4, 1.0, 500)).astype(np.float32)
+    got, want = _both(jg.screened_greens_wall_ratio,
+                      tg.screened_greens_wall_ratio, d, R, sb)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=5e-5,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", ["_ii0_over_z_series",
+                                  "_ik0_reg_over_z_series",
+                                  "_k0_reg_over_z2_series"])
+def test_integral_series_match_jax(name):
+    z2 = np.linspace(0.0, 4.0, 400).astype(np.float32) ** 2
+    got, want = _both(getattr(jb, name), getattr(tb, name), z2)
+    np.testing.assert_allclose(got, want, rtol=REL)
+
+
+@pytest.mark.parametrize("r,sb", [(0.5, 1.0), (30.0, 6.8e-5), (300.0, 6.8e-5),
+                                  (100.0, 2.7e-3), (500.0, 2.7e-3),
+                                  (5.0, 100.0)])
+def test_chord_integral_is_green_integral(r, sb):
+    # J(r) = int_0^r G_s(t) dt in float64 (quad handles the log singularity)
+    from scipy.integrate import quad
+
+    q = np.sqrt(sb)
+    c = sp.k0(r * q) / sp.i0(r * q)
+    val, _ = quad(lambda t: (sp.k0(t * q) - c * sp.i0(t * q)) / (2 * np.pi),
+                  0.0, r, limit=200)
+    got = float(tg.screened_chord_integral(torch.tensor([r]), sb))
+    assert got == pytest.approx(val, rel=1e-4)

@@ -12,7 +12,10 @@ accumulator values), and all values must be finite. Whole solves draw the
 same counter-hash streams in both, so their means agree to rounding and
 their step counts exactly. The variants cover what the survey's main
 path does not: more than one source, no Neumann wall, no boundary snap,
-no projection, and the round caps 1, 2 and 64.
+no projection, and the round caps 1, 2 and 64; and the accuracy path's
+kernel instantiations on the notebook survey: the Robin chord chain, the
+reflectance fold, and the local majorant on its own, each one launch,
+plus a whole solve of the accuracy configuration.
 """
 
 import numpy as np
@@ -20,7 +23,8 @@ import pytest
 import torch
 
 from dcrmontecarlo_tpu_torch.geometry import square_loop
-from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
+    notebook_survey
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
@@ -57,6 +61,15 @@ def _box_problem():
                        (2.0, fields.smooth_circle((3.0, -2.0), 5.0, 1.0))]))
 
 
+def _notebook_problem(majorant=None):
+    survey, _ = notebook_survey()
+    survey.local_majorant = majorant
+    return survey.build_problem()
+
+
+NOTEBOOK_ELECTRODES = np.asarray(notebook_survey()[1], np.float32)
+
+
 def _compare(a, b, names):
     frac, _, finite = wk.compare_planes(a, b, names)
     assert finite
@@ -75,6 +88,14 @@ CASES = {
         common_random_numbers=True, roulette_threshold=0.05,
         rejection_rounds=2)),
     "box_no_neumann": (_box_problem, dict(rejection_rounds=4)),
+    "notebook_chain": (_notebook_problem, dict(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2)),
+    "notebook_reflectance": (_notebook_problem, dict(
+        robin_correction="reflectance", rejection_rounds=2)),
+    "notebook_majorant_robin_off": (lambda: _notebook_problem("auto"), dict(
+        robin_correction=False, common_random_numbers=True,
+        rejection_rounds=2)),
 }
 
 
@@ -82,9 +103,12 @@ CASES = {
 def test_kernel_matches_plain_one_launch(device, case):
     make, opts = CASES[case]
     prob = make()
-    pts = (ELECTRODES if prob.neumann is not None
-           else np.array([[0.0, 0.0], [15.0, -12.0], [-19.0, 3.0]],
-                         np.float32))
+    if case.startswith("notebook"):
+        pts = NOTEBOOK_ELECTRODES
+    elif prob.neumann is not None:
+        pts = ELECTRODES
+    else:
+        pts = np.array([[0.0, 0.0], [15.0, -12.0], [-19.0, 3.0]], np.float32)
     solver = WoStSolver(prob, SolverOptions(target_slots=8192, **opts),
                         device=device)
     state, params, _, _ = solver._setup(pts, 4096, 60, EPS, 3)
@@ -106,6 +130,22 @@ def test_kernel_whole_solve_matches_plain(device):
     rk = solver._solve_raw(ELECTRODES, 128, 300, EPS, 5)
     rp = solver._solve_raw(ELECTRODES, 128, 300, EPS, 5, walk=wk.walk_plain)
     assert rk.mean.shape == (2, 9)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_kernel_whole_notebook_solve_matches_plain(device):
+    solver = WoStSolver(_notebook_problem("auto"), SolverOptions(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2, target_slots=1 << 17), device=device)
+    assert solver._robin_enabled() == "chain"
+    launches = wk.run_walk.launches
+    rk = solver._solve_raw(NOTEBOOK_ELECTRODES, 256, 6000, 1.0, 5)
+    assert wk.run_walk.launches > launches
+    rp = solver._solve_raw(NOTEBOOK_ELECTRODES, 256, 6000, 1.0, 5,
+                           walk=wk.walk_plain)
     assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
     se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()

@@ -153,9 +153,12 @@ def test_autodiff_operators():
 
 
 def test_problem_options_and_setters():
-    with pytest.raises(NotImplementedError, match="problems/majorant.py"):
+    with pytest.raises(ValueError, match="local_majorant"):
         Problem(dirichlet=square_loop(1.0), alpha=fields.constant(1.0),
-                local_majorant="auto")
+                local_majorant="everywhere")
+    # constant coefficients: no sigma' load to localize
+    assert Problem(dirichlet=square_loop(1.0), alpha=fields.constant(1.0),
+                   local_majorant="auto").local_majorant is None
     p = Problem(dirichlet=square_loop(1.0), alpha=fields.constant(2.0))
     assert p.sigma_bar == 1e-6  # constant coefficients: unscreened limit
     v = p.version

@@ -53,15 +53,13 @@ print(json.dumps({"modules": names, "bad": bad}))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "dcrmontecarlo_tpu_torch.ops.walk_kernel" in res["modules"]
+    for mod in ("ops.walk_kernel", "ops.greens", "problems.majorant",
+                "interop"):
+        assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
 
-def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
-    # chip_smoke.py loads the JAX package's finite-volume oracle by file
-    # path, bypassing that package's __init__ (which imports jax); the file
-    # must therefore import neither jax nor a sibling module
-    src = ROOT / "dcrmontecarlo_tpu" / "validation" / "fdm.py"
+def _imported_tops(src):
     tops = set()
     for node in ast.walk(ast.parse(src.read_text())):
         if isinstance(node, ast.Import):
@@ -69,14 +67,70 @@ def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
         elif isinstance(node, ast.ImportFrom):
             assert node.level == 0, f"relative import at line {node.lineno}"
             tops.add(node.module.split(".")[0])
+    return tops
+
+
+def _files_chip_smoke_loads_by_path():
+    """The JAX package's files that chip_smoke.py opens by path:
+    ``os.path.join(ROOT, "dcrmontecarlo_tpu", ...)``."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    found = set()
+    for m in re.finditer(r'os\.path\.join\(ROOT,\s*("dcrmontecarlo_tpu"'
+                         r'(?:,\s*"[^"]+")+)\)', text):
+        parts = re.findall(r'"([^"]+)"', m.group(1))
+        found.add("/".join(parts))
+    return found
+
+
+def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
+    # chip_smoke.py loads the JAX package's finite-volume oracle by file
+    # path, bypassing that package's __init__ (which imports jax); the file
+    # must therefore import neither jax nor a sibling module
+    tops = _imported_tops(ROOT / "dcrmontecarlo_tpu" / "validation" / "fdm.py")
     assert tops <= {"numpy", "scipy", "typing", "math", "__future__"}, tops
     assert "fdm.py" in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_every_file_chip_smoke_loads_by_path_is_jax_free():
+    # each module it executes imports only numpy/scipy; each data file it
+    # reads is a plain .npz that loads without pickle (no code)
+    import numpy as np
+
+    files = _files_chip_smoke_loads_by_path()
+    assert files == {"dcrmontecarlo_tpu/validation/fdm.py",
+                     "dcrmontecarlo_tpu/validation/pins/notebook_oracle.npz"}
+    for rel in files:
+        path = ROOT / rel
+        if path.suffix == ".py":
+            assert _imported_tops(path) <= {"numpy", "scipy", "typing",
+                                            "math", "__future__"}, rel
+        else:
+            with np.load(path, allow_pickle=False) as z:
+                assert {"electrodes", "fdm_401", "dv_401"} <= set(z.files)
 
 
 def test_kernel_source_names_the_tpu_kernel_it_replaces():
     src = (PORT / "csrc" / "walk_kernel.cu").read_text()
     assert "dcrmontecarlo_tpu/ops/pallas_walk.py" in src
     assert "make_pallas_walk" in src
+
+
+def test_kernel_constant_tables_match_python():
+    # every polynomial table of the kernel equals the plain version's,
+    # rounded to float32 (the kernel writes double literals cast to float)
+    import numpy as np
+
+    from dcrmontecarlo_tpu_torch.ops import bessel
+
+    src = (PORT / "csrc" / "walk_kernel.cu").read_text()
+    tables = {m.group(1): m.group(3) for m in re.finditer(
+        r"__constant__ float (\w+)\[(\d+)\] = \{(.*?)\};", src, re.S)}
+    assert len(tables) == 13, sorted(tables)
+    for name, body in tables.items():
+        got = np.array([float(v) for v in re.findall(
+            r"F\(([-+0-9.eE]+)\)", body)], np.float32)
+        want = np.array(getattr(bessel, "_" + name), np.float32)
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_chip_smoke_refuses_without_a_gpu():

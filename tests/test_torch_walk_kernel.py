@@ -5,12 +5,15 @@ adaptive single-launch path makes them (``solver/wost.py:1824-1871``),
 goes through the interpreted Pallas kernel (``make_pallas_walk(...).run``)
 and through the port's plain walk (``interop.state_from_numpy``) for 32
 steps on the geophysical survey with common random numbers, roulette and
-boundary-snap starts. Each plane must agree on >= 99% of the lanes to rel
-1e-4 (integers exactly; ``walk_kernel.compare_planes`` states the floor
-under tiny accumulator values): rare one-ulp differences of the two math
-libraries may flip a trajectory. The CUDA kernel itself is compared with the plain
-walk by ``test_torch_cuda.py``, which runs on the card only.
+boundary-snap starts (the accuracy path's cases are in
+``test_torch_walk_accuracy.py``). Each plane must agree on >= 99% of the
+lanes to rel 1e-4 (integers exactly; ``walk_kernel.compare_planes`` states
+the floor under tiny accumulator values): rare one-ulp differences of the
+two math libraries may flip a trajectory. The CUDA kernel itself is
+compared with the plain walk by ``test_torch_cuda.py``, which runs on the
+card only.
 """
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +27,9 @@ from dcrmontecarlo_tpu.solver import SolverOptions as JOptions
 from dcrmontecarlo_tpu.solver import WoStSolver as JSolver
 from dcrmontecarlo_tpu_torch import interop
 from dcrmontecarlo_tpu_torch.geometry import Polyline, square_loop
-from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
-    notebook_survey
+from dcrmontecarlo_tpu_torch.models import geophysical_scenario
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
-from dcrmontecarlo_tpu_torch.problems import Problem, fields
+from dcrmontecarlo_tpu_torch.problems import LocalMajorant, Problem, fields
 from dcrmontecarlo_tpu_torch.sampling.rng import stream_seed
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
@@ -225,7 +227,7 @@ def test_kernel_params_need_field_specs(survey):
         rejection_rounds=2, roulette_threshold=0.05, snap=True,
         seed=-5).pack()
     assert fp.dtype == np.float32 and ip.dtype == np.int32
-    assert ip[0] == -5 and len(ip) == 10 + 2 * 4
+    assert ip[0] == -5 and len(ip) == 14 + 2 * 4
 
 
 def _with_vertices():
@@ -240,11 +242,25 @@ def _survey_solver(**opts):
     return geophysical_scenario()[0].make_solver(SolverOptions(**opts))
 
 
+def _majorant_over_kernel_table():
+    tprob = geophysical_scenario()[0].build_problem()
+    p = Problem(dirichlet=tprob.dirichlet, neumann=tprob.neumann,
+                alpha=tprob.alpha, source=tprob.source,
+                local_majorant=LocalMajorant(
+                    boxes=tuple((10.0 * i, 10.0 * i + 5.0, -50.0, -40.0)
+                                for i in range(9)), sigma_bar_bg=1e-3))
+    wk.make_walk_params(p, eps=EPS, max_steps=10, t_min=1e-3, rmin=0.45,
+                        project=True, rejection_rounds=2,
+                        roulette_threshold=None, snap=False, seed=1).pack()
+
+
 UNPORTED = {
-    "robin_chain": lambda: notebook_survey()[0].run(
-        notebook_survey()[1], n_walks=8, max_steps=5),
-    "robin_reflectance": lambda: _survey_solver(
-        robin_correction="reflectance").solve([[0.0, -1.0]], 8, 5, EPS),
+    "robin_interior_chord": lambda: _survey_solver(
+        robin_correction="chain", robin_interior="chord").solve(
+            [[0.0, -1.0]], 8, 5, EPS),
+    "robin_arrival_only": lambda: _survey_solver(
+        robin_correction="arrival-only").solve([[0.0, -1.0]], 8, 5, EPS),
+    "majorant_over_kernel_table": _majorant_over_kernel_table,
     "transport_sampler": lambda: _survey_solver(
         screened_sampler="transport").solve([[0.0, -1.0]], 8, 5, EPS),
     "split_threshold": lambda: _survey_solver(
@@ -263,9 +279,6 @@ UNPORTED = {
         [[0.0, -1.0]], 8, 5, EPS, return_history=True),
     "source_mis": lambda: geophysical_scenario()[0].__class__(
         **{**geophysical_scenario()[0].__dict__, "source_mis": True}
-    ).build_problem(),
-    "local_majorant": lambda: geophysical_scenario()[0].__class__(
-        **{**geophysical_scenario()[0].__dict__, "local_majorant": "auto"}
     ).build_problem(),
     "silhouette_vertices": lambda: WoStSolver(_with_vertices()).solve(
         [[0.0, -1.0]], 8, 5, EPS),
