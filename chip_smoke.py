@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its two paths, each on the
-kernel variant it runs: the DCR-survey forward solve (phases 3-7) and the
+Drives ``dcrmontecarlo_tpu_torch`` through its three paths, each on the
+kernel variant it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
-two-level local majorant (phases 8-11). Each phase reports on its own line:
+two-level local majorant (phases 8-11), and the flagship notebook gate's
+path, which adds MIS next-event estimation and the high-weight split
+(the host launch loop with the in-launch freeze; phases 12-15). Each
+phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``;
@@ -15,10 +18,13 @@ two-level local majorant (phases 8-11). Each phase reports on its own line:
 4. kernel vs plain version, a whole solve of 9 points x 512 walks: both
    draw the same counter-hash streams, so total steps must be equal and
    each mean within 1e-3 x (|mean| + combined stderr);
-5. physics: the survey against the finite-volume oracle (>= 8/9
-   electrodes within 4 sigma + 2e-4);
+5. physics: the survey against the finite-volume oracle (the port's own
+   copy, ``dcrmontecarlo_tpu_torch.validation``; >= 8/9 electrodes within
+   4 sigma + 2e-4);
 6. full size: the benchmark configuration (9 points x 2^19 walks,
-   147,456 walker lanes) through ``WoStSolver.solve``, walker-steps/s;
+   147,456 walker lanes): one warm-up solve through ``WoStSolver.solve``
+   (its launches counted), then 3 timed solves (walker-steps/s, s/solve,
+   lane occupancy, the kernel's share of the wall time);
 7. kernel vs plain version for 256 steps at the full-size state of
    phase 6 (rounds 1, no CRN or roulette): both timed, then held to the
    rule of phase 3. The survey variant's record takes its numbers from
@@ -39,17 +45,54 @@ two-level local majorant (phases 8-11). Each phase reports on its own line:
     dipole voltages within 4 sigma + 0.25, a median signed potential error
     in (-25, +3) and >= 19/21 potentials within 4 sigma + 3.5;
 11. full size of the accuracy path: 21 points x 2^20 walks,
-    ``target_slots=1<<21, min_quota=32`` (688,128 lanes), one warm-up and
-    3 timed solves (walker-steps/s, s/solve, lane occupancy), then 256
+    ``target_slots=1<<21, min_quota=32`` (688,128 lanes), a warm-up and
+    3 timed solves as in phase 6, then 256
     steps of kernel and plain version at that state, timed and held to
     the rule of phase 3 (on the first 147,456 lanes if the plain version
     would take over 30 s). The accuracy variant's record takes its
     numbers from here.
+12. kernel vs plain version, one 32-step launch at 8,192 lanes of the
+    flagship configuration (``source_mis=True``, ``local_majorant="auto"``,
+    ``split_threshold=4.0``: chain + majorant + MIS + freeze) after 200
+    plain steps, with the freeze at 4.0, under the rule of phase 3; and
+    each mechanism ran: without the mixture >= 1% of lanes bank otherwise,
+    >= 1 lane ends the launch frozen, the same launch at ``thr = +inf``
+    differs. Then the same for the survey with ``source_mis`` (MIS on the
+    survey path), whose record takes its times from 256 steps at phase
+    7's full-size state with the mixture, and its launches from a survey
+    solve with ``source_mis``.
+13. kernel vs plain version, a whole host-loop solve of the flagship
+    configuration, 21 points x 512 walks, ``target_slots=1<<17``, with
+    ``max_steps=300``: equal total steps and clone counts, each mean
+    within 1e-3 x (|mean| + combined stderr); launches and clones
+    printed. (The host loop runs ~quota x max_steps steps while the
+    splits go on, and the plain version's step is a few hundred small
+    kernels: at ``max_steps=6000`` it had not finished after 950 s.)
+14. physics: the flagship notebook gate (``tests/test_dcr_survey.py``
+    ``test_notebook_survey_matches_fdm_oracle``) on the card:
+    ``survey_default_options(target_slots=65536, split_threshold=4.0)``,
+    2500 walks, max_steps 6000, eps 1.0, seeds 0, 1, 2, each against the
+    pinned 401^2 oracle: >= 19/21 potentials within 4 sigma + 3.5, median
+    signed potential error in (-25, +3), all 20 dipole voltages within
+    4 sigma + 0.25.
+15. full size of the flagship path: 21 points x 2^20 walks,
+    ``survey_default_options(target_slots=1<<21, min_quota=32,
+    split_threshold=4.0)`` (688,128 lanes), one warm-up solve through
+    ``WoStSolver.solve`` and 3 timed solves (walker-steps/s, s/solve,
+    launches and clones per solve, lane occupancy, and the kernel's share
+    of the wall time: summed CUDA-event kernel time over the solve's), then
+    256 steps of kernel and plain version at that state with the freeze at
+    4.0, timed and held to the rule of phase 3 (on the first 147,456 lanes
+    if the plain version would take over 30 s). The flagship variant's
+    record takes its numbers from here.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
-kernels' JSON record (one entry per kernel variant), and the last line
-``{"ok": true, "device": ...}``.
+kernels' JSON record (one entry per kernel variant on a path: name,
+route, source, the TPU code it replaces, launches on its path's main run,
+max |err| against the plain version, kernel and plain times, the bound
+and what sets it, ``library_ms`` null: no single PyTorch call computes
+the walk), and the last line ``{"ok": true, "device": ...}``.
 Any failure exits non-zero before that line. Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no
 result.
@@ -58,7 +101,6 @@ result.
 """
 
 import dataclasses
-import importlib.util
 import json
 import os
 import re
@@ -74,6 +116,11 @@ sys.path.insert(0, ROOT)
 
 NVSMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]
+# the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+SOURCE = "dcrmontecarlo_tpu_torch/csrc/walk_kernel.cu"
+REPLACES = "dcrmontecarlo_tpu/ops/pallas_walk.py:1295"
 
 
 def log(msg):
@@ -114,8 +161,9 @@ def clone_state(state):
 
 
 def ptxas_registers(build_log):
-    """Registers per compiled kernel instantiation, from ``ptxas -v``:
-    ``{"<robin>,<majorant>": n}`` (template arguments of walk_kernel)."""
+    """Registers per compiled kernel instantiation, from ``ptxas -v``,
+    keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
+    mis,freeze>``."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -123,17 +171,164 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)ELb(\d)E", entry)
-            regs[f"{t.group(1)},{t.group(2)}" if t else entry] = \
-                int(m.group(1))
+            t = re.search(r"walk_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                          entry)
+            if t:
+                r, *b = t.groups()
+                flags = ",".join("true" if v == "1" else "false" for v in b)
+                entry = f"walk_kernel<{r},{flags}>"
+            regs[entry] = int(m.group(1))
             entry = None
     return regs
 
 
-def lanes_differ(a, b):
-    """Share of lanes whose ``atten`` or ``px`` differ between two states."""
-    d = (a["atten"] != b["atten"]) | (a["px"] != b["px"])
+def fp32_ops_per_step(params):
+    """A lower bound on the FP32 operations of one walker-step of the
+    instantiation ``params`` selects, counted by hand from
+    ``csrc/walk_kernel.cu``: every add, multiply, compare or select,
+    divide, square root and transcendental (exp, log, sin, cos) is one
+    operation (the precise divide and transcendentals take several); only
+    the work every stepping lane does counts: the rejection's first round,
+    the cheaper of the two moves, and not the Robin chord mass, the
+    arrival weight, the chain branch, later rejection rounds or the
+    roulette's kill, whose share depends on the walk."""
+    n_dir, n_neu = len(params.dir_table), len(params.neu_table)
+    kind, tab = params.specs[1].table()
+    alpha = 3 + 16 * ((len(tab) - 1) // 6)     # alpha_c: a bump is 16
+    dipole = 20                                 # a source evaluation
+    ops = 18 * n_dir + 2                        # closest point
+    ops += 9 + 6 + 22 * n_neu                   # radius, direction, hit
+    ops += 165                                  # screened radius, round 0
+    ops += 6 + alpha                            # sample point, alpha there
+    ops += 34 + alpha + 3 + 12                  # interior test, edge move,
+                                                # roulette and counters
+    if params.majorant is not None:
+        boxes, bands = params.majorant.table()
+        ops += 6 + 13 * len(boxes) + 3 * len(bands)
+    if params.mis_table is not None:
+        k = len(params.mis_table)
+        ops += (36 + 102 + 31 + 2 + 22 * n_neu + 11 * k + 13 + alpha
+                + dipole * params.n_src)        # MIS NEE
+    else:
+        ops += 35 + dipole * params.n_src       # NEE
+    if params.freeze:
+        ops += 2
+    return ops
+
+
+def bound(params, lanes, walker_steps, launches):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``walker_steps`` steps of ``params``' instantiation over ``lanes``
+    lanes in ``launches`` launches, the larger of the operations over the
+    FP32 peak and the planes' bytes (inputs read once, outputs written
+    once, per launch) over the memory rate."""
+    state = 5 + 3 * params.n_src + 9            # read and written
+    const = 3 + (3 if params.snap else 0)       # read
+    nbytes = 4.0 * lanes * (2 * state + const) * launches
+    t_ops = fp32_ops_per_step(params) * walker_steps / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_record(params, variant, launches, timed, regs, tolerance):
+    """The kernels line's entry for ``params``' instantiation: its
+    launches on its path's main run and ``timed``, a ``steps_256``
+    result."""
+    bound_ms, bound_by = bound(params, timed["lanes"], timed["steps"], 1)
+    return {"name": params.kernel_name, "variant": variant, "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "max_abs_err": timed["max_err"], "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "lanes": timed["lanes"], "walker_steps": timed["steps"],
+            "agree_frac": timed["worst"],
+            "registers": regs.get(params.kernel_name),
+            "tolerance": tolerance}
+
+
+def life_steps(before, after):
+    """Walker-steps taken between two states (sum of ``life``)."""
+    return int((after["life"].long() - before["life"].long()).sum())
+
+
+def lanes_differ(a, b, names=("atten", "px")):
+    """Share of lanes on which any plane of ``names`` differs."""
+    d = torch.zeros_like(a["px"], dtype=torch.bool)
+    for k in names:
+        d |= a[k] != b[k]
     return float(d.double().mean())
+
+
+def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
+    """A path at full size: one warm-up solve through ``WoStSolver.solve``
+    with the launch counts set to 0 just before it and read just after,
+    then 3 timed solves whose walk launches are bracketed by CUDA events.
+    Returns a dict of the counts, each solve's launches and clones, the
+    walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
+    lanes x longest lane), the kernel's share of each solve's wall time
+    and the longest lane."""
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
+                 seed=0)                                       # warm-up
+    counts = dict(wk.run_walk.variant_launches)
+    check(sum(counts.values()) == wk.run_walk.launches > 0,
+          f"{what}: the full-size solve launched {counts}")
+    stats, events = [solver.last_solve_stats], []
+
+    def timed_walk(state, params, n, thr=None):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wk.run_walk(state, params, n, thr)
+        stop.record()
+        events.append((start, stop))
+
+    steps, times, lane_steps, share = 0.0, [], 0.0, []
+    for rep in range(3):
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver._solve_raw(pts, n_walks, max_steps, eps, rep + 1,
+                                walk=timed_walk)
+        times.append(time.perf_counter() - t0)
+        share.append(sum(a.elapsed_time(b) for a, b in events) / 1e3
+                     / times[-1])
+        stats.append(solver.last_solve_stats)
+        steps += res.total_steps
+        lane_steps += float(lanes) * res.iterations
+        check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
+              f"{what}: full-size solve not finite")
+    return dict(counts=counts, stats=stats, rate=steps / sum(times),
+                times=times, steps=steps / 3, occupancy=steps / lane_steps,
+                share=share, longest=res.iterations)
+
+
+def steps_256(wk, state, params, what, thr=None, subset=False):
+    """256 steps of the kernel and of the plain version from one state,
+    each warmed on a copy for 16 steps, timed, and held to phase 3's
+    rule. With ``subset``, the first 147,456 lanes when the plain version
+    would take over 30 s. Returns a dict of the lanes, ms, plain_ms, the
+    worst plane's agreeing share, the max |err| on agreeing lanes, the
+    walker-steps the kernel took and the plain 16-step time when cut."""
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    wk.run_walk(clone_state(state), params, 16, freeze_thr=thr)
+    t16 = cuda_ms(lambda: wk.walk_plain(clone_state(state), params, 16,
+                                        freeze_thr=thr))
+    cut = subset and t16 * 16 > 30e3
+    if cut:
+        state = {k: v[:1152].clone() for k, v in state.items()}
+    ks, ps = clone_state(state), clone_state(state)
+    ms = cuda_ms(lambda: wk.run_walk(ks, params, 256, freeze_thr=thr))
+    plain_ms = cuda_ms(lambda: wk.walk_plain(ps, params, 256,
+                                             freeze_thr=thr))
+    worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
+                                  what)
+    return dict(lanes=state["px"].numel(), ms=ms, plain_ms=plain_ms,
+                worst=worst, max_err=max_err, steps=life_steps(state, ks),
+                t16=t16 if cut else None)
 
 
 def cuda_ms(fn, reps=1):
@@ -160,6 +355,7 @@ def main():
     from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
     from dcrmontecarlo_tpu_torch.survey import survey_default_options
+    from dcrmontecarlo_tpu_torch.validation import fdm_solve
 
     check("jax" not in sys.modules, "jax was imported")
     dev = torch.device("cuda", 0)
@@ -182,11 +378,12 @@ def main():
     # ---- 2. build -------------------------------------------------------
     so, build_s, build_log = wk.build_library()
     regs = ptxas_registers(build_log)
-    check(len(regs) == 6 or not build_log,
-          f"expected 6 kernel instantiations, ptxas reported {regs}")
+    check(set(regs) == {wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
+          or not build_log,
+          f"expected {len(wk.KERNEL_VARIANTS)} kernel instantiations, "
+          f"ptxas reported {regs}")
     log(f"[2] built {os.path.relpath(so, ROOT)} in {build_s:.1f} s; "
-        f"ptxas registers per walk_kernel<robin,majorant>: "
-        f"{regs or 'cached build'}")
+        f"ptxas registers per instantiation: {regs or 'cached build'}")
 
     # ---- 3. kernel vs plain, one launch, survey defaults --------------
     solver = WoStSolver(survey.build_problem(),
@@ -229,14 +426,6 @@ def main():
         f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}")
 
     # ---- 5. physics: finite-volume oracle ------------------------------
-    # The oracle is loaded by path, not through its package (whose
-    # __init__ imports jax): validation/fdm.py must import only numpy and
-    # scipy, which tests/test_torch_hygiene.py checks.
-    spec = importlib.util.spec_from_file_location(
-        "fdm", os.path.join(ROOT, "dcrmontecarlo_tpu", "validation",
-                            "fdm.py"))
-    fdm_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fdm_mod)
     res = survey.run(electrodes, n_walks=1500, max_steps=800, eps=0.5,
                      seed=0, options=SolverOptions(target_slots=16384),
                      device=dev)
@@ -247,7 +436,7 @@ def main():
                               torch.as_tensor(Y, dtype=torch.float32)
                               ).numpy()
 
-    fdm = fdm_mod.fdm_solve(bounds=((-100.0, 100.0), (-200.0, 0.0)),
+    fdm = fdm_solve(bounds=((-100.0, 100.0), (-200.0, 0.0)),
                             alpha=np_field(prob.alpha),
                             source=np_field(prob.source),
                             neumann_top=True, nx=321, ny=321)
@@ -265,54 +454,36 @@ def main():
     solver = WoStSolver(survey.build_problem(), full, device=dev)
     pts = survey_points(electrodes, -0.5)
     n_walks, max_steps, eps = 1 << 19, 500, 0.9
-    wk.run_walk.launches = 0
-    solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
-                 seed=0)                                       # warm-up
-    steps, times, lane_steps = 0.0, [], 0.0
-    for rep in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = solver.solve(pts, n_walks=n_walks, max_steps=max_steps,
-                           eps=eps, seed=rep + 1)
-        times.append(time.perf_counter() - t0)
-        steps += res.total_steps
-        lane_steps += 147456.0 * res.iterations
-        check(np.isfinite(res.mean).all()
-              and np.isfinite(res.stderr).all(), "full solve not finite")
-    launches = wk.run_walk.launches
-    check(launches > 0, "the full-size solve never launched the kernel")
-    rate = steps / sum(times)
+    f6 = full_size_solves(wk, solver, pts, n_walks, max_steps, eps, 147456,
+                          "phase 6")
     log(f"[6] full size 9x{n_walks} walks, 147456 lanes: "
-        f"dcr_survey_walker_steps_per_sec_per_chip {rate:.6g} "
-        f"s/solve {times} steps/solve {steps / 3:.6g} "
-        f"longest lane {res.iterations} steps, lane occupancy "
-        f"{steps / lane_steps:.4f}, launches {launches} ({card})")
+        f"dcr_survey_walker_steps_per_sec_per_chip {f6['rate']:.6g} "
+        f"s/solve {f6['times']} steps/solve {f6['steps']:.6g} longest lane "
+        f"{f6['longest']} steps, lane occupancy {f6['occupancy']:.4f}, "
+        f"kernel share {[round(v, 4) for v in f6['share']]}, launches of "
+        f"the warm-up solve {f6['counts']} ({card})")
 
     # ---- 7. kernel vs plain at the full-size state ---------------------
-    state, params, _, bound = solver._setup(pts, n_walks, max_steps, eps, 5)
+    state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
+                                                 eps, 5)
     check(state["px"].numel() == 147456, "full state is not 147456 lanes")
-    ks, ps = clone_state(state), clone_state(state)
-    # warm both paths once, then time the same 256 steps from one state
-    wk.run_walk(clone_state(state), params, 16)
-    wk.walk_plain(clone_state(state), params, 16)
-    ms = cuda_ms(lambda: wk.run_walk(ks, params, 256))
-    plain_ms = cuda_ms(lambda: wk.walk_plain(ps, params, 256))
-    worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
-                                  "phase 7")
+    check(set(f6["counts"]) == {params.kernel_name},
+          f"the survey path launched {f6['counts']}, expected "
+          f"{params.kernel_name} only")
+    t7 = steps_256(wk, state, params, "phase 7")
     # the whole solve's single launch, for the kernel's share of a solve
-    solve_ms = cuda_ms(lambda: wk.run_walk(state, params, bound))
-    log(f"[7] 256 steps x 147456 lanes: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x); worst plane agreement "
-        f"{worst:.5f}, max |err| on agreeing lanes {max_err:.3g}; one "
-        f"whole-solve launch {solve_ms:.3f} ms ({card})")
+    solve_ms = cuda_ms(lambda: wk.run_walk(state, params, step_bound))
+    log(f"[7] 256 steps x 147456 lanes: kernel {t7['ms']:.3f} ms, plain "
+        f"{t7['plain_ms']:.3f} ms ({t7['plain_ms'] / t7['ms']:.1f}x); worst "
+        f"plane agreement {t7['worst']:.5f}, max |err| on agreeing lanes "
+        f"{t7['max_err']:.3g}; one whole-solve launch {solve_ms:.3f} ms "
+        f"({card})")
     tolerance = (f">={wk.PLANE_MIN_FRAC:.0%} of lanes per plane within "
                  f"rel {wk.PLANE_RTOL:g} + {wk.PLANE_FLOOR:g} x plane max")
-    records = [{"name": "walk_kernel", "variant": "survey", "route": "cuda",
-                "source": "dcrmontecarlo_tpu_torch/csrc/walk_kernel.cu",
-                "replaces": "dcrmontecarlo_tpu/ops/pallas_walk.py:1295",
-                "launches": launches, "max_abs_err": max_err, "ms": ms,
-                "plain_ms": plain_ms, "agree_frac": worst,
-                "registers": regs.get("0,0"), "tolerance": tolerance}]
+    records = [kernel_record(params, "survey",
+                             f6["counts"][params.kernel_name], t7, regs,
+                             tolerance)]
+    survey_full = (solver, pts, params)   # phase 12 reuses the full state
 
     # ---- the accuracy path: the notebook survey ------------------------
     nb_survey, nb_electrodes = notebook_survey()
@@ -424,57 +595,214 @@ def main():
     full = survey_default_options(target_slots=1 << 21, min_quota=32)
     solver = nb_survey.make_solver(full, device=dev)
     n_walks, max_steps, eps = 1 << 20, 6000, 1.0
-    wk.run_walk.launches = 0
-    solver.solve(nb_pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
-                 seed=0)                                       # warm-up
-    steps, times, lane_steps = 0.0, [], 0.0
-    for rep in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = solver.solve(nb_pts, n_walks=n_walks, max_steps=max_steps,
-                           eps=eps, seed=rep + 1)
-        times.append(time.perf_counter() - t0)
-        steps += res.total_steps
-        lane_steps += 688128.0 * res.iterations
-        check(np.isfinite(res.mean).all()
-              and np.isfinite(res.stderr).all(), "phase 11 solve not finite")
-    launches11 = wk.run_walk.launches
-    check(launches11 > 0, "the full-size accuracy solve never launched the "
-                          "kernel")
-    rate = steps / sum(times)
+    f11 = full_size_solves(wk, solver, nb_pts, n_walks, max_steps, eps,
+                           688128, "phase 11")
     log(f"[11] full size 21x{n_walks} walks, 688128 lanes, chain + "
-        f"majorant: walker_steps_per_sec {rate:.6g} s/solve {times} "
-        f"steps/solve {steps / 3:.6g} longest lane {res.iterations} steps, "
-        f"lane occupancy {steps / lane_steps:.4f}, launches {launches11} "
-        f"({card})")
+        f"majorant: walker_steps_per_sec {f11['rate']:.6g} s/solve "
+        f"{f11['times']} steps/solve {f11['steps']:.6g} longest lane "
+        f"{f11['longest']} steps, lane occupancy {f11['occupancy']:.4f}, "
+        f"kernel share {[round(v, 4) for v in f11['share']]}, launches of "
+        f"the warm-up solve {f11['counts']} ({card})")
     state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 688128, "phase 11 state is not 688128 lanes")
     check(params.robin == wk.ROBIN_CHAIN and params.majorant is not None,
           "phase 11 does not run the chain + majorant variant")
-    wk.run_walk(clone_state(state), params, 16)          # warm both
-    t16 = cuda_ms(lambda: wk.walk_plain(clone_state(state), params, 16))
-    subset = t16 * 16 > 30e3
-    if subset:   # the plain version would take over 30 s: 147,456 lanes
-        state = {k: v[:1152].clone() for k, v in state.items()}
-    ks, ps = clone_state(state), clone_state(state)
-    ms11 = cuda_ms(lambda: wk.run_walk(ks, params, 256))
-    plain_ms11 = cuda_ms(lambda: wk.walk_plain(ps, params, 256))
-    worst11, err11 = check_planes(wk, ks, ps, state_planes(params.n_src),
-                                  "phase 11")
-    log(f"[11] 256 steps x {state['px'].numel()} lanes"
-        f"{' (first 147456: plain 16 steps took %.0f ms)' % t16 if subset else ''}"
-        f": kernel {ms11:.3f} ms, plain {plain_ms11:.3f} ms "
-        f"({plain_ms11 / ms11:.1f}x); worst plane agreement {worst11:.5f}, "
-        f"max |err| on agreeing lanes {err11:.3g} ({card})")
-    records.append({
-        "name": "walk_kernel", "variant": "robin_chain+local_majorant",
-        "route": "cuda",
-        "source": "dcrmontecarlo_tpu_torch/csrc/walk_kernel.cu",
-        "replaces": "dcrmontecarlo_tpu/ops/pallas_walk.py:1295",
-        "launches": launches11, "max_abs_err": err11, "ms": ms11,
-        "plain_ms": plain_ms11, "agree_frac": worst11,
-        "lanes": state["px"].numel(), "registers": regs.get("1,1"),
-        "tolerance": tolerance})
+    check(set(f11["counts"]) == {params.kernel_name},
+          f"the accuracy path launched {f11['counts']}")
+    t11 = steps_256(wk, state, params, "phase 11", subset=True)
+    log(f"[11] 256 steps x {t11['lanes']} lanes"
+        f"{' (plain 16 steps took %.0f ms)' % t11['t16'] if t11['t16'] else ''}"
+        f": kernel {t11['ms']:.3f} ms, plain {t11['plain_ms']:.3f} ms "
+        f"({t11['plain_ms'] / t11['ms']:.1f}x); worst plane agreement "
+        f"{t11['worst']:.5f}, max |err| on agreeing lanes "
+        f"{t11['max_err']:.3g} ({card})")
+    records.append(kernel_record(
+        params, "robin_chain+local_majorant",
+        f11["counts"][params.kernel_name], t11, regs, tolerance))
+
+    # ---- the flagship notebook gate's path -------------------------------
+    flag_survey, _ = notebook_survey()
+    flag_survey.local_majorant = "auto"
+    flag_survey.source_mis = True
+    flag_prob = flag_survey.build_problem()
+    check(flag_prob.source_importance is not None
+          and flag_prob.local_majorant is not None,
+          "the flagship problem has no mixture or no majorant")
+
+    # ---- 12. kernel vs plain, one launch with MIS (and the freeze) ------
+    mis_survey, _ = geophysical_scenario(sharpness=0.5)
+    mis_survey.source_mis = True
+    cases12 = (("flagship", flag_prob, nb_pts, dict(split_threshold=4.0),
+                6000, 1.0),
+               ("survey+mis", mis_survey.build_problem(),
+                survey_points(electrodes, -0.1), {}, 500, 0.9))
+    for what, prob12, pts12, extra, ms12, eps12 in cases12:
+        solver = WoStSolver(prob12, survey_default_options(
+            target_slots=8192, **extra), device=dev)
+        state, params, _, _ = solver._setup(pts12, 8192, ms12, eps12, 3)
+        check(state["px"].numel() == 8192, "phase 12 state is not 8192 lanes")
+        check(params.mis_table is not None
+              and params.freeze == ("split_threshold" in extra),
+              f"phase 12 ({what}) runs {params.kernel_name}")
+        thr = 4.0 if params.freeze else None
+        wk.walk_plain(state, params, 200)      # mid-walk states, no freeze
+        start = clone_state(state)
+        ref = clone_state(state)
+        before = wk.run_walk.launches
+        wk.run_walk(state, params, 32, freeze_thr=thr)
+        torch.cuda.synchronize()
+        check(wk.run_walk.launches == before + 1, "launch count did not grow")
+        wk.walk_plain(ref, params, 32, freeze_thr=thr)
+        worst12, err12 = check_planes(wk, state, ref,
+                                      state_planes(params.n_src),
+                                      f"phase 12 ({what})")
+        no_mix = clone_state(start)
+        wk.walk_plain(no_mix, dataclasses.replace(params, mis_table=None),
+                      32, freeze_thr=thr)
+        shares = {"mis": lanes_differ(state, no_mix, ("acc0", "asum0"))}
+        check(shares["mis"] >= 0.01,
+              f"phase 12 ({what}): without the mixture only "
+              f"{shares['mis']:.4f} of lanes bank otherwise")
+        if params.freeze:
+            frozen = int(((state["quota"] > 0)
+                          & (state["atten"].abs() > thr)).sum())
+            check(frozen >= 1, f"phase 12 ({what}): no lane ended frozen")
+            open_ = clone_state(start)
+            wk.run_walk(open_, params, 32, freeze_thr=float("inf"))
+            shares["freeze"] = lanes_differ(state, open_)
+            shares["frozen_lanes"] = frozen
+            check(shares["freeze"] > 0.0,
+                  f"phase 12 ({what}): thr = +inf changed nothing")
+        log(f"[12] one 32-step launch, 8192 lanes, {what} "
+            f"({params.kernel_name}): worst plane agreement {worst12:.5f}, "
+            f"max |err| on agreeing lanes {err12:.3g}; mechanisms: {shares}")
+
+    # MIS on the survey path: launches from a solve through the entry
+    # point, times at phase 7's full-size state with the mixture
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    res = mis_survey.run(electrodes, n_walks=2048, max_steps=500, eps=0.9,
+                         seed=0, device=dev)
+    check(np.isfinite(res.potentials).all(), "survey+mis solve not finite")
+    counts12 = dict(wk.run_walk.variant_launches)
+    solver7, pts7, params7 = survey_full
+    solver = WoStSolver(mis_survey.build_problem(), solver7.options,
+                        device=dev)
+    state, params, _, _ = solver._setup(pts7, 1 << 19, 500, 0.9, 5)
+    check(params.variant == dataclasses.replace(
+        params7, mis_table=params.mis_table).variant,
+          "the survey+mis state is not phase 7's configuration with MIS")
+    mis_name = params.kernel_name
+    check(set(counts12) == {mis_name},
+          f"the survey with source_mis launched {counts12}")
+    t12 = steps_256(wk, state, params, "phase 12 (survey+mis, full size)")
+    log(f"[12] survey+mis 256 steps x 147456 lanes: kernel {t12['ms']:.3f} "
+        f"ms, plain {t12['plain_ms']:.3f} ms "
+        f"({t12['plain_ms'] / t12['ms']:.1f}x); worst plane agreement "
+        f"{t12['worst']:.5f}, max |err| {t12['max_err']:.3g}; the survey "
+        f"solve with source_mis launched {counts12} ({card})")
+    records.append(kernel_record(params, "survey+mis", counts12[mis_name],
+                                 t12, regs, tolerance))
+
+    # ---- 13. kernel vs plain, whole host-loop solve, flagship ----------
+    solver = WoStSolver(flag_prob, survey_default_options(
+        target_slots=1 << 17, split_threshold=4.0), device=dev)
+    t0 = time.perf_counter()
+    rk = solver._solve_raw(nb_pts, 512, 300, 1.0, 11)
+    stats_k = solver.last_solve_stats
+    t_k = time.perf_counter() - t0
+    rp = solver._solve_raw(nb_pts, 512, 300, 1.0, 11, walk=wk.walk_plain)
+    stats_p = solver.last_solve_stats
+    t_p = time.perf_counter() - t0 - t_k
+    check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all(),
+          "phase 13 kernel solve not finite")
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check((dm <= 1e-3 * scale).all(),
+          f"phase 13 solve means differ: {dm} > 1e-3 x {scale}")
+    check(rk.total_steps == rp.total_steps,
+          f"phase 13 total steps differ: {rk.total_steps} vs "
+          f"{rp.total_steps}")
+    check(stats_k["clones"] == stats_p["clones"] > 0,
+          f"phase 13 clones differ or none: {stats_k} vs {stats_p}")
+    log(f"[13] host-loop solve 21x512, max_steps 300 (flagship): max "
+        f"|dmean|/(|mean|+se) "
+        f"{float((dm / scale).max()):.3g} (bound 1e-3), steps kernel "
+        f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, kernel "
+        f"{stats_k}, plain {stats_p}; {t_k:.2f} s kernel, {t_p:.2f} s plain")
+
+    # ---- 14. physics: the flagship gate against the pinned oracle -------
+    solver = flag_survey.make_solver(survey_default_options(
+        target_slots=65536, split_threshold=4.0), device=dev)
+    check(solver._robin_enabled() == "chain", "flagship Robin is not chain")
+    x = nb_electrodes[:, 0]
+    for seed in (0, 1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = flag_survey.run(nb_electrodes, n_walks=2500, max_steps=6000,
+                              eps=1.0, seed=seed, solver=solver)
+        t14 = time.perf_counter() - t0
+        check(np.isfinite(res.potentials).all(), f"seed {seed} not finite")
+        # the gate's three bounds (test_dcr_survey.py:233-243); the
+        # potentials at the current electrodes are printed, not held to
+        # a sign: the host loop's heavy tail can flip one (PERF.md)
+        at_src = (float(res.potentials[np.abs(x + 200) <= 40].mean()),
+                  float(res.potentials[np.abs(x - 200) <= 40].mean()))
+        err = res.potentials - pins["fdm_401"]
+        n_pot = int((np.abs(err) < 4.0 * res.potentials_stderr + 3.5).sum())
+        cm = float(np.median(err))
+        dv_dev = np.abs(res.voltages - pins["dv_401"]) / (
+            4.0 * res.voltages_stderr + 0.25)
+        check(n_pot >= 19,
+              f"seed {seed}: only {n_pot}/21 potentials within 4 sigma + 3.5")
+        check(-25.0 < cm < 3.0,
+              f"seed {seed}: median signed potential error {cm:.3f}")
+        check((dv_dev < 1.0).all(),
+              f"seed {seed}: dipole voltages off the oracle, worst "
+              f"|err|/(4 sigma + 0.25) {float(dv_dev.max()):.3f}")
+        log(f"[14] flagship gate seed {seed}: potentials within 4 sigma + "
+            f"3.5: {n_pot}/21, median signed error {cm:.3f}, dV worst "
+            f"|err|/(4 sigma + 0.25) {float(dv_dev.max()):.3f}, med|dV err| "
+            f"{float(np.median(np.abs(res.voltages - pins['dv_401']))):.4g}, "
+            f"potentials at the electrodes x = -200, +200: "
+            f"{at_src[0]:.4g}, {at_src[1]:.4g}, max banked "
+            f"{res.solve.max_banked:.3g}, steps {res.solve.total_steps:.0f}, "
+            f"{solver.last_solve_stats}, {t14:.3f} s ({card})")
+
+    # ---- 15. full size: the flagship path -------------------------------
+    full = survey_default_options(target_slots=1 << 21, min_quota=32,
+                                  split_threshold=4.0)
+    solver = flag_survey.make_solver(full, device=dev)
+    n_walks, max_steps, eps = 1 << 20, 6000, 1.0
+    f15 = full_size_solves(wk, solver, nb_pts, n_walks, max_steps, eps,
+                           688128, "phase 15")
+    log(f"[15] full size 21x{n_walks} walks, 688128 lanes, flagship: "
+        f"walker_steps_per_sec {f15['rate']:.6g} s/solve {f15['times']} "
+        f"steps/solve {f15['steps']:.6g} longest lane {f15['longest']} "
+        f"steps, lane occupancy {f15['occupancy']:.4f}, launches and clones "
+        f"per solve {f15['stats']}, kernel share of wall time "
+        f"{[round(v, 4) for v in f15['share']]} ({card})")
+    state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
+    check(state["px"].numel() == 688128, "phase 15 state is not 688128 lanes")
+    check(params.variant == (wk.ROBIN_CHAIN, True, True, True),
+          f"phase 15 runs {params.kernel_name}")
+    check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
+          and f15["stats"][0]["launches"] > 1,
+          f"the flagship solve launched {f15['counts']}, {f15['stats'][0]}")
+    t15 = steps_256(wk, state, params, "phase 15", thr=4.0, subset=True)
+    log(f"[15] 256 steps x {t15['lanes']} lanes, freeze 4.0"
+        f"{' (plain 16 steps took %.0f ms)' % t15['t16'] if t15['t16'] else ''}"
+        f": kernel {t15['ms']:.3f} ms, plain {t15['plain_ms']:.3f} ms "
+        f"({t15['plain_ms'] / t15['ms']:.1f}x); worst plane agreement "
+        f"{t15['worst']:.5f}, max |err| on agreeing lanes "
+        f"{t15['max_err']:.3g}, {t15['steps']} walker-steps ({card})")
+    records.append(kernel_record(
+        params, "robin_chain+local_majorant+mis+freeze",
+        f15["counts"][params.kernel_name], t15, regs, tolerance))
+    for r in records:
+        log(f"[bound] {r['name']} ({r['variant']}): {r['ms']:.3f} ms against "
+            f"a bound of {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['registers']} registers")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     check("jax" not in sys.modules, "jax was imported")

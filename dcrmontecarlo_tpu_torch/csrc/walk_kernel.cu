@@ -4,18 +4,32 @@
 // make_pallas_walk (its `kernel` step body and the `pl.pallas_call` in
 // `launch`), in the variants the DCR surveys run: delta tracking, a
 // Neumann wall without silhouette vertices, source next-event estimation
-// without MIS, the exact screened-radius rejection with its
-// importance-weighted final round, low-weight roulette, common random
-// numbers and boundary-snap starts; and the notebook survey's accuracy
-// path on top: the Robin correction (the chord chain, pallas_walk.py:
-// 820-850, 1016-1099, with the chord frame _chord_frame_unrolled, or the
-// reflectance fold) and the two-level local majorant (:807-818).
+// (NEE), the exact screened-radius rejection with its importance-weighted
+// final round, low-weight roulette, common random numbers and
+// boundary-snap starts; the notebook survey's accuracy path on top: the
+// Robin correction (the chord chain, pallas_walk.py:820-850, 1016-1099,
+// with the chord frame _chord_frame_unrolled, or the reflectance fold) and
+// the two-level local majorant (:807-818); and the flagship notebook
+// gate's path: MIS next-event estimation (:564-576, :932-997), the
+// in-launch freeze for the high-weight split (freeze_split, :502-516,
+// :793-799, :1183-1203, :1285-1291) and the max_attenuation clip
+// (:1100-1103).
 //
-// Variants are compile-time: walk_kernel<ROBIN, MAJ> is instantiated
-// once per Robin mode (off, chain, reflectance) and majorant switch, and
-// the host picks one per launch. walk_kernel<ROBIN_OFF, false> is the
-// survey's main path and carries none of the accuracy path's code or
-// registers.
+// Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE>, and
+// the host picks one per launch. Only the combinations a path launches
+// are instantiated (walk_pick below; ops/walk_kernel.py::KERNEL_VARIANTS
+// holds the same list):
+//   <OFF,   false, false, false>  the survey's main path
+//   <OFF,   false, true,  false>  the survey with source_mis
+//   <OFF,   true,  false, false>  the majorant with Robin off
+//   <CHAIN, false, false, false>  the chord chain
+//   <CHAIN, true,  false, false>  the accuracy path (chain + majorant)
+//   <CHAIN, true,  true,  true >  the flagship gate (chain + majorant +
+//                                 MIS + freeze, under the host launch loop)
+//   <REFLECT, false|true, false, false>  the reflectance fold
+// walk_kernel<ROBIN_OFF, false, false, false> carries none of the other
+// variants' code or registers. max_attenuation is a run-time switch
+// (three selects per step) in every instantiation.
 //
 // Design: one thread per walker lane. A thread loads its lane's planes
 // into registers once, runs `for (i < budget && quota > 0)` steps, and
@@ -32,13 +46,32 @@
 // scan, three field evaluations, a screened Green's function) only on
 // lanes that take the branch, a few percent of wall visits.
 //
+// MIS adds per step, on every stepping lane (not only those whose radius
+// stays inside the star, so it adds work but no divergence): four more
+// hash draws, a component pick, a Box-Muller offset (one logf, one sqrtf,
+// cosf and sinf), the screened Green's function at the sample (two K0 and
+// two I0: a logf and up to three expf) and its norm, a first-hit scan
+// along the sample direction (the star test), one expf per mixture
+// component, a third alpha_c, and the sources at the sample. That is FP32
+// and SFU work again, not bytes. The freeze is a per-thread exit: the TPU
+// kernel runs its block until no lane is steppable (:1183-1203); here a
+// thread leaves its loop once its own lane's |atten| passes the launch's
+// threshold, after the bank/recycle of that step. That is exact: a frozen
+// lane draws nothing, advances no counter and does not move, and
+// walk_done is decided before the freeze test, so a lane that is frozen
+// and not done stays so for the rest of the launch. Frozen lanes thus
+// cost nothing; the threshold is a launch argument (no rebuild per
+// launch).
+//
 // Arithmetic follows the plain version (ops/walk_kernel.py::walk_plain)
 // op for op and is built with -fmad=false and without fast math, so the
 // two track each other: the divide in the closest-point projection, the
 // reciprocal-multiply in the first hit, selects instead of masks, the
 // u32 counter ndone*(max_steps+2)+steps, the round and roulette stream
-// seeds. Constants are written as double literals cast to float, which
-// rounds them the way the Python side does.
+// seeds, the MIS mixture constants as the TPU kernel forms them at trace
+// time (a float32 cumsum; 2 w^2 and 2 pi w^2 rounded once from double).
+// Constants are written as double literals cast to float, which rounds
+// them the way the Python side does.
 //
 // Interface: plain C (walk_launch), loaded with ctypes. Parameters and
 // plane pointers go to __constant__ memory with an async copy on the
@@ -64,7 +97,9 @@ constexpr int N_PLANES = 6 + 5 + 3 * MAX_SRC + 9;
 constexpr int THREADS = 128;
 constexpr int MAX_BOXES = 8, MAX_BANDS = 8;  // problems/majorant.py
 constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
-constexpr int N_IP = 14, N_FP = 10;  // header lengths of ip and fp
+constexpr int MAX_MIX = 8;   // MIS mixture components
+constexpr int MIX_COLS = 7;  // cx, cy, w, a, cum, 2 w^2, 2 pi w^2
+constexpr int N_IP = 17, N_FP = 11;  // header lengths of ip and fp
 
 struct Field {
   int kind;
@@ -98,6 +133,11 @@ struct WalkConst {
   float chord[MAX_SEG][8];  // ax, ay, ux, uy, uu, ul, tx, ty (f32-formed)
   float box[MAX_BOXES][4];  // x0, x1, y0, y1
   float band[MAX_BANDS][2]; // y_lo, y_hi
+  // the flagship path (after the accuracy path's fields, for the same
+  // reason): max_attenuation and the MIS mixture
+  int clip, n_mix;
+  float max_att;
+  float mix[MAX_MIX][MIX_COLS];
 };
 
 __constant__ WalkConst C;
@@ -465,6 +505,27 @@ __device__ float majorant_distance(float x, float y) {
   return fmaxf(d, F(0.0));
 }
 
+// the nearest positive Neumann hit distance along (dx, dy), 3e38 for none:
+// the first-hit scan of the step (same arithmetic) reduced to its
+// distance, for MIS's star test
+__device__ float first_hit_t(float px, float py, float dx, float dy,
+                             float tmw) {
+  float t_best = F(3e38);
+  for (int sgi = 0; sgi < C.n_neu; ++sgi) {
+    const float* g = C.neu[sgi];
+    float wx = px - g[0], wy = py - g[1];
+    float den = dx * g[3] - dy * g[2];
+    float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
+    float inv_den = F(1.0) / den_safe;
+    float t = (g[2] * wy - g[3] * wx) * inv_den;
+    float sp = (dx * wy - dy * wx) * inv_den;
+    bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw &&
+              fabsf(den) > F(1e-30);
+    if (ok && t < t_best) t_best = t;
+  }
+  return t_best;
+}
+
 // ---- screened-radius rejection (sampling/radial.py::_exact_rejection) --
 
 struct Rej {
@@ -550,9 +611,9 @@ __device__ float screened_radius(float R, float sb, uint32_t seed,
 
 // ---- the walk ------------------------------------------------------------
 
-template <int ROBIN, bool MAJ>
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE>
 __global__ void __launch_bounds__(THREADS)
-walk_kernel(int n_lanes, int budget) {
+walk_kernel(int n_lanes, int budget, float freeze_thr) {
   const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane >= n_lanes) return;
   const Planes& P = C.pl;
@@ -646,6 +707,11 @@ walk_kernel(int n_lanes, int budget) {
       steps = 0;
       a_cur = a_p0;
       continue;
+    }
+    if constexpr (FREEZE) {
+      // a heavy lane waits for the launch-boundary split instead of
+      // compounding further: a fixed point for the rest of the launch
+      if (!(fabsf(atten) <= freeze_thr)) break;
     }
 
     float r = fmaxf(rmin, dD);
@@ -752,12 +818,65 @@ walk_kernel(int n_lanes, int budget) {
 
     const float a_p = a_cur;
     const float a_s = alpha_c(sx, sy);
-    if (C.has_source && !beyond) {
-      const float w_src = screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+    if constexpr (!MIS) {
+      if (C.has_source && !beyond) {
+        const float w_src =
+            screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+#pragma unroll
+        for (int i = 0; i < MAX_SRC; ++i)
+          if (i < n_src)
+            acc[i] = acc[i] + field_value(F_SRC0 + i, sx, sy) * w_src;
+      }
+    } else {
+      // source-directed MIS NEE: y from 0.5 ball-Green's + 0.5 the
+      // static Gaussian mixture, weighted by the balance heuristic; the
+      // component pick is the unrolled rule idx = #{i < k-1 : u6 > cum_i}
+      const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
+      const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
+      float mx = C.mix[0][0], my = C.mix[0][1], mw = C.mix[0][2];
+      for (int ci = 1; ci < C.n_mix; ++ci) {
+        if (u6 > C.mix[ci - 1][4]) {
+          mx = C.mix[ci][0];
+          my = C.mix[ci][1];
+          mw = C.mix[ci][2];
+        }
+      }
+      const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
+      const float ang = F(TWO_PI) * u8;
+      mx = mx + mw * rad * cosf(ang);
+      my = my + mw * rad * sinf(ang);
+      const bool take_src = u5 < F(0.5);
+      const float yx = take_src ? mx : px + r_s * dx;
+      const float yy = take_src ? my : py + r_s * dy;
+      const float ex = yx - px, ey = yy - py;
+      const float d_y = sqrtf(ex * ex + ey * ey);
+      const float d_safe = fmaxf(d_y, F(1e-12));
+      const float g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
+      const float norm = screened_norm(r, sbar);
+      const bool in_ball = d_y < r;
+      bool in_star = in_ball;
+      if (C.n_neu > 0)  // a wall between x and y blocks the sample
+        in_star = in_ball && !(first_hit_t(px, py, ex / d_safe, ey / d_safe,
+                                           ob ? t_min : F(0.0)) < d_y);
+      float q = F(0.0);  // the mixture pdf, one expf per component
+      for (int ci = 0; ci < C.n_mix; ++ci) {
+        const float* m = C.mix[ci];
+        const float qx = yx - m[0], qy = yy - m[1];
+        q = q + m[3] * expf(-(qx * qx + qy * qy) / m[5]) / m[6];
+      }
+      // an on-boundary walker samples a hemisphere: double its density
+      const float m_ob = ob ? F(2.0) : F(1.0);
+      const float p_ball = in_ball ? m_ob * g_val / norm : F(0.0);
+      const float p_mix = F(0.5) * p_ball + F(0.5) * q;
+      float w_mis = (in_star && p_mix > F(1e-30))
+                        ? m_ob * g_val / fmaxf(p_mix, F(1e-30))
+                        : F(0.0);
+      const float a_y = alpha_c(yx, yy);
+      w_mis = w_mis / sqrtf(a_y * a_p) * atten;
 #pragma unroll
       for (int i = 0; i < MAX_SRC; ++i)
         if (i < n_src)
-          acc[i] = acc[i] + field_value(F_SRC0 + i, sx, sy) * w_src;
+          acc[i] = acc[i] + field_value(F_SRC0 + i, yx, yy) * w_mis;
     }
 
     const bool interior = u4 < interior_prob(r, sbar);
@@ -838,6 +957,10 @@ walk_kernel(int n_lanes, int budget) {
         }
       }
     }
+    if (C.clip) {  // max_attenuation, symmetric: chord weights can be < 0
+      const float m = C.max_att;
+      atten = atten > m ? m : (atten < -m ? -m : atten);
+    }
     px = newx;
     py = newy;
     ob = new_ob;
@@ -887,22 +1010,44 @@ walk_kernel(int n_lanes, int budget) {
 
 }  // namespace
 
-template <int ROBIN, bool MAJ>
-void launch(int grid, cudaStream_t st, int n_lanes, int budget) {
-  walk_kernel<ROBIN, MAJ><<<grid, THREADS, 0, st>>>(n_lanes, budget);
+typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
+
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE>
+void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
+  walk_kernel<ROBIN, MAJ, MIS, FREEZE><<<grid, THREADS, 0, st>>>(
+      n_lanes, budget, thr);
+}
+
+// the instantiated variants (head comment), by (robin, majorant, mis,
+// freeze); nullptr for a combination no path launches
+LaunchFn walk_pick(int robin, int majorant, int mis, int freeze) {
+  switch (((robin * 2 + majorant) * 2 + mis) * 2 + freeze) {
+    case 0: return launch<ROBIN_OFF, false, false, false>;
+    case 2: return launch<ROBIN_OFF, false, true, false>;
+    case 4: return launch<ROBIN_OFF, true, false, false>;
+    case 8: return launch<ROBIN_CHAIN, false, false, false>;
+    case 12: return launch<ROBIN_CHAIN, true, false, false>;
+    case 15: return launch<ROBIN_CHAIN, true, true, true>;
+    case 16: return launch<ROBIN_REFLECT, false, false, false>;
+    case 20: return launch<ROBIN_REFLECT, true, false, false>;
+    default: return nullptr;
+  }
 }
 
 // fp: eps, rmin, t_min, sigma_bar, roulette_thr, gamma_floor,
-//     arrival_clamp, sb_bg, mfp_bg, mfp_gl, dir (n_dir x 5), neu (n_neu x
-//     6), chord (n_neu x 8), boxes (n_box x 4), bands (n_band x 2), then
-//     each field's parameters in field order.
+//     arrival_clamp, sb_bg, mfp_bg, mfp_gl, max_att, dir (n_dir x 5), neu
+//     (n_neu x 6), chord (n_neu x 8), boxes (n_box x 4), bands (n_band x
+//     2), mixture (n_mix x 7), then each field's parameters in field order.
 // ip: seed, max_steps, rounds, roulette, project, snap, n_src, has_source,
-//     n_dir, n_neu, robin, majorant, n_box, n_band, then (kind, n_params)
-//     per field: bc, alpha, sigma, sources[n_src if has_source].
+//     n_dir, n_neu, robin, majorant, n_box, n_band, clip, n_mix, freeze,
+//     then (kind, n_params) per field: bc, alpha, sigma, sources[n_src if
+//     has_source].
 // planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
+// thr: the freeze threshold of this launch (freeze builds; +inf = none).
 extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            int n_ip, void* const* planes, int n_planes,
-                           int n_lanes, int budget, void* stream) {
+                           int n_lanes, int budget, float thr,
+                           void* stream) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
   if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES)
@@ -921,6 +1066,9 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   h.majorant = ip[11];
   h.n_box = ip[12];
   h.n_band = ip[13];
+  h.clip = ip[14];
+  h.n_mix = ip[15];
+  const int freeze = ip[16];
   h.eps = fp[0];
   h.rmin = fp[1];
   h.t_min = fp[2];
@@ -931,6 +1079,7 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   h.sb_bg = fp[7];
   h.mfp_bg = fp[8];
   h.mfp_gl = fp[9];
+  h.max_att = fp[10];
   const int n_fields = 3 + (h.has_source ? h.n_src : 0);
   if (h.n_src < 1 || h.n_src > MAX_SRC || h.n_dir > MAX_SEG ||
       h.n_neu > MAX_SEG || h.n_dir < 1 || h.n_neu < 0 || h.rounds < 1 ||
@@ -938,11 +1087,15 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       (h.robin != ROBIN_OFF && h.n_neu < 1) || h.majorant < 0 ||
       h.majorant > 1 || h.n_box < 0 || h.n_box > MAX_BOXES ||
       h.n_band < 0 || h.n_band > MAX_BANDS ||
-      (!h.majorant && (h.n_box || h.n_band)) ||
-      n_ip != N_IP + 2 * n_fields)
+      (!h.majorant && (h.n_box || h.n_band)) || h.clip < 0 || h.clip > 1 ||
+      h.n_mix < 0 || h.n_mix > MAX_MIX || (h.n_mix && !h.has_source) ||
+      freeze < 0 || freeze > 1 || n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
+  const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze);
+  if (!fn) return (int)cudaErrorInvalidValue;
   int off = N_FP;
-  if (n_fp < off + 5 * h.n_dir + 14 * h.n_neu + 4 * h.n_box + 2 * h.n_band)
+  if (n_fp < off + 5 * h.n_dir + 14 * h.n_neu + 4 * h.n_box + 2 * h.n_band +
+                 MIX_COLS * h.n_mix)
     return (int)cudaErrorInvalidValue;
   for (int s = 0; s < h.n_dir; ++s)
     for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
@@ -954,6 +1107,8 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     for (int k = 0; k < 4; ++k) h.box[b][k] = fp[off++];
   for (int b = 0; b < h.n_band; ++b)
     for (int k = 0; k < 2; ++k) h.band[b][k] = fp[off++];
+  for (int c = 0; c < h.n_mix; ++c)
+    for (int k = 0; k < MIX_COLS; ++k) h.mix[c][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
     const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
     if (n < 1 || n > MAX_FP || off + n > n_fp ||
@@ -1003,16 +1158,7 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   cudaError_t e =
       cudaMemcpyToSymbolAsync(C, &h, sizeof(h), 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
-  if (n_lanes > 0 && budget > 0) {
-    const int grid = (n_lanes + THREADS - 1) / THREADS;
-    switch (h.robin * 2 + h.majorant) {
-      case 0: launch<ROBIN_OFF, false>(grid, st, n_lanes, budget); break;
-      case 1: launch<ROBIN_OFF, true>(grid, st, n_lanes, budget); break;
-      case 2: launch<ROBIN_CHAIN, false>(grid, st, n_lanes, budget); break;
-      case 3: launch<ROBIN_CHAIN, true>(grid, st, n_lanes, budget); break;
-      case 4: launch<ROBIN_REFLECT, false>(grid, st, n_lanes, budget); break;
-      default: launch<ROBIN_REFLECT, true>(grid, st, n_lanes, budget);
-    }
-  }
+  if (n_lanes > 0 && budget > 0)
+    fn((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget, thr);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 
 The JAX package's ``Polyline`` fields and walker planes, taken with
 ``np.asarray``, become the port's tensors here (and back); its local
-majorant and Robin settings become the port's. The same inputs can then
+majorant, MIS importance mixture and Robin settings become the port's. The same inputs can then
 be fed to both implementations. Nothing here imports the JAX package: the
 objects are read by their attributes.
 """
@@ -11,11 +11,13 @@ import numpy as np
 import torch
 
 from .geometry.polyline import Polyline
+from .problems.fields import GaussianMixture
 from .problems.majorant import LocalMajorant
 from .solver.state import plane_dtype
 
 __all__ = ["polyline_from_numpy", "state_from_numpy", "state_to_numpy",
-           "local_majorant_from", "robin_options_from"]
+           "local_majorant_from", "gaussian_mixture_from",
+           "robin_options_from"]
 
 _ROBIN_FIELDS = ("robin_correction", "robin_interior", "robin_arrival_clamp")
 
@@ -58,6 +60,17 @@ def local_majorant_from(majorant):
         boxes=tuple(tuple(float(v) for v in b) for b in majorant.boxes),
         bands=tuple(tuple(float(v) for v in b) for b in majorant.bands),
         sigma_bar_bg=float(majorant.sigma_bar_bg))
+
+
+def gaussian_mixture_from(mixture):
+    """The port's :class:`GaussianMixture` from the JAX package's (its
+    ``cx``, ``cy``, ``width`` and ``weight`` as float32 arrays, as they
+    are); ``None`` stays ``None``."""
+    if mixture is None:
+        return None
+    return GaussianMixture(*(torch.from_numpy(np.array(v, np.float32))
+                             for v in (mixture.cx, mixture.cy, mixture.width,
+                                       mixture.weight)))
 
 
 def robin_options_from(options) -> dict:

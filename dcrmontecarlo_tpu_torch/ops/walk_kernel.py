@@ -4,14 +4,17 @@ Port of the JAX package's one Pallas kernel,
 ``dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk`` (its
 ``pl.pallas_call`` and step body), in the variants the DCR surveys run:
 delta tracking, a Neumann wall without silhouette vertices, source
-next-event estimation without MIS, the exact screened-radius rejection at
-any round cap, roulette, common random numbers and boundary-snap starts;
-and on top of those, the notebook survey's accuracy path: the Robin
-correction (the chord chain or the reflectance fold, with the wall-arrival
-weight) and the two-level local majorant. The kernel is
-``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
-instantiation per Robin mode and majorant switch); :func:`walk_plain` is
-the same step, op for op, on tensors of lanes, on any device.
+next-event estimation, the exact screened-radius rejection at any round
+cap, roulette, common random numbers and boundary-snap starts; the
+notebook survey's accuracy path: the Robin correction (the chord chain or
+the reflectance fold, with the wall-arrival weight) and the two-level
+local majorant; and the flagship notebook gate's path: MIS next-event
+estimation toward a Gaussian-mixture source density, the in-launch freeze
+of heavy lanes for the host loop's high-weight split, and the
+``max_attenuation`` clip. The kernel is ``csrc/walk_kernel.cu`` (one
+thread per walker lane, one compiled instantiation per variant in
+:data:`KERNEL_VARIANTS`); :func:`walk_plain` is the same step, op for op,
+on tensors of lanes, on any device.
 
 :func:`run_walk` advances every lane by up to ``inner_steps`` steps and
 updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
@@ -22,6 +25,7 @@ the two.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -52,7 +56,8 @@ from .greens import (
     screened_interior_prob,
 )
 
-__all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_SEG", "WalkParams",
+__all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_SEG", "MAX_MIX", "KERNEL_VARIANTS",
+           "WalkParams", "kernel_name",
            "make_walk_params", "stream_ids", "run_walk", "walk_plain",
            "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
            "build_library", "NVCC_FLAGS", "ROBIN_OFF", "ROBIN_CHAIN",
@@ -65,12 +70,26 @@ PLANE_FLOOR = 1e-6   # absolute floor as a fraction of the plane's scale,
 PLANE_MIN_FRAC = 0.99  # and the share of lanes that must agree per plane
 MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
 MAX_SEG = 32
+MAX_MIX = 8          # MIS mixture components
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
 # reflectance fold
 ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
+# the kernel's compiled instantiations, (robin, majorant, mis, freeze):
+# the combinations a path launches (csrc/walk_kernel.cu::walk_pick)
+KERNEL_VARIANTS = frozenset({
+    (ROBIN_OFF, False, False, False),      # the survey's main path
+    (ROBIN_OFF, False, True, False),       # the survey with source_mis
+    (ROBIN_OFF, True, False, False),       # the majorant, Robin off
+    (ROBIN_CHAIN, False, False, False),
+    (ROBIN_CHAIN, True, False, False),     # the accuracy path
+    (ROBIN_CHAIN, True, True, True),       # the flagship gate's path
+    (ROBIN_REFLECTANCE, False, False, False),
+    (ROBIN_REFLECTANCE, True, False, False),
+})
+_TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -82,6 +101,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------- #
 # parameters                                                             #
 # ---------------------------------------------------------------------- #
+
+def kernel_name(variant) -> str:
+    """``walk_kernel<robin,majorant,mis,freeze>`` for a variant tuple."""
+    r, *flags = variant
+    return "walk_kernel<{}>".format(",".join(
+        [str(int(r))] + ["true" if f else "false" for f in flags]))
+
 
 def _dir_table(poly) -> np.ndarray:
     """``(S, 5)`` float32 ``[ax, ay, ux, uy, uu]``: edge vector and squared
@@ -105,6 +131,23 @@ def _neu_table(poly) -> np.ndarray:
         rows.append((ax, ay, ux32, uy32, np.float32(-uy32 / ulen),
                      np.float32(ux32 / ulen)))
     return np.asarray(rows, np.float32).reshape(-1, 6)
+
+
+def _mis_table(mixture) -> np.ndarray:
+    """``(k, 7)`` float32 ``[cx, cy, w, a, cum, 2 w^2, 2 pi w^2]``: the
+    mixture constants as the JAX kernel forms them at trace time
+    (``ops/pallas_walk.py:569-576``, ``:975-979``): the cumulative weights
+    a float32 ``np.cumsum``; ``w^2`` a float64 product of the float32
+    width, ``2 w^2`` and ``2 pi w^2`` from it, each rounded once."""
+    cx, cy, w, a = (np.asarray(v, np.float32).reshape(-1) for v in (
+        mixture.cx, mixture.cy, mixture.width, mixture.weight))
+    cum = np.cumsum(a)
+    rows = []
+    for i in range(len(cx)):
+        w2 = float(w[i]) * float(w[i])
+        rows.append((cx[i], cy[i], w[i], a[i], cum[i], 2.0 * w2,
+                     _TWO_PI * w2))
+    return np.asarray(rows, np.float32).reshape(-1, 7)
 
 
 def _chord_table(poly) -> np.ndarray:
@@ -156,10 +199,26 @@ class WalkParams:
     sb_bg: float = 0.0           # the majorant's background sigma_bar and
     mfp_bg: float = 0.0          # the two progress scales 1/sqrt(sigma_bar)
     mfp_gl: float = 0.0
+    mis_table: Optional[np.ndarray] = None  # (k, 7) float32 (_mis_table):
+                                            # MIS NEE when set
+    max_attenuation: Optional[float] = None  # symmetric |atten| cap
+    freeze: bool = False         # the in-launch freeze build (its launches
+                                 # take a threshold, +inf = no freeze)
 
     @property
     def n_src(self) -> int:
         return max(1, len(self.sources))
+
+    @property
+    def variant(self) -> tuple:
+        """The kernel instantiation ``(robin, majorant, mis, freeze)``."""
+        return (self.robin, self.majorant is not None,
+                self.mis_table is not None, self.freeze)
+
+    @property
+    def kernel_name(self) -> str:
+        """The instantiation's name (the launch counters' key)."""
+        return kernel_name(self.variant)
 
     def pack(self):
         """Kernel parameter buffers ``(float32 array, int32 array)`` in the
@@ -188,18 +247,35 @@ class WalkParams:
                 f"boxes and {MAX_BANDS} bands, got {len(boxes)} and "
                 f"{len(bands)}; reference: "
                 "dcrmontecarlo_tpu/problems/majorant.py::LocalMajorant")
+        mix = (self.mis_table if self.mis_table is not None
+               else np.zeros((0, 7), np.float32))
+        if len(mix) > MAX_MIX:
+            raise NotImplementedError(
+                f"the CUDA walk holds an MIS mixture of up to {MAX_MIX} "
+                f"components, got {len(mix)}; reference: "
+                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+        if self.variant not in KERNEL_VARIANTS:
+            raise NotImplementedError(
+                f"the CUDA walk has no instantiation {self.kernel_name} "
+                "(robin, majorant, mis, freeze); it compiles the variants "
+                "in walk_kernel.KERNEL_VARIANTS; reference: "
+                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
               int(self.snap), self.n_src, int(len(self.sources) > 0),
               len(self.dir_table), len(self.neu_table), self.robin,
-              int(mj is not None), len(boxes), len(bands)]
+              int(mj is not None), len(boxes), len(bands),
+              int(self.max_attenuation is not None), len(mix),
+              int(self.freeze)]
         fp = [self.eps, self.rmin, self.t_min, self.sigma_bar,
               0.0 if self.roulette_threshold is None
               else self.roulette_threshold, self.gamma_floor,
-              self.robin_arrival_clamp, self.sb_bg, self.mfp_bg, self.mfp_gl]
+              self.robin_arrival_clamp, self.sb_bg, self.mfp_bg, self.mfp_gl,
+              0.0 if self.max_attenuation is None else self.max_attenuation]
         fp += self.dir_table.ravel().tolist() + self.neu_table.ravel().tolist()
         fp += self.chord_table.ravel().tolist()
         fp += boxes.ravel().tolist() + bands.ravel().tolist()
+        fp += mix.ravel().tolist()
         for spec in self.specs:
             kind, params = spec.table()
             ip += [kind, len(params)]
@@ -210,12 +286,15 @@ class WalkParams:
 def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
                      rejection_rounds, roulette_threshold, snap, seed,
                      robin_correction=False,
-                     robin_arrival_clamp=0.02) -> WalkParams:
+                     robin_arrival_clamp=0.02, max_attenuation=None,
+                     freeze_split=False) -> WalkParams:
     """Walk parameters for a delta-tracking ``problem``.
 
     ``robin_correction`` is the RESOLVED mode (``WoStSolver._robin_enabled``:
-    False, ``"chain"`` or ``"reflectance"``); the local majorant is the
-    problem's.
+    False, ``"chain"`` or ``"reflectance"``); the local majorant and the
+    MIS importance mixture (``source_importance``, used when the problem
+    has a source) are the problem's. ``freeze_split`` builds the in-launch
+    freeze, whose launches take a threshold (:func:`run_walk`).
     """
     sources = tuple(problem.source_fields)
     all_fields = (problem.bc_dirichlet, problem.alpha, problem.sigma) + sources
@@ -253,7 +332,15 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         robin_arrival_clamp=float(robin_arrival_clamp),
         gamma_floor=(float(0.25 * problem.max_boundary_gamma())
                      if robin != ROBIN_OFF else 0.0),
-        chord_table=chord, grad_log_alpha=problem.grad_log_alpha, **maj)
+        chord_table=chord, grad_log_alpha=problem.grad_log_alpha,
+        mis_table=(_mis_table(problem.source_importance)
+                   if sources and problem.source_importance is not None
+                   else None),
+        # python floats rounded to float32, as the JAX kernel's weakly
+        # typed constants are
+        max_attenuation=(None if max_attenuation is None
+                         else float(np.float32(max_attenuation))),
+        freeze=bool(freeze_split), **maj)
 
 
 def stream_ids(rows: int, crn=None, device=None):
@@ -415,8 +502,60 @@ def _chord_branch(P: WalkParams, u10, u11, px, py, nxv, nyv, r, sbar, a_p):
     return zx, zy, w_ch, a_z
 
 
-def _step(s, P: WalkParams, consts, a_p0, a_cur):
-    """One walk step over every lane (the kernel's step body, masked)."""
+def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
+             t_min_w, a_p):
+    """Source-directed MIS next-event estimation
+    (``ops/pallas_walk.py:932-997``): the sample ``y`` from
+    ``0.5 * ball Green's + 0.5 * mixture`` (``(gx, gy)`` is the Green's
+    draw) and its balance-heuristic weight over ``sqrt(alpha_y alpha_x)``,
+    before the walk weight. Returns ``(yx, yy, w)``."""
+    tab = P.mis_table.tolist()
+    take_src = u5 < 0.5
+    # unrolled component pick: idx = #{i < k-1 : u6 > cum_i}
+    mx = torch.full_like(px, tab[0][0])
+    my = torch.full_like(px, tab[0][1])
+    mw = torch.full_like(px, tab[0][2])
+    for ci in range(1, len(tab)):
+        passed = u6 > tab[ci - 1][4]
+        mx = torch.where(passed, tab[ci][0], mx)
+        my = torch.where(passed, tab[ci][1], my)
+        mw = torch.where(passed, tab[ci][2], mw)
+    rad = torch.sqrt(-2.0 * torch.log(torch.clamp(u7, min=1e-12)))
+    ang = _TWO_PI * u8
+    mx = mx + mw * rad * torch.cos(ang)
+    my = my + mw * rad * torch.sin(ang)
+    yx = torch.where(take_src, mx, gx)
+    yy = torch.where(take_src, my, gy)
+    ex, ey = yx - px, yy - py
+    d_y = torch.sqrt(ex * ex + ey * ey)
+    d_safe = torch.clamp(d_y, min=1e-12)
+    g_val = torch.clamp(screened_greens_2d(d_safe, r, sbar), min=0.0)
+    norm = screened_greens_norm_2d(r, sbar)
+    in_ball = d_y < r
+    if len(P.neu_table) > 0:
+        # the star test: a wall between x and y blocks the sample
+        _, _, _, _, t_y, hit_y = _first_hit(
+            P.neu_table, px, py, ex / d_safe, ey / d_safe, d_y, t_min_w)
+        in_star = in_ball & ~(hit_y & (t_y < d_y))
+    else:
+        in_star = in_ball
+    q = torch.zeros_like(px)
+    for cx, cy, _, a, _, two_w2, two_pi_w2 in tab:
+        qx, qy = yx - cx, yy - cy
+        q = q + a * torch.exp(-(qx * qx + qy * qy) / two_w2) / two_pi_w2
+    # an on-boundary walker samples a hemisphere: double its density
+    m_ob = 1.0 + ob.to(torch.float32)
+    p_ball = torch.where(in_ball, m_ob * g_val / norm, 0.0)
+    p_mix = 0.5 * p_ball + 0.5 * q
+    w = torch.where(in_star & (p_mix > 1e-30),
+                    m_ob * g_val / torch.clamp(p_mix, min=1e-30), 0.0)
+    a_y = P.alpha_c(yx, yy)
+    return yx, yy, w / torch.sqrt(a_y * a_p)
+
+
+def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
+    """One walk step over every lane (the kernel's step body, masked);
+    ``freeze_thr`` (freeze builds) stops lanes with ``|atten|`` above it."""
     p0x, p0y, sid, ob0, n0x, n0y = consts
     n_src = P.n_src
     px, py, nxv, nyv, atten = s["px"], s["py"], s["nx"], s["ny"], s["atten"]
@@ -429,9 +568,13 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
     ctr = (rng.mul32(ndone.to(torch.int64), P.max_steps + 2)
            + steps.to(torch.int64)) & rng.MASK32
     chain = P.robin == ROBIN_CHAIN
-    # the chain draws streams 9/10/11 (branch, side + U1, technique + U2)
-    u = _uniforms(P.seed, ctr, sid, (1, 4, 9, 10, 11) if chain else (1, 4))
-    u1, u4 = u[0], u[1]
+    mis = P.mis_table is not None
+    # MIS draws streams 5-8; the chain 9/10/11 (branch, side + U1,
+    # technique + U2)
+    streams = ((1, 4) + ((5, 6, 7, 8) if mis else ())
+               + ((9, 10, 11) if chain else ()))
+    u = dict(zip(streams, _uniforms(P.seed, ctr, sid, streams)))
+    u1, u4 = u[1], u[4]
 
     dD, cx, cy = _closest_point(P.dir_table, px, py)
     done_eps = dD <= P.eps
@@ -469,6 +612,10 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
         ob = ob & ~walk_done
     steps = torch.where(walk_done, 0, steps)
     stepping = act & ~walk_done
+    if freeze_thr is not None:
+        # heavy lanes wait for the launch-boundary split: they draw
+        # nothing and advance no counter, a fixed point for the launch
+        stepping = stepping & (torch.abs(atten) <= freeze_thr)
 
     r = torch.clamp(dD, min=P.rmin)
     if P.majorant is not None:
@@ -527,7 +674,14 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
 
     a_p = torch.where(walk_done, a_p0, a_cur)
     a_s = P.alpha_c(sx, sy)
-    if P.sources:
+    if mis:
+        yx, yy, w_mis = _mis_nee(
+            P, u[5], u[6], u[7], u[8], px, py, px + r_s * dx, py + r_s * dy,
+            r, sbar, ob, t_min_w if has_neumann else None, a_p)
+        w_mis = torch.where(stepping, w_mis * atten, 0.0)
+        for i, f in enumerate(P.sources):
+            accs[i] = accs[i] + torch.where(stepping, f(yx, yy) * w_mis, 0.0)
+    elif P.sources:
         w_src = (screened_greens_norm_2d(r, sbar) / torch.sqrt(a_s * a_p)
                  * atten)
         live = stepping & ~beyond
@@ -565,8 +719,8 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
         # the branch weight is an O(1) density ratio, the other lanes of
         # the wall pay 1 / (1 - q)
         q_c = torch.where(ob, torch.clamp(c_mag, max=0.5), 0.0)
-        branch = stepping & (u[2] < q_c) & (q_c > 1e-6)
-        zx, zy, w_ch, a_z = _chord_branch(P, u[3], u[4], px, py, nxv, nyv,
+        branch = stepping & (u[9] < q_c) & (q_c > 1e-6)
+        zx, zy, w_ch, a_z = _chord_branch(P, u[10], u[11], px, py, nxv, nyv,
                                           r, sbar, a_p)
         newx = torch.where(branch, zx, newx)
         newy = torch.where(branch, zy, newy)
@@ -576,6 +730,11 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
             branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
             atten * torch.where(stepping & ob & (q_c > 1e-6),
                                 1.0 / (1.0 - q_c), 1.0))
+    if P.max_attenuation is not None:
+        # symmetric: chord weights can be negative (the kernel clips the
+        # lanes it steps; a cap >= 1 leaves the others as they are)
+        m = P.max_attenuation
+        atten = torch.where(stepping, torch.clamp(atten, -m, m), atten)
 
     px = torch.where(stepping, newx, px)
     py = torch.where(stepping, newy, py)
@@ -609,16 +768,42 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur):
     return a_cur
 
 
-def walk_plain(state: dict, params: WalkParams, inner_steps: int) -> dict:
+def _freeze_threshold(params: WalkParams, freeze_thr):
+    """The launch's freeze threshold as a float32 value: ``+inf`` for a
+    freeze build given none, ``None`` without the freeze."""
+    if not params.freeze:
+        if freeze_thr is not None:
+            raise ValueError("freeze_thr needs a freeze build: "
+                             "make_walk_params(..., freeze_split=True)")
+        return None
+    return math.inf if freeze_thr is None else float(np.float32(freeze_thr))
+
+
+def _movable(P: WalkParams, thr: float, flat: dict, idx):
+    """Which lanes ``idx`` (with quota) a freeze launch can still change:
+    those at or under the threshold, and those whose walk ends at the next
+    step (it banks before the freeze test)."""
+    atten = flat["atten"][idx]
+    px, py = flat["px"][idx], flat["py"][idx]
+    due = ((flat["steps"][idx] >= P.max_steps)
+           | (_closest_point(P.dir_table, px, py)[0] <= P.eps))
+    return (torch.abs(atten) <= thr) | due
+
+
+def walk_plain(state: dict, params: WalkParams, inner_steps: int,
+               freeze_thr=None) -> dict:
     """The plain PyTorch version of the walk kernel, on any device.
 
     Same step, op for op, as ``csrc/walk_kernel.cu``. Every ``EXIT_CHECK``
-    steps the lanes that still hold quota are gathered and only those are
+    steps the lanes that can still change are gathered and only those are
     stepped until the next check: exact, because a step of a lane without
-    quota changes nothing (the kernel's per-thread exit rests on the same
-    fact). Updates the mutable planes of ``state`` in place and returns it.
+    quota changes nothing, nor does one of a lane frozen by ``freeze_thr``
+    (freeze builds) whose walk is not due to end, for the rest of the
+    launch (the kernel's per-thread exits rest on the same facts). Updates
+    the mutable planes of ``state`` in place and returns it.
     """
     P = params
+    thr = _freeze_threshold(P, freeze_thr)
     names = state_planes(P.n_src)
     flat = {k: v.reshape(-1) for k, v in state.items()}
     flat["a_p0"] = P.alpha_c(flat["p0x"], flat["p0y"])
@@ -632,6 +817,8 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int) -> dict:
                 for k in carried:
                     flat[k][idx] = sub[k]
             idx = torch.nonzero(flat["quota"] > 0).squeeze(1)
+            if thr is not None:
+                idx = idx[_movable(P, thr, flat, idx)]
             if idx.numel() == 0:
                 sub = None
                 break
@@ -641,7 +828,7 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int) -> dict:
                       flat["n0x"][idx] if P.snap else None,
                       flat["n0y"][idx] if P.snap else None)
             a_p0 = flat["a_p0"][idx]
-        sub["a_cur"] = _step(sub, P, consts, a_p0, sub["a_cur"])
+        sub["a_cur"] = _step(sub, P, consts, a_p0, sub["a_cur"], thr)
     if sub is not None:
         for k in carried:
             flat[k][idx] = sub[k]
@@ -737,8 +924,9 @@ def _library():
                                 ctypes.c_void_p, ctypes.c_int,   # ip
                                 ctypes.c_void_p, ctypes.c_int,   # planes
                                 ctypes.c_int, ctypes.c_int,      # lanes,
-                                ctypes.c_void_p]                 # budget,
-                                                                 # stream
+                                                                 # budget
+                                ctypes.c_float,                  # freeze
+                                ctypes.c_void_p]                 # stream
     lib.walk_launch.restype = ctypes.c_int
     return lib
 
@@ -747,12 +935,14 @@ _PLANE_ORDER = (CONST_PLANES + SNAP_PLANES
                 + tuple(state_planes(MAX_SRC)))
 
 
-def _launch_cuda(state: dict, params: WalkParams, inner_steps: int) -> dict:
+def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
+                 freeze_thr=None) -> dict:
     px = state["px"]
     if px.device.type != "cuda":
         raise RuntimeError(
             f"run_walk takes CPU or CUDA tensors, got {px.device}")
     fp, ip = params.pack()
+    thr = _freeze_threshold(params, freeze_thr)
     names = set(CONST_PLANES) | set(state_planes(params.n_src))
     if params.snap:
         names |= set(SNAP_PLANES)
@@ -776,22 +966,29 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int) -> dict:
         stream = torch.cuda.current_stream(px.device).cuda_stream
         err = lib.walk_launch(fp.ctypes.data, len(fp), ip.ctypes.data,
                               len(ip), arr, len(ptrs), px.numel(),
-                              budget, stream)
+                              budget, math.inf if thr is None else thr,
+                              stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     run_walk.launches += 1
+    run_walk.variant_launches[params.kernel_name] += 1
     return state
 
 
-def run_walk(state: dict, params: WalkParams, inner_steps: int) -> dict:
+def run_walk(state: dict, params: WalkParams, inner_steps: int,
+             freeze_thr=None) -> dict:
     """Advance every lane by up to ``inner_steps`` steps, in place.
 
     CPU planes run :func:`walk_plain`; CUDA planes launch the kernel (one
-    launch, counted in ``run_walk.launches``) or raise.
+    launch, counted in ``run_walk.launches`` and, per instantiation, in
+    ``run_walk.variant_launches[params.kernel_name]``) or raise.
+    ``freeze_thr`` is the launch's freeze threshold (freeze builds only;
+    ``None`` there means ``+inf``, no lane freezes).
     """
     if state["px"].device.type == "cpu":
-        return walk_plain(state, params, inner_steps)
-    return _launch_cuda(state, params, inner_steps)
+        return walk_plain(state, params, inner_steps, freeze_thr)
+    return _launch_cuda(state, params, inner_steps, freeze_thr)
 
 
 run_walk.launches = 0
+run_walk.variant_launches = collections.Counter()

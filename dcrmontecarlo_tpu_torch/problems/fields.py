@@ -16,14 +16,17 @@ Kinds (the integer is the kernel's field tag, ``csrc/walk_kernel.cu``):
 * ``DIPOLE`` ``[px, py, nx, ny, norm, 2 w^2]`` — the Gaussian current dipole.
 
 Values are computed in the same float32 operation order as the JAX
-package's lambdas.
+package's lambdas. :class:`GaussianMixture` is the source importance
+density of MIS next-event estimation (not a field: the walk kernel takes
+its components as a table).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -31,6 +34,7 @@ __all__ = [
     "FieldSpec", "Constant", "BumpSum", "Dipole",
     "smooth_circle", "constant", "gaussian_dipole", "bump_sum",
     "is_spec", "sigma_prime_fn", "grad_log_alpha_fn",
+    "GaussianMixture", "dipole_importance",
 ]
 
 CONST, BUMPS, DIPOLE = 0, 1, 2
@@ -175,6 +179,65 @@ def gaussian_dipole(pos_electrode, neg_electrode, current: float = 1.0,
     """Gaussian-regularized +/- current dipole source of total current
     ``current`` and width ``width``."""
     return Dipole(pos_electrode, neg_electrode, current, width)
+
+
+class GaussianMixture(NamedTuple):
+    """Isotropic Gaussian mixture used as a source importance density.
+
+    Next-event estimation of near-point sources from the Green's-weighted
+    density alone has heavy-tailed weights; sampling toward the source
+    from this mixture and combining by the balance heuristic bounds them.
+    Fields are float32 CPU tensors over the ``k`` components.
+    """
+
+    cx: torch.Tensor      # (k,)
+    cy: torch.Tensor      # (k,)
+    width: torch.Tensor   # (k,) Gaussian sigma
+    weight: torch.Tensor  # (k,) normalized positive mixture weights
+
+    @staticmethod
+    def from_components(components) -> "GaussianMixture":
+        """``components``: iterable of ``(center, width, weight)``; the
+        weights become ``|a| / sum |a|`` in float32."""
+        cx = np.asarray([c[0][0] for c in components], np.float32)
+        cy = np.asarray([c[0][1] for c in components], np.float32)
+        w = np.asarray([c[1] for c in components], np.float32)
+        a = np.abs(np.asarray([c[2] for c in components], np.float32))
+        a = a / a.sum()
+        return GaussianMixture(*(torch.from_numpy(v) for v in (cx, cy, w, a)))
+
+    def sample(self, u_sel, u1, u2):
+        """One point per lane: the component by ``u_sel``, the offset by
+        Box-Muller normals from ``(u1, u2)``."""
+        dev = u_sel.device
+        cum = torch.cumsum(self.weight, 0).to(dev)
+        idx = (u_sel[..., None] > cum).sum(-1)
+        idx = torch.clamp(idx, 0, self.weight.shape[0] - 1)
+        rad = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+        ang = (2.0 * math.pi) * u2
+        w = self.width.to(dev)[idx]
+        x = self.cx.to(dev)[idx] + w * rad * torch.cos(ang)
+        y = self.cy.to(dev)[idx] + w * rad * torch.sin(ang)
+        return x, y
+
+    def pdf(self, x, y):
+        """Mixture density at ``(x, y)`` (2D normal components)."""
+        dev = x.device
+        dx = x[..., None] - self.cx.to(dev)
+        dy = y[..., None] - self.cy.to(dev)
+        w2 = self.width.to(dev) * self.width.to(dev)
+        comp = torch.exp(-(dx * dx + dy * dy) / (2.0 * w2)) / (
+            (2.0 * math.pi) * w2)
+        return torch.sum(self.weight.to(dev) * comp, dim=-1)
+
+
+def dipole_importance(pos_electrode, neg_electrode,
+                      width: float) -> GaussianMixture:
+    """Importance mixture matching a :func:`gaussian_dipole` source."""
+    return GaussianMixture.from_components([
+        (pos_electrode, width, 0.5),
+        (neg_electrode, width, 0.5),
+    ])
 
 
 def is_spec(f) -> bool:

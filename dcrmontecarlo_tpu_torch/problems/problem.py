@@ -45,7 +45,8 @@ class Problem:
     source: Optional[Callable] = None             # f(x, y) or a list
     alpha: Optional[Callable] = None              # diffusion coefficient
     sigma: Optional[Callable] = None              # absorption coefficient
-    source_importance: Optional[object] = None    # MIS mixture (not ported)
+    source_importance: Optional[object] = None    # fields.GaussianMixture
+                                                  # (MIS next-event est.)
     sigma_bar_resolution: int = 128               # base grid scan res.
     sigma_bar_override: Optional[float] = None    # skip the grid scan
     local_majorant: object = None                 # None | "auto" |

@@ -1,20 +1,27 @@
 """Walk-on-Stars solver (port of ``solver/wost.py``).
 
-The solve is the JAX package's adaptive single-launch path
-(``_build_solve_fn_pallas``, ``solver/wost.py:1897-1968``): lay out
-``K`` recycled slots per evaluation point on ``(rows, 128)`` walker
-planes, run ONE walk launch whose step budget covers the whole remaining
-quota bound, keep a second launch as a safety net, and reduce the banked
-per-lane sums to per-point moments.
+The solve is the JAX package's Pallas path (``_build_solve_fn_pallas``):
+lay out ``K`` recycled slots per evaluation point on ``(rows, 128)``
+walker planes, advance them with the walk, and reduce the banked per-lane
+sums to per-point moments. By default that is the adaptive single launch
+(``solver/wost.py:1897-1968``): ONE launch whose step budget covers the
+whole remaining quota bound, and a second as a safety net. A high-weight
+split (``split_threshold``) or a ``progress`` callback runs the host
+launch loop instead (``solver/wost.py:1970-2072``): fixed launches of
+``pallas_inner_steps`` steps with the in-launch freeze and, between
+launches, the split (``solver/split.py::make_launch_split``) and the
+callback.
 
 The walk runs where the planes live: the CUDA kernel on a CUDA device,
-its plain version on the CPU (``ops/walk_kernel.py::run_walk``). Options
-outside the DCR survey's main path raise ``NotImplementedError`` naming
-the reference function.
+its plain version on the CPU (``ops/walk_kernel.py::run_walk``). A solver
+runs on the card unless the caller asks for ``device="cpu"``. Options the
+port does not run yet raise ``NotImplementedError`` naming the reference
+function.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
@@ -26,7 +33,7 @@ from ..geometry import queries
 from ..ops.walk_kernel import make_walk_params, run_walk, stream_ids
 from ..problems.problem import Problem
 from ..sampling.rng import stream_seed
-from .split import reserve_quota_row
+from .split import make_launch_split, reserve_quota_row
 from .state import LANES, init_state
 
 __all__ = ["WoStSolver", "SolveResult", "SolverOptions", "RawSolveOut"]
@@ -44,7 +51,8 @@ class SolverOptions:
     """Solver-level knobs, with the JAX package's fields and defaults.
 
     The port runs ``rejection_rounds``, ``min_quota``, ``target_slots``,
-    ``common_random_numbers``, ``roulette_threshold``, ``boundary_snap``,
+    ``common_random_numbers``, ``roulette_threshold``, ``split_threshold``,
+    ``split_reserve``, ``max_attenuation``, ``boundary_snap``,
     ``project_to_boundary``, ``t_min_frac``, ``rmin_factor``,
     ``robin_correction`` (off, ``"chain"``, ``"reflectance"``, ``"auto"``),
     ``robin_arrival_clamp``, ``adaptive_launches``,
@@ -122,14 +130,22 @@ class WoStSolver:
     """Walk-on-Stars Monte Carlo solver for
     ``-div(alpha grad u) + sigma u = f`` with mixed polyline boundaries.
 
-    ``device``: where the walker planes live (``"cpu"`` or a CUDA device).
+    ``device``: where the walker planes live: the card (``"cuda"``, the
+    default) or ``"cpu"`` (the plain walk), never the CPU unasked.
+    ``last_solve_stats`` holds the last solve's walk launches and split
+    clones.
     """
 
     def __init__(self, problem: Problem,
-                 options: SolverOptions = SolverOptions(), device="cpu"):
+                 options: SolverOptions = SolverOptions(), device="cuda"):
         self.problem = problem
         self.options = options
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the solver runs on the card unless asked; "
+                "pass device=\"cpu\" for the plain walk on the CPU")
+        self.last_solve_stats = None
         if options.screened_sampler not in ("exact", "transport"):
             raise ValueError(
                 "screened_sampler must be 'exact' (rejection) or "
@@ -237,9 +253,6 @@ class WoStSolver:
         if not pb.use_delta_tracking:
             raise _unported("a problem without delta tracking (no alpha or "
                             "sigma)", "solver/wost.py::_make_step_core")
-        if pb.source_importance is not None:
-            raise _unported("source_mis / source_importance (MIS NEE)",
-                            "ops/pallas_walk.py::make_pallas_walk (use_mis)")
         if pb.neumann is not None and pb.neumann.num_vertices > 0:
             raise _unported("a Neumann polyline with silhouette vertices",
                             "ops/pallas_walk.py::_silhouette_unrolled")
@@ -255,15 +268,9 @@ class WoStSolver:
             raise _unported("screened_sampler='transport'",
                             "sampling/radial.py::"
                             "sample_screened_radius_transport")
-        if o.split_threshold is not None:
-            raise _unported("split_threshold",
-                            "solver/split.py::make_launch_split")
         if o.compaction:
             raise _unported(f"compaction={o.compaction!r}",
                             "solver/wost.py::_build_solve_fn_pallas (pack)")
-        if o.max_attenuation is not None:
-            raise _unported("max_attenuation",
-                            "ops/pallas_walk.py::make_pallas_walk")
         if o.rng != "fast":
             raise _unported(f"rng={o.rng!r}", "sampling/rng.py")
         if o.backend == "xla":
@@ -302,7 +309,9 @@ class WoStSolver:
             roulette_threshold=opts.roulette_threshold,
             snap=snap_tol is not None, seed=stream_seed(seed),
             robin_correction=self._robin_enabled(),
-            robin_arrival_clamp=opts.robin_arrival_clamp)
+            robin_arrival_clamp=opts.robin_arrival_clamp,
+            max_attenuation=opts.max_attenuation,
+            freeze_split=opts.split_threshold is not None)
         n_src = params.n_src
 
         quotas = np.zeros((rows * LANES,), np.int32)
@@ -319,31 +328,38 @@ class WoStSolver:
                 step_bound)
 
     def _solve_raw(self, points, n_walks: int, max_steps: int, eps: float,
-                   seed: int, walk: Callable = run_walk) -> RawSolveOut:
-        """Adaptive single-launch solve; ``walk`` advances the planes
-        (the kernel's wrapper, unless a test hands in another walk)."""
+                   seed: int, walk: Callable = run_walk,
+                   progress: Callable = None) -> RawSolveOut:
+        """One solve; ``walk`` advances the planes (the kernel's wrapper,
+        unless a test hands in another walk)."""
         state, params, pid, step_bound = self._setup(points, n_walks,
                                                      max_steps, eps, seed)
-        # one launch covers the whole step bound; each lane stops when its
-        # quota drains. The loop is a safety net (it runs once).
-        if self.options.adaptive_launches:
-            budget, cap = step_bound, 2
-        else:
-            budget = self.options.pallas_inner_steps
-            cap = step_bound // budget + 2
-        launches = 0
-        while launches < cap and bool((state["quota"] > 0).any()):
-            walk(state, params, budget)
-            launches += 1
-
+        opts = self.options
         n_src = params.n_src
         n_points = np.asarray(points).reshape(-1, 2).shape[0]
         sums = torch.zeros(n_src, n_points, dtype=torch.float32,
                            device=pid.device)
         sumsq = torch.zeros_like(sums)
+        carry_sum, carry_sq = torch.zeros_like(sums), torch.zeros_like(sums)
+        launches, clones = 0, 0
+        if (opts.adaptive_launches and opts.split_threshold is None
+                and progress is None):
+            # one launch covers the whole step bound; each lane stops when
+            # its quota drains. The loop is a safety net (it runs once).
+            while launches < 2 and bool((state["quota"] > 0).any()):
+                walk(state, params, step_bound)
+                launches += 1
+        else:
+            launches, clones = self._launch_loop(
+                state, params, pid, step_bound, max_steps,
+                n_points * n_walks, walk, progress, carry_sum, carry_sq)
+        self.last_solve_stats = {"launches": launches, "clones": clones}
+
         for i in range(n_src):
             sums[i].index_add_(0, pid, state[f"asum{i}"].reshape(-1))
             sumsq[i].index_add_(0, pid, state[f"asq{i}"].reshape(-1))
+        # the split's banked destination sums (zero without the split)
+        sums, sumsq = sums + carry_sum, sumsq + carry_sq
         mean = sums / n_walks
         var = torch.clamp(sumsq / n_walks - mean * mean, min=0.0)
         stderr = torch.sqrt(var / n_walks)
@@ -359,6 +375,59 @@ class WoStSolver:
             max_banked=float(state["bmax"].max()),
         )
 
+    def _launch_loop(self, state, params, pid, step_bound: int,
+                     max_steps: int, total_walks: int, walk, progress,
+                     carry_sum, carry_sq):
+        """The host launch loop (``solver/wost.py:1970-2072``): fixed
+        launches of ``pallas_inner_steps`` steps; after each, the progress
+        callback and, while ``launches < launch_cap``, the split, whose
+        banked destination sums go into ``carry_sum``/``carry_sq``.
+        Returns ``(launches, clones)``.
+
+        With the split the walk is a freeze build: heavy lanes stop inside
+        a launch until the split halves them. Frozen lanes defer their
+        steps, so the drain bound doubles; the freeze fails open (+inf)
+        for the next launch when every active lane is heavy, and for good
+        once splits stop at ``launch_cap``, after which every clone has
+        ``split_reserve`` launches to finish its walk.
+        """
+        opts = self.options
+        n_inner = int(opts.pallas_inner_steps)
+        launch_cap = step_bound // n_inner + 2
+        use_split = opts.split_threshold is not None
+        if use_split:
+            thr = float(np.float32(opts.split_threshold))
+            split = make_launch_split(thr, params.n_src, carry_sum.shape[1])
+            split_reserve = max_steps // n_inner + 1
+            hard_cap = 2 * launch_cap + split_reserve
+        else:
+            thr, hard_cap = None, launch_cap
+        cur_thr = thr
+        sid_base = 1 << 30  # clone stream ids live above all lane ids
+        launches, clones = 0, 0
+        while launches < hard_cap:
+            walk(state, params, n_inner, cur_thr)
+            launches += 1
+            active = int((state["quota"] > 0).sum())
+            if progress is not None:
+                done = max(total_walks - int(state["quota"].sum()), 0)
+                progress(done, total_walks, launches * n_inner)
+            if active == 0:
+                break
+            if use_split and launches < launch_cap:
+                n, dsum, dsq = split(state, pid, sid_base)
+                sid_base += n
+                clones += n
+                carry_sum += dsum
+                carry_sq += dsq
+                live = state["quota"] > 0
+                active = int(live.sum())
+                heavy = int((live & (torch.abs(state["atten"]) > thr)).sum())
+                cur_thr = math.inf if 0 < heavy == active else thr
+            elif use_split:
+                cur_thr = math.inf
+        return launches, clones
+
     def solve(
         self,
         points,
@@ -373,17 +442,16 @@ class WoStSolver:
         """Estimate the PDE solution at ``points`` (``(N, 2)``).
 
         Returns a :class:`SolveResult`; multi-source problems return
-        ``(n_src, N)`` means. ``return_history`` and ``progress`` are not
-        ported yet and raise.
+        ``(n_src, N)`` means. ``progress``: an optional
+        ``callback(done_walks, total_walks, iteration)``, called once per
+        launch of the host launch loop, which it selects.
+        ``return_history`` is not ported yet and raises.
         """
         if return_history:
             raise _unported("return_history",
                             "diagnostics/history.py::trace_walks")
-        if progress is not None:
-            raise _unported("the progress callback",
-                            "solver/wost.py::_wrap_step_progress")
         raw = self._solve_raw(points, int(n_walks), int(max_steps),
-                              float(eps), seed)
+                              float(eps), seed, progress=progress)
         mean, stderr = raw.mean, raw.stderr
         sums, sumsq = raw.walk_sum, raw.walk_sumsq
         if len(self.problem.source_fields) <= 1:

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from ..geometry.polyline import Polyline
-from ..problems.fields import constant, gaussian_dipole
+from ..problems.fields import GaussianMixture, constant, gaussian_dipole
 from ..problems.problem import Problem
 from ..solver.wost import SolveResult, SolverOptions, WoStSolver
 
@@ -146,22 +146,25 @@ class DCRSurvey:
         return (x, y)
 
     def make_solver(self, options: SolverOptions = None,
-                    device="cpu") -> WoStSolver:
+                    device="cuda") -> WoStSolver:
         """A reusable solver (``options`` default to
-        :func:`survey_default_options`)."""
+        :func:`survey_default_options`) on ``device``: the card unless
+        the caller asks for ``"cpu"``."""
         if options is None:
             options = survey_default_options()
         return WoStSolver(self.build_problem(), options, device=device)
 
     def build_problem(self) -> Problem:
-        if self.source_mis:
-            raise NotImplementedError(
-                "source_mis is not ported yet; reference: dcrmontecarlo_tpu/"
-                "problems/fields.py::GaussianMixture")
         dirichlet, neumann = halfspace_domain(
             self.half_width, self.depth, self.surface_y)
         a = self._bury_source(self.current_a)
         b = self._bury_source(self.current_b)
+        importance = None
+        if self.source_mis:
+            importance = GaussianMixture.from_components([
+                (a, self.source_width, 0.5),
+                (b, self.source_width, 0.5),
+            ])
         return Problem(
             dirichlet=dirichlet,
             neumann=neumann,
@@ -169,6 +172,7 @@ class DCRSurvey:
             source=gaussian_dipole(a, b, self.current, self.source_width),
             alpha=self.conductivity,
             sigma_bar_override=self.sigma_bar_override,
+            source_importance=importance,
             local_majorant=self.local_majorant,
         )
 
@@ -181,10 +185,12 @@ class DCRSurvey:
         seed: int = 0,
         options: SolverOptions = None,
         solver: WoStSolver = None,
-        device="cpu",
+        device="cuda",
     ) -> SurveyResult:
         """Solve the survey at ``electrodes`` (surface electrodes are
-        nudged ``electrode_nudge`` inside the half-space)."""
+        nudged ``electrode_nudge`` inside the half-space). Without a
+        ``solver`` one is made on ``device``: the card unless the caller
+        asks for ``"cpu"``."""
         if solver is None:
             solver = self.make_solver(options, device=device)
         pts = np.asarray(electrodes, np.float32).copy()

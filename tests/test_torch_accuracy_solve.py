@@ -40,7 +40,7 @@ def paired_runs():
     assert robin == {"robin_correction": "auto", "robin_interior": "arrival",
                      "robin_arrival_clamp": 0.02}
     solver = ts.make_solver(survey_default_options(target_slots=1 << 17,
-                                                   **robin))
+                                                   **robin), device="cpu")
     got = ts.run(te, n_walks=N_WALKS, max_steps=MAX_STEPS, eps=EPS,
                  seed=SEED, solver=solver)
     return got, want, solver

@@ -12,11 +12,19 @@ accumulator values), and all values must be finite. Whole solves draw the
 same counter-hash streams in both, so their means agree to rounding and
 their step counts exactly. The variants cover what the survey's main
 path does not: more than one source, no Neumann wall, no boundary snap,
-no projection, and the round caps 1, 2 and 64; and the accuracy path's
+no projection, and the round caps 1, 2 and 64; the accuracy path's
 kernel instantiations on the notebook survey: the Robin chord chain, the
 reflectance fold, and the local majorant on its own, each one launch,
-plus a whole solve of the accuracy configuration.
+plus a whole solve of the accuracy configuration; and the flagship gate's
+path: MIS on the survey and the flagship instantiation (chain + majorant
++ MIS + freeze, the launch frozen at 4.0), the ``max_attenuation`` clip,
+a whole host-loop solve with the split (equal steps and clone counts),
+and the flagship notebook gate itself at seed 0 against the pinned
+oracle.
 """
+
+import os
+
 
 import numpy as np
 import pytest
@@ -61,9 +69,16 @@ def _box_problem():
                        (2.0, fields.smooth_circle((3.0, -2.0), 5.0, 1.0))]))
 
 
-def _notebook_problem(majorant=None):
+def _notebook_problem(majorant=None, mis=False):
     survey, _ = notebook_survey()
     survey.local_majorant = majorant
+    survey.source_mis = mis
+    return survey.build_problem()
+
+
+def _survey_mis_problem():
+    survey, _ = geophysical_scenario()
+    survey.source_mis = True
     return survey.build_problem()
 
 
@@ -96,6 +111,17 @@ CASES = {
     "notebook_majorant_robin_off": (lambda: _notebook_problem("auto"), dict(
         robin_correction=False, common_random_numbers=True,
         rejection_rounds=2)),
+    "survey_mis": (_survey_mis_problem, dict(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2)),
+    "notebook_flagship_freeze": (lambda: _notebook_problem("auto", True),
+                                 dict(common_random_numbers=True,
+                                      roulette_threshold=0.05,
+                                      rejection_rounds=2,
+                                      split_threshold=4.0)),
+    "notebook_chain_max_attenuation": (_notebook_problem, dict(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2, max_attenuation=1.5)),
 }
 
 
@@ -114,13 +140,15 @@ def test_kernel_matches_plain_one_launch(device, case):
     state, params, _, _ = solver._setup(pts, 4096, 60, EPS, 3)
     wk.walk_plain(state, params, 100)  # mid-walk states, some recycled
     ref = {k: v.clone() for k, v in state.items()}
+    thr = 4.0 if params.freeze else None
     launches = wk.run_walk.launches
-    wk.run_walk(state, params, 48)
+    wk.run_walk(state, params, 48, freeze_thr=thr)
     torch.cuda.synchronize()
     assert wk.run_walk.launches == launches + 1
-    wk.walk_plain(ref, params, 48)
+    wk.walk_plain(ref, params, 48, freeze_thr=thr)
     _compare(state, ref, state_planes(params.n_src))
     assert bool((state["ndone"] > 0).any())
+    assert params.variant in wk.KERNEL_VARIANTS
 
 
 def test_kernel_whole_solve_matches_plain(device):
@@ -158,3 +186,52 @@ def test_kernel_rejects_what_it_cannot_run(device):
     solver = WoStSolver(prob, device=device)
     with pytest.raises(NotImplementedError, match="field specs"):
         solver.solve([[0.0, 0.0]], n_walks=8, max_steps=10, eps=1e-2)
+
+
+def test_kernel_whole_host_loop_solve_matches_plain(device):
+    # the flagship configuration through the host launch loop: the same
+    # walks, splits and clones on both sides (64-lane-row blocks would
+    # fill 8,192 lanes with clones; one row per block keeps it short)
+    solver = WoStSolver(_notebook_problem("auto", True), SolverOptions(
+        common_random_numbers=True, roulette_threshold=0.05,
+        rejection_rounds=2, target_slots=1 << 17, split_threshold=4.0,
+        pallas_block_rows=1), device=device)
+    launches = wk.run_walk.launches
+    rk = solver._solve_raw(NOTEBOOK_ELECTRODES, 64, 300, 1.0, 5)
+    stats_k = solver.last_solve_stats
+    assert wk.run_walk.launches - launches == stats_k["launches"] > 1
+    rp = solver._solve_raw(NOTEBOOK_ELECTRODES, 64, 300, 1.0, 5,
+                           walk=wk.walk_plain)
+    assert solver.last_solve_stats == stats_k and stats_k["clones"] > 0
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_flagship_notebook_gate_seed0(device):
+    # tests/test_dcr_survey.py::test_notebook_survey_matches_fdm_oracle
+    # on the card, seed 0, with its configuration and its three bounds
+    # (:233-243); not its sign checks at the current electrodes, which the
+    # host loop's heavy tail flips on this seed (PERF.md, section 6)
+    survey, electrodes = notebook_survey()
+    survey.source_mis = True
+    survey.local_majorant = "auto"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, "dcrmontecarlo_tpu", "validation", "pins",
+                              "notebook_oracle.npz")) as z:
+        ref, dv_ref = z["fdm_401"], z["dv_401"]
+    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+
+    solver = survey.make_solver(survey_default_options(
+        target_slots=65536, split_threshold=4.0), device=device)
+    result = survey.run(electrodes, n_walks=2500, max_steps=6000, eps=1.0,
+                        seed=0, solver=solver)
+    assert solver.last_solve_stats["clones"] > 0
+    err = result.potentials - ref
+    dev = np.abs(err) / (4.0 * result.potentials_stderr + 3.5)
+    assert (dev < 1.0).sum() >= 19, (result.potentials, ref, dev)
+    assert -25.0 < np.median(err) < 3.0
+    dv_dev = np.abs(result.voltages - dv_ref) / (
+        4.0 * result.voltages_stderr + 0.25)
+    assert (dv_dev < 1.0).all(), dv_dev

@@ -5,6 +5,9 @@ electrodes x 1500 walks, eps 0.5, max_steps 800, 16384 target slots):
 at least 8 of 9 electrode potentials within 4 sigma + 2e-4 of the
 oracle. The oracle is the JAX package's ``validation.fdm_solve``
 (numpy/scipy only), fed the port's own conductivity and source fields.
+The port's own copy of it (``dcrmontecarlo_tpu_torch.validation``, which
+``chip_smoke.py`` uses) gives the same electrode potentials, to 1e-12
+relative: the same code on the same inputs.
 """
 
 import numpy as np
@@ -13,23 +16,38 @@ import torch
 from dcrmontecarlo_tpu.validation import fdm_solve
 from dcrmontecarlo_tpu_torch.models import geophysical_scenario
 from dcrmontecarlo_tpu_torch.solver import SolverOptions
+from dcrmontecarlo_tpu_torch.validation import fdm_solve as port_fdm_solve
 
 torch.set_num_threads(1)
+
+
+def _np_field(f):
+    return lambda X, Y: f(torch.as_tensor(X, dtype=torch.float32),
+                          torch.as_tensor(Y, dtype=torch.float32)).numpy()
+
+
+def test_port_oracle_copy_matches_jax_package():
+    survey, electrodes = geophysical_scenario(sharpness=0.5)
+    prob = survey.build_problem()
+    kw = dict(bounds=((-100.0, 100.0), (-200.0, 0.0)),
+              alpha=_np_field(prob.alpha), source=_np_field(prob.source),
+              neumann_top=True, nx=121, ny=121)
+    pts = np.asarray(electrodes, np.float64) - [0.0, 0.1]
+    want = fdm_solve(**kw)(pts)
+    got = port_fdm_solve(**kw)(pts)
+    assert np.isfinite(want).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
 def test_dcr_potentials_match_fdm():
     survey, electrodes = geophysical_scenario(sharpness=0.5)
     result = survey.run(electrodes, n_walks=1500, max_steps=800, eps=0.5,
-                        seed=0, options=SolverOptions(target_slots=16384))
+                        seed=0, options=SolverOptions(target_slots=16384),
+                        device="cpu")
     prob = survey.build_problem()
-
-    def np_field(f):
-        return lambda X, Y: f(torch.as_tensor(X, dtype=torch.float32),
-                              torch.as_tensor(Y, dtype=torch.float32)
-                              ).numpy()
-
     fdm = fdm_solve(bounds=((-100.0, 100.0), (-200.0, 0.0)),
-                    alpha=np_field(prob.alpha), source=np_field(prob.source),
+                    alpha=_np_field(prob.alpha),
+                    source=_np_field(prob.source),
                     neumann_top=True, nx=321, ny=321)
     ref = fdm(result.electrodes)
     err = np.abs(result.potentials - ref)

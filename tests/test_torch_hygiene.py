@@ -1,9 +1,12 @@
-"""Import hygiene of the PyTorch port.
+"""Import hygiene and defaults of the PyTorch port.
 
 The machine with the card has no JAX, so ``dcrmontecarlo_tpu_torch`` must
 import neither ``jax`` nor the JAX package ``dcrmontecarlo_tpu`` (whose
-``__init__`` imports jax). The two names share a prefix, so the patterns
-below match ``dcrmontecarlo_tpu`` only as a whole module name.
+``__init__`` imports jax), and ``chip_smoke.py`` executes no file of it
+(the port keeps its own copy of the finite-volume oracle). The two names
+share a prefix, so the patterns below match ``dcrmontecarlo_tpu`` only as
+a whole module name. The port's entry points run on the card unless the
+caller asks for the CPU.
 """
 
 import ast
@@ -13,6 +16,8 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dcrmontecarlo_tpu_torch"
@@ -54,7 +59,7 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("ops.walk_kernel", "ops.greens", "problems.majorant",
-                "interop"):
+                "interop", "validation.fdm", "solver.split"):
         assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
@@ -83,30 +88,25 @@ def _files_chip_smoke_loads_by_path():
 
 
 def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
-    # chip_smoke.py loads the JAX package's finite-volume oracle by file
-    # path, bypassing that package's __init__ (which imports jax); the file
-    # must therefore import neither jax nor a sibling module
-    tops = _imported_tops(ROOT / "dcrmontecarlo_tpu" / "validation" / "fdm.py")
+    # chip_smoke.py's oracle is the port's own copy of the finite-volume
+    # solver, imported from the port; it imports only numpy and scipy
+    tops = _imported_tops(PORT / "validation" / "fdm.py")
     assert tops <= {"numpy", "scipy", "typing", "math", "__future__"}, tops
-    assert "fdm.py" in (ROOT / "chip_smoke.py").read_text()
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert "dcrmontecarlo_tpu_torch.validation" in text
+    assert "spec_from_file_location" not in text
 
 
 def test_every_file_chip_smoke_loads_by_path_is_jax_free():
-    # each module it executes imports only numpy/scipy; each data file it
-    # reads is a plain .npz that loads without pickle (no code)
+    # the one file of the JAX package chip_smoke.py reads by path is the
+    # pinned oracle's data: a plain .npz that loads without pickle (no code)
     import numpy as np
 
     files = _files_chip_smoke_loads_by_path()
-    assert files == {"dcrmontecarlo_tpu/validation/fdm.py",
-                     "dcrmontecarlo_tpu/validation/pins/notebook_oracle.npz"}
+    assert files == {"dcrmontecarlo_tpu/validation/pins/notebook_oracle.npz"}
     for rel in files:
-        path = ROOT / rel
-        if path.suffix == ".py":
-            assert _imported_tops(path) <= {"numpy", "scipy", "typing",
-                                            "math", "__future__"}, rel
-        else:
-            with np.load(path, allow_pickle=False) as z:
-                assert {"electrodes", "fdm_401", "dv_401"} <= set(z.files)
+        with np.load(ROOT / rel, allow_pickle=False) as z:
+            assert {"electrodes", "fdm_401", "dv_401"} <= set(z.files)
 
 
 def test_kernel_source_names_the_tpu_kernel_it_replaces():
@@ -131,6 +131,56 @@ def test_kernel_constant_tables_match_python():
             r"F\(([-+0-9.eE]+)\)", body)], np.float32)
         want = np.array(getattr(bessel, "_" + name), np.float32)
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_kernel_instantiations_match_python():
+    # the variants walk_pick compiles are KERNEL_VARIANTS, no more, no less
+    from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
+
+    src = (PORT / "csrc" / "walk_kernel.cu").read_text()
+    body = src[src.index("LaunchFn walk_pick("):]
+    body = body[:body.index("default:")]
+    robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
+             "REFLECT": wk.ROBIN_REFLECTANCE}
+    found = set()
+    for m in re.finditer(r"case (\d+): return launch<ROBIN_(\w+), (\w+), "
+                         r"(\w+), (\w+)>;", body):
+        code, r, *flags = m.groups()
+        b = [f == "true" for f in flags]
+        variant = (robin[r], *b)
+        assert int(code) == ((variant[0] * 2 + b[0]) * 2 + b[1]) * 2 + b[2]
+        found.add(variant)
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 8
+
+
+def test_entry_points_default_to_the_card():
+    # the defaults are "cuda"; here, without a GPU, a solve that does not
+    # ask for the CPU raises before it runs anything
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.survey import DCRSurvey
+
+    for fn in (WoStSolver.__init__, DCRSurvey.make_solver, DCRSurvey.run):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert not torch.cuda.is_available()
+    survey, electrodes = geophysical_scenario()
+    calls = []
+    for attempt in (lambda: survey.run(electrodes, n_walks=8, max_steps=5),
+                    lambda: survey.make_solver(),
+                    lambda: WoStSolver(survey.build_problem())):
+        with pytest.raises(RuntimeError, match='device="cpu"') as info:
+            calls.append(attempt())
+        assert "\n" not in str(info.value)
+    assert calls == []
+    solver = survey.make_solver(device="cpu")
+    assert solver.device.type == "cpu"
+    res = survey.run(electrodes[:2], n_walks=8, max_steps=5, solver=solver)
+    assert np.isfinite(res.potentials).all()
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -33,7 +33,7 @@ def paired_runs():
     tsurvey, t_electrodes = geophysical_scenario()
     np.testing.assert_array_equal(t_electrodes, electrodes)
     got = tsurvey.run(t_electrodes, n_walks=N_WALKS, max_steps=MAX_STEPS,
-                      eps=EPS, seed=SEED)
+                      eps=EPS, seed=SEED, device="cpu")
     return got, want
 
 
@@ -100,7 +100,7 @@ def test_survey_layer_matches_jax():
 
 def test_make_solver_reuse():
     survey, electrodes = geophysical_scenario()
-    solver = survey.make_solver()
+    solver = survey.make_solver(device="cpu")
     assert isinstance(solver, WoStSolver) and solver.device.type == "cpu"
     r1 = survey.run(electrodes[:3], n_walks=16, max_steps=50, seed=4,
                     solver=solver)

@@ -27,7 +27,8 @@ from dcrmontecarlo_tpu.solver import SolverOptions as JOptions
 from dcrmontecarlo_tpu.solver import WoStSolver as JSolver
 from dcrmontecarlo_tpu_torch import interop
 from dcrmontecarlo_tpu_torch.geometry import Polyline, square_loop
-from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
+    notebook_survey
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import LocalMajorant, Problem, fields
 from dcrmontecarlo_tpu_torch.sampling.rng import stream_seed
@@ -138,7 +139,8 @@ def test_solver_init_matches_numpy_planes(survey):
     tprob, jprob = survey
     jsolver = JSolver(jprob, JOptions(rejection_rounds=2, **OPTS))
     planes = numpy_planes(jsolver, POINTS, N_WALKS, EPS)
-    tsolver = WoStSolver(tprob, SolverOptions(rejection_rounds=2, **OPTS))
+    tsolver = WoStSolver(tprob, SolverOptions(rejection_rounds=2, **OPTS),
+                         device="cpu")
     state, params, pid, bound = tsolver._setup(POINTS, N_WALKS, 500, EPS,
                                                SEED)
     got = interop.state_to_numpy(state)
@@ -184,7 +186,7 @@ def test_segment_tables_match_kernel_constants(survey):
 
 def test_wrapper_dispatch(survey):
     tprob, _ = survey
-    solver = WoStSolver(tprob, SolverOptions(**OPTS))
+    solver = WoStSolver(tprob, SolverOptions(**OPTS), device="cpu")
     state, params, _, _ = solver._setup(POINTS, N_WALKS, 500, EPS, SEED)
     ref = {k: v.clone() for k, v in state.items()}
     launches = wk.run_walk.launches
@@ -206,8 +208,9 @@ def test_fixed_launches_equal_one_adaptive_launch(survey):
     tprob, _ = survey
     pts = POINTS[[4, 9, 11, 13]]
     out = [WoStSolver(tprob, SolverOptions(
-        adaptive_launches=adaptive, pallas_inner_steps=64, **OPTS)
-    )._solve_raw(pts, 16, 100, EPS, SEED) for adaptive in (True, False)]
+        adaptive_launches=adaptive, pallas_inner_steps=64, **OPTS),
+        device="cpu")._solve_raw(pts, 16, 100, EPS, SEED)
+        for adaptive in (True, False)]
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
 
@@ -227,7 +230,7 @@ def test_kernel_params_need_field_specs(survey):
         rejection_rounds=2, roulette_threshold=0.05, snap=True,
         seed=-5).pack()
     assert fp.dtype == np.float32 and ip.dtype == np.int32
-    assert ip[0] == -5 and len(ip) == 14 + 2 * 4
+    assert ip[0] == -5 and len(ip) == 17 + 2 * 4
 
 
 def _with_vertices():
@@ -239,7 +242,30 @@ def _with_vertices():
 
 
 def _survey_solver(**opts):
-    return geophysical_scenario()[0].make_solver(SolverOptions(**opts))
+    return geophysical_scenario()[0].make_solver(SolverOptions(**opts),
+                                                 device="cpu")
+
+
+def _kernel_params(problem, **kw):
+    return wk.make_walk_params(problem, eps=EPS, max_steps=10, t_min=1e-3,
+                               rmin=0.45, project=True, rejection_rounds=2,
+                               roulette_threshold=None, snap=False, seed=1,
+                               **kw)
+
+
+def _mis_over_kernel_table():
+    tprob = geophysical_scenario()[0].build_problem()
+    tprob.set_source_importance(fields.GaussianMixture.from_components(
+        [((float(i), -1.0), 0.5, 1.0) for i in range(9)]))
+    _kernel_params(tprob).pack()
+
+
+def _kernel_variant_not_compiled():
+    # reflectance with MIS: no path launches it, so it is not compiled
+    tprob = notebook_survey()[0].build_problem()
+    tprob.set_source_importance(fields.dipole_importance(
+        (-200.0, -9.0), (200.0, -9.0), 5.0))
+    _kernel_params(tprob, robin_correction="reflectance").pack()
 
 
 def _majorant_over_kernel_table():
@@ -261,30 +287,23 @@ UNPORTED = {
     "robin_arrival_only": lambda: _survey_solver(
         robin_correction="arrival-only").solve([[0.0, -1.0]], 8, 5, EPS),
     "majorant_over_kernel_table": _majorant_over_kernel_table,
+    "mis_over_kernel_table": _mis_over_kernel_table,
+    "kernel_variant_not_compiled": _kernel_variant_not_compiled,
     "transport_sampler": lambda: _survey_solver(
         screened_sampler="transport").solve([[0.0, -1.0]], 8, 5, EPS),
-    "split_threshold": lambda: _survey_solver(
-        split_threshold=4.0).solve([[0.0, -1.0]], 8, 5, EPS),
     "compaction_pack": lambda: _survey_solver(
         compaction="pack").solve([[0.0, -1.0]], 8, 5, EPS),
-    "max_attenuation": lambda: _survey_solver(
-        max_attenuation=10.0).solve([[0.0, -1.0]], 8, 5, EPS),
     "threefry": lambda: _survey_solver(rng="threefry").solve(
         [[0.0, -1.0]], 8, 5, EPS),
     "xla_backend": lambda: _survey_solver(backend="xla").solve(
         [[0.0, -1.0]], 8, 5, EPS),
-    "progress": lambda: _survey_solver().solve(
-        [[0.0, -1.0]], 8, 5, EPS, progress=lambda *a: None),
     "return_history": lambda: _survey_solver().solve(
         [[0.0, -1.0]], 8, 5, EPS, return_history=True),
-    "source_mis": lambda: geophysical_scenario()[0].__class__(
-        **{**geophysical_scenario()[0].__dict__, "source_mis": True}
-    ).build_problem(),
-    "silhouette_vertices": lambda: WoStSolver(_with_vertices()).solve(
-        [[0.0, -1.0]], 8, 5, EPS),
+    "silhouette_vertices": lambda: WoStSolver(
+        _with_vertices(), device="cpu").solve([[0.0, -1.0]], 8, 5, EPS),
     "no_delta_tracking": lambda: WoStSolver(Problem(
-        dirichlet=square_loop(1.0), bc_dirichlet=fields.constant(1.0))
-    ).solve([[0.0, 0.0]], 8, 5, 1e-3),
+        dirichlet=square_loop(1.0), bc_dirichlet=fields.constant(1.0)),
+        device="cpu").solve([[0.0, 0.0]], 8, 5, 1e-3),
 }
 
 
