@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its three paths, each on the
+Drives ``dcrmontecarlo_tpu_torch`` through its four paths, each on the
 kernel variant it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
-two-level local majorant (phases 8-11), and the flagship notebook gate's
+two-level local majorant (phases 8-11), the flagship notebook gate's
 path, which adds MIS next-event estimation and the high-weight split
-(the host launch loop with the in-launch freeze; phases 12-15). Each
-phase reports on its own line:
+(the host launch loop with the in-launch freeze; phases 12-15), and the
+topographic survey: DC resistivity over rolling hills, a heightmap
+Neumann surface with silhouette vertices, walked in the kernel's table
+form (phases 16-20). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
-2. build of the walk kernel from ``csrc/walk_kernel.cu``;
+2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
+   instantiation, all compiled at once;
 3. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    survey problem with its default options (``walk_kernel.compare_planes``:
    every plane agrees on >= 99% of lanes to rel 1e-4 above a floor of
@@ -50,7 +53,9 @@ phase reports on its own line:
     steps of kernel and plain version at that state, timed and held to
     the rule of phase 3 (on the first 147,456 lanes if the plain version
     would take over 30 s). The accuracy variant's record takes its
-    numbers from here.
+    numbers from here; the reflectance fold with the majorant and the
+    majorant alone, which no path launches, get their times and bounds
+    from the same state (a log line each, no record).
 12. kernel vs plain version, one 32-step launch at 8,192 lanes of the
     flagship configuration (``source_mis=True``, ``local_majorant="auto"``,
     ``split_threshold=4.0``: chain + majorant + MIS + freeze) after 200
@@ -85,6 +90,29 @@ phase reports on its own line:
     4.0, timed and held to the rule of phase 3 (on the first 147,456 lanes
     if the plain version would take over 30 s). The flagship variant's
     record takes its numbers from here.
+16. the table form, one launch: ``topographic_survey_problem()`` at its
+    defaults (200 Neumann segments, 199 vertices: 402 rows), 9 electrodes
+    draped at x = -40..40, 8,192 lanes, 256 steps of kernel and plain
+    version, timed and held to the rule of phase 3; the silhouettes act
+    (the same launch without the vertex table changes >= 1% of lanes in
+    ``px`` or ``atten``); and a 100-segment square whose right edge is its
+    table's last three rows keeps every walker inside.
+17. the static form with silhouettes, the same at ``half_width=100,
+    depth=150, resolution=8`` (52 rows), its launches counted over a solve
+    through ``WoStSolver.solve``.
+18. the chord chain on a table geometry: the test size (``resolution=4``,
+    102 rows) with ``robin_correction="chain"``, the same, the chain shown
+    to act (Robin off changes >= 1% of lanes).
+19. kernel vs plain version, a whole solve at the test size: 9 draped
+    electrodes x 512 walks, eps 0.5, max_steps 600, under phase 4's rule.
+20. full size of the topographic path: the defaults, the 9 electrodes x
+    2^17 walks, ``SolverOptions(target_slots=1<<21)`` (294,912 lanes),
+    eps 0.5, max_steps 600: a warm-up and 3 timed solves as in phase 6
+    (with the share of walks the step cap truncated), the physics of
+    ``tests/test_topography.py`` (the +20 m side positive, the -20 m side
+    negative, every |potential| < 1), then 256 steps of kernel and plain
+    version at that state. The topographic variant's record takes its
+    numbers from here.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -163,7 +191,7 @@ def clone_state(state):
 def ptxas_registers(build_log):
     """Registers per compiled kernel instantiation, from ``ptxas -v``,
     keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
-    mis,freeze>``."""
+    mis,freeze,table>``."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -171,7 +199,7 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E",
+            t = re.search(r"walk_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                           entry)
             if t:
                 r, *b = t.groups()
@@ -191,13 +219,19 @@ def fp32_ops_per_step(params):
     the work every stepping lane does counts: the rejection's first round,
     the cheaper of the two moves, and not the Robin chord mass, the
     arrival weight, the chain branch, later rejection rounds or the
-    roulette's kill, whose share depends on the walk."""
+    roulette's kill, whose share depends on the walk. The geometry loops
+    count every row: in the table form a closest-point row forms its edge
+    (4 more), a first-hit row its edge but divides instead of taking a
+    reciprocal (1 more), a silhouette row its two edges (4 more)."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
+    n_vert = len(params.vert_table)
     kind, tab = params.specs[1].table()
     alpha = 3 + 16 * ((len(tab) - 1) // 6)     # alpha_c: a bump is 16
     dipole = 20                                 # a source evaluation
-    ops = 18 * n_dir + 2                        # closest point
-    ops += 9 + 6 + 22 * n_neu                   # radius, direction, hit
+    cp_row, hit_row, sil_row = (22, 23, 20) if params.table else (18, 22, 16)
+    ops = cp_row * n_dir + 2                    # closest point
+    ops += 9 + 6 + hit_row * n_neu              # radius, direction, hit
+    ops += sil_row * n_vert + (2 if n_vert else 0)  # silhouette radius
     ops += 165                                  # screened radius, round 0
     ops += 6 + alpha                            # sample point, alpha there
     ops += 34 + alpha + 3 + 12                  # interior test, edge move,
@@ -207,7 +241,7 @@ def fp32_ops_per_step(params):
         ops += 6 + 13 * len(boxes) + 3 * len(bands)
     if params.mis_table is not None:
         k = len(params.mis_table)
-        ops += (36 + 102 + 31 + 2 + 22 * n_neu + 11 * k + 13 + alpha
+        ops += (36 + 102 + 31 + 2 + hit_row * n_neu + 11 * k + 13 + alpha
                 + dipole * params.n_src)        # MIS NEE
     else:
         ops += 35 + dipole * params.n_src       # NEE
@@ -224,7 +258,8 @@ def bound(params, lanes, walker_steps, launches):
     once, per launch) over the memory rate."""
     state = 5 + 3 * params.n_src + 9            # read and written
     const = 3 + (3 if params.snap else 0)       # read
-    nbytes = 4.0 * lanes * (2 * state + const) * launches
+    rows = sum(t.nbytes for t in params.device_tables("cpu"))  # table form
+    nbytes = (4.0 * lanes * (2 * state + const) + rows) * launches
     t_ops = fp32_ops_per_step(params) * walker_steps / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
@@ -270,8 +305,8 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
     and the longest lane."""
     wk.run_walk.launches = 0
     wk.run_walk.variant_launches.clear()
-    solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
-                 seed=0)                                       # warm-up
+    warm = solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
+                        seed=0)                                # warm-up
     counts = dict(wk.run_walk.variant_launches)
     check(sum(counts.values()) == wk.run_walk.launches > 0,
           f"{what}: the full-size solve launched {counts}")
@@ -285,7 +320,7 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
         stop.record()
         events.append((start, stop))
 
-    steps, times, lane_steps, share = 0.0, [], 0.0, []
+    steps, times, lane_steps, share, trunc = 0.0, [], 0.0, [], []
     for rep in range(3):
         events.clear()
         torch.cuda.synchronize()
@@ -297,12 +332,13 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
                      / times[-1])
         stats.append(solver.last_solve_stats)
         steps += res.total_steps
+        trunc.append(res.truncated_walks / (len(pts) * n_walks))
         lane_steps += float(lanes) * res.iterations
         check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
               f"{what}: full-size solve not finite")
     return dict(counts=counts, stats=stats, rate=steps / sum(times),
                 times=times, steps=steps / 3, occupancy=steps / lane_steps,
-                share=share, longest=res.iterations)
+                share=share, longest=res.iterations, warm=warm, trunc=trunc)
 
 
 def steps_256(wk, state, params, what, thr=None, subset=False):
@@ -311,7 +347,8 @@ def steps_256(wk, state, params, what, thr=None, subset=False):
     rule. With ``subset``, the first 147,456 lanes when the plain version
     would take over 30 s. Returns a dict of the lanes, ms, plain_ms, the
     worst plane's agreeing share, the max |err| on agreeing lanes, the
-    walker-steps the kernel took and the plain 16-step time when cut."""
+    walker-steps the kernel took, the plain 16-step time when cut and the
+    kernel's end state."""
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
 
     wk.run_walk(clone_state(state), params, 16, freeze_thr=thr)
@@ -328,7 +365,7 @@ def steps_256(wk, state, params, what, thr=None, subset=False):
                                   what)
     return dict(lanes=state["px"].numel(), ms=ms, plain_ms=plain_ms,
                 worst=worst, max_err=max_err, steps=life_steps(state, ks),
-                t16=t16 if cut else None)
+                t16=t16 if cut else None, end=ks)
 
 
 def cuda_ms(fn, reps=1):
@@ -349,9 +386,11 @@ def main():
               file=sys.stderr)
         sys.exit(2)
 
-    from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
-        notebook_survey
+    from dcrmontecarlo_tpu_torch.geometry import Polyline
+    from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
+        geophysical_scenario, notebook_survey, topographic_survey_problem
     from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
     from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
     from dcrmontecarlo_tpu_torch.survey import survey_default_options
@@ -376,14 +415,16 @@ def main():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
 
     # ---- 2. build -------------------------------------------------------
-    so, build_s, build_log = wk.build_library()
+    libs, build_s, build_log = wk.build_library()
     regs = ptxas_registers(build_log)
     check(set(regs) == {wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
           or not build_log,
           f"expected {len(wk.KERNEL_VARIANTS)} kernel instantiations, "
           f"ptxas reported {regs}")
-    log(f"[2] built {os.path.relpath(so, ROOT)} in {build_s:.1f} s; "
-        f"ptxas registers per instantiation: {regs or 'cached build'}")
+    log(f"[2] built {len(libs)} libraries, one per instantiation, in "
+        f"{os.path.relpath(os.path.dirname(libs[0]), ROOT)} in {build_s:.1f} "
+        f"s (all nvcc processes at once); ptxas registers per "
+        f"instantiation: {regs or 'cached build'}")
 
     # ---- 3. kernel vs plain, one launch, survey defaults --------------
     solver = WoStSolver(survey.build_problem(),
@@ -619,6 +660,18 @@ def main():
     records.append(kernel_record(
         params, "robin_chain+local_majorant",
         f11["counts"][params.kernel_name], t11, regs, tolerance))
+    # the two instantiations no main path launches, timed at that state
+    # for their bounds (they take no record: no path counts their launches)
+    for what, robin in (("reflectance+majorant", wk.ROBIN_REFLECTANCE),
+                        ("majorant alone", wk.ROBIN_OFF)):
+        p11 = dataclasses.replace(params, robin=robin)
+        t = steps_256(wk, state, p11, f"phase 11 ({what})", subset=True)
+        b_ms, b_by = bound(p11, t["lanes"], t["steps"], 1)
+        log(f"[11] {what} ({p11.kernel_name}), 256 steps x {t['lanes']} "
+            f"lanes: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms; "
+            f"worst plane agreement {t['worst']:.5f}; {t['steps']} "
+            f"walker-steps, bound {b_ms:.4f} ms ({b_by}), "
+            f"{regs.get(p11.kernel_name)} registers ({card})")
 
     # ---- the flagship notebook gate's path -------------------------------
     flag_survey, _ = notebook_survey()
@@ -784,7 +837,7 @@ def main():
         f"{[round(v, 4) for v in f15['share']]} ({card})")
     state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 688128, "phase 15 state is not 688128 lanes")
-    check(params.variant == (wk.ROBIN_CHAIN, True, True, True),
+    check(params.variant == (wk.ROBIN_CHAIN, True, True, True, False),
           f"phase 15 runs {params.kernel_name}")
     check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
           and f15["stats"][0]["launches"] > 1,
@@ -799,6 +852,171 @@ def main():
     records.append(kernel_record(
         params, "robin_chain+local_majorant+mis+freeze",
         f15["counts"][params.kernel_name], t15, regs, tolerance))
+    # ---- the topographic survey: silhouettes, the two geometry forms ----
+    xs_topo = np.arange(-40.0, 41.0, 10.0)
+    topo_small = dict(half_width=100.0, depth=150.0)
+
+    def topo_launch(prob, pts, opts, what, off_params):
+        """Phases 16-18: 256 steps of kernel and plain version from a fresh
+        8,192-lane state, timed and held to phase 3's rule; the same launch
+        with ``off_params(params)`` must change >= 1% of lanes."""
+        solver = WoStSolver(prob, dataclasses.replace(opts, target_slots=8192),
+                            device=dev)
+        state, params, _, _ = solver._setup(pts, 8192, 600, 0.5, 3)
+        check(state["px"].numel() == 8192, f"{what}: not 8192 lanes")
+        t = steps_256(wk, state, params, what)
+        other = clone_state(state)
+        wk.run_walk(other, off_params(params), 256)
+        t["acts"] = lanes_differ(t["end"], other)
+        check(t["acts"] >= 0.01, f"{what}: switching the mechanism off "
+                                 f"changed only {t['acts']:.4f} of lanes")
+        return solver, params, t
+
+    def main_path_launches(solver, pts, n_walks, name):
+        """Launches of instantiation ``name`` in one solve through
+        ``WoStSolver.solve``, the counts set to 0 just before it."""
+        wk.run_walk.launches = 0
+        wk.run_walk.variant_launches.clear()
+        res = solver.solve(pts, n_walks=n_walks, max_steps=600, eps=0.5,
+                           seed=0)
+        counts = dict(wk.run_walk.variant_launches)
+        check(np.isfinite(res.mean).all(), f"{name}: solve not finite")
+        check(set(counts) == {name}, f"the solve launched {counts}, "
+                                     f"expected {name}")
+        return counts[name]
+
+    no_vertices = lambda p: dataclasses.replace(p, vert_table=p.vert_table[:0])
+
+    # ---- 16. the table form, one launch, the defaults -------------------
+    topo_prob, topo_h = topographic_survey_problem()
+    topo_pts = drape_electrodes(topo_h, xs_topo, nudge=0.5)
+    check(wk.geometry_size(topo_prob) == 402, "the terrain is not 402 rows")
+    _, p16, t16 = topo_launch(topo_prob, topo_pts, SolverOptions(),
+                              "phase 16", no_vertices)
+    check(p16.table and p16.variant == (wk.ROBIN_OFF, False, False, False,
+                                        True), f"phase 16 runs {p16}")
+    # the JAX regression test_pallas_smem_sees_trailing_segments: a square
+    # whose right edge is its table's last three rows
+    sq = []
+    for (a, b, n, first) in (((1, 1), (-1, 1), 32, True),
+                             ((-1, 1), (-1, -1), 32, False),
+                             ((-1, -1), (1, -1), 33, False),
+                             ((1, -1), (1, 1), 3, False)):
+        for k in range(0 if first else 1, n + 1):
+            sq.append([a[0] + k / n * (b[0] - a[0]),
+                       a[1] + k / n * (b[1] - a[1])])
+    sq_prob = Problem(dirichlet=Polyline.from_points(sq),
+                      bc_dirichlet=fields.constant(1.0),
+                      alpha=fields.constant(1.0))
+    sq_solver = WoStSolver(sq_prob, SolverOptions(target_slots=8192),
+                           device=dev)
+    state, p_sq, _, _ = sq_solver._setup(np.zeros((1, 2), np.float32), 8192,
+                                         60, 1e-3, 0)
+    check(p_sq.table and len(p_sq.dir_table) == 100, "square not tabled")
+    ref = clone_state(state)
+    wk.run_walk(state, p_sq, 60)
+    wk.walk_plain(ref, p_sq, 60)
+    worst_sq, _ = check_planes(wk, state, ref, state_planes(1), "phase 16 "
+                               "(trailing rows)")
+    reach = float(torch.maximum(state["px"].abs(), state["py"].abs()).max())
+    check(reach <= 1.0 + 1e-5, f"a walker left the square: |x| {reach}")
+    log(f"[16] table form, defaults (402 rows), 256 steps x 8192 lanes: "
+        f"kernel {t16['ms']:.3f} ms, plain {t16['plain_ms']:.3f} ms; worst "
+        f"plane agreement {t16['worst']:.5f}, max |err| {t16['max_err']:.3g}"
+        f"; without the vertices {t16['acts']:.4f} of lanes change; "
+        f"trailing rows: agreement {worst_sq:.5f}, farthest walker at "
+        f"{reach:.6f} of the half-width ({card})")
+
+    # ---- 17. the static form with silhouettes ----------------------------
+    prob17, h17 = topographic_survey_problem(resolution=8.0, **topo_small)
+    pts17 = drape_electrodes(h17, xs_topo, nudge=0.5)
+    check(wk.geometry_size(prob17) == 52, "resolution 8 is not 52 rows")
+    solver17, p17, t17 = topo_launch(prob17, pts17, SolverOptions(),
+                                     "phase 17", no_vertices)
+    check(not p17.table and len(p17.vert_table) == 24,
+          f"phase 17 runs {p17.kernel_name}")
+    n17 = main_path_launches(solver17, pts17, 512, p17.kernel_name)
+    log(f"[17] static form with silhouettes (52 rows), 256 steps x 8192 "
+        f"lanes: kernel {t17['ms']:.3f} ms, plain {t17['plain_ms']:.3f} ms; "
+        f"worst plane agreement {t17['worst']:.5f}, max |err| "
+        f"{t17['max_err']:.3g}; without the vertices {t17['acts']:.4f} of "
+        f"lanes change; a 9x512 solve launched {n17} ({card})")
+
+    # ---- 18. the chord chain on a table geometry -------------------------
+    prob18, h18 = topographic_survey_problem(resolution=4.0, **topo_small)
+    pts18 = drape_electrodes(h18, xs_topo, nudge=0.5)
+    solver18, p18, t18 = topo_launch(
+        prob18, pts18, SolverOptions(robin_correction="chain"), "phase 18",
+        lambda p: dataclasses.replace(p, robin=wk.ROBIN_OFF))
+    check(p18.variant == (wk.ROBIN_CHAIN, False, False, False, True),
+          f"phase 18 runs {p18.kernel_name}")
+    n18 = main_path_launches(solver18, pts18, 512, p18.kernel_name)
+    log(f"[18] chain on the table form (102 rows), 256 steps x 8192 lanes: "
+        f"kernel {t18['ms']:.3f} ms, plain {t18['plain_ms']:.3f} ms; worst "
+        f"plane agreement {t18['worst']:.5f}, max |err| {t18['max_err']:.3g}"
+        f"; Robin off changes {t18['acts']:.4f} of lanes; a 9x512 solve "
+        f"launched {n18} ({card})")
+
+    # ---- 19. kernel vs plain, whole solve, test size ---------------------
+    solver = WoStSolver(prob18, SolverOptions(), device=dev)
+    rk = solver._solve_raw(pts18, 512, 600, 0.5, 11)
+    rp = solver._solve_raw(pts18, 512, 600, 0.5, 11, walk=wk.walk_plain)
+    check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all(),
+          "phase 19 kernel solve not finite")
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check((dm <= 1e-3 * scale).all(),
+          f"phase 19 solve means differ: {dm} > 1e-3 x {scale}")
+    check(rk.total_steps == rp.total_steps,
+          f"phase 19 total steps differ: {rk.total_steps} vs "
+          f"{rp.total_steps}")
+    log(f"[19] solve 9x512 on the terrain (table form): max |dmean|/"
+        f"(|mean|+se) {float((dm / scale).max()):.3g} (bound 1e-3), steps "
+        f"kernel {rk.total_steps:.0f} plain {rp.total_steps:.0f}")
+
+    # ---- 20. full size: the topographic path -----------------------------
+    solver = WoStSolver(topo_prob, SolverOptions(target_slots=1 << 21),
+                        device=dev)
+    n_walks, max_steps, eps = 1 << 17, 600, 0.5
+    f20 = full_size_solves(wk, solver, topo_pts, n_walks, max_steps, eps,
+                           294912, "phase 20")
+    mean20 = f20["warm"].mean
+    i_pos = int(np.argmin(np.abs(xs_topo + 20)))
+    i_neg = int(np.argmin(np.abs(xs_topo - 20)))
+    check(mean20[i_pos] > 0 and mean20[i_neg] < 0
+          and np.abs(mean20).max() < 1.0,
+          f"phase 20 potentials break the survey's physics: {mean20}")
+    state, params, _, _ = solver._setup(topo_pts, n_walks, max_steps, eps, 5)
+    check(state["px"].numel() == 294912, "phase 20 state is not 294912 lanes")
+    check(set(f20["counts"]) == {params.kernel_name} and params.table,
+          f"the topographic path launched {f20['counts']}")
+    log(f"[20] full size 9x{n_walks} walks, 294912 lanes, table form: "
+        f"walker_steps_per_sec {f20['rate']:.6g} s/solve {f20['times']} "
+        f"steps/solve {f20['steps']:.6g} longest lane {f20['longest']} "
+        f"steps, lane occupancy {f20['occupancy']:.4f}, truncated share "
+        f"{[round(v, 4) for v in f20['trunc']]}, kernel share "
+        f"{[round(v, 4) for v in f20['share']]}, launches of the warm-up "
+        f"solve {f20['counts']}; potentials {np.round(mean20, 5).tolist()} "
+        f"({card})")
+    t20 = steps_256(wk, state, params, "phase 20", subset=True)
+    log(f"[20] 256 steps x {t20['lanes']} lanes"
+        f"{' (plain 16 steps took %.0f ms)' % t20['t16'] if t20['t16'] else ''}"
+        f": kernel {t20['ms']:.3f} ms, plain {t20['plain_ms']:.3f} ms "
+        f"({t20['plain_ms'] / t20['ms']:.1f}x); worst plane agreement "
+        f"{t20['worst']:.5f}, max |err| {t20['max_err']:.3g}, "
+        f"{t20['steps']} walker-steps ({card})")
+    records.append(kernel_record(params, "topography_table",
+                                 f20["counts"][params.kernel_name], t20,
+                                 regs, tolerance))
+    records.append(kernel_record(p18, "topography_table+robin_chain", n18,
+                                 t18, regs, tolerance))
+    records.append(kernel_record(p17, "topography_static_silhouettes", n17,
+                                 t17, regs, tolerance))
+    log(f"[guard] phase 6 {f6['rate']:.6g} (earlier runs: 6.62e9-6.83e9), "
+        f"phase 11 {f11['rate']:.6g} (earlier runs: 1.06e9-1.08e9) "
+        f"walker-steps/s; survey "
+        f"registers {regs.get(wk.kernel_name(survey_full[2].variant))}")
+
     for r in records:
         log(f"[bound] {r['name']} ({r['variant']}): {r['ms']:.3f} ms against "
             f"a bound of {r['bound_ms']:.4f} ms ({r['bound_by']}), "

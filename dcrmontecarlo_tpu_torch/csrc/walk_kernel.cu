@@ -15,21 +15,47 @@
 // :793-799, :1183-1203, :1285-1291) and the max_attenuation clip
 // (:1100-1103).
 //
-// Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE>, and
-// the host picks one per launch. Only the combinations a path launches
-// are instantiated (walk_pick below; ops/walk_kernel.py::KERNEL_VARIANTS
-// holds the same list):
-//   <OFF,   false, false, false>  the survey's main path
-//   <OFF,   false, true,  false>  the survey with source_mis
-//   <OFF,   true,  false, false>  the majorant with Robin off
-//   <CHAIN, false, false, false>  the chord chain
-//   <CHAIN, true,  false, false>  the accuracy path (chain + majorant)
-//   <CHAIN, true,  true,  true >  the flagship gate (chain + majorant +
-//                                 MIS + freeze, under the host launch loop)
-//   <REFLECT, false|true, false, false>  the reflectance fold
-// walk_kernel<ROBIN_OFF, false, false, false> carries none of the other
-// variants' code or registers. max_attenuation is a run-time switch
+// The topographic survey adds silhouette vertices (the star radius stops
+// at the nearest one, _silhouette_unrolled / _silhouette_smem) and the
+// large-geometry table form (_closest_point_smem, _first_hit_smem,
+// _silhouette_smem, _chord_frame_smem, pallas_walk.py:271-421).
+//
+// Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE>,
+// and the host picks one per launch. Only the combinations a path
+// launches are instantiated (walk_pick below;
+// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list):
+//   <OFF,   false, false, false, false>  the survey's main path
+//   <OFF,   false, true,  false, false>  the survey with source_mis
+//   <OFF,   true,  false, false, false>  the majorant with Robin off
+//   <CHAIN, false, false, false, false>  the chord chain
+//   <CHAIN, true,  false, false, false>  the accuracy path
+//   <CHAIN, true,  true,  true,  false>  the flagship gate (chain +
+//                                        majorant + MIS + freeze, under
+//                                        the host launch loop)
+//   <REFLECT, false|true, false, false, false>  the reflectance fold
+//   <OFF,   false, false, false, true >  the topographic survey
+//   <CHAIN, false, false, false, true >  the chain on a terrain
+// walk_kernel<ROBIN_OFF, false, false, false, false> carries none of the
+// other variants' code or registers. max_attenuation is a run-time switch
 // (three selects per step) in every instantiation.
+//
+// Geometry forms (TABLE), chosen on the host by the TPU kernel's rule
+// (boundary segments plus interior vertices <= 96: static). The static
+// form reads __constant__ tables whose edge vectors, normals and
+// silhouette edges were formed on the host in float64 and rounded once,
+// and its first hit multiplies by 1/den, as the TPU kernel's register
+// unroll does. The table form reads float32 endpoint rows (up to 8192
+// rows in all) from global memory and forms edges, normals and chord
+// tangents per step in float32, dividing in the first hit, as the TPU
+// kernel's SMEM loops do; the two arithmetics differ by an ulp, which
+// desynchronizes walks, so each form copies its reference. Every thread
+// of a warp reads the same row in the same iteration and the trip counts
+// are uniform, so the read-only loads are L1 broadcasts and the loops do
+// not diverge; a row's normal or chord tangent (a sqrt and two divides)
+// is formed only when the row wins. The table loops dominate the step on
+// the topographic survey (~200 first-hit and ~199 silhouette rows):
+// FP32 and divide throughput bound them, not bytes. A boundary without
+// vertices never enters the silhouette loop.
 //
 // Design: one thread per walker lane. A thread loads its lane's planes
 // into registers once, runs `for (i < budget && quota > 0)` steps, and
@@ -73,6 +99,11 @@
 // Constants are written as double literals cast to float, which rounds
 // them the way the Python side does.
 //
+// Build: one library per instantiation, all compiled at once. With
+// -DWALK_PART=<code> the unit keeps only the instantiation whose walk_pick
+// code is <code> (ops/walk_kernel.py::variant_code); without it, every
+// instantiation (one library, as a host build for rehearsal compiles it).
+//
 // Interface: plain C (walk_launch), loaded with ctypes. Parameters and
 // plane pointers go to __constant__ memory with an async copy on the
 // launch stream, so launches on one stream are ordered; two streams must
@@ -82,11 +113,17 @@
 #include <stdint.h>
 #include <string.h>
 
+#ifndef WALK_PART
+#define WALK_PART -1
+#endif
+
 #define F(x) ((float)(x))
 
 namespace {
 
-constexpr int MAX_SEG = 32;
+constexpr int MAX_SEG = 96;    // static form, per boundary
+constexpr int MAX_VERT = 96;   // static form, silhouette vertices
+constexpr int MAX_TABLE = 8192;  // table form, all rows
 constexpr int MAX_SRC = 4;
 constexpr int MAX_BUMPS = 8;
 constexpr int MAX_FP = 1 + 6 * MAX_BUMPS;
@@ -99,7 +136,8 @@ constexpr int MAX_BOXES = 8, MAX_BANDS = 8;  // problems/majorant.py
 constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
 constexpr int MAX_MIX = 8;   // MIS mixture components
 constexpr int MIX_COLS = 7;  // cx, cy, w, a, cum, 2 w^2, 2 pi w^2
-constexpr int N_IP = 17, N_FP = 11;  // header lengths of ip and fp
+constexpr int N_IP = 19, N_FP = 11;  // header lengths of ip and fp
+constexpr int N_GEOM = 3;  // table form: dir, neu, vert row pointers
 
 struct Field {
   int kind;
@@ -138,6 +176,13 @@ struct WalkConst {
   int clip, n_mix;
   float max_att;
   float mix[MAX_MIX][MIX_COLS];
+  // the topographic path (after the flagship path's fields): silhouette
+  // vertices, and the table form's rows in global memory
+  int n_vert;
+  float vert[MAX_VERT][8];   // static: ax, ay, bx, by, abx, aby, bcx, bcy
+  const float4* tab_dir;     // table: (ax, ay, bx, by) per segment
+  const float4* tab_neu;
+  const float4* tab_vert;    // table: (ax, ay, bx, by), (cx, cy, 0, 0)
 };
 
 __constant__ WalkConst C;
@@ -465,8 +510,114 @@ __device__ void grad_log_alpha(float x, float y, float& glx, float& gly) {
 
 // ---- geometry of the accuracy path --------------------------------------
 
+// closest point on the Dirichlet boundary (divide, not reciprocal):
+// _closest_point_unrolled / _closest_point_smem
+template <bool TABLE>
+__device__ __forceinline__ float closest_point(float px, float py,
+                                               float& cx, float& cy) {
+  float best = F(3e38);
+  cx = F(0.0);
+  cy = F(0.0);
+  for (int sgi = 0; sgi < C.n_dir; ++sgi) {
+    float ax, ay, ux, uy, uu;
+    if constexpr (TABLE) {
+      const float4 g = __ldg(C.tab_dir + sgi);
+      ax = g.x;
+      ay = g.y;
+      ux = g.z - ax;
+      uy = g.w - ay;
+      uu = fmaxf(ux * ux + uy * uy, F(1e-30));
+    } else {
+      const float* g = C.dir[sgi];
+      ax = g[0];
+      ay = g[1];
+      ux = g[2];
+      uy = g[3];
+      uu = g[4];
+    }
+    float vx = px - ax, vy = py - ay;
+    float t = fminf(fmaxf((vx * ux + vy * uy) / uu, F(0.0)), F(1.0));
+    float qx = ax + t * ux, qy = ay + t * uy;
+    float ex = qx - px, ey = qy - py;
+    float d2 = ex * ex + ey * ey;
+    if (d2 < best) { best = d2; cx = qx; cy = qy; }
+  }
+  return sqrtf(best);
+}
+
+// the first Neumann hit along (dx, dy) at t >= tmw: its distance (3e38 for
+// none), the winning segment's CCW normal and the on-segment hit point;
+// _first_hit_unrolled (reciprocal multiply, host normals) /
+// _first_hit_smem (divides, normals formed in float32)
+template <bool TABLE>
+__device__ __forceinline__ float first_hit(float px, float py, float dx,
+                                           float dy, float tmw, float& fnx,
+                                           float& fny, float& hxs,
+                                           float& hys) {
+  float t_best = F(3e38);
+  fnx = F(0.0);
+  fny = F(0.0);
+  hxs = F(0.0);
+  hys = F(0.0);
+  for (int sgi = 0; sgi < C.n_neu; ++sgi) {
+    float ax, ay, ux, uy;
+    if constexpr (TABLE) {
+      const float4 g = __ldg(C.tab_neu + sgi);
+      ax = g.x;
+      ay = g.y;
+      ux = g.z - ax;
+      uy = g.w - ay;
+    } else {
+      const float* g = C.neu[sgi];
+      ax = g[0];
+      ay = g[1];
+      ux = g[2];
+      uy = g[3];
+    }
+    float wx = px - ax, wy = py - ay;
+    float den = dx * uy - dy * ux;
+    float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
+    float t, sp;
+    if constexpr (TABLE) {
+      t = (ux * wy - uy * wx) / den_safe;
+      sp = (dx * wy - dy * wx) / den_safe;
+    } else {
+      float inv_den = F(1.0) / den_safe;
+      t = (ux * wy - uy * wx) * inv_den;
+      sp = (dx * wy - dy * wx) * inv_den;
+    }
+    bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw &&
+              fabsf(den) > F(1e-30);
+    if (ok && t < t_best) {
+      t_best = t;
+      if constexpr (TABLE) {
+        const float ulen = sqrtf(fmaxf(ux * ux + uy * uy, F(1e-30)));
+        fnx = -uy / ulen;
+        fny = ux / ulen;
+      } else {
+        fnx = C.neu[sgi][4];
+        fny = C.neu[sgi][5];
+      }
+      hxs = ax + sp * ux;
+      hys = ay + sp * uy;
+    }
+  }
+  return t_best;
+}
+
+// the nearest positive Neumann hit distance along (dx, dy), 3e38 for none:
+// the step's first-hit scan reduced to its distance, for MIS's star test
+template <bool TABLE>
+__device__ float first_hit_t(float px, float py, float dx, float dy,
+                             float tmw) {
+  float fnx, fny, hxs, hys;
+  return first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
+}
+
 // the nearest Neumann segment's unit tangent and the chord interval
-// [s_lo, s_hi] keeping foot + s t_hat on it (_chord_frame_unrolled)
+// [s_lo, s_hi] keeping foot + s t_hat on it (_chord_frame_unrolled /
+// _chord_frame_smem: one float32 arithmetic, formed on the host or here)
+template <bool TABLE>
 __device__ void chord_frame(float px, float py, float& tx, float& ty,
                             float& s_lo, float& s_hi) {
   float best = F(3e38);
@@ -475,19 +626,82 @@ __device__ void chord_frame(float px, float py, float& tx, float& ty,
   s_lo = F(0.0);
   s_hi = F(0.0);
   for (int sgi = 0; sgi < C.n_neu; ++sgi) {
-    const float* g = C.chord[sgi];
-    float vx = px - g[0], vy = py - g[1];
-    float t = fminf(fmaxf((vx * g[2] + vy * g[3]) / g[4], F(0.0)), F(1.0));
-    float ex = (g[0] + t * g[2]) - px, ey = (g[1] + t * g[3]) - py;
+    float ax, ay, ux, uy, uu;
+    if constexpr (TABLE) {
+      const float4 g = __ldg(C.tab_neu + sgi);
+      ax = g.x;
+      ay = g.y;
+      ux = g.z - ax;
+      uy = g.w - ay;
+      uu = fmaxf(ux * ux + uy * uy, F(1e-30));
+    } else {
+      const float* g = C.chord[sgi];
+      ax = g[0];
+      ay = g[1];
+      ux = g[2];
+      uy = g[3];
+      uu = g[4];
+    }
+    float vx = px - ax, vy = py - ay;
+    float t = fminf(fmaxf((vx * ux + vy * uy) / uu, F(0.0)), F(1.0));
+    float ex = (ax + t * ux) - px, ey = (ay + t * uy) - py;
     float d2 = ex * ex + ey * ey;
     if (d2 < best) {
       best = d2;
-      tx = g[6];
-      ty = g[7];
-      s_lo = -t * g[5];
-      s_hi = (F(1.0) - t) * g[5];
+      if constexpr (TABLE) {
+        const float ul = sqrtf(uu);
+        tx = ux / ul;
+        ty = uy / ul;
+        s_lo = -t * ul;
+        s_hi = (F(1.0) - t) * ul;
+      } else {
+        const float* g = C.chord[sgi];
+        tx = g[6];
+        ty = g[7];
+        s_lo = -t * g[5];
+        s_hi = (F(1.0) - t) * g[5];
+      }
     }
   }
+}
+
+// distance to the nearest silhouette vertex (3e38 squared for none):
+// vertex b is one seen from p when cross(ab, ap) * cross(bc, bp) < 0
+// (_silhouette_unrolled with host edges / _silhouette_smem)
+template <bool TABLE>
+__device__ float silhouette(float px, float py) {
+  float best = F(3e38);
+  for (int v = 0; v < C.n_vert; ++v) {
+    float axv, ayv, bxv, byv, abx, aby, bcx, bcy;
+    if constexpr (TABLE) {
+      const float4 g = __ldg(C.tab_vert + 2 * v);
+      const float4 h = __ldg(C.tab_vert + 2 * v + 1);
+      axv = g.x;
+      ayv = g.y;
+      bxv = g.z;
+      byv = g.w;
+      abx = bxv - axv;
+      aby = byv - ayv;
+      bcx = h.x - bxv;
+      bcy = h.y - byv;
+    } else {
+      const float* g = C.vert[v];
+      axv = g[0];
+      ayv = g[1];
+      bxv = g[2];
+      byv = g[3];
+      abx = g[4];
+      aby = g[5];
+      bcx = g[6];
+      bcy = g[7];
+    }
+    const float apx = px - axv, apy = py - ayv;
+    const float bpx = px - bxv, bpy = py - byv;
+    const float sgn = (abx * apy - aby * apx) * (bcx * bpy - bcy * bpx);
+    const float d2 = bpx * bpx + bpy * bpy;
+    if (sgn < F(0.0)) best = fminf(best, d2);
+  }
+  return sqrtf(best);
 }
 
 // distance to the nearest high-sigma' region of the local majorant, 0
@@ -503,27 +717,6 @@ __device__ float majorant_distance(float x, float y) {
   for (int b = 0; b < C.n_band; ++b)
     d = fminf(d, fmaxf(C.band[b][0] - y, y - C.band[b][1]));
   return fmaxf(d, F(0.0));
-}
-
-// the nearest positive Neumann hit distance along (dx, dy), 3e38 for none:
-// the first-hit scan of the step (same arithmetic) reduced to its
-// distance, for MIS's star test
-__device__ float first_hit_t(float px, float py, float dx, float dy,
-                             float tmw) {
-  float t_best = F(3e38);
-  for (int sgi = 0; sgi < C.n_neu; ++sgi) {
-    const float* g = C.neu[sgi];
-    float wx = px - g[0], wy = py - g[1];
-    float den = dx * g[3] - dy * g[2];
-    float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
-    float inv_den = F(1.0) / den_safe;
-    float t = (g[2] * wy - g[3] * wx) * inv_den;
-    float sp = (dx * wy - dy * wx) * inv_den;
-    bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw &&
-              fabsf(den) > F(1e-30);
-    if (ok && t < t_best) t_best = t;
-  }
-  return t_best;
 }
 
 // ---- screened-radius rejection (sampling/radial.py::_exact_rejection) --
@@ -611,7 +804,7 @@ __device__ float screened_radius(float R, float sb, uint32_t seed,
 
 // ---- the walk ------------------------------------------------------------
 
-template <int ROBIN, bool MAJ, bool MIS, bool FREEZE>
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
   const int lane = blockIdx.x * THREADS + threadIdx.x;
@@ -656,18 +849,8 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     const float u1 = uni(base, sid, 1);
     const float u4 = uni(base, sid, 4);
 
-    // closest point on the Dirichlet boundary (divide, not reciprocal)
-    float best = F(3e38), cx = F(0.0), cy = F(0.0);
-    for (int sgi = 0; sgi < C.n_dir; ++sgi) {
-      const float* g = C.dir[sgi];
-      float vx = px - g[0], vy = py - g[1];
-      float t = fminf(fmaxf((vx * g[2] + vy * g[3]) / g[4], F(0.0)), F(1.0));
-      float qx = g[0] + t * g[2], qy = g[1] + t * g[3];
-      float ex = qx - px, ey = qy - py;
-      float d2 = ex * ex + ey * ey;
-      if (d2 < best) { best = d2; cx = qx; cy = qy; }
-    }
-    const float dD = sqrtf(best);
+    float cx, cy;
+    const float dD = closest_point<TABLE>(px, py, cx, cy);
     const bool done_eps = dD <= eps;
 
     if (done_eps || steps >= max_steps) {
@@ -714,7 +897,10 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       if (!(fabsf(atten) <= freeze_thr)) break;
     }
 
-    float r = fmaxf(rmin, dD);
+    // the star radius stops at the nearest silhouette vertex
+    float r = fmaxf(rmin, C.n_vert > 0
+                              ? fminf(dD, silhouette<TABLE>(px, py))
+                              : dD);
     float sbar = sigma_bar;
     if constexpr (MAJ) {
       // two-level local majorant: shrink the ball out of the high-sigma'
@@ -771,26 +957,9 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
         dy = hdy;
       }
       const float tmw = ob ? t_min : F(0.0);
-      float t_best = F(3e38), fnx = F(0.0), fny = F(0.0);
-      float hxs = F(0.0), hys = F(0.0);
-      for (int sgi = 0; sgi < C.n_neu; ++sgi) {
-        const float* g = C.neu[sgi];
-        float wx = px - g[0], wy = py - g[1];
-        float den = dx * g[3] - dy * g[2];
-        float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
-        float inv_den = F(1.0) / den_safe;
-        float t = (g[2] * wy - g[3] * wx) * inv_den;
-        float sp = (dx * wy - dy * wx) * inv_den;
-        bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw &&
-                  fabsf(den) > F(1e-30);
-        if (ok && t < t_best) {
-          t_best = t;
-          fnx = g[4];
-          fny = g[5];
-          hxs = g[0] + sp * g[2];
-          hys = g[1] + sp * g[3];
-        }
-      }
+      float fnx, fny, hxs, hys;
+      const float t_best =
+          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
       hit = t_best <= r;
       if (hit) {
         t_hit = t_best;
@@ -856,8 +1025,9 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       const bool in_ball = d_y < r;
       bool in_star = in_ball;
       if (C.n_neu > 0)  // a wall between x and y blocks the sample
-        in_star = in_ball && !(first_hit_t(px, py, ex / d_safe, ey / d_safe,
-                                           ob ? t_min : F(0.0)) < d_y);
+        in_star = in_ball &&
+                  !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
+                                       ob ? t_min : F(0.0)) < d_y);
       float q = F(0.0);  // the mixture pdf, one expf per component
       for (int ci = 0; ci < C.n_mix; ++ci) {
         const float* m = C.mix[ci];
@@ -938,7 +1108,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
           const float p_mix = F(0.5) * (p_log + p_exp);
           const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
           float t_cx, t_cy, s_lo, s_hi;
-          chord_frame(px, py, t_cx, t_cy, s_lo, s_hi);
+          chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);
           const float zx = px + zeta * t_cx, zy = py + zeta * t_cy;
           float glxz, glyz;
           grad_log_alpha(zx, zy, glxz, glyz);
@@ -1012,42 +1182,64 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 
 typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
 
-template <int ROBIN, bool MAJ, bool MIS, bool FREEZE>
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
 void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
-  walk_kernel<ROBIN, MAJ, MIS, FREEZE><<<grid, THREADS, 0, st>>>(
+  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE><<<grid, THREADS, 0, st>>>(
       n_lanes, budget, thr);
 }
 
+// instantiation CODE of this unit: compiled only in the unit of its part
+template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
+LaunchFn pick() {
+  if constexpr (WALK_PART < 0 || WALK_PART == CODE)
+    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE>;
+  else
+    return nullptr;
+}
+
+#define WALK_CASE(code, ...) \
+  case code:                 \
+    return pick<code, __VA_ARGS__>()
+
 // the instantiated variants (head comment), by (robin, majorant, mis,
-// freeze); nullptr for a combination no path launches
-LaunchFn walk_pick(int robin, int majorant, int mis, int freeze) {
-  switch (((robin * 2 + majorant) * 2 + mis) * 2 + freeze) {
-    case 0: return launch<ROBIN_OFF, false, false, false>;
-    case 2: return launch<ROBIN_OFF, false, true, false>;
-    case 4: return launch<ROBIN_OFF, true, false, false>;
-    case 8: return launch<ROBIN_CHAIN, false, false, false>;
-    case 12: return launch<ROBIN_CHAIN, true, false, false>;
-    case 15: return launch<ROBIN_CHAIN, true, true, true>;
-    case 16: return launch<ROBIN_REFLECT, false, false, false>;
-    case 20: return launch<ROBIN_REFLECT, true, false, false>;
+// freeze, table); nullptr for a combination no path launches, or one
+// another part's library holds
+LaunchFn walk_pick(int robin, int majorant, int mis, int freeze,
+                   int table) {
+  switch ((((robin * 2 + majorant) * 2 + mis) * 2 + freeze) * 2 + table) {
+    WALK_CASE(0, ROBIN_OFF, false, false, false, false);
+    WALK_CASE(1, ROBIN_OFF, false, false, false, true);
+    WALK_CASE(4, ROBIN_OFF, false, true, false, false);
+    WALK_CASE(8, ROBIN_OFF, true, false, false, false);
+    WALK_CASE(16, ROBIN_CHAIN, false, false, false, false);
+    WALK_CASE(17, ROBIN_CHAIN, false, false, false, true);
+    WALK_CASE(24, ROBIN_CHAIN, true, false, false, false);
+    WALK_CASE(30, ROBIN_CHAIN, true, true, true, false);
+    WALK_CASE(32, ROBIN_REFLECT, false, false, false, false);
+    WALK_CASE(40, ROBIN_REFLECT, true, false, false, false);
     default: return nullptr;
   }
 }
 
 // fp: eps, rmin, t_min, sigma_bar, roulette_thr, gamma_floor,
-//     arrival_clamp, sb_bg, mfp_bg, mfp_gl, max_att, dir (n_dir x 5), neu
-//     (n_neu x 6), chord (n_neu x 8), boxes (n_box x 4), bands (n_band x
-//     2), mixture (n_mix x 7), then each field's parameters in field order.
+//     arrival_clamp, sb_bg, mfp_bg, mfp_gl, max_att, then in the static
+//     form dir (n_dir x 5), neu (n_neu x 6), chord (n_neu x 8); boxes
+//     (n_box x 4), bands (n_band x 2), mixture (n_mix x 7), in the static
+//     form vertices (n_vert x 8), then each field's parameters in field
+//     order.
 // ip: seed, max_steps, rounds, roulette, project, snap, n_src, has_source,
 //     n_dir, n_neu, robin, majorant, n_box, n_band, clip, n_mix, freeze,
-//     then (kind, n_params) per field: bc, alpha, sigma, sources[n_src if
-//     has_source].
+//     n_vert, table, then (kind, n_params) per field: bc, alpha, sigma,
+//     sources[n_src if has_source].
 // planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
 // thr: the freeze threshold of this launch (freeze builds; +inf = none).
+// geom: N_GEOM device pointers of the table form's rows (dir, neu, vert;
+//     16-byte aligned float4 rows, the vertices two per row), null in the
+//     static form.
 extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            int n_ip, void* const* planes, int n_planes,
                            int n_lanes, int budget, float thr,
-                           void* stream) {
+                           void* const* geom, int n_geom, void* stream) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
   if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES)
@@ -1069,6 +1261,8 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   h.clip = ip[14];
   h.n_mix = ip[15];
   const int freeze = ip[16];
+  h.n_vert = ip[17];
+  const int table = ip[18];
   h.eps = fp[0];
   h.rmin = fp[1];
   h.t_min = fp[2];
@@ -1081,8 +1275,12 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   h.mfp_gl = fp[9];
   h.max_att = fp[10];
   const int n_fields = 3 + (h.has_source ? h.n_src : 0);
-  if (h.n_src < 1 || h.n_src > MAX_SRC || h.n_dir > MAX_SEG ||
-      h.n_neu > MAX_SEG || h.n_dir < 1 || h.n_neu < 0 || h.rounds < 1 ||
+  const bool rows_fit =
+      table ? h.n_dir + h.n_neu + h.n_vert <= MAX_TABLE
+            : h.n_dir <= MAX_SEG && h.n_neu <= MAX_SEG && h.n_vert <= MAX_VERT;
+  if (h.n_src < 1 || h.n_src > MAX_SRC || !rows_fit || table < 0 ||
+      table > 1 || h.n_dir < 1 || h.n_neu < 0 || h.n_vert < 0 ||
+      (h.n_vert && !h.n_neu) || h.rounds < 1 || n_geom != N_GEOM ||
       h.robin < ROBIN_OFF || h.robin > ROBIN_REFLECT ||
       (h.robin != ROBIN_OFF && h.n_neu < 1) || h.majorant < 0 ||
       h.majorant > 1 || h.n_box < 0 || h.n_box > MAX_BOXES ||
@@ -1091,24 +1289,39 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       h.n_mix < 0 || h.n_mix > MAX_MIX || (h.n_mix && !h.has_source) ||
       freeze < 0 || freeze > 1 || n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
-  const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze);
+  const LaunchFn fn =
+      walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze, table);
   if (!fn) return (int)cudaErrorInvalidValue;
+  const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
-  if (n_fp < off + 5 * h.n_dir + 14 * h.n_neu + 4 * h.n_box + 2 * h.n_band +
+  if (n_fp < off + n_static + 4 * h.n_box + 2 * h.n_band +
                  MIX_COLS * h.n_mix)
     return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < h.n_dir; ++s)
-    for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
-  for (int s = 0; s < h.n_neu; ++s)
-    for (int k = 0; k < 6; ++k) h.neu[s][k] = fp[off++];
-  for (int s = 0; s < h.n_neu; ++s)
-    for (int k = 0; k < 8; ++k) h.chord[s][k] = fp[off++];
+  if (table) {
+    h.tab_dir = (const float4*)geom[0];
+    h.tab_neu = (const float4*)geom[1];
+    h.tab_vert = (const float4*)geom[2];
+    if (!h.tab_dir || (h.n_neu && !h.tab_neu) || (h.n_vert && !h.tab_vert))
+      return (int)cudaErrorInvalidValue;
+    for (int g = 0; g < N_GEOM; ++g)
+      if ((uintptr_t)geom[g] % 16) return (int)cudaErrorMisalignedAddress;
+  } else {
+    for (int s = 0; s < h.n_dir; ++s)
+      for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
+    for (int s = 0; s < h.n_neu; ++s)
+      for (int k = 0; k < 6; ++k) h.neu[s][k] = fp[off++];
+    for (int s = 0; s < h.n_neu; ++s)
+      for (int k = 0; k < 8; ++k) h.chord[s][k] = fp[off++];
+  }
   for (int b = 0; b < h.n_box; ++b)
     for (int k = 0; k < 4; ++k) h.box[b][k] = fp[off++];
   for (int b = 0; b < h.n_band; ++b)
     for (int k = 0; k < 2; ++k) h.band[b][k] = fp[off++];
   for (int c = 0; c < h.n_mix; ++c)
     for (int k = 0; k < MIX_COLS; ++k) h.mix[c][k] = fp[off++];
+  if (!table)
+    for (int v = 0; v < h.n_vert; ++v)
+      for (int k = 0; k < 8; ++k) h.vert[v][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
     const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
     if (n < 1 || n > MAX_FP || off + n > n_fp ||

@@ -3,8 +3,10 @@
 Port of ``dcrmontecarlo_tpu/geometry/polyline.py``: the same padded
 structure-of-arrays fields (``seg_a``, ``seg_b``, ``seg_valid``,
 ``vert_abc``, ``vert_valid``, ``points``), padding to a multiple of 8 with
-degenerate far-away segments. Tensors live on the CPU; the walk moves what
-it needs to its device.
+degenerate far-away segments, the query facade (``distance``,
+``is_silhouette``, ``silhouette_distance``, ``ray_intersection``,
+``intersect``) and the heightmap polyline :func:`func_to_polyline`. Tensors
+live on the CPU; the walk moves what it needs to its device.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Polyline", "square_loop", "circle_loop"]
+__all__ = ["Polyline", "square_loop", "circle_loop", "func_to_polyline"]
 
 _PAD = 8  # pad segment/vertex counts to a multiple of this
 
@@ -94,6 +96,69 @@ class Polyline(NamedTuple):
         return np.concatenate(
             [self.seg_a.numpy()[v], self.seg_b.numpy()[v]], axis=1)
 
+    # ------------------------------------------------------------------ #
+    # query facade (ops on (2,) points or (W, 2) batches), delegating to  #
+    # .queries as the JAX package's facade does (polyline.py:119-184)     #
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _split(point):
+        p = torch.as_tensor(np.asarray(point, np.float32))
+        scalar = p.dim() == 1
+        p = p.reshape(-1, 2)
+        return p[:, 0], p[:, 1], scalar
+
+    def distance(self, point):
+        """Min distance to the polyline."""
+        from . import queries
+
+        px, py, scalar = self._split(point)
+        d = queries.distance(self, px, py)
+        return d[0] if scalar else d
+
+    def is_silhouette(self, point):
+        """Silhouette mask over the interior vertices (at least one column)."""
+        from . import queries
+
+        px, py, scalar = self._split(point)
+        m = queries.is_silhouette(self, px, py)[:, : max(1, self.num_vertices)]
+        return m[0] if scalar else m
+
+    def silhouette_distance(self, point):
+        """Distance to the closest silhouette vertex (``+inf`` for none)."""
+        from . import queries
+
+        px, py, scalar = self._split(point)
+        d = queries.silhouette_distance(self, px, py)
+        return d[0] if scalar else d
+
+    def ray_intersection(self, point, direction):
+        """Per-segment ray-hit parameters in units of ``|direction|``."""
+        from . import queries
+
+        px, py, scalar = self._split(point)
+        dx, dy, _ = self._split(direction)
+        n = torch.sqrt(dx * dx + dy * dy)
+        t = queries.ray_intersection(self, px, py, dx / n, dy / n)
+        t = t[:, : self.num_segments] / n[:, None]
+        return t[0] if scalar else t
+
+    def intersect(self, point, direction, r):
+        """First ray hit within ``r``: ``(hit_point, inward_normal, hit)``."""
+        from . import queries
+
+        px, py, scalar = self._split(point)
+        dx, dy, _ = self._split(direction)
+        n = torch.sqrt(dx * dx + dy * dy)
+        dx, dy = dx / n, dy / n
+        rr = torch.full_like(px, float(np.float32(r)))
+        hx, hy, nx, ny, _, hit = queries.first_hit(self, px, py, dx, dy, rr)
+        hp = torch.stack([hx, hy], dim=-1)
+        nv = torch.stack([nx, ny], dim=-1)
+        if scalar:
+            return hp[0], nv[0], bool(hit[0])
+        return hp, nv, hit
+
     def bounds(self):
         """Domain bounds from the vertex chain."""
         pts = self.points.numpy()
@@ -128,3 +193,14 @@ def circle_loop(radius: float, center=(0.0, 0.0), n: int = 32) -> Polyline:
         axis=1,
     ).astype(np.float32)
     return Polyline.from_points(pts)
+
+
+def func_to_polyline(func, x_min: float, x_max: float,
+                     resolution: float) -> Polyline:
+    """1D heightmap -> open polyline over ``[x_min, x_max]``, the vertices
+    a float32 ``linspace`` that includes ``x_max`` (a float ``arange``
+    stops short and leaves a gap at a side wall)."""
+    n = max(2, int(round((x_max - x_min) / resolution)) + 1)
+    x = np.linspace(x_min, x_max, n, dtype=np.float32)
+    y = np.asarray(func(x), dtype=np.float32)
+    return Polyline.from_points(np.stack([x, y], axis=1))

@@ -14,6 +14,7 @@ import torch
 from .polyline import Polyline
 
 __all__ = ["cross2", "distance", "closest_point", "closest_point_chord",
+           "is_silhouette", "silhouette_distance", "ray_intersection",
            "first_hit"]
 
 _BIG = float(np.float32(3.0e38))
@@ -84,13 +85,38 @@ def closest_point_chord(poly: Polyline, px, py):
     return torch.sqrt(d2m), cxm, cym, txm, tym, slom, shim
 
 
-def first_hit(poly: Polyline, px, py, dx, dy, r, t_min=1e-6):
-    """First ray/polyline intersection within distance ``r``.
+def is_silhouette(poly: Polyline, px, py):
+    """``(W, V)`` mask: interior vertex ``b`` (neighbours ``a``, ``c``) is a
+    silhouette seen from ``p`` iff ``cross(ab, ap) * cross(bc, bp) < 0``."""
+    abc = poly.vert_abc.to(px.device)
+    a, b, c = abc[:, 0], abc[:, 1], abc[:, 2]
+    abx = (b[:, 0] - a[:, 0])[None, :]
+    aby = (b[:, 1] - a[:, 1])[None, :]
+    bcx = (c[:, 0] - b[:, 0])[None, :]
+    bcy = (c[:, 1] - b[:, 1])[None, :]
+    apx = px[:, None] - a[:, 0][None, :]
+    apy = py[:, None] - a[:, 1][None, :]
+    bpx = px[:, None] - b[:, 0][None, :]
+    bpy = py[:, None] - b[:, 1][None, :]
+    s = cross2(abx, aby, apx, apy) * cross2(bcx, bcy, bpx, bpy)
+    return (s < 0) & poly.vert_valid.to(px.device)[None, :]
 
-    ``t_min`` is a float or a per-walker ``(W,)`` tensor. Returns
-    ``(hx, hy, nx, ny, t_hit, hit)``: hit (or sphere) point, inward unit
-    normal (zero when no hit), hit distance ``min(t, r)``, bool mask.
-    """
+
+def silhouette_distance(poly: Polyline, px, py):
+    """Distance to the closest silhouette vertex, ``+inf`` if none (an
+    open two-point chain has no interior vertex)."""
+    mask = is_silhouette(poly, px, py)
+    b = poly.vert_abc[:, 1].to(px.device)
+    dx = b[:, 0][None, :] - px[:, None]
+    dy = b[:, 1][None, :] - py[:, None]
+    d2 = torch.where(mask, dx * dx + dy * dy, torch.inf)
+    return torch.sqrt(torch.min(d2, dim=1).values)
+
+
+def _ray_params(poly: Polyline, px, py, dx, dy, t_min):
+    """Per-segment ray parameter ``t``, segment parameter ``s`` and
+    validity (the inclusive ``t >= t_min`` test); ``t_min`` is a float or
+    a per-walker ``(W,)`` tensor. Returns ``(t, s, ok, (ax, ay, ux, uy))``."""
     ax, ay, bx, by, valid = _seg_fields(poly, px.device)
     ux, uy = bx - ax, by - ay
     wx = px[:, None] - ax
@@ -105,6 +131,24 @@ def first_hit(poly: Polyline, px, py, dx, dy, r, t_min=1e-6):
         t_min = t_min[:, None]
     ok = (valid & (s >= 0.0) & (s <= 1.0) & (t >= t_min)
           & (torch.abs(den) > 1e-30))
+    return t, s, ok, (ax, ay, ux, uy)
+
+
+def ray_intersection(poly: Polyline, px, py, dx, dy, t_min=1e-6):
+    """``(W, S)`` ray parameters of each segment's hit, ``+inf`` for
+    misses."""
+    t, _, ok, _ = _ray_params(poly, px, py, dx, dy, t_min)
+    return torch.where(ok, t, torch.inf)
+
+
+def first_hit(poly: Polyline, px, py, dx, dy, r, t_min=1e-6):
+    """First ray/polyline intersection within distance ``r``.
+
+    ``t_min`` is a float or a per-walker ``(W,)`` tensor. Returns
+    ``(hx, hy, nx, ny, t_hit, hit)``: hit (or sphere) point, inward unit
+    normal (zero when no hit), hit distance ``min(t, r)``, bool mask.
+    """
+    t, s, ok, (ax, ay, ux, uy) = _ray_params(poly, px, py, dx, dy, t_min)
     t = torch.where(ok, t, _BIG)
     ulen = torch.sqrt(torch.clamp(ux * ux + uy * uy, min=1e-30))
     t_best, nx, ny, hxs, hys = _min_by(

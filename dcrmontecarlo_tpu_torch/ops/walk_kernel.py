@@ -11,16 +11,21 @@ the reflectance fold, with the wall-arrival weight) and the two-level
 local majorant; and the flagship notebook gate's path: MIS next-event
 estimation toward a Gaussian-mixture source density, the in-launch freeze
 of heavy lanes for the host loop's high-weight split, and the
-``max_attenuation`` clip. The kernel is ``csrc/walk_kernel.cu`` (one
-thread per walker lane, one compiled instantiation per variant in
-:data:`KERNEL_VARIANTS`); :func:`walk_plain` is the same step, op for op,
-on tensors of lanes, on any device.
+``max_attenuation`` clip; and the topographic survey's boundaries: a
+Neumann polyline with silhouette vertices, in the two geometry forms of
+the JAX kernel (the static form up to ``MAX_UNROLL_SEGMENTS`` boundary
+rows, with segment data formed on the host in float64 and rounded once,
+and the table form up to ``MAX_SMEM_SEGMENTS`` rows of float32 endpoints,
+everything else formed in float32 per step). The kernel is
+``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
+instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
+is the same step, op for op, on tensors of lanes, on any device.
 
 :func:`run_walk` advances every lane by up to ``inner_steps`` steps and
 updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
 state launches the kernel, built from the checkout's source at first use
-(``nvcc``, plain C interface, ``ctypes``). There is no fallback between
-the two.
+(``nvcc``, one library per instantiation, all compiled at once; plain C
+interface, ``ctypes``). There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional, Tuple
 
@@ -56,8 +61,9 @@ from .greens import (
     screened_interior_prob,
 )
 
-__all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_SEG", "MAX_MIX", "KERNEL_VARIANTS",
-           "WalkParams", "kernel_name",
+__all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
+           "MAX_SMEM_SEGMENTS", "MAX_MIX", "KERNEL_VARIANTS",
+           "WalkParams", "kernel_name", "variant_code", "geometry_size",
            "make_walk_params", "stream_ids", "run_walk", "walk_plain",
            "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
            "build_library", "NVCC_FLAGS", "ROBIN_OFF", "ROBIN_CHAIN",
@@ -69,7 +75,8 @@ PLANE_RTOL = 1e-4    # compare_planes: per-lane relative tolerance,
 PLANE_FLOOR = 1e-6   # absolute floor as a fraction of the plane's scale,
 PLANE_MIN_FRAC = 0.99  # and the share of lanes that must agree per plane
 MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
-MAX_SEG = 32
+MAX_UNROLL_SEGMENTS = 96   # boundary rows of the static form, and
+MAX_SMEM_SEGMENTS = 8192   # of the table form (ops/pallas_walk.py:50-51)
 MAX_MIX = 8          # MIS mixture components
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
@@ -77,17 +84,20 @@ MAX_MIX = 8          # MIS mixture components
 ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
-# the kernel's compiled instantiations, (robin, majorant, mis, freeze):
-# the combinations a path launches (csrc/walk_kernel.cu::walk_pick)
+# the kernel's compiled instantiations, (robin, majorant, mis, freeze,
+# table): the combinations a path launches
+# (csrc/walk_kernel.cu::walk_pick)
 KERNEL_VARIANTS = frozenset({
-    (ROBIN_OFF, False, False, False),      # the survey's main path
-    (ROBIN_OFF, False, True, False),       # the survey with source_mis
-    (ROBIN_OFF, True, False, False),       # the majorant, Robin off
-    (ROBIN_CHAIN, False, False, False),
-    (ROBIN_CHAIN, True, False, False),     # the accuracy path
-    (ROBIN_CHAIN, True, True, True),       # the flagship gate's path
-    (ROBIN_REFLECTANCE, False, False, False),
-    (ROBIN_REFLECTANCE, True, False, False),
+    (ROBIN_OFF, False, False, False, False),   # the survey's main path
+    (ROBIN_OFF, False, True, False, False),    # the survey with source_mis
+    (ROBIN_OFF, True, False, False, False),    # the majorant, Robin off
+    (ROBIN_CHAIN, False, False, False, False),
+    (ROBIN_CHAIN, True, False, False, False),  # the accuracy path
+    (ROBIN_CHAIN, True, True, True, False),    # the flagship gate's path
+    (ROBIN_REFLECTANCE, False, False, False, False),
+    (ROBIN_REFLECTANCE, True, False, False, False),
+    (ROBIN_OFF, False, False, False, True),    # the topographic survey
+    (ROBIN_CHAIN, False, False, False, True),  # the chain on a terrain
 })
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
@@ -103,10 +113,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------- #
 
 def kernel_name(variant) -> str:
-    """``walk_kernel<robin,majorant,mis,freeze>`` for a variant tuple."""
+    """``walk_kernel<robin,majorant,mis,freeze,table>`` for a variant
+    tuple."""
     r, *flags = variant
     return "walk_kernel<{}>".format(",".join(
         [str(int(r))] + ["true" if f else "false" for f in flags]))
+
+
+def variant_code(variant) -> int:
+    """The instantiation's code in ``walk_pick``
+    (``csrc/walk_kernel.cu``): its switches read as binary digits after
+    the Robin mode; its library is built with ``-DWALK_PART=<code>``."""
+    r, *flags = variant
+    code = int(r)
+    for f in flags:
+        code = 2 * code + int(bool(f))
+    return code
+
+
+def geometry_size(problem) -> int:
+    """Boundary rows as the JAX kernel counts them to pick its form
+    (``ops/pallas_walk.py:60-66``): both boundaries' segments plus the
+    Neumann boundary's interior vertices. Up to ``MAX_UNROLL_SEGMENTS`` is
+    the static form, above it the table form."""
+    n = problem.dirichlet.num_segments
+    if problem.neumann is not None:
+        n += problem.neumann.num_segments + problem.neumann.num_vertices
+    return n
 
 
 def _dir_table(poly) -> np.ndarray:
@@ -168,6 +201,26 @@ def _chord_table(poly) -> np.ndarray:
     return np.asarray(rows, np.float32).reshape(-1, 8)
 
 
+def _valid_vertices(poly) -> np.ndarray:
+    """``(V, 6)`` float32 ``[ax, ay, bx, by, cx, cy]`` of the interior
+    vertices."""
+    return poly.vert_abc.numpy()[poly.vert_valid.numpy()].reshape(-1, 6)
+
+
+def _vert_table(poly) -> np.ndarray:
+    """``(V, 8)`` float32 ``[ax, ay, bx, by, abx, aby, bcx, bcy]``: the
+    static form's silhouette constants, the edge vectors formed in float64
+    and rounded once (``ops/pallas_walk.py:205-218``)."""
+    rows = []
+    for ax, ay, bx, by, cx, cy in _valid_vertices(poly).astype(np.float64):
+        rows.append((ax, ay, bx, by, bx - ax, by - ay, cx - bx, cy - by))
+    return np.asarray(rows, np.float32).reshape(-1, 8)
+
+
+def _empty(cols: int) -> np.ndarray:
+    return np.zeros((0, cols), np.float32)
+
+
 @dataclass(frozen=True)
 class WalkParams:
     """Everything one launch needs besides the planes."""
@@ -182,8 +235,8 @@ class WalkParams:
     roulette_threshold: Optional[float]
     project: bool
     snap: bool
-    dir_table: np.ndarray        # (S, 5) float32
-    neu_table: np.ndarray        # (S, 6) float32, S may be 0
+    dir_table: np.ndarray        # (S, 5) float32; table form (S, 4) rows
+    neu_table: np.ndarray        # (S, 6) float32, S may be 0; table (S, 4)
     bc: Callable
     sources: Tuple[Callable, ...]
     alpha_c: Callable
@@ -194,6 +247,8 @@ class WalkParams:
     robin_arrival_clamp: float = 0.02
     gamma_floor: float = 0.0     # chord branch-rate floor
     chord_table: np.ndarray = None   # (S, 8) float32, with neu_table's S
+                                     # (static form; the table form forms
+                                     # the chord frame from neu_table)
     grad_log_alpha: Optional[Callable] = None
     majorant: Optional[LocalMajorant] = None
     sb_bg: float = 0.0           # the majorant's background sigma_bar and
@@ -204,6 +259,14 @@ class WalkParams:
     max_attenuation: Optional[float] = None  # symmetric |atten| cap
     freeze: bool = False         # the in-launch freeze build (its launches
                                  # take a threshold, +inf = no freeze)
+    table: bool = False          # the table form: dir_table, neu_table are
+                                 # float32 endpoint rows [ax, ay, bx, by],
+                                 # vert_table [a, b, c] rows (V, 6)
+    vert_table: np.ndarray = field(default_factory=lambda: _empty(8))
+                                 # silhouette vertices: static (V, 8)
+                                 # (_vert_table), table form (V, 6)
+    _cache: dict = field(init=False, default_factory=dict, compare=False,
+                         repr=False)  # tables as tensors, per device
 
     @property
     def n_src(self) -> int:
@@ -211,9 +274,10 @@ class WalkParams:
 
     @property
     def variant(self) -> tuple:
-        """The kernel instantiation ``(robin, majorant, mis, freeze)``."""
+        """The kernel instantiation ``(robin, majorant, mis, freeze,
+        table)``."""
         return (self.robin, self.majorant is not None,
-                self.mis_table is not None, self.freeze)
+                self.mis_table is not None, self.freeze, self.table)
 
     @property
     def kernel_name(self) -> str:
@@ -231,12 +295,17 @@ class WalkParams:
         if self.specs[1].kind not in (fields.CONST, fields.BUMPS):
             raise NotImplementedError(
                 "the CUDA walk takes a constant or bump-sum conductivity")
-        if (len(self.sources) > MAX_SRC or len(self.dir_table) > MAX_SEG
-                or len(self.neu_table) > MAX_SEG):
+        if len(self.sources) > MAX_SRC:
             raise NotImplementedError(
-                f"the CUDA walk holds up to {MAX_SRC} sources and {MAX_SEG} "
-                "segments per boundary; reference: "
-                "dcrmontecarlo_tpu/ops/pallas_walk.py::_closest_point_smem")
+                f"the CUDA walk holds up to {MAX_SRC} sources; reference: "
+                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+        rows = (len(self.dir_table) + len(self.neu_table)
+                + len(self.vert_table))
+        if rows > (MAX_SMEM_SEGMENTS if self.table else MAX_UNROLL_SEGMENTS):
+            raise NotImplementedError(
+                f"the CUDA walk holds up to {MAX_SMEM_SEGMENTS} boundary "
+                f"rows, got {rows}; reference: "
+                "dcrmontecarlo_tpu/solver/wost.py::_build_solve_fn_xla")
         mj = self.majorant
         boxes, bands = (mj.table() if mj is not None
                         else (np.zeros((0, 4), np.float32),
@@ -257,8 +326,8 @@ class WalkParams:
         if self.variant not in KERNEL_VARIANTS:
             raise NotImplementedError(
                 f"the CUDA walk has no instantiation {self.kernel_name} "
-                "(robin, majorant, mis, freeze); it compiles the variants "
-                "in walk_kernel.KERNEL_VARIANTS; reference: "
+                "(robin, majorant, mis, freeze, table); it compiles the "
+                "variants in walk_kernel.KERNEL_VARIANTS; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
@@ -266,21 +335,50 @@ class WalkParams:
               len(self.dir_table), len(self.neu_table), self.robin,
               int(mj is not None), len(boxes), len(bands),
               int(self.max_attenuation is not None), len(mix),
-              int(self.freeze)]
+              int(self.freeze), len(self.vert_table), int(self.table)]
         fp = [self.eps, self.rmin, self.t_min, self.sigma_bar,
               0.0 if self.roulette_threshold is None
               else self.roulette_threshold, self.gamma_floor,
               self.robin_arrival_clamp, self.sb_bg, self.mfp_bg, self.mfp_gl,
               0.0 if self.max_attenuation is None else self.max_attenuation]
-        fp += self.dir_table.ravel().tolist() + self.neu_table.ravel().tolist()
-        fp += self.chord_table.ravel().tolist()
+        if not self.table:  # the table form's rows go by device_tables
+            fp += (self.dir_table.ravel().tolist()
+                   + self.neu_table.ravel().tolist()
+                   + self.chord_table.ravel().tolist())
         fp += boxes.ravel().tolist() + bands.ravel().tolist()
         fp += mix.ravel().tolist()
+        if not self.table:
+            fp += self.vert_table.ravel().tolist()
         for spec in self.specs:
             kind, params = spec.table()
             ip += [kind, len(params)]
             fp += list(params)
         return np.asarray(fp, np.float32), np.asarray(ip, np.int32)
+
+    def columns(self, name: str, device):
+        """Table ``name``'s columns as ``(1, rows)`` float32 tensors on
+        ``device`` (copied there once per params)."""
+        key = (name, str(device))
+        if key not in self._cache:
+            t = torch.from_numpy(np.array(getattr(self, name).T, np.float32))
+            self._cache[key] = [c[None, :] for c in t.to(device)]
+        return self._cache[key]
+
+    def device_tables(self, device):
+        """The table form's ``(dir, neu, vert)`` rows as contiguous float32
+        tensors on ``device``, ``(S, 4)``, ``(S, 4)`` and ``(V, 8)`` (the
+        vertex rows padded to two float4), uploaded once per params, so
+        once per solve; ``()`` in the static form."""
+        if not self.table:
+            return ()
+        key = ("rows", str(device))
+        if key not in self._cache:
+            vert = np.zeros((len(self.vert_table), 8), np.float32)
+            vert[:, :6] = self.vert_table
+            self._cache[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+                    device) for a in (self.dir_table, self.neu_table, vert))
+        return self._cache[key]
 
 
 def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
@@ -304,12 +402,20 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         raise ValueError(f"unknown Robin mode {robin_correction!r}")
     robin = (_ROBIN_CODES[robin_correction] if problem.neumann is not None
              else ROBIN_OFF)
-    if problem.neumann is not None:
-        neu = _neu_table(problem.neumann)
-        chord = _chord_table(problem.neumann)
+    # the form by the JAX kernel's rule (pallas_walk.py:577): a 1-ulp
+    # difference of the two arithmetics desynchronizes walks
+    table = geometry_size(problem) > MAX_UNROLL_SEGMENTS
+    neumann = problem.neumann
+    if table:
+        dirt = problem.dirichlet.valid_segments()
+        neu = neumann.valid_segments() if neumann is not None else _empty(4)
+        chord = _empty(8)
+        vert = _valid_vertices(neumann) if neumann is not None else _empty(6)
     else:
-        neu = np.zeros((0, 6), np.float32)
-        chord = np.zeros((0, 8), np.float32)
+        dirt = _dir_table(problem.dirichlet)
+        neu = _neu_table(neumann) if neumann is not None else _empty(6)
+        chord = _chord_table(neumann) if neumann is not None else _empty(8)
+        vert = _vert_table(neumann) if neumann is not None else _empty(8)
     mj = problem.local_majorant
     if mj is not None:
         # the progress scales in float64, rounded once (pallas_walk.py:559-563)
@@ -326,7 +432,7 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         roulette_threshold=(None if roulette_threshold is None
                             else float(roulette_threshold)),
         project=bool(project), snap=bool(snap),
-        dir_table=_dir_table(problem.dirichlet), neu_table=neu,
+        dir_table=dirt, neu_table=neu, table=table, vert_table=vert,
         bc=problem.bc_dirichlet, sources=sources, alpha_c=problem.alpha_c,
         sigma_prime=problem.sigma_prime, specs=specs, robin=robin,
         robin_arrival_clamp=float(robin_arrival_clamp),
@@ -368,48 +474,70 @@ def _uniforms(seed: int, ctr, sid, streams):
     return rng._to_unit(rng.mix32((sid ^ base)[None] ^ ks))
 
 
-def _closest_point(table, px, py):
-    best = torch.full_like(px, _BIG)
-    bcx = torch.zeros_like(px)
-    bcy = torch.zeros_like(px)
-    for ax, ay, ux, uy, uu in table.tolist():
-        vx = px - ax
-        vy = py - ay
-        # divide, not reciprocal-multiply: a 1-ulp t flips dD at the shell
-        t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
-        cx = ax + t * ux
-        cy = ay + t * uy
-        ex, ey = cx - px, cy - py
-        d2 = ex * ex + ey * ey
-        pick = d2 < best
-        best = torch.where(pick, d2, best)
-        bcx = torch.where(pick, cx, bcx)
-        bcy = torch.where(pick, cy, bcy)
+def _first_min(key, payloads):
+    """Row-wise the sequential scan ``if key < best: take the row`` from
+    ``best = _BIG`` over ``(W, S)`` ``key``: the minimum below ``_BIG`` and
+    the payloads (``(W, S)`` or ``(1, S)``) of its FIRST row, ``_BIG`` and
+    zeros where no row is below ``_BIG``."""
+    idx = torch.argmin(key, dim=1, keepdim=True)
+    best = torch.gather(key, 1, idx)[:, 0]
+    found = best < _BIG
+    out = [torch.where(found, torch.gather(p.expand_as(key), 1, idx)[:, 0],
+                       0.0) for p in payloads]
+    return torch.where(found, best, _BIG), out
+
+
+def _closest_point(P: WalkParams, px, py):
+    """Distance to the Dirichlet boundary and the foot: the static form
+    reads host-formed ``[ax, ay, ux, uy, uu]``
+    (``_closest_point_unrolled``), the table form forms the edge in
+    float32 from the endpoints (``_closest_point_smem``); both divide."""
+    if P.table:
+        ax, ay, bx, by = P.columns("dir_table", px.device)
+        ux, uy = bx - ax, by - ay
+        uu = torch.clamp(ux * ux + uy * uy, min=1e-30)
+    else:
+        ax, ay, ux, uy, uu = P.columns("dir_table", px.device)
+    vx = px[:, None] - ax
+    vy = py[:, None] - ay
+    # divide, not reciprocal-multiply: a 1-ulp t flips dD at the shell
+    t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
+    cx = ax + t * ux
+    cy = ay + t * uy
+    ex, ey = cx - px[:, None], cy - py[:, None]
+    best, (bcx, bcy) = _first_min(ex * ex + ey * ey, (cx, cy))
     return torch.sqrt(best), bcx, bcy
 
 
-def _first_hit(table, px, py, dx, dy, r, t_min):
-    t_best = torch.full_like(px, _BIG)
-    nx = torch.zeros_like(px)
-    ny = torch.zeros_like(px)
-    hxs = torch.zeros_like(px)
-    hys = torch.zeros_like(px)
-    for ax, ay, ux, uy, nxs, nys in table.tolist():
-        wx = px - ax
-        wy = py - ay
-        den = dx * uy - dy * ux
-        den_safe = torch.where(torch.abs(den) < 1e-30, 1e-30, den)
+def _first_hit(P: WalkParams, px, py, dx, dy, r, t_min):
+    """First Neumann hit within ``r``: the static form reads host-formed
+    edges and normals and multiplies by ``1 / den``
+    (``_first_hit_unrolled``); the table form forms them in float32 and
+    divides (``_first_hit_smem``). ``t_min`` is a float or per lane."""
+    if P.table:
+        ax, ay, bx, by = P.columns("neu_table", px.device)
+        ux, uy = bx - ax, by - ay
+        ulen = torch.sqrt(torch.clamp(ux * ux + uy * uy, min=1e-30))
+        nxs, nys = -uy / ulen, ux / ulen
+    else:
+        ax, ay, ux, uy, nxs, nys = P.columns("neu_table", px.device)
+    wx = px[:, None] - ax
+    wy = py[:, None] - ay
+    dxe, dye = dx[:, None], dy[:, None]
+    den = dxe * uy - dye * ux
+    den_safe = torch.where(torch.abs(den) < 1e-30, 1e-30, den)
+    if P.table:
+        t = (ux * wy - uy * wx) / den_safe
+        s = (dxe * wy - dye * wx) / den_safe
+    else:
         inv_den = 1.0 / den_safe
         t = (ux * wy - uy * wx) * inv_den
-        s = (dx * wy - dy * wx) * inv_den
-        ok = (s >= 0.0) & (s <= 1.0) & (t >= t_min) & (torch.abs(den) > 1e-30)
-        t = torch.where(ok, t, _BIG)
-        pick = t < t_best
-        t_best = torch.where(pick, t, t_best)
-        nx = torch.where(pick, nxs, nx)
-        ny = torch.where(pick, nys, ny)
-        hxs = torch.where(pick, ax + s * ux, hxs)
-        hys = torch.where(pick, ay + s * uy, hys)
+        s = (dxe * wy - dye * wx) * inv_den
+    if isinstance(t_min, torch.Tensor):
+        t_min = t_min[:, None]
+    ok = (s >= 0.0) & (s <= 1.0) & (t >= t_min) & (torch.abs(den) > 1e-30)
+    t_best, (nx, ny, hxs, hys) = _first_min(
+        torch.where(ok, t, _BIG), (nxs, nys, ax + s * ux, ay + s * uy))
     hit = t_best <= r
     t_hit = torch.where(hit, t_best, r)
     flip = (nx * dx + ny * dy) > 0.0
@@ -422,28 +550,47 @@ def _first_hit(table, px, py, dx, dy, r, t_min):
     return hx, hy, nx, ny, t_hit, hit
 
 
-def _chord_frame(table, px, py):
-    """The nearest segment's unit tangent and the chord interval
-    ``[s_lo, s_hi]`` keeping ``foot + s * t_hat`` on it."""
-    best = torch.full_like(px, _BIG)
-    btx = torch.zeros_like(px)
-    bty = torch.zeros_like(px)
-    bslo = torch.zeros_like(px)
-    bshi = torch.zeros_like(px)
-    for ax, ay, ux, uy, uu, ul, tx, ty in table.tolist():
-        vx = px - ax
-        vy = py - ay
-        t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
-        ex = (ax + t * ux) - px
-        ey = (ay + t * uy) - py
-        d2 = ex * ex + ey * ey
-        pick = d2 < best
-        best = torch.where(pick, d2, best)
-        btx = torch.where(pick, tx, btx)
-        bty = torch.where(pick, ty, bty)
-        bslo = torch.where(pick, -t * ul, bslo)
-        bshi = torch.where(pick, (1.0 - t) * ul, bshi)
+def _chord_frame(P: WalkParams, px, py):
+    """The nearest Neumann segment's unit tangent and the chord interval
+    ``[s_lo, s_hi]`` keeping ``foot + s * t_hat`` on it
+    (``_chord_frame_unrolled`` / ``_chord_frame_smem``: the same float32
+    arithmetic, formed on the host or per step)."""
+    if P.table:
+        ax, ay, bx, by = P.columns("neu_table", px.device)
+        ux, uy = bx - ax, by - ay
+        uu = torch.clamp(ux * ux + uy * uy, min=1e-30)
+        ul = torch.sqrt(uu)
+        tx, ty = ux / ul, uy / ul
+    else:
+        ax, ay, ux, uy, uu, ul, tx, ty = P.columns("chord_table", px.device)
+    vx = px[:, None] - ax
+    vy = py[:, None] - ay
+    t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
+    ex = (ax + t * ux) - px[:, None]
+    ey = (ay + t * uy) - py[:, None]
+    _, (btx, bty, bslo, bshi) = _first_min(
+        ex * ex + ey * ey, (tx, ty, -t * ul, (1.0 - t) * ul))
     return btx, bty, bslo, bshi
+
+
+def _silhouette(P: WalkParams, px, py):
+    """Distance to the nearest silhouette vertex, ``sqrt(3e38)`` for none:
+    vertex ``b`` is one seen from ``p`` when ``cross(ab, ap) *
+    cross(bc, bp) < 0`` (``_silhouette_unrolled`` with host-formed edges,
+    ``_silhouette_smem`` with float32 ones)."""
+    if P.table:
+        ax, ay, bx, by, cx, cy = P.columns("vert_table", px.device)
+        abx, aby, bcx, bcy = bx - ax, by - ay, cx - bx, cy - by
+    else:
+        ax, ay, bx, by, abx, aby, bcx, bcy = P.columns("vert_table",
+                                                       px.device)
+    apx = px[:, None] - ax
+    apy = py[:, None] - ay
+    bpx = px[:, None] - bx
+    bpy = py[:, None] - by
+    sgn = (abx * apy - aby * apx) * (bcx * bpy - bcy * bpx)
+    d2 = torch.where(sgn < 0, bpx * bpx + bpy * bpy, _BIG)
+    return torch.sqrt(torch.clamp(torch.min(d2, dim=1).values, max=_BIG))
 
 
 def _robin_chord_mass(P: WalkParams, px, py, nxv, nyv, ob, r, sbar):
@@ -490,7 +637,7 @@ def _chord_branch(P: WalkParams, u10, u11, px, py, nxv, nyv, r, sbar, a_p):
         2.0 * torch.clamp(trunc, min=1e-12))
     p_mix = 0.5 * (p_log + p_exp)
     g_ch = torch.clamp(screened_greens_2d(az, r, sbar), min=0.0)
-    t_cx, t_cy, s_lo, s_hi = _chord_frame(P.chord_table, px, py)
+    t_cx, t_cy, s_lo, s_hi = _chord_frame(P, px, py)
     zx = px + zeta * t_cx
     zy = py + zeta * t_cy
     glxz, glyz = P.grad_log_alpha(zx, zy)
@@ -535,7 +682,7 @@ def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
     if len(P.neu_table) > 0:
         # the star test: a wall between x and y blocks the sample
         _, _, _, _, t_y, hit_y = _first_hit(
-            P.neu_table, px, py, ex / d_safe, ey / d_safe, d_y, t_min_w)
+            P, px, py, ex / d_safe, ey / d_safe, d_y, t_min_w)
         in_star = in_ball & ~(hit_y & (t_y < d_y))
     else:
         in_star = in_ball
@@ -576,7 +723,7 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
     u = dict(zip(streams, _uniforms(P.seed, ctr, sid, streams)))
     u1, u4 = u[1], u[4]
 
-    dD, cx, cy = _closest_point(P.dir_table, px, py)
+    dD, cx, cy = _closest_point(P, px, py)
     done_eps = dD <= P.eps
     walk_done = act & (done_eps | (steps >= P.max_steps))
     if P.project:
@@ -617,7 +764,12 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
         # nothing and advance no counter, a fixed point for the launch
         stepping = stepping & (torch.abs(atten) <= freeze_thr)
 
-    r = torch.clamp(dD, min=P.rmin)
+    if len(P.vert_table) > 0:
+        # the star radius stops at the nearest silhouette vertex
+        r = torch.clamp(torch.minimum(dD, _silhouette(P, px, py)),
+                        min=P.rmin)
+    else:
+        r = torch.clamp(dD, min=P.rmin)
     if P.majorant is not None:
         # two-level local majorant: shrink the ball out of the high-sigma'
         # regions and walk at the background majorant where that promises
@@ -652,7 +804,7 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
         dy = torch.where(ob, hdy, dy)
         t_min_w = torch.where(ob, P.t_min, 0.0)
         hx, hy, hnx, hny, t_hit, hit = _first_hit(
-            P.neu_table, px, py, dx, dy, r, t_min_w)
+            P, px, py, dx, dy, r, t_min_w)
     else:
         hx = px + r * dx
         hy = py + r * dy
@@ -786,7 +938,7 @@ def _movable(P: WalkParams, thr: float, flat: dict, idx):
     atten = flat["atten"][idx]
     px, py = flat["px"][idx], flat["py"][idx]
     due = ((flat["steps"][idx] >= P.max_steps)
-           | (_closest_point(P.dir_table, px, py)[0] <= P.eps))
+           | (_closest_point(P, px, py)[0] <= P.eps))
     return (torch.abs(atten) <= thr) | due
 
 
@@ -889,43 +1041,60 @@ def _nvcc() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def _library_path() -> Path:
+def _library_path(code: int) -> Path:
     key = hashlib.sha256(_SRC.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"walk_kernel-{key}.so"
+    return _BUILD_DIR / f"walk_kernel-{key}-{code}.so"
 
 
 def build_library():
-    """Compile ``csrc/walk_kernel.cu`` into ``_build/`` unless a library of
-    the same source and flags is there. Returns ``(path, seconds, log)``;
-    ``log`` holds nvcc's resource report (empty when nothing was built)."""
-    so = _library_path()
-    if so.exists():
-        return so, 0.0, ""
+    """Compile ``csrc/walk_kernel.cu`` into ``_build/``, one library per
+    instantiation in :data:`KERNEL_VARIANTS` (``-DWALK_PART=<code>``), all
+    ``nvcc`` processes started together, skipping libraries of the same
+    source and flags already there. Returns ``(paths, seconds, log)``:
+    the libraries by variant code, the wall time and nvcc's resource
+    reports (empty when nothing was built)."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    paths = {variant_code(v): None for v in KERNEL_VARIANTS}
+    jobs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    return so, time.perf_counter() - t0, proc.stdout + proc.stderr
+    for code in sorted(paths):
+        paths[code] = so = _library_path(code)
+        if so.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        jobs[code] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, f"-DWALK_PART={code}", "-o", tmp,
+             str(_SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = [], []
+    for code, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"part {code}: nvcc failed ({proc.returncode})\n"
+                          f"{out}")
+            os.unlink(tmp)
+        else:  # atomic: a concurrent build never sees half a file
+            os.replace(tmp, paths[code])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0 if jobs else 0.0
+    return paths, seconds, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    so, _, _ = build_library()
-    lib = ctypes.CDLL(str(so))
+def _library(code: int):
+    paths, _, _ = build_library()
+    lib = ctypes.CDLL(str(paths[code]))
     lib.walk_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,   # fp
                                 ctypes.c_void_p, ctypes.c_int,   # ip
                                 ctypes.c_void_p, ctypes.c_int,   # planes
                                 ctypes.c_int, ctypes.c_int,      # lanes,
                                                                  # budget
                                 ctypes.c_float,                  # freeze
+                                ctypes.c_void_p, ctypes.c_int,   # geom
                                 ctypes.c_void_p]                 # stream
     lib.walk_launch.restype = ctypes.c_int
     return lib
@@ -959,15 +1128,18 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
                 f"{tuple(px.shape)} on {px.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
         ptrs.append(t.data_ptr())
-    lib = _library()
+    geom = [t.data_ptr() if t.numel() else None
+            for t in params.device_tables(px.device)] or [None] * 3
+    lib = _library(variant_code(params.variant))
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    garr = (ctypes.c_void_p * len(geom))(*geom)
     budget = int(min(max(int(inner_steps), 0), 2**31 - 1))
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         err = lib.walk_launch(fp.ctypes.data, len(fp), ip.ctypes.data,
                               len(ip), arr, len(ptrs), px.numel(),
                               budget, math.inf if thr is None else thr,
-                              stream)
+                              garr, len(geom), stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     run_walk.launches += 1

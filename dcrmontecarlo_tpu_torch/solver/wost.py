@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..geometry import queries
-from ..ops.walk_kernel import make_walk_params, run_walk, stream_ids
+from ..ops.walk_kernel import MAX_SMEM_SEGMENTS, geometry_size, \
+    make_walk_params, run_walk, stream_ids
 from ..problems.problem import Problem
 from ..sampling.rng import stream_seed
 from .split import make_launch_split, reserve_quota_row
@@ -253,9 +254,11 @@ class WoStSolver:
         if not pb.use_delta_tracking:
             raise _unported("a problem without delta tracking (no alpha or "
                             "sigma)", "solver/wost.py::_make_step_core")
-        if pb.neumann is not None and pb.neumann.num_vertices > 0:
-            raise _unported("a Neumann polyline with silhouette vertices",
-                            "ops/pallas_walk.py::_silhouette_unrolled")
+        if geometry_size(pb) > MAX_SMEM_SEGMENTS:
+            # the JAX package walks such a boundary on its XLA path
+            raise _unported(f"a boundary of more than {MAX_SMEM_SEGMENTS} "
+                            "segments and vertices",
+                            "solver/wost.py::_build_solve_fn_xla")
         robin = self._robin_enabled()
         if robin == "arrival-only":
             # the reference runs this diagnostic arm on its XLA path only

@@ -20,7 +20,9 @@ path: MIS on the survey and the flagship instantiation (chain + majorant
 + MIS + freeze, the launch frozen at 4.0), the ``max_attenuation`` clip,
 a whole host-loop solve with the split (equal steps and clone counts),
 and the flagship notebook gate itself at seed 0 against the pinned
-oracle.
+oracle; and the topographic survey: the table form (Robin off, and with
+the chord chain) and the static form with silhouette vertices, one launch
+each, and a whole solve at the test size.
 """
 
 import os
@@ -31,8 +33,8 @@ import pytest
 import torch
 
 from dcrmontecarlo_tpu_torch.geometry import square_loop
-from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
-    notebook_survey
+from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
+    geophysical_scenario, notebook_survey, topographic_survey_problem
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
@@ -85,6 +87,12 @@ def _survey_mis_problem():
 NOTEBOOK_ELECTRODES = np.asarray(notebook_survey()[1], np.float32)
 
 
+def _topography(resolution):
+    prob, h = topographic_survey_problem(half_width=100.0, depth=150.0,
+                                         resolution=resolution)
+    return prob, drape_electrodes(h, np.arange(-40.0, 41.0, 10.0), 0.5)
+
+
 def _compare(a, b, names):
     frac, _, finite = wk.compare_planes(a, b, names)
     assert finite
@@ -122,6 +130,10 @@ CASES = {
     "notebook_chain_max_attenuation": (_notebook_problem, dict(
         common_random_numbers=True, roulette_threshold=0.05,
         rejection_rounds=2, max_attenuation=1.5)),
+    "topography_table": (lambda: _topography(4.0), {}),
+    "topography_table_chain": (lambda: _topography(4.0), dict(
+        robin_correction="chain")),
+    "topography_static_silhouettes": (lambda: _topography(8.0), {}),
 }
 
 
@@ -129,7 +141,10 @@ CASES = {
 def test_kernel_matches_plain_one_launch(device, case):
     make, opts = CASES[case]
     prob = make()
-    if case.startswith("notebook"):
+    if case.startswith("topography"):
+        prob, pts = prob
+        assert prob.neumann.num_vertices > 0
+    elif case.startswith("notebook"):
         pts = NOTEBOOK_ELECTRODES
     elif prob.neumann is not None:
         pts = ELECTRODES
@@ -235,3 +250,20 @@ def test_flagship_notebook_gate_seed0(device):
     dv_dev = np.abs(result.voltages - dv_ref) / (
         4.0 * result.voltages_stderr + 0.25)
     assert (dv_dev < 1.0).all(), dv_dev
+
+
+def test_kernel_whole_topography_solve_matches_plain(device):
+    # chip_smoke.py phase 19: the test-size terrain (table form), 9 draped
+    # electrodes; both sides draw the same streams
+    prob, pts = _topography(4.0)
+    solver = WoStSolver(prob, SolverOptions(), device=device)
+    launches = wk.run_walk.variant_launches[
+        "walk_kernel<0,false,false,false,true>"]
+    rk = solver._solve_raw(pts, 512, 600, 0.5, 5)
+    assert wk.run_walk.variant_launches[
+        "walk_kernel<0,false,false,false,true>"] > launches
+    rp = solver._solve_raw(pts, 512, 600, 0.5, 5, walk=wk.walk_plain)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps

@@ -59,7 +59,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("ops.walk_kernel", "ops.greens", "problems.majorant",
-                "interop", "validation.fdm", "solver.split"):
+                "interop", "validation.fdm", "solver.split",
+                "models.topography", "geometry.queries"):
         assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
@@ -143,14 +144,19 @@ def test_kernel_instantiations_match_python():
     robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
              "REFLECT": wk.ROBIN_REFLECTANCE}
     found = set()
-    for m in re.finditer(r"case (\d+): return launch<ROBIN_(\w+), (\w+), "
-                         r"(\w+), (\w+)>;", body):
+    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+), (\w+), (\w+), "
+                         r"(\w+), (\w+)\);", body):
         code, r, *flags = m.groups()
         b = [f == "true" for f in flags]
         variant = (robin[r], *b)
-        assert int(code) == ((variant[0] * 2 + b[0]) * 2 + b[1]) * 2 + b[2]
+        assert int(code) == ((((variant[0] * 2 + b[0]) * 2 + b[1]) * 2
+                              + b[2]) * 2 + b[3]) == wk.variant_code(variant)
         found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 8
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 10
+    # the table form runs the topographic survey and the chain on it
+    assert {v for v in found if v[4]} == {
+        (wk.ROBIN_OFF, False, False, False, True),
+        (wk.ROBIN_CHAIN, False, False, False, True)}
 
 
 def test_entry_points_default_to_the_card():
