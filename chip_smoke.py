@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its four paths, each on the
-kernel variant it runs: the DCR-survey forward solve (phases 3-7), the
+Drives ``dcrmontecarlo_tpu_torch`` through its five paths, each on the
+kernel variants it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
 two-level local majorant (phases 8-11), the flagship notebook gate's
 path, which adds MIS next-event estimation and the high-weight split
 (the host launch loop with the in-launch freeze; phases 12-15), and the
 topographic survey: DC resistivity over rolling hills, a heightmap
 Neumann surface with silhouette vertices, walked in the kernel's table
-form (phases 16-20). Each phase reports on its own line:
+form (phases 16-20), and the analytic-check problems: the Laplace, Poisson
+and manufactured models, walks without delta tracking, the transport
+sampler and the ``TERMS`` field specs of their coefficients (phases
+21-26). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -113,6 +116,47 @@ form (phases 16-20). Each phase reports on its own line:
     negative, every |potential| < 1), then 256 steps of kernel and plain
     version at that state. The topographic variant's record takes its
     numbers from here.
+21. no delta tracking, one launch: 256 steps of kernel and plain version
+    from a fresh 8,192-lane state, held to phase 3's rule, on the harmonic
+    square (``x + 2y``), the Poisson square (source -4), the Neumann box
+    of ``tests/test_pallas_walk.py:142-151``, ``poisson_square(
+    with_obstacle=True)`` (the static form, 31 silhouette vertices) and a
+    100-row table-form square; the Green's-radius NEE acts (without the
+    source >= 1% of lanes bank otherwise).
+22. the transport sampler, one launch: the configuration of
+    ``tests/test_pallas_walk.py:120-139`` with its alpha as a ``TERMS``
+    spec (the chain resolves), the same, the sampler shown to act (the
+    exact sampler in its place changes >= 1% of lanes), its launches
+    counted over that test's solve; then 256 steps at phase 7's full-size
+    survey state with the exact sampler at rounds 1 and 2 and with the
+    transport map (best of 3 each), and the transport kernel vs plain
+    there. The transport variant's record takes its numbers from here.
+23. ``TERMS`` field specs on the card: ``variable_coefficient_problem()``
+    (a ``TERMS`` alpha through the chain's alpha parts), one launch as in
+    phase 21.
+24. the reference's analytic checks on the card, each with the JAX test's
+    configuration and bounds: the six tests of
+    ``tests/test_solver_laplace.py``, the four of
+    ``tests/test_solver_source.py``, four of
+    ``tests/test_solver_varcoeff.py`` (the screened disk, constant alpha,
+    the polynomial manufactured solution with the rejection and with the
+    transport sampler) and the model tests of
+    ``tests/test_models.py:17-73``, their launches counted; one whole
+    Poisson solve kernel vs plain under phase 4's rule; and
+    ``solve_to_tolerance`` on ``poisson_square()`` reaching its target.
+25. the short-walk harmonic preset at full size (``bench.py --preset
+    short``: ``x + 2y`` on the unit square, 3 points x 2^21 walks,
+    ``SolverOptions(target_slots=1<<19, min_quota=32)``: 196,608 lanes):
+    a warm-up and 10 timed solves (walker-steps/s, s/solve, mean walk
+    length, the kernel's share), every mean within 4 sigma + 5e-3 of
+    ``x + 2y``, then 256 steps at that state, whose numbers the no-delta
+    record takes.
+26. variable coefficients at full size: ``varcoeff_solve_points()`` (652
+    points) x 4096 walks, ``SolverOptions(target_slots=1<<21,
+    max_attenuation=50.0)`` (667,648 working lanes), max_steps 500: a
+    warm-up and 3 timed solves (rates, occupancy, truncated share, the
+    Robin mode ``"auto"`` resolves to), every solve finite with
+    ``max |mean| < 5``.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -191,7 +235,7 @@ def clone_state(state):
 def ptxas_registers(build_log):
     """Registers per compiled kernel instantiation, from ``ptxas -v``,
     keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
-    mis,freeze,table>``."""
+    mis,freeze,table,delta,transport>``."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -199,8 +243,7 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E",
-                          entry)
+            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 6 + "E", entry)
             if t:
                 r, *b = t.groups()
                 flags = ",".join("true" if v == "1" else "false" for v in b)
@@ -210,29 +253,61 @@ def ptxas_registers(build_log):
     return regs
 
 
+def field_ops(spec):
+    """FP32 operations of one evaluation of a field spec's value
+    (``field_value``): a constant 2, a bump 16, the dipole 20; a ``TERMS``
+    term 31 (five Horner rules and the add), 12 more with its exponential
+    and 4 per sin/cos factor."""
+    kind, tab = spec.table()
+    if kind == 0:
+        return 2
+    if kind == 1:
+        return 2 + 16 * ((len(tab) - 1) // 6)
+    if kind == 2:
+        return 20
+    return 2 + sum(31 + (12 if t.has_exp else 0)
+                   + 4 * ((t.s1[0] != 0) + (t.s2[0] != 0))
+                   for t in spec.terms)
+
+
+# the transport map per walker-step: the 13 T_j(omega) (33), the 29
+# coefficients c_i(omega) (29 x 24), the T/U recurrences (27 x 11), the
+# warp, the clamp and the map's density (46), the free draw (8) and the
+# exact weight (two i0e and two k0e, a ratio, the norm: 120)
+TRANSPORT_OPS = 33 + 29 * 24 + 27 * 11 + 46 + 8 + 120
+
+
 def fp32_ops_per_step(params):
     """A lower bound on the FP32 operations of one walker-step of the
     instantiation ``params`` selects, counted by hand from
     ``csrc/walk_kernel.cu``: every add, multiply, compare or select,
     divide, square root and transcendental (exp, log, sin, cos) is one
     operation (the precise divide and transcendentals take several); only
-    the work every stepping lane does counts: the rejection's first round,
-    the cheaper of the two moves, and not the Robin chord mass, the
-    arrival weight, the chain branch, later rejection rounds or the
-    roulette's kill, whose share depends on the walk. The geometry loops
-    count every row: in the table form a closest-point row forms its edge
-    (4 more), a first-hit row its edge but divides instead of taking a
-    reciprocal (1 more), a silhouette row its two edges (4 more)."""
+    the work every stepping lane does counts: the rejection's first round
+    (or the transport map), the cheaper of the two moves, and not the
+    Robin chord mass, the arrival weight, the chain branch, later
+    rejection rounds or the roulette's kill, whose share depends on the
+    walk. The geometry loops count every row: in the table form a
+    closest-point row forms its edge (4 more), a first-hit row its edge
+    but divides instead of taking a reciprocal (1 more), a silhouette row
+    its two edges (4 more). A walk without delta tracking moves to the
+    ball's edge: no sampler, no alpha, no interior test; with a source, a
+    Green's-radius sample (3), its point (5), the weight R^2 / 4 (2) and
+    the sum (2) besides the source."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
-    kind, tab = params.specs[1].table()
-    alpha = 3 + 16 * ((len(tab) - 1) // 6)     # alpha_c: a bump is 16
-    dipole = 20                                 # a source evaluation
+    alpha = field_ops(params.specs[1]) + 1      # alpha_c
+    src = sum(field_ops(f) for f in params.specs[3:])
     cp_row, hit_row, sil_row = (22, 23, 20) if params.table else (18, 22, 16)
     ops = cp_row * n_dir + 2                    # closest point
     ops += 9 + 6 + hit_row * n_neu              # radius, direction, hit
     ops += sil_row * n_vert + (2 if n_vert else 0)  # silhouette radius
-    ops += 165                                  # screened radius, round 0
+    if not params.delta:
+        ops += 4                                # counters
+        if params.sources:
+            ops += 12 + src                     # Green's-radius NEE
+        return ops
+    ops += TRANSPORT_OPS if params.transport else 165  # the screened radius
     ops += 6 + alpha                            # sample point, alpha there
     ops += 34 + alpha + 3 + 12                  # interior test, edge move,
                                                 # roulette and counters
@@ -242,9 +317,9 @@ def fp32_ops_per_step(params):
     if params.mis_table is not None:
         k = len(params.mis_table)
         ops += (36 + 102 + 31 + 2 + hit_row * n_neu + 11 * k + 13 + alpha
-                + dipole * params.n_src)        # MIS NEE
-    else:
-        ops += 35 + dipole * params.n_src       # NEE
+                + src)                          # MIS NEE
+    elif params.sources:
+        ops += 35 + src                         # NEE
     if params.freeze:
         ops += 2
     return ops
@@ -295,10 +370,12 @@ def lanes_differ(a, b, names=("atten", "px")):
     return float(d.double().mean())
 
 
-def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
+def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
+                     reps=3):
     """A path at full size: one warm-up solve through ``WoStSolver.solve``
     with the launch counts set to 0 just before it and read just after,
-    then 3 timed solves whose walk launches are bracketed by CUDA events.
+    then ``reps`` timed solves whose walk launches are bracketed by CUDA
+    events.
     Returns a dict of the counts, each solve's launches and clones, the
     walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
     lanes x longest lane), the kernel's share of each solve's wall time
@@ -320,8 +397,8 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
         stop.record()
         events.append((start, stop))
 
-    steps, times, lane_steps, share, trunc = 0.0, [], 0.0, [], []
-    for rep in range(3):
+    steps, times, lane_steps, share, trunc, raws = 0.0, [], 0.0, [], [], []
+    for rep in range(reps):
         events.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -333,12 +410,14 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what):
         stats.append(solver.last_solve_stats)
         steps += res.total_steps
         trunc.append(res.truncated_walks / (len(pts) * n_walks))
+        raws.append(res)
         lane_steps += float(lanes) * res.iterations
         check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
               f"{what}: full-size solve not finite")
     return dict(counts=counts, stats=stats, rate=steps / sum(times),
-                times=times, steps=steps / 3, occupancy=steps / lane_steps,
-                share=share, longest=res.iterations, warm=warm, trunc=trunc)
+                times=times, steps=steps / reps, occupancy=steps / lane_steps,
+                share=share, longest=res.iterations, warm=warm, trunc=trunc,
+                raws=raws)
 
 
 def steps_256(wk, state, params, what, thr=None, subset=False):
@@ -386,12 +465,19 @@ def main():
               file=sys.stderr)
         sys.exit(2)
 
-    from dcrmontecarlo_tpu_torch.geometry import Polyline
+    from scipy.special import i0 as sp_i0
+
+    from dcrmontecarlo_tpu_torch.geometry import Polyline, circle_loop, \
+        square_loop
     from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
-        geophysical_scenario, notebook_survey, topographic_survey_problem
+        geophysical_scenario, interior_grid, notebook_survey, \
+        poisson_solve_points, poisson_square, polynomial_manufactured, \
+        topographic_survey_problem, trig_manufactured, \
+        varcoeff_solve_points, variable_coefficient_problem
     from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
     from dcrmontecarlo_tpu_torch.problems import Problem, fields
-    from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver, \
+        solve_to_tolerance
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
     from dcrmontecarlo_tpu_torch.survey import survey_default_options
     from dcrmontecarlo_tpu_torch.validation import fdm_solve
@@ -837,7 +923,8 @@ def main():
         f"{[round(v, 4) for v in f15['share']]} ({card})")
     state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 688128, "phase 15 state is not 688128 lanes")
-    check(params.variant == (wk.ROBIN_CHAIN, True, True, True, False),
+    check(params.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
+                           False),
           f"phase 15 runs {params.kernel_name}")
     check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
           and f15["stats"][0]["launches"] > 1,
@@ -856,34 +943,41 @@ def main():
     xs_topo = np.arange(-40.0, 41.0, 10.0)
     topo_small = dict(half_width=100.0, depth=150.0)
 
-    def topo_launch(prob, pts, opts, what, off_params):
-        """Phases 16-18: 256 steps of kernel and plain version from a fresh
-        8,192-lane state, timed and held to phase 3's rule; the same launch
-        with ``off_params(params)`` must change >= 1% of lanes."""
+    def launch_256(prob, pts, opts, what, n_walks, max_steps, eps,
+                   off_params=None, acts_on=("atten", "px")):
+        """Phases 16-18 and 21-23: 256 steps of kernel and plain version
+        from a fresh 8,192-lane state, timed and held to phase 3's rule;
+        with ``off_params``, the same launch with ``off_params(params)``
+        must change >= 1% of lanes in a plane of ``acts_on`` (the share is
+        ``t["acts"]``). Returns ``(solver, state, params, t)``."""
         solver = WoStSolver(prob, dataclasses.replace(opts, target_slots=8192),
                             device=dev)
-        state, params, _, _ = solver._setup(pts, 8192, 600, 0.5, 3)
+        state, params, _, _ = solver._setup(pts, n_walks, max_steps, eps, 3)
         check(state["px"].numel() == 8192, f"{what}: not 8192 lanes")
         t = steps_256(wk, state, params, what)
-        other = clone_state(state)
-        wk.run_walk(other, off_params(params), 256)
-        t["acts"] = lanes_differ(t["end"], other)
-        check(t["acts"] >= 0.01, f"{what}: switching the mechanism off "
-                                 f"changed only {t['acts']:.4f} of lanes")
-        return solver, params, t
+        if off_params is not None:
+            other = clone_state(state)
+            wk.run_walk(other, off_params(params), 256)
+            t["acts"] = lanes_differ(t["end"], other, acts_on)
+            check(t["acts"] >= 0.01, f"{what}: switching the mechanism off "
+                                     f"changed only {t['acts']:.4f} of lanes")
+        return solver, state, params, t
 
-    def main_path_launches(solver, pts, n_walks, name):
-        """Launches of instantiation ``name`` in one solve through
-        ``WoStSolver.solve``, the counts set to 0 just before it."""
+    def solve_launches(solver, pts, what, name=None, **kw):
+        """A solve through ``WoStSolver.solve`` with the launch counts set
+        to 0 just before it and read just after: ``(result, counts)``;
+        with ``name``, the solve must have launched that instantiation
+        only."""
         wk.run_walk.launches = 0
         wk.run_walk.variant_launches.clear()
-        res = solver.solve(pts, n_walks=n_walks, max_steps=600, eps=0.5,
-                           seed=0)
+        res = solver.solve(pts, **kw)
         counts = dict(wk.run_walk.variant_launches)
-        check(np.isfinite(res.mean).all(), f"{name}: solve not finite")
-        check(set(counts) == {name}, f"the solve launched {counts}, "
-                                     f"expected {name}")
-        return counts[name]
+        check(sum(counts.values()) == wk.run_walk.launches > 0,
+              f"{what}: the solve launched {counts}")
+        check(np.isfinite(res.mean).all(), f"{what}: solve not finite")
+        check(name is None or set(counts) == {name},
+              f"{what}: the solve launched {counts}, expected {name}")
+        return res, counts
 
     no_vertices = lambda p: dataclasses.replace(p, vert_table=p.vert_table[:0])
 
@@ -891,10 +985,11 @@ def main():
     topo_prob, topo_h = topographic_survey_problem()
     topo_pts = drape_electrodes(topo_h, xs_topo, nudge=0.5)
     check(wk.geometry_size(topo_prob) == 402, "the terrain is not 402 rows")
-    _, p16, t16 = topo_launch(topo_prob, topo_pts, SolverOptions(),
-                              "phase 16", no_vertices)
+    _, _, p16, t16 = launch_256(topo_prob, topo_pts, SolverOptions(),
+                                "phase 16", 8192, 600, 0.5, no_vertices)
     check(p16.table and p16.variant == (wk.ROBIN_OFF, False, False, False,
-                                        True), f"phase 16 runs {p16}")
+                                        True, True, False),
+          f"phase 16 runs {p16}")
     # the JAX regression test_pallas_smem_sees_trailing_segments: a square
     # whose right edge is its table's last three rows
     sq = []
@@ -931,11 +1026,14 @@ def main():
     prob17, h17 = topographic_survey_problem(resolution=8.0, **topo_small)
     pts17 = drape_electrodes(h17, xs_topo, nudge=0.5)
     check(wk.geometry_size(prob17) == 52, "resolution 8 is not 52 rows")
-    solver17, p17, t17 = topo_launch(prob17, pts17, SolverOptions(),
-                                     "phase 17", no_vertices)
+    solver17, _, p17, t17 = launch_256(prob17, pts17, SolverOptions(),
+                                       "phase 17", 8192, 600, 0.5,
+                                       no_vertices)
     check(not p17.table and len(p17.vert_table) == 24,
           f"phase 17 runs {p17.kernel_name}")
-    n17 = main_path_launches(solver17, pts17, 512, p17.kernel_name)
+    n17 = solve_launches(solver17, pts17, "phase 17", p17.kernel_name,
+                         n_walks=512, max_steps=600, eps=0.5,
+                         seed=0)[1][p17.kernel_name]
     log(f"[17] static form with silhouettes (52 rows), 256 steps x 8192 "
         f"lanes: kernel {t17['ms']:.3f} ms, plain {t17['plain_ms']:.3f} ms; "
         f"worst plane agreement {t17['worst']:.5f}, max |err| "
@@ -945,12 +1043,15 @@ def main():
     # ---- 18. the chord chain on a table geometry -------------------------
     prob18, h18 = topographic_survey_problem(resolution=4.0, **topo_small)
     pts18 = drape_electrodes(h18, xs_topo, nudge=0.5)
-    solver18, p18, t18 = topo_launch(
+    solver18, _, p18, t18 = launch_256(
         prob18, pts18, SolverOptions(robin_correction="chain"), "phase 18",
-        lambda p: dataclasses.replace(p, robin=wk.ROBIN_OFF))
-    check(p18.variant == (wk.ROBIN_CHAIN, False, False, False, True),
+        8192, 600, 0.5, lambda p: dataclasses.replace(p, robin=wk.ROBIN_OFF))
+    check(p18.variant == (wk.ROBIN_CHAIN, False, False, False, True, True,
+                          False),
           f"phase 18 runs {p18.kernel_name}")
-    n18 = main_path_launches(solver18, pts18, 512, p18.kernel_name)
+    n18 = solve_launches(solver18, pts18, "phase 18", p18.kernel_name,
+                         n_walks=512, max_steps=600, eps=0.5,
+                         seed=0)[1][p18.kernel_name]
     log(f"[18] chain on the table form (102 rows), 256 steps x 8192 lanes: "
         f"kernel {t18['ms']:.3f} ms, plain {t18['plain_ms']:.3f} ms; worst "
         f"plane agreement {t18['worst']:.5f}, max |err| {t18['max_err']:.3g}"
@@ -1012,8 +1113,401 @@ def main():
                                  t18, regs, tolerance))
     records.append(kernel_record(p17, "topography_static_silhouettes", n17,
                                  t17, regs, tolerance))
-    log(f"[guard] phase 6 {f6['rate']:.6g} (earlier runs: 6.62e9-6.83e9), "
-        f"phase 11 {f11['rate']:.6g} (earlier runs: 1.06e9-1.08e9) "
+    # ---- the analytic-check problems: no delta tracking, the transport --
+    # ---- sampler, TERMS field specs (phases 21-26) -----------------------
+    P4 = np.array([[0.0, 0.0], [1.0, 0.5], [-1.2, -0.7], [0.3, 1.5]],
+                  np.float32)
+    BOX = [[-2.0, 0.0], [-2.0, -4.0], [2.0, -4.0], [2.0, 0.0]]
+    WALL = [[-2.0, 0.0], [2.0, 0.0]]
+    xy2 = fields.polynomial({(2, 0): 1.0, (0, 2): 1.0})
+
+    def table_square(per_side=25):
+        """The Poisson square with ``per_side`` segments per side (100
+        rows: the table form, rows far past the static form's 96)."""
+        c = [(2.0, 2.0), (-2.0, 2.0), (-2.0, -2.0), (2.0, -2.0)]
+        sq_pts = [[a[0] + k / per_side * (b[0] - a[0]),
+                   a[1] + k / per_side * (b[1] - a[1])]
+                  for a, b in zip(c, c[1:] + c[:1]) for k in range(per_side)]
+        return Problem(dirichlet=Polyline.from_points(sq_pts + [list(c[0])]),
+                       bc_dirichlet=xy2, source=fields.constant(-4.0))
+
+    # ---- 21. no delta tracking, one launch ------------------------------
+    harmonic = Problem(dirichlet=square_loop(1.0),
+                       bc_dirichlet=fields.polynomial({(1, 0): 1.0,
+                                                       (0, 1): 2.0}))
+    # the Green's-radius NEE acts: the same launch without the source
+    # banks otherwise on >= 1% of lanes
+    no_source = lambda p: dataclasses.replace(p, sources=(),
+                                              specs=p.specs[:3])
+    cases21 = (
+        ("harmonic square", harmonic,
+         [[0.0, 0.0], [0.5, 0.3], [-0.7, -0.2], [0.2, -0.8]], 1e-3, 200,
+         None),
+        ("Poisson square", poisson_square()[0], P4, 1e-3, 300, no_source),
+        ("Neumann box", Problem(
+            dirichlet=Polyline.from_points(BOX),
+            neumann=Polyline.from_points(WALL),
+            bc_dirichlet=fields.polynomial({(1, 0): 1.0, (0, 1): 1.0})),
+         [[0.0, -1.0], [0.5, -0.5], [-1.5, -0.02]], 1e-2, 500, None),
+        ("Poisson square + circle obstacle", poisson_square(True)[0],
+         [[1.0, 1.0], [0.7, 0.0], [0.0, -1.5], [-0.55, 0.1]], 1e-3, 500,
+         None),
+        ("table-form square", table_square(), P4, 1e-3, 300, None))
+    t21 = {}
+    for what, prob, pts, eps, ms, off in cases21:
+        _, _, params, t = launch_256(
+            prob, np.asarray(pts, np.float32), SolverOptions(),
+            f"phase 21 ({what})", 1 << 16, ms, eps, off, ("acc0", "asum0"))
+        check(not params.delta and params.variant in wk.KERNEL_VARIANTS,
+              f"phase 21 ({what}) runs {params.kernel_name}")
+        t21[what] = (params, t)
+        if what == "Poisson square + circle obstacle":
+            check(not params.table and len(params.vert_table) == 31,
+                  f"phase 21 ({what}): {len(params.vert_table)} vertices, "
+                  f"table form {params.table}")
+        if what == "table-form square":
+            check(params.table and len(params.dir_table) == 100,
+                  f"phase 21 ({what}) is not the 100-row table form")
+        extra = (f"; without the source {t['acts']:.4f} of lanes bank "
+                 f"otherwise" if off else "")
+        log(f"[21] no delta tracking, {what} ({params.kernel_name}), 256 "
+            f"steps x 8192 lanes: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms; worst plane agreement {t['worst']:.5f}, "
+            f"max |err| {t['max_err']:.3g}{extra} ({card})")
+
+    # ---- 22. the transport sampler, one launch --------------------------
+    # tests/test_pallas_walk.py:120-139 with its alpha as a TERMS spec; the
+    # sampler acts: the exact sampler in its place changes >= 1% of lanes
+    tr_prob = Problem(
+        dirichlet=Polyline.from_points(BOX),
+        neumann=Polyline.from_points(WALL),
+        bc_dirichlet=fields.polynomial({(1, 0): 1.0, (0, 1): 1.0}),
+        alpha=fields.terms(2.0, fields.term({(0, 1): 0.2}),
+                           fields.term(0.3, sx=("sin", 0.5))))
+    tr_pts = np.array([[0.0, -1.0], [0.5, -0.5]], np.float32)
+    tr_opts = SolverOptions(screened_sampler="transport")
+    _, _, p22, t22 = launch_256(
+        tr_prob, tr_pts, tr_opts, "phase 22", 1 << 16, 500, 1e-2,
+        lambda p: dataclasses.replace(p, transport=False),
+        ("atten", "px", "asum0"))
+    check(p22.transport and p22.robin == wk.ROBIN_CHAIN,
+          f"phase 22 runs {p22.kernel_name}")
+    _, counts22 = solve_launches(
+        WoStSolver(tr_prob, dataclasses.replace(tr_opts, target_slots=256,
+                                                pallas_block_rows=8),
+                   device=dev), tr_pts, "phase 22", p22.kernel_name,
+        n_walks=64, max_steps=60, eps=1e-2, seed=5)
+    log(f"[22] transport sampler + chain ({p22.kernel_name}), 256 steps x "
+        f"8192 lanes: kernel {t22['ms']:.3f} ms, plain {t22['plain_ms']:.3f} "
+        f"ms; worst plane agreement {t22['worst']:.5f}, max |err| "
+        f"{t22['max_err']:.3g}; the exact sampler in its place changes "
+        f"{t22['acts']:.4f} of lanes; a 2x64-walk solve launched {counts22} "
+        f"({card})")
+    # transport against the rejection at phase 7's full-size survey state
+    solver7, pts7, params7 = survey_full
+    times22 = {}
+    for label, sampler, rounds in (("exact r1", "exact", 1),
+                                   ("exact r2", "exact", 2),
+                                   ("transport", "transport", 1)):
+        solver = WoStSolver(solver7.problem, dataclasses.replace(
+            solver7.options, screened_sampler=sampler,
+            rejection_rounds=rounds), device=dev)
+        state, params, _, _ = solver._setup(pts7, 1 << 19, 500, 0.9, 5)
+        check(state["px"].numel() == 147456, "phase 22 full state")
+        wk.run_walk(clone_state(state), params, 16)
+        ms = []
+        for _ in range(3):
+            ks = clone_state(state)
+            ms.append(cuda_ms(lambda: wk.run_walk(ks, params, 256)))
+        times22[label] = (min(ms), life_steps(state, ks), params)
+    tr_full = steps_256(wk, state, params, "phase 22 (survey + transport)",
+                        subset=True)
+    log(f"[22] 256 steps x 147456 lanes of the survey, best of 3: "
+        + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]} walker-steps)"
+                    for k, v in times22.items())
+        + f"; transport kernel vs plain on {tr_full['lanes']} lanes: "
+        f"{tr_full['ms']:.3f} / {tr_full['plain_ms']:.3f} ms, worst plane "
+        f"agreement {tr_full['worst']:.5f} ({card})")
+
+    # ---- 23. TERMS field specs on the card: variable coefficients -------
+    vc_prob = variable_coefficient_problem()
+    vc_pts = varcoeff_solve_points()
+    check(vc_prob.alpha.kind == fields.TERMS, "varcoeff alpha is no TERMS")
+    _, _, p23, t23 = launch_256(
+        vc_prob, vc_pts[:8], SolverOptions(max_attenuation=50.0), "phase 23",
+        1 << 16, 500, 1e-3)
+    check(p23.robin == wk.ROBIN_CHAIN and not p23.table
+          and len(p23.vert_table) == 31, f"phase 23 runs {p23.kernel_name}")
+    log(f"[23] variable coefficients, chain with a TERMS alpha "
+        f"({p23.kernel_name}), 256 steps x 8192 lanes: kernel "
+        f"{t23['ms']:.3f} ms, plain {t23['plain_ms']:.3f} ms; worst plane "
+        f"agreement {t23['worst']:.5f}, max |err| {t23['max_err']:.3g} "
+        f"({card})")
+
+    # ---- 24. the reference's analytic checks on the card ----------------
+    F = fields
+    sin_sinh = F.terms(0.0, F.term(0.5, ay=1.0, sx=("sin", 1.0)),
+                       F.term(-0.5, ay=-1.0, sx=("sin", 1.0)))
+    sin_cosh = F.terms(0.0, F.term(0.5, ay=1.0, sx=("sin", 1.0)),
+                       F.term(0.5, ay=-1.0, sx=("sin", 1.0)))
+    poly_prob, poly_u = polynomial_manufactured(2.0)
+
+    def within(res, exact, k, slack):
+        return bool((np.abs(res.mean - exact) < k * res.stderr + slack).all())
+
+    def strip():
+        d = Polyline.concat([Polyline.from_points([[-1.0, 0.0], [1.0, 0.0]]),
+                             Polyline.from_points([[-1.0, 2.0], [1.0, 2.0]])])
+        n = Polyline.concat([Polyline.from_points([[-1.0, 0.0], [-1.0, 2.0]]),
+                             Polyline.from_points([[1.0, 0.0], [1.0, 2.0]])])
+        return Problem(dirichlet=d, neumann=n,
+                       bc_dirichlet=F.polynomial({(0, 1): 1.0}))
+
+    g4 = np.linspace(-0.7, 0.7, 4)
+    grid16 = np.stack([a.ravel() for a in np.meshgrid(g4, g4, indexing="ij")],
+                      1)
+    # (name, problem, options, points, solve kwargs, gate(result, points))
+    checks24 = [
+        ("harmonic_linear_dirichlet", harmonic, dict(target_slots=4096),
+         [[0.0, 0.0], [0.5, 0.3], [-0.7, -0.2], [0.2, -0.8]],
+         dict(n_walks=2000, max_steps=200, eps=1e-3, seed=0),
+         lambda r, p: within(r, p[:, 0] + 2 * p[:, 1], 4.0, 5e-3)),
+        ("harmonic_saddle", Problem(
+            dirichlet=square_loop(1.0),
+            bc_dirichlet=F.polynomial({(2, 0): 1.0, (0, 2): -1.0})),
+         dict(target_slots=4096), [[0.0, 0.0], [0.4, 0.4], [-0.5, 0.1]],
+         dict(n_walks=3000, max_steps=200, eps=1e-3, seed=1),
+         lambda r, p: within(r, p[:, 0] ** 2 - p[:, 1] ** 2, 4.0, 5e-3)),
+        ("constant_bc_zero_variance", Problem(
+            dirichlet=square_loop(1.0), bc_dirichlet=F.constant(3.5)),
+         dict(target_slots=512), [[0.1, 0.2]],
+         dict(n_walks=64, max_steps=100, eps=1e-3),
+         lambda r, p: bool(abs(r.mean[0] - 3.5) <= 3.5e-6
+                           and r.stderr[0] <= 1e-5)),
+        ("all_walks_complete", Problem(dirichlet=square_loop(1.0)),
+         dict(target_slots=256), [[0.0, 0.0], [0.5, 0.5]],
+         dict(n_walks=123, max_steps=100, eps=1e-3),
+         lambda r, p: bool(r.n_walks == 123 and r.total_steps > 0
+                           and (np.abs(r.mean) <= 1e-7).all())),
+        ("harmonic_sin_sinh", Problem(dirichlet=square_loop(1.0),
+                                      bc_dirichlet=sin_sinh),
+         dict(target_slots=8192), [[0.0, 0.5], [0.5, -0.5], [-0.3, 0.0]],
+         dict(n_walks=4000, max_steps=200, eps=1e-3, seed=3),
+         lambda r, p: within(r, np.sin(p[:, 0]) * np.sinh(p[:, 1]), 4.0,
+                             5e-3)),
+        ("poisson_quadratic_source", poisson_square()[0],
+         dict(target_slots=8192), P4,
+         dict(n_walks=4000, max_steps=300, eps=1e-3, seed=0),
+         lambda r, p: within(r, p[:, 0] ** 2 + p[:, 1] ** 2, 4.0, 0.02)),
+        ("poisson_bubble_zero_bc", Problem(
+            dirichlet=circle_loop(1.0, n=256), bc_dirichlet=F.constant(0.0),
+            source=F.constant(1.0)), dict(target_slots=8192),
+         [[0.0, 0.0], [0.5, 0.0], [0.0, -0.8]],
+         dict(n_walks=6000, max_steps=300, eps=1e-3, seed=1),
+         lambda r, p: within(r, (1 - p[:, 0] ** 2 - p[:, 1] ** 2) / 4, 4.0,
+                             5e-3)),
+        ("mixed_neumann_strip", strip(), dict(target_slots=8192),
+         [[0.0, 1.0], [0.5, 0.5], [-0.8, 1.5]],
+         dict(n_walks=4000, max_steps=500, eps=1e-3, seed=2),
+         lambda r, p: within(r, p[:, 1], 4.0, 0.02)),
+        ("neumann_circle_obstacle_runs", Problem(
+            dirichlet=square_loop(2.0), neumann=circle_loop(0.5, n=32),
+            bc_dirichlet=xy2), dict(target_slots=4096),
+         [[1.0, 1.0], [0.7, 0.0], [0.0, -1.5]],
+         dict(n_walks=1000, max_steps=500, eps=1e-3, seed=3),
+         lambda r, p: bool(np.isfinite(r.mean).all()
+                           and ((r.mean > 0) & (r.mean < 8)).all())),
+        ("screened_constant_sigma_disk", Problem(
+            dirichlet=circle_loop(1.0, n=256), bc_dirichlet=F.constant(1.0),
+            sigma=F.constant(4.0)), dict(target_slots=16384),
+         [[0.0, 0.0], [0.5, 0.0], [0.0, 0.8]],
+         dict(n_walks=8000, max_steps=1000, eps=1e-3, seed=0),
+         lambda r, p: within(r, sp_i0(np.hypot(p[:, 0], p[:, 1]) * 2.0)
+                             / sp_i0(2.0), 4.0, 0.01)),
+        ("constant_alpha_reduces_to_wos", Problem(
+            dirichlet=square_loop(1.0), bc_dirichlet=harmonic.bc_dirichlet,
+            alpha=F.constant(5.0)), dict(target_slots=8192),
+         [[0.0, 0.0], [0.4, -0.2]],
+         dict(n_walks=6000, max_steps=1000, eps=1e-3, seed=1),
+         lambda r, p: within(r, p[:, 0] + 2 * p[:, 1], 4.0, 0.01)),
+        ("manufactured_polynomial_solution", poly_prob,
+         dict(target_slots=16384), grid16,
+         dict(n_walks=3000, max_steps=800, eps=1e-3, seed=2),
+         lambda r, p: manufactured_ok(r, poly_u(p))),
+        ("transport_sampler_solution_unbiased", poly_prob,
+         dict(target_slots=16384, screened_sampler="transport"), grid16,
+         dict(n_walks=3000, max_steps=800, eps=1e-3, seed=2),
+         lambda r, p: manufactured_ok(r, poly_u(p))),
+        # tests/test_models.py:17-73
+        ("polynomial_model", poly_prob, dict(target_slots=8192),
+         interior_grid(n_points=3),
+         dict(n_walks=2000, max_steps=800, eps=1e-3, seed=0),
+         lambda r, p: rmse(r, poly_u(p)) < 0.08),
+        ("trig_model", trig_manufactured()[0], dict(target_slots=8192),
+         interior_grid(n_points=3),
+         dict(n_walks=2500, max_steps=800, eps=1e-3, seed=1),
+         lambda r, p: rmse(r, trig_manufactured()[1](p)) < 0.15),
+        ("poisson_model", poisson_square()[0], dict(target_slots=8192),
+         poisson_solve_points(n=5),
+         dict(n_walks=1500, max_steps=300, eps=1e-3, seed=2),
+         lambda r, p: (np.abs(r.mean - poisson_square()[1](p))
+                       < 4 * r.stderr + 0.03).mean() > 0.9),
+        ("varcoeff_model_runs", vc_prob,
+         dict(target_slots=4096, max_attenuation=50.0),
+         varcoeff_solve_points(n=5),
+         dict(n_walks=300, max_steps=500, eps=1e-3, seed=3),
+         lambda r, p: bool(np.isfinite(r.mean).all()
+                           and np.abs(r.mean).max() < 5.0)),
+        ("varcoeff_uncapped_is_finite", vc_prob, dict(target_slots=2048),
+         varcoeff_solve_points(n=3),
+         dict(n_walks=200, max_steps=400, eps=1e-3, seed=3),
+         lambda r, p: bool(np.isfinite(r.mean).all()
+                           and np.isfinite(r.stderr).all())),
+    ]
+
+    def rmse(res, exact):
+        return float(np.sqrt(np.mean((res.mean - exact) ** 2)))
+
+    def manufactured_ok(res, exact):
+        err = np.abs(res.mean - exact)
+        return rmse(res, exact) < 0.08 and (
+            err < 5.0 * res.stderr + 0.03).mean() > 0.85
+
+    counts24 = {}
+    for name24, prob, opts, pts, kw, gate in checks24:
+        pts = np.asarray(pts, np.float32)
+        solver = WoStSolver(prob, SolverOptions(**opts))   # on the card
+        check(solver.device.type == "cuda", f"phase 24 {name24} off the card")
+        t0 = time.perf_counter()
+        res, counts = solve_launches(solver, pts, f"phase 24 {name24}", **kw)
+        t = time.perf_counter() - t0
+        check(gate(res, pts), f"phase 24 {name24}: {res.mean} "
+                              f"(stderr {res.stderr})")
+        for k, v in counts.items():
+            counts24.setdefault(k, {})[name24] = v
+        log(f"[24] {name24}: held, means {np.round(res.mean, 5).tolist()}, "
+            f"max stderr {float(np.max(res.stderr)):.3g}, steps "
+            f"{res.total_steps:.0f}, launches {counts}, {t:.3f} s")
+    # test_reproducible_given_seed
+    solver = WoStSolver(Problem(dirichlet=square_loop(1.0),
+                                bc_dirichlet=sin_cosh),
+                        SolverOptions(target_slots=512))
+    rr = [solver.solve([[0.2, -0.3]], n_walks=500, max_steps=100, eps=1e-3,
+                       seed=sd).mean[0] for sd in (7, 7, 8)]
+    check(rr[0] == rr[1] != rr[2], f"phase 24 reproducible_given_seed: {rr}")
+    # one whole solve, kernel vs plain: the Poisson square
+    solver = WoStSolver(poisson_square()[0], SolverOptions(target_slots=8192),
+                        device=dev)
+    rk = solver._solve_raw(P4, 4000, 300, 1e-3, 11)
+    rp = solver._solve_raw(P4, 4000, 300, 1e-3, 11, walk=wk.walk_plain)
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check((dm <= 1e-3 * scale).all() and rk.total_steps == rp.total_steps,
+          f"phase 24 Poisson solve: |dmean| {dm}, steps {rk.total_steps} vs "
+          f"{rp.total_steps}")
+    # solve_to_tolerance on poisson_square() reaching its target
+    seen = []
+    res = solve_to_tolerance(
+        WoStSolver(poisson_square()[0], SolverOptions(target_slots=8192)),
+        poisson_solve_points(n=5), target_stderr=0.02, batch_walks=4096,
+        max_walks=1 << 17, max_steps=300, eps=1e-3, seed=5,
+        callback=lambda i, r: seen.append(float(r.stderr.max())))
+    check(res.stderr.max() <= 0.02 and res.iterations > 1 and seen[0] > 0.02
+          and res.n_walks < 1 << 17,
+          f"phase 24 solve_to_tolerance: stderr {res.stderr.max()}, "
+          f"{res.iterations} batches")
+    log(f"[24] {len(checks24) + 1} analytic checks held on the card; Poisson "
+        f"solve kernel vs plain: max |dmean|/(|mean|+se) "
+        f"{float((dm / scale).max()):.3g}, steps {rk.total_steps:.0f} both; "
+        f"solve_to_tolerance: max stderr {float(res.stderr.max()):.4g} <= "
+        f"0.02 after {res.iterations} batches ({res.n_walks} walks)")
+
+    # ---- 25. the short-walk harmonic preset at full size ----------------
+    sw_pts = np.array([[0.0, 0.0], [0.5, 0.3], [-0.4, 0.6]], np.float32)
+    solver = WoStSolver(harmonic, SolverOptions(target_slots=1 << 19,
+                                                min_quota=32), device=dev)
+    n_walks = 1 << 21
+    f25 = full_size_solves(wk, solver, sw_pts, n_walks, 200, 1e-3, 196608,
+                           "phase 25", reps=10)
+    exact25 = sw_pts[:, 0] + 2 * sw_pts[:, 1]
+    for res in [f25["warm"]] + f25["raws"]:
+        check(within(res, exact25, 4.0, 5e-3),
+              f"phase 25: means {res.mean} off x + 2y {exact25} (stderr "
+              f"{res.stderr})")
+    state, p25, _, _ = solver._setup(sw_pts, n_walks, 200, 1e-3, 5)
+    check(state["px"].numel() == 196608 and not p25.delta
+          and set(f25["counts"]) == {p25.kernel_name},
+          f"phase 25: {state['px'].numel()} lanes, {f25['counts']}")
+    log(f"[25] short-walk harmonic 3x{n_walks} walks, 196608 lanes: "
+        f"walker_steps_per_sec {f25['rate']:.6g} s/solve "
+        f"{[round(v, 5) for v in f25['times']]} steps/solve "
+        f"{f25['steps']:.6g} mean walk length "
+        f"{f25['steps'] / (3 * n_walks):.3f} steps, longest lane "
+        f"{f25['longest']}, lane occupancy {f25['occupancy']:.4f}, kernel "
+        f"share {[round(v, 4) for v in f25['share']]}, launches of the "
+        f"warm-up solve {f25['counts']}; means "
+        f"{np.round(f25['warm'].mean, 5).tolist()} ({card})")
+    t25 = steps_256(wk, state, p25, "phase 25", subset=True)
+    log(f"[25] 256 steps x {t25['lanes']} lanes: kernel {t25['ms']:.3f} ms, "
+        f"plain {t25['plain_ms']:.3f} ms; worst plane agreement "
+        f"{t25['worst']:.5f}, {t25['steps']} walker-steps ({card})")
+
+    # ---- 26. variable coefficients at full size -------------------------
+    solver = WoStSolver(vc_prob, SolverOptions(target_slots=1 << 21,
+                                               max_attenuation=50.0),
+                        device=dev)
+    mode26 = solver._robin_enabled()
+    n_walks = 4096
+    lanes26 = len(vc_pts) * 1024
+    f26 = full_size_solves(wk, solver, vc_pts, n_walks, 500, 1e-3, lanes26,
+                           "phase 26")
+    for res in [f26["warm"]] + f26["raws"]:
+        check(np.isfinite(res.mean).all() and np.abs(res.mean).max() < 5.0,
+              f"phase 26: max |mean| {np.abs(res.mean).max()}")
+    state, p26, _, _ = solver._setup(vc_pts, n_walks, 500, 1e-3, 5)
+    working26 = int((state["quota"] > 0).sum())
+    check(len(vc_pts) == 652 and working26 == lanes26 == 667648
+          and mode26 == "chain" and set(f26["counts"]) == {p26.kernel_name},
+          f"phase 26: {len(vc_pts)} points, {working26} working lanes, "
+          f"Robin {mode26!r}, {f26['counts']}")
+    log(f"[26] variable coefficients 652x{n_walks} walks, 667648 lanes, "
+        f"Robin 'auto' -> {mode26!r} (sigma_bar {vc_prob.sigma_bar:.4g}, "
+        f"max gamma {vc_prob.max_boundary_gamma():.4g}): "
+        f"walker_steps_per_sec {f26['rate']:.6g} s/solve "
+        f"{[round(v, 4) for v in f26['times']]} steps/solve "
+        f"{f26['steps']:.6g} longest lane {f26['longest']}, lane occupancy "
+        f"{f26['occupancy']:.4f}, truncated share "
+        f"{[round(v, 5) for v in f26['trunc']]}, kernel share "
+        f"{[round(v, 4) for v in f26['share']]}, launches of the warm-up "
+        f"solve {f26['counts']}, max |mean| "
+        f"{float(np.abs(f26['warm'].mean).max()):.4g} ({card})")
+
+    p21s, t21s = t21["Poisson square + circle obstacle"]
+    p21t, t21t = t21["table-form square"]
+    name_s, name_t = p21s.kernel_name, p21t.kernel_name
+    check(name_s == p25.kernel_name, "phases 21 and 25 run other variants")
+    records.append(kernel_record(p25, "no_delta_static",
+                                 f25["counts"][name_s], t25, regs, tolerance))
+    records.append(kernel_record(
+        p21t, "no_delta_table",
+        counts24.get(name_t, {}).get("poisson_bubble_zero_bc", 0), t21t, regs,
+        tolerance))
+    p_tr = times22["transport"][2]
+    records.append(kernel_record(
+        p_tr, "transport",
+        counts24.get(p_tr.kernel_name, {}).get(
+            "transport_sampler_solution_unbiased", 0), tr_full, regs,
+        tolerance))
+    records.append(kernel_record(p22, "transport+robin_chain",
+                                 counts22[p22.kernel_name], t22, regs,
+                                 tolerance))
+    for what, (ms_, steps_, p_) in times22.items():
+        b_ms, b_by = bound(p_, 147456, steps_, 1)
+        log(f"[bound] survey with {what} ({p_.kernel_name}): {ms_:.3f} ms "
+            f"against a bound of {b_ms:.4f} ms ({b_by}) for {steps_} "
+            f"walker-steps")
+    log(f"[guard] phase 6 {f6['rate']:.6g} (earlier runs: 6.51e9-6.64e9), "
+        f"phase 11 {f11['rate']:.6g} (earlier runs: 1.033e9-1.046e9) "
         f"walker-steps/s; survey "
         f"registers {regs.get(wk.kernel_name(survey_full[2].variant))}")
 

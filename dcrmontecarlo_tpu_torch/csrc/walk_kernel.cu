@@ -20,10 +20,25 @@
 // large-geometry table form (_closest_point_smem, _first_hit_smem,
 // _silhouette_smem, _chord_frame_smem, pallas_walk.py:271-421).
 //
-// Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE>,
-// and the host picks one per launch. Only the combinations a path
-// launches are instantiated (walk_pick below;
-// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list):
+// The analytic-check problems (the Laplace, Poisson and manufactured
+// models) add walks without delta tracking (no alpha, no sigma: the walker
+// jumps to the ball's edge or its Neumann hit, and a source is sampled at
+// the Green's radius R sqrt(u2 u3) with the weight R^2 / 4;
+// pallas_walk.py:626-629, :906-909, :920-931, :1104-1106, :1146-1163),
+// the transport sampler of the screened radius (screened_sampler=
+// "transport", :898-900 -> sampling/radial.py:64-177: a Chebyshev map
+// from the table in __constant__ memory, which every thread reads at the
+// same entry, so the loads broadcast) and the TERMS field kind of their
+// coefficients (polynomial x exponential x sin/cos terms, in __noinline__
+// functions, compiled only into the instantiations that run those
+// problems, terms_fields: the kind's mere call sites made the accuracy
+// path's instantiation measurably slower per step on the card).
+//
+// Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE,
+// DELTA, TRANSPORT>, and the host picks one per launch. Only the
+// combinations a path launches are instantiated (walk_pick below;
+// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list; DELTA is true
+// and TRANSPORT false unless shown):
 //   <OFF,   false, false, false, false>  the survey's main path
 //   <OFF,   false, true,  false, false>  the survey with source_mis
 //   <OFF,   true,  false, false, false>  the majorant with Robin off
@@ -35,9 +50,14 @@
 //   <REFLECT, false|true, false, false, false>  the reflectance fold
 //   <OFF,   false, false, false, true >  the topographic survey
 //   <CHAIN, false, false, false, true >  the chain on a terrain
-// walk_kernel<ROBIN_OFF, false, false, false, false> carries none of the
-// other variants' code or registers. max_attenuation is a run-time switch
-// (three selects per step) in every instantiation.
+//   <OFF,   false, false, false, false|true, DELTA false>  no delta
+//                                        tracking, both geometry forms
+//   <OFF|CHAIN, false, false, false, false, TRANSPORT true>  the
+//                                        transport sampler
+// walk_kernel<ROBIN_OFF, false, false, false, false, true, false> carries
+// none of the other variants' code or registers. max_attenuation is a
+// run-time switch (three selects per step) in every instantiation with
+// delta tracking.
 //
 // Geometry forms (TABLE), chosen on the host by the TPU kernel's rule
 // (boundary segments plus interior vertices <= 96: static). The static
@@ -129,14 +149,17 @@ constexpr int MAX_BUMPS = 8;
 constexpr int MAX_FP = 1 + 6 * MAX_BUMPS;
 constexpr int F_BC = 0, F_ALPHA = 1, F_SIGMA = 2, F_SRC0 = 3;
 constexpr int N_FIELDS = 3 + MAX_SRC;
-constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2;
+constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2, K_TERMS = 3;
+constexpr int MAX_TERMS = 4;   // TERMS field terms (problems/fields.py)
+constexpr int TERM_COLS = 27;  // poly[4][4], ax, ay, g, cx, cy, S1, S2
+constexpr int S_NONE = 0, S_SIN = 1, S_COS = 2;  // S = (kind, k, phase)
 constexpr int N_PLANES = 6 + 5 + 3 * MAX_SRC + 9;
 constexpr int THREADS = 128;
 constexpr int MAX_BOXES = 8, MAX_BANDS = 8;  // problems/majorant.py
 constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
 constexpr int MAX_MIX = 8;   // MIS mixture components
 constexpr int MIX_COLS = 7;  // cx, cy, w, a, cum, 2 w^2, 2 pi w^2
-constexpr int N_IP = 19, N_FP = 11;  // header lengths of ip and fp
+constexpr int N_IP = 21, N_FP = 11;  // header lengths of ip and fp
 constexpr int N_GEOM = 3;  // table form: dir, neu, vert row pointers
 
 struct Field {
@@ -183,6 +206,11 @@ struct WalkConst {
   const float4* tab_dir;     // table: (ax, ay, bx, by) per segment
   const float4* tab_neu;
   const float4* tab_vert;    // table: (ax, ay, bx, by), (cx, cy, 0, 0)
+  // the analytic-check problems (after the topographic path's fields):
+  // the TERMS fields' term rows, by field (Field::p[0] holds the
+  // background)
+  int n_terms[N_FIELDS];
+  float terms[N_FIELDS][MAX_TERMS][TERM_COLS];
 };
 
 __constant__ WalkConst C;
@@ -423,10 +451,142 @@ __device__ __forceinline__ float sigmoid(float v) {
   return F(1.0) / (F(1.0) + expf(-v));
 }
 
+// ---- TERMS fields (problems/fields.py::Terms) ---------------------------
+// background + sum_t P_t(x, y) exp(E_t) S1_t(x) S2_t(y), E = (ax x + ay y)
+// - g |p - c|^2: P by Horner's rule in y for each power of x, then in x;
+// the derivatives by the product rule, in Terms.value_grad_lap's order.
+// __noinline__ keeps the term loops out of the callers' registers; which
+// instantiations evaluate the kind at all is terms_fields (below).
+
+__device__ __forceinline__ float horner4(float c0, float c1, float c2,
+                                         float c3, float t) {
+  return ((c3 * t + c2) * t + c1) * t + c0;
+}
+
+__device__ __forceinline__ bool term_has_exp(const float* q) {
+  return q[16] != F(0.0) || q[17] != F(0.0) || q[18] != F(0.0);
+}
+
+__device__ __forceinline__ float term_exp(const float* q, float x, float y) {
+  const float dx = x - q[19], dy = y - q[20];
+  return expf((q[16] * x + q[17] * y) - q[18] * (dx * dx + dy * dy));
+}
+
+// S(t) = sin(k t + phase) or cos(k t + phase), with S' and S''
+__device__ __forceinline__ void term_factor(const float* s, float t, float& v,
+                                            float& dv, float& d2v) {
+  const float k = s[1];
+  const float arg = k * t + s[2];
+  const float kk = k * k;
+  if (s[0] == F(S_SIN)) {
+    v = sinf(arg);
+    dv = k * cosf(arg);
+  } else {
+    v = cosf(arg);
+    dv = -k * sinf(arg);
+  }
+  d2v = -kk * v;
+}
+
+__device__ __noinline__ float terms_value(int f, float x, float y) {
+  float total = C.field[f].p[0] + F(0.0) * x;
+  for (int t = 0; t < C.n_terms[f]; ++t) {
+    const float* q = C.terms[f][t];
+    float val = horner4(horner4(q[0], q[1], q[2], q[3], y),
+                        horner4(q[4], q[5], q[6], q[7], y),
+                        horner4(q[8], q[9], q[10], q[11], y),
+                        horner4(q[12], q[13], q[14], q[15], y), x);
+    if (term_has_exp(q)) val = val * term_exp(q, x, y);
+    if (q[21] != F(S_NONE)) val = val * (q[21] == F(S_SIN)
+                                             ? sinf(q[22] * x + q[23])
+                                             : cosf(q[22] * x + q[23]));
+    if (q[24] != F(S_NONE)) val = val * (q[24] == F(S_SIN)
+                                             ? sinf(q[25] * y + q[26])
+                                             : cosf(q[25] * y + q[26]));
+    total = total + val;
+  }
+  return total;
+}
+
+// adds each term's value, gradient and Laplacian to acc = (v, gx, gy, lap);
+// by value in and out, so the callers' sums stay in registers
+__device__ __noinline__ float4 terms_parts(int f, float x, float y,
+                                           float4 acc) {
+  for (int t = 0; t < C.n_terms[f]; ++t) {
+    const float* q = C.terms[f][t];
+    float py[4], qy[4], ry[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* a = q + 4 * i;
+      py[i] = horner4(a[0], a[1], a[2], a[3], y);
+      qy[i] = (F(3.0) * a[3] * y + F(2.0) * a[2]) * y + a[1];
+      ry[i] = F(6.0) * a[3] * y + F(2.0) * a[2];
+    }
+    const float P = horner4(py[0], py[1], py[2], py[3], x);
+    const float Px = (F(3.0) * py[3] * x + F(2.0) * py[2]) * x + py[1];
+    const float Pxx = F(6.0) * py[3] * x + F(2.0) * py[2];
+    const float Py = horner4(qy[0], qy[1], qy[2], qy[3], x);
+    float lapA = Pxx + horner4(ry[0], ry[1], ry[2], ry[3], x);
+    float A = P, Ax = Px, Ay = Py;
+    if (term_has_exp(q)) {
+      const float G = term_exp(q, x, y);
+      const float g2 = F(2.0) * q[18];
+      const float Ex = q[16] - g2 * (x - q[19]);
+      const float Ey = q[17] - g2 * (y - q[20]);
+      const float Gx = G * Ex, Gy = G * Ey;
+      const float lapG = G * ((Ex * Ex + Ey * Ey) - F(4.0) * q[18]);
+      A = P * G;
+      Ax = Px * G + P * Gx;
+      Ay = Py * G + P * Gy;
+      lapA = (lapA * G + F(2.0) * (Px * Gx + Py * Gy)) + P * lapG;
+    }
+    float val = A, tx = Ax, ty = Ay, tl = lapA, ay_b = Ay, a1 = A;
+    if (q[21] != F(S_NONE)) {
+      float b, db, d2b;
+      term_factor(q + 21, x, b, db, d2b);
+      val = val * b;
+      tx = tx * b + A * db;
+      ty = ty * b;
+      tl = (tl * b + (F(2.0) * Ax) * db) + A * d2b;
+      ay_b = Ay * b;
+      a1 = A * b;
+    }
+    if (q[24] != F(S_NONE)) {
+      float b, db, d2b;
+      term_factor(q + 24, y, b, db, d2b);
+      val = val * b;
+      tx = tx * b;
+      ty = ty * b + a1 * db;
+      tl = tl * b + ((F(2.0) * ay_b) * db + a1 * d2b);
+    }
+    acc.x = acc.x + val;
+    acc.y = acc.y + tx;
+    acc.z = acc.z + ty;
+    acc.w = acc.w + tl;
+  }
+  return acc;
+}
+
+// the instantiations whose paths evaluate TERMS fields, those of the
+// analytic-check problems: no majorant, MIS, freeze or reflectance, and
+// the table form only without delta tracking. The others are compiled
+// without the kind and keep the code they had before it
+// (ops/walk_kernel.py::terms_fields holds the same rule)
+__host__ __device__ constexpr bool terms_fields(int robin, bool maj,
+                                                bool mis, bool freeze,
+                                                bool table, bool delta) {
+  return !maj && !mis && !freeze && !(table && delta) &&
+         robin != ROBIN_REFLECT;
+}
+
+template <bool TERMS>
 __device__ float field_value(int f, float x, float y) {
   const Field& fd = C.field[f];
   const float* p = fd.p;
   if (fd.kind == K_CONST) return p[0] + F(0.0) * x;
+  if constexpr (TERMS) {
+    if (fd.kind == K_TERMS) return terms_value(f, x, y);
+  }
   if (fd.kind == K_DIPOLE) {
     float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3];
     float dp = epx * epx + epy * epy;
@@ -444,14 +604,15 @@ __device__ float field_value(int f, float x, float y) {
   return total;
 }
 
+template <bool TERMS>
 __device__ __forceinline__ float alpha_c(float x, float y) {
-  return fmaxf(field_value(F_ALPHA, x, y), F(1e-8));
+  return fmaxf(field_value<TERMS>(F_ALPHA, x, y), F(1e-8));
 }
 
 // alpha_c = max(alpha, 1e-8) with its gradient (and, for LAP, Laplacian),
 // zero where the clamp is active: hand-derived derivatives of the bump sum
-// (fields.BumpSum.value_grad_lap, fields._alpha_parts)
-template <bool LAP>
+// and the terms (fields.BumpSum/Terms.value_grad_lap, fields._alpha_parts)
+template <bool LAP, bool TERMS>
 __device__ __forceinline__ void alpha_parts(float x, float y, float& ac,
                                             float& gx, float& gy,
                                             float& lap) {
@@ -482,6 +643,15 @@ __device__ __forceinline__ void alpha_parts(float x, float y, float& ac,
         lap = lap + q[0] * (d2s * (d2 / (rho * rho)) +
                             ds * ((d2 + F(2.0) * q[5]) / (rho * rho * rho)));
     }
+  } else if constexpr (TERMS) {
+    if (fd.kind == K_TERMS) {
+      const float4 t =
+          terms_parts(F_ALPHA, x, y, make_float4(a, gx, gy, lap));
+      a = t.x;
+      gx = t.y;
+      gy = t.z;
+      lap = t.w;
+    }
   }
   bool live = a > F(1e-8);
   ac = fmaxf(a, F(1e-8));
@@ -489,20 +659,22 @@ __device__ __forceinline__ void alpha_parts(float x, float y, float& ac,
 }
 
 // sigma' = sigma/a + (lap a / a - |grad ln a|^2 / 2) / 2
+template <bool TERMS>
 __device__ float sigma_prime(float x, float y) {
   float ac, gx, gy, lap;
-  alpha_parts<true>(x, y, ac, gx, gy, lap);
+  alpha_parts<true, TERMS>(x, y, ac, gx, gy, lap);
   float la = ac + F(1e-8);
   float glx = gx / la, gly = gy / la;
   float gn2 = glx * glx + gly * gly;
-  return field_value(F_SIGMA, x, y) / ac +
+  return field_value<TERMS>(F_SIGMA, x, y) / ac +
          F(0.5) * (lap / ac - gn2 / F(2.0));
 }
 
 // grad ln(alpha_c + 1e-8) (fields.grad_log_alpha_fn)
+template <bool TERMS>
 __device__ void grad_log_alpha(float x, float y, float& glx, float& gly) {
   float ac, gx, gy, lap;
-  alpha_parts<false>(x, y, ac, gx, gy, lap);
+  alpha_parts<false, TERMS>(x, y, ac, gx, gy, lap);
   float la = ac + F(1e-8);
   glx = gx / la;
   gly = gy / la;
@@ -802,11 +974,311 @@ __device__ float screened_radius(float R, float sb, uint32_t seed,
   return fminf(fmaxf(s_cur, F(0.0)), F(1.0)) * R;
 }
 
+// ---- the screened radius by the transport map ---------------------------
+// (sampling/radial.py::sample_screened_radius_transport): one 4-uniform
+// draw (the rejection's round-0 streams), loop-free. For z = R sqrt(sb) <=
+// Z_SW the uniform is warped by v = sqrt(u) / (sqrt(u) + sqrt(1 - u)) and
+// mapped by the Chebyshev tensor s = sum_i c_i(om) T_i(2v - 1) with
+// c_i(om) = sum_j TRANSPORT_COEFFS[i][j] T_j(om), om the rational map of
+// clip(z, Z_LO, Z_SW); above Z_SW the free density x K0(x) is drawn in
+// closed form. The weight p(s; z) / q makes the draw exact; zero past the
+// ball. The table is _transport_coeffs.py's, rounded to float32; none of
+// its entries is zero, so no term is skipped (the reference skips zeros).
+
+constexpr int T_ROWS = 29, T_COLS = 13;
+constexpr double Z_LO = 0.125, Z_SW = 11.5, A_RAT = 2.0;
+constexpr double OMEGA_R0 = -0.8823529411764706;
+constexpr double OMEGA_R1 = 0.7037037037037037;
+
+__constant__ float TRANSPORT_COEFFS[T_ROWS][T_COLS] = {
+    {F(0.4122955638321402), F(-0.0913127502297563), F(-0.048921640016376076),
+     F(-0.019124002792370358), F(-0.005885189689898357),
+     F(-0.0013604293800299084), F(-0.00014394531463477863),
+     F(7.897159659209051e-05), F(7.271508786789982e-05),
+     F(3.9150355542520355e-05), F(1.6869724918893445e-05),
+     F(5.987240182027418e-06), F(1.6779591616389803e-06)},
+    {F(0.5057548884291811), F(-0.057078007215393925), F(-0.041654039137601566),
+     F(-0.024543995347933518), F(-0.011671179563414479),
+     F(-0.00441011154914981), F(-0.0012112324627865198),
+     F(-0.00012693936199909225), F(0.00011365440360075856),
+     F(0.00010411937699669413), F(5.705084874227318e-05),
+     F(2.3764015177274617e-05), F(7.655302020547964e-06)},
+    {F(0.08162660645782664), F(0.07224516050710338), F(0.0281097222855609),
+     F(0.001168382454666556), F(-0.006223712004993117),
+     F(-0.00518454049240984), F(-0.002663453606816329),
+     F(-0.0009531929198168022), F(-0.00017658023621229936),
+     F(5.9971146508597326e-05), F(8.374224463377842e-05),
+     F(5.161078568366696e-05), F(2.3079901413162744e-05)},
+    {F(-0.013839511845410022), F(0.04797848759320765), F(0.0315687339923302),
+     F(0.014308163583110605), F(0.0028861974590853328),
+     F(-0.0018280071768091801), F(-0.002425304244245031),
+     F(-0.0015779386610221397), F(-0.0006963061806231599),
+     F(-0.0001880249540515673), F(1.5599151604429667e-05),
+     F(5.4145628469233405e-05), F(4.006275745006581e-05)},
+    {F(0.00196914509231458), F(0.012558100282862243), F(0.014831615503245516),
+     F(0.012192909533870422), F(0.0066673740094005405),
+     F(0.0019324201495177391), F(-0.00054499645588974),
+     F(-0.001178152193227937), F(-0.0009153812436833937),
+     F(-0.0004795122364855092), F(-0.00016271288719647823),
+     F(-1.5212117847224261e-05), F(2.8545061363255225e-05)},
+    {F(0.006605933657157238), F(0.004880526533258869), F(0.006240704717554571),
+     F(0.00671110485679959), F(0.00548449353344198), F(0.0032180670845165958),
+     F(0.001107298724584406), F(-0.00016300309094347774),
+     F(-0.0005935403941263842), F(-0.0005320791064506267),
+     F(-0.0003140357969767726), F(-0.0001280852030640131),
+     F(-2.489806954264398e-05)},
+    {F(0.0030459798511850863), F(0.0043974680729636775),
+     F(0.0037892264638562595), F(0.003610625007611811),
+     F(0.003398380093172581), F(0.0027008299229199103),
+     F(0.001630469931488112), F(0.0006180733156150832),
+     F(-4.6868094049169154e-05), F(-0.00030741539617466416),
+     F(-0.00030865803395473286), F(-0.0001961705804499046),
+     F(-8.857776608524765e-05)},
+    {F(0.0009277019627464414), F(0.003104760506772956),
+     F(0.0026795715271798705), F(0.002319521886667974),
+     F(0.0020855473019983925), F(0.001839771595223631),
+     F(0.0014129278495536779), F(0.0008694451178750872),
+     F(0.00034418895519004354), F(-1.5435346494936804e-06),
+     F(-0.00016464631303744875), F(-0.00016967552586531212),
+     F(-0.00011569632223601577)},
+    {F(0.0007531248460531221), F(0.0016220306073074825),
+     F(0.0016505749965357863), F(0.001554857352111099),
+     F(0.0013854707366958905), F(0.0012297786731457682),
+     F(0.0010338062679196244), F(0.0007842684969187691),
+     F(0.00047638776229403653), F(0.00020651181349635816),
+     F(6.3131137437157845e-06), F(-7.851156355889612e-05),
+     F(-9.135520801400428e-05)},
+    {F(0.0005173841399357102), F(0.0009353614839552292),
+     F(0.0009659911181087223), F(0.0009727044517244439),
+     F(0.0009187837708345736), F(0.000836981492966692),
+     F(0.0007291427725706527), F(0.0006062180557538889),
+     F(0.00044503455871393213), F(0.000278276238701986),
+     F(0.00011966675610811414), F(1.5182300148667144e-05),
+     F(-3.8400686247790214e-05)},
+    {F(0.0003138435836507451), F(0.0005578314889279265),
+     F(0.0005617661034443612), F(0.0005771408897902722),
+     F(0.0005787802079655444), F(0.00055557571724206),
+     F(0.0005067047631355396), F(0.0004419709445324487),
+     F(0.0003585725006308238), F(0.0002629690597326722),
+     F(0.00016114551398409215), F(7.33257704756994e-05),
+     F(1.1550091327205562e-05)},
+    {F(0.0001355224541772256), F(0.0003269420952600649),
+     F(0.0003256333730824417), F(0.00033124058627261765),
+     F(0.00034467402489334563), F(0.000348105968851823),
+     F(0.00033847862586465954), F(0.0003093433497540665),
+     F(0.0002692431994438712), F(0.0002145190340525794),
+     F(0.00015572846488993433), F(9.328177627235625e-05),
+     F(4.185679825795719e-05)},
+    {F(8.135331546120023e-05), F(0.00014680981394291537),
+     F(0.00016388613347864236), F(0.0001764524427814556),
+     F(0.00019365063917441548), F(0.00020405851896260977),
+     F(0.00021276610377939545), F(0.00020512619736365133),
+     F(0.0001914349117756912), F(0.0001614972967255595),
+     F(0.00013016934822094843), F(8.914283700823234e-05),
+     F(5.2541610033002585e-05)},
+    {F(2.0991901131402028e-05), F(5.6004740033014375e-05),
+     F(6.674507404282534e-05), F(7.739667145602427e-05),
+     F(9.583871496882301e-05), F(0.0001084466809820612),
+     F(0.00012365963602374003), F(0.0001267380576474192),
+     F(0.0001279587639484048), F(0.00011403722373677849),
+     F(9.981494011190948e-05), F(7.444329619849902e-05),
+     F(5.066701070792666e-05)},
+    {F(3.5548036298271753e-06), F(-6.488768504500918e-06),
+     F(5.773587282652752e-06), F(1.6717279705738713e-05),
+     F(3.421787568131581e-05), F(4.684476058729273e-05),
+     F(6.326454628099137e-05), F(7.08487719626553e-05),
+     F(7.909944045729406e-05), F(7.50730662712064e-05),
+     F(7.129789866684799e-05), F(5.701915404906402e-05),
+     F(4.284636146850693e-05)},
+    {F(-2.1553992672435735e-05), F(-3.190871607716248e-05),
+     F(-2.5265412259842874e-05), F(-1.8003397599610584e-05),
+     F(-3.402350244773857e-06), F(8.302008902985011e-06),
+     F(2.3812994220799857e-05), F(3.290735771637773e-05),
+     F(4.3581121698817434e-05), F(4.508202349954959e-05),
+     F(4.717618418252233e-05), F(4.05031554030979e-05),
+     F(3.3139293104454874e-05)},
+    {F(-2.1390304584607624e-05), F(-5.0797900675293104e-05),
+     F(-4.292327192224656e-05), F(-3.585376086801358e-05),
+     F(-2.407301106812109e-05), F(-1.4193446720720575e-05),
+     F(-8.222773585750967e-07), F(8.279444533676132e-06),
+     F(1.905370812982598e-05), F(2.3319809420235605e-05),
+     F(2.8230087485493685e-05), F(2.645357617439672e-05),
+     F(2.36672584067662e-05)},
+    {F(-2.9430630510270816e-05), F(-5.187789412715496e-05),
+     F(-4.7960405282608636e-05), F(-4.32683753106967e-05),
+     F(-3.422212800087129e-05), F(-2.6012664615882773e-05),
+     F(-1.5060272777036352e-05), F(-6.747915618276559e-06),
+     F(2.985766072107678e-06), F(8.379977152173557e-06),
+     F(1.4252537877490156e-05), F(1.538214015258537e-05),
+     F(1.544995859143608e-05)},
+    {F(-2.388928568717023e-05), F(-5.311143603528577e-05),
+     F(-4.867228785390872e-05), F(-4.42089111007088e-05),
+     F(-3.733246695247395e-05), F(-3.0801906488065626e-05),
+     F(-2.2243918459362347e-05), F(-1.5066388356753482e-05),
+     F(-6.835189514594142e-06), F(-1.2606831454341887e-06),
+     F(4.542393749746402e-06), F(7.213632791994044e-06),
+     F(8.885257412310999e-06)},
+    {F(-2.555661426219791e-05), F(-4.609010218938124e-05),
+     F(-4.431171752332099e-05), F(-4.14944518332895e-05),
+     F(-3.6530811321055e-05), F(-3.1322335166278747e-05),
+     F(-2.4800540690074944e-05), F(-1.8832332265907542e-05),
+     F(-1.2203793417603542e-05), F(-6.983523688897414e-06),
+     F(-1.7724820810490829e-06), F(1.5552242829827028e-06),
+     F(3.986374684098894e-06)},
+    {F(-1.912723470230414e-05), F(-4.183566383496159e-05),
+     F(-3.9539612299908084e-05), F(-3.6833568406222356e-05),
+     F(-3.3271243967536034e-05), F(-2.928419274211118e-05),
+     F(-2.4495124701581846e-05), F(-1.966866225254723e-05),
+     F(-1.4521266741066074e-05), F(-9.917393266470778e-06),
+     F(-5.516573787238417e-06), F(-2.084151680864296e-06),
+     F(5.691881605037287e-07)},
+    {F(-1.8654293718561688e-05), F(-3.363654725892615e-05),
+     F(-3.307004118994532e-05), F(-3.145841146177557e-05),
+     F(-2.9050365022658094e-05), F(-2.5972217702171114e-05),
+     F(-2.2529429245291916e-05), F(-1.8718771503969576e-05),
+     F(-1.4853964064095092e-05), F(-1.0962664040544871e-05),
+     F(-7.4107007954996e-06), F(-4.193315832088815e-06),
+     F(-1.6375585585350915e-06)},
+    {F(-1.3077186450231607e-05), F(-2.868890685023543e-05),
+     F(-2.759873735645174e-05), F(-2.6001491709891534e-05),
+     F(-2.4379942193379335e-05), F(-2.210657249314352e-05),
+     F(-1.9734956208069655e-05), F(-1.679054504406264e-05),
+     F(-1.3975000279227949e-05), F(-1.0792026675301104e-05),
+     F(-8.030237689229987e-06), F(-5.193692127114884e-06),
+     F(-2.9081026187843492e-06)},
+    {F(-1.2246617352839989e-05), F(-2.175821057982777e-05),
+     F(-2.179333502993729e-05), F(-2.0931872565125585e-05),
+     F(-1.9939563171248375e-05), F(-1.8236474471744144e-05),
+     F(-1.6643956857945356e-05), F(-1.4417584089970612e-05),
+     F(-1.2436676699531985e-05), F(-9.906401869994493e-06),
+     F(-7.830366524091632e-06), F(-5.437942865003471e-06),
+     F(-3.497210029084182e-06)},
+    {F(-7.95074509362946e-06), F(-1.7788891480516228e-05),
+     F(-1.7312283371759048e-05), F(-1.6401759127232034e-05),
+     F(-1.5803085205604492e-05), F(-1.4599157368640324e-05),
+     F(-1.3598595105093758e-05), F(-1.1951866848591171e-05),
+     F(-1.060837085936084e-05), F(-8.648981526790242e-06),
+     F(-7.140354283602369e-06), F(-5.194799198113228e-06),
+     F(-3.613239395454767e-06)},
+    {F(-7.367457133487195e-06), F(-1.2687618179958078e-05),
+     F(-1.2958453509751354e-05), F(-1.2545997420158715e-05),
+     F(-1.2257924997854284e-05), F(-1.1388921307666401e-05),
+     F(-1.0790995376340115e-05), F(-9.603578615699492e-06),
+     F(-8.737975429238669e-06), F(-7.26053652469266e-06),
+     F(-6.203958497795862e-06), F(-4.67133400886351e-06),
+     F(-3.427371459399085e-06)},
+    {F(-4.269924822682888e-06), F(-1.0015059800623368e-05),
+     F(-9.817937095073476e-06), F(-9.320820832707081e-06),
+     F(-9.201268151664892e-06), F(-8.62692042143497e-06),
+     F(-8.3229808572866e-06), F(-7.491649259911036e-06),
+     F(-6.96995902671221e-06), F(-5.886956173689816e-06),
+     F(-5.179181855123432e-06), F(-4.009295544413228e-06),
+     F(-3.063714030033315e-06)},
+    {F(-4.05210543133868e-06), F(-6.5649268190509935e-06),
+     F(-6.88401790762521e-06), F(-6.728156192072405e-06),
+     F(-6.743433422253763e-06), F(-6.351848272558447e-06),
+     F(-6.229355576151122e-06), F(-5.669573674201066e-06),
+     F(-5.391280563878449e-06), F(-4.6232343188871326e-06),
+     F(-4.176427001956394e-06), F(-3.311488876067032e-06),
+     F(-2.6173875451152284e-06)},
+    {F(-1.9050075422330537e-06), F(-5.0064502739847315e-06),
+     F(-4.9178435403614126e-06), F(-4.661260921392551e-06),
+     F(-4.7289618565910135e-06), F(-4.502667336599595e-06),
+     F(-4.50686660445722e-06), F(-4.149310706735681e-06),
+     F(-4.034001823431987e-06), F(-3.5111898269170954e-06),
+     F(-3.2537494092868586e-06), F(-2.637858693219596e-06),
+     F(-2.1485041418600213e-06)}
+};
+
+__device__ float transport_radius(float R, float sb, uint32_t seed,
+                                  uint32_t ctr, uint32_t sid, float& w) {
+  const float z = fmaxf(R * sqrtf(sb), F(1e-12));
+  const uint32_t base = hash_base(seed ^ 0xA5A5A5A5u, ctr);
+  const float u = fminf(fmaxf(uni(base, sid, 1), F(1e-7)), F(1.0 - 1e-7));
+
+  // the map at z_eff = clip(z, Z_LO, Z_SW)
+  const float z_eff = fminf(fmaxf(z, F(Z_LO)), F(Z_SW));
+  const float om = F(2.0) * ((z_eff - F(A_RAT)) / (z_eff + F(A_RAT)) -
+                             F(OMEGA_R0)) /
+                       F(OMEGA_R1 - OMEGA_R0) -
+                   F(1.0);
+  const float su = sqrtf(u);
+  const float cu = sqrtf(F(1.0) - u);
+  const float v = su / (su + cu);
+  const float tv = F(2.0) * v - F(1.0);
+  float tw[T_COLS];  // T_j(om)
+  tw[0] = F(1.0);
+  tw[1] = om;
+#pragma unroll
+  for (int j = 2; j < T_COLS; ++j)
+    tw[j] = F(2.0) * om * tw[j - 1] - tw[j - 2];
+  // c_i in row order, each folded into s = sum c_i T_i(tv) and S'(v) =
+  // 2 sum c_i i U_{i-1}(tv) as soon as it is formed (the T/U recurrences)
+  float c[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    c[i] = TRANSPORT_COEFFS[i][0] + TRANSPORT_COEFFS[i][1] * om;
+#pragma unroll
+    for (int j = 2; j < T_COLS; ++j)
+      c[i] = c[i] + TRANSPORT_COEFFS[i][j] * tw[j];
+  }
+  float t_prev = F(1.0), t_cur = tv;
+  float u_prev = F(1.0), u_cur = F(2.0) * tv;
+  float s_t = c[0] + c[1] * tv;
+  float ds = c[1];
+#pragma unroll
+  for (int i = 2; i < T_ROWS; ++i) {
+    float ci = TRANSPORT_COEFFS[i][0] + TRANSPORT_COEFFS[i][1] * om;
+#pragma unroll
+    for (int j = 2; j < T_COLS; ++j)
+      ci = ci + TRANSPORT_COEFFS[i][j] * tw[j];
+    const float t_next = F(2.0) * tv * t_cur - t_prev;
+    t_prev = t_cur;
+    t_cur = t_next;
+    s_t = s_t + ci * t_cur;
+    ds = ds + ((float)i * ci) * u_cur;
+    const float u_next = F(2.0) * tv * u_cur - u_prev;
+    u_prev = u_cur;
+    u_cur = u_next;
+  }
+  ds = F(2.0) * ds;
+  const float w1 = v * v + (F(1.0) - v) * (F(1.0) - v);
+  const float mp = F(2.0) * v * (F(1.0) - v) / (w1 * w1);
+
+  // the free density's exact draw (z > Z_SW)
+  const float u1 = fmaxf(uni(base, sid, 2), F(1e-7));
+  const float u2 = fmaxf(uni(base, sid, 3), F(1e-7));
+  const float u0 = uni(base, sid, 4);
+  const float x_f =
+      -logf(u1 * u2) * sqrtf(fmaxf(F(1.0) - u0 * u0, F(1e-12)));
+  const bool use_f = z > F(Z_SW);
+  const float s_raw = use_f ? x_f / z : s_t;
+
+  // the exact importance weight
+  const bool invalid = s_raw >= F(1.0);
+  const float s = fminf(fmaxf(s_raw, F(1e-7)), F(1.0));
+  const float x = z * s;
+  const float i0e_z = i0e(z), k0e_z = k0e(z);
+  const float i0e_x = i0e(x), k0e_x = k0e(x);
+  const float ratio = (k0e_z * i0e_x) / (i0e_z * k0e_x) *
+                      expf(F(-2.0) * fmaxf(z - x, F(0.0)));
+  const float one_m_ratio = fmaxf(F(1.0) - ratio, F(0.0));
+  const float norm = fmaxf(one_minus_inv_i0_scaled(z, i0e_z), F(1e-30));
+  const float w_f = one_m_ratio / norm;
+  const float k0x = k0e_x * expf(-x);
+  const float p = z * z * s * k0x * one_m_ratio / norm;
+  const float w_t = p * ds / fmaxf(mp, F(1e-30));
+  w = invalid ? F(0.0) : (use_f ? w_f : w_t);
+  return s * R;
+}
+
 // ---- the walk ------------------------------------------------------------
 
-template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
+          bool TRANSPORT>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
+  constexpr bool TERMS = terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
   const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane >= n_lanes) return;
   const Planes& P = C.pl;
@@ -839,15 +1311,19 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
   const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
   const float sigma_bar = C.sigma_bar;
   const int max_steps = C.max_steps;
-  const float a_p0 = alpha_c(p0x, p0y);
-  float a_cur = alpha_c(px, py);
+  // the alpha cache of delta tracking (a walk without it reads none)
+  float a_p0 = F(0.0), a_cur = F(0.0);
+  if constexpr (DELTA) {
+    a_p0 = alpha_c<TERMS>(p0x, p0y);
+    a_cur = alpha_c<TERMS>(px, py);
+  }
 
   for (int it = 0; it < budget && quota > 0; ++it) {
     const uint32_t ctr =
         (uint32_t)ndone * (uint32_t)(max_steps + 2) + (uint32_t)steps;
     const uint32_t base = hash_base(seed, ctr);
     const float u1 = uni(base, sid, 1);
-    const float u4 = uni(base, sid, 4);
+    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);
 
     float cx, cy;
     const float dD = closest_point<TABLE>(px, py, cx, cy);
@@ -858,7 +1334,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       // of this step is masked off for the lane
       float bx = (C.project && done_eps) ? cx : px;
       float by = (C.project && done_eps) ? cy : py;
-      float g_bc = field_value(F_BC, bx, by) * atten;
+      float g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
       float bank_mag = F(0.0);
 #pragma unroll
       for (int i = 0; i < MAX_SRC; ++i) {
@@ -919,7 +1395,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     if constexpr (ROBIN != ROBIN_OFF) {
       if (ob) {
         float glx0, gly0;
-        grad_log_alpha(px, py, glx0, gly0);
+        grad_log_alpha<TERMS>(px, py, glx0, gly0);
         const float gamma0 = F(-0.5) * (nx * glx0 + ny * gly0);
         const float g_eff = fmaxf(fabsf(gamma0), C.gamma_floor);
         float chord_j = chord_integral(r, sbar);
@@ -977,159 +1453,183 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       hy = py + r * dy;
     }
 
-    float w_rej;
-    const float r_s =
-        screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
-    atten = atten * w_rej;
-    const bool beyond = r_s > t_hit;
-    const float sx = beyond ? hx : px + r_s * dx;
-    const float sy = beyond ? hy : py + r_s * dy;
+    float newx, newy, a_next = F(0.0);
+    bool new_ob, branch = false;
+    if constexpr (!DELTA) {
+      // the walker jumps to the ball's edge or its Neumann hit; a source
+      // is sampled at the Green's radius R sqrt(u2 u3) with the weight
+      // R^2 / 4 (pallas_walk.py:906-907, :920-931, :1104-1106)
+      if (C.has_source) {
+        const float r_s = r * sqrtf(uni(base, sid, 2) * uni(base, sid, 3));
+        if (!(r_s > t_hit)) {
+          const float sx = px + r_s * dx, sy = py + r_s * dy;
+          const float w_src = r * r / F(4.0);
+#pragma unroll
+          for (int i = 0; i < MAX_SRC; ++i)
+            if (i < n_src)
+              acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, sx, sy) * w_src;
+        }
+      }
+      newx = hx;
+      newy = hy;
+      new_ob = hit;
+    } else {
+      float w_rej;
+      float r_s;
+      if constexpr (TRANSPORT)
+        r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);
+      else
+        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
+      atten = atten * w_rej;
+      const bool beyond = r_s > t_hit;
+      const float sx = beyond ? hx : px + r_s * dx;
+      const float sy = beyond ? hy : py + r_s * dy;
 
-    const float a_p = a_cur;
-    const float a_s = alpha_c(sx, sy);
-    if constexpr (!MIS) {
-      if (C.has_source && !beyond) {
-        const float w_src =
-            screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+      const float a_p = a_cur;
+      const float a_s = alpha_c<TERMS>(sx, sy);
+      if constexpr (!MIS) {
+        if (C.has_source && !beyond) {
+          const float w_src =
+              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+#pragma unroll
+          for (int i = 0; i < MAX_SRC; ++i)
+            if (i < n_src)
+              acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, sx, sy) * w_src;
+        }
+      } else {
+        // source-directed MIS NEE: y from 0.5 ball-Green's + 0.5 the
+        // static Gaussian mixture, weighted by the balance heuristic; the
+        // component pick is the unrolled rule idx = #{i < k-1 : u6 > cum_i}
+        const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
+        const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
+        float mx = C.mix[0][0], my = C.mix[0][1], mw = C.mix[0][2];
+        for (int ci = 1; ci < C.n_mix; ++ci) {
+          if (u6 > C.mix[ci - 1][4]) {
+            mx = C.mix[ci][0];
+            my = C.mix[ci][1];
+            mw = C.mix[ci][2];
+          }
+        }
+        const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
+        const float ang = F(TWO_PI) * u8;
+        mx = mx + mw * rad * cosf(ang);
+        my = my + mw * rad * sinf(ang);
+        const bool take_src = u5 < F(0.5);
+        const float yx = take_src ? mx : px + r_s * dx;
+        const float yy = take_src ? my : py + r_s * dy;
+        const float ex = yx - px, ey = yy - py;
+        const float d_y = sqrtf(ex * ex + ey * ey);
+        const float d_safe = fmaxf(d_y, F(1e-12));
+        const float g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
+        const float norm = screened_norm(r, sbar);
+        const bool in_ball = d_y < r;
+        bool in_star = in_ball;
+        if (C.n_neu > 0)  // a wall between x and y blocks the sample
+          in_star = in_ball &&
+                    !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
+                                         ob ? t_min : F(0.0)) < d_y);
+        float q = F(0.0);  // the mixture pdf, one expf per component
+        for (int ci = 0; ci < C.n_mix; ++ci) {
+          const float* m = C.mix[ci];
+          const float qx = yx - m[0], qy = yy - m[1];
+          q = q + m[3] * expf(-(qx * qx + qy * qy) / m[5]) / m[6];
+        }
+        // an on-boundary walker samples a hemisphere: double its density
+        const float m_ob = ob ? F(2.0) : F(1.0);
+        const float p_ball = in_ball ? m_ob * g_val / norm : F(0.0);
+        const float p_mix = F(0.5) * p_ball + F(0.5) * q;
+        float w_mis = (in_star && p_mix > F(1e-30))
+                          ? m_ob * g_val / fmaxf(p_mix, F(1e-30))
+                          : F(0.0);
+        const float a_y = alpha_c<TERMS>(yx, yy);
+        w_mis = w_mis / sqrtf(a_y * a_p) * atten;
 #pragma unroll
         for (int i = 0; i < MAX_SRC; ++i)
           if (i < n_src)
-            acc[i] = acc[i] + field_value(F_SRC0 + i, sx, sy) * w_src;
+            acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, yx, yy) * w_mis;
       }
-    } else {
-      // source-directed MIS NEE: y from 0.5 ball-Green's + 0.5 the
-      // static Gaussian mixture, weighted by the balance heuristic; the
-      // component pick is the unrolled rule idx = #{i < k-1 : u6 > cum_i}
-      const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
-      const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
-      float mx = C.mix[0][0], my = C.mix[0][1], mw = C.mix[0][2];
-      for (int ci = 1; ci < C.n_mix; ++ci) {
-        if (u6 > C.mix[ci - 1][4]) {
-          mx = C.mix[ci][0];
-          my = C.mix[ci][1];
-          mw = C.mix[ci][2];
-        }
-      }
-      const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
-      const float ang = F(TWO_PI) * u8;
-      mx = mx + mw * rad * cosf(ang);
-      my = my + mw * rad * sinf(ang);
-      const bool take_src = u5 < F(0.5);
-      const float yx = take_src ? mx : px + r_s * dx;
-      const float yy = take_src ? my : py + r_s * dy;
-      const float ex = yx - px, ey = yy - py;
-      const float d_y = sqrtf(ex * ex + ey * ey);
-      const float d_safe = fmaxf(d_y, F(1e-12));
-      const float g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
-      const float norm = screened_norm(r, sbar);
-      const bool in_ball = d_y < r;
-      bool in_star = in_ball;
-      if (C.n_neu > 0)  // a wall between x and y blocks the sample
-        in_star = in_ball &&
-                  !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
-                                       ob ? t_min : F(0.0)) < d_y);
-      float q = F(0.0);  // the mixture pdf, one expf per component
-      for (int ci = 0; ci < C.n_mix; ++ci) {
-        const float* m = C.mix[ci];
-        const float qx = yx - m[0], qy = yy - m[1];
-        q = q + m[3] * expf(-(qx * qx + qy * qy) / m[5]) / m[6];
-      }
-      // an on-boundary walker samples a hemisphere: double its density
-      const float m_ob = ob ? F(2.0) : F(1.0);
-      const float p_ball = in_ball ? m_ob * g_val / norm : F(0.0);
-      const float p_mix = F(0.5) * p_ball + F(0.5) * q;
-      float w_mis = (in_star && p_mix > F(1e-30))
-                        ? m_ob * g_val / fmaxf(p_mix, F(1e-30))
-                        : F(0.0);
-      const float a_y = alpha_c(yx, yy);
-      w_mis = w_mis / sqrtf(a_y * a_p) * atten;
-#pragma unroll
-      for (int i = 0; i < MAX_SRC; ++i)
-        if (i < n_src)
-          acc[i] = acc[i] + field_value(F_SRC0 + i, yx, yy) * w_mis;
-    }
 
-    const bool interior = u4 < interior_prob(r, sbar);
-    const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
-    const float atten_pre = atten;  // chord-branch lanes skip the scale
-    float a_next, newx, newy;
-    if (collide) {
-      // signed null-collision factor: no zero clamp
-      const float scale_int =
-          sqrtf(a_s / a_p) * (F(1.0) - sigma_prime(sx, sy) / sbar);
-      atten = atten * scale_int;
-      newx = sx;
-      newy = sy;
-      a_next = a_s;
-    } else {
-      const float a_h = alpha_c(hx, hy);
-      float scale_edge = sqrtf(a_h / a_p);
-      if constexpr (ROBIN != ROBIN_OFF) {
-        if (hit) {
-          // Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
-          // the grazing cosine clamped
-          float glx, gly;
-          grad_log_alpha(hx, hy, glx, gly);
-          const float gamma = F(-0.5) * (hnx * glx + hny * gly);
-          const float cosphi = fmaxf(-(dx * hnx + dy * hny), C.arrival_clamp);
-          const float rho = wall_ratio(t_hit, r, sbar);
-          scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);
+      const bool interior = u4 < interior_prob(r, sbar);
+      const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
+      const float atten_pre = atten;  // chord-branch lanes skip the scale
+      if (collide) {
+        // signed null-collision factor: no zero clamp
+        const float scale_int =
+            sqrtf(a_s / a_p) * (F(1.0) - sigma_prime<TERMS>(sx, sy) / sbar);
+        atten = atten * scale_int;
+        newx = sx;
+        newy = sy;
+        a_next = a_s;
+      } else {
+        const float a_h = alpha_c<TERMS>(hx, hy);
+        float scale_edge = sqrtf(a_h / a_p);
+        if constexpr (ROBIN != ROBIN_OFF) {
+          if (hit) {
+            // Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
+            // the grazing cosine clamped
+            float glx, gly;
+            grad_log_alpha<TERMS>(hx, hy, glx, gly);
+            const float gamma = F(-0.5) * (hnx * glx + hny * gly);
+            const float cosphi =
+                fmaxf(-(dx * hnx + dy * hny), C.arrival_clamp);
+            const float rho = wall_ratio(t_hit, r, sbar);
+            scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);
+          }
+        }
+        atten = atten * scale_edge;
+        newx = hx;
+        newy = hy;
+        a_next = a_h;
+      }
+      new_ob = hit && !collide;
+      if constexpr (ROBIN == ROBIN_CHAIN) {
+        if (ob) {
+          // chord continuation along the wall: branch with q = min(1/2, |c|)
+          // to z = x + zeta t_hat, weight 2 gamma(z) G_s / p_mix / q; the
+          // other wall lanes pay 1 / (1 - q)
+          const float q_c = fminf(F(0.5), c_mag);
+          branch = uni(base, sid, 9) < q_c && q_c > F(1e-6);
+          if (branch) {
+            const float u10 = uni(base, sid, 10), u11 = uni(base, sid, 11);
+            const float q_scr = sqrtf(fmaxf(sbar, F(1e-12)));
+            const float side = u10 < F(0.5) ? F(-1.0) : F(1.0);
+            const float v = fabsf(F(2.0) * u10 - F(1.0));
+            const float u2 = fabsf(F(2.0) * u11 - F(1.0));
+            const float z_log = r * fmaxf(v * u2, F(1e-12));
+            const float trunc = F(1.0) - expf(-q_scr * r);
+            const float z_exp =
+                -logf(fmaxf(F(1.0) - v * trunc, F(1e-12))) / q_scr;
+            const float az = fminf(u11 < F(0.5) ? z_log : z_exp, r);
+            const float zeta = side * az;
+            const float p_log = -logf(fmaxf(az / r, F(1e-12))) / (F(2.0) * r);
+            const float p_exp = q_scr * expf(-q_scr * az) /
+                                (F(2.0) * fmaxf(trunc, F(1e-12)));
+            const float p_mix = F(0.5) * (p_log + p_exp);
+            const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
+            float t_cx, t_cy, s_lo, s_hi;
+            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);
+            const float zx = px + zeta * t_cx, zy = py + zeta * t_cy;
+            float glxz, glyz;
+            grad_log_alpha<TERMS>(zx, zy, glxz, glyz);
+            const float gamma_z = F(-0.5) * (nx * glxz + ny * glyz);
+            const float a_z = alpha_c<TERMS>(zx, zy);
+            float w_ch = F(2.0) * gamma_z * g_ch / fmaxf(p_mix, F(1e-30)) *
+                         sqrtf(a_z / a_p);
+            if (!(zeta >= s_lo && zeta <= s_hi)) w_ch = F(0.0);
+            atten = atten_pre * w_ch / fmaxf(q_c, F(1e-6));
+            newx = zx;
+            newy = zy;
+            a_next = a_z;
+            new_ob = true;
+          } else if (q_c > F(1e-6)) {
+            atten = atten * (F(1.0) / (F(1.0) - q_c));
+          }
         }
       }
-      atten = atten * scale_edge;
-      newx = hx;
-      newy = hy;
-      a_next = a_h;
-    }
-    bool new_ob = hit && !collide;
-    bool branch = false;
-    if constexpr (ROBIN == ROBIN_CHAIN) {
-      if (ob) {
-        // chord continuation along the wall: branch with q = min(1/2, |c|)
-        // to z = x + zeta t_hat, weight 2 gamma(z) G_s / p_mix / q; the
-        // other wall lanes pay 1 / (1 - q)
-        const float q_c = fminf(F(0.5), c_mag);
-        branch = uni(base, sid, 9) < q_c && q_c > F(1e-6);
-        if (branch) {
-          const float u10 = uni(base, sid, 10), u11 = uni(base, sid, 11);
-          const float q_scr = sqrtf(fmaxf(sbar, F(1e-12)));
-          const float side = u10 < F(0.5) ? F(-1.0) : F(1.0);
-          const float v = fabsf(F(2.0) * u10 - F(1.0));
-          const float u2 = fabsf(F(2.0) * u11 - F(1.0));
-          const float z_log = r * fmaxf(v * u2, F(1e-12));
-          const float trunc = F(1.0) - expf(-q_scr * r);
-          const float z_exp =
-              -logf(fmaxf(F(1.0) - v * trunc, F(1e-12))) / q_scr;
-          const float az = fminf(u11 < F(0.5) ? z_log : z_exp, r);
-          const float zeta = side * az;
-          const float p_log = -logf(fmaxf(az / r, F(1e-12))) / (F(2.0) * r);
-          const float p_exp = q_scr * expf(-q_scr * az) /
-                              (F(2.0) * fmaxf(trunc, F(1e-12)));
-          const float p_mix = F(0.5) * (p_log + p_exp);
-          const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
-          float t_cx, t_cy, s_lo, s_hi;
-          chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);
-          const float zx = px + zeta * t_cx, zy = py + zeta * t_cy;
-          float glxz, glyz;
-          grad_log_alpha(zx, zy, glxz, glyz);
-          const float gamma_z = F(-0.5) * (nx * glxz + ny * glyz);
-          const float a_z = alpha_c(zx, zy);
-          float w_ch = F(2.0) * gamma_z * g_ch / fmaxf(p_mix, F(1e-30)) *
-                       sqrtf(a_z / a_p);
-          if (!(zeta >= s_lo && zeta <= s_hi)) w_ch = F(0.0);
-          atten = atten_pre * w_ch / fmaxf(q_c, F(1e-6));
-          newx = zx;
-          newy = zy;
-          a_next = a_z;
-          new_ob = true;
-        } else if (q_c > F(1e-6)) {
-          atten = atten * (F(1.0) / (F(1.0) - q_c));
-        }
+      if (C.clip) {  // max_attenuation, symmetric: chord weights can be < 0
+        const float m = C.max_att;
+        atten = atten > m ? m : (atten < -m ? -m : atten);
       }
-    }
-    if (C.clip) {  // max_attenuation, symmetric: chord weights can be < 0
-      const float m = C.max_att;
-      atten = atten > m ? m : (atten < -m ? -m : atten);
     }
     px = newx;
     py = newy;
@@ -1140,7 +1640,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     }
     steps += 1;
 
-    if (C.roulette) {
+    if (DELTA && C.roulette) {
       const float thr = C.roulette_thr;
       const float u_r = uni(hash_base(seed ^ 0x0F1E2D3Cu, ctr), sid, 1);
       if (fabsf(atten) < thr) {
@@ -1151,7 +1651,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     }
     life += 1;
     wmax = fmaxf(wmax, fabsf(atten));
-    a_cur = a_next;
+    if constexpr (DELTA) a_cur = a_next;
   }
 
   P.px[lane] = px;
@@ -1182,17 +1682,19 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 
 typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
 
-template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
+          bool TRANSPORT>
 void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
-  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE><<<grid, THREADS, 0, st>>>(
-      n_lanes, budget, thr);
+  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT>
+      <<<grid, THREADS, 0, st>>>(n_lanes, budget, thr);
 }
 
 // instantiation CODE of this unit: compiled only in the unit of its part
-template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE>
+template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE,
+          bool DELTA, bool TRANSPORT>
 LaunchFn pick() {
   if constexpr (WALK_PART < 0 || WALK_PART == CODE)
-    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE>;
+    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT>;
   else
     return nullptr;
 }
@@ -1202,21 +1704,28 @@ LaunchFn pick() {
     return pick<code, __VA_ARGS__>()
 
 // the instantiated variants (head comment), by (robin, majorant, mis,
-// freeze, table); nullptr for a combination no path launches, or one
-// another part's library holds
-LaunchFn walk_pick(int robin, int majorant, int mis, int freeze,
-                   int table) {
-  switch ((((robin * 2 + majorant) * 2 + mis) * 2 + freeze) * 2 + table) {
-    WALK_CASE(0, ROBIN_OFF, false, false, false, false);
-    WALK_CASE(1, ROBIN_OFF, false, false, false, true);
-    WALK_CASE(4, ROBIN_OFF, false, true, false, false);
-    WALK_CASE(8, ROBIN_OFF, true, false, false, false);
-    WALK_CASE(16, ROBIN_CHAIN, false, false, false, false);
-    WALK_CASE(17, ROBIN_CHAIN, false, false, false, true);
-    WALK_CASE(24, ROBIN_CHAIN, true, false, false, false);
-    WALK_CASE(30, ROBIN_CHAIN, true, true, true, false);
-    WALK_CASE(32, ROBIN_REFLECT, false, false, false, false);
-    WALK_CASE(40, ROBIN_REFLECT, true, false, false, false);
+// freeze, table, delta, transport); nullptr for a combination no path
+// launches, or one another part's library holds
+LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
+                   int delta, int transport) {
+  const int bits[6] = {majorant, mis, freeze, table, delta, transport};
+  int code = robin;  // the switches as binary digits after the Robin mode
+  for (int k = 0; k < 6; ++k) code = 2 * code + bits[k];
+  switch (code) {
+    WALK_CASE(0, ROBIN_OFF, false, false, false, false, false, false);
+    WALK_CASE(2, ROBIN_OFF, false, false, false, false, true, false);
+    WALK_CASE(3, ROBIN_OFF, false, false, false, false, true, true);
+    WALK_CASE(4, ROBIN_OFF, false, false, false, true, false, false);
+    WALK_CASE(6, ROBIN_OFF, false, false, false, true, true, false);
+    WALK_CASE(18, ROBIN_OFF, false, true, false, false, true, false);
+    WALK_CASE(34, ROBIN_OFF, true, false, false, false, true, false);
+    WALK_CASE(66, ROBIN_CHAIN, false, false, false, false, true, false);
+    WALK_CASE(67, ROBIN_CHAIN, false, false, false, false, true, true);
+    WALK_CASE(70, ROBIN_CHAIN, false, false, false, true, true, false);
+    WALK_CASE(98, ROBIN_CHAIN, true, false, false, false, true, false);
+    WALK_CASE(122, ROBIN_CHAIN, true, true, true, false, true, false);
+    WALK_CASE(130, ROBIN_REFLECT, false, false, false, false, true, false);
+    WALK_CASE(162, ROBIN_REFLECT, true, false, false, false, true, false);
     default: return nullptr;
   }
 }
@@ -1229,8 +1738,9 @@ LaunchFn walk_pick(int robin, int majorant, int mis, int freeze,
 //     order.
 // ip: seed, max_steps, rounds, roulette, project, snap, n_src, has_source,
 //     n_dir, n_neu, robin, majorant, n_box, n_band, clip, n_mix, freeze,
-//     n_vert, table, then (kind, n_params) per field: bc, alpha, sigma,
-//     sources[n_src if has_source].
+//     n_vert, table, delta, transport, then (kind, n_params) per field: bc,
+//     alpha, sigma, sources[n_src if has_source]. A TERMS field's
+//     parameters are its background, then TERM_COLS per term.
 // planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
 // thr: the freeze threshold of this launch (freeze builds; +inf = none).
 // geom: N_GEOM device pointers of the table form's rows (dir, neu, vert;
@@ -1263,6 +1773,8 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   const int freeze = ip[16];
   h.n_vert = ip[17];
   const int table = ip[18];
+  const int delta = ip[19];
+  const int transport = ip[20];
   h.eps = fp[0];
   h.rmin = fp[1];
   h.t_min = fp[2];
@@ -1287,10 +1799,14 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       h.n_band < 0 || h.n_band > MAX_BANDS ||
       (!h.majorant && (h.n_box || h.n_band)) || h.clip < 0 || h.clip > 1 ||
       h.n_mix < 0 || h.n_mix > MAX_MIX || (h.n_mix && !h.has_source) ||
-      freeze < 0 || freeze > 1 || n_ip != N_IP + 2 * n_fields)
+      freeze < 0 || freeze > 1 || delta < 0 || delta > 1 || transport < 0 ||
+      transport > 1 || (transport && !delta) ||
+      (!delta && (h.robin != ROBIN_OFF || h.majorant || h.n_mix ||
+                  h.roulette || h.clip)) ||
+      n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
-  const LaunchFn fn =
-      walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze, table);
+  const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze,
+                                table, delta, transport);
   if (!fn) return (int)cudaErrorInvalidValue;
   const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
@@ -1324,14 +1840,31 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       for (int k = 0; k < 8; ++k) h.vert[v][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
     const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
-    if (n < 1 || n > MAX_FP || off + n > n_fp ||
-        (kind == K_CONST && n != 1) || (kind == K_DIPOLE && n != 6) ||
+    const bool terms = kind == K_TERMS;
+    if (n < 1 || n > (terms ? 1 + MAX_TERMS * TERM_COLS : MAX_FP) ||
+        off + n > n_fp || (kind == K_CONST && n != 1) ||
+        (kind == K_DIPOLE && n != 6) ||
         (kind == K_BUMPS && (n - 1) % 6 != 0) ||
-        (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE))
+        (terms && (n - 1) % TERM_COLS != 0) ||
+        (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE && !terms))
+      return (int)cudaErrorInvalidValue;
+    if (terms && !terms_fields(h.robin, h.majorant, h.n_mix > 0, freeze,
+                               table, delta))
       return (int)cudaErrorInvalidValue;
     h.field[f].kind = kind;
-    h.field[f].n = n;
-    for (int k = 0; k < n; ++k) h.field[f].p[k] = fp[off++];
+    h.field[f].n = terms ? 1 : n;
+    for (int k = 0; k < (terms ? 1 : n); ++k) h.field[f].p[k] = fp[off++];
+    if (terms) {
+      h.n_terms[f] = (n - 1) / TERM_COLS;
+      for (int t = 0; t < h.n_terms[f]; ++t) {
+        for (int k = 0; k < TERM_COLS; ++k) h.terms[f][t][k] = fp[off++];
+        for (int k = 21; k < TERM_COLS; k += 3) {  // the factors' kinds
+          const float sk = h.terms[f][t][k];
+          if (sk != F(S_NONE) && sk != F(S_SIN) && sk != F(S_COS))
+            return (int)cudaErrorInvalidValue;
+        }
+      }
+    }
   }
   if (off != n_fp) return (int)cudaErrorInvalidValue;
 

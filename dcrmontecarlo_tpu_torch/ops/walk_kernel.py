@@ -11,12 +11,17 @@ the reflectance fold, with the wall-arrival weight) and the two-level
 local majorant; and the flagship notebook gate's path: MIS next-event
 estimation toward a Gaussian-mixture source density, the in-launch freeze
 of heavy lanes for the host loop's high-weight split, and the
-``max_attenuation`` clip; and the topographic survey's boundaries: a
+``max_attenuation`` clip; the topographic survey's boundaries: a
 Neumann polyline with silhouette vertices, in the two geometry forms of
 the JAX kernel (the static form up to ``MAX_UNROLL_SEGMENTS`` boundary
 rows, with segment data formed on the host in float64 and rounded once,
 and the table form up to ``MAX_SMEM_SEGMENTS`` rows of float32 endpoints,
-everything else formed in float32 per step). The kernel is
+everything else formed in float32 per step); and the analytic-check
+problems: walks without delta tracking (no alpha or sigma: the walker
+jumps to the ball's edge or its Neumann hit, and sources are sampled at
+the Green's radius ``R sqrt(u2 u3)`` with the weight ``R^2 / 4``), the
+transport sampler of the screened radius, and the ``TERMS`` field kind of
+their coefficients. The kernel is
 ``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
 instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
 is the same step, op for op, on tensors of lanes, on any device.
@@ -50,10 +55,12 @@ import torch
 from ..problems import fields
 from ..problems.majorant import MAX_BANDS, MAX_BOXES, LocalMajorant
 from ..sampling import rng
-from ..sampling.radial import _exact_rejection
+from ..sampling.radial import _exact_rejection, sample_greens_radius, \
+    sample_screened_radius_transport
 from ..solver.state import CONST_PLANES, LANES, SNAP_PLANES, plane_dtype, \
     state_planes
 from .greens import (
+    greens_norm_2d,
     screened_chord_integral,
     screened_greens_2d,
     screened_greens_norm_2d,
@@ -62,7 +69,7 @@ from .greens import (
 )
 
 __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
-           "MAX_SMEM_SEGMENTS", "MAX_MIX", "KERNEL_VARIANTS",
+           "MAX_SMEM_SEGMENTS", "MAX_MIX", "KERNEL_VARIANTS", "terms_fields",
            "WalkParams", "kernel_name", "variant_code", "geometry_size",
            "make_walk_params", "stream_ids", "run_walk", "walk_plain",
            "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
@@ -85,19 +92,23 @@ ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
 # the kernel's compiled instantiations, (robin, majorant, mis, freeze,
-# table): the combinations a path launches
+# table, delta, transport): the combinations a path launches
 # (csrc/walk_kernel.cu::walk_pick)
 KERNEL_VARIANTS = frozenset({
-    (ROBIN_OFF, False, False, False, False),   # the survey's main path
-    (ROBIN_OFF, False, True, False, False),    # the survey with source_mis
-    (ROBIN_OFF, True, False, False, False),    # the majorant, Robin off
-    (ROBIN_CHAIN, False, False, False, False),
-    (ROBIN_CHAIN, True, False, False, False),  # the accuracy path
-    (ROBIN_CHAIN, True, True, True, False),    # the flagship gate's path
-    (ROBIN_REFLECTANCE, False, False, False, False),
-    (ROBIN_REFLECTANCE, True, False, False, False),
-    (ROBIN_OFF, False, False, False, True),    # the topographic survey
-    (ROBIN_CHAIN, False, False, False, True),  # the chain on a terrain
+    (ROBIN_OFF, False, False, False, False, True, False),   # the survey
+    (ROBIN_OFF, False, True, False, False, True, False),    # + source_mis
+    (ROBIN_OFF, True, False, False, False, True, False),    # the majorant
+    (ROBIN_CHAIN, False, False, False, False, True, False),
+    (ROBIN_CHAIN, True, False, False, False, True, False),  # accuracy path
+    (ROBIN_CHAIN, True, True, True, False, True, False),    # flagship gate
+    (ROBIN_REFLECTANCE, False, False, False, False, True, False),
+    (ROBIN_REFLECTANCE, True, False, False, False, True, False),
+    (ROBIN_OFF, False, False, False, True, True, False),    # the terrain
+    (ROBIN_CHAIN, False, False, False, True, True, False),  # chain on it
+    (ROBIN_OFF, False, False, False, False, False, False),  # no delta
+    (ROBIN_OFF, False, False, False, True, False, False),   # ... tracking
+    (ROBIN_OFF, False, False, False, False, True, True),    # transport
+    (ROBIN_CHAIN, False, False, False, False, True, True),  # ... + chain
 })
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
@@ -113,11 +124,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------- #
 
 def kernel_name(variant) -> str:
-    """``walk_kernel<robin,majorant,mis,freeze,table>`` for a variant
-    tuple."""
+    """``walk_kernel<robin,majorant,mis,freeze,table,delta,transport>``
+    for a variant tuple."""
     r, *flags = variant
     return "walk_kernel<{}>".format(",".join(
         [str(int(r))] + ["true" if f else "false" for f in flags]))
+
+
+def terms_fields(variant) -> bool:
+    """Whether the instantiation ``variant`` evaluates ``TERMS`` field
+    specs (``csrc/walk_kernel.cu::terms_fields``): those of the
+    analytic-check problems, without majorant, MIS, freeze or reflectance,
+    in the table form only without delta tracking. The others are
+    compiled without the kind, which keeps their code as it was."""
+    robin, majorant, mis, freeze, table, delta, _ = variant
+    return (not (majorant or mis or freeze or (table and delta))
+            and robin != ROBIN_REFLECTANCE)
 
 
 def variant_code(variant) -> int:
@@ -265,6 +287,11 @@ class WalkParams:
     vert_table: np.ndarray = field(default_factory=lambda: _empty(8))
                                  # silhouette vertices: static (V, 8)
                                  # (_vert_table), table form (V, 6)
+    delta: bool = True           # delta tracking (a problem with alpha or
+                                 # sigma); without it the walker jumps to
+                                 # the ball's edge or its Neumann hit
+    transport: bool = False      # the screened radius by the transport
+                                 # map (screened_sampler="transport")
     _cache: dict = field(init=False, default_factory=dict, compare=False,
                          repr=False)  # tables as tensors, per device
 
@@ -274,10 +301,11 @@ class WalkParams:
 
     @property
     def variant(self) -> tuple:
-        """The kernel instantiation ``(robin, majorant, mis, freeze,
-        table)``."""
+        """The kernel instantiation ``(robin, majorant, mis, freeze, table,
+        delta, transport)``."""
         return (self.robin, self.majorant is not None,
-                self.mis_table is not None, self.freeze, self.table)
+                self.mis_table is not None, self.freeze, self.table,
+                self.delta, self.transport)
 
     @property
     def kernel_name(self) -> str:
@@ -292,9 +320,26 @@ class WalkParams:
                 "the CUDA walk evaluates field specs only "
                 "(dcrmontecarlo_tpu_torch.problems.fields); arbitrary "
                 "callables run on CPU tensors")
-        if self.specs[1].kind not in (fields.CONST, fields.BUMPS):
+        if self.specs[1].kind not in (fields.CONST, fields.BUMPS,
+                                      fields.TERMS):
             raise NotImplementedError(
-                "the CUDA walk takes a constant or bump-sum conductivity")
+                "the CUDA walk takes a constant, bump-sum or terms "
+                "conductivity")
+        for spec in self.specs:
+            if spec.kind != fields.TERMS:
+                continue
+            if len(spec.terms) > fields.MAX_TERMS:
+                raise NotImplementedError(
+                    f"the CUDA walk holds up to {fields.MAX_TERMS} terms "
+                    f"per field, got {len(spec.terms)}; reference: "
+                    "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+            if not terms_fields(self.variant):
+                raise NotImplementedError(
+                    f"{self.kernel_name} evaluates no terms fields (only "
+                    "the instantiations without majorant, MIS, freeze or "
+                    "reflectance do, the table form without delta "
+                    "tracking); reference: "
+                    "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         if len(self.sources) > MAX_SRC:
             raise NotImplementedError(
                 f"the CUDA walk holds up to {MAX_SRC} sources; reference: "
@@ -326,7 +371,8 @@ class WalkParams:
         if self.variant not in KERNEL_VARIANTS:
             raise NotImplementedError(
                 f"the CUDA walk has no instantiation {self.kernel_name} "
-                "(robin, majorant, mis, freeze, table); it compiles the "
+                "(robin, majorant, mis, freeze, table, delta, transport); "
+                "it compiles the "
                 "variants in walk_kernel.KERNEL_VARIANTS; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
@@ -335,7 +381,8 @@ class WalkParams:
               len(self.dir_table), len(self.neu_table), self.robin,
               int(mj is not None), len(boxes), len(bands),
               int(self.max_attenuation is not None), len(mix),
-              int(self.freeze), len(self.vert_table), int(self.table)]
+              int(self.freeze), len(self.vert_table), int(self.table),
+              int(self.delta), int(self.transport)]
         fp = [self.eps, self.rmin, self.t_min, self.sigma_bar,
               0.0 if self.roulette_threshold is None
               else self.roulette_threshold, self.gamma_floor,
@@ -385,23 +432,39 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
                      rejection_rounds, roulette_threshold, snap, seed,
                      robin_correction=False,
                      robin_arrival_clamp=0.02, max_attenuation=None,
-                     freeze_split=False) -> WalkParams:
-    """Walk parameters for a delta-tracking ``problem``.
+                     freeze_split=False,
+                     screened_sampler="exact") -> WalkParams:
+    """Walk parameters for ``problem``.
 
     ``robin_correction`` is the RESOLVED mode (``WoStSolver._robin_enabled``:
     False, ``"chain"`` or ``"reflectance"``); the local majorant and the
     MIS importance mixture (``source_importance``, used when the problem
     has a source) are the problem's. ``freeze_split`` builds the in-launch
     freeze, whose launches take a threshold (:func:`run_walk`).
+    ``screened_sampler`` is ``"exact"`` (the rejection) or ``"transport"``.
+    Without delta tracking (no alpha or sigma) the JAX kernel ignores the
+    Robin mode, roulette, ``max_attenuation`` and the sampler
+    (``ops/pallas_walk.py:611``, ``:1100``, ``:1120``); so do these
+    parameters.
     """
     sources = tuple(problem.source_fields)
-    all_fields = (problem.bc_dirichlet, problem.alpha, problem.sigma) + sources
+    delta = bool(problem.use_delta_tracking)
+    if not delta and sources and problem.source_importance is not None:
+        raise NotImplementedError(
+            "MIS next-event estimation without delta tracking is not ported "
+            "yet; reference: dcrmontecarlo_tpu/ops/pallas_walk.py:956-961")
+    if screened_sampler not in ("exact", "transport"):
+        raise ValueError(f"unknown screened sampler {screened_sampler!r}")
+    # without delta tracking the kernel reads no coefficient
+    alpha = problem.alpha if delta else fields.constant(1.0)
+    sigma = problem.sigma if delta else fields.constant(0.0)
+    all_fields = (problem.bc_dirichlet, alpha, sigma) + sources
     specs = (all_fields if all(fields.is_spec(f) for f in all_fields)
              else None)
     if robin_correction not in _ROBIN_CODES:
         raise ValueError(f"unknown Robin mode {robin_correction!r}")
-    robin = (_ROBIN_CODES[robin_correction] if problem.neumann is not None
-             else ROBIN_OFF)
+    robin = (_ROBIN_CODES[robin_correction]
+             if problem.neumann is not None and delta else ROBIN_OFF)
     # the form by the JAX kernel's rule (pallas_walk.py:577): a 1-ulp
     # difference of the two arithmetics desynchronizes walks
     table = geometry_size(problem) > MAX_UNROLL_SEGMENTS
@@ -427,9 +490,10 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         maj = {}
     return WalkParams(
         seed=int(seed), eps=float(eps), rmin=float(rmin), t_min=float(t_min),
-        max_steps=int(max_steps), sigma_bar=float(problem.sigma_bar),
+        max_steps=int(max_steps),
+        sigma_bar=float(problem.sigma_bar) if delta else 0.0,
         rejection_rounds=int(rejection_rounds),
-        roulette_threshold=(None if roulette_threshold is None
+        roulette_threshold=(None if roulette_threshold is None or not delta
                             else float(roulette_threshold)),
         project=bool(project), snap=bool(snap),
         dir_table=dirt, neu_table=neu, table=table, vert_table=vert,
@@ -444,9 +508,10 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
                    else None),
         # python floats rounded to float32, as the JAX kernel's weakly
         # typed constants are
-        max_attenuation=(None if max_attenuation is None
+        max_attenuation=(None if max_attenuation is None or not delta
                          else float(np.float32(max_attenuation))),
-        freeze=bool(freeze_split), **maj)
+        freeze=bool(freeze_split), delta=delta,
+        transport=delta and screened_sampler == "transport", **maj)
 
 
 def stream_ids(rows: int, crn=None, device=None):
@@ -716,12 +781,16 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
            + steps.to(torch.int64)) & rng.MASK32
     chain = P.robin == ROBIN_CHAIN
     mis = P.mis_table is not None
-    # MIS draws streams 5-8; the chain 9/10/11 (branch, side + U1,
-    # technique + U2)
-    streams = ((1, 4) + ((5, 6, 7, 8) if mis else ())
+    delta = P.delta
+    # delta tracking draws stream 4 (the collision), a walk without it
+    # streams 2/3 (the Green's radius) when it samples a source; MIS
+    # draws streams 5-8; the chain 9/10/11 (branch, side + U1, technique +
+    # U2)
+    streams = ((1,) + ((4,) if delta else (2, 3) if P.sources else ())
+               + ((5, 6, 7, 8) if mis else ())
                + ((9, 10, 11) if chain else ()))
     u = dict(zip(streams, _uniforms(P.seed, ctr, sid, streams)))
-    u1, u4 = u[1], u[4]
+    u1 = u[1]
 
     dD, cx, cy = _closest_point(P, px, py)
     done_eps = dD <= P.eps
@@ -817,76 +886,101 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
         sd = (P.seed ^ 0xA5A5A5A5 ^ (round_idx * 0x68E31DA4)) & rng.MASK32
         return _uniforms(sd, ctr, sid, (1, 2, 3, 4))
 
-    r_s, w_rej = _exact_rejection(draw_r, r, sbar, P.rejection_rounds,
-                                  with_weight=True)
-    atten = torch.where(stepping, atten * w_rej, atten)
+    if delta:
+        if P.transport:
+            r_s, w_rej = sample_screened_radius_transport(draw_r, r, sbar)
+        else:
+            r_s, w_rej = _exact_rejection(draw_r, r, sbar,
+                                          P.rejection_rounds,
+                                          with_weight=True)
+        atten = torch.where(stepping, atten * w_rej, atten)
+    elif P.sources:
+        r_s = sample_greens_radius(r, u[2], u[3])
+    else:
+        r_s = r
     beyond = r_s > t_hit
     sx = torch.where(beyond, hx, px + r_s * dx)
     sy = torch.where(beyond, hy, py + r_s * dy)
 
-    a_p = torch.where(walk_done, a_p0, a_cur)
-    a_s = P.alpha_c(sx, sy)
-    if mis:
-        yx, yy, w_mis = _mis_nee(
-            P, u[5], u[6], u[7], u[8], px, py, px + r_s * dx, py + r_s * dy,
-            r, sbar, ob, t_min_w if has_neumann else None, a_p)
-        w_mis = torch.where(stepping, w_mis * atten, 0.0)
-        for i, f in enumerate(P.sources):
-            accs[i] = accs[i] + torch.where(stepping, f(yx, yy) * w_mis, 0.0)
-    elif P.sources:
-        w_src = (screened_greens_norm_2d(r, sbar) / torch.sqrt(a_s * a_p)
-                 * atten)
-        live = stepping & ~beyond
-        w_eff = torch.where(live, w_src, 0.0)
-        for i, f in enumerate(P.sources):
-            accs[i] = accs[i] + torch.where(live, f(sx, sy) * w_eff, 0.0)
+    if delta:
+        a_p = torch.where(walk_done, a_p0, a_cur)
+        a_s = P.alpha_c(sx, sy)
+        if mis:
+            yx, yy, w_mis = _mis_nee(
+                P, u[5], u[6], u[7], u[8], px, py, px + r_s * dx,
+                py + r_s * dy, r, sbar, ob,
+                t_min_w if has_neumann else None, a_p)
+            w_mis = torch.where(stepping, w_mis * atten, 0.0)
+            for i, f in enumerate(P.sources):
+                accs[i] = accs[i] + torch.where(stepping, f(yx, yy) * w_mis,
+                                                0.0)
+        elif P.sources:
+            w_src = (screened_greens_norm_2d(r, sbar) / torch.sqrt(a_s * a_p)
+                     * atten)
+            live = stepping & ~beyond
+            w_eff = torch.where(live, w_src, 0.0)
+            for i, f in enumerate(P.sources):
+                accs[i] = accs[i] + torch.where(live, f(sx, sy) * w_eff,
+                                                0.0)
 
-    p_int = screened_interior_prob(r, sbar)
-    interior = u4 < p_int
-    collide = interior & ~(hit & (r_s >= t_hit - P.t_min))
-    a_h = P.alpha_c(hx, hy)
-    sp_s = P.sigma_prime(sx, sy)
-    # signed null-collision factor: no zero clamp (weighted delta tracking)
-    scale_int = torch.sqrt(a_s / a_p) * (1.0 - sp_s / sbar)
-    scale_edge = torch.sqrt(a_h / a_p)
-    atten_pre = atten  # chord-branch lanes skip the move's scale
-    if P.robin != ROBIN_OFF:
-        # Robin wall-arrival weight 1 + gamma rho / cos(phi): signed, with
-        # the grazing cosine clamped
-        glx, gly = P.grad_log_alpha(hx, hy)
-        gamma = -0.5 * (hnx * glx + hny * gly)
-        cosphi = torch.clamp(-(dx * hnx + dy * hny),
-                             min=P.robin_arrival_clamp)
-        rho = screened_greens_wall_ratio(t_hit, r, sbar)
-        scale_edge = scale_edge * torch.where(hit, 1.0 + gamma * rho / cosphi,
-                                              1.0)
-    atten = torch.where(
-        stepping, atten * torch.where(collide, scale_int, scale_edge), atten)
-    newx = torch.where(collide, sx, hx)
-    newy = torch.where(collide, sy, hy)
-    a_next = torch.where(collide, a_s, a_h)
-    new_ob = hit & ~collide
-    if chain:
-        # on-boundary chord continuation: branch with q = min(1/2, |c|);
-        # the branch weight is an O(1) density ratio, the other lanes of
-        # the wall pay 1 / (1 - q)
-        q_c = torch.where(ob, torch.clamp(c_mag, max=0.5), 0.0)
-        branch = stepping & (u[9] < q_c) & (q_c > 1e-6)
-        zx, zy, w_ch, a_z = _chord_branch(P, u[10], u[11], px, py, nxv, nyv,
-                                          r, sbar, a_p)
-        newx = torch.where(branch, zx, newx)
-        newy = torch.where(branch, zy, newy)
-        a_next = torch.where(branch, a_z, a_next)
-        new_ob = new_ob | branch
+        p_int = screened_interior_prob(r, sbar)
+        interior = u[4] < p_int
+        collide = interior & ~(hit & (r_s >= t_hit - P.t_min))
+        a_h = P.alpha_c(hx, hy)
+        sp_s = P.sigma_prime(sx, sy)
+        # signed null-collision factor: no zero clamp (weighted delta
+        # tracking)
+        scale_int = torch.sqrt(a_s / a_p) * (1.0 - sp_s / sbar)
+        scale_edge = torch.sqrt(a_h / a_p)
+        atten_pre = atten  # chord-branch lanes skip the move's scale
+        if P.robin != ROBIN_OFF:
+            # Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
+            # with the grazing cosine clamped
+            glx, gly = P.grad_log_alpha(hx, hy)
+            gamma = -0.5 * (hnx * glx + hny * gly)
+            cosphi = torch.clamp(-(dx * hnx + dy * hny),
+                                 min=P.robin_arrival_clamp)
+            rho = screened_greens_wall_ratio(t_hit, r, sbar)
+            scale_edge = scale_edge * torch.where(
+                hit, 1.0 + gamma * rho / cosphi, 1.0)
         atten = torch.where(
-            branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
-            atten * torch.where(stepping & ob & (q_c > 1e-6),
-                                1.0 / (1.0 - q_c), 1.0))
-    if P.max_attenuation is not None:
-        # symmetric: chord weights can be negative (the kernel clips the
-        # lanes it steps; a cap >= 1 leaves the others as they are)
-        m = P.max_attenuation
-        atten = torch.where(stepping, torch.clamp(atten, -m, m), atten)
+            stepping, atten * torch.where(collide, scale_int, scale_edge),
+            atten)
+        newx = torch.where(collide, sx, hx)
+        newy = torch.where(collide, sy, hy)
+        a_next = torch.where(collide, a_s, a_h)
+        new_ob = hit & ~collide
+        if chain:
+            # on-boundary chord continuation: branch with q = min(1/2, |c|);
+            # the branch weight is an O(1) density ratio, the other lanes of
+            # the wall pay 1 / (1 - q)
+            q_c = torch.where(ob, torch.clamp(c_mag, max=0.5), 0.0)
+            branch = stepping & (u[9] < q_c) & (q_c > 1e-6)
+            zx, zy, w_ch, a_z = _chord_branch(P, u[10], u[11], px, py, nxv,
+                                              nyv, r, sbar, a_p)
+            newx = torch.where(branch, zx, newx)
+            newy = torch.where(branch, zy, newy)
+            a_next = torch.where(branch, a_z, a_next)
+            new_ob = new_ob | branch
+            atten = torch.where(
+                branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
+                atten * torch.where(stepping & ob & (q_c > 1e-6),
+                                    1.0 / (1.0 - q_c), 1.0))
+        if P.max_attenuation is not None:
+            # symmetric: chord weights can be negative (the kernel clips the
+            # lanes it steps; a cap >= 1 leaves the others as they are)
+            m = P.max_attenuation
+            atten = torch.where(stepping, torch.clamp(atten, -m, m), atten)
+    else:
+        # the walker jumps to the ball's edge or its Neumann hit; a source
+        # is sampled at the Green's radius with the weight R^2 / 4
+        if P.sources:
+            live = stepping & ~beyond
+            w_eff = torch.where(live, greens_norm_2d(r), 0.0)
+            for i, f in enumerate(P.sources):
+                accs[i] = accs[i] + torch.where(live, f(sx, sy) * w_eff,
+                                                0.0)
+        newx, newy, new_ob = hx, hy, hit
 
     px = torch.where(stepping, newx, px)
     py = torch.where(stepping, newy, py)
@@ -912,7 +1006,9 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
     s["life"] = s["life"] + stepping.to(torch.int32)
     s["wmax"] = torch.maximum(
         s["wmax"], torch.where(stepping, torch.abs(atten), 0.0))
-    a_cur = torch.where(stepping, a_next, torch.where(walk_done, a_p0, a_cur))
+    if delta:
+        a_cur = torch.where(stepping, a_next,
+                            torch.where(walk_done, a_p0, a_cur))
     s.update(px=px, py=py, nx=nxv, ny=nyv, atten=atten, steps=steps,
              ob=ob.to(torch.int32))
     for i in range(n_src):
@@ -958,8 +1054,10 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
     thr = _freeze_threshold(P, freeze_thr)
     names = state_planes(P.n_src)
     flat = {k: v.reshape(-1) for k, v in state.items()}
-    flat["a_p0"] = P.alpha_c(flat["p0x"], flat["p0y"])
-    flat["a_cur"] = P.alpha_c(flat["px"], flat["py"])
+    # the alpha cache of delta tracking (a walk without it reads none)
+    alpha_c = P.alpha_c if P.delta else (lambda x, y: torch.zeros_like(x))
+    flat["a_p0"] = alpha_c(flat["p0x"], flat["p0y"])
+    flat["a_cur"] = alpha_c(flat["px"], flat["py"])
     flat["sid64"] = flat["sid"].to(torch.int64) & rng.MASK32
     carried = list(names) + ["a_cur"]
     idx, sub = None, None

@@ -13,12 +13,22 @@ Kinds (the integer is the kernel's field tag, ``csrc/walk_kernel.cu``):
 * ``BUMPS``  ``[background, (amp, cx, cy, radius, sharpness, w2) * n]`` —
   background plus sigmoid-smoothed circles, ``sdf = sqrt(|x-c|^2 + w2) - R``
   with the regularizing ``w2 = min(1/sharpness, R/2)^2``;
-* ``DIPOLE`` ``[px, py, nx, ny, norm, 2 w^2]`` — the Gaussian current dipole.
+* ``DIPOLE`` ``[px, py, nx, ny, norm, 2 w^2]`` — the Gaussian current dipole;
+* ``TERMS``  ``[background, (term row) * n]`` — a background constant plus
+  terms ``P(x, y) exp(ax x + ay y - g |p - c|^2) S1(x) S2(y)``: ``P`` a
+  dense polynomial of degree <= 3 in each variable, ``S`` one of 1,
+  ``sin(k t + phase)``, ``cos(k t + phase)``. The analytic-check models
+  (``models/manufactured.py``, ``poisson.py``, ``varcoeff.py``) and the
+  JAX tests' fields are of this kind; the kernel holds up to
+  ``MAX_TERMS`` terms per field.
 
-Values are computed in the same float32 operation order as the JAX
-package's lambdas. :class:`GaussianMixture` is the source importance
-density of MIS next-event estimation (not a field: the walk kernel takes
-its components as a table).
+Values of the survey kinds are computed in the same float32 operation
+order as the JAX package's lambdas; a ``TERMS`` field differs from its
+lambda by a few ulps (it has one operation order for every field it
+stands for), and the kernel evaluates it in the plain version's order.
+:class:`GaussianMixture` is the source importance density of MIS
+next-event estimation (not a field: the walk kernel takes its components
+as a table).
 """
 
 from __future__ import annotations
@@ -30,15 +40,20 @@ import numpy as np
 import torch
 
 __all__ = [
-    "CONST", "BUMPS", "DIPOLE", "MAX_BUMPS",
-    "FieldSpec", "Constant", "BumpSum", "Dipole",
-    "smooth_circle", "constant", "gaussian_dipole", "bump_sum",
+    "CONST", "BUMPS", "DIPOLE", "TERMS", "MAX_BUMPS", "MAX_TERMS",
+    "TERM_COLS", "FieldSpec", "Constant", "BumpSum", "Dipole", "Term",
+    "Terms", "smooth_circle", "constant", "gaussian_dipole", "bump_sum",
+    "term", "terms", "polynomial", "gaussian_bump",
     "is_spec", "sigma_prime_fn", "grad_log_alpha_fn",
     "GaussianMixture", "dipole_importance",
 ]
 
-CONST, BUMPS, DIPOLE = 0, 1, 2
+CONST, BUMPS, DIPOLE, TERMS = 0, 1, 2, 3
 MAX_BUMPS = 8          # kernel table capacity (csrc/walk_kernel.cu)
+MAX_TERMS = 4          # kernel table capacity per TERMS field
+TERM_COLS = 27         # 16 polynomial coefficients, ax, ay, g, cx, cy,
+                       # (kind, k, phase) of S1 and of S2
+S_NONE, S_SIN, S_COS = 0, 1, 2
 ALPHA_EPS = 1e-8       # alpha clamp, as problems/problem.py:43 of the JAX package
 
 
@@ -147,6 +162,206 @@ class Dipole(FieldSpec):
         lap = norm * (gp * (c * c * dp + 2.0 * c)
                       - gn * (c * c * dn + 2.0 * c))
         return norm * (gp - gn), gx, gy, lap
+
+
+def _f32(v) -> float:
+    """``v`` rounded to float32, as a Python float."""
+    return float(np.float32(v))
+
+
+def _f32_mul(a, b) -> float:
+    """The float32 product of two float32 values (as the kernel forms it
+    at run time), as a Python float."""
+    return float(np.float32(a) * np.float32(b))
+
+
+class Term(NamedTuple):
+    """One ``TERMS`` term, every value rounded to float32: ``poly[i][j]``
+    multiplies ``x^i y^j``; ``s1``, ``s2`` are ``(kind, k, phase)``."""
+
+    poly: Tuple[Tuple[float, ...], ...]
+    ax: float
+    ay: float
+    g: float
+    cx: float
+    cy: float
+    s1: Tuple[int, float, float]
+    s2: Tuple[int, float, float]
+
+    @property
+    def has_exp(self) -> bool:
+        return self.ax != 0.0 or self.ay != 0.0 or self.g != 0.0
+
+    def row(self) -> Tuple[float, ...]:
+        """The kernel's table row (``TERM_COLS`` values)."""
+        return (sum(self.poly, ()) + (self.ax, self.ay, self.g, self.cx,
+                                      self.cy) + tuple(map(float, self.s1))
+                + tuple(map(float, self.s2)))
+
+
+def _horner(c, t):
+    """``((c3 t + c2) t + c1) t + c0`` for coefficients ``c[0..3]``."""
+    return ((c[3] * t + c[2]) * t + c[1]) * t + c[0]
+
+
+def _factor(s, t, derivs: bool):
+    """``S(t)`` of a ``(kind, k, phase)`` factor with ``S'`` and ``S''``;
+    ``None`` for the factor 1."""
+    kind, k, ph = s
+    if kind == S_NONE:
+        return None
+    arg = k * t + ph
+    kk = _f32_mul(k, k)
+    if kind == S_SIN:
+        v = torch.sin(arg)
+        if not derivs:
+            return v, None, None
+        return v, k * torch.cos(arg), -kk * v
+    v = torch.cos(arg)
+    if not derivs:
+        return v, None, None
+    return v, -k * torch.sin(arg), -kk * v
+
+
+class Terms(FieldSpec):
+    """``background + sum_t P_t(x, y) exp(E_t) S1_t(x) S2_t(y)`` with
+    ``E = (ax x + ay y) - g ((x - cx)^2 + (y - cy)^2)``.
+
+    The polynomial is evaluated by Horner's rule in ``y`` for each power of
+    ``x``, then in ``x``; ``value_grad_lap`` is the product rule, in the
+    operation order ``csrc/walk_kernel.cu`` repeats (derivative
+    coefficients ``3 a``, ``6 a`` and ``k^2`` are float32 products)."""
+
+    kind = TERMS
+
+    def __init__(self, background: float, terms_):
+        self.background = _f32(background)
+        self.terms = tuple(terms_)
+        self.params = (self.background,) + sum(
+            (t.row() for t in self.terms), ())
+
+    def _term_value(self, t: Term, x, y):
+        py = [_horner(t.poly[i], y) for i in range(4)]
+        val = _horner(py, x)
+        if t.has_exp:
+            dx, dy = x - t.cx, y - t.cy
+            val = val * torch.exp((t.ax * x + t.ay * y)
+                                  - t.g * (dx * dx + dy * dy))
+        for s, v in ((t.s1, x), (t.s2, y)):
+            f = _factor(s, v, False)
+            if f is not None:
+                val = val * f[0]
+        return val
+
+    def __call__(self, x, y):
+        total = self.background + 0.0 * x
+        for t in self.terms:
+            total = total + self._term_value(t, x, y)
+        return total
+
+    def _term_parts(self, t: Term, x, y):
+        """``(T, Tx, Ty, lap T)`` of one term."""
+        a = t.poly
+        py = [_horner(a[i], y) for i in range(4)]
+        P = _horner(py, x)
+        Px = ((3.0 * py[3]) * x + 2.0 * py[2]) * x + py[1]
+        Pxx = (6.0 * py[3]) * x + 2.0 * py[2]
+        qy = [(_f32_mul(3.0, a[i][3]) * y + _f32_mul(2.0, a[i][2])) * y
+              + a[i][1] for i in range(4)]
+        ry = [_f32_mul(6.0, a[i][3]) * y + _f32_mul(2.0, a[i][2])
+              for i in range(4)]
+        Py = _horner(qy, x)
+        lapA = Pxx + _horner(ry, x)
+        A, Ax, Ay = P, Px, Py
+        if t.has_exp:
+            dx, dy = x - t.cx, y - t.cy
+            G = torch.exp((t.ax * x + t.ay * y) - t.g * (dx * dx + dy * dy))
+            g2 = _f32_mul(2.0, t.g)
+            Ex = t.ax - g2 * dx
+            Ey = t.ay - g2 * dy
+            Gx, Gy = G * Ex, G * Ey
+            lapG = G * ((Ex * Ex + Ey * Ey) - _f32_mul(4.0, t.g))
+            A = P * G
+            Ax = Px * G + P * Gx
+            Ay = Py * G + P * Gy
+            lapA = (lapA * G + 2.0 * (Px * Gx + Py * Gy)) + P * lapG
+        val, tx, ty, lap = A, Ax, Ay, lapA
+        f1 = _factor(t.s1, x, True)
+        f2 = _factor(t.s2, y, True)
+        if f1 is not None:
+            b, db, d2b = f1
+            val = val * b
+            tx = tx * b + A * db
+            ty = ty * b
+            lap = (lap * b + (2.0 * Ax) * db) + A * d2b
+            ay_b = Ay * b
+        else:
+            ay_b = Ay
+        if f2 is not None:
+            b, db, d2b = f2
+            # A1 = A S1: its y-derivative is Ay S1, its value val
+            a1 = A if f1 is None else A * f1[0]
+            val = val * b
+            tx = tx * b
+            ty = ty * b + a1 * db
+            lap = lap * b + ((2.0 * ay_b) * db + a1 * d2b)
+        return val, tx, ty, lap
+
+    def value_grad_lap(self, x, y):
+        total = self.background + 0.0 * x
+        gx = 0.0 * x
+        gy = 0.0 * x
+        lap = 0.0 * x
+        for t in self.terms:
+            v, tx, ty, tl = self._term_parts(t, x, y)
+            total = total + v
+            gx = gx + tx
+            gy = gy + ty
+            lap = lap + tl
+        return total, gx, gy, lap
+
+
+def _factor_spec(s):
+    if s is None:
+        return (S_NONE, 0.0, 0.0)
+    kind, k, *ph = s
+    code = {"sin": S_SIN, "cos": S_COS}[kind]
+    return (code, _f32(k), _f32(ph[0] if ph else 0.0))
+
+
+def term(coeffs=1.0, *, ax: float = 0.0, ay: float = 0.0, g: float = 0.0,
+         center=(0.0, 0.0), sx=None, sy=None) -> Term:
+    """One ``TERMS`` term. ``coeffs``: a number (a constant polynomial), a
+    dict ``{(i, j): a}`` of ``a x^i y^j`` or a 4 x 4 nested sequence;
+    ``sx``/``sy``: ``None`` or ``("sin" | "cos", k[, phase])``."""
+    a = np.zeros((4, 4), np.float64)
+    if isinstance(coeffs, dict):
+        for (i, j), v in coeffs.items():
+            a[i, j] += v
+    elif np.ndim(coeffs) == 0:
+        a[0, 0] = float(coeffs)
+    else:
+        a[:, :] = np.asarray(coeffs, np.float64)
+    poly = tuple(tuple(_f32(v) for v in row) for row in a)
+    return Term(poly, _f32(ax), _f32(ay), _f32(g), _f32(center[0]),
+                _f32(center[1]), _factor_spec(sx), _factor_spec(sy))
+
+
+def terms(background: float = 0.0, *terms_: Term) -> Terms:
+    """``background + sum of terms`` (:func:`term`)."""
+    return Terms(background, terms_)
+
+
+def polynomial(coeffs) -> Terms:
+    """A polynomial of degree <= 3 in each variable, ``{(i, j): a}``."""
+    return Terms(0.0, [term(coeffs)])
+
+
+def gaussian_bump(center, amplitude: float, width: float) -> Terms:
+    """``amplitude exp(-|p - center|^2 / (2 width^2))`` (the JAX package's
+    ``problems/fields.py:124-133``)."""
+    return Terms(0.0, [term(amplitude, g=1.0 / (2.0 * width * width),
+                            center=center)])
 
 
 def smooth_circle(center, radius, sharpness: float = 100.0) -> BumpSum:

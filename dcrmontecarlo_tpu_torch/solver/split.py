@@ -10,6 +10,8 @@ port has no such loop.
 import numpy as np
 import torch
 
+from .state import point_sums
+
 __all__ = ["reserve_quota_row", "LAUNCH_SPLIT_COPY", "make_launch_split"]
 
 
@@ -71,10 +73,10 @@ def make_launch_split(threshold: float, n_src: int, n_points: int):
         idle = ~active
         n = int(torch.minimum(heavy.sum(), idle.sum()))
         dev = pid.device
-        dsum = torch.zeros(n_src, n_points, dtype=torch.float32, device=dev)
-        dsq = torch.zeros_like(dsum)
         if n == 0:
-            return 0, dsum, dsq
+            dsum = torch.zeros(n_src, n_points, dtype=torch.float32,
+                               device=dev)
+            return 0, dsum, torch.zeros_like(dsum)
         # heavy lanes first / idle lanes first, each in lane order
         src = torch.argsort((~heavy).to(torch.int8), stable=True)[:n]
         dst = torch.argsort((~idle).to(torch.int8), stable=True)[:n]
@@ -90,13 +92,15 @@ def make_launch_split(threshold: float, n_src: int, n_points: int):
         flat["sid"][dst] = _wrap_i32(
             int(sid_base) + torch.arange(n, dtype=torch.int64, device=dev))
         # bank the destination lanes' finished walks under their old point
-        old_pid = pid[dst]
+        banked = point_sums(
+            torch.zeros(2 * n_src, n_points, dtype=torch.float32,
+                        device=dev), pid[dst],
+            torch.stack([flat[f"{k}{i}"][dst] for k in ("asum", "asq")
+                         for i in range(n_src)]))
         for i in range(n_src):
-            dsum[i].index_add_(0, old_pid, flat[f"asum{i}"][dst])
-            dsq[i].index_add_(0, old_pid, flat[f"asq{i}"][dst])
             flat[f"asum{i}"][dst] = 0.0
             flat[f"asq{i}"][dst] = 0.0
         pid[dst] = pid[src]
-        return n, dsum, dsq
+        return n, banked[:n_src], banked[n_src:]
 
     return split

@@ -35,7 +35,7 @@ from ..ops.walk_kernel import MAX_SMEM_SEGMENTS, geometry_size, \
 from ..problems.problem import Problem
 from ..sampling.rng import stream_seed
 from .split import make_launch_split, reserve_quota_row
-from .state import LANES, init_state
+from .state import LANES, init_state, point_sums
 
 __all__ = ["WoStSolver", "SolveResult", "SolverOptions", "RawSolveOut"]
 
@@ -51,7 +51,8 @@ def _unported(what: str, reference: str):
 class SolverOptions:
     """Solver-level knobs, with the JAX package's fields and defaults.
 
-    The port runs ``rejection_rounds``, ``min_quota``, ``target_slots``,
+    The port runs ``screened_sampler`` (``"exact"``, ``"transport"``),
+    ``rejection_rounds``, ``min_quota``, ``target_slots``,
     ``common_random_numbers``, ``roulette_threshold``, ``split_threshold``,
     ``split_reserve``, ``max_attenuation``, ``boundary_snap``,
     ``project_to_boundary``, ``t_min_frac``, ``rmin_factor``,
@@ -251,9 +252,6 @@ class WoStSolver:
     def _check_supported(self):
         """Raise on every option the port does not run yet."""
         pb, o = self.problem, self.options
-        if not pb.use_delta_tracking:
-            raise _unported("a problem without delta tracking (no alpha or "
-                            "sigma)", "solver/wost.py::_make_step_core")
         if geometry_size(pb) > MAX_SMEM_SEGMENTS:
             # the JAX package walks such a boundary on its XLA path
             raise _unported(f"a boundary of more than {MAX_SMEM_SEGMENTS} "
@@ -267,10 +265,6 @@ class WoStSolver:
         if robin == "chain" and o.robin_interior != "arrival":
             raise _unported(f"robin_interior={o.robin_interior!r}",
                             "solver/wost.py::_make_step_core")
-        if o.screened_sampler == "transport":
-            raise _unported("screened_sampler='transport'",
-                            "sampling/radial.py::"
-                            "sample_screened_radius_transport")
         if o.compaction:
             raise _unported(f"compaction={o.compaction!r}",
                             "solver/wost.py::_build_solve_fn_pallas (pack)")
@@ -314,7 +308,8 @@ class WoStSolver:
             robin_correction=self._robin_enabled(),
             robin_arrival_clamp=opts.robin_arrival_clamp,
             max_attenuation=opts.max_attenuation,
-            freeze_split=opts.split_threshold is not None)
+            freeze_split=opts.split_threshold is not None,
+            screened_sampler=opts.screened_sampler)
         n_src = params.n_src
 
         quotas = np.zeros((rows * LANES,), np.int32)
@@ -340,10 +335,9 @@ class WoStSolver:
         opts = self.options
         n_src = params.n_src
         n_points = np.asarray(points).reshape(-1, 2).shape[0]
-        sums = torch.zeros(n_src, n_points, dtype=torch.float32,
-                           device=pid.device)
-        sumsq = torch.zeros_like(sums)
-        carry_sum, carry_sq = torch.zeros_like(sums), torch.zeros_like(sums)
+        carry_sum = torch.zeros(n_src, n_points, dtype=torch.float32,
+                                device=pid.device)
+        carry_sq = torch.zeros_like(carry_sum)
         launches, clones = 0, 0
         if (opts.adaptive_launches and opts.split_threshold is None
                 and progress is None):
@@ -358,11 +352,14 @@ class WoStSolver:
                 n_points * n_walks, walk, progress, carry_sum, carry_sq)
         self.last_solve_stats = {"launches": launches, "clones": clones}
 
-        for i in range(n_src):
-            sums[i].index_add_(0, pid, state[f"asum{i}"].reshape(-1))
-            sumsq[i].index_add_(0, pid, state[f"asq{i}"].reshape(-1))
+        moments = point_sums(
+            torch.zeros(2 * n_src, n_points, dtype=torch.float32,
+                        device=pid.device), pid,
+            torch.stack([state[f"{k}{i}"].reshape(-1)
+                         for k in ("asum", "asq") for i in range(n_src)]))
         # the split's banked destination sums (zero without the split)
-        sums, sumsq = sums + carry_sum, sumsq + carry_sq
+        sums = moments[:n_src] + carry_sum
+        sumsq = moments[n_src:] + carry_sq
         mean = sums / n_walks
         var = torch.clamp(sumsq / n_walks - mean * mean, min=0.0)
         stderr = torch.sqrt(var / n_walks)

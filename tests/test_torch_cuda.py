@@ -22,7 +22,11 @@ a whole host-loop solve with the split (equal steps and clone counts),
 and the flagship notebook gate itself at seed 0 against the pinned
 oracle; and the topographic survey: the table form (Robin off, and with
 the chord chain) and the static form with silhouette vertices, one launch
-each, and a whole solve at the test size.
+each, and a whole solve at the test size; and the analytic-check problems:
+walks without delta tracking in both geometry forms and the transport
+sampler (with the chain and with Robin off) with ``TERMS`` field specs,
+one launch each, a whole Poisson solve, and the reference's
+``test_transport_sampler_solution_unbiased`` on the card.
 """
 
 import os
@@ -32,9 +36,10 @@ import numpy as np
 import pytest
 import torch
 
-from dcrmontecarlo_tpu_torch.geometry import square_loop
+from dcrmontecarlo_tpu_torch.geometry import Polyline, square_loop
 from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
-    geophysical_scenario, notebook_survey, topographic_survey_problem
+    geophysical_scenario, interior_grid, notebook_survey, poisson_square, \
+    polynomial_manufactured, topographic_survey_problem
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
@@ -257,13 +262,121 @@ def test_kernel_whole_topography_solve_matches_plain(device):
     # electrodes; both sides draw the same streams
     prob, pts = _topography(4.0)
     solver = WoStSolver(prob, SolverOptions(), device=device)
-    launches = wk.run_walk.variant_launches[
-        "walk_kernel<0,false,false,false,true>"]
+    name = wk.kernel_name((wk.ROBIN_OFF, False, False, False, True, True,
+                           False))
+    launches = wk.run_walk.variant_launches[name]
     rk = solver._solve_raw(pts, 512, 600, 0.5, 5)
-    assert wk.run_walk.variant_launches[
-        "walk_kernel<0,false,false,false,true>"] > launches
+    assert wk.run_walk.variant_launches[name] > launches
     rp = solver._solve_raw(pts, 512, 600, 0.5, 5, walk=wk.walk_plain)
     assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
     se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
     assert rk.total_steps == rp.total_steps
+
+
+def _table_square():
+    """The Poisson square with 25 segments per side: the table form."""
+    c = [(2.0, 2.0), (-2.0, 2.0), (-2.0, -2.0), (2.0, -2.0)]
+    pts = [[a[0] + k / 25 * (b[0] - a[0]), a[1] + k / 25 * (b[1] - a[1])]
+           for a, b in zip(c, c[1:] + c[:1]) for k in range(25)]
+    return Problem(dirichlet=Polyline.from_points(pts + [list(c[0])]),
+                   bc_dirichlet=fields.polynomial({(2, 0): 1.0, (0, 2): 1.0}),
+                   source=fields.constant(-4.0))
+
+
+def _transport_box():
+    """tests/test_pallas_walk.py:120-139 with alpha as a TERMS spec."""
+    box = [[-2.0, 0.0], [-2.0, -4.0], [2.0, -4.0], [2.0, 0.0]]
+    return Problem(dirichlet=Polyline.from_points(box),
+                   neumann=Polyline.from_points([[-2.0, 0.0], [2.0, 0.0]]),
+                   bc_dirichlet=fields.polynomial({(1, 0): 1.0, (0, 1): 1.0}),
+                   alpha=fields.terms(2.0, fields.term({(0, 1): 0.2}),
+                                      fields.term(0.3, sx=("sin", 0.5))))
+
+
+POISSON_POINTS = np.array([[0.0, 0.0], [1.0, 0.5], [-1.2, -0.7], [0.3, 1.5]],
+                          np.float32)
+ANALYTIC_CASES = {
+    # (problem, points, options, eps, variant)
+    "no_delta_static_silhouettes": (
+        lambda: poisson_square(with_obstacle=True)[0],
+        [[1.0, 1.0], [0.7, 0.0], [0.0, -1.5], [-0.55, 0.1]], {}, 1e-3,
+        (wk.ROBIN_OFF, False, False, False, False, False, False)),
+    "no_delta_table": (_table_square, POISSON_POINTS, {}, 1e-3,
+                       (wk.ROBIN_OFF, False, False, False, True, False,
+                        False)),
+    "transport_chain": (_transport_box, [[0.0, -1.0], [0.5, -0.5]],
+                        dict(screened_sampler="transport"), 1e-2,
+                        (wk.ROBIN_CHAIN, False, False, False, False, True,
+                         True)),
+    "transport_robin_off": (lambda: polynomial_manufactured()[0],
+                            interior_grid(n_points=3),
+                            dict(screened_sampler="transport"), 1e-3,
+                            (wk.ROBIN_OFF, False, False, False, False, True,
+                             True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANALYTIC_CASES))
+def test_analytic_instantiation_matches_plain_one_launch(device, case):
+    make, pts, opts, eps, variant = ANALYTIC_CASES[case]
+    solver = WoStSolver(make(), SolverOptions(target_slots=8192, **opts),
+                        device=device)
+    state, params, _, _ = solver._setup(np.asarray(pts, np.float32), 8192,
+                                        300, eps, 3)
+    assert params.variant == variant
+    ref = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(state, params, 256)
+    torch.cuda.synchronize()
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    wk.walk_plain(ref, params, 256)
+    _compare(state, ref, state_planes(params.n_src))
+    assert bool((state["ndone"] > 0).any())
+
+
+def test_kernel_whole_poisson_solve_matches_plain(device):
+    # a walk without delta tracking, its source by the Green's radius:
+    # the same streams on both sides
+    solver = WoStSolver(poisson_square()[0], SolverOptions(target_slots=8192),
+                        device=device)
+    rk = solver._solve_raw(POISSON_POINTS, 2048, 300, 1e-3, 5)
+    rp = solver._solve_raw(POISSON_POINTS, 2048, 300, 1e-3, 5,
+                           walk=wk.walk_plain)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_transport_sampler_solution_unbiased(device):
+    # tests/test_solver_varcoeff.py:112-137 on the card, with its bounds
+    prob, u_exact = polynomial_manufactured(2.0)
+    solver = WoStSolver(prob, SolverOptions(target_slots=16384,
+                                            screened_sampler="transport"),
+                        device=device)
+    g = np.linspace(-0.7, 0.7, 4)
+    X, Y = np.meshgrid(g, g, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+    launches = wk.run_walk.launches
+    res = solver.solve(pts, n_walks=3000, max_steps=800, eps=1e-3, seed=2)
+    assert wk.run_walk.launches > launches
+    exact = u_exact(pts)
+    err = np.abs(res.mean - exact)
+    assert np.sqrt(np.mean((res.mean - exact) ** 2)) < 0.08
+    assert (err < 5.0 * res.stderr + 0.03).mean() > 0.85
+
+
+def test_solve_is_reproducible_on_the_card(device):
+    # tests/test_solver_laplace.py::test_reproducible_given_seed on the
+    # card: one seed gives one answer (the moments are summed without
+    # float atomics), another seed another
+    prob = Problem(dirichlet=square_loop(1.0), bc_dirichlet=fields.terms(
+        0.0, fields.term(0.5, ay=1.0, sx=("sin", 1.0)),
+        fields.term(0.5, ay=-1.0, sx=("sin", 1.0))))
+    solver = WoStSolver(prob, SolverOptions(target_slots=512), device=device)
+    pts = np.array([[0.2, -0.3]])
+    r1, r2, r3 = (solver.solve(pts, n_walks=500, max_steps=100, eps=1e-3,
+                               seed=s) for s in (7, 7, 8))
+    np.testing.assert_array_equal(r1.walk_sum, r2.walk_sum)
+    assert r1.mean[0] == r2.mean[0] != r3.mean[0]

@@ -60,7 +60,9 @@ print(json.dumps({"modules": names, "bad": bad}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("ops.walk_kernel", "ops.greens", "problems.majorant",
                 "interop", "validation.fdm", "solver.split",
-                "models.topography", "geometry.queries"):
+                "models.topography", "geometry.queries", "solver.stream",
+                "sampling.mis", "sampling._transport_coeffs",
+                "models.manufactured", "models.poisson", "models.varcoeff"):
         assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
@@ -144,19 +146,61 @@ def test_kernel_instantiations_match_python():
     robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
              "REFLECT": wk.ROBIN_REFLECTANCE}
     found = set()
-    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+), (\w+), (\w+), "
-                         r"(\w+), (\w+)\);", body):
-        code, r, *flags = m.groups()
-        b = [f == "true" for f in flags]
+    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+)((?:, \w+){6})\);",
+                         body):
+        code, r, flags = m.groups()
+        b = [f.strip() == "true" for f in flags.split(",")[1:]]
         variant = (robin[r], *b)
-        assert int(code) == ((((variant[0] * 2 + b[0]) * 2 + b[1]) * 2
-                              + b[2]) * 2 + b[3]) == wk.variant_code(variant)
+        want = variant[0]
+        for f in b:
+            want = 2 * want + f
+        assert int(code) == want == wk.variant_code(variant)
         found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 10
-    # the table form runs the topographic survey and the chain on it
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 14
+    # the table form runs the topographic survey, the chain on it and a
+    # walk without delta tracking
     assert {v for v in found if v[4]} == {
-        (wk.ROBIN_OFF, False, False, False, True),
-        (wk.ROBIN_CHAIN, False, False, False, True)}
+        (wk.ROBIN_OFF, False, False, False, True, True, False),
+        (wk.ROBIN_CHAIN, False, False, False, True, True, False),
+        (wk.ROBIN_OFF, False, False, False, True, False, False)}
+    # no delta tracking: Robin off, no majorant, MIS or freeze, both
+    # forms; the transport sampler with delta tracking, static form
+    assert {v for v in found if not v[5]} == {
+        (wk.ROBIN_OFF, False, False, False, t, False, False)
+        for t in (False, True)}
+    assert {v for v in found if v[6]} == {
+        (r, False, False, False, False, True, True)
+        for r in (wk.ROBIN_OFF, wk.ROBIN_CHAIN)}
+
+
+def test_kernel_transport_table_matches_python():
+    # the kernel's transport table is the port's copy of the generated
+    # coefficients rounded to float32, and the port's copy equals the JAX
+    # package's file (read as text: the port imports nothing of it); no
+    # entry is zero, so the kernel skips none, as the reference would
+    import numpy as np
+
+    from dcrmontecarlo_tpu_torch.sampling import _transport_coeffs as tc
+
+    src = (PORT / "csrc" / "walk_kernel.cu").read_text()
+    body = re.search(r"__constant__ float TRANSPORT_COEFFS\[T_ROWS\]"
+                     r"\[T_COLS\] = \{(.*?)\n\};", src, re.S).group(1)
+    rows = [np.array([float(v) for v in re.findall(r"F\(([-+0-9.eE]+)\)",
+                                                   row)], np.float32)
+            for row in re.findall(r"\{([^{}]*)\}", body)]
+    got = np.stack(rows)
+    want = np.asarray(tc.COEFFS, np.float32)
+    assert got.shape == want.shape == (29, 13)
+    np.testing.assert_array_equal(got, want)
+    assert (want != 0).all()
+    for name in ("Z_LO", "Z_SW", "A_RAT", "OMEGA_R0", "OMEGA_R1"):
+        m = re.search(rf"\b{name} = ([-+0-9.eE]+)", src)
+        assert float(m.group(1)) == getattr(tc, name), name
+    ref = {}
+    exec((ROOT / "dcrmontecarlo_tpu" / "sampling" / "_transport_coeffs.py")
+         .read_text(), ref)
+    for name in ("COEFFS", "Z_LO", "Z_SW", "A_RAT", "OMEGA_R0", "OMEGA_R1"):
+        assert getattr(tc, name) == ref[name], name
 
 
 def test_entry_points_default_to_the_card():

@@ -352,7 +352,8 @@ def test_form_follows_the_jax_rule(n_seg, size, table):
     assert wk.geometry_size(prob) == size
     params = _params(prob)
     assert params.table == table
-    assert params.variant == (wk.ROBIN_OFF, False, False, False, table)
+    assert params.variant == (wk.ROBIN_OFF, False, False, False, table, True,
+                              False)
     assert params.variant in wk.KERNEL_VARIANTS
     fp, ip = params.pack()
     assert ip[17:19].tolist() == [n_seg - 1, int(table)]

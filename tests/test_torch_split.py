@@ -149,7 +149,8 @@ def test_freeze_one_launch_matches_pallas(flagship):
     params = wk.make_walk_params(tprob, snap=True, seed=stream_seed(SEED),
                                  robin_correction="chain", freeze_split=True,
                                  **common)
-    assert params.variant == (wk.ROBIN_CHAIN, True, True, True, False)
+    assert params.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
+                              False)
     assert params.variant in wk.KERNEL_VARIANTS
     got = interop.state_to_numpy(wk.run_walk(
         interop.state_from_numpy(planes), params, STEPS,

@@ -97,7 +97,7 @@ def test_defaults_solve_on_cpu():
     e = drape_electrodes(h, [-20.0, 20.0], nudge=0.5)
     state, params, _, _ = solver._setup(e, 8, 40, 0.5, 0)
     assert params.table and params.kernel_name == \
-        "walk_kernel<0,false,false,false,true>"
+        "walk_kernel<0,false,false,false,true,true,false>"
     res = solver.solve(e, n_walks=8, max_steps=40, eps=0.5, seed=0)
     assert np.isfinite(res.mean).all() and res.total_steps > 0
 

@@ -51,7 +51,9 @@ N_WALKS = 256  # 64 slots per point, quota 4
 
 
 def numpy_planes(jsolver, points, n_walks, eps):
-    """Walker planes as the JAX solver's single-launch init makes them."""
+    """Walker planes as the JAX solver's single-launch init makes them
+    (with common random numbers), the snap planes only where the problem
+    has a Neumann wall to snap onto."""
     n_points = len(points)
     K, quota_row = jsolver._slot_layout(n_points, n_walks)
     block_rows = jsolver.options.pallas_block_rows
@@ -76,15 +78,21 @@ def numpy_planes(jsolver, points, n_walks, eps):
         "sid": np.asarray(j_stream_ids(rows, crn)),
         "px": pad(ptx, np.float32), "py": pad(pty, np.float32),
         "atten": f0 + 1.0, "quota": quotas.reshape(rows, 128),
-        "ob0": pad(ob0, np.int32), "n0x": pad(n0x, np.float32),
-        "n0y": pad(n0y, np.float32),
+        "ob": np.zeros((rows, 128), np.int32), "nx": f0.copy(),
+        "ny": f0.copy(),
     }
-    planes.update(ob=planes["ob0"].copy(), nx=planes["n0x"].copy(),
-                  ny=planes["n0y"].copy())
+    if tol is not None:
+        planes.update(ob0=pad(ob0, np.int32), n0x=pad(n0x, np.float32),
+                      n0y=pad(n0y, np.float32))
+        planes.update(ob=planes["ob0"].copy(), nx=planes["n0x"].copy(),
+                      ny=planes["n0y"].copy())
     for k in ("steps", "ndone", "life"):
         planes[k] = np.zeros((rows, 128), np.int32)
-    for k in ("tn", "tw", "wmax", "bmax", "acc0", "asum0", "asq0"):
+    for k in ("tn", "tw", "wmax", "bmax"):
         planes[k] = f0.copy()
+    for i in range(max(1, len(jsolver.problem.source_fields))):
+        for k in ("acc", "asum", "asq"):
+            planes[f"{k}{i}"] = f0.copy()
     return planes
 
 
@@ -230,7 +238,7 @@ def test_kernel_params_need_field_specs(survey):
         rejection_rounds=2, roulette_threshold=0.05, snap=True,
         seed=-5).pack()
     assert fp.dtype == np.float32 and ip.dtype == np.int32
-    assert ip[0] == -5 and len(ip) == 19 + 2 * 4
+    assert ip[0] == -5 and len(ip) == 21 + 2 * 4
 
 
 def _over_table_budget():
@@ -283,6 +291,33 @@ def _majorant_over_kernel_table():
                         roulette_threshold=None, snap=False, seed=1).pack()
 
 
+def _mis_without_delta_tracking():
+    # MIS next-event estimation on an unscreened problem
+    # (ops/pallas_walk.py:956-961) is not ported yet
+    prob = Problem(dirichlet=square_loop(1.0), source=fields.constant(1.0),
+                   source_importance=fields.GaussianMixture.from_components(
+                       [((0.0, 0.0), 0.2, 1.0)]))
+    WoStSolver(prob, device="cpu").solve([[0.0, 0.0]], 8, 5, 1e-3)
+
+
+def _terms_over_kernel_table():
+    # a TERMS field of more terms than the kernel's table holds
+    bc = fields.terms(0.0, *(fields.term(1.0, sx=("sin", float(k)))
+                             for k in range(fields.MAX_TERMS + 1)))
+    _kernel_params(Problem(dirichlet=square_loop(1.0), bc_dirichlet=bc)).pack()
+
+
+def _terms_on_accuracy_instantiation():
+    # the accuracy path's instantiation (the majorant) has no TERMS fields
+    tprob = notebook_survey()[0].build_problem()
+    p = Problem(dirichlet=tprob.dirichlet, neumann=tprob.neumann,
+                alpha=tprob.alpha, source=tprob.source,
+                bc_dirichlet=fields.polynomial({(1, 0): 1e-3}),
+                local_majorant=LocalMajorant(
+                    boxes=((0.0, 5.0, -50.0, -40.0),), sigma_bar_bg=1e-3))
+    _kernel_params(p).pack()
+
+
 UNPORTED = {
     "robin_interior_chord": lambda: _survey_solver(
         robin_correction="chain", robin_interior="chord").solve(
@@ -292,8 +327,9 @@ UNPORTED = {
     "majorant_over_kernel_table": _majorant_over_kernel_table,
     "mis_over_kernel_table": _mis_over_kernel_table,
     "kernel_variant_not_compiled": _kernel_variant_not_compiled,
-    "transport_sampler": lambda: _survey_solver(
-        screened_sampler="transport").solve([[0.0, -1.0]], 8, 5, EPS),
+    "mis_without_delta_tracking": _mis_without_delta_tracking,
+    "terms_over_kernel_table": _terms_over_kernel_table,
+    "terms_on_accuracy_instantiation": _terms_on_accuracy_instantiation,
     "compaction_pack": lambda: _survey_solver(
         compaction="pack").solve([[0.0, -1.0]], 8, 5, EPS),
     "threefry": lambda: _survey_solver(rng="threefry").solve(
@@ -304,9 +340,6 @@ UNPORTED = {
         [[0.0, -1.0]], 8, 5, EPS, return_history=True),
     "geometry_over_table_budget": lambda: WoStSolver(
         _over_table_budget(), device="cpu").solve([[0.0, -1.0]], 8, 5, EPS),
-    "no_delta_tracking": lambda: WoStSolver(Problem(
-        dirichlet=square_loop(1.0), bc_dirichlet=fields.constant(1.0)),
-        device="cpu").solve([[0.0, 0.0]], 8, 5, 1e-3),
 }
 
 
