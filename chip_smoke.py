@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its five paths, each on the
+Drives ``dcrmontecarlo_tpu_torch`` through its six paths, each on the
 kernel variants it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
 two-level local majorant (phases 8-11), the flagship notebook gate's
@@ -12,7 +12,11 @@ Neumann surface with silhouette vertices, walked in the kernel's table
 form (phases 16-20), and the analytic-check problems: the Laplace, Poisson
 and manufactured models, walks without delta tracking, the transport
 sampler and the ``TERMS`` field specs of their coefficients (phases
-21-26). Each phase reports on its own line:
+21-26), and the survey products: the dipole-dipole pseudosection, the
+E-field, the sensitivity maps and the survey Jacobian, with MIS without
+delta tracking and the kernel's wide form for more than four sources or
+eight mixture components (phases 27-31). Each phase reports on its own
+line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -157,6 +161,40 @@ sampler and the ``TERMS`` field specs of their coefficients (phases
     warm-up and 3 timed solves (rates, occupancy, truncated share, the
     Robin mode ``"auto"`` resolves to), every solve finite with
     ``max |mean| < 5``.
+27. kernel vs plain version, one launch of each new instantiation: 256
+    steps from a fresh 8,192-lane state, held to phase 3's rule and timed:
+    MIS without delta tracking on the square of
+    ``tests/test_pseudosection.py:158-168`` and on a Neumann box (the star
+    test acts), chain + MIS on the notebook survey, and the wide forms: the
+    scenario line (6 sources), the Born demo's Jacobian
+    (``examples/inversion_demo.py``: 8 unit dipoles, 9 components) and the
+    notebook line (``examples/pseudosection_figure.py``: 18 sources, 19
+    components, chain + MIS); each mechanism acts (without the mixture >=
+    1% of lanes bank otherwise; the accumulators of sources 4 and on are
+    non-zero).
+28. kernel vs plain version, a whole solve of the scenario line's
+    pseudosection problem (``survey_default_options``, 9 points x 512
+    walks): equal total steps, each mean within 1e-3 x (|mean| + combined
+    stderr); ``run_pseudosection`` at that size gives the kernel solve's
+    means bit for bit and launches the wide survey only.
+29. the reference's survey-product checks on the card, each with the JAX
+    test's configuration and bounds: the nine tests of
+    ``tests/test_pseudosection.py``, the three of ``tests/test_efield.py``
+    and the four of ``tests/test_sensitivity.py`` (their finite-volume
+    oracles by ``validation/fdm.py`` on the host).
+30. full size, the notebook pseudosection (``examples/pseudosection_figure.py``:
+    21 electrodes, 18 sources, 19 components, MIS + CRN, chain, eps 1.0,
+    max_steps 6000) at 2^20 walks per electrode
+    (``SolverOptions(target_slots=1<<21, min_quota=32,
+    common_random_numbers=True)``: 688,128 lanes): ``run_pseudosection`` as
+    the warm-up (its launches counted), 2 timed solves, 256 steps of kernel
+    and plain version at that state; then at the figure's own 2000 walks,
+    three source rows against single-source ``DCRSurvey.run`` solves of the
+    same dipoles (>= 20/21 electrodes within 4 sigma + 0.25 each).
+31. full size, the survey Jacobian at ``examples/inversion_demo.py``'s
+    configuration (9 electrodes, 84 grid points, 6000 walks,
+    ``n_batches=4``): a warm-up call (its launches counted) and one timed
+    call, then 256 steps of kernel and plain version at its stencil state.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -235,7 +273,7 @@ def clone_state(state):
 def ptxas_registers(build_log):
     """Registers per compiled kernel instantiation, from ``ptxas -v``,
     keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
-    mis,freeze,table,delta,transport>``."""
+    mis,freeze,table,delta,transport>``, with ``,true`` for a wide form."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -243,10 +281,11 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 6 + "E", entry)
+            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 7 + "E", entry)
             if t:
                 r, *b = t.groups()
-                flags = ",".join("true" if v == "1" else "false" for v in b)
+                flags = ",".join("true" if v == "1" else "false"
+                                 for v in b[:6] + b[6:] * (b[6] == "1"))
                 entry = f"walk_kernel<{r},{flags}>"
             regs[entry] = int(m.group(1))
             entry = None
@@ -293,7 +332,11 @@ def fp32_ops_per_step(params):
     its two edges (4 more). A walk without delta tracking moves to the
     ball's edge: no sampler, no alpha, no interior test; with a source, a
     Green's-radius sample (3), its point (5), the weight R^2 / 4 (2) and
-    the sum (2) besides the source."""
+    the sum (2) besides the source; with MIS, the MIS sample and weight
+    as with delta tracking but over ``ln(R/r) / (2 pi)`` and ``R^2 / 4``
+    (4 in place of the screened Green's function's 102) and no alpha. The
+    sources and mixture components count one by one (the wide form's
+    too)."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
     alpha = field_ops(params.specs[1]) + 1      # alpha_c
@@ -304,7 +347,11 @@ def fp32_ops_per_step(params):
     ops += sil_row * n_vert + (2 if n_vert else 0)  # silhouette radius
     if not params.delta:
         ops += 4                                # counters
-        if params.sources:
+        if params.mis_table is not None:
+            k = len(params.mis_table)
+            ops += (8 + 36 + 4 + 31 + 2 + hit_row * n_neu + 11 * k + 13
+                    + src)                      # MIS NEE, Green's radius
+        elif params.sources:
             ops += 12 + src                     # Green's-radius NEE
         return ops
     ops += TRANSPORT_OPS if params.transport else 165  # the screened radius
@@ -371,19 +418,20 @@ def lanes_differ(a, b, names=("atten", "px")):
 
 
 def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
-                     reps=3):
+                     reps=3, warm_up=None):
     """A path at full size: one warm-up solve through ``WoStSolver.solve``
-    with the launch counts set to 0 just before it and read just after,
-    then ``reps`` timed solves whose walk launches are bracketed by CUDA
-    events.
+    (or ``warm_up()``, a product's entry point) with the launch counts set
+    to 0 just before it and read just after, then ``reps`` timed solves
+    whose walk launches are bracketed by CUDA events.
     Returns a dict of the counts, each solve's launches and clones, the
     walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
     lanes x longest lane), the kernel's share of each solve's wall time
     and the longest lane."""
     wk.run_walk.launches = 0
     wk.run_walk.variant_launches.clear()
-    warm = solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
-                        seed=0)                                # warm-up
+    warm = (warm_up() if warm_up is not None else
+            solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
+                         seed=0))                              # warm-up
     counts = dict(wk.run_walk.variant_launches)
     check(sum(counts.values()) == wk.run_walk.launches > 0,
           f"{what}: the full-size solve launched {counts}")
@@ -479,7 +527,10 @@ def main():
     from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver, \
         solve_to_tolerance
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
-    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+    from dcrmontecarlo_tpu_torch.survey import DCRSurvey, \
+        dipole_dipole_pairs, estimate_field, linearized_update, \
+        run_pseudosection, sensitivity_map, surface_electrode_line, \
+        survey_default_options, survey_jacobian
     from dcrmontecarlo_tpu_torch.validation import fdm_solve
 
     check("jax" not in sys.modules, "jax was imported")
@@ -503,10 +554,10 @@ def main():
     # ---- 2. build -------------------------------------------------------
     libs, build_s, build_log = wk.build_library()
     regs = ptxas_registers(build_log)
-    check(set(regs) == {wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
-          or not build_log,
-          f"expected {len(wk.KERNEL_VARIANTS)} kernel instantiations, "
-          f"ptxas reported {regs}")
+    names = {wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
+    check(set(regs) == names or not build_log,
+          f"expected {len(names)} kernel instantiations, ptxas reported "
+          f"{regs}")
     log(f"[2] built {len(libs)} libraries, one per instantiation, in "
         f"{os.path.relpath(os.path.dirname(libs[0]), ROOT)} in {build_s:.1f} "
         f"s (all nvcc processes at once); ptxas registers per "
@@ -924,7 +975,7 @@ def main():
     state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 688128, "phase 15 state is not 688128 lanes")
     check(params.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
-                           False),
+                             False, False),
           f"phase 15 runs {params.kernel_name}")
     check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
           and f15["stats"][0]["launches"] > 1,
@@ -988,7 +1039,7 @@ def main():
     _, _, p16, t16 = launch_256(topo_prob, topo_pts, SolverOptions(),
                                 "phase 16", 8192, 600, 0.5, no_vertices)
     check(p16.table and p16.variant == (wk.ROBIN_OFF, False, False, False,
-                                        True, True, False),
+                                        True, True, False, False),
           f"phase 16 runs {p16}")
     # the JAX regression test_pallas_smem_sees_trailing_segments: a square
     # whose right edge is its table's last three rows
@@ -1047,7 +1098,7 @@ def main():
         prob18, pts18, SolverOptions(robin_correction="chain"), "phase 18",
         8192, 600, 0.5, lambda p: dataclasses.replace(p, robin=wk.ROBIN_OFF))
     check(p18.variant == (wk.ROBIN_CHAIN, False, False, False, True, True,
-                          False),
+                          False, False),
           f"phase 18 runs {p18.kernel_name}")
     n18 = solve_launches(solver18, pts18, "phase 18", p18.kernel_name,
                          n_walks=512, max_steps=600, eps=0.5,
@@ -1481,6 +1532,584 @@ def main():
         f"{[round(v, 4) for v in f26['share']]}, launches of the warm-up "
         f"solve {f26['counts']}, max |mean| "
         f"{float(np.abs(f26['warm'].mean).max()):.4g} ({card})")
+
+    # ---- the survey products: the pseudosection, the E-field, the -------
+    # ---- sensitivity maps and the Jacobian (phases 27-31) ----------------
+    from dcrmontecarlo_tpu_torch.survey import dcr as sdcr
+    from dcrmontecarlo_tpu_torch.survey import sensitivity as ssens
+
+    drop_mix = lambda p: dataclasses.replace(p, mis_table=None)
+    # MIS without delta tracking: the narrow Gaussian of
+    # tests/test_pseudosection.py:150-175 (unit mass, width 0.05)
+    w_n = 0.05
+    amp_n = 1.0 / (2 * np.pi * w_n * w_n)
+
+    def narrow_source(c, mis=True):
+        mix = fields.GaussianMixture.from_components([(c, w_n, 1.0)])
+        return dict(source=fields.gaussian_bump(c, amp_n, w_n),
+                    source_importance=mix if mis else None,
+                    bc_dirichlet=fields.constant(0.0))
+
+    nd_square = Problem(dirichlet=square_loop(2.0),
+                        **narrow_source((0.0, 0.0)))
+    nd_box = Problem(dirichlet=Polyline.from_points(BOX),
+                     neumann=Polyline.from_points(WALL),
+                     **narrow_source((0.0, -0.3)))
+    # the lines: the scenario's (6 sources; phase 7's conductivity), the
+    # Born demo's Jacobian (examples/inversion_demo.py: 9 electrodes, 8
+    # unit dipoles, 9 components) and the notebook's
+    # (examples/pseudosection_figure.py: 18 sources, 19 components)
+    sc_prob, sc_pts, _, _ = sdcr._line_problem(survey, electrodes, 3)
+    born_elec = surface_electrode_line((-20.0, 20.0), 5.0)
+    born_survey = DCRSurvey(half_width=60.0, depth=60.0,
+                            current_a=tuple(born_elec[0]),
+                            current_b=tuple(born_elec[1]),
+                            conductivity=fields.constant(1.0),
+                            source_width=1.5, source_mis=True)
+    born_prob = ssens._jacobian_problem(born_survey, born_elec)
+    gx31, gy31 = np.linspace(-22.0, 22.0, 12), np.linspace(-20.0, -3.0, 7)
+    born_grid = np.stack([a.ravel() for a in np.meshgrid(
+        gx31, gy31, indexing="ij")], 1)
+    nbl_survey, nbl_elec = notebook_survey()
+    nbl_survey.source_mis = True
+    nbl_prob, nbl_pts, nbl_src, _ = sdcr._line_problem(nbl_survey, nbl_elec,
+                                                       8)
+    check(len(nbl_prob.source_fields) == 18
+          and len(nbl_prob.source_importance.cx) == 19,
+          "the notebook line is not 18 sources and 19 components")
+    figure_opts = SolverOptions(target_slots=65536,
+                                common_random_numbers=True)
+
+    # ---- 27. kernel vs plain, one launch of each new instantiation ------
+    cases27 = (
+        ("MIS without delta, square", nd_square, [[0.5, 0.0], [1.0, 1.0]],
+         SolverOptions(), 1e-3, 300, False),
+        ("MIS without delta, Neumann box", nd_box,
+         [[0.5, -0.2], [-1.0, -0.01], [0.0, -1.5]], SolverOptions(), 1e-2,
+         300, False),
+        ("chain + MIS, notebook survey", nbl_survey.build_problem(), nb_pts,
+         figure_opts, 1.0, 6000, False),
+        ("wide survey, scenario line", sc_prob, sc_pts,
+         survey_default_options(), 0.9, 500, True),
+        ("wide survey + MIS, Born demo", born_prob, born_grid[:21],
+         SolverOptions(common_random_numbers=True), 0.3, 500, True),
+        ("wide chain + MIS, notebook line", nbl_prob, nbl_pts, figure_opts,
+         1.0, 6000, True))
+    t27 = {}
+    for what, prob, pts, opts, eps, ms, wide in cases27:
+        mis = prob.source_importance is not None
+        _, start, params, t = launch_256(
+            prob, np.asarray(pts, np.float32), opts, f"phase 27 ({what})",
+            1 << 16, ms, eps)
+        check(params.wide == wide and (params.mis_table is not None) == mis,
+              f"phase 27 ({what}) runs {params.kernel_name}")
+        if mis:  # the plain walk: the wide chain has no MIS-free form
+            other = clone_state(start)
+            wk.walk_plain(other, drop_mix(params), 256)
+            t["acts"] = lanes_differ(t["end"], other, ("acc0", "asum0"))
+            check(t["acts"] >= 0.01, f"phase 27 ({what}): without the "
+                                     f"mixture only {t['acts']:.4f} of "
+                                     f"lanes bank otherwise")
+        nonzero = [i for i in range(wk.MAX_SRC, params.n_src)
+                   if bool((t["end"][f"asum{i}"] != 0).any()
+                           | (t["end"][f"acc{i}"] != 0).any())]
+        check(nonzero == list(range(wk.MAX_SRC, params.n_src)),
+              f"phase 27 ({what}): only sources {nonzero} of "
+              f"{wk.MAX_SRC}..{params.n_src - 1} accumulated")
+        t27[what] = (params, t)
+        b_ms, b_by = bound(params, t["lanes"], t["steps"], 1)
+        extra = (f"; without the mixture {t['acts']:.4f} of lanes bank "
+                 f"otherwise" if mis else "")
+        log(f"[27] {what} ({params.kernel_name}, {params.n_src} sources, "
+            f"{0 if params.mis_table is None else len(params.mis_table)} "
+            f"components), 256 steps x 8192 lanes: kernel {t['ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.3f} ms; worst plane agreement "
+            f"{t['worst']:.5f}, max |err| {t['max_err']:.3g}; bound "
+            f"{b_ms:.4f} ms ({b_by}), {regs.get(params.kernel_name)} "
+            f"registers{extra} ({card})")
+
+    # ---- 28. kernel vs plain, whole solve, the scenario pseudosection ---
+    solver = WoStSolver(sc_prob, survey_default_options(), device=dev)
+    rk = solver._solve_raw(sc_pts, 512, 500, 0.9, 11)
+    rp = solver._solve_raw(sc_pts, 512, 500, 0.9, 11, walk=wk.walk_plain)
+    check(rk.mean.shape == (6, 9) and np.isfinite(rk.mean).all()
+          and np.isfinite(rk.stderr).all(), "phase 28 kernel solve")
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check((dm <= 1e-3 * scale).all() and rk.total_steps == rp.total_steps,
+          f"phase 28 solve: |dmean| {dm.max()}, steps {rk.total_steps} vs "
+          f"{rp.total_steps}")
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    ps28 = run_pseudosection(survey, electrodes, num_rx_per_src=3,
+                             n_walks=512, max_steps=500, eps=0.9, seed=11,
+                             device=dev)
+    counts28 = dict(wk.run_walk.variant_launches)
+    p_wide = t27["wide survey, scenario line"][0]
+    check(set(counts28) == {p_wide.kernel_name}
+          and np.array_equal(ps28.potentials, rk.mean),
+          f"phase 28: run_pseudosection launched {counts28}, potentials "
+          f"equal to the kernel solve's: "
+          f"{np.array_equal(ps28.potentials, rk.mean)}")
+    log(f"[28] scenario pseudosection 9x512, 6 sources: max "
+        f"|dmean|/(|mean|+se) {float((dm / scale).max()):.3g} (bound 1e-3), "
+        f"steps kernel {rk.total_steps:.0f} plain {rp.total_steps:.0f}; "
+        f"run_pseudosection launched {counts28}, {len(ps28.voltage)} "
+        f"measurements")
+
+    # ---- 29. the reference's survey-product checks on the card ----------
+    def quad(a, b):
+        return np.sqrt(np.asarray(a) ** 2 + np.asarray(b) ** 2)
+
+    held29, counts29 = [], {}
+
+    def check29(name, cond, detail, t0):
+        check(bool(cond), f"phase 29 {name}: {detail}")
+        held29.append(name)
+        log(f"[29] {name}: held, {detail}, {time.perf_counter() - t0:.2f} s")
+
+    def count29(name, fn):
+        wk.run_walk.launches = 0
+        wk.run_walk.variant_launches.clear()
+        out = fn()
+        counts29[name] = dict(wk.run_walk.variant_launches)
+        check(sum(counts29[name].values()) == wk.run_walk.launches > 0,
+              f"phase 29 {name}: launched {counts29[name]}")
+        return out
+
+    t0 = time.perf_counter()
+    srcs, rxs = dipole_dipole_pairs(6, num_rx_per_src=10)
+    check29("dipole_dipole_pairs", srcs == [(0, 1), (1, 2), (2, 3)]
+            and rxs[0] == [(2, 3), (3, 4), (4, 5)] and rxs[2] == [(4, 5)],
+            f"{srcs}", t0)
+    # test_multi_source_matches_single_solves / _exact_for_u_x2y2
+    t0 = time.perf_counter()
+    f1, f2 = fields.constant(-4.0), fields.polynomial({(1, 0): 6.0})
+    pts = np.array([[0.0, 0.0], [1.0, 0.5]], np.float32)
+    o8k = SolverOptions(target_slots=8192)
+    rm = count29("multi_source_matches_single_solves", lambda: WoStSolver(
+        Problem(dirichlet=square_loop(2.0), bc_dirichlet=xy2,
+                source=[f1, f2]), o8k).solve(pts, n_walks=4000,
+                                               max_steps=300, eps=1e-3,
+                                               seed=0))
+    ok = rm.mean.shape == (2, 2)
+    for i, f in enumerate((f1, f2)):
+        rs = WoStSolver(Problem(dirichlet=square_loop(2.0), bc_dirichlet=xy2,
+                                source=f), o8k).solve(
+            pts, n_walks=4000, max_steps=300, eps=1e-3, seed=1)
+        ok &= bool((np.abs(rm.mean[i] - rs.mean)
+                    < 4 * quad(rm.stderr[i], rs.stderr) + 1e-3).all())
+    check29("multi_source_matches_single_solves", ok,
+            f"multi {np.round(rm.mean, 4).tolist()}", t0)
+    t0 = time.perf_counter()
+    pts = np.array([[0.0, 0.0], [1.0, 1.0]], np.float32)
+    res = WoStSolver(Problem(dirichlet=square_loop(2.0), bc_dirichlet=xy2,
+                             source=[f1, fields.constant(0.0)]), o8k).solve(
+        pts, n_walks=4000, max_steps=300, eps=1e-3, seed=2)
+    exact = pts[:, 0] ** 2 + pts[:, 1] ** 2
+    check29("multi_source_exact_for_u_x2y2",
+            (np.abs(res.mean[0] - exact) < 4 * res.stderr[0] + 0.02).all()
+            and np.isfinite(res.mean[1]).all(),
+            f"{np.round(res.mean[0], 4).tolist()} vs {exact.tolist()}", t0)
+    # test_pseudosection_matches_fdm_oracle
+    t0 = time.perf_counter()
+    ps = count29("pseudosection_matches_fdm_oracle", lambda: run_pseudosection(
+        survey, electrodes, num_rx_per_src=3, n_walks=2500, max_steps=800,
+        eps=0.5, seed=0, options=survey_default_options(target_slots=32768),
+        device=dev))
+    ok = (ps.potentials.shape == (6, 9) and (ps.pseudo_z < 0).all()
+          and (np.abs(ps.pseudo_x) <= 40.0).all())
+    prob29 = survey.build_problem()
+    sources, receivers = dipole_dipole_pairs(9, 3)
+    depth = max(survey.electrode_nudge, 2.0 * survey.source_width)
+    src_pos = np.asarray(electrodes, np.float32).copy()
+    src_pos[:, 1] = -depth
+    pts = np.asarray(electrodes, np.float32).copy()
+    pts[:, 1] = -survey.electrode_nudge
+    n_checked = n_ok = 0
+    for s_i, (a, b) in enumerate(sources):
+        f = fields.gaussian_dipole(src_pos[a], src_pos[b], survey.current,
+                                   survey.source_width)
+        ref = fdm_solve(bounds=((-100.0, 100.0), (-200.0, 0.0)),
+                        alpha=np_field(prob29.alpha), source=np_field(f),
+                        neumann_top=True, nx=241, ny=241)(pts)
+        sel = ps.src_index == s_i
+        dv_ref = ref[ps.m_index[sel]] - ref[ps.n_index[sel]]
+        n_ok += int((np.abs(ps.voltage[sel] - dv_ref)
+                     < 4.0 * ps.voltage_stderr[sel] + 3e-4).sum())
+        n_checked += int(sel.sum())
+    ok &= n_checked == sum(len(r) for r in receivers)
+    check29("pseudosection_matches_fdm_oracle",
+            ok and n_ok / n_checked >= 0.85,
+            f"{n_ok}/{n_checked} voltages within 4 sigma + 3e-4 of the "
+            f"oracle (need 0.85), launches "
+            f"{counts29['pseudosection_matches_fdm_oracle']}", t0)
+    # test_mis_nee_unbiased_and_lower_variance
+    t0 = time.perf_counter()
+    pts = np.array([[0.5, 0.0], [1.0, 1.0]], np.float32)
+    r_plain = WoStSolver(Problem(dirichlet=square_loop(2.0),
+                                 **narrow_source((0.0, 0.0), mis=False)),
+                         o8k).solve(pts, n_walks=6000, max_steps=300,
+                                    eps=1e-3, seed=0)
+    r_mis = count29("mis_nee_unbiased_and_lower_variance",
+                    lambda: WoStSolver(nd_square, o8k).solve(
+                        pts, n_walks=6000, max_steps=300, eps=1e-3, seed=0))
+    dev29 = np.abs(r_plain.mean - r_mis.mean) / quad(r_plain.stderr,
+                                                     r_mis.stderr)
+    check29("mis_nee_unbiased_and_lower_variance",
+            (dev29 < 4).all() and (r_mis.stderr < r_plain.stderr / 3).all(),
+            f"plain {np.round(r_plain.mean, 4).tolist()} +- "
+            f"{np.round(r_plain.stderr, 4).tolist()}, MIS "
+            f"{np.round(r_mis.mean, 4).tolist()} +- "
+            f"{np.round(r_mis.stderr, 4).tolist()}, stderr ratio "
+            f"{np.round(r_plain.stderr / r_mis.stderr, 2).tolist()}, "
+            f"launches {counts29['mis_nee_unbiased_and_lower_variance']}",
+            t0)
+    # test_homogeneous_pseudosection_with_mis_crn
+    t0 = time.perf_counter()
+    hs = DCRSurvey(half_width=300.0, depth=600.0, current_a=(0.0, 0.0),
+                   current_b=(1.0, 0.0), conductivity=fields.constant(10.0),
+                   source_width=0.25, source_mis=True)
+    ps = count29("homogeneous_pseudosection_with_mis_crn",
+                 lambda: run_pseudosection(
+                     hs, surface_electrode_line((-20.0, 20.0), 5.0),
+                     num_rx_per_src=4, n_walks=6000, max_steps=1500,
+                     eps=0.25, seed=0, options=SolverOptions(
+                         target_slots=32768, common_random_numbers=True),
+                     device=dev))
+    rho_a = ps.apparent_resistivity
+    med = float(np.median(rho_a))
+    check29("homogeneous_pseudosection_with_mis_crn",
+            abs(med - 0.1) / 0.1 < 0.2
+            and np.mean(np.abs(rho_a - 0.1) / 0.1 < 0.3) >= 0.4,
+            f"median rho_a {med:.4g} (true 0.1), within 30%: "
+            f"{float(np.mean(np.abs(rho_a - 0.1) / 0.1 < 0.3)):.3f}, "
+            f"launches {counts29['homogeneous_pseudosection_with_mis_crn']}",
+            t0)
+    # test_crn_keeps_per_point_estimates_unbiased
+    t0 = time.perf_counter()
+    pts = np.array([[0.0, 0.0], [0.3, 0.2], [0.31, 0.2]], np.float32)
+    res = WoStSolver(Problem(dirichlet=square_loop(1.0),
+                             bc_dirichlet=harmonic.bc_dirichlet),
+                     SolverOptions(target_slots=4096,
+                                   common_random_numbers=True)).solve(
+        pts, n_walks=4000, max_steps=200, eps=1e-3, seed=0)
+    exact = pts[:, 0] + 2 * pts[:, 1]
+    d_est, d_exact = res.mean[2] - res.mean[1], exact[2] - exact[1]
+    q12 = float(quad(res.stderr[1], res.stderr[2]))
+    check29("crn_keeps_per_point_estimates_unbiased",
+            (np.abs(res.mean - exact) < 4 * res.stderr + 5e-3).all()
+            and abs(d_est - d_exact) < max(0.7 * q12, 1e-3),
+            f"difference {d_est:.5f} vs {d_exact:.5f} (quadrature {q12:.4f})",
+            t0)
+    # test_pseudosection_on_scenario_runs / _single_source_line
+    t0 = time.perf_counter()
+    s_def, e_def = geophysical_scenario()
+    ps = run_pseudosection(s_def, e_def, num_rx_per_src=3, n_walks=300,
+                           max_steps=400, eps=0.9, seed=1,
+                           options=SolverOptions(target_slots=4096),
+                           device=dev)
+    check29("pseudosection_on_scenario_runs",
+            ps.potentials.shape == (6, 9) and np.isfinite(ps.voltage).all()
+            and len(ps.voltage) == sum(len(r) for r in
+                                       dipole_dipole_pairs(9, 3)[1]),
+            f"{len(ps.voltage)} finite voltages", t0)
+    t0 = time.perf_counter()
+    ps = run_pseudosection(s_def, np.stack([np.linspace(-15.0, 15.0, 4),
+                                            np.zeros(4)], axis=1),
+                           num_rx_per_src=2, n_walks=50, max_steps=200,
+                           eps=0.9, seed=0,
+                           options=SolverOptions(target_slots=1024),
+                           device=dev)
+    check29("pseudosection_single_source_line",
+            len(ps.voltage) == 1 and np.isfinite(ps.voltage).all(),
+            f"voltage {ps.voltage.tolist()}", t0)
+    # tests/test_efield.py
+    for name29, bc29, side, pts, n29, ms29, seed29, gate in (
+            ("efield_linear_potential", harmonic.bc_dirichlet, 1.0,
+             [[0.0, 0.0], [0.3, -0.2]], 4000, 200, 0,
+             lambda f, p: (np.abs(f.ex + 1.0) < 0.45).all()
+             and (np.abs(f.ey + 2.0) < 0.45).all()),
+            ("efield_saddle", fields.polynomial({(2, 0): 1.0, (0, 2): -1.0}),
+             1.0, [[0.4, 0.1]], 6000, 200, 1,
+             lambda f, p: abs(f.ex[0] + 0.8) < 0.45
+             and abs(f.ey[0] - 0.2) < 0.45),
+            ("efield_multi_source", xy2, 2.0, [[0.5, 0.0], [0.0, 0.5]], 4000,
+             300, 0,
+             lambda f, p: f.ex.shape == (2, 2) and f.potential.shape == (2, 2)
+             and abs(f.ex[0, 0] + 1.0) < 0.5 and abs(f.ey[0, 1] + 1.0) < 0.5
+             and np.isfinite(f.ex).all() and np.isfinite(f.ey).all())):
+        t0 = time.perf_counter()
+        src29 = ([fields.constant(-4.0), fields.constant(0.0)]
+                 if name29 == "efield_multi_source" else None)
+        f = count29(name29, lambda: estimate_field(
+            Problem(dirichlet=square_loop(side), bc_dirichlet=bc29,
+                    source=src29), np.asarray(pts, np.float32), h=0.02,
+            n_walks=n29, max_steps=ms29, eps=1e-3, seed=seed29, options=o8k,
+            device=dev))
+        check29(name29, gate(f, pts),
+                f"ex {np.round(f.ex, 4).tolist()}, ey "
+                f"{np.round(f.ey, 4).tolist()}, launches {counts29[name29]}",
+                t0)
+    # tests/test_sensitivity.py
+    t0 = time.perf_counter()
+    bump = fields.gaussian_bump((0.0, -18.0), 1.0, 9.0)
+    bump_np = np_field(bump)
+    s_sens = DCRSurvey(half_width=100.0, depth=100.0, current_a=(-30.0, -4.0),
+                       current_b=(30.0, -4.0),
+                       conductivity=fields.constant(1.0), source_width=2.0,
+                       source_mis=True)
+    rx_m, rx_n = (5.0, -4.0), (15.0, -4.0)
+    src_np = np_field(s_sens.build_problem().source_fields[0])
+    q_adj = np_field(fields.gaussian_dipole(rx_m, rx_n, 1.0, 2.0))
+
+    def solve_v(alpha_np):
+        sol = fdm_solve(bounds=((-100.0, 100.0), (-100.0, 0.0)),
+                        alpha=alpha_np, source=src_np, neumann_top=True,
+                        nx=257, ny=257)
+        X, Y = np.meshgrid(sol.xs, sol.ys, indexing="ij")
+        q = q_adj(X.ravel(), Y.ravel()).reshape(X.shape)
+        return (np.sum(q * sol.u) * (sol.xs[1] - sol.xs[0])
+                * (sol.ys[1] - sol.ys[0]))
+
+    dv_fdm = (solve_v(lambda X, Y: 1.0 + 0.3 * bump_np(X, Y))
+              - solve_v(lambda X, Y: 1.0 + 0.0 * X))
+    gx = np.linspace(-22.0, 22.0, 10)
+    gy = np.linspace(-40.0, -2.0, 9)
+    grid = np.stack([a.ravel() for a in np.meshgrid(gx, gy, indexing="ij")],
+                    1)
+    res = count29("sensitivity_matches_fdm_perturbation",
+                  lambda: sensitivity_map(
+                      s_sens, rx_m, rx_n, grid, h=3.0, n_walks=3500,
+                      max_steps=800, eps=0.5, seed=7,
+                      options=SolverOptions(target_slots=1 << 16),
+                      device=dev))
+    dv_pred = (np.sum(res.sensitivity * 0.3 * bump_np(grid[:, 0], grid[:, 1]))
+               * (gx[1] - gx[0]) * (gy[1] - gy[0]))
+    check29("sensitivity_matches_fdm_perturbation",
+            dv_fdm < 0 and np.isfinite(res.sensitivity).all()
+            and abs(dv_pred - dv_fdm) < 0.30 * abs(dv_fdm)
+            and np.allclose(res.sensitivity_log, res.sensitivity, rtol=1e-6),
+            f"dV predicted {dv_pred:.5g} vs finite-volume {dv_fdm:.5g} (rel "
+            f"err {abs(dv_pred - dv_fdm) / abs(dv_fdm):.4f}, bound 0.30), "
+            f"launches {counts29['sensitivity_matches_fdm_perturbation']}",
+            t0)
+    t0 = time.perf_counter()
+    elec5 = surface_electrode_line((-20.0, 20.0), 10.0)
+    s5 = DCRSurvey(half_width=80.0, depth=80.0, current_a=tuple(elec5[0]),
+                   current_b=tuple(elec5[1]),
+                   conductivity=fields.constant(1.0), source_width=2.0,
+                   source_mis=True)
+    grid3 = np.array([[0.0, -8.0], [5.0, -15.0], [-8.0, -10.0]], np.float32)
+    o15 = SolverOptions(target_slots=1 << 15)
+    jac = count29("survey_jacobian_row_matches_sensitivity_map",
+                  lambda: survey_jacobian(
+                      s5, elec5, grid3, num_rx_per_src=2, h=3.0,
+                      n_walks=2500, max_steps=400, eps=0.5, seed=3,
+                      options=o15, device=dev))
+    single = sensitivity_map(s5, tuple(elec5[2]), tuple(elec5[3]), grid3,
+                             h=3.0, n_walks=2500, max_steps=400, eps=0.5,
+                             seed=4, options=o15, device=dev)
+    dev29 = np.abs(jac.rows[0] - single.sensitivity) / np.maximum(
+        quad(jac.stderr[0], single.stderr), 1e-12)
+    check29("survey_jacobian_row_matches_sensitivity_map",
+            np.isfinite(jac.rows).all() and jac.src_pairs[0] == (0, 1)
+            and jac.rx_pairs[0] == (2, 3)
+            and jac.rows.shape == (len(jac.src_pairs), 3)
+            and (dev29 < 4.0).all(),
+            f"row deviations {np.round(dev29, 3).tolist()} sigma (bound 4)",
+            t0)
+    t0 = time.perf_counter()
+    true_c = (6.0, -10.0)
+    bump_b = np_field(fields.gaussian_bump(true_c, 1.0, 5.0))
+    buried = [born_survey._bury_source(p) for p in born_elec]
+    src_list, rx_lists = dipole_dipole_pairs(len(born_elec), 4)
+
+    def fdm_data(alpha_np):
+        out = []
+        for (a, b), rx_l in zip(src_list, rx_lists):
+            sol = fdm_solve(bounds=((-60.0, 60.0), (-60.0, 0.0)),
+                            alpha=alpha_np, source=np_field(
+                                fields.gaussian_dipole(buried[a], buried[b],
+                                                       1.0, 1.5)),
+                            neumann_top=True, nx=201, ny=201)
+            X, Y = np.meshgrid(sol.xs, sol.ys, indexing="ij")
+            d_area = (sol.xs[1] - sol.xs[0]) * (sol.ys[1] - sol.ys[0])
+            for (m, n) in rx_l:
+                q = np_field(fields.gaussian_dipole(buried[m], buried[n], 1.0,
+                                                    1.5))(X.ravel(), Y.ravel())
+                out.append(np.sum(q.reshape(X.shape) * sol.u) * d_area)
+        return np.array(out)
+
+    d_resid = (fdm_data(lambda X, Y: 1.0 + bump_b(X, Y))
+               - fdm_data(lambda X, Y: 1.0 + 0.0 * X))
+    jac = count29("born_inversion_localizes_anomaly", lambda: survey_jacobian(
+        born_survey, born_elec, born_grid, num_rx_per_src=4, h=1.5,
+        n_walks=5000, max_steps=500, eps=0.3, seed=5,
+        options=SolverOptions(target_slots=1 << 16), n_batches=1,
+        device=dev))
+    cell = (gx31[1] - gx31[0]) * (gy31[1] - gy31[0])
+    m_img = linearized_update(jac, d_resid, cell, lam_rel=0.05)
+    pk = np.unravel_index(np.argmax(m_img.reshape(12, 7)), (12, 7))
+    corr = float(np.corrcoef(m_img, bump_b(born_grid[:, 0],
+                                           born_grid[:, 1]))[0, 1])
+    check29("born_inversion_localizes_anomaly",
+            abs(gx31[pk[0]] - true_c[0]) <= 4.1
+            and abs(gy31[pk[1]] - true_c[1]) <= 5.7 and corr > 0.4,
+            f"peak ({gx31[pk[0]]:.3g}, {gy31[pk[1]]:.3g}) vs {true_c}, corr "
+            f"{corr:.3f} (bound 0.4), launches "
+            f"{counts29['born_inversion_localizes_anomaly']}", t0)
+    t0 = time.perf_counter()
+    grid2 = grid3[:2]
+    one = sensitivity_map(s5, tuple(elec5[2]), tuple(elec5[3]), grid2,
+                          h=3.0, n_walks=2400, max_steps=400, eps=0.5,
+                          seed=4, options=o15, device=dev)
+    bat = sensitivity_map(s5, tuple(elec5[2]), tuple(elec5[3]), grid2,
+                          h=3.0, n_walks=2400, max_steps=400, eps=0.5,
+                          seed=4, n_batches=6, options=o15, device=dev)
+    dev29 = np.abs(one.sensitivity - bat.sensitivity) / np.maximum(
+        quad(one.stderr, bat.stderr), 1e-12)
+    jac = survey_jacobian(s5, elec5, grid2, num_rx_per_src=2, h=3.0,
+                          n_walks=2400, max_steps=400, eps=0.5, seed=4,
+                          n_batches=6, options=o15, device=dev)
+    check29("batch_error_bars_consistent",
+            np.isfinite(bat.stderr).all() and (bat.stderr > 0).all()
+            and (dev29 < 4.0).all() and np.isfinite(jac.rows).all()
+            and np.isfinite(jac.stderr).all() and (jac.stderr > 0).all()
+            and jac.stderr.shape == jac.rows.shape,
+            f"deviations {np.round(dev29, 3).tolist()} sigma (bound 4)", t0)
+    log(f"[29] {len(held29)} survey-product checks held on the card; "
+        f"launches by check {counts29} ({card})")
+
+    # ---- 30. full size: the notebook pseudosection ----------------------
+    full30 = SolverOptions(target_slots=1 << 21, min_quota=32,
+                           common_random_numbers=True)
+    solver = WoStSolver(nbl_prob, full30, device=dev)
+    n_walks = 1 << 20
+    f30 = full_size_solves(
+        wk, solver, nbl_pts, n_walks, 6000, 1.0, 688128, "phase 30", reps=2,
+        warm_up=lambda: run_pseudosection(
+            nbl_survey, nbl_elec, num_rx_per_src=8, n_walks=n_walks,
+            max_steps=6000, eps=1.0, seed=0, options=full30, device=dev))
+    state, p30, _, _ = solver._setup(nbl_pts, n_walks, 6000, 1.0, 5)
+    check(state["px"].numel() == 688128 and p30.wide
+          and p30.robin == wk.ROBIN_CHAIN and p30.mis_table is not None
+          and set(f30["counts"]) == {p30.kernel_name},
+          f"phase 30: {state['px'].numel()} lanes, {p30.kernel_name}, "
+          f"launched {f30['counts']}")
+    log(f"[30] notebook pseudosection 21x{n_walks} walks, 18 sources, 19 "
+        f"components, 688128 lanes ({p30.kernel_name}, "
+        f"{regs.get(p30.kernel_name)} registers): walker_steps_per_sec "
+        f"{f30['rate']:.6g} s/solve {[round(v, 4) for v in f30['times']]} "
+        f"steps/solve {f30['steps']:.6g} longest lane {f30['longest']} "
+        f"steps, lane occupancy {f30['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f30['share']]}, launches of the "
+        f"run_pseudosection warm-up {f30['counts']} ({card})")
+    t30 = steps_256(wk, state, p30, "phase 30", subset=True)
+    log(f"[30] 256 steps x {t30['lanes']} lanes"
+        f"{' (plain 16 steps took %.0f ms)' % t30['t16'] if t30['t16'] else ''}"
+        f": kernel {t30['ms']:.3f} ms, plain {t30['plain_ms']:.3f} ms; worst "
+        f"plane agreement {t30['worst']:.5f}, max |err| {t30['max_err']:.3g}, "
+        f"{t30['steps']} walker-steps ({card})")
+    # the figure's own 2000 walks: three source rows against single-source
+    # solves of the same dipoles (another mixture and seed: independent)
+    t0 = time.perf_counter()
+    ps30 = run_pseudosection(nbl_survey, nbl_elec, num_rx_per_src=8,
+                             n_walks=2000, max_steps=6000, eps=1.0, seed=0,
+                             options=figure_opts, device=dev)
+    counts30 = {}  # launches of each single-source solve, by source
+    for s_i in (0, 8, 17):
+        a, b = nbl_src[s_i]
+        one_src = dataclasses.replace(nbl_survey,
+                                      current_a=tuple(nbl_elec[a]),
+                                      current_b=tuple(nbl_elec[b]))
+        wk.run_walk.launches = 0
+        wk.run_walk.variant_launches.clear()
+        r = one_src.run(nbl_elec, n_walks=2000, max_steps=6000, eps=1.0,
+                        seed=1 + s_i, options=figure_opts, device=dev)
+        counts30[s_i] = dict(wk.run_walk.variant_launches)
+        lim = 4.0 * quad(ps30.potentials_stderr[s_i],
+                         r.potentials_stderr) + 0.25
+        diff = np.abs(ps30.potentials[s_i] - r.potentials)
+        n_in = int((diff < lim).sum())
+        check(n_in >= 20, f"phase 30 source {s_i} ({a}, {b}): only "
+                          f"{n_in}/21 electrodes within 4 sigma + 0.25 of "
+                          f"the single-source solve")
+        log(f"[30] source {s_i} ({a}, {b}) at 2000 walks: {n_in}/21 "
+            f"electrodes within 4 sigma + 0.25 of DCRSurvey.run, worst "
+            f"|diff|/limit {float((diff / lim).max()):.3f}, potentials "
+            f"{float(np.abs(r.potentials).max()):.4g} at most")
+    p_nb1 = t27["chain + MIS, notebook survey"][0]
+    check(all(set(c) == {p_nb1.kernel_name} for c in counts30.values()),
+          f"phase 30: the single-source solves launched {counts30}")
+    log(f"[30] checks at 2000 walks in {time.perf_counter() - t0:.2f} s; "
+        f"the single-source solves launched {counts30}")
+
+    # ---- 31. full size: the survey Jacobian -----------------------------
+    kw31 = dict(num_rx_per_src=4, h=1.5, n_walks=6000, max_steps=500,
+                eps=0.3, options=SolverOptions(target_slots=1 << 16),
+                n_batches=4, device=dev)
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    survey_jacobian(born_survey, born_elec, born_grid, seed=5, **kw31)
+    warm31 = time.perf_counter() - t0
+    counts31 = dict(wk.run_walk.variant_launches)
+    t0 = time.perf_counter()
+    jac = survey_jacobian(born_survey, born_elec, born_grid, seed=6, **kw31)
+    torch.cuda.synchronize()
+    time31 = time.perf_counter() - t0
+    n_meas = sum(len(r) for r in dipole_dipole_pairs(9, 4)[1])
+    check(jac.rows.shape == (n_meas, 84) and np.isfinite(jac.rows).all()
+          and np.isfinite(jac.stderr).all() and (jac.stderr > 0).all(),
+          f"phase 31 Jacobian {jac.rows.shape}")
+    solver = WoStSolver(born_prob, SolverOptions(
+        target_slots=1 << 16, common_random_numbers=True), device=dev)
+    stencil = np.concatenate([born_grid + d for d in (
+        [0.0, 0.0], [1.5, 0.0], [-1.5, 0.0], [0.0, 1.5], [0.0, -1.5])]
+    ).astype(np.float32)
+    state, p31, _, _ = solver._setup(stencil, 1500, 500, 0.3, 5)
+    check(p31.wide and p31.mis_table is not None and p31.n_src == 8
+          and set(counts31) == {p31.kernel_name},
+          f"phase 31 runs {p31.kernel_name}, launched {counts31}")
+    t31 = steps_256(wk, state, p31, "phase 31", subset=True)
+    log(f"[31] survey Jacobian, 9 electrodes, 8 unit dipoles, 84 grid "
+        f"points x 6000 walks in 4 batches ({p31.kernel_name}, "
+        f"{regs.get(p31.kernel_name)} registers): warm-up {warm31:.3f} s, "
+        f"timed call {time31:.3f} s, launches of the warm-up {counts31}; 256 "
+        f"steps x {t31['lanes']} lanes: kernel {t31['ms']:.3f} ms, plain "
+        f"{t31['plain_ms']:.3f} ms, worst plane agreement "
+        f"{t31['worst']:.5f} ({card})")
+    # the wide survey at phase 7's full-size state, the line's 6 sources
+    solver7, pts7, params7 = survey_full
+    state, p_ws, _, _ = WoStSolver(sc_prob, solver7.options,
+                                   device=dev)._setup(pts7, 1 << 19, 500,
+                                                      0.9, 5)
+    check(p_ws.variant == params7.variant[:7] + (True,),
+          "the wide survey state is not phase 7's configuration")
+    t_ws = steps_256(wk, state, p_ws, "wide survey at phase 7's state")
+    log(f"[31] the wide survey, 6 sources, at phase 7's state: 256 steps x "
+        f"{t_ws['lanes']} lanes: kernel {t_ws['ms']:.3f} ms (1 source: "
+        f"{t7['ms']:.3f} ms), plain {t_ws['plain_ms']:.3f} ms ({card})")
+    p_nd, t_nd = t27["MIS without delta, Neumann box"]
+    records.append(kernel_record(
+        p_nd, "mis_no_delta",
+        counts29["mis_nee_unbiased_and_lower_variance"][p_nd.kernel_name],
+        t_nd, regs, tolerance))
+    records.append(kernel_record(p_nb1, "robin_chain+mis",
+                                 counts30[0][p_nb1.kernel_name],
+                                 t27["chain + MIS, notebook survey"][1],
+                                 regs, tolerance))
+    records.append(kernel_record(p_ws, "survey_wide",
+                                 counts28[p_ws.kernel_name], t_ws, regs,
+                                 tolerance))
+    records.append(kernel_record(p31, "survey+mis_wide",
+                                 counts31[p31.kernel_name], t31, regs,
+                                 tolerance))
+    records.append(kernel_record(p30, "robin_chain+mis_wide",
+                                 f30["counts"][p30.kernel_name], t30, regs,
+                                 tolerance))
 
     p21s, t21s = t21["Poisson square + circle obstacle"]
     p21t, t21t = t21["table-form square"]

@@ -34,11 +34,29 @@
 // problems, terms_fields: the kind's mere call sites made the accuracy
 // path's instantiation measurably slower per step on the card).
 //
+// The survey products (the dipole-dipole pseudosection, the E-field, the
+// sensitivity maps and the survey Jacobian) add MIS next-event estimation
+// without delta tracking (the ball's Green's function ln(R/r) / (2 pi) and
+// its norm R^2 / 4 in the balance heuristic, no alpha factor;
+// pallas_walk.py:956-961) and the wide form (WIDE): the TPU kernel unrolls
+// its planes, NEE and banking over any number of sources (:663-677, :929,
+// :995) and its mixture pick and pdf over any number of components
+// (:941-945, :974-977). Here the wide form holds up to MAX_WIDE_SRC
+// sources, those from MAX_SRC on Gaussian dipoles (the only kind the
+// products make), as dipole rows, and up to MAX_WIDE_MIX mixture
+// components, all after the older WalkConst fields. It loops over its
+// sources at run time and adds every NEE term and every finished walk to
+// the source's planes in global memory, in place (a read and a write per
+// source and step, a few percent of the card's memory rate at these step
+// rates), which keeps its registers near the narrow form's. A narrow
+// instantiation (up to MAX_SRC sources and MAX_MIX components) is compiled
+// as before.
+//
 // Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE,
-// DELTA, TRANSPORT>, and the host picks one per launch. Only the
+// DELTA, TRANSPORT, WIDE>, and the host picks one per launch. Only the
 // combinations a path launches are instantiated (walk_pick below;
-// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list; DELTA is true
-// and TRANSPORT false unless shown):
+// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list; DELTA is
+// true, TRANSPORT and WIDE false unless shown):
 //   <OFF,   false, false, false, false>  the survey's main path
 //   <OFF,   false, true,  false, false>  the survey with source_mis
 //   <OFF,   true,  false, false, false>  the majorant with Robin off
@@ -54,6 +72,13 @@
 //                                        tracking, both geometry forms
 //   <OFF|CHAIN, false, false, false, false, TRANSPORT true>  the
 //                                        transport sampler
+//   <OFF,   false, true,  false, false, DELTA false>  MIS without delta
+//                                        tracking (with the TERMS kind)
+//   <CHAIN, false, true,  false, false>  the notebook line's
+//                                        pseudosection (chain + MIS)
+//   <OFF,   false, false|true, false, false, WIDE true>, <CHAIN, false,
+//   true, false, false, WIDE true>  the wide forms of the survey, the
+//                                        survey with MIS and chain + MIS
 // walk_kernel<ROBIN_OFF, false, false, false, false, true, false> carries
 // none of the other variants' code or registers. max_attenuation is a
 // run-time switch (three selects per step) in every instantiation with
@@ -130,6 +155,7 @@
 // not launch concurrently.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -161,6 +187,10 @@ constexpr int MAX_MIX = 8;   // MIS mixture components
 constexpr int MIX_COLS = 7;  // cx, cy, w, a, cum, 2 w^2, 2 pi w^2
 constexpr int N_IP = 21, N_FP = 11;  // header lengths of ip and fp
 constexpr int N_GEOM = 3;  // table form: dir, neu, vert row pointers
+constexpr int MAX_WIDE_SRC = 32;  // the wide form: sources,
+constexpr int MAX_WIDE_MIX = 64;  // MIS mixture components
+constexpr int DIPOLE_COLS = 6;    // px, py, nx, ny, norm, 2 w^2
+constexpr int N_WIDE_PLANES = 3 * (MAX_WIDE_SRC - MAX_SRC);
 
 struct Field {
   int kind;
@@ -211,6 +241,12 @@ struct WalkConst {
   // background)
   int n_terms[N_FIELDS];
   float terms[N_FIELDS][MAX_TERMS][TERM_COLS];
+  // the survey products' wide form (after the analytic-check fields):
+  // sources MAX_SRC.. as dipole rows, every source's moment planes and a
+  // mixture of up to MAX_WIDE_MIX components
+  float wsrc[MAX_WIDE_SRC - MAX_SRC][DIPOLE_COLS];
+  float *wacc[MAX_WIDE_SRC], *wasum[MAX_WIDE_SRC], *wasq[MAX_WIDE_SRC];
+  float wmix[MAX_WIDE_MIX][MIX_COLS];
 };
 
 __constant__ WalkConst C;
@@ -568,14 +604,14 @@ __device__ __noinline__ float4 terms_parts(int f, float x, float y,
 }
 
 // the instantiations whose paths evaluate TERMS fields, those of the
-// analytic-check problems: no majorant, MIS, freeze or reflectance, and
-// the table form only without delta tracking. The others are compiled
-// without the kind and keep the code they had before it
+// analytic-check problems: no majorant, freeze or reflectance, MIS and the
+// table form only without delta tracking. The others are compiled without
+// the kind and keep the code they had before it
 // (ops/walk_kernel.py::terms_fields holds the same rule)
 __host__ __device__ constexpr bool terms_fields(int robin, bool maj,
                                                 bool mis, bool freeze,
                                                 bool table, bool delta) {
-  return !maj && !mis && !freeze && !(table && delta) &&
+  return !maj && !(mis && delta) && !freeze && !(table && delta) &&
          robin != ROBIN_REFLECT;
 }
 
@@ -607,6 +643,18 @@ __device__ float field_value(int f, float x, float y) {
 template <bool TERMS>
 __device__ __forceinline__ float alpha_c(float x, float y) {
   return fmaxf(field_value<TERMS>(F_ALPHA, x, y), F(1e-8));
+}
+
+// source i of the walk: a field of the header, or from MAX_SRC on in the
+// wide form a dipole row
+template <bool TERMS, bool WIDE>
+__device__ __forceinline__ float source_value(int i, float x, float y) {
+  if (!WIDE || i < MAX_SRC) return field_value<TERMS>(F_SRC0 + i, x, y);
+  const float* p = C.wsrc[i - MAX_SRC];
+  float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3];
+  float dp = epx * epx + epy * epy;
+  float dn = enx * enx + eny * eny;
+  return p[4] * (expf(-dp / p[5]) - expf(-dn / p[5]));
 }
 
 // alpha_c = max(alpha, 1e-8) with its gradient (and, for LAP, Laplacian),
@@ -1272,10 +1320,103 @@ __device__ float transport_radius(float R, float sb, uint32_t seed,
   return s * R;
 }
 
+// ---- source-directed MIS next-event estimation ---------------------------
+
+// mixture component c, column k: the narrow table or the wide form's
+template <bool WIDE>
+__device__ __forceinline__ float mix_at(int c, int k) {
+  return WIDE ? C.wmix[c][k] : C.mix[c][k];
+}
+
+// y from 0.5 ball-Green's + 0.5 the static Gaussian mixture, weighted by
+// the balance heuristic (pallas_walk.py:932-997), before the alpha factor
+// and the walk weight; (gx, gy) is the Green's draw. The component pick is
+// the unrolled rule idx = #{i < k-1 : u6 > cum_i}. With delta tracking the
+// ball's screened Green's function and its norm, without it ln(R/r) /
+// (2 pi) and R^2 / 4 (:956-961)
+template <bool DELTA, bool TABLE, bool WIDE>
+__device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
+                                         float px, float py, float gx,
+                                         float gy, float r, float sbar,
+                                         bool ob, float t_min, float& yx,
+                                         float& yy) {
+  const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
+  const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
+  float mx = mix_at<WIDE>(0, 0), my = mix_at<WIDE>(0, 1);
+  float mw = mix_at<WIDE>(0, 2);
+  for (int ci = 1; ci < C.n_mix; ++ci) {
+    if (u6 > mix_at<WIDE>(ci - 1, 4)) {
+      mx = mix_at<WIDE>(ci, 0);
+      my = mix_at<WIDE>(ci, 1);
+      mw = mix_at<WIDE>(ci, 2);
+    }
+  }
+  const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
+  const float ang = F(TWO_PI) * u8;
+  mx = mx + mw * rad * cosf(ang);
+  my = my + mw * rad * sinf(ang);
+  const bool take_src = u5 < F(0.5);
+  yx = take_src ? mx : gx;
+  yy = take_src ? my : gy;
+  const float ex = yx - px, ey = yy - py;
+  const float d_y = sqrtf(ex * ex + ey * ey);
+  const float d_safe = fmaxf(d_y, F(1e-12));
+  float g_val, norm;
+  if constexpr (DELTA) {
+    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
+    norm = screened_norm(r, sbar);
+  } else {
+    g_val = fmaxf(logf(r / fmaxf(d_safe, F(1e-12))) / F(TWO_PI), F(0.0));
+    norm = r * r / F(4.0);
+  }
+  const bool in_ball = d_y < r;
+  bool in_star = in_ball;
+  if (C.n_neu > 0)  // a wall between x and y blocks the sample
+    in_star = in_ball &&
+              !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
+                                   ob ? t_min : F(0.0)) < d_y);
+  float q = F(0.0);  // the mixture pdf, one expf per component
+  for (int ci = 0; ci < C.n_mix; ++ci) {
+    const float qx = yx - mix_at<WIDE>(ci, 0), qy = yy - mix_at<WIDE>(ci, 1);
+    q = q + mix_at<WIDE>(ci, 3) * expf(-(qx * qx + qy * qy) /
+                                       mix_at<WIDE>(ci, 5)) /
+                mix_at<WIDE>(ci, 6);
+  }
+  // an on-boundary walker samples a hemisphere: double its density
+  const float m_ob = ob ? F(2.0) : F(1.0);
+  const float p_ball = in_ball ? m_ob * g_val / norm : F(0.0);
+  const float p_mix = F(0.5) * p_ball + F(0.5) * q;
+  return (in_star && p_mix > F(1e-30)) ? m_ob * g_val / fmaxf(p_mix, F(1e-30))
+                                       : F(0.0);
+}
+
 // ---- the walk ------------------------------------------------------------
 
+// NEE: every source at (x, y) times the weight w, added to its
+// accumulator. The narrow form unrolls its MAX_SRC sources over
+// registers; the wide form loops over its sources at run time and adds to
+// their planes in place (unrolled over 32 sources, with the accumulators
+// in registers or in the planes, the wide instantiations took 228-255
+// registers a thread, and spilled)
+template <bool TERMS, bool WIDE>
+__device__ __forceinline__ void add_sources(float (&acc)[MAX_SRC], int lane,
+                                            int n_src, float x, float y,
+                                            float w) {
+  if constexpr (WIDE) {
+#pragma unroll 1
+    for (int i = 0; i < n_src; ++i)
+      C.wacc[i][lane] =
+          C.wacc[i][lane] + source_value<TERMS, true>(i, x, y) * w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < MAX_SRC; ++i)
+      if (i < n_src)
+        acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, x, y) * w;
+  }
+}
+
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT>
+          bool TRANSPORT, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
   constexpr bool TERMS = terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
@@ -1296,12 +1437,16 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 
   float px = P.px[lane], py = P.py[lane], nx = P.nx[lane], ny = P.ny[lane];
   float atten = P.atten[lane];
+  // the narrow form carries the accumulators and moments in registers;
+  // the wide form adds to its planes in place
   float acc[MAX_SRC], asum[MAX_SRC], asq[MAX_SRC];
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int i = 0; i < MAX_SRC; ++i) {
-    acc[i] = i < n_src ? P.acc[i][lane] : F(0.0);
-    asum[i] = i < n_src ? P.asum[i][lane] : F(0.0);
-    asq[i] = i < n_src ? P.asq[i][lane] : F(0.0);
+    for (int i = 0; i < MAX_SRC; ++i) {
+      acc[i] = i < n_src ? P.acc[i][lane] : F(0.0);
+      asum[i] = i < n_src ? P.asum[i][lane] : F(0.0);
+      asq[i] = i < n_src ? P.asq[i][lane] : F(0.0);
+    }
   }
   int steps = P.steps[lane], ndone = P.ndone[lane], life = P.life[lane];
   bool ob = P.ob[lane] != 0;
@@ -1336,14 +1481,25 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       float by = (C.project && done_eps) ? cy : py;
       float g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
       float bank_mag = F(0.0);
-#pragma unroll
-      for (int i = 0; i < MAX_SRC; ++i) {
-        if (i < n_src) {
-          float contrib = acc[i] + g_bc;
-          asum[i] = asum[i] + contrib;
-          asq[i] = asq[i] + contrib * contrib;
+      if constexpr (WIDE) {
+#pragma unroll 1
+        for (int i = 0; i < n_src; ++i) {
+          float contrib = C.wacc[i][lane] + g_bc;
+          C.wasum[i][lane] = C.wasum[i][lane] + contrib;
+          C.wasq[i][lane] = C.wasq[i][lane] + contrib * contrib;
           bank_mag = fmaxf(bank_mag, fabsf(contrib));
-          acc[i] = F(0.0);
+          C.wacc[i][lane] = F(0.0);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < MAX_SRC; ++i) {
+          if (i < n_src) {
+            float contrib = acc[i] + g_bc;
+            asum[i] = asum[i] + contrib;
+            asq[i] = asq[i] + contrib * contrib;
+            bank_mag = fmaxf(bank_mag, fabsf(contrib));
+            acc[i] = F(0.0);
+          }
         }
       }
       bmax = fmaxf(bmax, bank_mag);
@@ -1458,16 +1614,20 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     if constexpr (!DELTA) {
       // the walker jumps to the ball's edge or its Neumann hit; a source
       // is sampled at the Green's radius R sqrt(u2 u3) with the weight
-      // R^2 / 4 (pallas_walk.py:906-907, :920-931, :1104-1106)
+      // R^2 / 4 (pallas_walk.py:906-907, :920-931, :1104-1106), or
+      // toward the MIS mixture (:932-997)
       if (C.has_source) {
         const float r_s = r * sqrtf(uni(base, sid, 2) * uni(base, sid, 3));
-        if (!(r_s > t_hit)) {
+        if constexpr (MIS) {
+          float yx, yy;
+          const float w_mis = mis_nee<false, TABLE, WIDE>(
+              base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sigma_bar,
+              ob, t_min, yx, yy);
+          add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
+        } else if (!(r_s > t_hit)) {
           const float sx = px + r_s * dx, sy = py + r_s * dy;
           const float w_src = r * r / F(4.0);
-#pragma unroll
-          for (int i = 0; i < MAX_SRC; ++i)
-            if (i < n_src)
-              acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, sx, sy) * w_src;
+          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);
         }
       }
       newx = hx;
@@ -1491,62 +1651,18 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
         if (C.has_source && !beyond) {
           const float w_src =
               screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
-#pragma unroll
-          for (int i = 0; i < MAX_SRC; ++i)
-            if (i < n_src)
-              acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, sx, sy) * w_src;
+          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);
         }
       } else {
-        // source-directed MIS NEE: y from 0.5 ball-Green's + 0.5 the
-        // static Gaussian mixture, weighted by the balance heuristic; the
-        // component pick is the unrolled rule idx = #{i < k-1 : u6 > cum_i}
-        const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
-        const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
-        float mx = C.mix[0][0], my = C.mix[0][1], mw = C.mix[0][2];
-        for (int ci = 1; ci < C.n_mix; ++ci) {
-          if (u6 > C.mix[ci - 1][4]) {
-            mx = C.mix[ci][0];
-            my = C.mix[ci][1];
-            mw = C.mix[ci][2];
-          }
-        }
-        const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
-        const float ang = F(TWO_PI) * u8;
-        mx = mx + mw * rad * cosf(ang);
-        my = my + mw * rad * sinf(ang);
-        const bool take_src = u5 < F(0.5);
-        const float yx = take_src ? mx : px + r_s * dx;
-        const float yy = take_src ? my : py + r_s * dy;
-        const float ex = yx - px, ey = yy - py;
-        const float d_y = sqrtf(ex * ex + ey * ey);
-        const float d_safe = fmaxf(d_y, F(1e-12));
-        const float g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
-        const float norm = screened_norm(r, sbar);
-        const bool in_ball = d_y < r;
-        bool in_star = in_ball;
-        if (C.n_neu > 0)  // a wall between x and y blocks the sample
-          in_star = in_ball &&
-                    !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
-                                         ob ? t_min : F(0.0)) < d_y);
-        float q = F(0.0);  // the mixture pdf, one expf per component
-        for (int ci = 0; ci < C.n_mix; ++ci) {
-          const float* m = C.mix[ci];
-          const float qx = yx - m[0], qy = yy - m[1];
-          q = q + m[3] * expf(-(qx * qx + qy * qy) / m[5]) / m[6];
-        }
-        // an on-boundary walker samples a hemisphere: double its density
-        const float m_ob = ob ? F(2.0) : F(1.0);
-        const float p_ball = in_ball ? m_ob * g_val / norm : F(0.0);
-        const float p_mix = F(0.5) * p_ball + F(0.5) * q;
-        float w_mis = (in_star && p_mix > F(1e-30))
-                          ? m_ob * g_val / fmaxf(p_mix, F(1e-30))
-                          : F(0.0);
+        // source-directed MIS NEE toward the mixture, over the screened
+        // Green's function and sqrt(alpha_y alpha_x)
+        float yx, yy;
+        float w_mis = mis_nee<true, TABLE, WIDE>(
+            base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, ob,
+            t_min, yx, yy);
         const float a_y = alpha_c<TERMS>(yx, yy);
         w_mis = w_mis / sqrtf(a_y * a_p) * atten;
-#pragma unroll
-        for (int i = 0; i < MAX_SRC; ++i)
-          if (i < n_src)
-            acc[i] = acc[i] + field_value<TERMS>(F_SRC0 + i, yx, yy) * w_mis;
+        add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
       }
 
       const bool interior = u4 < interior_prob(r, sbar);
@@ -1659,12 +1775,14 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
   P.nx[lane] = nx;
   P.ny[lane] = ny;
   P.atten[lane] = atten;
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int i = 0; i < MAX_SRC; ++i) {
-    if (i < n_src) {
-      P.acc[i][lane] = acc[i];
-      P.asum[i][lane] = asum[i];
-      P.asq[i][lane] = asq[i];
+    for (int i = 0; i < MAX_SRC; ++i) {
+      if (i < n_src) {
+        P.acc[i][lane] = acc[i];
+        P.asum[i][lane] = asum[i];
+        P.asq[i][lane] = asq[i];
+      }
     }
   }
   P.quota[lane] = quota;
@@ -1683,18 +1801,18 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
 
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT>
+          bool TRANSPORT, bool WIDE>
 void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
-  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT>
+  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE>
       <<<grid, THREADS, 0, st>>>(n_lanes, budget, thr);
 }
 
 // instantiation CODE of this unit: compiled only in the unit of its part
 template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE,
-          bool DELTA, bool TRANSPORT>
+          bool DELTA, bool TRANSPORT, bool WIDE = false>
 LaunchFn pick() {
   if constexpr (WALK_PART < 0 || WALK_PART == CODE)
-    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT>;
+    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE>;
   else
     return nullptr;
 }
@@ -1704,28 +1822,34 @@ LaunchFn pick() {
     return pick<code, __VA_ARGS__>()
 
 // the instantiated variants (head comment), by (robin, majorant, mis,
-// freeze, table, delta, transport); nullptr for a combination no path
-// launches, or one another part's library holds
+// freeze, table, delta, transport[, wide]); nullptr for a combination no
+// path launches, or one another part's library holds
 LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
-                   int delta, int transport) {
+                   int delta, int transport, int wide) {
   const int bits[6] = {majorant, mis, freeze, table, delta, transport};
   int code = robin;  // the switches as binary digits after the Robin mode
   for (int k = 0; k < 6; ++k) code = 2 * code + bits[k];
+  code += 256 * wide;  // the wide form above every narrow code
   switch (code) {
     WALK_CASE(0, ROBIN_OFF, false, false, false, false, false, false);
     WALK_CASE(2, ROBIN_OFF, false, false, false, false, true, false);
     WALK_CASE(3, ROBIN_OFF, false, false, false, false, true, true);
     WALK_CASE(4, ROBIN_OFF, false, false, false, true, false, false);
     WALK_CASE(6, ROBIN_OFF, false, false, false, true, true, false);
+    WALK_CASE(16, ROBIN_OFF, false, true, false, false, false, false);
     WALK_CASE(18, ROBIN_OFF, false, true, false, false, true, false);
     WALK_CASE(34, ROBIN_OFF, true, false, false, false, true, false);
     WALK_CASE(66, ROBIN_CHAIN, false, false, false, false, true, false);
     WALK_CASE(67, ROBIN_CHAIN, false, false, false, false, true, true);
     WALK_CASE(70, ROBIN_CHAIN, false, false, false, true, true, false);
+    WALK_CASE(82, ROBIN_CHAIN, false, true, false, false, true, false);
     WALK_CASE(98, ROBIN_CHAIN, true, false, false, false, true, false);
     WALK_CASE(122, ROBIN_CHAIN, true, true, true, false, true, false);
     WALK_CASE(130, ROBIN_REFLECT, false, false, false, false, true, false);
     WALK_CASE(162, ROBIN_REFLECT, true, false, false, false, true, false);
+    WALK_CASE(258, ROBIN_OFF, false, false, false, false, true, false, true);
+    WALK_CASE(274, ROBIN_OFF, false, true, false, false, true, false, true);
+    WALK_CASE(338, ROBIN_CHAIN, false, true, false, false, true, false, true);
     default: return nullptr;
   }
 }
@@ -1740,8 +1864,12 @@ LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
 //     n_dir, n_neu, robin, majorant, n_box, n_band, clip, n_mix, freeze,
 //     n_vert, table, delta, transport, then (kind, n_params) per field: bc,
 //     alpha, sigma, sources[n_src if has_source]. A TERMS field's
-//     parameters are its background, then TERM_COLS per term.
-// planes: N_PLANES device pointers in ops/walk_kernel.py::_PLANE_ORDER.
+//     parameters are its background, then TERM_COLS per term. More than
+//     MAX_SRC sources or MAX_MIX mixture components launch the wide form,
+//     whose sources from MAX_SRC on are dipoles.
+// planes: N_PLANES + N_WIDE_PLANES device pointers in
+//     ops/walk_kernel.py::_PLANE_ORDER (the wide form's acc, asum and asq
+//     planes of sources MAX_SRC.. last).
 // thr: the freeze threshold of this launch (freeze builds; +inf = none).
 // geom: N_GEOM device pointers of the table form's rows (dir, neu, vert;
 //     16-byte aligned float4 rows, the vertices two per row), null in the
@@ -1752,7 +1880,7 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            void* const* geom, int n_geom, void* stream) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
-  if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES)
+  if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES + N_WIDE_PLANES)
     return (int)cudaErrorInvalidValue;
   h.seed = (uint32_t)ip[0];
   h.max_steps = ip[1];
@@ -1790,7 +1918,8 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   const bool rows_fit =
       table ? h.n_dir + h.n_neu + h.n_vert <= MAX_TABLE
             : h.n_dir <= MAX_SEG && h.n_neu <= MAX_SEG && h.n_vert <= MAX_VERT;
-  if (h.n_src < 1 || h.n_src > MAX_SRC || !rows_fit || table < 0 ||
+  const bool wide = h.n_src > MAX_SRC || h.n_mix > MAX_MIX;
+  if (h.n_src < 1 || h.n_src > MAX_WIDE_SRC || !rows_fit || table < 0 ||
       table > 1 || h.n_dir < 1 || h.n_neu < 0 || h.n_vert < 0 ||
       (h.n_vert && !h.n_neu) || h.rounds < 1 || n_geom != N_GEOM ||
       h.robin < ROBIN_OFF || h.robin > ROBIN_REFLECT ||
@@ -1798,15 +1927,15 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       h.majorant > 1 || h.n_box < 0 || h.n_box > MAX_BOXES ||
       h.n_band < 0 || h.n_band > MAX_BANDS ||
       (!h.majorant && (h.n_box || h.n_band)) || h.clip < 0 || h.clip > 1 ||
-      h.n_mix < 0 || h.n_mix > MAX_MIX || (h.n_mix && !h.has_source) ||
+      h.n_mix < 0 || h.n_mix > MAX_WIDE_MIX || (h.n_mix && !h.has_source) ||
       freeze < 0 || freeze > 1 || delta < 0 || delta > 1 || transport < 0 ||
       transport > 1 || (transport && !delta) ||
-      (!delta && (h.robin != ROBIN_OFF || h.majorant || h.n_mix ||
-                  h.roulette || h.clip)) ||
+      (!delta && (h.robin != ROBIN_OFF || h.majorant || h.roulette ||
+                  h.clip)) ||
       n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze,
-                                table, delta, transport);
+                                table, delta, transport, wide);
   if (!fn) return (int)cudaErrorInvalidValue;
   const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
@@ -1834,12 +1963,19 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   for (int b = 0; b < h.n_band; ++b)
     for (int k = 0; k < 2; ++k) h.band[b][k] = fp[off++];
   for (int c = 0; c < h.n_mix; ++c)
-    for (int k = 0; k < MIX_COLS; ++k) h.mix[c][k] = fp[off++];
+    for (int k = 0; k < MIX_COLS; ++k)
+      (wide ? h.wmix[c][k] : h.mix[c][k]) = fp[off++];
   if (!table)
     for (int v = 0; v < h.n_vert; ++v)
       for (int k = 0; k < 8; ++k) h.vert[v][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
     const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
+    if (f >= N_FIELDS) {  // the wide form's dipole rows
+      if (kind != K_DIPOLE || n != DIPOLE_COLS || off + n > n_fp)
+        return (int)cudaErrorInvalidValue;
+      for (int k = 0; k < n; ++k) h.wsrc[f - N_FIELDS][k] = fp[off++];
+      continue;
+    }
     const bool terms = kind == K_TERMS;
     if (n < 1 || n > (terms ? 1 + MAX_TERMS * TERM_COLS : MAX_FP) ||
         off + n > n_fp || (kind == K_CONST && n != 1) ||
@@ -1896,13 +2032,25 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   if (!pl.p0x || !pl.p0y || !pl.sid || !pl.px || !pl.quota || !pl.bmax ||
       (h.snap && (!pl.ob0 || !pl.n0x || !pl.n0y)))
     return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < MAX_WIDE_SRC; ++i) {
+    const int w = i - MAX_SRC;  // the wide planes' index
+    h.wacc[i] = i < MAX_SRC ? pl.acc[i] : (float*)planes[q + w];
+    h.wasum[i] = i < MAX_SRC ? pl.asum[i]
+                             : (float*)planes[q + (MAX_WIDE_SRC - MAX_SRC) + w];
+    h.wasq[i] = i < MAX_SRC
+                    ? pl.asq[i]
+                    : (float*)planes[q + 2 * (MAX_WIDE_SRC - MAX_SRC) + w];
+  }
   for (int i = 0; i < h.n_src; ++i)
-    if (!pl.acc[i] || !pl.asum[i] || !pl.asq[i])
+    if (!h.wacc[i] || !h.wasum[i] || !h.wasq[i])
       return (int)cudaErrorInvalidValue;
 
+  // a narrow launch reads no wide field, so its copy stops before them:
+  // the copy is part of every launch's host time
+  const size_t n_const = wide ? sizeof(h) : offsetof(WalkConst, wsrc);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e =
-      cudaMemcpyToSymbolAsync(C, &h, sizeof(h), 0, cudaMemcpyHostToDevice, st);
+      cudaMemcpyToSymbolAsync(C, &h, n_const, 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
   if (n_lanes > 0 && budget > 0)
     fn((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget, thr);

@@ -21,7 +21,11 @@ problems: walks without delta tracking (no alpha or sigma: the walker
 jumps to the ball's edge or its Neumann hit, and sources are sampled at
 the Green's radius ``R sqrt(u2 u3)`` with the weight ``R^2 / 4``), the
 transport sampler of the screened radius, and the ``TERMS`` field kind of
-their coefficients. The kernel is
+their coefficients; and the survey products: MIS next-event estimation
+without delta tracking, and the wide form of the kernel for more than
+``MAX_SRC`` sources or ``MAX_MIX`` mixture components (up to
+``MAX_WIDE_SRC`` and ``MAX_WIDE_MIX``; sources from ``MAX_SRC`` on are
+Gaussian dipoles). The kernel is
 ``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
 instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
 is the same step, op for op, on tensors of lanes, on any device.
@@ -60,6 +64,7 @@ from ..sampling.radial import _exact_rejection, sample_greens_radius, \
 from ..solver.state import CONST_PLANES, LANES, SNAP_PLANES, plane_dtype, \
     state_planes
 from .greens import (
+    greens_2d,
     greens_norm_2d,
     screened_chord_integral,
     screened_greens_2d,
@@ -69,7 +74,8 @@ from .greens import (
 )
 
 __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
-           "MAX_SMEM_SEGMENTS", "MAX_MIX", "KERNEL_VARIANTS", "terms_fields",
+           "MAX_SMEM_SEGMENTS", "MAX_MIX", "MAX_WIDE_SRC", "MAX_WIDE_MIX",
+           "KERNEL_VARIANTS", "terms_fields",
            "WalkParams", "kernel_name", "variant_code", "geometry_size",
            "make_walk_params", "stream_ids", "run_walk", "walk_plain",
            "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
@@ -85,6 +91,8 @@ MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
 MAX_UNROLL_SEGMENTS = 96   # boundary rows of the static form, and
 MAX_SMEM_SEGMENTS = 8192   # of the table form (ops/pallas_walk.py:50-51)
 MAX_MIX = 8          # MIS mixture components
+MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on dipoles)
+MAX_WIDE_MIX = 64    # and mixture components
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
 # reflectance fold
@@ -92,23 +100,29 @@ ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
 # the kernel's compiled instantiations, (robin, majorant, mis, freeze,
-# table, delta, transport): the combinations a path launches
-# (csrc/walk_kernel.cu::walk_pick)
+# table, delta, transport, wide): the combinations a path launches
+# (csrc/walk_kernel.cu::walk_pick); the wide form, for more than MAX_SRC
+# sources or MAX_MIX mixture components, carries the survey products' lines
 KERNEL_VARIANTS = frozenset({
-    (ROBIN_OFF, False, False, False, False, True, False),   # the survey
-    (ROBIN_OFF, False, True, False, False, True, False),    # + source_mis
-    (ROBIN_OFF, True, False, False, False, True, False),    # the majorant
-    (ROBIN_CHAIN, False, False, False, False, True, False),
-    (ROBIN_CHAIN, True, False, False, False, True, False),  # accuracy path
-    (ROBIN_CHAIN, True, True, True, False, True, False),    # flagship gate
-    (ROBIN_REFLECTANCE, False, False, False, False, True, False),
-    (ROBIN_REFLECTANCE, True, False, False, False, True, False),
-    (ROBIN_OFF, False, False, False, True, True, False),    # the terrain
-    (ROBIN_CHAIN, False, False, False, True, True, False),  # chain on it
-    (ROBIN_OFF, False, False, False, False, False, False),  # no delta
-    (ROBIN_OFF, False, False, False, True, False, False),   # ... tracking
-    (ROBIN_OFF, False, False, False, False, True, True),    # transport
-    (ROBIN_CHAIN, False, False, False, False, True, True),  # ... + chain
+    (ROBIN_OFF, False, False, False, False, True, False, False),  # survey
+    (ROBIN_OFF, False, True, False, False, True, False, False),   # + MIS
+    (ROBIN_OFF, True, False, False, False, True, False, False),   # majorant
+    (ROBIN_CHAIN, False, False, False, False, True, False, False),
+    (ROBIN_CHAIN, True, False, False, False, True, False, False),  # accuracy
+    (ROBIN_CHAIN, True, True, True, False, True, False, False),  # flagship
+    (ROBIN_REFLECTANCE, False, False, False, False, True, False, False),
+    (ROBIN_REFLECTANCE, True, False, False, False, True, False, False),
+    (ROBIN_OFF, False, False, False, True, True, False, False),   # terrain
+    (ROBIN_CHAIN, False, False, False, True, True, False, False),  # + chain
+    (ROBIN_OFF, False, False, False, False, False, False, False),  # no delta
+    (ROBIN_OFF, False, False, False, True, False, False, False),   # tracking
+    (ROBIN_OFF, False, False, False, False, True, True, False),   # transport
+    (ROBIN_CHAIN, False, False, False, False, True, True, False),  # + chain
+    (ROBIN_OFF, False, True, False, False, False, False, False),  # + MIS
+    (ROBIN_CHAIN, False, True, False, False, True, False, False),  # chain+MIS
+    (ROBIN_OFF, False, False, False, False, True, False, True),   # the wide
+    (ROBIN_OFF, False, True, False, False, True, False, True),    # forms
+    (ROBIN_CHAIN, False, True, False, False, True, False, True),
 })
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
@@ -125,32 +139,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def kernel_name(variant) -> str:
     """``walk_kernel<robin,majorant,mis,freeze,table,delta,transport>``
-    for a variant tuple."""
-    r, *flags = variant
+    for a variant tuple, with a last ``true`` for its wide form."""
+    r, *flags, wide = variant
     return "walk_kernel<{}>".format(",".join(
-        [str(int(r))] + ["true" if f else "false" for f in flags]))
+        [str(int(r))] + ["true" if f else "false" for f in flags]
+        + (["true"] if wide else [])))
 
 
 def terms_fields(variant) -> bool:
     """Whether the instantiation ``variant`` evaluates ``TERMS`` field
     specs (``csrc/walk_kernel.cu::terms_fields``): those of the
-    analytic-check problems, without majorant, MIS, freeze or reflectance,
-    in the table form only without delta tracking. The others are
+    analytic-check problems, without majorant, freeze or reflectance, with
+    MIS and in the table form only without delta tracking. The others are
     compiled without the kind, which keeps their code as it was."""
-    robin, majorant, mis, freeze, table, delta, _ = variant
-    return (not (majorant or mis or freeze or (table and delta))
+    robin, majorant, mis, freeze, table, delta = variant[:6]
+    return (not (majorant or freeze or (table and delta) or (mis and delta))
             and robin != ROBIN_REFLECTANCE)
 
 
 def variant_code(variant) -> int:
     """The instantiation's code in ``walk_pick``
-    (``csrc/walk_kernel.cu``): its switches read as binary digits after
-    the Robin mode; its library is built with ``-DWALK_PART=<code>``."""
-    r, *flags = variant
+    (``csrc/walk_kernel.cu``): its switches up to ``transport`` read as
+    binary digits after the Robin mode, plus 256 for the wide form; its
+    library is built with ``-DWALK_PART=<code>``."""
+    r, *flags, wide = variant
     code = int(r)
     for f in flags:
         code = 2 * code + int(bool(f))
-    return code
+    return code + 256 * int(bool(wide))
 
 
 def geometry_size(problem) -> int:
@@ -302,10 +318,18 @@ class WalkParams:
     @property
     def variant(self) -> tuple:
         """The kernel instantiation ``(robin, majorant, mis, freeze, table,
-        delta, transport)``."""
+        delta, transport, wide)``."""
         return (self.robin, self.majorant is not None,
                 self.mis_table is not None, self.freeze, self.table,
-                self.delta, self.transport)
+                self.delta, self.transport, self.wide)
+
+    @property
+    def wide(self) -> bool:
+        """Whether a launch takes the kernel's wide form: more than
+        ``MAX_SRC`` sources or ``MAX_MIX`` mixture components."""
+        return (len(self.sources) > MAX_SRC
+                or (self.mis_table is not None
+                    and len(self.mis_table) > MAX_MIX))
 
     @property
     def kernel_name(self) -> str:
@@ -336,13 +360,19 @@ class WalkParams:
             if not terms_fields(self.variant):
                 raise NotImplementedError(
                     f"{self.kernel_name} evaluates no terms fields (only "
-                    "the instantiations without majorant, MIS, freeze or "
-                    "reflectance do, the table form without delta "
-                    "tracking); reference: "
+                    "the instantiations without majorant, freeze or "
+                    "reflectance do, with MIS or the table form only "
+                    "without delta tracking); reference: "
                     "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
-        if len(self.sources) > MAX_SRC:
+        if len(self.sources) > MAX_WIDE_SRC:
             raise NotImplementedError(
-                f"the CUDA walk holds up to {MAX_SRC} sources; reference: "
+                f"the CUDA walk holds up to {MAX_WIDE_SRC} sources, got "
+                f"{len(self.sources)}; reference: "
+                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+        if any(f.kind != fields.DIPOLE for f in self.specs[3 + MAX_SRC:]):
+            raise NotImplementedError(
+                f"the CUDA walk's wide form takes Gaussian dipoles as "
+                f"sources {MAX_SRC} and on; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         rows = (len(self.dir_table) + len(self.neu_table)
                 + len(self.vert_table))
@@ -363,17 +393,18 @@ class WalkParams:
                 "dcrmontecarlo_tpu/problems/majorant.py::LocalMajorant")
         mix = (self.mis_table if self.mis_table is not None
                else np.zeros((0, 7), np.float32))
-        if len(mix) > MAX_MIX:
+        if len(mix) > MAX_WIDE_MIX:
             raise NotImplementedError(
-                f"the CUDA walk holds an MIS mixture of up to {MAX_MIX} "
+                f"the CUDA walk holds an MIS mixture of up to {MAX_WIDE_MIX} "
                 f"components, got {len(mix)}; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         if self.variant not in KERNEL_VARIANTS:
             raise NotImplementedError(
                 f"the CUDA walk has no instantiation {self.kernel_name} "
-                "(robin, majorant, mis, freeze, table, delta, transport); "
-                "it compiles the "
-                "variants in walk_kernel.KERNEL_VARIANTS; reference: "
+                "(robin, majorant, mis, freeze, table, delta, transport, "
+                f"wide: more than {MAX_SRC} sources or {MAX_MIX} mixture "
+                "components); it compiles the variants in "
+                "walk_kernel.KERNEL_VARIANTS; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
@@ -449,10 +480,6 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
     """
     sources = tuple(problem.source_fields)
     delta = bool(problem.use_delta_tracking)
-    if not delta and sources and problem.source_importance is not None:
-        raise NotImplementedError(
-            "MIS next-event estimation without delta tracking is not ported "
-            "yet; reference: dcrmontecarlo_tpu/ops/pallas_walk.py:956-961")
     if screened_sampler not in ("exact", "transport"):
         raise ValueError(f"unknown screened sampler {screened_sampler!r}")
     # without delta tracking the kernel reads no coefficient
@@ -719,8 +746,11 @@ def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
     """Source-directed MIS next-event estimation
     (``ops/pallas_walk.py:932-997``): the sample ``y`` from
     ``0.5 * ball Green's + 0.5 * mixture`` (``(gx, gy)`` is the Green's
-    draw) and its balance-heuristic weight over ``sqrt(alpha_y alpha_x)``,
-    before the walk weight. Returns ``(yx, yy, w)``."""
+    draw) and its balance-heuristic weight, before the walk weight. With
+    delta tracking the ball's screened Green's function over
+    ``sqrt(alpha_y alpha_x)``; without it (``a_p`` None) ``ln(R/r) /
+    (2 pi)`` and its norm ``R^2 / 4`` (``:956-961``). Returns
+    ``(yx, yy, w)``."""
     tab = P.mis_table.tolist()
     take_src = u5 < 0.5
     # unrolled component pick: idx = #{i < k-1 : u6 > cum_i}
@@ -741,8 +771,12 @@ def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
     ex, ey = yx - px, yy - py
     d_y = torch.sqrt(ex * ex + ey * ey)
     d_safe = torch.clamp(d_y, min=1e-12)
-    g_val = torch.clamp(screened_greens_2d(d_safe, r, sbar), min=0.0)
-    norm = screened_greens_norm_2d(r, sbar)
+    if a_p is None:
+        g_val = torch.clamp(greens_2d(d_safe, r), min=0.0)
+        norm = greens_norm_2d(r)
+    else:
+        g_val = torch.clamp(screened_greens_2d(d_safe, r, sbar), min=0.0)
+        norm = screened_greens_norm_2d(r, sbar)
     in_ball = d_y < r
     if len(P.neu_table) > 0:
         # the star test: a wall between x and y blocks the sample
@@ -761,6 +795,8 @@ def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
     p_mix = 0.5 * p_ball + 0.5 * q
     w = torch.where(in_star & (p_mix > 1e-30),
                     m_ob * g_val / torch.clamp(p_mix, min=1e-30), 0.0)
+    if a_p is None:
+        return yx, yy, w
     a_y = P.alpha_c(yx, yy)
     return yx, yy, w / torch.sqrt(a_y * a_p)
 
@@ -973,8 +1009,18 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
             atten = torch.where(stepping, torch.clamp(atten, -m, m), atten)
     else:
         # the walker jumps to the ball's edge or its Neumann hit; a source
-        # is sampled at the Green's radius with the weight R^2 / 4
-        if P.sources:
+        # is sampled at the Green's radius with the weight R^2 / 4, or
+        # toward the MIS mixture
+        if mis:
+            yx, yy, w_mis = _mis_nee(
+                P, u[5], u[6], u[7], u[8], px, py, px + r_s * dx,
+                py + r_s * dy, r, sbar, ob,
+                t_min_w if has_neumann else None, None)
+            w_mis = torch.where(stepping, w_mis, 0.0)
+            for i, f in enumerate(P.sources):
+                accs[i] = accs[i] + torch.where(stepping, f(yx, yy) * w_mis,
+                                                0.0)
+        elif P.sources:
             live = stepping & ~beyond
             w_eff = torch.where(live, greens_norm_2d(r), 0.0)
             for i, f in enumerate(P.sources):
@@ -1147,11 +1193,12 @@ def _library_path(code: int) -> Path:
 
 def build_library():
     """Compile ``csrc/walk_kernel.cu`` into ``_build/``, one library per
-    instantiation in :data:`KERNEL_VARIANTS` (``-DWALK_PART=<code>``), all
-    ``nvcc`` processes started together, skipping libraries of the same
-    source and flags already there. Returns ``(paths, seconds, log)``:
-    the libraries by variant code, the wall time and nvcc's resource
-    reports (empty when nothing was built)."""
+    instantiation in :data:`KERNEL_VARIANTS` (``-DWALK_PART=<code>``),
+    all ``nvcc`` processes
+    started together, skipping libraries of the same source and flags
+    already there. Returns ``(paths, seconds, log)``: the libraries by
+    variant code, the wall time and nvcc's resource reports (empty when
+    nothing was built)."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {variant_code(v): None for v in KERNEL_VARIANTS}
     jobs = {}
@@ -1198,8 +1245,12 @@ def _library(code: int):
     return lib
 
 
-_PLANE_ORDER = (CONST_PLANES + SNAP_PLANES
-                + tuple(state_planes(MAX_SRC)))
+# the kernel's planes: the narrow form's, then the wide form's moment
+# planes of sources MAX_SRC..
+_PLANE_ORDER = (CONST_PLANES + SNAP_PLANES + tuple(state_planes(MAX_SRC))
+                + tuple(f"{k}{i}" for k in ("acc", "asum", "asq")
+                        for i in range(MAX_SRC, MAX_WIDE_SRC)))
+_PLANE_INDEX = {name: i for i, name in enumerate(_PLANE_ORDER)}
 
 
 def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
@@ -1213,11 +1264,8 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
     names = set(CONST_PLANES) | set(state_planes(params.n_src))
     if params.snap:
         names |= set(SNAP_PLANES)
-    ptrs = []
-    for name in _PLANE_ORDER:
-        if name not in names:
-            ptrs.append(None)
-            continue
+    ptrs = [None] * len(_PLANE_ORDER)
+    for name in names:
         t = state[name]
         if (t.device != px.device or t.dtype != plane_dtype(name)
                 or t.shape != px.shape or not t.is_contiguous()):
@@ -1225,7 +1273,7 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
                 f"plane {name!r}: expected contiguous {plane_dtype(name)} "
                 f"{tuple(px.shape)} on {px.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-        ptrs.append(t.data_ptr())
+        ptrs[_PLANE_INDEX[name]] = t.data_ptr()
     geom = [t.data_ptr() if t.numel() else None
             for t in params.device_tables(px.device)] or [None] * 3
     lib = _library(variant_code(params.variant))

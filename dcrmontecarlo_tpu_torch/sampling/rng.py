@@ -35,7 +35,11 @@ def mul32(x, c: int):
 
 
 def mix32(x):
-    """SplitMix32/murmur3-style 32-bit avalanche finalizer."""
+    """SplitMix32/murmur3-style 32-bit avalanche finalizer. ``x`` is an
+    int64 tensor of u32 values, or an integer or numpy value (such as a
+    ``np.uint32``), which becomes one."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x, np.int64))
     x = x & MASK32
     x = x ^ (x >> 16)
     x = mul32(x, MIX_M1)

@@ -1,8 +1,9 @@
 """DC-resistivity survey layer (port of ``survey/dcr.py``).
 
-Electrode lines, the half-space domain, the Gaussian current dipole, and
-the conversion of solved potentials into dipole voltages and apparent
-resistivities (2D line-source and 3D point-source factors).
+Electrode lines, the half-space domain, the Gaussian current dipole, the
+conversion of solved potentials into dipole voltages and apparent
+resistivities (2D line-source and 3D point-source factors), and the
+dipole-dipole pseudosection of a whole line from one walker ensemble.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ __all__ = [
     "SurveyResult",
     "halfspace_domain",
     "survey_default_options",
+    "Pseudosection",
+    "dipole_dipole_pairs",
+    "run_pseudosection",
 ]
 
 
@@ -214,3 +218,146 @@ class DCRSurvey:
             apparent_resistivity=rho_a,
             solve=res,
         )
+
+
+def dipole_dipole_pairs(n_electrodes: int, num_rx_per_src: int = 10):
+    """Dipole-dipole (source, receiver) index pairs, SimPEG's convention:
+    source dipole ``(i, i+1)``, receiver dipoles ``(j, j+1)`` for ``j``
+    from ``i+2`` up to ``i+1+num_rx_per_src``.
+
+    Returns ``(sources, receivers)``: the source list of ``(a, b)`` index
+    tuples and per-source lists of ``(m, n)`` receiver index tuples.
+    """
+    sources, receivers = [], []
+    for i in range(n_electrodes - 3):
+        rx = [
+            (j, j + 1)
+            for j in range(i + 2, min(i + 2 + num_rx_per_src, n_electrodes - 1))
+        ]
+        if rx:
+            sources.append((i, i + 1))
+            receivers.append(rx)
+    return sources, receivers
+
+
+class Pseudosection(NamedTuple):
+    """Dipole-dipole pseudosection data: flat arrays over all (source,
+    receiver) measurements; ``pseudo_x`` / ``pseudo_z`` are the midpoint
+    of the source and receiver centers and minus half their separation."""
+
+    potentials: np.ndarray       # (n_src, n_electrodes)
+    potentials_stderr: np.ndarray
+    src_index: np.ndarray        # (M,) source id per measurement
+    a_index: np.ndarray          # (M,) current electrode indices
+    b_index: np.ndarray
+    m_index: np.ndarray          # (M,) potential electrode indices
+    n_index: np.ndarray
+    voltage: np.ndarray          # (M,) V_M - V_N
+    voltage_stderr: np.ndarray   # (M,) correlated-walk upper bound
+    apparent_resistivity: np.ndarray  # (M,) 2D line-source convention
+    pseudo_x: np.ndarray         # (M,)
+    pseudo_z: np.ndarray         # (M,)
+
+
+def _line_problem(survey: DCRSurvey, electrodes, num_rx_per_src: int):
+    """What :func:`run_pseudosection` solves: the survey's problem with
+    one Gaussian dipole per source pair of the line (and, with
+    ``source_mis``, one mixture over the electrodes they use), and the
+    electrodes nudged into the half-space. Returns ``(problem, points,
+    sources, receivers)``."""
+    electrodes = np.asarray(electrodes, np.float32)
+    sources, receivers = dipole_dipole_pairs(len(electrodes), num_rx_per_src)
+    # bury surface-overlapping current electrodes (see _bury_source)
+    src_pos = np.asarray(
+        [survey._bury_source(p) for p in electrodes], np.float32
+    )
+    problem = survey.build_problem()
+    # the version-bumping setters, as solvers key their caches on it
+    problem.set_source_term([
+        gaussian_dipole(src_pos[a], src_pos[b], survey.current,
+                        survey.source_width)
+        for a, b in sources
+    ])
+    if survey.source_mis:
+        # one mixture covering every electrode of the line
+        used = sorted({i for ab in sources for i in ab})
+        problem.set_source_importance(GaussianMixture.from_components([
+            (tuple(src_pos[i]), survey.source_width, 1.0) for i in used
+        ]))
+    pts = electrodes.copy()
+    on_surface = np.abs(pts[:, 1] - survey.surface_y) < survey.electrode_nudge
+    pts[on_surface, 1] = survey.surface_y - survey.electrode_nudge
+    return problem, pts, sources, receivers
+
+
+def run_pseudosection(
+    survey: DCRSurvey,
+    electrodes: np.ndarray,
+    num_rx_per_src: int = 10,
+    n_walks: int = 1000,
+    max_steps: int = 500,
+    eps: float = 0.9,
+    seed: int = 0,
+    options: SolverOptions = None,
+    device="cuda",
+) -> Pseudosection:
+    """The whole dipole-dipole sweep of the line from ONE walker ensemble.
+
+    Walk paths do not depend on the source term, so the solve carries one
+    accumulator per source dipole of the line (the kernel's wide form
+    beyond four) instead of walking once per source. The survey's own
+    ``current_a/current_b`` are ignored; the sources come from the
+    electrode line. The solve runs on ``device``: the card unless the
+    caller asks for ``"cpu"``.
+    """
+    electrodes = np.asarray(electrodes, np.float32)
+    problem, pts, sources, receivers = _line_problem(survey, electrodes,
+                                                     num_rx_per_src)
+    if options is None:
+        options = survey_default_options()
+    solver = WoStSolver(problem, options, device=device)
+    res = solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
+                       seed=seed)
+    # solve() squeezes to (n_elec,) when there is a single source field
+    # (a 4-electrode line yields exactly one source dipole): normalize to
+    # the (n_src, n_elec) layout the measurement loop indexes
+    u = np.atleast_2d(np.asarray(res.mean))
+    u_err = np.atleast_2d(np.asarray(res.stderr))
+
+    rows = {k: [] for k in ("src", "a", "b", "m", "n", "dv", "dverr",
+                            "rho", "px", "pz")}
+    for s, ((a, b), rx_list) in enumerate(zip(sources, receivers)):
+        for (m, n) in rx_list:
+            dv = u[s, m] - u[s, n]
+            dverr = float(np.sqrt(u_err[s, m] ** 2 + u_err[s, n] ** 2))
+            rho = apparent_resistivity_2d(
+                np.asarray([dv]), survey.current,
+                electrodes[a], electrodes[b],
+                electrodes[m][None], electrodes[n][None],
+            )[0]
+            src_mid = 0.5 * (electrodes[a, 0] + electrodes[b, 0])
+            rx_mid = 0.5 * (electrodes[m, 0] + electrodes[n, 0])
+            rows["src"].append(s)
+            rows["a"].append(a)
+            rows["b"].append(b)
+            rows["m"].append(m)
+            rows["n"].append(n)
+            rows["dv"].append(float(dv))
+            rows["dverr"].append(dverr)
+            rows["rho"].append(float(rho))
+            rows["px"].append(0.5 * (src_mid + rx_mid))
+            rows["pz"].append(-0.5 * abs(rx_mid - src_mid))
+    return Pseudosection(
+        potentials=u,
+        potentials_stderr=u_err,
+        src_index=np.asarray(rows["src"]),
+        a_index=np.asarray(rows["a"]),
+        b_index=np.asarray(rows["b"]),
+        m_index=np.asarray(rows["m"]),
+        n_index=np.asarray(rows["n"]),
+        voltage=np.asarray(rows["dv"]),
+        voltage_stderr=np.asarray(rows["dverr"]),
+        apparent_resistivity=np.asarray(rows["rho"]),
+        pseudo_x=np.asarray(rows["px"]),
+        pseudo_z=np.asarray(rows["pz"]),
+    )

@@ -26,7 +26,12 @@ each, and a whole solve at the test size; and the analytic-check problems:
 walks without delta tracking in both geometry forms and the transport
 sampler (with the chain and with Robin off) with ``TERMS`` field specs,
 one launch each, a whole Poisson solve, and the reference's
-``test_transport_sampler_solution_unbiased`` on the card.
+``test_transport_sampler_solution_unbiased`` on the card; and the survey
+products: MIS without delta tracking, chain + MIS and the wide forms (the
+scenario line's 6 sources, the Born demo's 8 sources and 9 components,
+the notebook line's 18 sources and 19 components), one launch each, a
+whole 18-source notebook-line solve, and the reference's
+``test_mis_nee_unbiased_and_lower_variance`` on the card.
 """
 
 import os
@@ -263,7 +268,7 @@ def test_kernel_whole_topography_solve_matches_plain(device):
     prob, pts = _topography(4.0)
     solver = WoStSolver(prob, SolverOptions(), device=device)
     name = wk.kernel_name((wk.ROBIN_OFF, False, False, False, True, True,
-                           False))
+                           False, False))
     launches = wk.run_walk.variant_launches[name]
     rk = solver._solve_raw(pts, 512, 600, 0.5, 5)
     assert wk.run_walk.variant_launches[name] > launches
@@ -301,19 +306,19 @@ ANALYTIC_CASES = {
     "no_delta_static_silhouettes": (
         lambda: poisson_square(with_obstacle=True)[0],
         [[1.0, 1.0], [0.7, 0.0], [0.0, -1.5], [-0.55, 0.1]], {}, 1e-3,
-        (wk.ROBIN_OFF, False, False, False, False, False, False)),
+        (wk.ROBIN_OFF, False, False, False, False, False, False, False)),
     "no_delta_table": (_table_square, POISSON_POINTS, {}, 1e-3,
                        (wk.ROBIN_OFF, False, False, False, True, False,
-                        False)),
+                        False, False)),
     "transport_chain": (_transport_box, [[0.0, -1.0], [0.5, -0.5]],
                         dict(screened_sampler="transport"), 1e-2,
                         (wk.ROBIN_CHAIN, False, False, False, False, True,
-                         True)),
+                         True, False)),
     "transport_robin_off": (lambda: polynomial_manufactured()[0],
                             interior_grid(n_points=3),
                             dict(screened_sampler="transport"), 1e-3,
                             (wk.ROBIN_OFF, False, False, False, False, True,
-                             True)),
+                             True, False)),
 }
 
 
@@ -380,3 +385,137 @@ def test_solve_is_reproducible_on_the_card(device):
                                seed=s) for s in (7, 7, 8))
     np.testing.assert_array_equal(r1.walk_sum, r2.walk_sum)
     assert r1.mean[0] == r2.mean[0] != r3.mean[0]
+
+
+W_NARROW = 0.05
+
+
+def _narrow_gaussian(mis=True, center=(0.0, 0.0), neumann=False):
+    """tests/test_pseudosection.py:150-175's narrow Gaussian source (unit
+    mass) on its square, or on a Neumann box."""
+    kw = dict(source=fields.gaussian_bump(
+        center, 1.0 / (2 * np.pi * W_NARROW ** 2), W_NARROW),
+        bc_dirichlet=fields.constant(0.0),
+        source_importance=fields.GaussianMixture.from_components(
+            [(center, W_NARROW, 1.0)]) if mis else None)
+    if neumann:
+        return Problem(dirichlet=Polyline.from_points(
+            [[-2.0, 0.0], [-2.0, -4.0], [2.0, -4.0], [2.0, 0.0]]),
+            neumann=Polyline.from_points([[-2.0, 0.0], [2.0, 0.0]]), **kw)
+    return Problem(dirichlet=square_loop(2.0), **kw)
+
+
+def _line(survey, electrodes, rx):
+    from dcrmontecarlo_tpu_torch.survey.dcr import _line_problem
+
+    prob, pts, _, _ = _line_problem(survey, electrodes, rx)
+    return prob, pts
+
+
+def _notebook_line():
+    survey, electrodes = notebook_survey()
+    survey.source_mis = True
+    return _line(survey, electrodes, 8)
+
+
+def _born_demo():
+    from dcrmontecarlo_tpu_torch.survey import DCRSurvey, \
+        surface_electrode_line
+    from dcrmontecarlo_tpu_torch.survey.sensitivity import _jacobian_problem
+
+    elec = surface_electrode_line((-20.0, 20.0), 5.0)
+    survey = DCRSurvey(half_width=60.0, depth=60.0, current_a=tuple(elec[0]),
+                       current_b=tuple(elec[1]),
+                       conductivity=fields.constant(1.0), source_width=1.5,
+                       source_mis=True)
+    g = np.meshgrid(np.linspace(-22.0, 22.0, 12), np.linspace(-20.0, -3.0, 7),
+                    indexing="ij")
+    return (_jacobian_problem(survey, elec),
+            np.stack([a.ravel() for a in g], 1)[:21].astype(np.float32))
+
+
+PRODUCT_CASES = {
+    # (make -> (problem, points), options, eps, max_steps, variant)
+    "mis_no_delta_square": (
+        lambda: (_narrow_gaussian(), [[0.5, 0.0], [1.0, 1.0]]), {}, 1e-3, 300,
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False)),
+    "mis_no_delta_neumann_box": (
+        lambda: (_narrow_gaussian(center=(0.0, -0.3), neumann=True),
+                 [[0.5, -0.2], [-1.0, -0.01], [0.0, -1.5]]), {}, 1e-2, 300,
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False)),
+    "chain_mis_notebook": (
+        lambda: (_notebook_problem(mis=True), NOTEBOOK_ELECTRODES),
+        dict(common_random_numbers=True), 1.0, 6000,
+        (wk.ROBIN_CHAIN, False, True, False, False, True, False, False)),
+    "wide_survey_scenario_line": (
+        lambda: _line(geophysical_scenario()[0], ELECTRODES, 3),
+        dict(common_random_numbers=True, roulette_threshold=0.05,
+             rejection_rounds=2), EPS, 500,
+        (wk.ROBIN_OFF, False, False, False, False, True, False, True)),
+    "wide_survey_mis_born_demo": (
+        _born_demo, dict(common_random_numbers=True), 0.3, 500,
+        (wk.ROBIN_OFF, False, True, False, False, True, False, True)),
+    "wide_chain_mis_notebook_line": (
+        _notebook_line, dict(common_random_numbers=True), 1.0, 6000,
+        (wk.ROBIN_CHAIN, False, True, False, False, True, False, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_CASES))
+def test_product_instantiation_matches_plain_one_launch(device, case):
+    make, opts, eps, max_steps, variant = PRODUCT_CASES[case]
+    prob, pts = make()
+    solver = WoStSolver(prob, SolverOptions(target_slots=8192, **opts),
+                        device=device)
+    state, params, _, _ = solver._setup(np.asarray(pts, np.float32), 8192,
+                                        max_steps, eps, 3)
+    assert params.variant == variant and params.wide == variant[7]
+    assert params.variant in wk.KERNEL_VARIANTS
+    ref = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(state, params, 256)
+    torch.cuda.synchronize()
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    wk.walk_plain(ref, params, 256)
+    _compare(state, ref, state_planes(params.n_src))
+    # every source past the narrow form's four accumulated
+    for i in range(wk.MAX_SRC, params.n_src):
+        assert bool((state[f"acc{i}"] != 0).any()
+                    | (state[f"asum{i}"] != 0).any()), i
+
+
+def test_notebook_line_whole_solve_matches_plain(device):
+    # the 18-source notebook line (chain + MIS, the wide form): the same
+    # streams on both sides
+    prob, pts = _notebook_line()
+    solver = WoStSolver(prob, SolverOptions(target_slots=1 << 14,
+                                            common_random_numbers=True),
+                        device=device)
+    name = wk.kernel_name((wk.ROBIN_CHAIN, False, True, False, False, True,
+                           False, True))
+    launches = wk.run_walk.variant_launches[name]
+    rk = solver._solve_raw(pts, 32, 6000, 1.0, 5)
+    assert wk.run_walk.variant_launches[name] > launches
+    rp = solver._solve_raw(pts, 32, 6000, 1.0, 5, walk=wk.walk_plain)
+    assert rk.mean.shape == (18, 21)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_mis_nee_unbiased_and_lower_variance(device):
+    # tests/test_pseudosection.py:150-175 on the card with its bounds: MIS
+    # without delta tracking agrees with the Green's-radius NEE within 4
+    # sigma and cuts the stderr at least 3x
+    pts = np.array([[0.5, 0.0], [1.0, 1.0]])
+    res = {}
+    for label, mis in (("plain", False), ("mis", True)):
+        solver = WoStSolver(_narrow_gaussian(mis), SolverOptions(
+            target_slots=8192), device=device)
+        res[label] = solver.solve(pts, n_walks=6000, max_steps=300,
+                                  eps=1e-3, seed=0)
+    a, b = res["plain"], res["mis"]
+    dev = np.abs(a.mean - b.mean) / np.sqrt(a.stderr ** 2 + b.stderr ** 2)
+    assert (dev < 4).all(), (a.mean, b.mean)
+    assert (b.stderr < a.stderr / 3).all(), (a.stderr, b.stderr)

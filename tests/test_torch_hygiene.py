@@ -146,31 +146,42 @@ def test_kernel_instantiations_match_python():
     robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
              "REFLECT": wk.ROBIN_REFLECTANCE}
     found = set()
-    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+)((?:, \w+){6})\);",
+    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+)((?:, \w+){6,7})\);",
                          body):
         code, r, flags = m.groups()
         b = [f.strip() == "true" for f in flags.split(",")[1:]]
-        variant = (robin[r], *b)
+        variant = (robin[r], *b[:6], len(b) == 7 and b[6])
         want = variant[0]
-        for f in b:
+        for f in variant[1:7]:
             want = 2 * want + f
+        want += 256 * variant[7]
         assert int(code) == want == wk.variant_code(variant)
         found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 14
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 19
+    narrow = {v for v in found if not v[7]}
     # the table form runs the topographic survey, the chain on it and a
     # walk without delta tracking
     assert {v for v in found if v[4]} == {
-        (wk.ROBIN_OFF, False, False, False, True, True, False),
-        (wk.ROBIN_CHAIN, False, False, False, True, True, False),
-        (wk.ROBIN_OFF, False, False, False, True, False, False)}
-    # no delta tracking: Robin off, no majorant, MIS or freeze, both
-    # forms; the transport sampler with delta tracking, static form
+        (wk.ROBIN_OFF, False, False, False, True, True, False, False),
+        (wk.ROBIN_CHAIN, False, False, False, True, True, False, False),
+        (wk.ROBIN_OFF, False, False, False, True, False, False, False)}
+    # no delta tracking: Robin off, no majorant or freeze, both forms, and
+    # MIS in the static form; the transport sampler with delta tracking,
+    # static form
     assert {v for v in found if not v[5]} == {
-        (wk.ROBIN_OFF, False, False, False, t, False, False)
-        for t in (False, True)}
+        (wk.ROBIN_OFF, False, False, False, t, False, False, False)
+        for t in (False, True)} | {
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False)}
     assert {v for v in found if v[6]} == {
-        (r, False, False, False, False, True, True)
+        (r, False, False, False, False, True, True, False)
         for r in (wk.ROBIN_OFF, wk.ROBIN_CHAIN)}
+    # the wide forms: the survey, the survey with MIS and chain + MIS, each
+    # also compiled narrow
+    wide = {v[:7] for v in found if v[7]}
+    assert wide == {(wk.ROBIN_OFF, False, m, False, False, True, False)
+                    for m in (False, True)} | {
+        (wk.ROBIN_CHAIN, False, True, False, False, True, False)}
+    assert {v + (False,) for v in wide} <= narrow
 
 
 def test_kernel_transport_table_matches_python():

@@ -265,10 +265,39 @@ def _kernel_params(problem, **kw):
 
 
 def _mis_over_kernel_table():
+    # more mixture components than the wide form holds
     tprob = geophysical_scenario()[0].build_problem()
     tprob.set_source_importance(fields.GaussianMixture.from_components(
-        [((float(i), -1.0), 0.5, 1.0) for i in range(9)]))
+        [((float(i), -1.0), 0.5, 1.0) for i in range(wk.MAX_WIDE_MIX + 1)]))
     _kernel_params(tprob).pack()
+
+
+def _line_problem(n_src, **kw):
+    tprob = geophysical_scenario()[0].build_problem()
+    return Problem(dirichlet=tprob.dirichlet, neumann=tprob.neumann,
+                   alpha=tprob.alpha, sigma_bar_override=0.1,
+                   source=[fields.gaussian_dipole((2.0 * i, -1.0),
+                                                  (2.0 * i + 2.0, -1.0))
+                           for i in range(n_src)], **kw)
+
+
+def _sources_over_kernel_table():
+    # more sources than the wide form holds
+    _kernel_params(_line_problem(wk.MAX_WIDE_SRC + 1)).pack()
+
+
+def _wide_source_not_dipole():
+    # the wide form takes Gaussian dipoles from the fifth source on
+    p = _line_problem(wk.MAX_SRC)
+    p.set_source_term(p.source_fields + [fields.constant(1.0)])
+    _kernel_params(p).pack()
+
+
+def _wide_form_not_compiled():
+    # the majorant on a line of six dipoles: no path launches its wide form
+    p = _line_problem(6, local_majorant=LocalMajorant(
+        boxes=((0.0, 5.0, -50.0, -40.0),), sigma_bar_bg=1e-3))
+    _kernel_params(p).pack()
 
 
 def _kernel_variant_not_compiled():
@@ -289,15 +318,6 @@ def _majorant_over_kernel_table():
     wk.make_walk_params(p, eps=EPS, max_steps=10, t_min=1e-3, rmin=0.45,
                         project=True, rejection_rounds=2,
                         roulette_threshold=None, snap=False, seed=1).pack()
-
-
-def _mis_without_delta_tracking():
-    # MIS next-event estimation on an unscreened problem
-    # (ops/pallas_walk.py:956-961) is not ported yet
-    prob = Problem(dirichlet=square_loop(1.0), source=fields.constant(1.0),
-                   source_importance=fields.GaussianMixture.from_components(
-                       [((0.0, 0.0), 0.2, 1.0)]))
-    WoStSolver(prob, device="cpu").solve([[0.0, 0.0]], 8, 5, 1e-3)
 
 
 def _terms_over_kernel_table():
@@ -327,7 +347,9 @@ UNPORTED = {
     "majorant_over_kernel_table": _majorant_over_kernel_table,
     "mis_over_kernel_table": _mis_over_kernel_table,
     "kernel_variant_not_compiled": _kernel_variant_not_compiled,
-    "mis_without_delta_tracking": _mis_without_delta_tracking,
+    "sources_over_kernel_table": _sources_over_kernel_table,
+    "wide_source_not_dipole": _wide_source_not_dipole,
+    "wide_form_not_compiled": _wide_form_not_compiled,
     "terms_over_kernel_table": _terms_over_kernel_table,
     "terms_on_accuracy_instantiation": _terms_on_accuracy_instantiation,
     "compaction_pack": lambda: _survey_solver(
