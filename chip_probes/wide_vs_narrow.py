@@ -138,7 +138,7 @@ print(f"built the forced-wide copies in {build_s:.1f} s; {card}", flush=True)
 for what, (prob, p, opts, n_walks, max_steps, eps) in cases.items():
     solver = WoStSolver(prob, opts, device=dev)
     state, params, _, _ = solver._setup(p, n_walks, max_steps, eps, 5)
-    assert not params.wide and params.variant[:7] + (True,) in \
+    assert not params.wide and params.variant[:7] + (True, False) in \
         wk.KERNEL_VARIANTS, params.kernel_name
     for wide in (False, True):  # warm both
         launch(clone(state), params, 16, wide)

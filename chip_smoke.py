@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its six paths, each on the
+Drives ``dcrmontecarlo_tpu_torch`` through its seven paths, each on the
 kernel variants it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
 two-level local majorant (phases 8-11), the flagship notebook gate's
@@ -15,8 +15,10 @@ sampler and the ``TERMS`` field specs of their coefficients (phases
 21-26), and the survey products: the dipole-dipole pseudosection, the
 E-field, the sensitivity maps and the survey Jacobian, with MIS without
 delta tracking and the kernel's wide form for more than four sources or
-eight mixture components (phases 27-31). Each phase reports on its own
-line:
+eight mixture components (phases 27-31), and the validation and
+diagnostics path: the cylinder-series oracle's Monte Carlo tier on a
+gridded Dirichlet field, walk histories, the occupancy profile and the
+martingale audit (phases 32-35). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -195,6 +197,32 @@ line:
     configuration (9 electrodes, 84 grid points, 6000 walks,
     ``n_batches=4``): a warm-up call (its launches counted) and one timed
     call, then 256 steps of kernel and plain version at its stencil state.
+32. the grid instantiation (the flagship's switches with the cylinder
+    oracle's 257 x 257 grid as Dirichlet data): 256 steps of kernel and
+    plain version from a fresh 8,192-lane state, freeze 4, held to phase
+    3's rule and timed; with zero Dirichlet data the same paths, and >= 1%
+    of lanes bank otherwise; 64 one-step launches equal one 64-step launch
+    on every plane, bit for bit, on chain + MIS, the survey and the grid
+    instantiation; a host-loop solve (21 x 128 walks, max_steps 100)
+    kernel vs plain: equal steps and clones, means within 1e-3 x (|mean| +
+    combined stderr).
+33. the cylinder oracle's Monte Carlo tier at its test's configuration
+    (``tests/test_cylinder_oracle.py::test_mc_matches_cylinder_series``:
+    ``survey_default_options(target_slots=16384, split_threshold=4.0)``,
+    2500 walks, max_steps 6000, eps 1.0) on seeds 0-2 with all of its
+    checks: >= 18/21 potentials within 4 sigma + 3.0 of the pinned series,
+    the median error in (-30, 6), the stderr-weighted sign at both current
+    electrodes.
+34. full size, the cylinder: 21 electrodes x 2^20 walks
+    (``target_slots=1<<21, min_quota=32``: 688,128 lanes), a warm-up (its
+    launches counted) and 2 timed solves, then 256 steps of kernel and
+    plain version at that state; the grid record takes its numbers here.
+35. the diagnostics on the card: the notebook audit of
+    ``tests/test_martingale_audit.py`` (2^15 walkers x 24 steps x 4 seeds,
+    normalized, the port's 201^2 finite-volume oracle as continuation)
+    with its bounds; ``trace_walks`` and ``solve(return_history=True)`` on
+    the survey against a solve of the same walks (equal totals and steps);
+    ``profile_occupancy`` against a solve's steps.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -273,7 +301,8 @@ def clone_state(state):
 def ptxas_registers(build_log):
     """Registers per compiled kernel instantiation, from ``ptxas -v``,
     keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
-    mis,freeze,table,delta,transport>``, with ``,true`` for a wide form."""
+    mis,freeze,table,delta,transport>``, then ``wide`` and ``grid`` when
+    either is set."""
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -281,11 +310,13 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 7 + "E", entry)
+            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 8 + "E", entry)
             if t:
                 r, *b = t.groups()
+                wide, grid = b[6:]
+                tail = [wide, grid] if grid == "1" else [wide] * (wide == "1")
                 flags = ",".join("true" if v == "1" else "false"
-                                 for v in b[:6] + b[6:] * (b[6] == "1"))
+                                 for v in b[:6] + tail)
                 entry = f"walk_kernel<{r},{flags}>"
             regs[entry] = int(m.group(1))
             entry = None
@@ -381,6 +412,8 @@ def bound(params, lanes, walker_steps, launches):
     state = 5 + 3 * params.n_src + 9            # read and written
     const = 3 + (3 if params.snap else 0)       # read
     rows = sum(t.nbytes for t in params.device_tables("cpu"))  # table form
+    if params.grid:                             # the grid's nodes
+        rows += params.grid_table("cpu").nbytes
     nbytes = (4.0 * lanes * (2 * state + const) + rows) * launches
     t_ops = fp32_ops_per_step(params) * walker_steps / PEAK_FP32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -505,6 +538,301 @@ def cuda_ms(fn, reps=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# the cylinder oracle (tests/test_cylinder_oracle.py): a line-current
+# dipole over a buried cylinder, the conductor contrast
+CYL_CENTER, CYL_RADIUS, CYL_SIGMA0, CYL_SIGMA1 = (-120.0, -80.0), 60.0, \
+    1e-2, 1e-1
+CYL_SOURCES = (((-200.0, -9.0), 1.0), ((200.0, -9.0), -1.0))
+CYL_WIDTH, CYL_SHARPNESS, CYL_SURFACE = 5.0, 0.1, 1.0
+
+
+def cylinder_problem(bc=None):
+    """``tests/test_cylinder_oracle.py::test_mc_matches_cylinder_series``'s
+    problem in the port's field specs: the smoothed conductor, the
+    Gaussian dipole with its MIS mixture, the local majorant, and the
+    pinned series on a 257 x 257 grid as the Dirichlet data (``bc``
+    replaces it)."""
+    from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
+    from dcrmontecarlo_tpu_torch.survey.dcr import halfspace_domain
+    from dcrmontecarlo_tpu_torch.validation import cylinder_oracle_pins
+
+    pins = cylinder_oracle_pins()
+    if bc is None:
+        bc = grid_continuation(pins["gx"], pins["gy"],
+                               pins["bc_grid_conductor"])
+    dirichlet, neumann = halfspace_domain(500.0, 1001.0, CYL_SURFACE)
+    (a, _), (b, _) = CYL_SOURCES
+    bump = fields.smooth_circle(CYL_CENTER, CYL_RADIUS, CYL_SHARPNESS)
+    return Problem(
+        dirichlet=dirichlet, neumann=neumann, bc_dirichlet=bc,
+        source=fields.gaussian_dipole(a, b, 1.0, CYL_WIDTH),
+        alpha=fields.bump_sum(CYL_SIGMA0, [(CYL_SIGMA1 - CYL_SIGMA0, bump)]),
+        source_importance=fields.GaussianMixture.from_components(
+            [(a, CYL_WIDTH, 0.5), (b, CYL_WIDTH, 0.5)]),
+        local_majorant="auto"), pins
+
+
+def cylinder_checks(r, ref, x):
+    """The checks of ``test_mc_matches_cylinder_series`` on one seed's
+    solve ``r``: ``(n within 4 sigma + 3, median error, stderr-weighted
+    means at the two current electrodes)``."""
+    err = r.mean - ref
+    n_ok = int((np.abs(err) / (4.0 * r.stderr + 3.0) < 1.0).sum())
+    w = 1.0 / np.maximum(r.stderr, 1e-9) ** 2
+    signed = []
+    for sel, sign in ((np.abs(x + 200) <= 40, 1.0),
+                      (np.abs(x - 200) <= 40, -1.0)):
+        signed.append(sign * float(np.sum(w[sel] * r.mean[sel])
+                                   / np.sum(w[sel])))
+    return n_ok, float(np.median(err)), signed
+
+
+def validation_phases(wk, dev, card, regs, records, tolerance):
+    """Phases 32-35: the validation and diagnostics path."""
+    from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation, \
+        martingale_audit, profile_occupancy, trace_walks
+    from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
+        notebook_survey
+    from dcrmontecarlo_tpu_torch.problems import fields
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+    from dcrmontecarlo_tpu_torch.validation import fdm_solve
+
+    cyl_prob, pins = cylinder_problem()
+    el = np.stack([np.arange(-400.0, 401.0, 40.0),
+                   np.full(21, -0.1)], 1).astype(np.float32)
+    check(np.allclose(pins["electrodes"], el, atol=1e-6),
+          "the cylinder pins' electrodes moved")
+    ref = pins["ref_conductor"] + pins["delta_smooth_conductor"]
+
+    # ---- 32. the grid instantiation vs plain; one-step launches --------
+    solver = WoStSolver(cyl_prob, survey_default_options(
+        target_slots=8192, split_threshold=4.0), device=dev)
+    state, p32, _, _ = solver._setup(el, 8192, 6000, 1.0, 3)
+    check(state["px"].numel() == 8192, "phase 32 state is not 8192 lanes")
+    check(p32.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
+                          False, False, True),
+          f"phase 32 runs {p32.kernel_name}")
+    t32 = steps_256(wk, state, p32, "phase 32", thr=4.0)
+    zero = fields.constant(0.0)
+    p_zero = dataclasses.replace(p32, bc=zero, specs=(zero,) + p32.specs[1:])
+    z32 = clone_state(state)
+    wk.run_walk(z32, p_zero, 256, freeze_thr=4.0)
+    acts = lanes_differ(t32["end"], z32, ("asum0",))
+    same_path = all(torch.equal(t32["end"][k], z32[k])
+                    for k in ("px", "py", "steps", "ndone", "quota"))
+    check(acts >= 0.01 and same_path,
+          f"phase 32: the grid changed {acts:.4f} of lanes' banks, paths "
+          f"equal: {same_path}")
+    log(f"[32] the grid instantiation ({p32.kernel_name}, "
+        f"{regs.get(p32.kernel_name)} registers), 256 steps x 8192 lanes "
+        f"from fresh starts, freeze 4.0: kernel {t32['ms']:.3f} ms, plain "
+        f"{t32['plain_ms']:.3f} ms; worst plane agreement {t32['worst']:.5f}"
+        f", max |err| on agreeing lanes {t32['max_err']:.3g}; with zero "
+        f"Dirichlet data the same paths and {acts:.4f} of lanes bank "
+        f"otherwise ({card})")
+    nb64, _ = notebook_survey()
+    nb64.source_mis = True
+    sv64, el64 = geophysical_scenario(sharpness=0.5)
+    # (the grid instantiation is a freeze build: without a threshold no
+    # lane freezes)
+    cases = (("chain + MIS", nb64.build_problem(), el, 6000, 1.0, {}),
+             ("survey", sv64.build_problem(), survey_points(el64, -0.1),
+              500, 0.9, {}),
+             ("grid flagship", cyl_prob, el, 6000, 1.0,
+              dict(split_threshold=4.0)))
+    for what, prob, pts, ms, eps, extra in cases:
+        opts = survey_default_options(target_slots=8192, **extra)
+        st, p, _, _ = WoStSolver(prob, opts, device=dev)._setup(
+            pts, 8192, ms, eps, 7)
+        one, many = clone_state(st), clone_state(st)
+        wk.run_walk(one, p, 64)
+        for _ in range(64):
+            wk.run_walk(many, p, 1)
+        names = [k for k in state_planes(p.n_src)]
+        equal = [k for k in names if torch.equal(one[k], many[k])]
+        check(len(equal) == len(names),
+              f"phase 32 ({what}): 64 one-step launches differ from one "
+              f"64-step launch on {sorted(set(names) - set(equal))}")
+        log(f"[32] {what} ({p.kernel_name}): 64 one-step launches equal "
+            f"one 64-step launch on every plane, bit for bit; "
+            f"{life_steps(st, one)} walker-steps")
+
+    # the kernel vs the plain host loop at a cut size (the plain version
+    # takes ~27 ms a step on the card whatever the lanes: a short walk)
+    solver = WoStSolver(cyl_prob, survey_default_options(
+        target_slots=1 << 17, split_threshold=4.0), device=dev)
+    t0 = time.perf_counter()
+    rk = solver._solve_raw(el, 128, 100, 1.0, 11)
+    stats_k = solver.last_solve_stats
+    t_k = time.perf_counter() - t0
+    rp = solver._solve_raw(el, 128, 100, 1.0, 11, walk=wk.walk_plain)
+    stats_p = solver.last_solve_stats
+    t_p = time.perf_counter() - t0 - t_k
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check(np.isfinite(rk.mean).all() and (dm <= 1e-3 * scale).all()
+          and rk.total_steps == rp.total_steps
+          and stats_k["clones"] == stats_p["clones"] > 0,
+          f"phase 32 host loop: kernel {rk.total_steps} steps {stats_k}, "
+          f"plain {rp.total_steps} steps {stats_p}, |dmean|/scale "
+          f"{dm / scale}")
+    log(f"[32] host-loop solve 21x128, max_steps 100 (cylinder): max "
+        f"|dmean|/(|mean|+se) {float((dm / scale).max()):.3g} (bound 1e-3), "
+        f"steps kernel {rk.total_steps:.0f} plain {rp.total_steps:.0f}, "
+        f"kernel {stats_k}, plain {stats_p}; {t_k:.2f} s kernel, "
+        f"{t_p:.2f} s plain")
+
+    # ---- 33. the cylinder oracle's Monte Carlo tier ---------------------
+    solver = WoStSolver(cyl_prob, survey_default_options(
+        target_slots=16384, split_threshold=4.0), device=dev)
+    check(solver._robin_enabled() == "chain", "cylinder Robin is not chain")
+    x = el[:, 0]
+    for seed in (0, 1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solver.solve(el, n_walks=2500, max_steps=6000, eps=1.0,
+                         seed=seed)
+        t33 = time.perf_counter() - t0
+        check(np.isfinite(r.mean).all() and np.isfinite(r.stderr).all(),
+              f"phase 33 seed {seed} not finite")
+        n_ok, cm, signed = cylinder_checks(r, ref, x)
+        log(f"[33] cylinder MC tier seed {seed}: {n_ok}/21 within 4 sigma "
+            f"+ 3.0, median error {cm:.3f}, stderr-weighted means at the "
+            f"+ and - current electrodes (sign-corrected, must be > 0): "
+            f"{signed[0]:.4g}, {signed[1]:.4g}; means "
+            f"{np.round(r.mean, 2).tolist()} stderr "
+            f"{np.round(r.stderr, 2).tolist()}; "
+            f"{solver.last_solve_stats}, steps {r.total_steps:.0f}, max "
+            f"banked {r.max_banked:.4g}, {t33:.3f} s ({card})")
+        check(n_ok >= 18, f"phase 33 seed {seed}: {n_ok}/21 within bound")
+        check(-30.0 < cm < 6.0, f"phase 33 seed {seed}: median error {cm}")
+        check(min(signed) > 0.0,
+              f"phase 33 seed {seed}: sign pattern {signed}")
+
+    # ---- 34. full size: the cylinder -------------------------------------
+    full = survey_default_options(target_slots=1 << 21, min_quota=32,
+                                  split_threshold=4.0)
+    solver = WoStSolver(cyl_prob, full, device=dev)
+    n_walks = 1 << 20
+    f34 = full_size_solves(wk, solver, el, n_walks, 6000, 1.0, 688128,
+                           "phase 34", reps=2)
+    log(f"[34] full size 21x{n_walks} walks, 688128 lanes, the cylinder: "
+        f"walker_steps_per_sec {f34['rate']:.6g} s/solve {f34['times']} "
+        f"steps/solve {f34['steps']:.6g} longest lane {f34['longest']} "
+        f"steps, lane occupancy {f34['occupancy']:.4f}, launches and clones "
+        f"per solve {f34['stats']}, kernel share of wall time "
+        f"{[round(v, 4) for v in f34['share']]}, warm-up launches "
+        f"{f34['counts']} ({card})")
+    state, p34, _, _ = solver._setup(el, n_walks, 6000, 1.0, 5)
+    check(state["px"].numel() == 688128 and p34.variant == p32.variant
+          and f34["counts"] == {p34.kernel_name:
+                                f34["stats"][0]["launches"]},
+          f"phase 34 runs {p34.kernel_name}, launched {f34['counts']}")
+    n_ok, cm, signed = cylinder_checks(f34["warm"], ref, x)
+    log(f"[34] the full-size solve against the series: {n_ok}/21 within 4 "
+        f"sigma + 3.0, median error {cm:.3f}, signed means {signed}")
+    t34 = steps_256(wk, state, p34, "phase 34", thr=4.0, subset=True)
+    b34 = bound(p34, t34["lanes"], t34["steps"], 1)
+    log(f"[34] 256 steps x {t34['lanes']} lanes, freeze 4.0: kernel "
+        f"{t34['ms']:.3f} ms, plain {t34['plain_ms']:.3f} ms; bound "
+        f"{b34[0]:.4f} ms ({b34[1]}); worst plane agreement "
+        f"{t34['worst']:.5f}, {t34['steps']} walker-steps ({card})")
+    records.append(kernel_record(
+        p34, "robin_chain+local_majorant+mis+freeze+grid",
+        f34["counts"][p34.kernel_name], t34, regs, tolerance))
+
+    # ---- 35. the diagnostics on the card ---------------------------------
+    # the notebook audit (tests/test_martingale_audit.py::
+    # test_notebook_step_operator_normalized_residuals)
+    nb_survey, _ = notebook_survey()
+    nb_survey.source_mis = True
+    nb_prob = nb_survey.build_problem()
+
+    def np_field(f):
+        return lambda X, Y: f(torch.as_tensor(X, dtype=torch.float32),
+                              torch.as_tensor(Y, dtype=torch.float32)
+                              ).numpy()
+
+    t0 = time.perf_counter()
+    fdm = fdm_solve(bounds=((-500.0, 500.0), (-1000.0, 1.0)),
+                    alpha=np_field(nb_prob.alpha),
+                    source=np_field(nb_prob.source), neumann_top=True,
+                    nx=201, ny=201)
+    t_fdm = time.perf_counter() - t0
+    cont = grid_continuation(fdm.xs, fdm.ys, fdm.u)
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    t0 = time.perf_counter()
+    rep = martingale_audit(
+        nb_prob, SolverOptions(target_slots=1 << 15,
+                               robin_correction="chain",
+                               rejection_rounds=2),
+        (0.0, -0.1), continuation=cont, eps=1.0, max_steps=6000, n_steps=24,
+        n_walkers=1 << 15, n_seeds=4, normalize_by_atten=True, device=dev)
+    t_aud = time.perf_counter() - t0
+    counts35 = dict(wk.run_walk.variant_launches)
+    log(f"[35] notebook audit (2^15 walkers x 24 steps x 4 seeds, "
+        f"normalized, launches {counts35}) in {t_aud:.2f} s (the 201^2 "
+        f"oracle {t_fdm:.2f} s on the host):\n{rep}")
+    check(abs(rep.mean[0]) < 5 * rep.sem[0] + 0.03,
+          f"phase 35: far-interior {rep.mean[0]} +- {rep.sem[0]}")
+    for b in (1, 2):
+        check(rep.n[b] == 0 or abs(rep.mean[b]) < 5 * rep.sem[b] + 0.1,
+              f"phase 35: {rep.bucket_names[b]} {rep.mean[b]} +- "
+              f"{rep.sem[b]}")
+    check(set(counts35) == {wk.kernel_name((wk.ROBIN_CHAIN, False, True,
+                                            False, False, True, False,
+                                            False, False))}
+          and sum(counts35.values()) == 24 * 4,
+          f"phase 35: the audit launched {counts35}")
+    # walk histories and the occupancy profile on the survey, against a
+    # solve of the same walks: quota 1 per slot, no CRN and no snap
+    sv, _ = geophysical_scenario(sharpness=0.5)
+    point = np.array([[0.0, -2.0]], np.float32)
+    n_tr = 256
+    solver = WoStSolver(sv.build_problem(), SolverOptions(
+        target_slots=n_tr, min_quota=1), device=dev)
+    wk.run_walk.launches = 0
+    wk.run_walk.variant_launches.clear()
+    hist = trace_walks(solver, point[0], n_walks=n_tr, max_steps=500,
+                       eps=0.9, seed=4)
+    n_trace = wk.run_walk.launches
+    r, h = solver.solve(point, n_walks=n_tr, max_steps=500, eps=0.9,
+                        seed=4, return_history=True, history_walks=8)
+    tot = float(hist.total.astype(np.float64).sum())
+    check(hist.positions.shape == (n_tr, 502, 2)
+          and (hist.walk_length >= 1).all()
+          and abs(tot - float(r.walk_sum[0])) <= 1e-5 * (
+              abs(tot) + float(np.abs(hist.total).sum()))
+          and int(hist.active.sum() - n_tr) == int(r.total_steps),
+          f"phase 35: the trace's totals {tot} vs the solve's "
+          f"{float(r.walk_sum[0])}, steps {int(hist.active.sum() - n_tr)} "
+          f"vs {r.total_steps}")
+    check(len(h) == 1 and len(h[0]) == 8 and all(
+        {"walk_id", "path", "contributions", "total_contribution"}
+        <= set(w) for w in h[0]), "phase 35: return_history's schema")
+    occ = profile_occupancy(solver, point, n_walks=4 * n_tr, max_steps=500,
+                            eps=0.9, seed=4, max_iters=4096)
+    r4 = solver.solve(point, n_walks=4 * n_tr, max_steps=500, eps=0.9,
+                      seed=4)
+    check(int(occ.walks_done_per_iter.sum()) == 4 * n_tr
+          and int(occ.active_per_iter.sum()) == int(r4.total_steps),
+          f"phase 35: the profile counted "
+          f"{int(occ.walks_done_per_iter.sum())} walks and "
+          f"{int(occ.active_per_iter.sum())} steps, the solve "
+          f"{r4.total_steps}")
+    log(f"[35] trace_walks {n_tr} walks from (0, -2) in {n_trace} one-step "
+        f"launches: totals sum {tot:.6g} = the solve's "
+        f"{float(r.walk_sum[0]):.6g}, steps {int(r.total_steps)} on both; "
+        f"return_history 8 walks; "
+        f"occupancy profile of {4 * n_tr} walks: {occ.iterations} "
+        f"iterations, mean occupancy {occ.mean_occupancy:.4f}, "
+        f"{int(occ.active_per_iter.sum())} steps = the solve's")
 
 
 def main():
@@ -975,7 +1303,7 @@ def main():
     state, params, _, _ = solver._setup(nb_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 688128, "phase 15 state is not 688128 lanes")
     check(params.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
-                             False, False),
+                             False, False, False),
           f"phase 15 runs {params.kernel_name}")
     check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
           and f15["stats"][0]["launches"] > 1,
@@ -1039,7 +1367,7 @@ def main():
     _, _, p16, t16 = launch_256(topo_prob, topo_pts, SolverOptions(),
                                 "phase 16", 8192, 600, 0.5, no_vertices)
     check(p16.table and p16.variant == (wk.ROBIN_OFF, False, False, False,
-                                        True, True, False, False),
+                                        True, True, False, False, False),
           f"phase 16 runs {p16}")
     # the JAX regression test_pallas_smem_sees_trailing_segments: a square
     # whose right edge is its table's last three rows
@@ -1098,7 +1426,7 @@ def main():
         prob18, pts18, SolverOptions(robin_correction="chain"), "phase 18",
         8192, 600, 0.5, lambda p: dataclasses.replace(p, robin=wk.ROBIN_OFF))
     check(p18.variant == (wk.ROBIN_CHAIN, False, False, False, True, True,
-                          False, False),
+                          False, False, False),
           f"phase 18 runs {p18.kernel_name}")
     n18 = solve_launches(solver18, pts18, "phase 18", p18.kernel_name,
                          n_walks=512, max_steps=600, eps=0.5,
@@ -2086,7 +2414,7 @@ def main():
     state, p_ws, _, _ = WoStSolver(sc_prob, solver7.options,
                                    device=dev)._setup(pts7, 1 << 19, 500,
                                                       0.9, 5)
-    check(p_ws.variant == params7.variant[:7] + (True,),
+    check(p_ws.variant == params7.variant[:7] + (True, False),
           "the wide survey state is not phase 7's configuration")
     t_ws = steps_256(wk, state, p_ws, "wide survey at phase 7's state")
     log(f"[31] the wide survey, 6 sources, at phase 7's state: 256 steps x "
@@ -2110,6 +2438,9 @@ def main():
     records.append(kernel_record(p30, "robin_chain+mis_wide",
                                  f30["counts"][p30.kernel_name], t30, regs,
                                  tolerance))
+
+    # ---- the validation and diagnostics path (phases 32-35) -------------
+    validation_phases(wk, dev, card, regs, records, tolerance)
 
     p21s, t21s = t21["Poisson square + circle obstacle"]
     p21t, t21t = t21["table-form square"]

@@ -6,7 +6,7 @@ CUDA kernel (``csrc/walk_kernel.cu``) and its plain PyTorch version for
 CPU tensors. Imports ``torch``, ``numpy`` and ``scipy`` only.
 """
 
-from .geometry import Polyline, square_loop, circle_loop
+from .geometry import Polyline, square_loop, circle_loop, func_to_polyline
 from .problems import Problem
 from .solver import WoStSolver, SolveResult, SolverOptions
 
@@ -14,6 +14,7 @@ __all__ = [
     "Polyline",
     "square_loop",
     "circle_loop",
+    "func_to_polyline",
     "Problem",
     "WoStSolver",
     "SolveResult",

@@ -52,8 +52,19 @@
 // instantiation (up to MAX_SRC sources and MAX_MIX components) is compiled
 // as before.
 //
+// The validation path (the cylinder-series oracle's Monte Carlo tier) adds
+// a gridded Dirichlet field (GRID): the bilinear interpolant of a float32
+// node table, diagnostics/martingale.py::grid_continuation, which the TPU
+// kernel would trace as a jnp closure (a 257 x 257 table is too large for
+// __constant__ memory). The table lives in global memory and is read
+// through the read-only path (__ldg) only when a lane banks a walk on the
+// Dirichlet wall: four loads per finished walk, not per step. Only the
+// instantiation that runs it reads the kind (the flagship's switches); its
+// pointer follows every older WalkConst field, and a narrow launch copies
+// it apart from the narrow block.
+//
 // Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE,
-// DELTA, TRANSPORT, WIDE>, and the host picks one per launch. Only the
+// DELTA, TRANSPORT, WIDE, GRID>, and the host picks one per launch. Only the
 // combinations a path launches are instantiated (walk_pick below;
 // ops/walk_kernel.py::KERNEL_VARIANTS holds the same list; DELTA is
 // true, TRANSPORT and WIDE false unless shown):
@@ -79,6 +90,9 @@
 //   <OFF,   false, false|true, false, false, WIDE true>, <CHAIN, false,
 //   true, false, false, WIDE true>  the wide forms of the survey, the
 //                                        survey with MIS and chain + MIS
+//   <CHAIN, true,  true,  true,  false, GRID true>  the flagship with a
+//                                        gridded Dirichlet field (the
+//                                        cylinder oracle)
 // walk_kernel<ROBIN_OFF, false, false, false, false, true, false> carries
 // none of the other variants' code or registers. max_attenuation is a
 // run-time switch (three selects per step) in every instantiation with
@@ -176,6 +190,8 @@ constexpr int MAX_FP = 1 + 6 * MAX_BUMPS;
 constexpr int F_BC = 0, F_ALPHA = 1, F_SIGMA = 2, F_SRC0 = 3;
 constexpr int N_FIELDS = 3 + MAX_SRC;
 constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2, K_TERMS = 3;
+constexpr int K_GRID = 4;      // the Dirichlet field only (GRID_COLS params)
+constexpr int GRID_COLS = 8;   // x0, dx, y0, dy, hi_x, hi_y, nx, ny
 constexpr int MAX_TERMS = 4;   // TERMS field terms (problems/fields.py)
 constexpr int TERM_COLS = 27;  // poly[4][4], ax, ay, g, cx, cy, S1, S2
 constexpr int S_NONE = 0, S_SIN = 1, S_COS = 2;  // S = (kind, k, phase)
@@ -186,7 +202,8 @@ constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
 constexpr int MAX_MIX = 8;   // MIS mixture components
 constexpr int MIX_COLS = 7;  // cx, cy, w, a, cum, 2 w^2, 2 pi w^2
 constexpr int N_IP = 21, N_FP = 11;  // header lengths of ip and fp
-constexpr int N_GEOM = 3;  // table form: dir, neu, vert row pointers
+constexpr int N_GEOM = 4;  // table form: dir, neu, vert row pointers;
+                           // the grid's node table
 constexpr int MAX_WIDE_SRC = 32;  // the wide form: sources,
 constexpr int MAX_WIDE_MIX = 64;  // MIS mixture components
 constexpr int DIPOLE_COLS = 6;    // px, py, nx, ny, norm, 2 w^2
@@ -247,6 +264,10 @@ struct WalkConst {
   float wsrc[MAX_WIDE_SRC - MAX_SRC][DIPOLE_COLS];
   float *wacc[MAX_WIDE_SRC], *wasum[MAX_WIDE_SRC], *wasq[MAX_WIDE_SRC];
   float wmix[MAX_WIDE_MIX][MIX_COLS];
+  // the validation path (after the wide form's fields): the gridded
+  // Dirichlet field's nodes, (nx, ny) row-major; its parameters are
+  // field[F_BC].p
+  const float* grid;
 };
 
 __constant__ WalkConst C;
@@ -638,6 +659,30 @@ __device__ float field_value(int f, float x, float y) {
     total = total + q[0] * sigmoid(-q[4] * (rho - q[3]));
   }
   return total;
+}
+
+// the gridded Dirichlet field (problems/fields.py::Grid): the bilinear
+// interpolant in grid_continuation's float32 order. The index coordinate
+// (p - x0) / dx (a divide) is clipped to [0, hi], hi = n - 1.000001
+// rounded to float32 (n - 1 itself for some n), and truncated; a corner
+// past the last node reads the last node, with weight zero, as JAX's
+// clamped gather does. Called once per finished walk.
+__device__ __noinline__ float grid_value(float x, float y) {
+  const float* p = C.field[F_BC].p;
+  const int nx = (int)p[6], ny = (int)p[7];
+  const float fx = fminf(fmaxf((x - p[0]) / p[1], F(0.0)), p[4]);
+  const float fy = fminf(fmaxf((y - p[2]) / p[3], F(0.0)), p[5]);
+  const int ix = (int)fx, iy = (int)fy;
+  const float tx = fx - (float)ix, ty = fy - (float)iy;
+  const int ix1 = min(ix + 1, nx - 1), iy1 = min(iy + 1, ny - 1);
+  const float* u = C.grid;
+  const float u00 = __ldg(u + ix * ny + iy), u10 = __ldg(u + ix1 * ny + iy);
+  const float u01 = __ldg(u + ix * ny + iy1);
+  const float u11 = __ldg(u + ix1 * ny + iy1);
+  return ((((F(1.0) - tx) * (F(1.0) - ty)) * u00 +
+           (tx * (F(1.0) - ty)) * u10) +
+          ((F(1.0) - tx) * ty) * u01) +
+         (tx * ty) * u11;
 }
 
 template <bool TERMS>
@@ -1416,7 +1461,7 @@ __device__ __forceinline__ void add_sources(float (&acc)[MAX_SRC], int lane,
 }
 
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE = false>
+          bool TRANSPORT, bool WIDE = false, bool GRID = false>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
   constexpr bool TERMS = terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
@@ -1479,7 +1524,11 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       // of this step is masked off for the lane
       float bx = (C.project && done_eps) ? cx : px;
       float by = (C.project && done_eps) ? cy : py;
-      float g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
+      float g_bc;
+      if constexpr (GRID)
+        g_bc = grid_value(bx, by) * atten;
+      else
+        g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
       float bank_mag = F(0.0);
       if constexpr (WIDE) {
 #pragma unroll 1
@@ -1801,18 +1850,19 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
 
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE>
+          bool TRANSPORT, bool WIDE, bool GRID>
 void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
-  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE>
+  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE, GRID>
       <<<grid, THREADS, 0, st>>>(n_lanes, budget, thr);
 }
 
 // instantiation CODE of this unit: compiled only in the unit of its part
 template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE,
-          bool DELTA, bool TRANSPORT, bool WIDE = false>
+          bool DELTA, bool TRANSPORT, bool WIDE = false, bool GRID = false>
 LaunchFn pick() {
   if constexpr (WALK_PART < 0 || WALK_PART == CODE)
-    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE>;
+    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE,
+                  GRID>;
   else
     return nullptr;
 }
@@ -1822,14 +1872,15 @@ LaunchFn pick() {
     return pick<code, __VA_ARGS__>()
 
 // the instantiated variants (head comment), by (robin, majorant, mis,
-// freeze, table, delta, transport[, wide]); nullptr for a combination no
-// path launches, or one another part's library holds
+// freeze, table, delta, transport[, wide[, grid]]); nullptr for a
+// combination no path launches, or one another part's library holds
 LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
-                   int delta, int transport, int wide) {
+                   int delta, int transport, int wide, int grid) {
   const int bits[6] = {majorant, mis, freeze, table, delta, transport};
   int code = robin;  // the switches as binary digits after the Robin mode
   for (int k = 0; k < 6; ++k) code = 2 * code + bits[k];
-  code += 256 * wide;  // the wide form above every narrow code
+  code += 256 * wide + 512 * grid;  // the wide form above every narrow
+                                   // code, the grid above those
   switch (code) {
     WALK_CASE(0, ROBIN_OFF, false, false, false, false, false, false);
     WALK_CASE(2, ROBIN_OFF, false, false, false, false, true, false);
@@ -1850,6 +1901,8 @@ LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
     WALK_CASE(258, ROBIN_OFF, false, false, false, false, true, false, true);
     WALK_CASE(274, ROBIN_OFF, false, true, false, false, true, false, true);
     WALK_CASE(338, ROBIN_CHAIN, false, true, false, false, true, false, true);
+    WALK_CASE(634, ROBIN_CHAIN, true, true, true, false, true, false, false,
+              true);
     default: return nullptr;
   }
 }
@@ -1866,14 +1919,15 @@ LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
 //     alpha, sigma, sources[n_src if has_source]. A TERMS field's
 //     parameters are its background, then TERM_COLS per term. More than
 //     MAX_SRC sources or MAX_MIX mixture components launch the wide form,
-//     whose sources from MAX_SRC on are dipoles.
+//     whose sources from MAX_SRC on are dipoles. A bc of kind K_GRID
+//     (GRID_COLS parameters) launches the grid form.
 // planes: N_PLANES + N_WIDE_PLANES device pointers in
 //     ops/walk_kernel.py::_PLANE_ORDER (the wide form's acc, asum and asq
 //     planes of sources MAX_SRC.. last).
 // thr: the freeze threshold of this launch (freeze builds; +inf = none).
-// geom: N_GEOM device pointers of the table form's rows (dir, neu, vert;
+// geom: N_GEOM device pointers: the table form's rows (dir, neu, vert;
 //     16-byte aligned float4 rows, the vertices two per row), null in the
-//     static form.
+//     static form; the grid's (nx, ny) float32 nodes, null without one.
 extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            int n_ip, void* const* planes, int n_planes,
                            int n_lanes, int budget, float thr,
@@ -1934,8 +1988,10 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                   h.clip)) ||
       n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
+  // the Dirichlet field's kind picks the grid form
+  const int grid = ip[N_IP] == K_GRID;
   const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze,
-                                table, delta, transport, wide);
+                                table, delta, transport, wide, grid);
   if (!fn) return (int)cudaErrorInvalidValue;
   const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
@@ -1948,7 +2004,7 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     h.tab_vert = (const float4*)geom[2];
     if (!h.tab_dir || (h.n_neu && !h.tab_neu) || (h.n_vert && !h.tab_vert))
       return (int)cudaErrorInvalidValue;
-    for (int g = 0; g < N_GEOM; ++g)
+    for (int g = 0; g < 3; ++g)
       if ((uintptr_t)geom[g] % 16) return (int)cudaErrorMisalignedAddress;
   } else {
     for (int s = 0; s < h.n_dir; ++s)
@@ -1977,6 +2033,23 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       continue;
     }
     const bool terms = kind == K_TERMS;
+    if (kind == K_GRID) {  // the Dirichlet field only, nodes by geom[3]
+      if (f != F_BC || n != GRID_COLS || off + n > n_fp || !geom[3] ||
+          (uintptr_t)geom[3] % 4)
+        return (int)cudaErrorInvalidValue;
+      h.field[f].kind = kind;
+      h.field[f].n = n;
+      for (int k = 0; k < n; ++k) h.field[f].p[k] = fp[off++];
+      const float* p = h.field[f].p;
+      if (!(p[6] >= F(2.0) && p[7] >= F(2.0) && p[6] == (float)(int)p[6] &&
+            p[7] == (float)(int)p[7] && p[6] * p[7] <= F(16777216.0) &&
+            p[1] > F(0.0) && p[3] > F(0.0) && p[4] >= F(0.0) &&
+            p[4] <= p[6] - F(1.0) && p[5] >= F(0.0) &&
+            p[5] <= p[7] - F(1.0)))
+        return (int)cudaErrorInvalidValue;
+      h.grid = (const float*)geom[3];
+      continue;
+    }
     if (n < 1 || n > (terms ? 1 + MAX_TERMS * TERM_COLS : MAX_FP) ||
         off + n > n_fp || (kind == K_CONST && n != 1) ||
         (kind == K_DIPOLE && n != 6) ||
@@ -2052,6 +2125,12 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   cudaError_t e =
       cudaMemcpyToSymbolAsync(C, &h, n_const, 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
+  if (grid && !wide) {  // the grid's pointer, past the wide block
+    e = cudaMemcpyToSymbolAsync(C, &h.grid, sizeof(h.grid),
+                                offsetof(WalkConst, grid),
+                                cudaMemcpyHostToDevice, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (n_lanes > 0 && budget > 0)
     fn((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget, thr);
   return (int)cudaGetLastError();

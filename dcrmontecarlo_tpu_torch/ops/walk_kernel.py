@@ -25,7 +25,9 @@ their coefficients; and the survey products: MIS next-event estimation
 without delta tracking, and the wide form of the kernel for more than
 ``MAX_SRC`` sources or ``MAX_MIX`` mixture components (up to
 ``MAX_WIDE_SRC`` and ``MAX_WIDE_MIX``; sources from ``MAX_SRC`` on are
-Gaussian dipoles). The kernel is
+Gaussian dipoles); and the validation path: a gridded Dirichlet field
+(``fields.Grid``, the cylinder oracle's Monte Carlo tier) on the
+flagship's switches. The kernel is
 ``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
 instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
 is the same step, op for op, on tensors of lanes, on any device.
@@ -100,10 +102,12 @@ ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
 # the kernel's compiled instantiations, (robin, majorant, mis, freeze,
-# table, delta, transport, wide): the combinations a path launches
+# table, delta, transport, wide, grid): the combinations a path launches
 # (csrc/walk_kernel.cu::walk_pick); the wide form, for more than MAX_SRC
-# sources or MAX_MIX mixture components, carries the survey products' lines
-KERNEL_VARIANTS = frozenset({
+# sources or MAX_MIX mixture components, carries the survey products'
+# lines; grid, a gridded Dirichlet field (fields.Grid), the cylinder
+# oracle's Monte Carlo tier
+_GRIDLESS = (
     (ROBIN_OFF, False, False, False, False, True, False, False),  # survey
     (ROBIN_OFF, False, True, False, False, True, False, False),   # + MIS
     (ROBIN_OFF, True, False, False, False, True, False, False),   # majorant
@@ -123,6 +127,10 @@ KERNEL_VARIANTS = frozenset({
     (ROBIN_OFF, False, False, False, False, True, False, True),   # the wide
     (ROBIN_OFF, False, True, False, False, True, False, True),    # forms
     (ROBIN_CHAIN, False, True, False, False, True, False, True),
+)
+KERNEL_VARIANTS = frozenset({v + (False,) for v in _GRIDLESS} | {
+    # the flagship with gridded Dirichlet data (the cylinder oracle)
+    (ROBIN_CHAIN, True, True, True, False, True, False, False, True),
 })
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
@@ -139,11 +147,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def kernel_name(variant) -> str:
     """``walk_kernel<robin,majorant,mis,freeze,table,delta,transport>``
-    for a variant tuple, with a last ``true`` for its wide form."""
-    r, *flags, wide = variant
+    for a variant tuple, then ``wide`` and ``grid`` when either is set (the
+    template's defaulted switches)."""
+    r, *flags, wide, grid = variant
+    tail = [wide, grid] if grid else [wide] if wide else []
     return "walk_kernel<{}>".format(",".join(
-        [str(int(r))] + ["true" if f else "false" for f in flags]
-        + (["true"] if wide else [])))
+        [str(int(r))] + ["true" if f else "false" for f in flags + tail]))
 
 
 def terms_fields(variant) -> bool:
@@ -160,13 +169,13 @@ def terms_fields(variant) -> bool:
 def variant_code(variant) -> int:
     """The instantiation's code in ``walk_pick``
     (``csrc/walk_kernel.cu``): its switches up to ``transport`` read as
-    binary digits after the Robin mode, plus 256 for the wide form; its
-    library is built with ``-DWALK_PART=<code>``."""
-    r, *flags, wide = variant
+    binary digits after the Robin mode, plus 256 for the wide form and 512
+    for the grid; its library is built with ``-DWALK_PART=<code>``."""
+    r, *flags, wide, grid = variant
     code = int(r)
     for f in flags:
         code = 2 * code + int(bool(f))
-    return code + 256 * int(bool(wide))
+    return code + 256 * int(bool(wide)) + 512 * int(bool(grid))
 
 
 def geometry_size(problem) -> int:
@@ -318,10 +327,16 @@ class WalkParams:
     @property
     def variant(self) -> tuple:
         """The kernel instantiation ``(robin, majorant, mis, freeze, table,
-        delta, transport, wide)``."""
+        delta, transport, wide, grid)``."""
         return (self.robin, self.majorant is not None,
                 self.mis_table is not None, self.freeze, self.table,
-                self.delta, self.transport, self.wide)
+                self.delta, self.transport, self.wide, self.grid)
+
+    @property
+    def grid(self) -> bool:
+        """Whether the Dirichlet data is a gridded field
+        (:class:`fields.Grid`), whose instantiations read its table."""
+        return isinstance(self.bc, fields.Grid)
 
     @property
     def wide(self) -> bool:
@@ -364,6 +379,14 @@ class WalkParams:
                     "reflectance do, with MIS or the table form only "
                     "without delta tracking); reference: "
                     "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+        if self.grid and not any(v[:8] == self.variant[:8] and v[8]
+                                 for v in KERNEL_VARIANTS):
+            raise NotImplementedError(
+                f"{kernel_name(self.variant[:8] + (False,))} reads no "
+                "gridded Dirichlet field (the grid instantiations are in "
+                "walk_kernel.KERNEL_VARIANTS); reference: "
+                "dcrmontecarlo_tpu/diagnostics/martingale.py::"
+                "grid_continuation")
         if len(self.sources) > MAX_WIDE_SRC:
             raise NotImplementedError(
                 f"the CUDA walk holds up to {MAX_WIDE_SRC} sources, got "
@@ -403,8 +426,9 @@ class WalkParams:
                 f"the CUDA walk has no instantiation {self.kernel_name} "
                 "(robin, majorant, mis, freeze, table, delta, transport, "
                 f"wide: more than {MAX_SRC} sources or {MAX_MIX} mixture "
-                "components); it compiles the variants in "
-                "walk_kernel.KERNEL_VARIANTS; reference: "
+                "components, grid: a gridded Dirichlet field); it "
+                "compiles the variants in walk_kernel.KERNEL_VARIANTS; "
+                "reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
@@ -441,6 +465,12 @@ class WalkParams:
             t = torch.from_numpy(np.array(getattr(self, name).T, np.float32))
             self._cache[key] = [c[None, :] for c in t.to(device)]
         return self._cache[key]
+
+    def grid_table(self, device):
+        """The gridded Dirichlet field's node values as a contiguous float32
+        tensor on ``device`` (uploaded once per field, so once per solve),
+        None without one."""
+        return self.bc.device_table(device) if self.grid else None
 
     def device_tables(self, device):
         """The table form's ``(dir, neu, vert)`` rows as contiguous float32
@@ -486,6 +516,11 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
     alpha = problem.alpha if delta else fields.constant(1.0)
     sigma = problem.sigma if delta else fields.constant(0.0)
     all_fields = (problem.bc_dirichlet, alpha, sigma) + sources
+    if any(isinstance(f, fields.Grid) for f in all_fields[1:]):
+        raise NotImplementedError(
+            "a gridded field may be the Dirichlet data only (it has no "
+            "derivatives); reference: dcrmontecarlo_tpu/diagnostics/"
+            "martingale.py::grid_continuation")
     specs = (all_fields if all(fields.is_spec(f) for f in all_fields)
              else None)
     if robin_correction not in _ROBIN_CODES:
@@ -697,6 +732,8 @@ def _robin_chord_mass(P: WalkParams, px, py, nxv, nyv, ob, r, sbar):
     c_mag = 4.0 * g_eff * chord_j
     for _ in range(4):
         shrink = ob & (c_mag > 0.5)
+        if not bool(shrink.any()):
+            break  # nothing shrinks, nor will in a later round
         r_new = torch.clamp(r * (0.5 / torch.clamp(c_mag, min=1e-12)),
                             min=P.rmin)
         r = torch.where(shrink, r_new, r)
@@ -969,9 +1006,10 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
         scale_int = torch.sqrt(a_s / a_p) * (1.0 - sp_s / sbar)
         scale_edge = torch.sqrt(a_h / a_p)
         atten_pre = atten  # chord-branch lanes skip the move's scale
-        if P.robin != ROBIN_OFF:
+        if P.robin != ROBIN_OFF and bool(hit.any()):
             # Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
-            # with the grazing cosine clamped
+            # with the grazing cosine clamped (lanes that hit no wall keep
+            # their factor 1)
             glx, gly = P.grad_log_alpha(hx, hy)
             gamma = -0.5 * (hnx * glx + hny * gly)
             cosphi = torch.clamp(-(dx * hnx + dy * hny),
@@ -992,16 +1030,19 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
             # the wall pay 1 / (1 - q)
             q_c = torch.where(ob, torch.clamp(c_mag, max=0.5), 0.0)
             branch = stepping & (u[9] < q_c) & (q_c > 1e-6)
-            zx, zy, w_ch, a_z = _chord_branch(P, u[10], u[11], px, py, nxv,
-                                              nyv, r, sbar, a_p)
-            newx = torch.where(branch, zx, newx)
-            newy = torch.where(branch, zy, newy)
-            a_next = torch.where(branch, a_z, a_next)
-            new_ob = new_ob | branch
-            atten = torch.where(
-                branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
-                atten * torch.where(stepping & ob & (q_c > 1e-6),
-                                    1.0 / (1.0 - q_c), 1.0))
+            stay = atten * torch.where(stepping & ob & (q_c > 1e-6),
+                                       1.0 / (1.0 - q_c), 1.0)
+            if bool(branch.any()):  # else every lane keeps its move
+                zx, zy, w_ch, a_z = _chord_branch(
+                    P, u[10], u[11], px, py, nxv, nyv, r, sbar, a_p)
+                newx = torch.where(branch, zx, newx)
+                newy = torch.where(branch, zy, newy)
+                a_next = torch.where(branch, a_z, a_next)
+                new_ob = new_ob | branch
+                stay = torch.where(
+                    branch, atten_pre * w_ch / torch.clamp(q_c, min=1e-6),
+                    stay)
+            atten = stay
         if P.max_attenuation is not None:
             # symmetric: chord weights can be negative (the kernel clips the
             # lanes it steps; a cap >= 1 leaves the others as they are)
@@ -1088,7 +1129,10 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
                freeze_thr=None) -> dict:
     """The plain PyTorch version of the walk kernel, on any device.
 
-    Same step, op for op, as ``csrc/walk_kernel.cu``. Every ``EXIT_CHECK``
+    Same step, op for op, as ``csrc/walk_kernel.cu``; work whose result
+    no lane takes (a chord-mass shrink round, the chain's branch, the
+    Robin arrival weight of a step without a wall hit) is skipped, which
+    changes no value. Every ``EXIT_CHECK``
     steps the lanes that can still change are gathered and only those are
     stepped until the next check: exact, because a step of a lane without
     quota changes nothing, nor does one of a lane frozen by ``freeze_thr``
@@ -1239,7 +1283,8 @@ def _library(code: int):
                                 ctypes.c_int, ctypes.c_int,      # lanes,
                                                                  # budget
                                 ctypes.c_float,                  # freeze
-                                ctypes.c_void_p, ctypes.c_int,   # geom
+                                ctypes.c_void_p, ctypes.c_int,   # geom,
+                                                                 # grid
                                 ctypes.c_void_p]                 # stream
     lib.walk_launch.restype = ctypes.c_int
     return lib
@@ -1276,6 +1321,8 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
         ptrs[_PLANE_INDEX[name]] = t.data_ptr()
     geom = [t.data_ptr() if t.numel() else None
             for t in params.device_tables(px.device)] or [None] * 3
+    grid = params.grid_table(px.device)
+    geom.append(None if grid is None else grid.data_ptr())
     lib = _library(variant_code(params.variant))
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     garr = (ctypes.c_void_p * len(geom))(*geom)

@@ -20,7 +20,14 @@ Kinds (the integer is the kernel's field tag, ``csrc/walk_kernel.cu``):
   ``sin(k t + phase)``, ``cos(k t + phase)``. The analytic-check models
   (``models/manufactured.py``, ``poisson.py``, ``varcoeff.py``) and the
   JAX tests' fields are of this kind; the kernel holds up to
-  ``MAX_TERMS`` terms per field.
+  ``MAX_TERMS`` terms per field;
+* ``GRID``   ``[x0, dx, y0, dy, hi_x, hi_y, nx, ny]`` plus a float32
+  ``(nx, ny)`` table — the bilinear interpolant of a gridded field
+  (``diagnostics.grid_continuation`` builds one, as the JAX package's
+  does its closure; the cylinder oracle's Monte Carlo tier uses it as its
+  Dirichlet data).
+  It has no derivatives, so only ``bc_dirichlet`` may be one; the kernel
+  reads its table from global memory.
 
 Values of the survey kinds are computed in the same float32 operation
 order as the JAX package's lambdas; a ``TERMS`` field differs from its
@@ -40,15 +47,15 @@ import numpy as np
 import torch
 
 __all__ = [
-    "CONST", "BUMPS", "DIPOLE", "TERMS", "MAX_BUMPS", "MAX_TERMS",
+    "CONST", "BUMPS", "DIPOLE", "TERMS", "GRID", "MAX_BUMPS", "MAX_TERMS",
     "TERM_COLS", "FieldSpec", "Constant", "BumpSum", "Dipole", "Term",
-    "Terms", "smooth_circle", "constant", "gaussian_dipole", "bump_sum",
-    "term", "terms", "polynomial", "gaussian_bump",
+    "Terms", "Grid", "smooth_circle", "constant", "gaussian_dipole",
+    "bump_sum", "term", "terms", "polynomial", "gaussian_bump",
     "is_spec", "sigma_prime_fn", "grad_log_alpha_fn",
     "GaussianMixture", "dipole_importance",
 ]
 
-CONST, BUMPS, DIPOLE, TERMS = 0, 1, 2, 3
+CONST, BUMPS, DIPOLE, TERMS, GRID = 0, 1, 2, 3, 4
 MAX_BUMPS = 8          # kernel table capacity (csrc/walk_kernel.cu)
 MAX_TERMS = 4          # kernel table capacity per TERMS field
 TERM_COLS = 27         # 16 polynomial coefficients, ax, ay, g, cx, cy,
@@ -319,6 +326,68 @@ class Terms(FieldSpec):
             gy = gy + ty
             lap = lap + tl
         return total, gx, gy, lap
+
+
+class Grid(FieldSpec):
+    """The bilinear interpolant of ``u[ix, iy]`` on a uniform grid with
+    first nodes ``(x0, y0)`` and spacings ``(dx, dy)``, in the float32
+    operation order of the JAX package's ``grid_continuation``
+    (``diagnostics/martingale.py:92-105``): the index coordinate
+    ``(p - x0) / dx`` clipped to ``[0, n - 1.000001]`` (the bound rounded
+    to float32, so for some ``n`` it is ``n - 1`` itself), truncated to an
+    integer, and the four weighted corners summed in order; a corner past
+    the last node reads the last node (JAX's gather clamps the index,
+    and its weight is zero)."""
+
+    kind = GRID
+
+    def __init__(self, x0: float, dx: float, y0: float, dy: float, u):
+        self.u = np.ascontiguousarray(np.asarray(u, np.float32))
+        if self.u.ndim != 2 or min(self.u.shape) < 2:
+            raise ValueError("a grid field needs a 2-D table of at least "
+                             f"2 x 2 nodes, got shape {self.u.shape}")
+        nx, ny = self.u.shape
+        self.params = (_f32(x0), _f32(dx), _f32(y0), _f32(dy),
+                       _f32(nx - 1.000001), _f32(ny - 1.000001),
+                       float(nx), float(ny))
+        self._tables = {}
+
+    def table(self):
+        """The kernel's parameters; the node values go by
+        :meth:`device_table`."""
+        return self.kind, self.params
+
+    def device_table(self, device) -> torch.Tensor:
+        """The node values as a contiguous float32 tensor on ``device``,
+        copied there once."""
+        key = str(device)
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(self.u).to(device)
+        return self._tables[key]
+
+    def __call__(self, x, y):
+        x0, dx, y0, dy, hx, hy, nx, ny = self.params
+        ny = int(ny)
+        u = self.device_table(x.device).reshape(-1)
+        # divide by a tensor: CUDA divides by a Python scalar as a multiply
+        # by its reciprocal
+        fx = torch.clamp((x - x0) / torch.full_like(x, dx), 0.0, hx)
+        fy = torch.clamp((y - y0) / torch.full_like(y, dy), 0.0, hy)
+        ix = fx.to(torch.int64)
+        iy = fy.to(torch.int64)
+        tx = fx - ix.to(fx.dtype)
+        ty = fy - iy.to(fy.dtype)
+        ix1 = torch.clamp(ix + 1, max=int(nx) - 1)
+        iy1 = torch.clamp(iy + 1, max=ny - 1)
+        return ((((1.0 - tx) * (1.0 - ty)) * u[ix * ny + iy]
+                 + (tx * (1.0 - ty)) * u[ix1 * ny + iy])
+                + ((1.0 - tx) * ty) * u[ix * ny + iy1]) \
+            + (tx * ty) * u[ix1 * ny + iy1]
+
+    def value_grad_lap(self, x, y):
+        raise NotImplementedError(
+            "a grid field has no derivatives: it may be the Dirichlet data "
+            "(bc_dirichlet) only")
 
 
 def _factor_spec(s):

@@ -23,6 +23,7 @@ from ..ops.bessel import i0e, k0e
 from ..ops.greens import _one_minus_inv_i0_scaled
 
 __all__ = ["sample_greens_radius", "greens_radial_pdf", "_exact_rejection",
+           "sample_screened_radius_fast", "sample_screened_radius_exact",
            "sample_screened_radius_transport", "screened_radial_pdf"]
 
 
@@ -213,6 +214,38 @@ def _exact_rejection(draw, R, sigma_bar, max_rounds: int,
     if not with_weight:
         return r_fin
     return r_fin, torch.where(tiny, 1.0, w)
+
+
+def sample_screened_radius_fast(seed, counter, R, sigma_bar,
+                                max_rounds: int = 64):
+    """Exact screened-radius sampling with the counter-hash RNG
+    (``sampling/radial.py:316-337`` of the JAX package): the rejection of
+    :func:`_exact_rejection` on uniforms drawn from ``(seed, counter)``,
+    round ``k`` from the base ``mix32(seed ^ counter * 0xB5297A4D)`` xor
+    ``k * 0x68E31DA4``. ``seed`` and ``counter`` are u32 integers, ``R``
+    a float32 tensor of radii; returns the radii, shaped as ``R``."""
+    from .rng import MASK32, counter_uniform, mix32
+
+    R = torch.as_tensor(R, dtype=torch.float32)
+    lanes = int(R.numel()) if R.dim() else 1
+    base = int(mix32((int(seed) ^ int(counter) * 0xB5297A4D) & MASK32))
+
+    def draw(round_idx):
+        s = base ^ ((int(round_idx) * 0x68E31DA4) & MASK32)
+        u = counter_uniform(s, 0, 4, lanes, device=R.device)
+        return u.reshape((4,) + tuple(R.shape))
+
+    return _exact_rejection(draw, R, sigma_bar, max_rounds)
+
+
+def sample_screened_radius_exact(key, R, sigma_bar, max_rounds: int = 64):
+    """Not ported: the JAX package draws it with ``jax.random`` (threefry
+    keys); the port's walks use the counter hash
+    (:func:`sample_screened_radius_fast`)."""
+    raise NotImplementedError(
+        "sample_screened_radius_exact draws with jax.random keys and is "
+        "not ported (use sample_screened_radius_fast); reference: "
+        "dcrmontecarlo_tpu/sampling/radial.py::sample_screened_radius_exact")
 
 
 def screened_radial_pdf(r, R, sigma_bar):

@@ -35,7 +35,7 @@ from ..ops.walk_kernel import MAX_SMEM_SEGMENTS, geometry_size, \
 from ..problems.problem import Problem
 from ..sampling.rng import stream_seed
 from .split import make_launch_split, reserve_quota_row
-from .state import LANES, init_state, point_sums
+from .state import LANES, point_sums, slot_planes
 
 __all__ = ["WoStSolver", "SolveResult", "SolverOptions", "RawSolveOut"]
 
@@ -276,6 +276,24 @@ class WoStSolver:
         if o.backend not in ("auto", "pallas"):
             raise ValueError(f"unknown backend {o.backend!r}")
 
+    def _walk_params(self, eps: float, max_steps: int, seed: int,
+                     snap: bool):
+        """The walk's parameters for this solver's problem and options;
+        ``snap``: whether lanes carry boundary-snap starts."""
+        pb, opts = self.problem, self.options
+        return make_walk_params(
+            pb, eps=eps, max_steps=max_steps,
+            t_min=opts.t_min_frac * pb.diameter, rmin=opts.rmin_factor * eps,
+            project=opts.project_to_boundary,
+            rejection_rounds=opts.rejection_rounds,
+            roulette_threshold=opts.roulette_threshold,
+            snap=snap, seed=stream_seed(seed),
+            robin_correction=self._robin_enabled(),
+            robin_arrival_clamp=opts.robin_arrival_clamp,
+            max_attenuation=opts.max_attenuation,
+            freeze_split=opts.split_threshold is not None,
+            screened_sampler=opts.screened_sampler)
+
     def _setup(self, points, n_walks: int, max_steps: int, eps: float,
                seed: int):
         """Fresh walker planes and walk parameters for a solve.
@@ -286,7 +304,7 @@ class WoStSolver:
         slot's quota.
         """
         self._check_supported()
-        pb, opts, dev = self.problem, self.options, self.device
+        opts, dev = self.options, self.device
         pts = torch.as_tensor(np.asarray(points, np.float32).reshape(-1, 2),
                               device=dev)
         n_points = int(pts.shape[0])
@@ -298,18 +316,7 @@ class WoStSolver:
                    ((W + lane_block - 1) // lane_block) * block_rows)
         crn = ("tile", K, n_points) if opts.common_random_numbers else None
         snap_tol = self._boundary_snap_tol(eps)
-        params = make_walk_params(
-            pb, eps=eps, max_steps=max_steps,
-            t_min=opts.t_min_frac * pb.diameter, rmin=opts.rmin_factor * eps,
-            project=opts.project_to_boundary,
-            rejection_rounds=opts.rejection_rounds,
-            roulette_threshold=opts.roulette_threshold,
-            snap=snap_tol is not None, seed=stream_seed(seed),
-            robin_correction=self._robin_enabled(),
-            robin_arrival_clamp=opts.robin_arrival_clamp,
-            max_attenuation=opts.max_attenuation,
-            freeze_split=opts.split_threshold is not None,
-            screened_sampler=opts.screened_sampler)
+        params = self._walk_params(eps, max_steps, seed, snap_tol is not None)
         n_src = params.n_src
 
         quotas = np.zeros((rows * LANES,), np.int32)
@@ -317,7 +324,7 @@ class WoStSolver:
         point_id = np.zeros((rows * LANES,), np.int64)
         point_id[:W] = np.repeat(np.arange(n_points), K)
         ptx, pty, ob0, n0x, n0y = self._snap_points(pts, snap_tol)
-        state = init_state(
+        state = slot_planes(
             ptx, pty, None if ob0 is None else (ob0, n0x, n0y), K, rows,
             torch.as_tensor(quotas.reshape(rows, LANES), device=dev),
             stream_ids(rows, crn, dev), n_src)
@@ -445,11 +452,11 @@ class WoStSolver:
         ``(n_src, N)`` means. ``progress``: an optional
         ``callback(done_walks, total_walks, iteration)``, called once per
         launch of the host launch loop, which it selects.
-        ``return_history`` is not ported yet and raises.
+        ``return_history``: also trace ``history_walks`` walks from each
+        point (``diagnostics/history.py::trace_walks``, seed ``seed + i``
+        for point ``i``) and return ``(result, history)``, ``history[i]``
+        in the reference's schema (``WalkHistory.to_dict``).
         """
-        if return_history:
-            raise _unported("return_history",
-                            "diagnostics/history.py::trace_walks")
         raw = self._solve_raw(points, int(n_walks), int(max_steps),
                               float(eps), seed, progress=progress)
         mean, stderr = raw.mean, raw.stderr
@@ -465,4 +472,15 @@ class WoStSolver:
             walk_sum=sums, walk_sumsq=sumsq,
         )
         self._warn_supercritical(result.max_banked, sumsq, int(n_walks))
-        return result
+        if not return_history:
+            return result
+        from ..diagnostics.history import trace_walks
+
+        pts = np.asarray(points, np.float32).reshape(-1, 2)
+        history = {}
+        for i in range(pts.shape[0]):
+            h = trace_walks(self, pts[i], n_walks=history_walks,
+                            max_steps=int(max_steps), eps=float(eps),
+                            seed=seed + i)
+            history[i] = h.to_dict()[0]
+        return result, history

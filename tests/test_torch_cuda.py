@@ -31,7 +31,12 @@ products: MIS without delta tracking, chain + MIS and the wide forms (the
 scenario line's 6 sources, the Born demo's 8 sources and 9 components,
 the notebook line's 18 sources and 19 components), one launch each, a
 whole 18-source notebook-line solve, and the reference's
-``test_mis_nee_unbiased_and_lower_variance`` on the card.
+``test_mis_nee_unbiased_and_lower_variance`` on the card; and the
+validation path: the flagship switches with a gridded Dirichlet field
+(the cylinder oracle's Monte Carlo tier), one launch, and the tier's
+checks at seed 0; one-step launches equal to one many-step launch; and the
+diagnostics (walk histories, the occupancy profile, the martingale audit)
+through the kernel.
 """
 
 import os
@@ -49,6 +54,7 @@ from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
+from dcrmontecarlo_tpu_torch.survey import survey_default_options
 
 pytestmark = pytest.mark.cuda
 
@@ -268,7 +274,7 @@ def test_kernel_whole_topography_solve_matches_plain(device):
     prob, pts = _topography(4.0)
     solver = WoStSolver(prob, SolverOptions(), device=device)
     name = wk.kernel_name((wk.ROBIN_OFF, False, False, False, True, True,
-                           False, False))
+                           False, False, False))
     launches = wk.run_walk.variant_launches[name]
     rk = solver._solve_raw(pts, 512, 600, 0.5, 5)
     assert wk.run_walk.variant_launches[name] > launches
@@ -306,19 +312,20 @@ ANALYTIC_CASES = {
     "no_delta_static_silhouettes": (
         lambda: poisson_square(with_obstacle=True)[0],
         [[1.0, 1.0], [0.7, 0.0], [0.0, -1.5], [-0.55, 0.1]], {}, 1e-3,
-        (wk.ROBIN_OFF, False, False, False, False, False, False, False)),
+        (wk.ROBIN_OFF, False, False, False, False, False, False, False,
+         False)),
     "no_delta_table": (_table_square, POISSON_POINTS, {}, 1e-3,
                        (wk.ROBIN_OFF, False, False, False, True, False,
-                        False, False)),
+                        False, False, False)),
     "transport_chain": (_transport_box, [[0.0, -1.0], [0.5, -0.5]],
                         dict(screened_sampler="transport"), 1e-2,
                         (wk.ROBIN_CHAIN, False, False, False, False, True,
-                         True, False)),
+                         True, False, False)),
     "transport_robin_off": (lambda: polynomial_manufactured()[0],
                             interior_grid(n_points=3),
                             dict(screened_sampler="transport"), 1e-3,
                             (wk.ROBIN_OFF, False, False, False, False, True,
-                             True, False)),
+                             True, False, False)),
 }
 
 
@@ -438,26 +445,29 @@ PRODUCT_CASES = {
     # (make -> (problem, points), options, eps, max_steps, variant)
     "mis_no_delta_square": (
         lambda: (_narrow_gaussian(), [[0.5, 0.0], [1.0, 1.0]]), {}, 1e-3, 300,
-        (wk.ROBIN_OFF, False, True, False, False, False, False, False)),
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False,
+         False)),
     "mis_no_delta_neumann_box": (
         lambda: (_narrow_gaussian(center=(0.0, -0.3), neumann=True),
                  [[0.5, -0.2], [-1.0, -0.01], [0.0, -1.5]]), {}, 1e-2, 300,
-        (wk.ROBIN_OFF, False, True, False, False, False, False, False)),
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False,
+         False)),
     "chain_mis_notebook": (
         lambda: (_notebook_problem(mis=True), NOTEBOOK_ELECTRODES),
         dict(common_random_numbers=True), 1.0, 6000,
-        (wk.ROBIN_CHAIN, False, True, False, False, True, False, False)),
+        (wk.ROBIN_CHAIN, False, True, False, False, True, False, False,
+         False)),
     "wide_survey_scenario_line": (
         lambda: _line(geophysical_scenario()[0], ELECTRODES, 3),
         dict(common_random_numbers=True, roulette_threshold=0.05,
              rejection_rounds=2), EPS, 500,
-        (wk.ROBIN_OFF, False, False, False, False, True, False, True)),
+        (wk.ROBIN_OFF, False, False, False, False, True, False, True, False)),
     "wide_survey_mis_born_demo": (
         _born_demo, dict(common_random_numbers=True), 0.3, 500,
-        (wk.ROBIN_OFF, False, True, False, False, True, False, True)),
+        (wk.ROBIN_OFF, False, True, False, False, True, False, True, False)),
     "wide_chain_mis_notebook_line": (
         _notebook_line, dict(common_random_numbers=True), 1.0, 6000,
-        (wk.ROBIN_CHAIN, False, True, False, False, True, False, True)),
+        (wk.ROBIN_CHAIN, False, True, False, False, True, False, True, False)),
 }
 
 
@@ -492,7 +502,7 @@ def test_notebook_line_whole_solve_matches_plain(device):
                                             common_random_numbers=True),
                         device=device)
     name = wk.kernel_name((wk.ROBIN_CHAIN, False, True, False, False, True,
-                           False, True))
+                           False, True, False))
     launches = wk.run_walk.variant_launches[name]
     rk = solver._solve_raw(pts, 32, 6000, 1.0, 5)
     assert wk.run_walk.variant_launches[name] > launches
@@ -519,3 +529,97 @@ def test_mis_nee_unbiased_and_lower_variance(device):
     dev = np.abs(a.mean - b.mean) / np.sqrt(a.stderr ** 2 + b.stderr ** 2)
     assert (dev < 4).all(), (a.mean, b.mean)
     assert (b.stderr < a.stderr / 3).all(), (a.stderr, b.stderr)
+
+
+def test_grid_instantiation_matches_plain_one_launch(device):
+    # chip_smoke.py phase 32 at 64 steps: the cylinder's grid as Dirichlet
+    # data, freeze 4.0; the zero field banks otherwise on the same paths
+    import dataclasses
+
+    from chip_smoke import cylinder_problem
+
+    prob, pins = cylinder_problem()
+    solver = WoStSolver(prob, survey_default_options(
+        target_slots=8192, split_threshold=4.0), device=device)
+    state, params, _, _ = solver._setup(pins["electrodes"].astype(
+        np.float32), 8192, 6000, 1.0, 3)
+    assert params.grid and params.variant in wk.KERNEL_VARIANTS
+    ref = {k: v.clone() for k, v in state.items()}
+    zero = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(state, params, 64, freeze_thr=4.0)
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    wk.walk_plain(ref, params, 64, freeze_thr=4.0)
+    frac, _, finite = wk.compare_planes(state, ref, state_planes(1))
+    assert finite and min(frac.values()) >= wk.PLANE_MIN_FRAC, frac
+    c0 = fields.constant(0.0)
+    wk.run_walk(zero, dataclasses.replace(
+        params, bc=c0, specs=(c0,) + params.specs[1:]), 64, freeze_thr=4.0)
+    assert torch.equal(zero["px"], state["px"])
+    assert bool((zero["asum0"] != state["asum0"]).any())
+
+
+@pytest.mark.parametrize("case", ["chain_mis", "survey"])
+def test_one_step_launches_equal_one_launch(device, case):
+    # the counter hash depends on (seed, counter, stream, lane) only, so
+    # the diagnostics' one-step launches walk the solver's walks
+    if case == "survey":
+        prob, pts, ms, eps = _survey_problem(), ELECTRODES, 500, EPS
+    else:
+        survey, el = notebook_survey()
+        survey.source_mis = True
+        prob, pts, ms, eps = survey.build_problem(), el, 6000, 1.0
+    solver = WoStSolver(prob, survey_default_options(target_slots=8192),
+                        device=device)
+    state, params, _, _ = solver._setup(np.asarray(pts, np.float32), 8192,
+                                        ms, eps, 7)
+    many = {k: v.clone() for k, v in state.items()}
+    wk.run_walk(state, params, 32)
+    for _ in range(32):
+        wk.run_walk(many, params, 1)
+    for k in state_planes(params.n_src):
+        assert torch.equal(state[k], many[k]), k
+
+
+def test_cylinder_mc_tier_seed0(device):
+    # tests/test_cylinder_oracle.py::test_mc_matches_cylinder_series at
+    # seed 0, with all of its checks
+    from chip_smoke import cylinder_checks, cylinder_problem
+
+    prob, pins = cylinder_problem()
+    solver = WoStSolver(prob, survey_default_options(
+        target_slots=16384, split_threshold=4.0), device=device)
+    el = pins["electrodes"].astype(np.float32)
+    r = solver.solve(el, n_walks=2500, max_steps=6000, eps=1.0, seed=0)
+    ref = pins["ref_conductor"] + pins["delta_smooth_conductor"]
+    n_ok, cm, signed = cylinder_checks(r, ref, el[:, 0])
+    assert n_ok >= 18, (n_ok, r.mean - ref)
+    assert -30.0 < cm < 6.0, cm
+    assert min(signed) > 0.0, signed
+
+
+def test_diagnostics_launch_the_kernel(device):
+    from dcrmontecarlo_tpu_torch.diagnostics import martingale_audit, \
+        profile_occupancy, trace_walks
+
+    prob = Problem(dirichlet=square_loop(1.0),
+                   bc_dirichlet=fields.polynomial({(1, 0): 1.0, (0, 1): 2.0}),
+                   source=fields.constant(1.0))
+    solver = WoStSolver(prob, SolverOptions(target_slots=64), device=device)
+    before = wk.run_walk.launches
+    h = trace_walks(solver, (0.2, 0.1), n_walks=8, max_steps=100, eps=1e-3)
+    assert wk.run_walk.launches > before and (h.walk_length >= 1).all()
+    occ = profile_occupancy(solver, np.array([[0.0, 0.0]]), n_walks=32,
+                            max_steps=100, eps=1e-3)
+    assert occ.walks_done_per_iter.sum() == 32
+    res, hist = solver.solve(np.array([[0.1, 0.1]]), n_walks=32,
+                             max_steps=100, eps=1e-3, return_history=True,
+                             history_walks=4)
+    assert len(hist[0]) == 4 and np.isfinite(res.mean).all()
+    before = wk.run_walk.launches
+    rep = martingale_audit(
+        prob, SolverOptions(target_slots=1024), (0.0, 0.0),
+        continuation=lambda x, y: x + 2.0 * y, eps=1e-3, n_steps=8,
+        n_walkers=1024, n_seeds=2, device=device)
+    assert wk.run_walk.launches == before + 16
+    assert rep.n.sum() > 0 and np.isfinite(rep.mean).all()

@@ -62,19 +62,24 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "interop", "validation.fdm", "solver.split",
                 "models.topography", "geometry.queries", "solver.stream",
                 "sampling.mis", "sampling._transport_coeffs",
-                "models.manufactured", "models.poisson", "models.varcoeff"):
+                "models.manufactured", "models.poisson", "models.varcoeff",
+                "validation.cylinder", "validation.fem", "validation.pins",
+                "diagnostics.history", "diagnostics.counters",
+                "diagnostics.martingale", "diagnostics._steps",
+                "utils.plotting"):
         assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
 
 def _imported_tops(src):
+    """Top-level modules ``src`` imports; a relative import is ``"."``
+    plus its module (a sibling of the port)."""
     tops = set()
     for node in ast.walk(ast.parse(src.read_text())):
         if isinstance(node, ast.Import):
             tops |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, f"relative import at line {node.lineno}"
-            tops.add(node.module.split(".")[0])
+            tops.add("." * node.level + node.module.split(".")[0])
     return tops
 
 
@@ -90,6 +95,22 @@ def _files_chip_smoke_loads_by_path():
     return found
 
 
+def _files_port_loads_by_path():
+    """The JAX package's files the port opens by path: the pins, by name
+    under ``validation/pins.py``'s ``PIN_DIR``."""
+    found = set()
+    for f in sorted(PORT.rglob("*.py")):
+        text = f.read_text()
+        if '"dcrmontecarlo_tpu"' not in text:
+            continue
+        assert f == PORT / "validation" / "pins.py", f
+        assert re.search(r'"dcrmontecarlo_tpu", "validation", "pins"\)',
+                         text)
+        for name in re.findall(r'_load\("([^"]+)"\)', text):
+            found.add(f"dcrmontecarlo_tpu/validation/pins/{name}")
+    return found
+
+
 def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
     # chip_smoke.py's oracle is the port's own copy of the finite-volume
     # solver, imported from the port; it imports only numpy and scipy
@@ -100,16 +121,31 @@ def test_oracle_loaded_by_path_imports_only_numpy_and_scipy():
     assert "spec_from_file_location" not in text
 
 
+@pytest.mark.parametrize("module", ["fem", "cylinder", "pins"])
+def test_port_oracle_copies_import_only_numpy_and_scipy(module):
+    # the other oracles are the port's own copies of the JAX package's
+    # numpy and scipy files too (fem builds on the port's fdm)
+    tops = _imported_tops(PORT / "validation" / f"{module}.py")
+    assert tops <= {"numpy", "scipy", "typing", "math", "__future__",
+                    "os", ".fdm"}, tops
+
+
 def test_every_file_chip_smoke_loads_by_path_is_jax_free():
-    # the one file of the JAX package chip_smoke.py reads by path is the
-    # pinned oracle's data: a plain .npz that loads without pickle (no code)
+    # the files of the JAX package chip_smoke.py and the port read by path
+    # are the two pinned oracles' data: plain .npz files that load without
+    # pickle (no code)
     import numpy as np
 
     files = _files_chip_smoke_loads_by_path()
     assert files == {"dcrmontecarlo_tpu/validation/pins/notebook_oracle.npz"}
+    files |= _files_port_loads_by_path()
+    assert files == {"dcrmontecarlo_tpu/validation/pins/notebook_oracle.npz",
+                     "dcrmontecarlo_tpu/validation/pins/cylinder_oracle.npz"}
     for rel in files:
         with np.load(ROOT / rel, allow_pickle=False) as z:
-            assert {"electrodes", "fdm_401", "dv_401"} <= set(z.files)
+            assert "electrodes" in z.files
+            assert {"fdm_401", "dv_401"} <= set(z.files) or \
+                {"gx", "gy", "bc_grid_conductor"} <= set(z.files)
 
 
 def test_kernel_source_names_the_tpu_kernel_it_replaces():
@@ -146,34 +182,39 @@ def test_kernel_instantiations_match_python():
     robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
              "REFLECT": wk.ROBIN_REFLECTANCE}
     found = set()
-    for m in re.finditer(r"WALK_CASE\((\d+), ROBIN_(\w+)((?:, \w+){6,7})\);",
-                         body):
+    for m in re.finditer(
+            r"WALK_CASE\((\d+), ROBIN_(\w+)((?:,\s*\w+){6,8})\);", body):
         code, r, flags = m.groups()
         b = [f.strip() == "true" for f in flags.split(",")[1:]]
-        variant = (robin[r], *b[:6], len(b) == 7 and b[6])
+        b += [False] * (8 - len(b))
+        variant = (robin[r], *b)
         want = variant[0]
         for f in variant[1:7]:
             want = 2 * want + f
-        want += 256 * variant[7]
+        want += 256 * variant[7] + 512 * variant[8]
         assert int(code) == want == wk.variant_code(variant)
         found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 19
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 20
     narrow = {v for v in found if not v[7]}
     # the table form runs the topographic survey, the chain on it and a
     # walk without delta tracking
     assert {v for v in found if v[4]} == {
-        (wk.ROBIN_OFF, False, False, False, True, True, False, False),
-        (wk.ROBIN_CHAIN, False, False, False, True, True, False, False),
-        (wk.ROBIN_OFF, False, False, False, True, False, False, False)}
+        (wk.ROBIN_OFF, False, False, False, True, True, False, False,
+         False),
+        (wk.ROBIN_CHAIN, False, False, False, True, True, False, False,
+         False),
+        (wk.ROBIN_OFF, False, False, False, True, False, False, False,
+         False)}
     # no delta tracking: Robin off, no majorant or freeze, both forms, and
     # MIS in the static form; the transport sampler with delta tracking,
     # static form
     assert {v for v in found if not v[5]} == {
-        (wk.ROBIN_OFF, False, False, False, t, False, False, False)
+        (wk.ROBIN_OFF, False, False, False, t, False, False, False, False)
         for t in (False, True)} | {
-        (wk.ROBIN_OFF, False, True, False, False, False, False, False)}
+        (wk.ROBIN_OFF, False, True, False, False, False, False, False,
+         False)}
     assert {v for v in found if v[6]} == {
-        (r, False, False, False, False, True, True, False)
+        (r, False, False, False, False, True, True, False, False)
         for r in (wk.ROBIN_OFF, wk.ROBIN_CHAIN)}
     # the wide forms: the survey, the survey with MIS and chain + MIS, each
     # also compiled narrow
@@ -181,7 +222,13 @@ def test_kernel_instantiations_match_python():
     assert wide == {(wk.ROBIN_OFF, False, m, False, False, True, False)
                     for m in (False, True)} | {
         (wk.ROBIN_CHAIN, False, True, False, False, True, False)}
-    assert {v + (False,) for v in wide} <= narrow
+    assert {v + (False, False) for v in wide} <= narrow
+    # the grid: the flagship's switches only, and the flagship compiled
+    # without it too
+    assert {v for v in found if v[8]} == {
+        (wk.ROBIN_CHAIN, True, True, True, False, True, False, False, True)}
+    assert (wk.ROBIN_CHAIN, True, True, True, False, True, False, False,
+            False) in found
 
 
 def test_kernel_transport_table_matches_python():

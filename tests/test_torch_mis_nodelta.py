@@ -79,7 +79,7 @@ def test_plain_walk_matches_pallas_kernel(name):
                                       np.asarray(pts, np.float32), 1024, eps,
                                       300)
     assert params.variant == (wk.ROBIN_OFF, False, True, False, False, False,
-                              False, False)
+                              False, False, False)
     assert params.variant in wk.KERNEL_VARIANTS and wk.terms_fields(
         params.variant)
     _compare(got, want, state_planes(params.n_src))

@@ -218,7 +218,7 @@ def test_no_delta_params_ignore_delta_options():
     assert p.robin == wk.ROBIN_OFF and p.roulette_threshold is None
     assert p.max_attenuation is None and not p.transport and not p.delta
     assert p.variant == (wk.ROBIN_OFF, False, False, False, False, False,
-                         False, False)
+                         False, False, False)
     fp, ip = p.pack()
     assert ip[19] == 0 and ip[20] == 0 and ip[3] == 0
 

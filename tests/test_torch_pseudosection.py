@@ -14,21 +14,33 @@ scale, and the single-source ``DCRSurvey.run`` of the same line, seed and
 size (which this slice does not touch) differs from the JAX package's by
 1.2e-4 of its scale. The single-source line (4 electrodes, one dipole:
 the solve's squeezed output) is held the same way. The public names of
-``geometry``, ``problems`` and ``survey`` are the JAX package's.
+the top level and of ``geometry``, ``problems``, ``survey``,
+``diagnostics``, ``validation``, ``solver`` and ``sampling`` are the JAX
+package's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import dcrmontecarlo_tpu as j_top
+import dcrmontecarlo_tpu.diagnostics as j_diagnostics
 import dcrmontecarlo_tpu.geometry as j_geometry
 import dcrmontecarlo_tpu.problems as j_problems
+import dcrmontecarlo_tpu.sampling as j_sampling
+import dcrmontecarlo_tpu.solver as j_solver
 import dcrmontecarlo_tpu.survey as j_survey
+import dcrmontecarlo_tpu.validation as j_validation
 from dcrmontecarlo_tpu.models import geophysical_scenario as j_scenario
 from dcrmontecarlo_tpu.survey import dcr as jdcr
+import dcrmontecarlo_tpu_torch as t_top
+import dcrmontecarlo_tpu_torch.diagnostics as t_diagnostics
 import dcrmontecarlo_tpu_torch.geometry as t_geometry
 import dcrmontecarlo_tpu_torch.problems as t_problems
+import dcrmontecarlo_tpu_torch.sampling as t_sampling
+import dcrmontecarlo_tpu_torch.solver as t_solver
 import dcrmontecarlo_tpu_torch.survey as t_survey
+import dcrmontecarlo_tpu_torch.validation as t_validation
 from dcrmontecarlo_tpu_torch.models import geophysical_scenario
 from dcrmontecarlo_tpu_torch.survey import dcr as tdcr
 
@@ -49,7 +61,12 @@ def test_dipole_dipole_pairs_match_jax(n, r):
 
 @pytest.mark.parametrize("port,ref", [(t_geometry, j_geometry),
                                       (t_problems, j_problems),
-                                      (t_survey, j_survey)])
+                                      (t_survey, j_survey),
+                                      (t_diagnostics, j_diagnostics),
+                                      (t_validation, j_validation),
+                                      (t_solver, j_solver),
+                                      (t_sampling, j_sampling),
+                                      (t_top, j_top)])
 def test_public_names_match_jax(port, ref):
     # every name the JAX subpackage exports, the port's exports too
     missing = sorted(set(ref.__all__) - set(port.__all__))

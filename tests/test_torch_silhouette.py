@@ -353,7 +353,7 @@ def test_form_follows_the_jax_rule(n_seg, size, table):
     params = _params(prob)
     assert params.table == table
     assert params.variant == (wk.ROBIN_OFF, False, False, False, table, True,
-                              False, False)
+                              False, False, False)
     assert params.variant in wk.KERNEL_VARIANTS
     fp, ip = params.pack()
     assert ip[17:19].tolist() == [n_seg - 1, int(table)]

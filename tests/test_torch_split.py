@@ -150,7 +150,7 @@ def test_freeze_one_launch_matches_pallas(flagship):
                                  robin_correction="chain", freeze_split=True,
                                  **common)
     assert params.variant == (wk.ROBIN_CHAIN, True, True, True, False, True,
-                              False, False)
+                              False, False, False)
     assert params.variant in wk.KERNEL_VARIANTS
     got = interop.state_to_numpy(wk.run_walk(
         interop.state_from_numpy(planes), params, STEPS,

@@ -26,11 +26,13 @@ from dcrmontecarlo_tpu.ops.pallas_walk import stream_ids as j_stream_ids
 from dcrmontecarlo_tpu.solver import SolverOptions as JOptions
 from dcrmontecarlo_tpu.solver import WoStSolver as JSolver
 from dcrmontecarlo_tpu_torch import interop
+from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
 from dcrmontecarlo_tpu_torch.geometry import Polyline, square_loop
 from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
     notebook_survey
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.problems import LocalMajorant, Problem, fields
+from dcrmontecarlo_tpu_torch.sampling import sample_screened_radius_exact
 from dcrmontecarlo_tpu_torch.sampling.rng import stream_seed
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
@@ -338,6 +340,16 @@ def _terms_on_accuracy_instantiation():
     _kernel_params(p).pack()
 
 
+def _grid_on_gridless_instantiation():
+    # a gridded Dirichlet field on the survey: only the flagship switches
+    # read a grid (the cylinder oracle's path)
+    tprob = geophysical_scenario()[0].build_problem()
+    xs = np.linspace(-50.0, 50.0, 11)
+    tprob.set_boundary_conditions(grid_continuation(xs, xs,
+                                                    np.zeros((11, 11))))
+    _kernel_params(tprob).pack()
+
+
 UNPORTED = {
     "robin_interior_chord": lambda: _survey_solver(
         robin_correction="chain", robin_interior="chord").solve(
@@ -358,8 +370,9 @@ UNPORTED = {
         [[0.0, -1.0]], 8, 5, EPS),
     "xla_backend": lambda: _survey_solver(backend="xla").solve(
         [[0.0, -1.0]], 8, 5, EPS),
-    "return_history": lambda: _survey_solver().solve(
-        [[0.0, -1.0]], 8, 5, EPS, return_history=True),
+    "grid_on_gridless_instantiation": _grid_on_gridless_instantiation,
+    "sample_screened_radius_exact": lambda: sample_screened_radius_exact(
+        None, torch.ones(4), 1.0),
     "geometry_over_table_budget": lambda: WoStSolver(
         _over_table_budget(), device="cpu").solve([[0.0, -1.0]], 8, 5, EPS),
 }
