@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``dcrmontecarlo_tpu_torch`` through its seven paths, each on the
+Drives ``dcrmontecarlo_tpu_torch`` through its eight paths, each on the
 kernel variants it runs: the DCR-survey forward solve (phases 3-7), the
 1000 m notebook survey's accuracy path, the Robin chord chain with the
 two-level local majorant (phases 8-11), the flagship notebook gate's
@@ -18,7 +18,10 @@ delta tracking and the kernel's wide form for more than four sources or
 eight mixture components (phases 27-31), and the validation and
 diagnostics path: the cylinder-series oracle's Monte Carlo tier on a
 gridded Dirichlet field, walk histories, the occupancy profile and the
-martingale audit (phases 32-35). Each phase reports on its own line:
+martingale audit (phases 32-35), and the sharded solve: a mesh of
+shards, each running the kernel's launch loop with its own seed and clone
+range, on virtual shards of the one card and across two processes
+(phases 36-39). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -223,6 +226,38 @@ martingale audit (phases 32-35). Each phase reports on its own line:
     with its bounds; ``trace_walks`` and ``solve(return_history=True)`` on
     the survey against a solve of the same walks (equal totals and steps);
     ``profile_occupancy`` against a solve's steps.
+36. the sharded launch loop (K9): a 4-shard mesh on the card
+    (``make_mesh(4)``), the survey with ``survey_default_options()``, 9
+    points x 512 walks, kernel vs the plain version on the same shards
+    (equal steps, launches and clones per shard, phase 4's rule for the
+    means); the same four shards advanced together equal them solved one
+    by one, bit for bit (shards on one card launch in turn on one
+    stream); one 32-step launch at 8,192 lanes of the flagship's
+    instantiation without the freeze (chain + majorant + MIS, the
+    flagship on a mesh) after 200 plain steps under phase 3's rule, the
+    mixture shown to act; a whole sharded flagship solve with the split
+    at 4.0, 21 x 128 walks, ``max_steps=100``, on 2 shards (shard 1's
+    clone ids start at 0xA0000000, negative as an int32): kernel vs
+    plain, equal steps and clones.
+37. the configurations of ``__graft_entry__.py::dryrun_multichip`` on a
+    4-shard mesh at the sizes of the tests they mirror: the survey
+    against phase 5's finite-volume oracle and bound (1500 walks); CRN
+    with a second source, a finite ``(2, 9)`` mean; the split at 1.5 with
+    the chain within 4 sigma of the single-device chain solve; and
+    ``compaction="pack"`` with the unpacked solve's steps.
+38. full size on a 4-shard mesh: phase 6's configuration (a warm-up, its
+    launches counted, and 3 timed solves; each within 4 sigma of phase
+    6's solve of the same seed), then 256 steps of kernel and plain
+    version at a shard's state (36,864 working lanes padded to 40,960),
+    the K9 record; phase 15's
+    flagship configuration without the freeze (a warm-up and 2 timed
+    solves: launches, clones, ``max_weight``, ``max_banked``), then 256
+    steps at a shard's state (172,032 lanes), the record of its
+    instantiation.
+39. two processes on the card, each holding 2 of a 4-shard mesh
+    (``initialize_distributed`` over gloo on a local port): both print the
+    survey's 9 x 2^15-walk solve, equal to each other and to the
+    one-process 4-shard mesh bit for bit.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -421,13 +456,14 @@ def bound(params, lanes, walker_steps, launches):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_record(params, variant, launches, timed, regs, tolerance):
+def kernel_record(params, variant, launches, timed, regs, tolerance,
+                  replaces=REPLACES):
     """The kernels line's entry for ``params``' instantiation: its
     launches on its path's main run and ``timed``, a ``steps_256``
     result."""
     bound_ms, bound_by = bound(params, timed["lanes"], timed["steps"], 1)
     return {"name": params.kernel_name, "variant": variant, "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES, "launches": launches,
+            "source": SOURCE, "replaces": replaces, "launches": launches,
             "max_abs_err": timed["max_err"], "ms": timed["ms"],
             "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
@@ -833,6 +869,302 @@ def validation_phases(wk, dev, card, regs, records, tolerance):
         f"occupancy profile of {4 * n_tr} walks: {occ.iterations} "
         f"iterations, mean occupancy {occ.mean_occupancy:.4f}, "
         f"{int(occ.active_per_iter.sum())} steps = the solve's")
+
+
+# phase 39's worker: one process of a 2-process job on this card, each
+# holding 2 of the mesh's 4 shards (gloo: NCCL refuses two ranks on one
+# card); prints its solve of the survey
+WORKER_39 = r"""
+import json, sys
+import numpy as np
+import torch.distributed as dist
+from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
+from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
+    initialize_distributed, make_mesh
+from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+coord, pid = sys.argv[1], int(sys.argv[2])
+n = initialize_distributed(coord, 2, pid, local_device_count=2)
+survey, electrodes = geophysical_scenario(sharpness=0.5)
+pts = np.asarray(electrodes, np.float32).copy()
+pts[:, 1] = -0.1
+solver = ShardedWoStSolver(survey.build_problem(), make_mesh(), SolverOptions(
+    target_slots=1 << 16, rejection_rounds=1))
+r = solver.solve(pts, n_walks=1 << 15, max_steps=500, eps=0.9, seed=3)
+out = {"shards": n, "backend": dist.get_backend(),
+       "local": solver.mesh.local_shards, "launches": wk.run_walk.launches,
+       "result": [r.mean.tolist(), r.stderr.tolist(), r.walk_sum.tolist(),
+                  r.walk_sumsq.tolist(), r.total_steps, r.iterations,
+                  solver.last_solve_stats]}
+dist.destroy_process_group()
+print("RESULT", json.dumps(out), flush=True)
+"""
+
+
+def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
+                   electrodes, fdm, f6, flag_prob, nb_pts):
+    """Phases 36-39: the sharded solve (K9) on virtual shards of one card.
+    ``fdm``: phase 5's finite-volume oracle of ``survey``; ``f6``: phase
+    6's full-size solves."""
+    from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
+        make_mesh
+    from dcrmontecarlo_tpu_torch.problems import fields
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+
+    prob = survey.build_problem()
+    pts = survey_points(electrodes, -0.1)
+    sharded_flagship = (wk.ROBIN_CHAIN, True, True, False, False, True,
+                        False, False, False)
+
+    def kernel_vs_plain(solver, pts, n_walks, max_steps, eps, seed, what):
+        """A sharded solve with the kernel and with the plain version on
+        the same shards: equal steps, launches and clones per shard, means
+        within phase 4's rule. Returns the two results, the kernel's stats
+        and both times."""
+        t0 = time.perf_counter()
+        rk = solver._solve_raw(pts, n_walks, max_steps, eps, seed)
+        stats_k, t_k = solver.last_solve_stats, time.perf_counter() - t0
+        rp = solver._solve_raw(pts, n_walks, max_steps, eps, seed,
+                               walk=wk.walk_plain)
+        stats_p, t_p = solver.last_solve_stats, time.perf_counter() - t0
+        dm = np.abs(rk.mean - rp.mean)
+        scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+        check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+              and (dm <= 1e-3 * scale).all()
+              and rk.total_steps == rp.total_steps and stats_k == stats_p,
+              f"{what}: kernel {rk.total_steps} steps {stats_k}, plain "
+              f"{rp.total_steps} steps {stats_p}, |dmean|/scale "
+              f"{dm / scale}")
+        return rk, rp, stats_k, t_k, t_p - t_k, float((dm / scale).max())
+
+    # ---- 36. K9: the sharded launch loop, kernel vs plain ---------------
+    mesh4 = make_mesh(4)
+    check(mesh4.devices.size == 4 and mesh4.local_shards == [0, 1, 2, 3],
+          f"phase 36: make_mesh(4) gave {mesh4.devices}")
+    solver = ShardedWoStSolver(prob, mesh4, survey_default_options())
+    rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
+        solver, pts, 512, 500, 0.9, 11, "phase 36 (survey, 4 shards)")
+    log(f"[36] sharded survey 9x512, 4 shards on "
+        f"{sorted({str(d) for d in mesh4.devices})}: max |dmean|/(|mean|"
+        f"+se) {q:.3g} (bound 1e-3), steps kernel {rk.total_steps:.0f} "
+        f"plain {rp.total_steps:.0f}, launches per shard "
+        f"{stats['shard_launches']}; {t_k:.2f} s kernel, {t_p:.2f} s plain")
+    # the one-stream rule: the four shards advanced together equal the
+    # four solved one by one, bit for bit
+    plan = solver._plan(pts, 512, 500, 0.9, 11)
+    together = solver._combine(plan, solver._run_shards(plan, range(4)))
+    alone = solver._combine(plan, torch.cat(
+        [solver._run_shards(plan, [d]) for d in range(4)]))
+    same = [k for k in together._fields
+            if np.array_equal(np.asarray(getattr(together, k)),
+                              np.asarray(getattr(alone, k)))]
+    check(len(same) == len(together._fields)
+          and together.total_steps == rk.total_steps,
+          f"phase 36: the shards together and one by one differ outside "
+          f"{same}")
+    log(f"[36] 4 shards advanced together = the 4 solved one by one, bit "
+        f"for bit on every output ({together.total_steps:.0f} steps)")
+
+    # the new instantiation: the flagship without the freeze, one launch
+    solver = ShardedWoStSolver(flag_prob, make_mesh(1), survey_default_options(
+        target_slots=8192, split_threshold=4.0))
+    shard = solver._shard(solver._plan(nb_pts, 8192, 6000, 1.0, 3), 0)
+    state, params = shard.state, shard.params
+    check(state["px"].numel() == 8192 and params.variant == sharded_flagship,
+          f"phase 36: the sharded flagship state runs {params.kernel_name} "
+          f"on {state['px'].numel()} lanes")
+    wk.walk_plain(state, params, 200)
+    start, ref = clone_state(state), clone_state(state)
+    before = wk.run_walk.launches
+    wk.run_walk(state, params, 32)
+    torch.cuda.synchronize()
+    check(wk.run_walk.launches == before + 1, "launch count did not grow")
+    wk.walk_plain(ref, params, 32)
+    worst, err = check_planes(wk, state, ref, state_planes(params.n_src),
+                              "phase 36 (sharded flagship)")
+    no_mix = clone_state(start)
+    wk.walk_plain(no_mix, dataclasses.replace(params, mis_table=None), 32)
+    mis_share = lanes_differ(state, no_mix, ("acc0", "asum0"))
+    check(mis_share >= 0.01, f"phase 36: without the mixture only "
+                             f"{mis_share:.4f} of lanes bank otherwise")
+    heavy = int(((state["quota"] > 0) & (state["atten"].abs() > 4.0)).sum())
+    log(f"[36] one 32-step launch, 8192 lanes, the flagship on a mesh "
+        f"({params.kernel_name}, {regs.get(params.kernel_name)} registers): "
+        f"worst plane agreement {worst:.5f}, max |err| on agreeing lanes "
+        f"{err:.3g}; without the mixture {mis_share:.4f} of lanes bank "
+        f"otherwise; {heavy} active lanes above the split threshold walk "
+        f"on (no freeze)")
+
+    # a whole sharded flagship solve with the split: 2 shards, so shard 1
+    # hands out clone ids from 0xA0000000, negative as an int32
+    solver = ShardedWoStSolver(flag_prob, make_mesh(2), survey_default_options(
+        target_slots=1 << 17, split_threshold=4.0))
+    rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
+        solver, nb_pts, 128, 100, 1.0, 11, "phase 36 (sharded flagship)")
+    check(min(stats["shard_clones"]) > 0,
+          f"phase 36: a shard of the flagship made no clone: {stats}")
+    log(f"[36] sharded flagship solve 21x128, max_steps 100, 2 shards: max "
+        f"|dmean|/(|mean|+se) {q:.3g} (bound 1e-3), steps kernel "
+        f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, {stats}; "
+        f"{t_k:.2f} s kernel, {t_p:.2f} s plain")
+
+    # ---- 37. the dryrun's configurations on a 4-shard mesh ---------------
+    res = survey.run(electrodes, n_walks=1500, max_steps=800, eps=0.5,
+                     seed=0, solver=ShardedWoStSolver(
+                         prob, mesh4, SolverOptions(target_slots=16384)))
+    ref = fdm(res.electrodes)
+    n_ok = int((np.abs(res.potentials - ref)
+                < 4.0 * res.potentials_stderr + 2e-4).sum())
+    check(n_ok >= 8, f"phase 37: only {n_ok}/9 electrodes match the oracle: "
+                     f"{res.potentials} vs {ref}")
+    two = survey.build_problem()
+    two.set_source_term(two.source_fields + [fields.constant(1e-3)])
+    r2 = ShardedWoStSolver(two, mesh4, SolverOptions(
+        target_slots=16384, common_random_numbers=True)).solve(
+        pts, n_walks=2048, max_steps=500, eps=0.9, seed=1)
+    check(r2.mean.shape == (2, 9) and np.isfinite(r2.mean).all(),
+          f"phase 37: the two-source CRN solve gave {r2.mean}")
+    chain = SolverOptions(target_slots=16384, robin_correction="chain")
+    s3 = ShardedWoStSolver(prob, mesh4, dataclasses.replace(
+        chain, split_threshold=1.5))
+    wk.run_walk.variant_launches.clear()
+    r3 = s3.solve(pts, n_walks=2048, max_steps=500, eps=0.9, seed=2)
+    counts3 = dict(wk.run_walk.variant_launches)
+    r1 = WoStSolver(prob, chain, device=dev).solve(
+        pts, n_walks=2048, max_steps=500, eps=0.9, seed=2)
+    dev3 = np.abs(r3.mean - r1.mean) / np.sqrt(r3.stderr ** 2
+                                               + r1.stderr ** 2)
+    check(set(counts3) == {wk.kernel_name((wk.ROBIN_CHAIN,) + (False,) * 4
+                                          + (True,) + (False,) * 3)}
+          and (dev3 < 4.0).all(),
+          f"phase 37: split 1.5 + chain launched {counts3}, |dmean| / "
+          f"sigma {dev3} against the single-device solve")
+    packed = {}
+    for comp in (False, "pack"):
+        packed[comp] = ShardedWoStSolver(prob, mesh4, SolverOptions(
+            target_slots=16384, compaction=comp)).solve(
+            pts, n_walks=1024, max_steps=500, eps=0.9, seed=4)
+    a, b = packed[False], packed["pack"]
+    check(a.total_steps == b.total_steps
+          and np.allclose(a.walk_sum, b.walk_sum, rtol=1e-5)
+          and np.allclose(a.walk_sumsq, b.walk_sumsq, rtol=1e-5),
+          f"phase 37: pack {b.total_steps} steps, unpacked {a.total_steps}")
+    log(f"[37] 4 shards: oracle gate {n_ok}/9 within 4 sigma + 2e-4; CRN "
+        f"with two sources {r2.mean.shape}, finite; split 1.5 + chain "
+        f"({s3.last_solve_stats['clones']} clones) within "
+        f"{float(dev3.max()):.3f} sigma of the single-device chain solve; "
+        f"pack = unpacked, {b.total_steps:.0f} steps")
+
+    # ---- 38. full size on a 4-shard mesh ---------------------------------
+    solver = ShardedWoStSolver(prob, mesh4, SolverOptions(
+        target_slots=1 << 21, min_quota=32, rejection_rounds=1))
+    pts6 = survey_points(electrodes, -0.5)
+    n_walks, max_steps, eps = 1 << 19, 500, 0.9
+    f38 = full_size_solves(wk, solver, pts6, n_walks, max_steps, eps,
+                           147456, "phase 38 (survey)")
+    shard = solver._shard(solver._plan(pts6, n_walks, max_steps, eps, 5), 0)
+    name = shard.params.kernel_name
+    check(set(f38["counts"]) == {name} and f38["counts"][name] == sum(
+        f38["stats"][0]["shard_launches"]) and shard.state["px"].numel()
+        == 40960, f"phase 38: the sharded survey launched {f38['counts']}, "
+                  f"{f38['stats'][0]}")
+    for a, b in zip(f38["raws"], f6["raws"]):
+        dev6 = np.abs(a.mean - b.mean) / np.sqrt(a.stderr ** 2
+                                                 + b.stderr ** 2)
+        check((dev6 < 4.0).all(), f"phase 38: the sharded survey is "
+                                  f"{dev6} sigma from phase 6's")
+    log(f"[38] full size 9x{n_walks} walks, 4 shards x 36864 working "
+        f"lanes (5 blocks of 8192): "
+        f"walker_steps_per_sec {f38['rate']:.6g} (phase 6, one launch: "
+        f"{f6['rate']:.6g}) s/solve {f38['times']} steps/solve "
+        f"{f38['steps']:.6g} longest lane {f38['longest']}, lane occupancy "
+        f"{f38['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f38['share']]}, launches per shard "
+        f"{[s['shard_launches'] for s in f38['stats']]}; means within 4 "
+        f"sigma of phase 6's ({card})")
+    t38 = steps_256(wk, shard.state, shard.params, "phase 38 (survey shard)")
+    log(f"[38] 256 steps x {t38['lanes']} lanes (a survey shard, "
+        f"{t38['steps']} walker-steps): kernel "
+        f"{t38['ms']:.3f} ms, plain {t38['plain_ms']:.3f} ms; worst plane "
+        f"agreement {t38['worst']:.5f} ({card})")
+    records.append(kernel_record(
+        shard.params, "survey_sharded", f38["counts"][name], t38, regs,
+        tolerance, replaces="dcrmontecarlo_tpu/parallel/mesh.py:583"))
+
+    solver = ShardedWoStSolver(flag_prob, mesh4, survey_default_options(
+        target_slots=1 << 21, min_quota=32, split_threshold=4.0))
+    n_walks, max_steps, eps = 1 << 20, 6000, 1.0
+    f38f = full_size_solves(wk, solver, nb_pts, n_walks, max_steps, eps,
+                            688128, "phase 38 (flagship)", reps=2)
+    shard = solver._shard(solver._plan(nb_pts, n_walks, max_steps, eps, 5),
+                          0)
+    name = shard.params.kernel_name
+    check(shard.params.variant == sharded_flagship
+          and set(f38f["counts"]) == {name}
+          and shard.state["px"].numel() == 172032,
+          f"phase 38: the sharded flagship launched {f38f['counts']}")
+    log(f"[38] full size flagship 21x{n_walks} walks, 4 shards x 172032 "
+        f"lanes, split 4.0 without the freeze: walker_steps_per_sec "
+        f"{f38f['rate']:.6g} s/solve {f38f['times']} steps/solve "
+        f"{f38f['steps']:.6g} longest lane {f38f['longest']}, occupancy "
+        f"{f38f['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f38f['share']]}, launches and clones "
+        f"{[(s['launches'], s['clones']) for s in f38f['stats']]}, "
+        f"max_weight {[r.max_weight for r in f38f['raws']]}, max_banked "
+        f"{[r.max_banked for r in f38f['raws']]} ({card})")
+    t38f = steps_256(wk, shard.state, shard.params,
+                     "phase 38 (flagship shard)", subset=True)
+    log(f"[38] 256 steps x {t38f['lanes']} lanes (a flagship shard, "
+        f"{name}): kernel {t38f['ms']:.3f} ms, plain "
+        f"{t38f['plain_ms']:.3f} ms; worst plane agreement "
+        f"{t38f['worst']:.5f}, max |err| {t38f['max_err']:.3g}, "
+        f"{t38f['steps']} walker-steps ({card})")
+    records.append(kernel_record(
+        shard.params, "robin_chain+local_majorant+mis (sharded)",
+        f38f["counts"][name], t38f, regs, tolerance))
+
+    # ---- 39. two processes on the card ----------------------------------
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORKER_39, f"127.0.0.1:{port}", str(pid)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for pid in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"phase 39: a worker failed "
+                                 f"({p.returncode}):\n{out[-3000:]}")
+    got = [json.loads([ln for ln in out.splitlines()
+                       if ln.startswith("RESULT")][0].split(" ", 1)[1])
+           for out in outs]
+    t39 = time.perf_counter() - t0
+    solver = ShardedWoStSolver(prob, make_mesh(4), SolverOptions(
+        target_slots=1 << 16, rejection_rounds=1))
+    r = solver.solve(pts, n_walks=1 << 15, max_steps=500, eps=0.9, seed=3)
+    one = json.loads(json.dumps(
+        [r.mean.tolist(), r.stderr.tolist(), r.walk_sum.tolist(),
+         r.walk_sumsq.tolist(), r.total_steps, r.iterations,
+         solver.last_solve_stats]))
+    check(got[0]["result"] == got[1]["result"] == one
+          and [g["local"] for g in got] == [[0, 1], [2, 3]]
+          and all(g["shards"] == 4 and g["launches"] > 0 for g in got),
+          f"phase 39: the processes' results differ from each other or "
+          f"from one process's: {got} vs {one}")
+    log(f"[39] 2 processes x 2 shards ({got[0]['backend']}), survey 9x"
+        f"{1 << 15}: both = the 1-process 4-shard mesh bit for bit "
+        f"({r.total_steps:.0f} steps, kernel launches per process "
+        f"{[g['launches'] for g in got]}), {t39:.1f} s with start-up")
 
 
 def main():
@@ -2441,6 +2773,10 @@ def main():
 
     # ---- the validation and diagnostics path (phases 32-35) -------------
     validation_phases(wk, dev, card, regs, records, tolerance)
+
+    # ---- the sharded solve (phases 36-39) -------------------------------
+    sharded_phases(wk, dev, card, regs, records, tolerance, survey,
+                   electrodes, fdm, f6, flag_prob, nb_pts)
 
     p21s, t21s = t21["Poisson square + circle obstacle"]
     p21t, t21t = t21["table-form square"]

@@ -76,6 +76,9 @@
 //   <CHAIN, true,  true,  true,  false>  the flagship gate (chain +
 //                                        majorant + MIS + freeze, under
 //                                        the host launch loop)
+//   <CHAIN, true,  true,  false, false>  the flagship on a mesh of shards
+//                                        (parallel/mesh.py: the split
+//                                        without the freeze)
 //   <REFLECT, false|true, false, false, false>  the reflectance fold
 //   <OFF,   false, false, false, true >  the topographic survey
 //   <CHAIN, false, false, false, true >  the chain on a terrain
@@ -1895,6 +1898,7 @@ LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
     WALK_CASE(70, ROBIN_CHAIN, false, false, false, true, true, false);
     WALK_CASE(82, ROBIN_CHAIN, false, true, false, false, true, false);
     WALK_CASE(98, ROBIN_CHAIN, true, false, false, false, true, false);
+    WALK_CASE(114, ROBIN_CHAIN, true, true, false, false, true, false);
     WALK_CASE(122, ROBIN_CHAIN, true, true, true, false, true, false);
     WALK_CASE(130, ROBIN_REFLECT, false, false, false, false, true, false);
     WALK_CASE(162, ROBIN_REFLECT, true, false, false, false, true, false);

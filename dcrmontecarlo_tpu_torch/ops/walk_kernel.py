@@ -27,7 +27,9 @@ without delta tracking, and the wide form of the kernel for more than
 ``MAX_WIDE_SRC`` and ``MAX_WIDE_MIX``; sources from ``MAX_SRC`` on are
 Gaussian dipoles); and the validation path: a gridded Dirichlet field
 (``fields.Grid``, the cylinder oracle's Monte Carlo tier) on the
-flagship's switches. The kernel is
+flagship's switches; and the sharded solve (``parallel/mesh.py``), whose
+launch loop splits without the freeze: the flagship's switches without
+it. The kernel is
 ``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
 instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
 is the same step, op for op, on tensors of lanes, on any device.
@@ -114,6 +116,7 @@ _GRIDLESS = (
     (ROBIN_CHAIN, False, False, False, False, True, False, False),
     (ROBIN_CHAIN, True, False, False, False, True, False, False),  # accuracy
     (ROBIN_CHAIN, True, True, True, False, True, False, False),  # flagship
+    (ROBIN_CHAIN, True, True, False, False, True, False, False),  # sharded
     (ROBIN_REFLECTANCE, False, False, False, False, True, False, False),
     (ROBIN_REFLECTANCE, True, False, False, False, True, False, False),
     (ROBIN_OFF, False, False, False, True, True, False, False),   # terrain

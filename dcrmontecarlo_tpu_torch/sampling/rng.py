@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 __all__ = ["mix32", "mul32", "counter_uniform", "counter_uniform_lanes",
-           "stream_seed", "C_STREAM", "C_COUNTER", "MIX_M1", "MIX_M2"]
+           "stream_seed", "threefry_2x32", "shard_seed", "C_STREAM",
+           "C_COUNTER", "MIX_M1", "MIX_M2"]
 
 MASK32 = 0xFFFFFFFF
 MIX_M1 = 0x7FEB352D
@@ -92,4 +93,44 @@ def stream_seed(seed: int) -> int:
     """
     kd = np.array([0, int(seed) & MASK32], np.uint32)
     word = int(kd[0]) ^ int(mix32(torch.tensor(int(kd[-1]))))
+    return int(np.array(word, np.uint32).view(np.int32))
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def threefry_2x32(key, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    the two-word ``key``, in numpy ``uint32`` arithmetic (wrapping adds):
+    the block cipher under ``jax.random`` (``jax._src.prng.threefry2x32``).
+    ``x0``, ``x1`` are integers or arrays of one shape; returns the two
+    output words as ``uint32`` arrays of that shape."""
+    u32 = lambda v: np.asarray(v, np.int64).astype(np.uint32)
+    ks = (u32(key[0]), u32(key[1]))
+    ks += (ks[0] ^ ks[1] ^ np.uint32(_THREEFRY_PARITY),)
+    with np.errstate(over="ignore"):  # uint32 adds wrap, as intended
+        x = [u32(x0) + ks[0], u32(x1) + ks[1]]
+        for i in range(5):
+            for r in _THREEFRY_ROTATIONS[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+                x[1] = x[0] ^ x[1]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return np.asarray(x[0]), np.asarray(x[1])
+
+
+def shard_seed(seed: int, d: int) -> int:
+    """The walk's int32-bit-pattern stream seed of global shard ``d`` of a
+    sharded solve with ``seed``.
+
+    Mirrors ``parallel/mesh.py:492-496`` of the JAX package:
+    ``jax.random.fold_in(PRNGKey(seed), d)``, which is ``threefry_2x32``
+    of the counter words ``[0, d]`` under the key ``[0, seed mod 2^32]``,
+    then ``bitcast_i32(kd[0] ^ mix32(kd[-1]))`` of the folded key, as
+    :func:`stream_seed` does with the unfolded one.
+    """
+    k0, k1 = threefry_2x32((0, int(seed) & MASK32), 0, int(d) & MASK32)
+    word = int(k0) ^ int(mix32(torch.tensor(int(k1))))
     return int(np.array(word, np.uint32).view(np.int32))

@@ -133,10 +133,14 @@ def lane_planes(state: WalkerState, p0x, p0y, sid, start=None) -> dict:
     return planes
 
 
-def slot_planes(ptx, pty, snap, K: int, rows: int, quotas, sid, n_src: int):
-    """Fresh walker planes of a solve: ``K`` point-major slots per
-    evaluation point, padded to ``rows * 128`` lanes (padding lanes have
-    quota 0).
+def slot_planes(ptx, pty, snap, K: int, rows: int, quotas, sid, n_src: int,
+                slot_major: bool = False):
+    """Fresh walker planes of a solve: ``K`` slots per evaluation point,
+    padded to ``rows * 128`` lanes (padding lanes have quota 0).
+    Point-major (lane ``i * K + j`` holds slot ``j`` of point ``i``: the
+    single-device solver), or with ``slot_major`` lane ``j * P + i`` (a
+    shard of the sharded solver, ``parallel/mesh.py:502-535`` of the JAX
+    package).
 
     ``ptx, pty``: ``(P,)`` start points; ``snap``: ``None`` or
     ``(ob0, n0x, n0y)`` per point; ``quotas``: ``(rows, 128)`` int32;
@@ -149,7 +153,8 @@ def slot_planes(ptx, pty, snap, K: int, rows: int, quotas, sid, n_src: int):
 
     def pad(v, dtype):
         out = torch.zeros(W_pad, dtype=dtype, device=dev)
-        out[:W] = torch.repeat_interleave(v.to(dtype), K)
+        v = v.to(dtype)
+        out[:W] = v.repeat(K) if slot_major else torch.repeat_interleave(v, K)
         return out.reshape(rows, LANES)
 
     f0 = lambda: torch.zeros(rows, LANES, dtype=torch.float32, device=dev)

@@ -138,6 +138,9 @@ class WoStSolver:
     clones.
     """
 
+    # compaction="pack" (lane packing) runs on the sharded solver only
+    _packs_lanes = False
+
     def __init__(self, problem: Problem,
                  options: SolverOptions = SolverOptions(), device="cuda"):
         self.problem = problem
@@ -265,7 +268,7 @@ class WoStSolver:
         if robin == "chain" and o.robin_interior != "arrival":
             raise _unported(f"robin_interior={o.robin_interior!r}",
                             "solver/wost.py::_make_step_core")
-        if o.compaction:
+        if o.compaction and not self._packs_lanes:
             raise _unported(f"compaction={o.compaction!r}",
                             "solver/wost.py::_build_solve_fn_pallas (pack)")
         if o.rng != "fast":

@@ -36,7 +36,10 @@ validation path: the flagship switches with a gridded Dirichlet field
 (the cylinder oracle's Monte Carlo tier), one launch, and the tier's
 checks at seed 0; one-step launches equal to one many-step launch; and the
 diagnostics (walk histories, the occupancy profile, the martingale audit)
-through the kernel.
+through the kernel; and the sharded solve: the flagship's instantiation
+without the freeze, one launch, a mesh of four shards on one card equal to
+its shards solved one by one, and sharded solves (the survey, the flagship
+with the split) through the kernel and the plain version.
 """
 
 import os
@@ -623,3 +626,87 @@ def test_diagnostics_launch_the_kernel(device):
         n_walkers=1024, n_seeds=2, device=device)
     assert wk.run_walk.launches == before + 16
     assert rep.n.sum() > 0 and np.isfinite(rep.mean).all()
+
+
+# ---- the sharded solve (parallel/mesh.py) -------------------------------
+
+def _shards(device, n):
+    from dcrmontecarlo_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([device] * n)
+
+
+def test_sharded_flagship_instantiation_matches_plain_one_launch(device):
+    # the flagship configuration on a mesh splits without the freeze: one
+    # 32-step launch of chain + majorant + MIS (no freeze) after 200 plain
+    # steps; the mixture acts
+    import dataclasses
+
+    from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver
+
+    solver = ShardedWoStSolver(_notebook_problem("auto", True),
+                               _shards(device, 1), survey_default_options(
+                                   target_slots=8192, split_threshold=4.0))
+    shard = solver._shard(solver._plan(NOTEBOOK_ELECTRODES, 8192, 6000, 1.0,
+                                       3), 0)
+    state, params = shard.state, shard.params
+    assert params.variant == (wk.ROBIN_CHAIN, True, True, False, False, True,
+                              False, False, False)
+    wk.walk_plain(state, params, 200)
+    ref = {k: v.clone() for k, v in state.items()}
+    no_mix = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(state, params, 32)
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    wk.walk_plain(ref, params, 32)
+    _compare(state, ref, state_planes(1))
+    wk.walk_plain(no_mix, dataclasses.replace(params, mis_table=None), 32)
+    assert (no_mix["asum0"] != state["asum0"]).double().mean() >= 0.01
+
+
+def test_mesh_equals_its_shards_one_by_one(device):
+    # shards that share the card launch in turn on one stream (the
+    # kernel's constant block is written per launch): four shards advanced
+    # together equal the four solved one by one, bit for bit
+    from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver
+
+    solver = ShardedWoStSolver(_survey_problem(), _shards(device, 4),
+                               survey_default_options())
+    plan = solver._plan(ELECTRODES, 512, 500, EPS, 11)
+    together = solver._combine(plan, solver._run_shards(plan, range(4)))
+    alone = solver._combine(plan, torch.cat(
+        [solver._run_shards(plan, [d]) for d in range(4)]))
+    for k in together._fields:
+        assert np.array_equal(np.asarray(getattr(together, k)),
+                              np.asarray(getattr(alone, k))), k
+    assert together.total_steps > 0
+
+
+@pytest.mark.parametrize("case", ["survey", "flagship_split"])
+def test_sharded_solve_matches_plain(device, case):
+    # the sharded launch loop (K9) through the kernel and through the
+    # plain version on the same shards: equal steps, launches and clones
+    from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver
+
+    if case == "survey":
+        solver = ShardedWoStSolver(_survey_problem(), _shards(device, 4),
+                                   survey_default_options())
+        args = (ELECTRODES, 256, 500, EPS, 11)
+    else:  # 2 shards: shard 1's clone ids start at 0xA0000000
+        solver = ShardedWoStSolver(
+            _notebook_problem("auto", True), _shards(device, 2),
+            survey_default_options(target_slots=1 << 17, split_threshold=4.0,
+                                   pallas_block_rows=1))
+        args = (NOTEBOOK_ELECTRODES, 32, 100, 1.0, 5)
+    launches = wk.run_walk.launches
+    rk = solver._solve_raw(*args)
+    stats_k = solver.last_solve_stats
+    assert wk.run_walk.launches - launches == sum(stats_k["shard_launches"])
+    rp = solver._solve_raw(*args, walk=wk.walk_plain)
+    assert solver.last_solve_stats == stats_k
+    assert rk.total_steps == rp.total_steps
+    assert np.isfinite(rk.mean).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    if case != "survey":
+        assert min(stats_k["shard_clones"]) > 0

@@ -51,7 +51,9 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcrmontecarlo_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad,
+                  "group": dist.is_available() and dist.is_initialized()}))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -66,9 +68,11 @@ print(json.dumps({"modules": names, "bad": bad}))
                 "validation.cylinder", "validation.fem", "validation.pins",
                 "diagnostics.history", "diagnostics.counters",
                 "diagnostics.martingale", "diagnostics._steps",
-                "utils.plotting"):
+                "utils.plotting", "parallel", "parallel.mesh"):
         assert f"dcrmontecarlo_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
+    # importing the port makes no process group (parallel/ neither)
+    assert res["group"] is False
 
 
 def _imported_tops(src):
@@ -194,7 +198,7 @@ def test_kernel_instantiations_match_python():
         want += 256 * variant[7] + 512 * variant[8]
         assert int(code) == want == wk.variant_code(variant)
         found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 20
+    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 21
     narrow = {v for v in found if not v[7]}
     # the table form runs the topographic survey, the chain on it and a
     # walk without delta tracking
@@ -223,6 +227,11 @@ def test_kernel_instantiations_match_python():
                     for m in (False, True)} | {
         (wk.ROBIN_CHAIN, False, True, False, False, True, False)}
     assert {v + (False, False) for v in wide} <= narrow
+    # MIS with the majorant: the flagship (with the freeze, under the host
+    # loop) and the flagship on a mesh (the sharded loop never freezes)
+    assert {v for v in found if v[1] and v[2]} == {
+        (wk.ROBIN_CHAIN, True, True, f, False, True, False, False, g)
+        for f, g in ((True, False), (False, False), (True, True))}
     # the grid: the flagship's switches only, and the flagship compiled
     # without it too
     assert {v for v in found if v[8]} == {
@@ -273,7 +282,11 @@ def test_entry_points_default_to_the_card():
     from dcrmontecarlo_tpu_torch.solver import WoStSolver
     from dcrmontecarlo_tpu_torch.survey import DCRSurvey
 
-    for fn in (WoStSolver.__init__, DCRSurvey.make_solver, DCRSurvey.run):
+    from dcrmontecarlo_tpu_torch.parallel import initialize_distributed, \
+        make_mesh
+
+    for fn in (WoStSolver.__init__, DCRSurvey.make_solver, DCRSurvey.run,
+               make_mesh, initialize_distributed):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert not torch.cuda.is_available()
     survey, electrodes = geophysical_scenario()

@@ -15,8 +15,8 @@ size (which this slice does not touch) differs from the JAX package's by
 1.2e-4 of its scale. The single-source line (4 electrodes, one dipole:
 the solve's squeezed output) is held the same way. The public names of
 the top level and of ``geometry``, ``problems``, ``survey``,
-``diagnostics``, ``validation``, ``solver`` and ``sampling`` are the JAX
-package's.
+``diagnostics``, ``validation``, ``solver``, ``sampling`` and ``parallel``
+are the JAX package's.
 """
 
 import numpy as np
@@ -26,6 +26,7 @@ import torch
 import dcrmontecarlo_tpu as j_top
 import dcrmontecarlo_tpu.diagnostics as j_diagnostics
 import dcrmontecarlo_tpu.geometry as j_geometry
+import dcrmontecarlo_tpu.parallel as j_parallel
 import dcrmontecarlo_tpu.problems as j_problems
 import dcrmontecarlo_tpu.sampling as j_sampling
 import dcrmontecarlo_tpu.solver as j_solver
@@ -36,6 +37,7 @@ from dcrmontecarlo_tpu.survey import dcr as jdcr
 import dcrmontecarlo_tpu_torch as t_top
 import dcrmontecarlo_tpu_torch.diagnostics as t_diagnostics
 import dcrmontecarlo_tpu_torch.geometry as t_geometry
+import dcrmontecarlo_tpu_torch.parallel as t_parallel
 import dcrmontecarlo_tpu_torch.problems as t_problems
 import dcrmontecarlo_tpu_torch.sampling as t_sampling
 import dcrmontecarlo_tpu_torch.solver as t_solver
@@ -66,6 +68,7 @@ def test_dipole_dipole_pairs_match_jax(n, r):
                                       (t_validation, j_validation),
                                       (t_solver, j_solver),
                                       (t_sampling, j_sampling),
+                                      (t_parallel, j_parallel),
                                       (t_top, j_top)])
 def test_public_names_match_jax(port, ref):
     # every name the JAX subpackage exports, the port's exports too
