@@ -47,8 +47,12 @@ from dcrmontecarlo_tpu_torch.survey import survey_default_options  # noqa
 
 assert wk.__file__.startswith(tree), wk.__file__
 dev = torch.device("cuda", 0)
+from this_checkout import chip_smoke  # noqa: E402
+
+build_variants = chip_smoke().build_variants
+
 t0 = time.time()
-wk.build_library()
+build_variants(wk)
 build_s = time.time() - t0
 
 

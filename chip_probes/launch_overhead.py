@@ -42,7 +42,11 @@ from dcrmontecarlo_tpu_torch.solver import SolverOptions, \
 
 assert wk.__file__.startswith(tree), wk.__file__
 dev = torch.device("cuda", 0)
-wk.build_library()
+from this_checkout import chip_smoke  # noqa: E402
+
+build_variants = chip_smoke().build_variants
+
+build_variants(wk)
 harmonic = Problem(dirichlet=square_loop(1.0),
                    bc_dirichlet=fields.polynomial({(1, 0): 1.0,
                                                    (0, 1): 2.0}))
@@ -82,7 +86,8 @@ for _ in range(5):
                                     for c in copies]) / 20)
     del copies
 
-so = wk._library_path(wk.variant_code(params.variant))
+so = wk._library_path(params.variant if hasattr(wk, "valid_variant")
+                      else wk.variant_code(params.variant))
 cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
 sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                       text=True, timeout=120).stdout

@@ -10,6 +10,9 @@ trees in one call:
 
     for t in "_archive/parent p" ". c"; do
         set -- $t; python3 chip_probes/sass_hashes.py $1 $2; done
+
+A checkout that builds variants on demand builds ``chip_smoke.py``'s
+``PATH_VARIANTS`` (the paths' 21); an older one its fixed set.
 """
 
 import hashlib
@@ -25,13 +28,20 @@ sys.path.insert(0, tree)
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
 
 assert wk.__file__.startswith(tree), wk.__file__
-paths, build_s, log = wk.build_library()
+from this_checkout import chip_smoke  # noqa: E402
+
+# this checkout's chip_smoke.py names the paths' variants
+PATH_VARIANTS, build_variants = (chip_smoke().PATH_VARIANTS,
+                                 chip_smoke().build_variants)
+
+variants = PATH_VARIANTS
+paths, build_s, log = build_variants(wk, variants)
 regs = {}
 for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "
                      r"registers", log, re.S):
     regs[m.group(1)] = int(m.group(2))
 cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
-names = {wk.variant_code(v): wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
+names = {wk.variant_code(v): wk.kernel_name(v) for v in variants}
 print(f"{tag}: {len(paths)} libraries in {build_s:.1f} s", flush=True)
 for code in sorted(paths):
     sass = subprocess.run([cuobjdump, "-sass", str(paths[code])],

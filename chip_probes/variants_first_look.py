@@ -26,7 +26,8 @@ from dcrmontecarlo_tpu_torch.survey import survey_default_options
 import subprocess
 print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(), flush=True)
 dev = torch.device("cuda", 0)
-paths, secs, log = wk.build_library()
+from chip_smoke import build_variants
+paths, secs, log = build_variants(wk)
 regs = {}
 entry = None
 for line in log.splitlines():

@@ -46,13 +46,14 @@ from dcrmontecarlo_tpu_torch.survey.sensitivity import \
     _jacobian_problem  # noqa: E402
 
 assert wk.__file__.startswith(tree), wk.__file__
-# this checkout's chip_smoke.py reads the registers (the tree's package is
-# already imported, so its path entry changes nothing)
-sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import ptxas_registers  # noqa: E402
+# this checkout's chip_smoke.py reads the registers and builds
+from this_checkout import chip_smoke  # noqa: E402
+
+ptxas_registers = chip_smoke().ptxas_registers
+build_variants = chip_smoke().build_variants
 dev = torch.device("cuda", 0)
 t0 = time.time()
-_, _, build_log = wk.build_library()
+_, _, build_log = build_variants(wk)
 build_s = time.time() - t0
 regs = ptxas_registers(build_log)
 # spill stores of the wide instantiations (the entries whose mangled names

@@ -47,9 +47,15 @@ WIDE_PICK = "const bool wide = h.n_src > MAX_SRC || h.n_mix > MAX_MIX;"
 dev = torch.device("cuda", 0)
 
 
+# the narrow variants whose wide forms the paths launch
+NARROW = ((0, False, False, False, False, True, False, False, False),
+          (0, False, True, False, False, True, False, False, False),
+          (1, False, True, False, False, True, False, False, False))
+
+
 def build_forced_wide():
-    """The wide instantiations from a copy of the source that launches
-    the wide form at any size, by the narrow variant's code."""
+    """The wide variants from a copy of the source that launches the wide
+    form at any size, by the narrow variant."""
     src = wk._SRC.read_text()
     assert src.count(WIDE_PICK) == 1, "walk_launch's wide pick moved"
     out = wk._BUILD_DIR / "forced_wide"
@@ -57,14 +63,13 @@ def build_forced_wide():
     cu = out / "walk_kernel.cu"
     cu.write_text(src.replace(WIDE_PICK, "const bool wide = true;"))
     procs = {}
-    for v in wk.KERNEL_VARIANTS:
-        if v[7]:
-            narrow = wk.variant_code(v[:7] + (False,))
-            so = out / f"walk_kernel-forced-{narrow}.so"
-            procs[narrow] = (so, subprocess.Popen(
-                [wk._nvcc(), *wk.NVCC_FLAGS,
-                 f"-DWALK_PART={wk.variant_code(v)}", "-o", str(so), str(cu)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for narrow in NARROW:
+        wide = narrow[:7] + (True, False)
+        so = out / f"walk_kernel-forced-{wk.variant_code(narrow)}.so"
+        procs[narrow] = (so, subprocess.Popen(
+            [wk._nvcc(), *wk.NVCC_FLAGS, *wk.variant_macros(wide), "-I",
+             str(wk._SRC.parent), "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for narrow, (so, proc) in procs.items():
         log, _ = proc.communicate()
@@ -107,7 +112,7 @@ def quartiles(v):
 
 
 t0 = time.time()
-wk.build_library()
+wk.build_library(NARROW)
 forced = build_forced_wide()
 build_s = time.time() - t0
 

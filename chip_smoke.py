@@ -21,11 +21,18 @@ gridded Dirichlet field, walk histories, the occupancy profile and the
 martingale audit (phases 32-35), and the sharded solve: a mesh of
 shards, each running the kernel's launch loop with its own seed and clone
 range, on virtual shards of the one card and across two processes
-(phases 36-39). Each phase reports on its own line:
+(phases 36-39), and the paths the kernel's other switch combinations open
+on the card: the survey with the high-weight split, the terrain with the
+flagship's estimator, and a sweep of twelve variants in which every pair
+of switch values occurs (phases 40-42). Each phase reports on its own
+line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
-   instantiation, all compiled at once;
+   variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
+   phases 40-41's two, the sweep's twelve), one ``nvcc`` process per
+   CPU at a time; at the end, no library was built after it and as many
+   were loaded;
 3. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    survey problem with its default options (``walk_kernel.compare_planes``:
    every plane agrees on >= 99% of lanes to rel 1e-4 above a floor of
@@ -79,9 +86,9 @@ range, on virtual shards of the one card and across two processes
     7's full-size state with the mixture, and its launches from a survey
     solve with ``source_mis``.
 13. kernel vs plain version, a whole host-loop solve of the flagship
-    configuration, 21 points x 512 walks, ``target_slots=1<<17``, with
-    ``max_steps=300``: equal total steps and clone counts, each mean
-    within 1e-3 x (|mean| + combined stderr); launches and clones
+    configuration, 21 points x 256 walks, ``target_slots=1<<17``, with
+    ``max_steps=150``: equal total steps, launches and clone counts, each
+    mean within 1e-3 x (|mean| + combined stderr); launches and clones
     printed. (The host loop runs ~quota x max_steps steps while the
     splits go on, and the plain version's step is a few hundred small
     kernels: at ``max_steps=6000`` it had not finished after 950 s.)
@@ -228,7 +235,7 @@ range, on virtual shards of the one card and across two processes
     ``profile_occupancy`` against a solve's steps.
 36. the sharded launch loop (K9): a 4-shard mesh on the card
     (``make_mesh(4)``), the survey with ``survey_default_options()``, 9
-    points x 512 walks, kernel vs the plain version on the same shards
+    points x 128 walks, kernel vs the plain version on the same shards
     (equal steps, launches and clones per shard, phase 4's rule for the
     means); the same four shards advanced together equal them solved one
     by one, bit for bit (shards on one card launch in turn on one
@@ -236,7 +243,7 @@ range, on virtual shards of the one card and across two processes
     instantiation without the freeze (chain + majorant + MIS, the
     flagship on a mesh) after 200 plain steps under phase 3's rule, the
     mixture shown to act; a whole sharded flagship solve with the split
-    at 4.0, 21 x 128 walks, ``max_steps=100``, on 2 shards (shard 1's
+    at 4.0, 21 x 64 walks, ``max_steps=100``, on 2 shards (shard 1's
     clone ids start at 0xA0000000, negative as an int32): kernel vs
     plain, equal steps and clones.
 37. the configurations of ``__graft_entry__.py::dryrun_multichip`` on a
@@ -258,6 +265,30 @@ range, on virtual shards of the one card and across two processes
     (``initialize_distributed`` over gloo on a local port): both print the
     survey's 9 x 2^15-walk solve, equal to each other and to the
     one-process 4-shard mesh bit for bit.
+40. the survey with the split: phase 6's configuration with
+    ``split_threshold=4.0`` (``survey_split_options``: the survey's freeze
+    build through the host launch loop), a warm-up (its launches counted)
+    and 3 timed solves (walker-steps/s, s/solve, launches and clones,
+    kernel share), each within 4 sigma of phase 6's solve of the same
+    seed (split on against split off); a host-loop solve kernel vs plain
+    at 9 x 256 walks (one walk a slot): equal steps, launches and clones,
+    means under phase 4's rule; 256 steps at the full-size state with the
+    freeze at 4, the record of its variant.
+41. the terrain with the flagship's estimator
+    (``terrain_flagship_problem``: ``topographic_survey_problem()`` with
+    MIS toward the survey's two-component mixture at the buried current
+    electrodes and ``local_majorant="auto"``, its boxes printed),
+    ``survey_default_options(target_slots=1<<21, split_threshold=4.0)``,
+    9 draped electrodes x 2^17 walks, eps 0.5, max_steps 600 (294,912
+    lanes): a warm-up (launches counted) and 2 timed solves (rates,
+    launches and clones, kernel and truncated shares), phase 20's physics
+    gate, the warm-up's means within 4 sigma of phase 20's (the same
+    walks and seed, the survey's estimator); 256 steps at that state,
+    freeze 4, the record of its variant.
+42. the variant sweep (``SWEEP``: twelve variants, each built as
+    ``sweep_problem`` builds it): one 64-step launch of 8,192 lanes from
+    fresh starts per variant (its launch counted), kernel vs plain under
+    phase 3's rule, timed, a record each.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -271,6 +302,9 @@ without the package beside this file, it exits non-zero and prints no
 result.
 
     python3 chip_smoke.py              # every phase, on one GPU
+
+A variant launched outside ``SCRIPT_VARIANTS`` would build its library at
+its first launch (a few seconds of ``nvcc``).
 """
 
 import dataclasses
@@ -334,10 +368,11 @@ def clone_state(state):
 
 
 def ptxas_registers(build_log):
-    """Registers per compiled kernel instantiation, from ``ptxas -v``,
-    keyed as ``WalkParams.kernel_name``: ``walk_kernel<robin,majorant,
-    mis,freeze,table,delta,transport>``, then ``wide`` and ``grid`` when
-    either is set."""
+    """Registers per compiled kernel variant, from ``ptxas -v``, keyed as
+    ``WalkParams.kernel_name`` (``walk_kernel.kernel_name`` of the
+    mangled name's switches)."""
+    from dcrmontecarlo_tpu_torch.ops.walk_kernel import kernel_name
+
     regs, entry = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -345,14 +380,10 @@ def ptxas_registers(build_log):
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)" + r"ELb(\d)" * 8 + "E", entry)
+            t = re.search(r"walk_kernelILi(\d)((?:ELb\d)+)E", entry)
             if t:
-                r, *b = t.groups()
-                wide, grid = b[6:]
-                tail = [wide, grid] if grid == "1" else [wide] * (wide == "1")
-                flags = ",".join("true" if v == "1" else "false"
-                                 for v in b[:6] + tail)
-                entry = f"walk_kernel<{r},{flags}>"
+                entry = kernel_name((int(t.group(1)), *(
+                    v == "1" for v in re.findall(r"Lb(\d)", t.group(2)))))
             regs[entry] = int(m.group(1))
             entry = None
     return regs
@@ -624,6 +655,206 @@ def cylinder_checks(r, ref, x):
         signed.append(sign * float(np.sum(w[sel] * r.mean[sel])
                                    / np.sum(w[sel])))
     return n_ok, float(np.median(err)), signed
+
+
+# the variants the paths of phases 3-39 launch, (robin, majorant, mis,
+# freeze, table, delta, transport, wide, grid)
+PATH_VARIANTS = tuple((v[0],) + tuple(bool(f) for f in v[1:]) + (False,) * (
+    9 - len(v)) for v in (
+    (0, 0, 0, 0, 0, 1, 0), (0, 0, 1, 0, 0, 1, 0), (0, 1, 0, 0, 0, 1, 0),
+    (1, 0, 0, 0, 0, 1, 0), (1, 1, 0, 0, 0, 1, 0), (1, 1, 1, 1, 0, 1, 0),
+    (1, 1, 1, 0, 0, 1, 0), (2, 0, 0, 0, 0, 1, 0), (2, 1, 0, 0, 0, 1, 0),
+    (0, 0, 0, 0, 1, 1, 0), (1, 0, 0, 0, 1, 1, 0), (0, 0, 0, 0, 0, 0, 0),
+    (0, 0, 0, 0, 1, 0, 0), (0, 0, 0, 0, 0, 1, 1), (1, 0, 0, 0, 0, 1, 1),
+    (0, 0, 1, 0, 0, 0, 0), (1, 0, 1, 0, 0, 1, 0), (0, 0, 0, 0, 0, 1, 0, 1),
+    (0, 0, 1, 0, 0, 1, 0, 1), (1, 0, 1, 0, 0, 1, 0, 1),
+    (1, 1, 1, 1, 0, 1, 0, 0, 1)))
+
+
+def build_variants(wk, variants=PATH_VARIANTS):
+    """Build ``variants`` with a checkout's ``walk_kernel`` module ``wk``
+    (a checkout from before the on-demand build compiles its fixed set
+    instead); returns ``build_library``'s ``(paths, seconds, log)``."""
+    if hasattr(wk, "valid_variant"):
+        return wk.build_library(variants)
+    return wk.build_library()
+
+
+# ---- the variant sweep ------------------------------------------------------
+# Twelve variants in which, with the 21 that the paths above launch and the
+# two of phases 40-41, every pair of switch values the rule allows occurs
+# at least once: the switches are the Robin mode, the majorant, MIS, the
+# freeze, the table form, delta tracking, the transport sampler, the wide
+# form, the grid, and whether the variant evaluates TERMS fields. Each
+# case: its name, its variant (WalkParams.variant) and how its problem is
+# built (sweep_problem; the JAX package's tests build the same one):
+# geometry "box" (a 4 m x 4 m box, Dirichlet on three sides, a Neumann top
+# with a 0.25 m step down: 12 static rows) or "table" (the box with its
+# Dirichlet sides in 32 segments each: 105 rows), the conductivity (None:
+# no delta tracking; "bumps": a 10x anomaly under the step; "terms": a
+# TERMS spec), the Dirichlet data ("zero", "poly": x + y as a TERMS spec,
+# "grid": a bilinear field the grid holds exactly), 1 or 5 dipole sources,
+# MIS toward the first dipole, a local majorant, the Robin mode, the split
+# (its freeze threshold) and the screened sampler. Axis-aligned walls with
+# exact corners keep walks in step across math libraries.
+_F, _T = False, True
+SWEEP = (
+    ("reflectance+mis", (2, _F, _T, _F, _F, _T, _F, _F, _F),
+     dict(mis=True, robin="reflectance")),
+    ("table+majorant", (0, _T, _F, _F, _T, _T, _F, _F, _F),
+     dict(geometry="table", majorant=True)),
+    ("table+mis", (0, _F, _T, _F, _T, _T, _F, _F, _F),
+     dict(geometry="table", mis=True)),
+    ("table+wide", (0, _F, _F, _F, _T, _T, _F, _T, _F),
+     dict(geometry="table", n_src=5)),
+    ("chain+freeze+terms", (1, _F, _F, _T, _F, _T, _F, _F, _F, _T),
+     dict(alpha="terms", robin="chain", split=1.2)),
+    ("chain+majorant+terms", (1, _T, _F, _F, _F, _T, _F, _F, _F, _T),
+     dict(alpha="terms", robin="chain", majorant=True)),
+    ("grid_no_delta", (0, _F, _F, _F, _F, _F, _F, _F, _T),
+     dict(alpha=None, bc="grid")),
+    ("survey+grid", (0, _F, _F, _F, _F, _T, _F, _F, _T), dict(bc="grid")),
+    ("flagship_wide", (1, _T, _T, _T, _F, _T, _F, _T, _F),
+     dict(robin="chain", majorant=True, mis=True, split=1.2, n_src=5)),
+    ("transport+mis", (0, _F, _T, _F, _F, _T, _T, _F, _F),
+     dict(mis=True, sampler="transport")),
+    ("reflectance_table_all", (2, _T, _F, _T, _T, _T, _T, _T, _T, _T),
+     dict(geometry="table", alpha="terms", bc="grid", n_src=5,
+          majorant=True, robin="reflectance", split=1.2,
+          sampler="transport")),
+    ("no_delta_wide+terms", (0, _F, _F, _F, _F, _F, _F, _T, _F),
+     dict(alpha=None, bc="poly", n_src=5)),
+)
+# every variant the script launches: the paths', phases 40-41's, the sweep
+SCRIPT_VARIANTS = PATH_VARIANTS + (
+    (0, False, False, True, False, True, False, False, False),
+    (0, True, True, True, True, True, False, False, False)) + tuple(
+        c[1] for c in SWEEP)
+SWEEP_DEFAULTS = dict(geometry="box", alpha="bumps", bc="zero", n_src=1,
+                      mis=False, majorant=False, robin=False, split=None,
+                      sampler="exact")
+SWEEP_BOX = [[-2.0, 0.0], [-2.0, -4.0], [2.0, -4.0], [2.0, 0.0]]
+SWEEP_WALL = [[-2.0, 0.0], [-0.5, 0.0], [-0.5, -0.25], [0.5, -0.25],
+              [0.5, 0.0], [2.0, 0.0]]
+SWEEP_DIPOLES = (((-1.0, -0.6), (1.0, -0.6)), ((-1.5, -1.0), (0.5, -1.0)),
+                 ((-0.5, -2.0), (1.5, -2.0)), ((-1.0, -3.0), (1.0, -1.5)),
+                 ((0.0, -0.6), (0.0, -2.5)))
+SWEEP_WIDTH = 0.3
+# (center, radius, value) over a background of 1, sharpness 8
+SWEEP_ANOMALIES = (((0.8, -0.6), 0.4, 10.0), ((-1.0, -2.5), 0.5, 0.2))
+SWEEP_MAJORANT_BOX = (0.2, 1.4, -1.2, 0.0)
+SWEEP_GRID = (np.linspace(-2.5, 2.5, 11), np.linspace(-4.5, 0.5, 11))
+SWEEP_POINTS = np.array([[0.0, -1.0], [0.5, -0.5], [-1.5, -0.004],
+                         [1.2, -3.5], [0.0, -0.252], [-1.9, -2.0]],
+                        np.float32)
+SWEEP_EPS, SWEEP_MAX_STEPS = 1e-2, 500
+
+
+def sweep_spec(case):
+    """A sweep case's build, its defaults filled in."""
+    return dict(SWEEP_DEFAULTS, **case[2])
+
+
+def sweep_boundary(geometry):
+    """The Dirichlet points (three sides, in 32 segments each for the
+    table form) and the Neumann top of a sweep case."""
+    if geometry == "box":
+        return SWEEP_BOX, SWEEP_WALL
+    pts = []
+    for (ax, ay), (bx, by) in zip(SWEEP_BOX[:-1], SWEEP_BOX[1:]):
+        for k in range(32):
+            pts.append([ax + (bx - ax) * k / 32, ay + (by - ay) * k / 32])
+    return pts + [SWEEP_BOX[-1]], SWEEP_WALL
+
+
+def sweep_grid_values(xs, ys):
+    """The sweep's gridded Dirichlet data: 0.5 + 0.3 x - 0.2 y + 0.1 x y,
+    bilinear, so the grid's interpolant is the field up to rounding."""
+    x, y = np.meshgrid(xs, ys, indexing="ij")
+    return 0.5 + 0.3 * x - 0.2 * y + 0.1 * x * y
+
+
+def sweep_problem(spec):
+    """The port's problem of a sweep case (``sweep_spec``)."""
+    from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
+    from dcrmontecarlo_tpu_torch.geometry import Polyline
+    from dcrmontecarlo_tpu_torch.models.dcr_scenarios import \
+        _anomalous_conductivity
+    from dcrmontecarlo_tpu_torch.problems import LocalMajorant, Problem, \
+        fields
+
+    dirichlet, neumann = sweep_boundary(spec["geometry"])
+    alpha = {None: None, "terms": fields.terms(
+        2.0, fields.term({(0, 1): 0.2}), fields.term(0.3, sx=("sin", 0.5))),
+        "bumps": _anomalous_conductivity(1.0, SWEEP_ANOMALIES, 8.0)}[
+            spec["alpha"]]
+    bc = {"zero": fields.constant(0.0),
+          "poly": fields.polynomial({(1, 0): 1.0, (0, 1): 1.0}),
+          "grid": grid_continuation(*SWEEP_GRID,
+                                    sweep_grid_values(*SWEEP_GRID))}[
+                                        spec["bc"]]
+    sources = [fields.gaussian_dipole(a, b, 1.0, SWEEP_WIDTH)
+               for a, b in SWEEP_DIPOLES[:spec["n_src"]]]
+    a, b = SWEEP_DIPOLES[0]
+    return Problem(
+        dirichlet=Polyline.from_points(dirichlet),
+        neumann=Polyline.from_points(neumann), bc_dirichlet=bc,
+        source=sources[0] if len(sources) == 1 else sources, alpha=alpha,
+        source_importance=(fields.GaussianMixture.from_components(
+            [(a, SWEEP_WIDTH, 0.5), (b, SWEEP_WIDTH, 0.5)])
+            if spec["mis"] else None),
+        local_majorant=(LocalMajorant(boxes=(SWEEP_MAJORANT_BOX,),
+                                      sigma_bar_bg=0.01)
+                        if spec["majorant"] else None))
+
+
+def sweep_options(spec, **kw):
+    """The solver options of a sweep case (survey-like: CRN, roulette at
+    delta tracking's 0.05, boundary snap)."""
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    return SolverOptions(common_random_numbers=True, roulette_threshold=0.05,
+                         robin_correction=spec["robin"],
+                         split_threshold=spec["split"],
+                         screened_sampler=spec["sampler"], **kw)
+
+
+# ---- phases 40-41: the survey with the split, the terrain with the --------
+# ---- flagship's estimator ---------------------------------------------------
+P1_WALKS, P1_MAX_STEPS, P1_EPS, P1_SPLIT = 1 << 19, 500, 0.9, 4.0
+P2_WALKS, P2_MAX_STEPS, P2_EPS, P2_SPLIT = 1 << 17, 600, 0.5, 4.0
+P1_LANES, P2_LANES = 147456, 294912
+TOPO_XS = np.arange(-40.0, 41.0, 10.0)
+
+
+def survey_split_options(**kw):
+    """Phase 6's options with the high-weight split at ``P1_SPLIT``: the
+    survey's freeze build through the host launch loop."""
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    base = dict(target_slots=1 << 21, min_quota=32, rejection_rounds=1,
+                split_threshold=P1_SPLIT)
+    return SolverOptions(**dict(base, **kw))
+
+
+def terrain_flagship_problem(**size):
+    """``topographic_survey_problem()`` (at ``size``, its defaults
+    without) with the flagship's estimator: MIS toward the survey's
+    two-component mixture at the two buried current electrodes
+    (``survey/dcr.py::DCRSurvey.build_problem``) and
+    ``local_majorant="auto"``. Returns ``(problem, height_fn)``."""
+    from dcrmontecarlo_tpu_torch.models import topographic_survey_problem
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
+
+    prob, h = topographic_survey_problem(**size)
+    # the electrodes as topographic_survey_problem buries them
+    a, b = ((x, float(h(np.asarray(x))) - 1.5) for x in (-20.0, 20.0))
+    return Problem(
+        dirichlet=prob.dirichlet, neumann=prob.neumann,
+        bc_dirichlet=prob.bc_dirichlet, source=prob.source, alpha=prob.alpha,
+        source_importance=fields.GaussianMixture.from_components(
+            [(a, 0.5, 0.5), (b, 0.5, 0.5)]),
+        local_majorant="auto"), h
 
 
 def validation_phases(wk, dev, card, regs, records, tolerance):
@@ -946,15 +1177,15 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
           f"phase 36: make_mesh(4) gave {mesh4.devices}")
     solver = ShardedWoStSolver(prob, mesh4, survey_default_options())
     rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
-        solver, pts, 512, 500, 0.9, 11, "phase 36 (survey, 4 shards)")
-    log(f"[36] sharded survey 9x512, 4 shards on "
+        solver, pts, 128, 500, 0.9, 11, "phase 36 (survey, 4 shards)")
+    log(f"[36] sharded survey 9x128, 4 shards on "
         f"{sorted({str(d) for d in mesh4.devices})}: max |dmean|/(|mean|"
         f"+se) {q:.3g} (bound 1e-3), steps kernel {rk.total_steps:.0f} "
         f"plain {rp.total_steps:.0f}, launches per shard "
         f"{stats['shard_launches']}; {t_k:.2f} s kernel, {t_p:.2f} s plain")
     # the one-stream rule: the four shards advanced together equal the
     # four solved one by one, bit for bit
-    plan = solver._plan(pts, 512, 500, 0.9, 11)
+    plan = solver._plan(pts, 128, 500, 0.9, 11)
     together = solver._combine(plan, solver._run_shards(plan, range(4)))
     alone = solver._combine(plan, torch.cat(
         [solver._run_shards(plan, [d]) for d in range(4)]))
@@ -1003,10 +1234,10 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     solver = ShardedWoStSolver(flag_prob, make_mesh(2), survey_default_options(
         target_slots=1 << 17, split_threshold=4.0))
     rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
-        solver, nb_pts, 128, 100, 1.0, 11, "phase 36 (sharded flagship)")
+        solver, nb_pts, 64, 100, 1.0, 11, "phase 36 (sharded flagship)")
     check(min(stats["shard_clones"]) > 0,
           f"phase 36: a shard of the flagship made no clone: {stats}")
-    log(f"[36] sharded flagship solve 21x128, max_steps 100, 2 shards: max "
+    log(f"[36] sharded flagship solve 21x64, max_steps 100, 2 shards: max "
         f"|dmean|/(|mean|+se) {q:.3g} (bound 1e-3), steps kernel "
         f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, {stats}; "
         f"{t_k:.2f} s kernel, {t_p:.2f} s plain")
@@ -1167,6 +1398,164 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
         f"{[g['launches'] for g in got]}), {t39:.1f} s with start-up")
 
 
+def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
+                    electrodes, f6, f20, topo_pts):
+    """Phases 40-42: the survey with the split, the terrain with the
+    flagship's estimator, and the variant sweep."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+
+    # ---- 40. the survey with the split ----------------------------------
+    p1 = (wk.ROBIN_OFF, False, False, True, False, True, False, False,
+          False)
+    solver = WoStSolver(survey.build_problem(), survey_split_options(),
+                        device=dev)
+    pts = survey_points(electrodes, -0.5)
+    f40 = full_size_solves(wk, solver, pts, P1_WALKS, P1_MAX_STEPS, P1_EPS,
+                           P1_LANES, "phase 40")
+    state, params, _, _ = solver._setup(pts, P1_WALKS, P1_MAX_STEPS, P1_EPS,
+                                        5)
+    check(params.variant == p1 and set(f40["counts"]) == {
+        params.kernel_name} and state["px"].numel() == P1_LANES,
+          f"phase 40 launched {f40['counts']} on {state['px'].numel()} "
+          f"lanes")
+    # split on against split off (phase 6's solves of the same seeds)
+    z = [float(np.max(np.abs(a.mean - b.mean)
+                      / np.hypot(a.stderr, b.stderr)))
+         for a, b in zip(f40["raws"], f6["raws"])]
+    check(max(z) < 4.0, f"phase 40: split on and off differ by {z} sigma")
+    log(f"[40] the survey with the split at {P1_SPLIT}, 9x{P1_WALKS} walks, "
+        f"{P1_LANES} lanes ({params.kernel_name}, "
+        f"{regs.get(params.kernel_name)} registers): walker_steps_per_sec "
+        f"{f40['rate']:.6g} s/solve {f40['times']} steps/solve "
+        f"{f40['steps']:.6g}, launches and clones per solve "
+        f"{f40['stats']}, lane occupancy {f40['occupancy']:.4f}, kernel "
+        f"share {[round(v, 4) for v in f40['share']]}; largest |split on - "
+        f"off| per solve {[round(v, 3) for v in z]} sigma (bound 4); "
+        f"phase 6 in this run {f6['rate']:.6g} ({card})")
+    # kernel vs plain through the host loop, cut size
+    cut = WoStSolver(survey.build_problem(), survey_split_options(
+        target_slots=4096, min_quota=1), device=dev)
+    t0 = time.perf_counter()
+    rk = cut._solve_raw(pts, 256, P1_MAX_STEPS, P1_EPS, 11)
+    stats_k, t_k = cut.last_solve_stats, time.perf_counter() - t0
+    rp = cut._solve_raw(pts, 256, P1_MAX_STEPS, P1_EPS, 11,
+                        walk=wk.walk_plain)
+    stats_p, t_p = cut.last_solve_stats, time.perf_counter() - t0 - t_k
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.hypot(rk.stderr, rp.stderr)
+    check(np.isfinite(rk.mean).all() and (dm <= 1e-3 * scale).all()
+          and rk.total_steps == rp.total_steps and stats_k == stats_p
+          and stats_k["clones"] > 0,
+          f"phase 40 host loop: kernel {rk.total_steps} steps {stats_k}, "
+          f"plain {rp.total_steps} steps {stats_p}, |dmean|/scale "
+          f"{dm / scale}")
+    log(f"[40] host-loop solve 9x256 (one walk a slot): max |dmean|/(|mean|"
+        f"+se) {float((dm / scale).max()):.3g} (bound 1e-3), steps kernel "
+        f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, kernel "
+        f"{stats_k}, plain {stats_p}; {t_k:.2f} s kernel, {t_p:.2f} s plain")
+    t40 = steps_256(wk, state, params, "phase 40", thr=P1_SPLIT,
+                    subset=True)
+    log(f"[40] 256 steps x {t40['lanes']} lanes, freeze {P1_SPLIT}: kernel "
+        f"{t40['ms']:.3f} ms, plain {t40['plain_ms']:.3f} ms; worst plane "
+        f"agreement {t40['worst']:.5f}, max |err| {t40['max_err']:.3g}, "
+        f"{t40['steps']} walker-steps ({card})")
+    records.append(kernel_record(params, "survey+split",
+                                 f40["counts"][params.kernel_name], t40,
+                                 regs, tolerance))
+
+    # ---- 41. the terrain with the flagship's estimator -------------------
+    p2 = (wk.ROBIN_OFF, True, True, True, True, True, False, False, False)
+    prob, _ = terrain_flagship_problem()
+    boxes = prob.local_majorant.boxes if prob.local_majorant else ()
+    solver = WoStSolver(prob, survey_default_options(
+        target_slots=1 << 21, split_threshold=P2_SPLIT), device=dev)
+    check(solver._robin_enabled() is False, "phase 41: Robin resolved on")
+    f41 = full_size_solves(wk, solver, topo_pts, P2_WALKS, P2_MAX_STEPS,
+                           P2_EPS, P2_LANES, "phase 41", reps=2)
+    state, params, _, _ = solver._setup(topo_pts, P2_WALKS, P2_MAX_STEPS,
+                                        P2_EPS, 5)
+    check(params.variant == p2 and set(f41["counts"]) == {
+        params.kernel_name} and state["px"].numel() == P2_LANES,
+          f"phase 41 launched {f41['counts']} on {state['px'].numel()} "
+          f"lanes")
+    mean41, se41 = f41["warm"].mean, f41["warm"].stderr
+    i_pos = int(np.argmin(np.abs(TOPO_XS + 20)))
+    i_neg = int(np.argmin(np.abs(TOPO_XS - 20)))
+    check(mean41[i_pos] > 0 and mean41[i_neg] < 0
+          and np.abs(mean41).max() < 1.0,
+          f"phase 41 potentials break the survey's physics: {mean41}")
+    z41 = float(np.max(np.abs(mean41 - f20["warm"].mean)
+                       / np.hypot(se41, f20["warm"].stderr)))
+    check(z41 < 4.0, f"phase 41 differs from phase 20 by {z41:.2f} sigma")
+    log(f"[41] the terrain with the flagship's estimator (MIS, "
+        f"local_majorant='auto': {len(boxes)} boxes {boxes}, split "
+        f"{P2_SPLIT}), 9x{P2_WALKS} walks, {P2_LANES} lanes "
+        f"({params.kernel_name}, {regs.get(params.kernel_name)} registers): "
+        f"walker_steps_per_sec {f41['rate']:.6g} s/solve {f41['times']} "
+        f"steps/solve {f41['steps']:.6g}, launches and clones per solve "
+        f"{f41['stats']}, lane occupancy {f41['occupancy']:.4f}, truncated "
+        f"share {[round(v, 4) for v in f41['trunc']]}, kernel share "
+        f"{[round(v, 4) for v in f41['share']]}; potentials "
+        f"{np.round(mean41, 5).tolist()}, stderr "
+        f"{np.round(se41, 5).tolist()}; largest |phase 41 - phase 20| "
+        f"{z41:.3f} sigma (bound 4); phase 20's stderr "
+        f"{np.round(f20['warm'].stderr, 5).tolist()} ({card})")
+    t41 = steps_256(wk, state, params, "phase 41", thr=P2_SPLIT,
+                    subset=True)
+    log(f"[41] 256 steps x {t41['lanes']} lanes, freeze {P2_SPLIT}: kernel "
+        f"{t41['ms']:.3f} ms, plain {t41['plain_ms']:.3f} ms; worst plane "
+        f"agreement {t41['worst']:.5f}, max |err| {t41['max_err']:.3g}, "
+        f"{t41['steps']} walker-steps ({card})")
+    records.append(kernel_record(params, "terrain_flagship",
+                                 f41["counts"][params.kernel_name], t41,
+                                 regs, tolerance))
+
+    # ---- 42. the variant sweep ---------------------------------------------
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    worst_all = 1.0
+    for case in SWEEP:
+        name, variant, _ = case
+        spec = sweep_spec(case)
+        solver = WoStSolver(sweep_problem(spec),
+                            sweep_options(spec, target_slots=8192),
+                            device=dev)
+        state, params, _, _ = solver._setup(SWEEP_POINTS, 1 << 13,
+                                            SWEEP_MAX_STEPS, SWEEP_EPS, 3)
+        check(params.variant == variant and state["px"].numel() == 8192,
+              f"phase 42 {name}: {params.kernel_name} on "
+              f"{state['px'].numel()} lanes")
+        thr = spec["split"] if params.freeze else None
+        # the library and its module loaded before the timed launch
+        wk.run_walk(clone_state(state), params, 16, freeze_thr=thr)
+        ks, ps = clone_state(state), clone_state(state)
+        wk.run_walk.launches = 0
+        wk.run_walk.variant_launches.clear()
+        ms = cuda_ms(lambda: wk.run_walk(ks, params, 64, freeze_thr=thr))
+        launches = wk.run_walk.variant_launches[params.kernel_name]
+        check(launches == wk.run_walk.launches == 1,
+              f"phase 42 {name}: {wk.run_walk.launches} launches")
+        plain_ms = cuda_ms(lambda: wk.walk_plain(ps, params, 64,
+                                                 freeze_thr=thr))
+        worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
+                                      f"phase 42 {name}")
+        worst_all = min(worst_all, worst)
+        steps = life_steps(state, ks)
+        check(steps > 0 and int(ks["ndone"].sum()) > 0,
+              f"phase 42 {name}: no walk stepped or ended")
+        timed = dict(lanes=8192, ms=ms, plain_ms=plain_ms, worst=worst,
+                     max_err=max_err, steps=steps)
+        records.append(kernel_record(params, f"sweep:{name}", launches,
+                                     timed, regs, tolerance))
+        log(f"[42] {name}: {params.kernel_name} ({regs.get(params.kernel_name)}"
+            f" registers), 64 steps x 8192 lanes: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms; worst plane agreement {worst:.5f}, max "
+            f"|err| {max_err:.3g}, {steps} walker-steps")
+    log(f"[42] {len(SWEEP)} sweep variants, kernel vs plain: worst plane "
+        f"agreement {worst_all:.5f} ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -1212,16 +1601,18 @@ def main():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
 
     # ---- 2. build -------------------------------------------------------
-    libs, build_s, build_log = wk.build_library()
+    libs, build_s, build_log = wk.build_library(SCRIPT_VARIANTS)
     regs = ptxas_registers(build_log)
-    names = {wk.kernel_name(v) for v in wk.KERNEL_VARIANTS}
-    check(set(regs) == names or not build_log,
-          f"expected {len(names)} kernel instantiations, ptxas reported "
-          f"{regs}")
-    log(f"[2] built {len(libs)} libraries, one per instantiation, in "
-        f"{os.path.relpath(os.path.dirname(libs[0]), ROOT)} in {build_s:.1f} "
-        f"s (all nvcc processes at once); ptxas registers per "
-        f"instantiation: {regs or 'cached build'}")
+    built = set(wk.build_logs)  # the codes built now, not found in _build
+    check(set(regs) == {wk.kernel_name(v) for v in SCRIPT_VARIANTS
+                        if wk.variant_code(v) in built},
+          f"built {sorted(built)}, ptxas reported {regs}")
+    log(f"[2] {len(libs)} libraries, one per variant the script launches, "
+        f"in "
+        f"{os.path.relpath(os.path.dirname(next(iter(libs.values()))), ROOT)}"
+        f": {len(built)} built in {build_s:.1f} s ({os.cpu_count()} nvcc "
+        f"processes at a time), {len(libs) - len(built)} found there; "
+        f"ptxas registers per variant: {regs}")
 
     # ---- 3. kernel vs plain, one launch, survey defaults --------------
     solver = WoStSolver(survey.build_problem(),
@@ -1558,10 +1949,10 @@ def main():
     solver = WoStSolver(flag_prob, survey_default_options(
         target_slots=1 << 17, split_threshold=4.0), device=dev)
     t0 = time.perf_counter()
-    rk = solver._solve_raw(nb_pts, 512, 300, 1.0, 11)
+    rk = solver._solve_raw(nb_pts, 256, 150, 1.0, 11)
     stats_k = solver.last_solve_stats
     t_k = time.perf_counter() - t0
-    rp = solver._solve_raw(nb_pts, 512, 300, 1.0, 11, walk=wk.walk_plain)
+    rp = solver._solve_raw(nb_pts, 256, 150, 1.0, 11, walk=wk.walk_plain)
     stats_p = solver.last_solve_stats
     t_p = time.perf_counter() - t0 - t_k
     check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all(),
@@ -1573,9 +1964,10 @@ def main():
     check(rk.total_steps == rp.total_steps,
           f"phase 13 total steps differ: {rk.total_steps} vs "
           f"{rp.total_steps}")
-    check(stats_k["clones"] == stats_p["clones"] > 0,
-          f"phase 13 clones differ or none: {stats_k} vs {stats_p}")
-    log(f"[13] host-loop solve 21x512, max_steps 300 (flagship): max "
+    check(stats_k == stats_p and stats_k["clones"] > 0,
+          f"phase 13 launches or clones differ, or none: {stats_k} vs "
+          f"{stats_p}")
+    log(f"[13] host-loop solve 21x256, max_steps 150 (flagship): max "
         f"|dmean|/(|mean|+se) "
         f"{float((dm / scale).max()):.3g} (bound 1e-3), steps kernel "
         f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, kernel "
@@ -2777,6 +3169,18 @@ def main():
     # ---- the sharded solve (phases 36-39) -------------------------------
     sharded_phases(wk, dev, card, regs, records, tolerance, survey,
                    electrodes, fdm, f6, flag_prob, nb_pts)
+
+    # ---- the survey with the split, the terrain with the flagship's ------
+    # ---- estimator, the variant sweep (phases 40-42) ---------------------
+    new_path_phases(wk, dev, card, regs, records, tolerance, survey,
+                    electrodes, f6, f20, topo_pts)
+    # what phase 2 built is what the phases launched: no library was built
+    # after it, and as many were loaded
+    check(set(wk.build_logs) == built,
+          f"built after phase 2: {sorted(set(wk.build_logs) - built)}")
+    check(wk._library.cache_info().currsize == len(SCRIPT_VARIANTS),
+          f"{wk._library.cache_info().currsize} libraries loaded, "
+          f"{len(SCRIPT_VARIANTS)} built")
 
     p21s, t21s = t21["Poisson square + circle obstacle"]
     p21t, t21t = t21["table-form square"]

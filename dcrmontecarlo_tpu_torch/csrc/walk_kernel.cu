@@ -64,38 +64,15 @@
 // it apart from the narrow block.
 //
 // Variants are compile-time: walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE,
-// DELTA, TRANSPORT, WIDE, GRID>, and the host picks one per launch. Only the
-// combinations a path launches are instantiated (walk_pick below;
-// ops/walk_kernel.py::KERNEL_VARIANTS holds the same list; DELTA is
-// true, TRANSPORT and WIDE false unless shown):
-//   <OFF,   false, false, false, false>  the survey's main path
-//   <OFF,   false, true,  false, false>  the survey with source_mis
-//   <OFF,   true,  false, false, false>  the majorant with Robin off
-//   <CHAIN, false, false, false, false>  the chord chain
-//   <CHAIN, true,  false, false, false>  the accuracy path
-//   <CHAIN, true,  true,  true,  false>  the flagship gate (chain +
-//                                        majorant + MIS + freeze, under
-//                                        the host launch loop)
-//   <CHAIN, true,  true,  false, false>  the flagship on a mesh of shards
-//                                        (parallel/mesh.py: the split
-//                                        without the freeze)
-//   <REFLECT, false|true, false, false, false>  the reflectance fold
-//   <OFF,   false, false, false, true >  the topographic survey
-//   <CHAIN, false, false, false, true >  the chain on a terrain
-//   <OFF,   false, false, false, false|true, DELTA false>  no delta
-//                                        tracking, both geometry forms
-//   <OFF|CHAIN, false, false, false, false, TRANSPORT true>  the
-//                                        transport sampler
-//   <OFF,   false, true,  false, false, DELTA false>  MIS without delta
-//                                        tracking (with the TERMS kind)
-//   <CHAIN, false, true,  false, false>  the notebook line's
-//                                        pseudosection (chain + MIS)
-//   <OFF,   false, false|true, false, false, WIDE true>, <CHAIN, false,
-//   true, false, false, WIDE true>  the wide forms of the survey, the
-//                                        survey with MIS and chain + MIS
-//   <CHAIN, true,  true,  true,  false, GRID true>  the flagship with a
-//                                        gridded Dirichlet field (the
-//                                        cylinder oracle)
+// DELTA, TRANSPORT, WIDE, GRID, TERMS_FORM>. Every combination the TPU
+// kernel traces is one (walk_variant.h: Robin, the majorant, the freeze
+// and the transport sampler need delta tracking; 400 variants, and the
+// TERMS forms of the 368 that lack the kind). A library holds exactly one
+// of them: its switches come as -D macros (WALK_ROBIN, WALK_MAJORANT,
+// WALK_MIS, WALK_FREEZE, WALK_TABLE, WALK_DELTA, WALK_TRANSPORT,
+// WALK_WIDE, WALK_GRID, WALK_TERMS; ops/walk_kernel.py::nvcc_command),
+// and the host
+// builds the library of a variant the first time a launch needs it.
 // walk_kernel<ROBIN_OFF, false, false, false, false, true, false> carries
 // none of the other variants' code or registers. max_attenuation is a
 // run-time switch (three selects per step) in every instantiation with
@@ -161,10 +138,9 @@
 // Constants are written as double literals cast to float, which rounds
 // them the way the Python side does.
 //
-// Build: one library per instantiation, all compiled at once. With
-// -DWALK_PART=<code> the unit keeps only the instantiation whose walk_pick
-// code is <code> (ops/walk_kernel.py::variant_code); without it, every
-// instantiation (one library, as a host build for rehearsal compiles it).
+// Build: one library per variant, its switches as -D macros; a unit
+// without them does not compile. walk_launch refuses a header whose
+// switches are not the library's.
 //
 // Interface: plain C (walk_launch), loaded with ctypes. Parameters and
 // plane pointers go to __constant__ memory with an async copy on the
@@ -176,8 +152,15 @@
 #include <stdint.h>
 #include <string.h>
 
-#ifndef WALK_PART
-#define WALK_PART -1
+#include "walk_variant.h"
+
+#if !(defined(WALK_ROBIN) && defined(WALK_MAJORANT) && defined(WALK_MIS) && \
+      defined(WALK_FREEZE) && defined(WALK_TABLE) && defined(WALK_DELTA) &&  \
+      defined(WALK_TRANSPORT) && defined(WALK_WIDE) && defined(WALK_GRID) && \
+      defined(WALK_TERMS))
+#error "one library per variant: its switches as -D macros WALK_ROBIN, \
+WALK_MAJORANT, WALK_MIS, WALK_FREEZE, WALK_TABLE, WALK_DELTA, \
+WALK_TRANSPORT, WALK_WIDE, WALK_GRID, WALK_TERMS (nvcc_command)"
 #endif
 
 #define F(x) ((float)(x))
@@ -627,17 +610,7 @@ __device__ __noinline__ float4 terms_parts(int f, float x, float y,
   return acc;
 }
 
-// the instantiations whose paths evaluate TERMS fields, those of the
-// analytic-check problems: no majorant, freeze or reflectance, MIS and the
-// table form only without delta tracking. The others are compiled without
-// the kind and keep the code they had before it
-// (ops/walk_kernel.py::terms_fields holds the same rule)
-__host__ __device__ constexpr bool terms_fields(int robin, bool maj,
-                                                bool mis, bool freeze,
-                                                bool table, bool delta) {
-  return !maj && !(mis && delta) && !freeze && !(table && delta) &&
-         robin != ROBIN_REFLECT;
-}
+using walk_rules::terms_fields;
 
 template <bool TERMS>
 __device__ float field_value(int f, float x, float y) {
@@ -1464,10 +1437,15 @@ __device__ __forceinline__ void add_sources(float (&acc)[MAX_SRC], int lane,
 }
 
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE = false, bool GRID = false>
+          bool TRANSPORT, bool WIDE = false, bool GRID = false,
+          bool TERMS_FORM = false>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
-  constexpr bool TERMS = terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
+  static_assert(walk_rules::valid_variant(ROBIN, MAJ, MIS, FREEZE, TABLE,
+                                          DELTA, TRANSPORT, TERMS_FORM),
+                "not a switch combination the TPU kernel traces");
+  constexpr bool TERMS =
+      TERMS_FORM || terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
   const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane >= n_lanes) return;
   const Planes& P = C.pl;
@@ -1850,65 +1828,28 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 
 }  // namespace
 
-typedef void (*LaunchFn)(int, cudaStream_t, int, int, float);
+// the library's one variant (walk_variant.h), from its -D macros
+constexpr int BUILT[10] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
+                           WALK_FREEZE,    WALK_TABLE,    WALK_DELTA,
+                           WALK_TRANSPORT, WALK_WIDE,     WALK_GRID,
+                           WALK_TERMS};
 
-template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE, bool GRID>
-void launch(int grid, cudaStream_t st, int n_lanes, int budget, float thr) {
-  walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE, GRID>
+void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
+                  float thr) {
+  walk_kernel<WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0,
+              WALK_FREEZE != 0, WALK_TABLE != 0, WALK_DELTA != 0,
+              WALK_TRANSPORT != 0, WALK_WIDE != 0, WALK_GRID != 0,
+              WALK_TERMS != 0>
       <<<grid, THREADS, 0, st>>>(n_lanes, budget, thr);
 }
 
-// instantiation CODE of this unit: compiled only in the unit of its part
-template <int CODE, int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE,
-          bool DELTA, bool TRANSPORT, bool WIDE = false, bool GRID = false>
-LaunchFn pick() {
-  if constexpr (WALK_PART < 0 || WALK_PART == CODE)
-    return launch<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA, TRANSPORT, WIDE,
-                  GRID>;
-  else
-    return nullptr;
-}
-
-#define WALK_CASE(code, ...) \
-  case code:                 \
-    return pick<code, __VA_ARGS__>()
-
-// the instantiated variants (head comment), by (robin, majorant, mis,
-// freeze, table, delta, transport[, wide[, grid]]); nullptr for a
-// combination no path launches, or one another part's library holds
-LaunchFn walk_pick(int robin, int majorant, int mis, int freeze, int table,
-                   int delta, int transport, int wide, int grid) {
-  const int bits[6] = {majorant, mis, freeze, table, delta, transport};
-  int code = robin;  // the switches as binary digits after the Robin mode
-  for (int k = 0; k < 6; ++k) code = 2 * code + bits[k];
-  code += 256 * wide + 512 * grid;  // the wide form above every narrow
-                                   // code, the grid above those
-  switch (code) {
-    WALK_CASE(0, ROBIN_OFF, false, false, false, false, false, false);
-    WALK_CASE(2, ROBIN_OFF, false, false, false, false, true, false);
-    WALK_CASE(3, ROBIN_OFF, false, false, false, false, true, true);
-    WALK_CASE(4, ROBIN_OFF, false, false, false, true, false, false);
-    WALK_CASE(6, ROBIN_OFF, false, false, false, true, true, false);
-    WALK_CASE(16, ROBIN_OFF, false, true, false, false, false, false);
-    WALK_CASE(18, ROBIN_OFF, false, true, false, false, true, false);
-    WALK_CASE(34, ROBIN_OFF, true, false, false, false, true, false);
-    WALK_CASE(66, ROBIN_CHAIN, false, false, false, false, true, false);
-    WALK_CASE(67, ROBIN_CHAIN, false, false, false, false, true, true);
-    WALK_CASE(70, ROBIN_CHAIN, false, false, false, true, true, false);
-    WALK_CASE(82, ROBIN_CHAIN, false, true, false, false, true, false);
-    WALK_CASE(98, ROBIN_CHAIN, true, false, false, false, true, false);
-    WALK_CASE(114, ROBIN_CHAIN, true, true, false, false, true, false);
-    WALK_CASE(122, ROBIN_CHAIN, true, true, true, false, true, false);
-    WALK_CASE(130, ROBIN_REFLECT, false, false, false, false, true, false);
-    WALK_CASE(162, ROBIN_REFLECT, true, false, false, false, true, false);
-    WALK_CASE(258, ROBIN_OFF, false, false, false, false, true, false, true);
-    WALK_CASE(274, ROBIN_OFF, false, true, false, false, true, false, true);
-    WALK_CASE(338, ROBIN_CHAIN, false, true, false, false, true, false, true);
-    WALK_CASE(634, ROBIN_CHAIN, true, true, true, false, true, false, false,
-              true);
-    default: return nullptr;
-  }
+// the switches of this library: robin, majorant, mis, freeze, table,
+// delta, transport, wide, grid, terms form (ops/walk_kernel.py reads them
+// back after loading it)
+extern "C" int walk_switches(int* out, int n) {
+  if (n != 10) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 10; ++k) out[k] = BUILT[k];
+  return 0;
 }
 
 // fp: eps, rmin, t_min, sigma_bar, roulette_thr, gamma_floor,
@@ -1992,11 +1933,20 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                   h.clip)) ||
       n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
-  // the Dirichlet field's kind picks the grid form
+  // the Dirichlet field's kind picks the grid form, a TERMS field the
+  // TERMS form of a variant that lacks the kind; the header's switches
+  // must be this library's
   const int grid = ip[N_IP] == K_GRID;
-  const LaunchFn fn = walk_pick(h.robin, h.majorant, h.n_mix > 0, freeze,
-                                table, delta, transport, wide, grid);
-  if (!fn) return (int)cudaErrorInvalidValue;
+  bool any_terms = false;
+  for (int f = 0; f < n_fields && f < N_FIELDS; ++f)
+    any_terms = any_terms || ip[N_IP + 2 * f] == K_TERMS;
+  const bool mis = h.n_mix > 0;
+  const int switches[10] = {
+      h.robin, h.majorant, mis, freeze, table, delta, transport, wide, grid,
+      any_terms && !terms_fields(h.robin, h.majorant, mis, freeze, table,
+                                 delta)};
+  for (int k = 0; k < 10; ++k)
+    if (switches[k] != BUILT[k]) return (int)cudaErrorInvalidValue;
   const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
   if (n_fp < off + n_static + 4 * h.n_box + 2 * h.n_band +
@@ -2060,9 +2010,6 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
         (kind == K_BUMPS && (n - 1) % 6 != 0) ||
         (terms && (n - 1) % TERM_COLS != 0) ||
         (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE && !terms))
-      return (int)cudaErrorInvalidValue;
-    if (terms && !terms_fields(h.robin, h.majorant, h.n_mix > 0, freeze,
-                               table, delta))
       return (int)cudaErrorInvalidValue;
     h.field[f].kind = kind;
     h.field[f].n = terms ? 1 : n;
@@ -2136,6 +2083,7 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     if (e != cudaSuccess) return (int)e;
   }
   if (n_lanes > 0 && budget > 0)
-    fn((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget, thr);
+    launch_built((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget,
+                 thr);
   return (int)cudaGetLastError();
 }

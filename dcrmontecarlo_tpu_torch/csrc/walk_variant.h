@@ -1,0 +1,55 @@
+// The walk kernel's switch rules (csrc/walk_kernel.cu), apart from CUDA so
+// that a host compiler can hold them against ops/walk_kernel.py.
+//
+// A variant is walk_kernel<ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA,
+// TRANSPORT, WIDE, GRID, TERMS_FORM>. The TPU kernel
+// (dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk) traces any
+// combination of its switches, with one rule: the Robin correction, the
+// local majorant, the freeze and the transport sampler act only with delta
+// tracking (pallas_walk.py:611, :1100, :1120; solver/wost.py:1780 builds
+// the freeze only then). Every other combination is a valid variant: 400
+// of the 3 x 2^8 switch tuples.
+//
+// TERMS fields (problems/fields.py::Terms) are compiled into the variants
+// whose paths evaluate them (terms_fields: those of the analytic-check
+// problems); a variant outside that set evaluates them only in its TERMS
+// form (TERMS_FORM), a library of its own, so that the kind's call sites
+// (27% per step on the accuracy path) never reach a variant that launches
+// no TERMS field.
+
+#ifndef WALK_VARIANT_H
+#define WALK_VARIANT_H
+
+#ifdef __CUDACC__
+#define WALK_HD __host__ __device__
+#else
+#define WALK_HD
+#endif
+
+namespace walk_rules {
+
+constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
+
+// the variants that evaluate TERMS fields without their TERMS form: no
+// majorant, freeze or reflectance, MIS and the table form only without
+// delta tracking (ops/walk_kernel.py::terms_fields holds the same rule)
+WALK_HD constexpr bool terms_fields(int robin, bool maj, bool mis,
+                                    bool freeze, bool table, bool delta) {
+  return !maj && !(mis && delta) && !freeze && !(table && delta) &&
+         robin != ROBIN_REFLECT;
+}
+
+// the reference's rule, and a TERMS form only where the variant lacks the
+// kind; MIS, the table form, the wide form and the grid combine freely
+// (ops/walk_kernel.py::valid_variant holds the same rule)
+WALK_HD constexpr bool valid_variant(int robin, bool maj, bool mis,
+                                     bool freeze, bool table, bool delta,
+                                     bool transport, bool terms_form) {
+  return robin >= ROBIN_OFF && robin <= ROBIN_REFLECT &&
+         (delta || (robin == ROBIN_OFF && !maj && !freeze && !transport)) &&
+         !(terms_form && terms_fields(robin, maj, mis, freeze, table, delta));
+}
+
+}  // namespace walk_rules
+
+#endif  // WALK_VARIANT_H

@@ -29,16 +29,19 @@ Gaussian dipoles); and the validation path: a gridded Dirichlet field
 (``fields.Grid``, the cylinder oracle's Monte Carlo tier) on the
 flagship's switches; and the sharded solve (``parallel/mesh.py``), whose
 launch loop splits without the freeze: the flagship's switches without
-it. The kernel is
-``csrc/walk_kernel.cu`` (one thread per walker lane, one compiled
-instantiation per variant in :data:`KERNEL_VARIANTS`); :func:`walk_plain`
-is the same step, op for op, on tensors of lanes, on any device.
+it. Any combination of these switches that the JAX kernel traces is a
+variant (:func:`valid_variant`; :data:`KERNEL_VARIANTS` holds them all).
+The kernel is ``csrc/walk_kernel.cu`` (one thread per walker lane, one
+library per variant); :func:`walk_plain` is the same step, op for op, on
+tensors of lanes, on any device.
 
 :func:`run_walk` advances every lane by up to ``inner_steps`` steps and
 updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
-state launches the kernel, built from the checkout's source at first use
-(``nvcc``, one library per instantiation, all compiled at once; plain C
-interface, ``ctypes``). There is no fallback between the two.
+state launches the kernel, whose variant's library is built from the
+checkout's source the first time a launch needs it (``nvcc`` with the
+switches as ``-D`` macros, :func:`nvcc_command`; plain C interface,
+``ctypes``); :func:`build_library` builds a set of variants ahead, in
+parallel. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -47,12 +50,14 @@ import collections
 import ctypes
 import functools
 import hashlib
+import itertools
 import math
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional, Tuple
@@ -79,12 +84,13 @@ from .greens import (
 
 __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "MAX_SMEM_SEGMENTS", "MAX_MIX", "MAX_WIDE_SRC", "MAX_WIDE_MIX",
-           "KERNEL_VARIANTS", "terms_fields",
-           "WalkParams", "kernel_name", "variant_code", "geometry_size",
-           "make_walk_params", "stream_ids", "run_walk", "walk_plain",
-           "compare_planes", "PLANE_RTOL", "PLANE_FLOOR", "PLANE_MIN_FRAC",
-           "build_library", "NVCC_FLAGS", "ROBIN_OFF", "ROBIN_CHAIN",
-           "ROBIN_REFLECTANCE"]
+           "KERNEL_VARIANTS", "terms_fields", "valid_variant",
+           "variant_fault", "WalkParams", "kernel_name", "variant_code",
+           "geometry_size", "make_walk_params", "stream_ids", "run_walk",
+           "walk_plain", "compare_planes", "PLANE_RTOL", "PLANE_FLOOR",
+           "PLANE_MIN_FRAC", "build_library", "nvcc_command",
+           "variant_macros", "SWITCHES", "NVCC_FLAGS", "ROBIN_OFF",
+           "ROBIN_CHAIN", "ROBIN_REFLECTANCE"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -103,41 +109,17 @@ MAX_WIDE_MIX = 64    # and mixture components
 ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
-# the kernel's compiled instantiations, (robin, majorant, mis, freeze,
-# table, delta, transport, wide, grid): the combinations a path launches
-# (csrc/walk_kernel.cu::walk_pick); the wide form, for more than MAX_SRC
-# sources or MAX_MIX mixture components, carries the survey products'
-# lines; grid, a gridded Dirichlet field (fields.Grid), the cylinder
-# oracle's Monte Carlo tier
-_GRIDLESS = (
-    (ROBIN_OFF, False, False, False, False, True, False, False),  # survey
-    (ROBIN_OFF, False, True, False, False, True, False, False),   # + MIS
-    (ROBIN_OFF, True, False, False, False, True, False, False),   # majorant
-    (ROBIN_CHAIN, False, False, False, False, True, False, False),
-    (ROBIN_CHAIN, True, False, False, False, True, False, False),  # accuracy
-    (ROBIN_CHAIN, True, True, True, False, True, False, False),  # flagship
-    (ROBIN_CHAIN, True, True, False, False, True, False, False),  # sharded
-    (ROBIN_REFLECTANCE, False, False, False, False, True, False, False),
-    (ROBIN_REFLECTANCE, True, False, False, False, True, False, False),
-    (ROBIN_OFF, False, False, False, True, True, False, False),   # terrain
-    (ROBIN_CHAIN, False, False, False, True, True, False, False),  # + chain
-    (ROBIN_OFF, False, False, False, False, False, False, False),  # no delta
-    (ROBIN_OFF, False, False, False, True, False, False, False),   # tracking
-    (ROBIN_OFF, False, False, False, False, True, True, False),   # transport
-    (ROBIN_CHAIN, False, False, False, False, True, True, False),  # + chain
-    (ROBIN_OFF, False, True, False, False, False, False, False),  # + MIS
-    (ROBIN_CHAIN, False, True, False, False, True, False, False),  # chain+MIS
-    (ROBIN_OFF, False, False, False, False, True, False, True),   # the wide
-    (ROBIN_OFF, False, True, False, False, True, False, True),    # forms
-    (ROBIN_CHAIN, False, True, False, False, True, False, True),
-)
-KERNEL_VARIANTS = frozenset({v + (False,) for v in _GRIDLESS} | {
-    # the flagship with gridded Dirichlet data (the cylinder oracle)
-    (ROBIN_CHAIN, True, True, True, False, True, False, False, True),
-})
+# a variant's switches: (robin, majorant, mis, freeze, table, delta,
+# transport, wide, grid), then True for a TERMS form; wide, for more than
+# MAX_SRC sources or MAX_MIX mixture components, carries the survey
+# products' lines; grid, a gridded Dirichlet field (fields.Grid), the
+# cylinder oracle's Monte Carlo tier
+SWITCHES = ("robin", "majorant", "mis", "freeze", "table", "delta",
+            "transport", "wide", "grid", "terms")
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
+_RULES = _SRC.with_name("walk_variant.h")  # the switch rules, included
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -148,37 +130,106 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # parameters                                                             #
 # ---------------------------------------------------------------------- #
 
+def _switches(variant) -> tuple:
+    """The ten switches of a variant tuple (9 items, or 10 with the TERMS
+    form last): the Robin mode as an int, the others as bools."""
+    v = tuple(variant)
+    if len(v) not in (9, 10):
+        raise ValueError(f"a variant has 9 or 10 switches {SWITCHES}, got "
+                         f"{v!r}")
+    return (int(v[0]),) + tuple(bool(f) for f in v[1:]) + (False,) * (
+        10 - len(v))
+
+
+def _canonical(variant) -> tuple:
+    """A variant as :attr:`WalkParams.variant` gives it: nine switches,
+    then ``True`` for a TERMS form."""
+    s = _switches(variant)
+    return s[:9] + ((True,) if s[9] else ())
+
+
 def kernel_name(variant) -> str:
     """``walk_kernel<robin,majorant,mis,freeze,table,delta,transport>``
-    for a variant tuple, then ``wide`` and ``grid`` when either is set (the
-    template's defaulted switches)."""
-    r, *flags, wide, grid = variant
-    tail = [wide, grid] if grid else [wide] if wide else []
+    for a variant tuple, then ``wide``, ``grid`` and the TERMS form up to
+    the last one set (the template's defaulted switches)."""
+    r, *flags = _switches(variant)
+    head, tail = flags[:6], flags[6:]
+    while tail and not tail[-1]:
+        tail.pop()
     return "walk_kernel<{}>".format(",".join(
-        [str(int(r))] + ["true" if f else "false" for f in flags + tail]))
+        [str(r)] + ["true" if f else "false" for f in head + tail]))
 
 
 def terms_fields(variant) -> bool:
-    """Whether the instantiation ``variant`` evaluates ``TERMS`` field
-    specs (``csrc/walk_kernel.cu::terms_fields``): those of the
-    analytic-check problems, without majorant, freeze or reflectance, with
-    MIS and in the table form only without delta tracking. The others are
-    compiled without the kind, which keeps their code as it was."""
+    """Whether the variant ``variant`` evaluates ``TERMS`` field specs
+    without its TERMS form (``csrc/walk_variant.h::terms_fields``): those
+    of the analytic-check problems, without majorant, freeze or
+    reflectance, with MIS and in the table form only without delta
+    tracking. The others are compiled without the kind, which keeps their
+    code as it was, and evaluate it only in their TERMS form."""
     robin, majorant, mis, freeze, table, delta = variant[:6]
     return (not (majorant or freeze or (table and delta) or (mis and delta))
             and robin != ROBIN_REFLECTANCE)
 
 
+def variant_fault(variant) -> Optional[str]:
+    """Why ``variant`` is not a switch combination the JAX kernel traces,
+    with the reference's reason; None for a valid one
+    (``csrc/walk_variant.h::valid_variant`` holds the same rule)."""
+    robin, majorant, _, freeze, _, delta, transport, _, _, terms = \
+        _switches(variant)
+    if robin not in (ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE):
+        return f"unknown Robin mode {robin}"
+    if not delta:
+        ref = "dcrmontecarlo_tpu/ops/pallas_walk.py"
+        for on, what, where in (
+                (robin != ROBIN_OFF, "the Robin correction",
+                 f"{ref}:611: use_robin = use_delta and ..."),
+                (majorant, "the local majorant",
+                 f"{ref}:559: local_mj = ... if use_delta else None"),
+                (freeze, "the in-launch freeze",
+                 "dcrmontecarlo_tpu/solver/wost.py:1780: use_split = "
+                 "split_threshold is not None and use_delta_tracking; "
+                 "split_threshold is inert without it"),
+                (transport, "the transport sampler",
+                 f"{ref}:884-900: the screened radius is drawn only with "
+                 "delta tracking")):
+            if on:
+                return f"{what} needs delta tracking ({where})"
+    if terms and terms_fields(variant):
+        return ("a TERMS form exists only for a variant that lacks the "
+                "kind (terms_fields): this one evaluates TERMS fields "
+                "already")
+    return None
+
+
+def valid_variant(variant) -> bool:
+    """Whether ``variant`` (nine switches, or ten with the TERMS form) is
+    one the kernel builds: the JAX kernel's rule (the Robin correction,
+    the local majorant, the freeze and the transport sampler need delta
+    tracking; every other combination is traced), and a TERMS form only
+    where :func:`terms_fields` is false."""
+    return variant_fault(variant) is None
+
+
+# every variant the kernel builds: 400 switch combinations, and the TERMS
+# forms of the 368 that lack the kind
+KERNEL_VARIANTS = frozenset(
+    _canonical(v) for v in itertools.product(
+        (ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE), *[(False, True)] * 9)
+    if valid_variant(v))
+
+
 def variant_code(variant) -> int:
-    """The instantiation's code in ``walk_pick``
-    (``csrc/walk_kernel.cu``): its switches up to ``transport`` read as
-    binary digits after the Robin mode, plus 256 for the wide form and 512
-    for the grid; its library is built with ``-DWALK_PART=<code>``."""
-    r, *flags, wide, grid = variant
-    code = int(r)
-    for f in flags:
-        code = 2 * code + int(bool(f))
-    return code + 256 * int(bool(wide)) + 512 * int(bool(grid))
+    """The variant's code, in its library's name: its switches up to
+    ``transport`` read as binary digits after the Robin mode, plus 256 for
+    the wide form, 512 for the grid and 1024 for the TERMS form."""
+    r, *flags = _switches(variant)
+    code = r
+    for f in flags[:6]:
+        code = 2 * code + int(f)
+    wide, grid, terms = flags[6:]
+    return code + 256 * int(wide) + 512 * int(grid) + 1024 * int(terms)
 
 
 def geometry_size(problem) -> int:
@@ -329,11 +380,23 @@ class WalkParams:
 
     @property
     def variant(self) -> tuple:
-        """The kernel instantiation ``(robin, majorant, mis, freeze, table,
-        delta, transport, wide, grid)``."""
-        return (self.robin, self.majorant is not None,
+        """The kernel's variant ``(robin, majorant, mis, freeze, table,
+        delta, transport, wide, grid)``, then ``True`` in its TERMS form
+        (:attr:`terms_form`)."""
+        base = (self.robin, self.majorant is not None,
                 self.mis_table is not None, self.freeze, self.table,
                 self.delta, self.transport, self.wide, self.grid)
+        return base + ((True,) if self.terms_form else ())
+
+    @property
+    def terms_form(self) -> bool:
+        """Whether a launch takes its variant's TERMS form: a ``TERMS``
+        field where :func:`terms_fields` compiles no such kind."""
+        return (self.specs is not None
+                and any(f.kind == fields.TERMS for f in self.specs)
+                and not terms_fields((self.robin, self.majorant is not None,
+                                      self.mis_table is not None,
+                                      self.freeze, self.table, self.delta)))
 
     @property
     def grid(self) -> bool:
@@ -367,29 +430,16 @@ class WalkParams:
             raise NotImplementedError(
                 "the CUDA walk takes a constant, bump-sum or terms "
                 "conductivity")
+        fault = variant_fault(self.variant)
+        if fault is not None:
+            raise ValueError(f"{self.kernel_name}: {fault}")
         for spec in self.specs:
-            if spec.kind != fields.TERMS:
-                continue
-            if len(spec.terms) > fields.MAX_TERMS:
+            if spec.kind == fields.TERMS and len(spec.terms) > \
+                    fields.MAX_TERMS:
                 raise NotImplementedError(
                     f"the CUDA walk holds up to {fields.MAX_TERMS} terms "
                     f"per field, got {len(spec.terms)}; reference: "
                     "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
-            if not terms_fields(self.variant):
-                raise NotImplementedError(
-                    f"{self.kernel_name} evaluates no terms fields (only "
-                    "the instantiations without majorant, freeze or "
-                    "reflectance do, with MIS or the table form only "
-                    "without delta tracking); reference: "
-                    "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
-        if self.grid and not any(v[:8] == self.variant[:8] and v[8]
-                                 for v in KERNEL_VARIANTS):
-            raise NotImplementedError(
-                f"{kernel_name(self.variant[:8] + (False,))} reads no "
-                "gridded Dirichlet field (the grid instantiations are in "
-                "walk_kernel.KERNEL_VARIANTS); reference: "
-                "dcrmontecarlo_tpu/diagnostics/martingale.py::"
-                "grid_continuation")
         if len(self.sources) > MAX_WIDE_SRC:
             raise NotImplementedError(
                 f"the CUDA walk holds up to {MAX_WIDE_SRC} sources, got "
@@ -423,15 +473,6 @@ class WalkParams:
             raise NotImplementedError(
                 f"the CUDA walk holds an MIS mixture of up to {MAX_WIDE_MIX} "
                 f"components, got {len(mix)}; reference: "
-                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
-        if self.variant not in KERNEL_VARIANTS:
-            raise NotImplementedError(
-                f"the CUDA walk has no instantiation {self.kernel_name} "
-                "(robin, majorant, mis, freeze, table, delta, transport, "
-                f"wide: more than {MAX_SRC} sources or {MAX_MIX} mixture "
-                "components, grid: a gridded Dirichlet field); it "
-                "compiles the variants in walk_kernel.KERNEL_VARIANTS; "
-                "reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         ip = [self.seed, self.max_steps, self.rejection_rounds,
               int(self.roulette_threshold is not None), int(self.project),
@@ -508,8 +549,8 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
     ``screened_sampler`` is ``"exact"`` (the rejection) or ``"transport"``.
     Without delta tracking (no alpha or sigma) the JAX kernel ignores the
     Robin mode, roulette, ``max_attenuation`` and the sampler
-    (``ops/pallas_walk.py:611``, ``:1100``, ``:1120``); so do these
-    parameters.
+    (``ops/pallas_walk.py:611``, ``:1100``, ``:1120``) and the JAX solver
+    the split (``solver/wost.py:1780``); so do these parameters.
     """
     sources = tuple(problem.source_fields)
     delta = bool(problem.use_delta_tracking)
@@ -575,7 +616,7 @@ def make_walk_params(problem, *, eps, max_steps, t_min, rmin, project,
         # typed constants are
         max_attenuation=(None if max_attenuation is None or not delta
                          else float(np.float32(max_attenuation))),
-        freeze=bool(freeze_split), delta=delta,
+        freeze=bool(freeze_split) and delta, delta=delta,
         transport=delta and screened_sampler == "transport", **maj)
 
 
@@ -1232,54 +1273,108 @@ def _nvcc() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def _library_path(code: int) -> Path:
-    key = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"walk_kernel-{key}-{code}.so"
+def variant_macros(variant) -> list:
+    """The ``-D`` macros that build ``variant``'s library
+    (``csrc/walk_kernel.cu`` compiles the one variant they name)."""
+    return [f"-DWALK_{name.upper()}={int(v)}"
+            for name, v in zip(SWITCHES, _switches(variant))]
 
 
-def build_library():
-    """Compile ``csrc/walk_kernel.cu`` into ``_build/``, one library per
-    instantiation in :data:`KERNEL_VARIANTS` (``-DWALK_PART=<code>``),
-    all ``nvcc`` processes
-    started together, skipping libraries of the same source and flags
-    already there. Returns ``(paths, seconds, log)``: the libraries by
-    variant code, the wall time and nvcc's resource reports (empty when
-    nothing was built)."""
+@functools.lru_cache(maxsize=1)
+def _source_key() -> str:
+    """The hash of the kernel's source, its rules header and the flags:
+    a library built from other sources or flags is never loaded."""
+    return hashlib.sha256(_SRC.read_bytes() + _RULES.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
+def _library_path(variant) -> Path:
+    return (_BUILD_DIR
+            / f"walk_kernel-{_source_key()}-{variant_code(variant)}.so")
+
+
+def nvcc_command(variant, out) -> list:
+    """The ``nvcc`` command line that builds ``variant``'s library into
+    ``out``: the flags, the variant's switches as macros, the source."""
+    return [_nvcc(), *NVCC_FLAGS, *variant_macros(variant), "-o", str(out),
+            str(_SRC)]
+
+
+# ptxas's resource report of each library this process built, by code
+build_logs = {}
+
+
+def _build_one(variant):
+    """Compile ``variant``'s library unless it is there; atomic (a build
+    into a private file, then ``os.replace``), so processes building the
+    same variant at once each leave a whole library. Returns ``(code,
+    path, log, built)``; raises with nvcc's log when it fails."""
+    code, path = variant_code(variant), _library_path(variant)
+    if path.exists():
+        return code, path, "", False
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {variant_code(v): None for v in KERNEL_VARIANTS}
-    jobs = {}
-    t0 = time.perf_counter()
-    for code in sorted(paths):
-        paths[code] = so = _library_path(code)
-        if so.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        jobs[code] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, f"-DWALK_PART={code}", "-o", tmp,
-             str(_SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    logs, failed = [], []
-    for code, (tmp, proc) in jobs.items():
-        out, _ = proc.communicate()
-        logs.append(out)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(nvcc_command(variant, tmp),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            failed.append(f"part {code}: nvcc failed ({proc.returncode})\n"
-                          f"{out}")
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building "
+                f"{kernel_name(variant)} (code {code}):\n{proc.stdout}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
             os.unlink(tmp)
-        else:  # atomic: a concurrent build never sees half a file
-            os.replace(tmp, paths[code])
+    build_logs[code] = proc.stdout
+    return code, path, proc.stdout, True
+
+
+def build_library(variants):
+    """Build the libraries of ``variants`` (variant tuples; invalid ones
+    raise) into ``_build/``, one ``nvcc`` process per CPU at a time,
+    skipping those of the same source and flags already there. Returns ``(paths, seconds, log)``: the libraries by
+    variant code, the wall time and nvcc's resource reports of the
+    libraries built (empty when nothing was built). Every failure raises,
+    with nvcc's log, after the other builds end."""
+    todo = {}
+    for v in variants:
+        fault = variant_fault(v)
+        if fault is not None:
+            raise ValueError(f"{kernel_name(v)}: {fault}")
+        todo[variant_code(v)] = _canonical(v)
+    t0 = time.perf_counter()
+    paths, logs, failed, built = {}, [], [], False
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        futures = [pool.submit(_build_one, v) for v in todo.values()]
+        for fut in futures:
+            try:
+                code, path, out, fresh = fut.result()
+            except RuntimeError as exc:
+                failed.append(str(exc))
+                continue
+            paths[code] = path
+            logs.append(out)
+            built |= fresh
     if failed:
         raise RuntimeError("\n".join(failed))
-    seconds = time.perf_counter() - t0 if jobs else 0.0
+    seconds = time.perf_counter() - t0 if built else 0.0
     return paths, seconds, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
-def _library(code: int):
-    paths, _, _ = build_library()
-    lib = ctypes.CDLL(str(paths[code]))
+def _library(variant):
+    """The loaded library of ``variant`` (canonical), built first if it is
+    not there; its compiled switches are read back and must be the
+    variant's."""
+    _, path, _, _ = _build_one(variant)
+    lib = ctypes.CDLL(str(path))
+    got = (ctypes.c_int * len(SWITCHES))()
+    if lib.walk_switches(got, len(SWITCHES)) != 0 or \
+            tuple(got) != tuple(int(v) for v in _switches(variant)):
+        raise RuntimeError(f"{path} holds switches {tuple(got)}, not "
+                           f"{kernel_name(variant)}'s")
     lib.walk_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,   # fp
                                 ctypes.c_void_p, ctypes.c_int,   # ip
                                 ctypes.c_void_p, ctypes.c_int,   # planes
@@ -1326,7 +1421,7 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
             for t in params.device_tables(px.device)] or [None] * 3
     grid = params.grid_table(px.device)
     geom.append(None if grid is None else grid.data_ptr())
-    lib = _library(variant_code(params.variant))
+    lib = _library(params.variant)
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     garr = (ctypes.c_void_p * len(geom))(*geom)
     budget = int(min(max(int(inner_steps), 0), 2**31 - 1))

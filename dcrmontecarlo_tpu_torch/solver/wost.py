@@ -349,7 +349,15 @@ class WoStSolver:
                                 device=pid.device)
         carry_sq = torch.zeros_like(carry_sum)
         launches, clones = 0, 0
-        if (opts.adaptive_launches and opts.split_threshold is None
+        if opts.split_threshold is not None and not params.freeze:
+            # the reference's rule (solver/wost.py:1780-1812)
+            warnings.warn(
+                "split_threshold is inert here: splitting applies to "
+                "delta-tracking problems (weights stay at 1.0 otherwise "
+                "— and cloning unit-weight walks would double-count their "
+                "source contributions).",
+                stacklevel=3)
+        if (opts.adaptive_launches and not params.freeze
                 and progress is None):
             # one launch covers the whole step bound; each lane stops when
             # its quota drains. The loop is a safety net (it runs once).
@@ -404,7 +412,7 @@ class WoStSolver:
         opts = self.options
         n_inner = int(opts.pallas_inner_steps)
         launch_cap = step_bound // n_inner + 2
-        use_split = opts.split_threshold is not None
+        use_split = params.freeze  # the split, with delta tracking only
         if use_split:
             thr = float(np.float32(opts.split_threshold))
             split = make_launch_split(thr, params.n_src, carry_sum.shape[1])

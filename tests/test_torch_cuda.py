@@ -39,7 +39,9 @@ diagnostics (walk histories, the occupancy profile, the martingale audit)
 through the kernel; and the sharded solve: the flagship's instantiation
 without the freeze, one launch, a mesh of four shards on one card equal to
 its shards solved one by one, and sharded solves (the survey, the flagship
-with the split) through the kernel and the plain version.
+with the split) through the kernel and the plain version; and every
+switch combination: the twelve variants of ``chip_smoke.py``'s sweep, one
+launch each, and the survey with the split through the host loop.
 """
 
 import os
@@ -215,11 +217,18 @@ def test_kernel_whole_notebook_solve_matches_plain(device):
 
 
 def test_kernel_rejects_what_it_cannot_run(device):
+    # callables, and the capacities (every switch combination builds)
     prob = Problem(dirichlet=square_loop(1.0),
                    alpha=lambda x, y: 1.0 + 0.0 * x, sigma_bar_override=0.1)
     solver = WoStSolver(prob, device=device)
     with pytest.raises(NotImplementedError, match="field specs"):
         solver.solve([[0.0, 0.0]], n_walks=8, max_steps=10, eps=1e-2)
+    many = Problem(dirichlet=square_loop(1.0), source=[
+        fields.gaussian_dipole((-0.5, 0.01 * i), (0.5, 0.01 * i))
+        for i in range(wk.MAX_WIDE_SRC + 1)])
+    with pytest.raises(NotImplementedError, match="up to 32 sources"):
+        WoStSolver(many, device=device).solve([[0.0, 0.0]], n_walks=8,
+                                              max_steps=10, eps=1e-2)
 
 
 def test_kernel_whole_host_loop_solve_matches_plain(device):
@@ -710,3 +719,51 @@ def test_sharded_solve_matches_plain(device, case):
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
     if case != "survey":
         assert min(stats_k["shard_clones"]) > 0
+
+
+# ---- every switch combination: the variant sweep (chip_smoke.py phase 42)
+# ---- and the survey with the split (phase 40)
+
+def _sweep_cases():
+    import chip_smoke
+    return chip_smoke.SWEEP
+
+
+@pytest.mark.parametrize("case", _sweep_cases(), ids=lambda c: c[0])
+def test_sweep_variant_matches_plain_one_launch(device, case):
+    import chip_smoke as cs
+
+    spec = cs.sweep_spec(case)
+    solver = WoStSolver(cs.sweep_problem(spec),
+                        cs.sweep_options(spec, target_slots=8192),
+                        device=device)
+    state, params, _, _ = solver._setup(cs.SWEEP_POINTS, 1 << 13,
+                                        cs.SWEEP_MAX_STEPS, cs.SWEEP_EPS, 3)
+    assert params.variant == case[1] and state["px"].numel() == 8192
+    thr = spec["split"] if params.freeze else None
+    ks = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(ks, params, 64, thr)
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    ps = wk.walk_plain({k: v.clone() for k, v in state.items()}, params, 64,
+                       thr)
+    frac, _, finite = wk.compare_planes(ks, ps, state_planes(params.n_src))
+    assert finite and min(frac.values()) >= wk.PLANE_MIN_FRAC, frac
+    assert int(ks["ndone"].sum()) > 0
+
+
+def test_survey_split_host_loop_matches_plain(device):
+    import chip_smoke as cs
+
+    survey, electrodes = geophysical_scenario(sharpness=0.5)
+    solver = WoStSolver(survey.build_problem(), cs.survey_split_options(
+        target_slots=4096, min_quota=1), device=device)
+    pts = cs.survey_points(electrodes, -0.5)
+    rk = solver._solve_raw(pts, 256, cs.P1_MAX_STEPS, cs.P1_EPS, 11)
+    stats_k = solver.last_solve_stats
+    rp = solver._solve_raw(pts, 256, cs.P1_MAX_STEPS, cs.P1_EPS, 11,
+                           walk=wk.walk_plain)
+    assert solver.last_solve_stats == stats_k and stats_k["clones"] > 0
+    assert rk.total_steps == rp.total_steps
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()

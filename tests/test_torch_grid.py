@@ -35,6 +35,7 @@ from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
 from dcrmontecarlo_tpu_torch.validation import FDMSolution, \
     cylinder_oracle_pins
+from test_torch_nodelta import _compare
 
 torch.set_num_threads(1)
 
@@ -189,12 +190,29 @@ def test_cylinder_grid_takes_the_grid_instantiation():
 
 
 def test_grid_on_an_instantiation_without_it_raises():
+    # a grid on the survey's switches packs, and its plain walk follows
+    # the interpreted Pallas kernel, which banks in closed form the
+    # bilinear field the grid holds exactly (it refuses the node table)
+    from dcrmontecarlo_tpu.models import geophysical_scenario as j_geo
+    from test_torch_nodelta import one_launch
+
+    # wide of the domain: a walk cut at max_steps may bank off it
+    xs, ys = np.linspace(-160.0, 160.0, 33), np.linspace(-260.0, 60.0, 33)
+    U = 0.5 + np.add.outer(3e-3 * xs, -2e-3 * ys) + 1e-5 * np.outer(xs, ys)
     survey, electrodes = geophysical_scenario()
     prob = survey.build_problem()
-    prob.set_boundary_conditions(grid_continuation(*_small_grid()))
-    solver = WoStSolver(prob, SolverOptions(), device="cpu")
-    _, params, _, _ = solver._setup(np.asarray(electrodes, np.float32), 64,
-                                    100, 0.9, 0)
-    assert params.grid and params.variant not in wk.KERNEL_VARIANTS
-    with pytest.raises(NotImplementedError, match="grid_continuation"):
-        params.pack()
+    prob.set_boundary_conditions(grid_continuation(xs, ys, U))
+    jprob = j_geo()[0].build_problem()
+    jprob.set_boundary_conditions(
+        lambda x, y: 0.5 + (3e-3 * x + -2e-3 * y) + 1e-5 * x * y)
+    pts = np.asarray(electrodes, np.float32)
+    got, want, params, _ = one_launch(prob, jprob, pts, 1024, 0.9, 12,
+                                      jopts=dict(roulette_threshold=0.05))
+    assert params.grid and params.variant == (
+        wk.ROBIN_OFF, False, False, False, False, True, False, False, True)
+    assert params.variant in wk.KERNEL_VARIANTS
+    fp, ip = params.pack()
+    assert ip[21] == fields.GRID and ip[22] == 8
+    frac = _compare(got, want, state_planes(1))
+    assert frac["asum0"] >= wk.PLANE_MIN_FRAC
+    assert (want["ndone"] > 0).sum() > 100  # walks banked the grid

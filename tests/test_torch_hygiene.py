@@ -176,68 +176,63 @@ def test_kernel_constant_tables_match_python():
         np.testing.assert_array_equal(got, want, err_msg=name)
 
 
-def test_kernel_instantiations_match_python():
-    # the variants walk_pick compiles are KERNEL_VARIANTS, no more, no less
+# every switch tuple, the C++ rules' verdicts printed one line each
+_RULES_MAIN = r"""
+#include <cstdio>
+#include "walk_variant.h"
+int main() {
+  for (int c = 0; c < 3 * 512; ++c) {
+    const int r = c / 512, b = c % 512;
+    auto bit = [&](int k) { return ((b >> k) & 1) != 0; };
+    std::printf("%d %d %d\n", c,
+                walk_rules::valid_variant(r, bit(0), bit(1), bit(2), bit(3),
+                                          bit(4), bit(5), bit(8)),
+                walk_rules::terms_fields(r, bit(0), bit(1), bit(2), bit(3),
+                                         bit(4)));
+  }
+}
+"""
+
+
+def test_kernel_instantiations_match_python(tmp_path):
+    # csrc/walk_variant.h's rules, compiled by the host compiler, agree
+    # with ops/walk_kernel.py's on all 3 x 2^8 switch tuples (and their
+    # TERMS forms): 400 valid variants, 368 TERMS forms; every valid one
+    # is in KERNEL_VARIANTS under its own code, and the unit builds only
+    # with its switches given
+    import shutil
+
     from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    main = tmp_path / "rules.cpp"
+    main.write_text(_RULES_MAIN)
+    exe = tmp_path / "rules"
+    subprocess.run([cxx, "-std=c++17", "-I", str(PORT / "csrc"), "-o",
+                    str(exe), str(main)], check=True, timeout=120)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.split("\n")
+    n_valid, n_terms, codes = 0, 0, set()
+    for line in filter(None, out):
+        c, valid, terms = (int(v) for v in line.split())
+        r, b = divmod(c, 512)  # robin, the eight switches, the TERMS form
+        variant = (r,) + tuple(bool((b >> k) & 1) for k in range(9))
+        assert valid == wk.valid_variant(variant), variant
+        assert terms == wk.terms_fields(variant), variant
+        if valid:
+            canon = wk._canonical(variant)
+            assert canon in wk.KERNEL_VARIANTS
+            codes.add(wk.variant_code(canon))
+            n_valid += not variant[9]
+            n_terms += variant[9]
+    assert (n_valid, n_terms) == (400, 368)
+    assert len(wk.KERNEL_VARIANTS) == len(codes) == 768
     src = (PORT / "csrc" / "walk_kernel.cu").read_text()
-    body = src[src.index("LaunchFn walk_pick("):]
-    body = body[:body.index("default:")]
-    robin = {"OFF": wk.ROBIN_OFF, "CHAIN": wk.ROBIN_CHAIN,
-             "REFLECT": wk.ROBIN_REFLECTANCE}
-    found = set()
-    for m in re.finditer(
-            r"WALK_CASE\((\d+), ROBIN_(\w+)((?:,\s*\w+){6,8})\);", body):
-        code, r, flags = m.groups()
-        b = [f.strip() == "true" for f in flags.split(",")[1:]]
-        b += [False] * (8 - len(b))
-        variant = (robin[r], *b)
-        want = variant[0]
-        for f in variant[1:7]:
-            want = 2 * want + f
-        want += 256 * variant[7] + 512 * variant[8]
-        assert int(code) == want == wk.variant_code(variant)
-        found.add(variant)
-    assert found == set(wk.KERNEL_VARIANTS) and len(found) == 21
-    narrow = {v for v in found if not v[7]}
-    # the table form runs the topographic survey, the chain on it and a
-    # walk without delta tracking
-    assert {v for v in found if v[4]} == {
-        (wk.ROBIN_OFF, False, False, False, True, True, False, False,
-         False),
-        (wk.ROBIN_CHAIN, False, False, False, True, True, False, False,
-         False),
-        (wk.ROBIN_OFF, False, False, False, True, False, False, False,
-         False)}
-    # no delta tracking: Robin off, no majorant or freeze, both forms, and
-    # MIS in the static form; the transport sampler with delta tracking,
-    # static form
-    assert {v for v in found if not v[5]} == {
-        (wk.ROBIN_OFF, False, False, False, t, False, False, False, False)
-        for t in (False, True)} | {
-        (wk.ROBIN_OFF, False, True, False, False, False, False, False,
-         False)}
-    assert {v for v in found if v[6]} == {
-        (r, False, False, False, False, True, True, False, False)
-        for r in (wk.ROBIN_OFF, wk.ROBIN_CHAIN)}
-    # the wide forms: the survey, the survey with MIS and chain + MIS, each
-    # also compiled narrow
-    wide = {v[:7] for v in found if v[7]}
-    assert wide == {(wk.ROBIN_OFF, False, m, False, False, True, False)
-                    for m in (False, True)} | {
-        (wk.ROBIN_CHAIN, False, True, False, False, True, False)}
-    assert {v + (False, False) for v in wide} <= narrow
-    # MIS with the majorant: the flagship (with the freeze, under the host
-    # loop) and the flagship on a mesh (the sharded loop never freezes)
-    assert {v for v in found if v[1] and v[2]} == {
-        (wk.ROBIN_CHAIN, True, True, f, False, True, False, False, g)
-        for f, g in ((True, False), (False, False), (True, True))}
-    # the grid: the flagship's switches only, and the flagship compiled
-    # without it too
-    assert {v for v in found if v[8]} == {
-        (wk.ROBIN_CHAIN, True, True, True, False, True, False, False, True)}
-    assert (wk.ROBIN_CHAIN, True, True, True, False, True, False, False,
-            False) in found
+    assert "walk_pick" not in src and "WALK_CASE" not in src
+    for name in wk.SWITCHES:
+        assert f"defined(WALK_{name.upper()})" in src, name
 
 
 def test_kernel_transport_table_matches_python():

@@ -371,12 +371,45 @@ def test_form_follows_the_jax_rule(n_seg, size, table):
 
 
 def test_table_form_variant_not_compiled_raises():
-    # the majorant on a table geometry: no path launches it
-    prob = _heightmap_problem(60)
-    params = dataclasses.replace(_params(prob), majorant=wk.LocalMajorant(
-        boxes=((0.0, 1.0, -50.0, -40.0),), sigma_bar_bg=1e-3))
-    with pytest.raises(NotImplementedError, match="no instantiation"):
-        params.pack()
+    # the majorant on a table geometry packs, and its plain walk follows
+    # the interpreted Pallas kernel on the staircase terrain (100 rows)
+    from jax.experimental.pallas import tpu as pltpu
+
+    from dcrmontecarlo_tpu.problems.majorant import \
+        LocalMajorant as JLocalMajorant
+
+    tprob, jprob = _staircase_problems(8.0)
+    box = ((30.0, 70.0, -80.0, -40.0),)
+    jprob.local_majorant = JLocalMajorant(boxes=box, sigma_bar_bg=1e-3)
+    tprob.local_majorant = interop.local_majorant_from(jprob.local_majorant)
+    points = np.stack([np.arange(-40.0, 41.0, 10.0), np.full(9, -0.7)],
+                      1).astype(np.float32)
+    eps = 0.5
+    planes = numpy_planes(JSolver(jprob, JOptions(**OPTS)), points, 452, eps)
+    common = dict(eps=eps, max_steps=600, t_min=1e-5 * jprob.diameter,
+                  rmin=0.5 * eps, project=True, rejection_rounds=2,
+                  roulette_threshold=0.05)
+    plan = make_pallas_walk(jprob, n_inner=STEPS, block_rows=8,
+                            snap_starts=True, **common)
+    with pltpu.force_tpu_interpret_mode():
+        out = plan.run({k: jnp.asarray(v) for k, v in planes.items()},
+                       stream_seed(SEED), inner_steps=STEPS)
+    want = {k: np.asarray(v) for k, v in out.items()}
+    params = wk.make_walk_params(tprob, snap=True, seed=stream_seed(SEED),
+                                 **common)
+    assert params.variant == (wk.ROBIN_OFF, True, False, False, True, True,
+                              False, False, False)
+    assert params.variant in wk.KERNEL_VARIANTS
+    fp, ip = params.pack()
+    assert ip[11] == 1 and ip[12] == 1 and ip[18] == 1  # majorant, table
+    got = interop.state_to_numpy(wk.run_walk(
+        interop.state_from_numpy(planes), params, STEPS))
+    _compare(got, want, state_planes(1))
+    # the majorant acted: without it the radii change
+    no_maj = interop.state_to_numpy(wk.walk_plain(
+        interop.state_from_numpy(planes),
+        dataclasses.replace(params, majorant=None), STEPS))
+    assert ((no_maj["px"] != got["px"]).mean() >= 0.01)
 
 
 def test_table_form_sees_trailing_rows():

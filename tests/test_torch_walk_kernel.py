@@ -296,18 +296,19 @@ def _wide_source_not_dipole():
 
 
 def _wide_form_not_compiled():
-    # the majorant on a line of six dipoles: no path launches its wide form
+    # the majorant on a line of six dipoles: the wide form with the
+    # majorant
     p = _line_problem(6, local_majorant=LocalMajorant(
         boxes=((0.0, 5.0, -50.0, -40.0),), sigma_bar_bg=1e-3))
-    _kernel_params(p).pack()
+    return _kernel_params(p)
 
 
 def _kernel_variant_not_compiled():
-    # reflectance with MIS: no path launches it, so it is not compiled
+    # reflectance with MIS
     tprob = notebook_survey()[0].build_problem()
     tprob.set_source_importance(fields.dipole_importance(
         (-200.0, -9.0), (200.0, -9.0), 5.0))
-    _kernel_params(tprob, robin_correction="reflectance").pack()
+    return _kernel_params(tprob, robin_correction="reflectance")
 
 
 def _majorant_over_kernel_table():
@@ -330,24 +331,23 @@ def _terms_over_kernel_table():
 
 
 def _terms_on_accuracy_instantiation():
-    # the accuracy path's instantiation (the majorant) has no TERMS fields
+    # a TERMS field with the majorant: its TERMS form
     tprob = notebook_survey()[0].build_problem()
     p = Problem(dirichlet=tprob.dirichlet, neumann=tprob.neumann,
                 alpha=tprob.alpha, source=tprob.source,
                 bc_dirichlet=fields.polynomial({(1, 0): 1e-3}),
                 local_majorant=LocalMajorant(
                     boxes=((0.0, 5.0, -50.0, -40.0),), sigma_bar_bg=1e-3))
-    _kernel_params(p).pack()
+    return _kernel_params(p)
 
 
 def _grid_on_gridless_instantiation():
-    # a gridded Dirichlet field on the survey: only the flagship switches
-    # read a grid (the cylinder oracle's path)
+    # a gridded Dirichlet field on the survey's switches
     tprob = geophysical_scenario()[0].build_problem()
     xs = np.linspace(-50.0, 50.0, 11)
     tprob.set_boundary_conditions(grid_continuation(xs, xs,
                                                     np.zeros((11, 11))))
-    _kernel_params(tprob).pack()
+    return _kernel_params(tprob)
 
 
 UNPORTED = {
@@ -358,19 +358,15 @@ UNPORTED = {
         robin_correction="arrival-only").solve([[0.0, -1.0]], 8, 5, EPS),
     "majorant_over_kernel_table": _majorant_over_kernel_table,
     "mis_over_kernel_table": _mis_over_kernel_table,
-    "kernel_variant_not_compiled": _kernel_variant_not_compiled,
     "sources_over_kernel_table": _sources_over_kernel_table,
     "wide_source_not_dipole": _wide_source_not_dipole,
-    "wide_form_not_compiled": _wide_form_not_compiled,
     "terms_over_kernel_table": _terms_over_kernel_table,
-    "terms_on_accuracy_instantiation": _terms_on_accuracy_instantiation,
     "compaction_pack": lambda: _survey_solver(
         compaction="pack").solve([[0.0, -1.0]], 8, 5, EPS),
     "threefry": lambda: _survey_solver(rng="threefry").solve(
         [[0.0, -1.0]], 8, 5, EPS),
     "xla_backend": lambda: _survey_solver(backend="xla").solve(
         [[0.0, -1.0]], 8, 5, EPS),
-    "grid_on_gridless_instantiation": _grid_on_gridless_instantiation,
     "sample_screened_radius_exact": lambda: sample_screened_radius_exact(
         None, torch.ones(4), 1.0),
     "geometry_over_table_budget": lambda: WoStSolver(
@@ -384,6 +380,36 @@ def test_unported_option_raises(case):
         UNPORTED[case]()
     msg = str(info.value)
     assert "dcrmontecarlo_tpu/" in msg and "\n" not in msg
+
+
+# switch combinations that pack: (params, the variant they take)
+ONCE_UNPORTED = {
+    "kernel_variant_not_compiled": (
+        _kernel_variant_not_compiled,
+        (wk.ROBIN_REFLECTANCE, False, True, False, False, True, False,
+         False, False)),
+    "wide_form_not_compiled": (
+        _wide_form_not_compiled,
+        (wk.ROBIN_OFF, True, False, False, False, True, False, True,
+         False)),
+    "terms_on_accuracy_instantiation": (
+        _terms_on_accuracy_instantiation,
+        (wk.ROBIN_OFF, True, False, False, False, True, False, False,
+         False, True)),
+    "grid_on_gridless_instantiation": (
+        _grid_on_gridless_instantiation,
+        (wk.ROBIN_OFF, False, False, False, False, True, False, False,
+         True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONCE_UNPORTED))
+def test_once_unported_combination_packs(case):
+    make, variant = ONCE_UNPORTED[case]
+    params = make()
+    assert params.variant == variant and wk.valid_variant(variant)
+    fp, ip = params.pack()
+    assert np.isfinite(fp).all() and ip[10] == variant[0]
 
 
 @pytest.mark.parametrize("kwargs,match", [
