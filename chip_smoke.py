@@ -32,7 +32,11 @@ line:
    variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
    phases 40-41's two, the sweep's twelve), one ``nvcc`` process per
    CPU at a time; at the end, no library was built after it and as many
-   were loaded;
+   were loaded. The freeze builds run the repack loop
+   (``csrc/walk_kernel.cu``, ``walk_repacked``): its block size, round
+   length and refill threshold are printed with each freeze build's
+   registers, shared memory and blocks on the card at once, and the
+   phase fails if the flagship's or the grid flagship's build spills;
 3. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    survey problem with its default options (``walk_kernel.compare_planes``:
    every plane agrees on >= 99% of lanes to rel 1e-4 above a floor of
@@ -104,11 +108,14 @@ line:
     split_threshold=4.0)`` (688,128 lanes), one warm-up solve through
     ``WoStSolver.solve`` and 3 timed solves (walker-steps/s, s/solve,
     launches and clones per solve, lane occupancy, and the kernel's share
-    of the wall time: summed CUDA-event kernel time over the solve's), then
-    256 steps of kernel and plain version at that state with the freeze at
-    4.0, timed and held to the rule of phase 3 (on the first 147,456 lanes
-    if the plain version would take over 30 s). The flagship variant's
-    record takes its numbers from here.
+    of the wall time: summed CUDA-event kernel time over the solve's), one
+    more solve (seed 0) with each launch recorded (``launch_anatomy``: the
+    median and max kernel ms per launch and the warp efficiency, iterations
+    over the thread-slots the repack loop issues, replayed on the host),
+    then 256 steps of kernel and plain version at that state with the
+    freeze at 4.0, timed and held to the rule of phase 3 (on the first
+    147,456 lanes if the plain version would take over 30 s). The flagship
+    variant's record takes its numbers from here.
 16. the table form, one launch: ``topographic_survey_problem()`` at its
     defaults (200 Neumann segments, 199 vertices: 402 rows), 9 electrodes
     draped at x = -40..40, 8,192 lanes, 256 steps of kernel and plain
@@ -225,8 +232,9 @@ line:
     electrodes.
 34. full size, the cylinder: 21 electrodes x 2^20 walks
     (``target_slots=1<<21, min_quota=32``: 688,128 lanes), a warm-up (its
-    launches counted) and 2 timed solves, then 256 steps of kernel and
-    plain version at that state; the grid record takes its numbers here.
+    launches counted) and 2 timed solves, one more solve with each launch
+    recorded as in phase 15, then 256 steps of kernel and plain version at
+    that state; the grid record takes its numbers here.
 35. the diagnostics on the card: the notebook audit of
     ``tests/test_martingale_audit.py`` (2^15 walkers x 24 steps x 4 seeds,
     normalized, the port's 201^2 finite-volume oracle as continuation)
@@ -307,8 +315,10 @@ A variant launched outside ``SCRIPT_VARIANTS`` would build its library at
 its first launch (a few seconds of ``nvcc``).
 """
 
+import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -367,26 +377,216 @@ def clone_state(state):
     return {k: v.clone() for k, v in state.items()}
 
 
-def ptxas_registers(build_log):
-    """Registers per compiled kernel variant, from ``ptxas -v``, keyed as
+def ptxas_report(build_log):
+    """``ptxas -v``'s report per compiled kernel variant, keyed as
     ``WalkParams.kernel_name`` (``walk_kernel.kernel_name`` of the
-    mangled name's switches)."""
+    mangled name's switches): registers, spill stores and loads (bytes)
+    and static shared memory (bytes a block)."""
     from dcrmontecarlo_tpu_torch.ops.walk_kernel import kernel_name
 
-    regs, entry = {}, None
+    report, entry, spills = {}, None, (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1)
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             t = re.search(r"walk_kernelILi(\d)((?:ELb\d)+)E", entry)
             if t:
                 entry = kernel_name((int(t.group(1)), *(
                     v == "1" for v in re.findall(r"Lb(\d)", t.group(2)))))
-            regs[entry] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[entry] = dict(registers=int(m.group(1)),
+                                 spill_stores=spills[0],
+                                 spill_loads=spills[1],
+                                 smem=int(smem.group(1)) if smem else 0)
             entry = None
-    return regs
+    return report
+
+
+def ptxas_registers(build_log):
+    """Registers per compiled kernel variant (``ptxas_report``)."""
+    return {k: v["registers"] for k, v in ptxas_report(build_log).items()}
+
+
+def repack_schedule(lib):
+    """``(threads a block, iterations a round, free threads at which a
+    block refills)`` of a loaded walk library's launch, as it exports them
+    (``walk_schedule``); the last two are None in a build that runs one
+    thread a lane for the whole launch."""
+    out = (ctypes.c_int * 3)()
+    if lib.walk_schedule(out, 3) != 0:
+        raise RuntimeError("walk_schedule failed")
+    block, steps, refill = out
+    return block, steps or None, refill or None
+
+
+def resident_blocks(block, registers, smem, sms):
+    """Blocks of ``block`` threads that ``sms`` SMs hold at once at
+    ``registers`` a thread and ``smem`` bytes of shared memory a block
+    (H100 limits: 64K registers an SM, allocated per warp in multiples of
+    8 a thread, and 228 KB of shared memory an SM, 1 KB of it reserved
+    per block; 2,048 threads and 32 blocks an SM)."""
+    regs = -(-registers // 8) * 8
+    return sms * min(65536 // (regs * block), 233472 // (smem + 1024),
+                     2048 // block, 32)
+
+
+def library_resources(wk, variant):
+    """``(registers a thread, static shared memory bytes a block)`` of
+    ``variant``'s built library, from ``cuobjdump --dump-resource-usage``
+    (a library found built has no ``ptxas`` report in this run)."""
+    cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
+    usage = subprocess.run([cuobjdump, "--dump-resource-usage",
+                            str(wk._library_path(variant))],
+                           capture_output=True, text=True,
+                           timeout=120).stdout
+    return (int(re.search(r"REG:(\d+)", usage).group(1)),
+            int(re.search(r"SHARED:(\d+)", usage).group(1)))
+
+
+def issued_slots(it, schedule, resident):
+    """Thread-slots a launch issues for the per-lane iterations ``it``
+    (int64, in lane order) under ``schedule`` (``repack_schedule``). One
+    thread per lane: each warp of 32 lanes runs to its longest lane. The
+    repack loop, replayed in rounds on ``resident`` blocks at once: a
+    block's free threads take the next lanes of the pool in lane order
+    when at least ``refill`` are free, every live lane takes up to
+    ``steps`` iterations a round and a warp costs its longest, and once
+    the pool is empty a block's live lanes move to its lowest threads
+    whenever that frees a warp."""
+    block, steps, refill = schedule
+    if steps is None:
+        pad = (-it.numel()) % 32
+        it = torch.cat([it, it.new_zeros(pad)]) if pad else it
+        return 32 * int(it.view(-1, 32).amax(1).sum())
+    n, dev = it.numel(), it.device
+    rem = torch.zeros(resident, block, dtype=torch.long, device=dev)
+    packed = torch.full((resident,), block, device=dev)
+    p, total = 0, 0
+    while True:
+        live = rem > 0
+        if p < n:  # the free threads of each block take the next lanes
+            free = block - live.sum(1)
+            take = torch.where(free >= refill, free, 0)
+            start = p + take.cumsum(0) - take
+            lane = start[:, None] + (~live).long().cumsum(1) - 1
+            fill = ~live & (take[:, None] > 0) & (lane < n)
+            rem = torch.where(fill, it[lane.clamp(max=n - 1)], rem)
+            p += int(take.sum())
+            live = rem > 0
+        elif not bool(live.any()):
+            return total
+        run = rem.clamp(max=steps)
+        total += 32 * int(run.view(resident, -1, 32).amax(2).sum())
+        rem = rem - run
+        if p >= n:  # the tail: pack a block's live lanes to free a warp
+            live = rem > 0
+            k = live.sum(1)
+            pack = (k + 31) // 32 < (packed + 31) // 32
+            if bool(pack.any()):
+                order = torch.argsort((~live).long(), dim=1, stable=True)
+                rem = torch.where(pack[:, None], rem.gather(1, order), rem)
+                packed = torch.where(pack, k, packed)
+
+
+# the cases in which the repack loop is held to the plain walk (the tests:
+# tests/test_torch_host_repack.py on the CPU, tests/test_torch_cuda.py on
+# the card): budgets of one iteration and one past one and two rounds, a
+# block whose every lane is heavy, a block with one steppable lane, no
+# threshold
+REPACK_CASES = ("budget_1", "budget_round_plus_1",
+                "budget_two_rounds_plus_1", "budget_64", "every_lane_heavy",
+                "one_steppable_lane", "no_threshold")
+
+
+def repack_case(state, case, thr, schedule):
+    """``(state, budget, thr)`` of a ``REPACK_CASES`` case: a copy of
+    ``state`` changed in its first block of lanes (of the launch's
+    ``schedule``, ``repack_schedule``) as the case says."""
+    block, steps, _ = schedule
+    s = clone_state(state)
+    first = slice(0, block)
+    if case == "every_lane_heavy":
+        a = s["atten"].view(-1)
+        a[first] = torch.where(a[first] < 0, -5.0 * thr, 5.0 * thr)
+        return s, 64, thr
+    if case == "one_steppable_lane":
+        q = s["quota"].view(-1)
+        keep = int(torch.nonzero(q[first] > 0)[7])
+        s["atten"].view(-1)[keep] = 1.0
+        q[:keep] = 0
+        q[keep + 1:block] = 0
+        return s, 64, thr
+    if case == "no_threshold":
+        return s, 64, math.inf
+    return s, {"budget_1": 1, "budget_round_plus_1": steps + 1,
+               "budget_two_rounds_plus_1": 2 * steps + 1,
+               "budget_64": 64}[case], thr
+
+
+def launch_anatomy(wk, solver, pts, n_walks, max_steps, eps, seed,
+                   schedule, resident, replay_every=1):
+    """One solve through the host launch loop (``solver._solve_raw``)
+    with each launch recorded: its kernel ms (CUDA events), whether it ran
+    at ``thr = +inf``, the lanes steppable at its start (quota left, and
+    light or due to bank), its lane-steps (the ``life`` delta), its
+    iterations (a step, a bank, or a frozen lane's last partial
+    iteration), its longest lane (steps, iterations), and the
+    thread-slots issued (``issued_slots``) for its lane-steps and
+    iterations with one thread a lane (``issued_life``, ``issued_lane``)
+    and for its iterations under the kernel's ``schedule`` on
+    ``resident`` blocks (``issued_sched``; on every ``replay_every``-th
+    launch only, None on the others: a replay takes up to ~60 ms).
+    Returns ``(launches, summary)``: the records, and the launches, the
+    median and max ms, the kernel ms, and the warp efficiencies:
+    lane-steps over ``issued_life`` and iterations over ``issued_sched``
+    (over the launches replayed)."""
+    one_thread = (32, None, None)
+    launches = []
+
+    def walk(state, params, n, thr=None):
+        flat = {k: v.reshape(-1) for k, v in state.items()}
+        life0, nd0 = flat["life"].clone(), flat["ndone"].clone()
+        has = flat["quota"] > 0
+        idx = torch.nonzero(has).squeeze(1)
+        t_eff = math.inf if thr is None else thr
+        steppable = int(wk._movable(params, t_eff, flat, idx).sum())
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wk.run_walk(state, params, n, thr)
+        stop.record()
+        torch.cuda.synchronize()
+        dl = (flat["life"] - life0).long()
+        it = dl + (flat["ndone"] - nd0).long()
+        it = it + (has & (flat["quota"] > 0) & (it < n)).long()
+        launches.append(dict(
+            ms=start.elapsed_time(stop), inf=math.isinf(t_eff),
+            steppable=steppable, lane_steps=int(dl.sum()),
+            iters=int(it.sum()), longest=int(dl.max()),
+            longest_it=int(it.max()),
+            issued_life=issued_slots(dl, one_thread, None),
+            issued_lane=issued_slots(it, one_thread, None),
+            issued_sched=issued_slots(it, schedule, resident)
+            if len(launches) % replay_every == 0 else None))
+        return state
+
+    solver._solve_raw(pts, n_walks, max_steps, eps, seed, walk=walk)
+    ms = np.array([r["ms"] for r in launches])
+    total = lambda k: sum(r[k] for r in launches)  # noqa: E731
+    replayed = [r for r in launches if r["issued_sched"] is not None]
+    return launches, dict(
+        launches=len(launches), kernel_ms=float(ms.sum()),
+        ms_median=float(np.median(ms)), ms_max=float(ms.max()),
+        inf_launches=sum(r["inf"] for r in launches),
+        eff_life=total("lane_steps") / max(total("issued_life"), 1),
+        eff_sched=sum(r["iters"] for r in replayed)
+        / max(sum(r["issued_sched"] for r in replayed), 1))
 
 
 def field_ops(spec):
@@ -857,8 +1057,11 @@ def terrain_flagship_problem(**size):
         local_majorant="auto"), h
 
 
-def validation_phases(wk, dev, card, regs, records, tolerance):
-    """Phases 32-35: the validation and diagnostics path."""
+def validation_phases(wk, dev, card, regs, records, tolerance, schedules,
+                      resident):
+    """Phases 32-35: the validation and diagnostics path (``schedules``
+    and ``resident``: the freeze builds' launch schedules and their blocks
+    on the card at once, by kernel name)."""
     from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation, \
         martingale_audit, profile_occupancy, trace_walks
     from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
@@ -1003,6 +1206,17 @@ def validation_phases(wk, dev, card, regs, records, tolerance):
     n_ok, cm, signed = cylinder_checks(f34["warm"], ref, x)
     log(f"[34] the full-size solve against the series: {n_ok}/21 within 4 "
         f"sigma + 3.0, median error {cm:.3f}, signed means {signed}")
+    _, a34 = launch_anatomy(wk, solver, el, n_walks, 6000, 1.0, 0,
+                            schedules[p34.kernel_name],
+                            resident[p34.kernel_name], 8)
+    log(f"[34] the solve's {a34['launches']} launches one by one (seed 0): "
+        f"kernel ms per launch median {a34['ms_median']:.4f} max "
+        f"{a34['ms_max']:.3f}, {a34['kernel_ms']:.1f} ms in all, "
+        f"{a34['inf_launches']} at thr = +inf; warp efficiency, "
+        f"modelled on the host, "
+        f"{a34['eff_sched']:.4f} (the kernel's schedule, every 8th "
+        f"launch), "
+        f"{a34['eff_life']:.4f} (lane-steps, one thread a lane) ({card})")
     t34 = steps_256(wk, state, p34, "phase 34", thr=4.0, subset=True)
     b34 = bound(p34, t34["lanes"], t34["steps"], 1)
     log(f"[34] 256 steps x {t34['lanes']} lanes, freeze 4.0: kernel "
@@ -1613,6 +1827,35 @@ def main():
         f": {len(built)} built in {build_s:.1f} s ({os.cpu_count()} nvcc "
         f"processes at a time), {len(libs) - len(built)} found there; "
         f"ptxas registers per variant: {regs}")
+    # the freeze builds run the repack loop; the flagship's and the grid
+    # flagship's must not spill (ptxas picks the others' registers, and
+    # several of those spill a few words, as some one-thread builds do)
+    report = ptxas_report(build_log)
+    freeze = {wk.kernel_name(v): library_resources(wk, v)
+              for v in SCRIPT_VARIANTS if v[3]}
+    schedules = {wk.kernel_name(v): repack_schedule(
+        wk._library(wk._canonical(v))) for v in SCRIPT_VARIANTS if v[3]}
+    schedule = next(iter(schedules.values()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flagships = {wk.kernel_name(v) for v in PATH_VARIANTS if v[3]}
+    spills = {k: (r["spill_stores"], r["spill_loads"])
+              for k, r in report.items()
+              if k in freeze and (r["spill_stores"] or r["spill_loads"])}
+    check(len(flagships) == 2 and not set(spills) & flagships,
+          f"the flagships' repack loop spills: {spills}")
+    check(len(set(schedules.values())) == 1 and schedule[1] is not None,
+          f"the freeze builds' schedules: {schedules}")
+    resident = {k: resident_blocks(schedules[k][0], *r, sms)
+                for k, r in freeze.items()}
+    resources = {k: (*r, resident[k]) for k, r in sorted(freeze.items())}
+    log(f"[2] the {len(freeze)} freeze builds run the repack "
+        f"loop (as their libraries export it): {schedule[0]} threads a "
+        f"block, rounds of {schedule[1]} "
+        f"iterations, a block refills from the launch's pool when "
+        f"{schedule[2]} threads are free (the others one thread a lane, "
+        f"128 a block); registers, shared memory bytes a block and blocks "
+        f"on the card's {sms} SMs at once: {resources}; spills (store, load bytes): "
+        f"{spills or 'none'}")
 
     # ---- 3. kernel vs plain, one launch, survey defaults --------------
     solver = WoStSolver(survey.build_problem(),
@@ -2032,6 +2275,18 @@ def main():
     check(f15["counts"] == {params.kernel_name: f15["stats"][0]["launches"]}
           and f15["stats"][0]["launches"] > 1,
           f"the flagship solve launched {f15['counts']}, {f15['stats'][0]}")
+    _, a15 = launch_anatomy(wk, solver, nb_pts, n_walks, max_steps, eps, 0,
+                            schedules[params.kernel_name],
+                            resident[params.kernel_name], 8)
+    log(f"[15] the solve's {a15['launches']} launches one by one (seed 0): "
+        f"kernel ms per launch median {a15['ms_median']:.4f} max "
+        f"{a15['ms_max']:.3f}, {a15['kernel_ms']:.1f} ms in all, "
+        f"{a15['inf_launches']} at thr = +inf; warp efficiency, "
+        f"modelled on the host, "
+        f"{a15['eff_sched']:.4f} (iterations over the thread-slots of the "
+        f"kernel's schedule, replayed on {resident[params.kernel_name]} "
+        f"blocks, every 8th launch), {a15['eff_life']:.4f} (lane-steps, "
+        f"one thread a lane) ({card})")
     t15 = steps_256(wk, state, params, "phase 15", thr=4.0, subset=True)
     log(f"[15] 256 steps x {t15['lanes']} lanes, freeze 4.0"
         f"{' (plain 16 steps took %.0f ms)' % t15['t16'] if t15['t16'] else ''}"
@@ -3164,7 +3419,8 @@ def main():
                                  tolerance))
 
     # ---- the validation and diagnostics path (phases 32-35) -------------
-    validation_phases(wk, dev, card, regs, records, tolerance)
+    validation_phases(wk, dev, card, regs, records, tolerance, schedules,
+                      resident)
 
     # ---- the sharded solve (phases 36-39) -------------------------------
     sharded_phases(wk, dev, card, regs, records, tolerance, survey,

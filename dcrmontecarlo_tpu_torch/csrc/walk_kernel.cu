@@ -96,20 +96,51 @@
 // FP32 and divide throughput bound them, not bytes. A boundary without
 // vertices never enters the silhouette loop.
 //
-// Design: one thread per walker lane. A thread loads its lane's planes
-// into registers once, runs `for (i < budget && quota > 0)` steps, and
-// writes back once, so the ~23 planes x 4 B move once per launch. The
-// work is bound by FP32 and SFU throughput per step (Bessel polynomials,
-// sqrt/log/exp/sin/cos, the segment scans), not by memory. A lane whose
-// quota drains exits on its own; that is exact, because a step of a lane
-// without quota changes nothing (the TPU kernel's per-block exit relies on
-// the same fact). Threads of a warp whose quota drained idle while the
-// rest of the warp walks on: that divergence is what a later change
-// should attack (lane recycling across warps). On the accuracy path the
-// chord mass (a Bessel-integral series per shrink round) runs only on
-// lanes standing on the wall, and the chord branch's extra work (frame
-// scan, three field evaluations, a screened Green's function) only on
-// lanes that take the branch, a few percent of wall visits.
+// Design: one iteration of a lane's loop (bank and recycle a finished
+// walk, or take one step) is walk_step.inc, included by both loops below.
+// A lane's planes move once per launch, so the ~23 planes x 4 B are read
+// and written once; the work is bound by FP32 and SFU throughput per step
+// (Bessel polynomials, sqrt/log/exp/sin/cos, the segment scans), not by
+// memory.
+//
+// - Without the freeze: one thread per lane for the whole launch,
+//   `for (i < budget && quota > 0)`. A lane whose quota drains exits on
+//   its own; that is exact, because a step of a lane without quota
+//   changes nothing (the TPU kernel's per-block exit relies on the same
+//   fact). Threads of a warp whose quota drained idle while the rest of
+//   the warp walks on. On the accuracy path the chord mass (a
+//   Bessel-integral series per shrink round) runs only on lanes standing
+//   on the wall, and the chord branch's extra work (frame scan, three
+//   field evaluations, a screened Green's function) only on lanes that
+//   take the branch, a few percent of wall visits.
+// - With the freeze (the host loop's split): walk_repacked. The freeze
+//   stops most lanes within a few steps of a launch while a few walk on,
+//   so with one thread per lane ~70% of the thread-slots a warp issued
+//   went to idle threads (chip_probes/flagship_launch_anatomy.py). Here a
+//   lane's state is a Lane struct, and blocks of REPACK_THREADS threads
+//   take lanes from a launch-wide pool (one atomic per block and refill)
+//   in lane order. A lane is live until the one-thread loop would have
+//   left it: its quota drains, it has taken `budget` iterations (counted
+//   per lane), or its |atten| passes the launch's threshold, tested after
+//   that step's bank/recycle (a heavy lane whose walk is due banks
+//   first). Live lanes take rounds of REPACK_STEPS iterations; a lane
+//   that stops writes its planes back at once; after a round, while the
+//   pool lasts, a block whose free threads reach REPACK_REFILL refills
+//   them; once it is empty, a block whose live lanes would fit in fewer
+//   warps moves them through shared memory (LANE_FLOATS + LANE_INTS words
+//   a lane) into its lowest threads, and threads without a lane wait at
+//   the block's barriers, issuing nothing. That is exact: a lane's draws
+//   depend on (seed, its counter, its stream) and never on the thread
+//   that runs it, nothing is summed across lanes, and a frozen lane draws
+//   nothing, advances no counter and does not move, so it stays frozen
+//   for the rest of the launch. The threshold is a launch argument (no
+//   rebuild per launch). The TPU kernel steps a block in lock-step while
+//   any of its lanes is steppable (:1183-1203); on Hopper the scarce
+//   resource is warp issue slots. Packing alone does not pay: a block
+//   whose lanes froze holds its SM's registers while one warp walks on,
+//   latency-bound; refilling keeps the SM's warps full until the pool is
+//   empty. A launch still lasts at least its longest lane's iterations at
+//   one lane's latency.
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -118,15 +149,7 @@
 // two I0: a logf and up to three expf) and its norm, a first-hit scan
 // along the sample direction (the star test), one expf per mixture
 // component, a third alpha_c, and the sources at the sample. That is FP32
-// and SFU work again, not bytes. The freeze is a per-thread exit: the TPU
-// kernel runs its block until no lane is steppable (:1183-1203); here a
-// thread leaves its loop once its own lane's |atten| passes the launch's
-// threshold, after the bank/recycle of that step. That is exact: a frozen
-// lane draws nothing, advances no counter and does not move, and
-// walk_done is decided before the freeze test, so a lane that is frozen
-// and not done stays so for the rest of the launch. Frozen lanes thus
-// cost nothing; the threshold is a launch argument (no rebuild per
-// launch).
+// and SFU work again, not bytes.
 //
 // Arithmetic follows the plain version (ops/walk_kernel.py::walk_plain)
 // op for op and is built with -fmad=false and without fast math, so the
@@ -183,6 +206,13 @@ constexpr int TERM_COLS = 27;  // poly[4][4], ax, ay, g, cx, cy, S1, S2
 constexpr int S_NONE = 0, S_SIN = 1, S_COS = 2;  // S = (kind, k, phase)
 constexpr int N_PLANES = 6 + 5 + 3 * MAX_SRC + 9;
 constexpr int THREADS = 128;
+// the FREEZE builds' repack loop (walk_repacked): threads per block,
+// iterations per round, and the free threads at which a block refills
+// from the launch's pool (chip_probes/repack_tuning.py); the stash is
+// LANE_FLOATS + LANE_INTS words a lane
+constexpr int REPACK_THREADS = 256;
+constexpr int REPACK_STEPS = 1;
+constexpr int REPACK_REFILL = 32;
 constexpr int MAX_BOXES = 8, MAX_BANDS = 8;  // problems/majorant.py
 constexpr int ROBIN_OFF = 0, ROBIN_CHAIN = 1, ROBIN_REFLECT = 2;
 constexpr int MAX_MIX = 8;   // MIS mixture components
@@ -194,6 +224,7 @@ constexpr int MAX_WIDE_SRC = 32;  // the wide form: sources,
 constexpr int MAX_WIDE_MIX = 64;  // MIS mixture components
 constexpr int DIPOLE_COLS = 6;    // px, py, nx, ny, norm, 2 w^2
 constexpr int N_WIDE_PLANES = 3 * (MAX_WIDE_SRC - MAX_SRC);
+constexpr int LANE_FLOATS = 15 + 3 * MAX_SRC, LANE_INTS = 9;
 
 struct Field {
   int kind;
@@ -1436,394 +1467,356 @@ __device__ __forceinline__ void add_sources(float (&acc)[MAX_SRC], int lane,
   }
 }
 
+// ---- the freeze builds' repack loop ----------------------------------------
+
+// one walker lane's state: registers while a thread steps it; the repack
+// loop moves it between threads through shared memory
+struct Lane {
+  float px, py, nx, ny, atten;
+  float acc[MAX_SRC], asum[MAX_SRC], asq[MAX_SRC];  // the narrow form's
+  int quota, steps, ndone, life;
+  bool ob;
+  float tn, tw, wmax, bmax;
+  float a_cur, a_p0;  // the alpha cache of delta tracking
+  uint32_t sid;
+  float p0x, p0y;     // the walk's start,
+  bool ob0;           // and its boundary-snap start
+  float n0x, n0y;
+  int lane;           // the lane's plane index
+  int it;             // iterations taken in this launch
+};
+
+// the launch's constants of the step
+struct Launch {
+  int n_src;
+  uint32_t seed;
+  bool snap;
+  float eps, rmin, t_min, sigma_bar;
+  int max_steps;
+  float freeze_thr;
+};
+
+// a lane's planes into registers (a lane with quota)
+template <bool DELTA, bool TERMS, bool WIDE>
+__device__ __forceinline__ void load_lane(Lane& L, int lane, int quota,
+                                          const Launch& K) {
+  const Planes& P = C.pl;
+  L.lane = lane;
+  L.it = 0;
+  L.quota = quota;
+  L.sid = (uint32_t)P.sid[lane];
+  L.p0x = P.p0x[lane];
+  L.p0y = P.p0y[lane];
+  L.ob0 = K.snap ? P.ob0[lane] != 0 : false;
+  L.n0x = K.snap ? P.n0x[lane] : F(0.0);
+  L.n0y = K.snap ? P.n0y[lane] : F(0.0);
+  L.px = P.px[lane];
+  L.py = P.py[lane];
+  L.nx = P.nx[lane];
+  L.ny = P.ny[lane];
+  L.atten = P.atten[lane];
+  if constexpr (!WIDE) {
+#pragma unroll
+    for (int i = 0; i < MAX_SRC; ++i) {
+      L.acc[i] = i < K.n_src ? P.acc[i][lane] : F(0.0);
+      L.asum[i] = i < K.n_src ? P.asum[i][lane] : F(0.0);
+      L.asq[i] = i < K.n_src ? P.asq[i][lane] : F(0.0);
+    }
+  }
+  L.steps = P.steps[lane];
+  L.ndone = P.ndone[lane];
+  L.life = P.life[lane];
+  L.ob = P.ob[lane] != 0;
+  L.tn = P.tn[lane];
+  L.tw = P.tw[lane];
+  L.wmax = P.wmax[lane];
+  L.bmax = P.bmax[lane];
+  L.a_p0 = F(0.0);
+  L.a_cur = F(0.0);
+  if constexpr (DELTA) {
+    L.a_p0 = alpha_c<TERMS>(L.p0x, L.p0y);
+    L.a_cur = alpha_c<TERMS>(L.px, L.py);
+  }
+}
+
+// a lane's registers back into its planes
+template <bool WIDE>
+__device__ __forceinline__ void store_lane(const Lane& L, int n_src) {
+  const Planes& P = C.pl;
+  const int lane = L.lane;
+  P.px[lane] = L.px;
+  P.py[lane] = L.py;
+  P.nx[lane] = L.nx;
+  P.ny[lane] = L.ny;
+  P.atten[lane] = L.atten;
+  if constexpr (!WIDE) {
+#pragma unroll
+    for (int i = 0; i < MAX_SRC; ++i) {
+      if (i < n_src) {
+        P.acc[i][lane] = L.acc[i];
+        P.asum[i][lane] = L.asum[i];
+        P.asq[i][lane] = L.asq[i];
+      }
+    }
+  }
+  P.quota[lane] = L.quota;
+  P.steps[lane] = L.steps;
+  P.ndone[lane] = L.ndone;
+  P.ob[lane] = L.ob ? 1 : 0;
+  P.life[lane] = L.life;
+  P.tn[lane] = L.tn;
+  P.tw[lane] = L.tw;
+  P.wmax[lane] = L.wmax;
+  P.bmax[lane] = L.bmax;
+}
+
+// one iteration of a lane (walk_step.inc); false when the lane freezes:
+// it stays as it is for the rest of the launch
+template <int ROBIN, bool MAJ, bool MIS, bool TABLE, bool DELTA,
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS>
+__device__ __forceinline__ bool walk_step(Lane& L, const Launch& K) {
+  constexpr bool FREEZE = true;
+  float &px = L.px, &py = L.py, &nx = L.nx, &ny = L.ny, &atten = L.atten;
+  float(&acc)[MAX_SRC] = L.acc;
+  float(&asum)[MAX_SRC] = L.asum;
+  float(&asq)[MAX_SRC] = L.asq;
+  int &quota = L.quota, &steps = L.steps, &ndone = L.ndone, &life = L.life;
+  bool& ob = L.ob;
+  float &tn = L.tn, &tw = L.tw, &wmax = L.wmax, &bmax = L.bmax;
+  float& a_cur = L.a_cur;
+  const float a_p0 = L.a_p0;
+  [[maybe_unused]] const int lane = L.lane;
+  const uint32_t sid = L.sid;
+  const float p0x = L.p0x, p0y = L.p0y;
+  const bool ob0 = L.ob0;
+  const float n0x = L.n0x, n0y = L.n0y;
+  const int n_src = K.n_src;
+  const uint32_t seed = K.seed;
+  const bool snap = K.snap;
+  const float eps = K.eps, rmin = K.rmin, t_min = K.t_min;
+  const float sigma_bar = K.sigma_bar;
+  const int max_steps = K.max_steps;
+  const float freeze_thr = K.freeze_thr;
+#define WALK_NEXT return true
+#define WALK_FROZEN return false
+#include "walk_step.inc"
+#undef WALK_NEXT
+#undef WALK_FROZEN
+  return true;
+}
+
+// a lane's registers to (PUT) or from its slot of the block's shared
+// stash (word-major: a warp's threads touch consecutive words)
+template <bool WIDE, bool PUT>
+__device__ __forceinline__ void stash_lane(Lane& L, int s,
+                                           float (*f)[REPACK_THREADS],
+                                           int (*w)[REPACK_THREADS]) {
+  int kf = 0, kw = 0;
+  const auto mf = [&](float& x) {
+    if (PUT)
+      f[kf][s] = x;
+    else
+      x = f[kf][s];
+    ++kf;
+  };
+  const auto mw = [&](int& x) {
+    if (PUT)
+      w[kw][s] = x;
+    else
+      x = w[kw][s];
+    ++kw;
+  };
+  mf(L.px), mf(L.py), mf(L.nx), mf(L.ny), mf(L.atten);
+  mf(L.tn), mf(L.tw), mf(L.wmax), mf(L.bmax), mf(L.a_cur), mf(L.a_p0);
+  mf(L.p0x), mf(L.p0y), mf(L.n0x), mf(L.n0y);
+  if constexpr (!WIDE) {
+#pragma unroll
+    for (int i = 0; i < MAX_SRC; ++i)
+      mf(L.acc[i]), mf(L.asum[i]), mf(L.asq[i]);
+  }
+  int ob = L.ob, ob0 = L.ob0, sid = (int)L.sid;
+  mw(L.quota), mw(L.steps), mw(L.ndone), mw(L.life), mw(L.lane), mw(L.it);
+  mw(ob), mw(ob0), mw(sid);
+  if (!PUT) {
+    L.ob = ob != 0;
+    L.ob0 = ob0 != 0;
+    L.sid = (uint32_t)sid;
+  }
+}
+
+// the launch's pool: the first lane no block has taken yet (walk_launch
+// sets the current card's to 0 before every freeze launch)
+__device__ unsigned int next_lane;
+
+// The freeze builds' loop. Blocks take lanes from the launch's pool in
+// lane order, as many as they have free threads. A lane stays live until
+// the one-thread loop would have left it: its quota drains, it has taken
+// `budget` iterations, or it freezes. Live lanes take rounds of
+// REPACK_STEPS iterations; a lane that stops writes its planes back at
+// once (they are final for the launch). After a round, while the pool
+// lasts and at least REPACK_REFILL threads are free, the free threads take
+// the next lanes; once it is empty, the live lanes move through shared
+// memory into the block's lowest threads whenever that frees a warp (in
+// lane order), and threads without a lane wait at the barriers.
+template <int ROBIN, bool MAJ, bool MIS, bool TABLE, bool DELTA,
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS>
+__device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
+                                              float freeze_thr) {
+  __shared__ float s_f[LANE_FLOATS][REPACK_THREADS];
+  __shared__ int s_w[LANE_INTS][REPACK_THREADS];
+  __shared__ int s_scan[REPACK_THREADS];
+  __shared__ unsigned int s_take;
+  const int t = threadIdx.x;
+  const Launch K = {C.n_src,  C.seed,      C.snap != 0,  C.eps,     C.rmin,
+                    C.t_min,  C.sigma_bar, C.max_steps, freeze_thr};
+  // an inclusive scan over the block of one int a thread
+  const auto scan = [&](int v) {
+    s_scan[t] = v;
+    __syncthreads();
+    for (int d = 1; d < REPACK_THREADS; d <<= 1) {
+      const int u = s_scan[t] + (t >= d ? s_scan[t - d] : 0);
+      __syncthreads();
+      s_scan[t] = u;
+      __syncthreads();
+    }
+    return s_scan[t];
+  };
+  Lane L;
+  bool live = false, more = budget > 0;  // more: the pool may hold lanes
+  int n = 0, packed = REPACK_THREADS;    // live lanes, threads in use
+  for (;;) {
+    if (more && REPACK_THREADS - n >= REPACK_REFILL) {
+      const unsigned int free = REPACK_THREADS - n;
+      const int rank = scan(live ? 0 : 1);
+      if (t == 0) s_take = atomicAdd(&next_lane, free);
+      __syncthreads();
+      const unsigned int take = s_take, lane = take + rank - 1;
+      more = take + free < (unsigned int)n_lanes;
+      if (!live && lane < (unsigned int)n_lanes) {
+        const int quota = C.pl.quota[lane];
+        if (quota > 0) {  // a lane without quota writes nothing
+          load_lane<DELTA, TERMS, WIDE>(L, (int)lane, quota, K);
+          live = true;
+        }
+      }
+    }
+    if (live) {
+      for (int k = 0; k < REPACK_STEPS && live; ++k) {
+        ++L.it;
+        live = walk_step<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE,
+                         GRID, TERMS>(L, K) &&
+               L.it < budget && L.quota > 0;
+      }
+      if (!live) store_lane<WIDE>(L, K.n_src);
+    }
+    n = __syncthreads_count(live);
+    if (n == 0 && !more) return;
+    if (!more && (n + 31) / 32 < (packed + 31) / 32) {
+      const int slot = scan(live ? 1 : 0) - 1;
+      if (live) stash_lane<WIDE, true>(L, slot, s_f, s_w);
+      __syncthreads();
+      live = t < n;
+      if (live) stash_lane<WIDE, false>(L, t, s_f, s_w);
+      packed = n;
+    }
+  }
+}
+
+// ---- the kernel ----------------------------------------------------------
+
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
           bool TRANSPORT, bool WIDE = false, bool GRID = false,
           bool TERMS_FORM = false>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
   static_assert(walk_rules::valid_variant(ROBIN, MAJ, MIS, FREEZE, TABLE,
                                           DELTA, TRANSPORT, TERMS_FORM),
                 "not a switch combination the TPU kernel traces");
   constexpr bool TERMS =
       TERMS_FORM || terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const Planes& P = C.pl;
-  int quota = P.quota[lane];
-  if (quota <= 0 || budget <= 0) return;  // a no-op lane: nothing to write
+  if constexpr (FREEZE) {
+    walk_repacked<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE, GRID,
+                  TERMS>(n_lanes, budget, freeze_thr);
+  } else {
+    // one thread per lane for the whole launch (its own loads and stores,
+    // not load_lane/store_lane: routed through the Lane struct, the
+    // non-freeze builds compiled to other code)
+    const int lane = blockIdx.x * THREADS + threadIdx.x;
+    if (lane >= n_lanes) return;
+    const Planes& P = C.pl;
+    int quota = P.quota[lane];
+    if (quota <= 0 || budget <= 0) return;  // a no-op lane: nothing to write
 
-  const int n_src = C.n_src;
-  const uint32_t seed = C.seed;
-  const uint32_t sid = (uint32_t)P.sid[lane];
-  const float p0x = P.p0x[lane], p0y = P.p0y[lane];
-  const bool snap = C.snap != 0;
-  const bool ob0 = snap ? P.ob0[lane] != 0 : false;
-  const float n0x = snap ? P.n0x[lane] : F(0.0);
-  const float n0y = snap ? P.n0y[lane] : F(0.0);
+    const int n_src = C.n_src;
+    const uint32_t seed = C.seed;
+    const uint32_t sid = (uint32_t)P.sid[lane];
+    const float p0x = P.p0x[lane], p0y = P.p0y[lane];
+    const bool snap = C.snap != 0;
+    const bool ob0 = snap ? P.ob0[lane] != 0 : false;
+    const float n0x = snap ? P.n0x[lane] : F(0.0);
+    const float n0y = snap ? P.n0y[lane] : F(0.0);
 
-  float px = P.px[lane], py = P.py[lane], nx = P.nx[lane], ny = P.ny[lane];
-  float atten = P.atten[lane];
-  // the narrow form carries the accumulators and moments in registers;
-  // the wide form adds to its planes in place
-  float acc[MAX_SRC], asum[MAX_SRC], asq[MAX_SRC];
-  if constexpr (!WIDE) {
+    float px = P.px[lane], py = P.py[lane], nx = P.nx[lane], ny = P.ny[lane];
+    float atten = P.atten[lane];
+    // the narrow form carries the accumulators and moments in registers;
+    // the wide form adds to its planes in place
+    float acc[MAX_SRC], asum[MAX_SRC], asq[MAX_SRC];
+    if constexpr (!WIDE) {
 #pragma unroll
-    for (int i = 0; i < MAX_SRC; ++i) {
-      acc[i] = i < n_src ? P.acc[i][lane] : F(0.0);
-      asum[i] = i < n_src ? P.asum[i][lane] : F(0.0);
-      asq[i] = i < n_src ? P.asq[i][lane] : F(0.0);
+      for (int i = 0; i < MAX_SRC; ++i) {
+        acc[i] = i < n_src ? P.acc[i][lane] : F(0.0);
+        asum[i] = i < n_src ? P.asum[i][lane] : F(0.0);
+        asq[i] = i < n_src ? P.asq[i][lane] : F(0.0);
+      }
     }
-  }
-  int steps = P.steps[lane], ndone = P.ndone[lane], life = P.life[lane];
-  bool ob = P.ob[lane] != 0;
-  float tn = P.tn[lane], tw = P.tw[lane], wmax = P.wmax[lane];
-  float bmax = P.bmax[lane];
+    int steps = P.steps[lane], ndone = P.ndone[lane], life = P.life[lane];
+    bool ob = P.ob[lane] != 0;
+    float tn = P.tn[lane], tw = P.tw[lane], wmax = P.wmax[lane];
+    float bmax = P.bmax[lane];
 
-  const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
-  const float sigma_bar = C.sigma_bar;
-  const int max_steps = C.max_steps;
-  // the alpha cache of delta tracking (a walk without it reads none)
-  float a_p0 = F(0.0), a_cur = F(0.0);
-  if constexpr (DELTA) {
-    a_p0 = alpha_c<TERMS>(p0x, p0y);
-    a_cur = alpha_c<TERMS>(px, py);
-  }
+    const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
+    const float sigma_bar = C.sigma_bar;
+    const int max_steps = C.max_steps;
+    // the alpha cache of delta tracking (a walk without it reads none)
+    float a_p0 = F(0.0), a_cur = F(0.0);
+    if constexpr (DELTA) {
+      a_p0 = alpha_c<TERMS>(p0x, p0y);
+      a_cur = alpha_c<TERMS>(px, py);
+    }
 
-  for (int it = 0; it < budget && quota > 0; ++it) {
-    const uint32_t ctr =
-        (uint32_t)ndone * (uint32_t)(max_steps + 2) + (uint32_t)steps;
-    const uint32_t base = hash_base(seed, ctr);
-    const float u1 = uni(base, sid, 1);
-    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);
+    for (int it = 0; it < budget && quota > 0; ++it) {
+#define WALK_NEXT continue
+#define WALK_FROZEN break
+#include "walk_step.inc"
+#undef WALK_NEXT
+#undef WALK_FROZEN
+    }
 
-    float cx, cy;
-    const float dD = closest_point<TABLE>(px, py, cx, cy);
-    const bool done_eps = dD <= eps;
-
-    if (done_eps || steps >= max_steps) {
-      // bank the walk, then recycle the slot into its next walk; the rest
-      // of this step is masked off for the lane
-      float bx = (C.project && done_eps) ? cx : px;
-      float by = (C.project && done_eps) ? cy : py;
-      float g_bc;
-      if constexpr (GRID)
-        g_bc = grid_value(bx, by) * atten;
-      else
-        g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
-      float bank_mag = F(0.0);
-      if constexpr (WIDE) {
-#pragma unroll 1
-        for (int i = 0; i < n_src; ++i) {
-          float contrib = C.wacc[i][lane] + g_bc;
-          C.wasum[i][lane] = C.wasum[i][lane] + contrib;
-          C.wasq[i][lane] = C.wasq[i][lane] + contrib * contrib;
-          bank_mag = fmaxf(bank_mag, fabsf(contrib));
-          C.wacc[i][lane] = F(0.0);
-        }
-      } else {
+    P.px[lane] = px;
+    P.py[lane] = py;
+    P.nx[lane] = nx;
+    P.ny[lane] = ny;
+    P.atten[lane] = atten;
+    if constexpr (!WIDE) {
 #pragma unroll
-        for (int i = 0; i < MAX_SRC; ++i) {
-          if (i < n_src) {
-            float contrib = acc[i] + g_bc;
-            asum[i] = asum[i] + contrib;
-            asq[i] = asq[i] + contrib * contrib;
-            bank_mag = fmaxf(bank_mag, fabsf(contrib));
-            acc[i] = F(0.0);
-          }
-        }
-      }
-      bmax = fmaxf(bmax, bank_mag);
-      ndone += 1;
-      quota -= 1;
-      if (!done_eps && fabsf(atten) > F(0.0)) {
-        tn = tn + F(1.0);
-        tw = tw + fabsf(atten);
-      }
-      px = p0x;
-      py = p0y;
-      atten = F(1.0);
-      if (snap) {
-        ob = ob0;
-        nx = n0x;
-        ny = n0y;
-      } else {
-        ob = false;
-      }
-      steps = 0;
-      a_cur = a_p0;
-      continue;
-    }
-    if constexpr (FREEZE) {
-      // a heavy lane waits for the launch-boundary split instead of
-      // compounding further: a fixed point for the rest of the launch
-      if (!(fabsf(atten) <= freeze_thr)) break;
-    }
-
-    // the star radius stops at the nearest silhouette vertex
-    float r = fmaxf(rmin, C.n_vert > 0
-                              ? fminf(dD, silhouette<TABLE>(px, py))
-                              : dD);
-    float sbar = sigma_bar;
-    if constexpr (MAJ) {
-      // two-level local majorant: shrink the ball out of the high-sigma'
-      // regions and walk at the background majorant where that promises
-      // more progress min(radius, 1/sqrt(sigma_bar))
-      const float d_far = majorant_distance(px, py);
-      const float rB = fminf(r, d_far);
-      if (d_far >= rmin && fminf(rB, C.mfp_bg) > fminf(r, C.mfp_gl)) {
-        r = rB;
-        sbar = C.sb_bg;
-      }
-    }
-    // on-boundary Robin chord mass c = 4 gamma J(r), the radius shrunk
-    // until |c| <= 1/2: the chain's branch rate, or the reflectance fold
-    float c_mag = F(0.0);
-    if constexpr (ROBIN != ROBIN_OFF) {
-      if (ob) {
-        float glx0, gly0;
-        grad_log_alpha<TERMS>(px, py, glx0, gly0);
-        const float gamma0 = F(-0.5) * (nx * glx0 + ny * gly0);
-        const float g_eff = fmaxf(fabsf(gamma0), C.gamma_floor);
-        float chord_j = chord_integral(r, sbar);
-        c_mag = F(4.0) * g_eff * chord_j;
-        for (int k = 0; k < 4; ++k) {
-          if (c_mag > F(0.5)) {
-            r = fmaxf(rmin, r * (F(0.5) / fmaxf(c_mag, F(1e-12))));
-            chord_j = chord_integral(r, sbar);
-            c_mag = F(4.0) * g_eff * chord_j;
-          }
-        }
-        c_mag = fminf(c_mag, F(0.9));
-        if constexpr (ROBIN == ROBIN_REFLECT) {
-          const float c_ch =
-              fminf(fmaxf(F(4.0) * gamma0 * chord_j, F(-0.9)), F(0.9));
-          atten = atten / (F(1.0) - c_ch);
+      for (int i = 0; i < MAX_SRC; ++i) {
+        if (i < n_src) {
+          P.acc[i][lane] = acc[i];
+          P.asum[i][lane] = asum[i];
+          P.asq[i][lane] = asq[i];
         }
       }
     }
-
-    // one sin/cos pair: free direction at 2 phi, hemisphere at phi
-    const float phi = F(3.141592653589793) * u1;
-    const float cphi = cosf(phi), sphi = sinf(phi);
-    float dx = F(1.0) - F(2.0) * sphi * sphi;
-    float dy = F(2.0) * sphi * cphi;
-
-    float hx, hy, hnx = F(0.0), hny = F(0.0), t_hit = r;
-    bool hit = false;
-    if (C.n_neu > 0) {
-      if (ob) {
-        const float cb = sphi, sb = -cphi;
-        const float hdx = nx * cb - ny * sb;
-        const float hdy = ny * cb + nx * sb;
-        dx = hdx;
-        dy = hdy;
-      }
-      const float tmw = ob ? t_min : F(0.0);
-      float fnx, fny, hxs, hys;
-      const float t_best =
-          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
-      hit = t_best <= r;
-      if (hit) {
-        t_hit = t_best;
-        const bool flip = (fnx * dx + fny * dy) > F(0.0);
-        hnx = flip ? -fnx : fnx;
-        hny = flip ? -fny : fny;
-        hx = hxs;
-        hy = hys;
-      } else {
-        hx = px + r * dx;
-        hy = py + r * dy;
-      }
-    } else {
-      hx = px + r * dx;
-      hy = py + r * dy;
-    }
-
-    float newx, newy, a_next = F(0.0);
-    bool new_ob, branch = false;
-    if constexpr (!DELTA) {
-      // the walker jumps to the ball's edge or its Neumann hit; a source
-      // is sampled at the Green's radius R sqrt(u2 u3) with the weight
-      // R^2 / 4 (pallas_walk.py:906-907, :920-931, :1104-1106), or
-      // toward the MIS mixture (:932-997)
-      if (C.has_source) {
-        const float r_s = r * sqrtf(uni(base, sid, 2) * uni(base, sid, 3));
-        if constexpr (MIS) {
-          float yx, yy;
-          const float w_mis = mis_nee<false, TABLE, WIDE>(
-              base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sigma_bar,
-              ob, t_min, yx, yy);
-          add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
-        } else if (!(r_s > t_hit)) {
-          const float sx = px + r_s * dx, sy = py + r_s * dy;
-          const float w_src = r * r / F(4.0);
-          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);
-        }
-      }
-      newx = hx;
-      newy = hy;
-      new_ob = hit;
-    } else {
-      float w_rej;
-      float r_s;
-      if constexpr (TRANSPORT)
-        r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);
-      else
-        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
-      atten = atten * w_rej;
-      const bool beyond = r_s > t_hit;
-      const float sx = beyond ? hx : px + r_s * dx;
-      const float sy = beyond ? hy : py + r_s * dy;
-
-      const float a_p = a_cur;
-      const float a_s = alpha_c<TERMS>(sx, sy);
-      if constexpr (!MIS) {
-        if (C.has_source && !beyond) {
-          const float w_src =
-              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
-          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);
-        }
-      } else {
-        // source-directed MIS NEE toward the mixture, over the screened
-        // Green's function and sqrt(alpha_y alpha_x)
-        float yx, yy;
-        float w_mis = mis_nee<true, TABLE, WIDE>(
-            base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, ob,
-            t_min, yx, yy);
-        const float a_y = alpha_c<TERMS>(yx, yy);
-        w_mis = w_mis / sqrtf(a_y * a_p) * atten;
-        add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
-      }
-
-      const bool interior = u4 < interior_prob(r, sbar);
-      const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
-      const float atten_pre = atten;  // chord-branch lanes skip the scale
-      if (collide) {
-        // signed null-collision factor: no zero clamp
-        const float scale_int =
-            sqrtf(a_s / a_p) * (F(1.0) - sigma_prime<TERMS>(sx, sy) / sbar);
-        atten = atten * scale_int;
-        newx = sx;
-        newy = sy;
-        a_next = a_s;
-      } else {
-        const float a_h = alpha_c<TERMS>(hx, hy);
-        float scale_edge = sqrtf(a_h / a_p);
-        if constexpr (ROBIN != ROBIN_OFF) {
-          if (hit) {
-            // Robin wall-arrival weight 1 + gamma rho / cos(phi): signed,
-            // the grazing cosine clamped
-            float glx, gly;
-            grad_log_alpha<TERMS>(hx, hy, glx, gly);
-            const float gamma = F(-0.5) * (hnx * glx + hny * gly);
-            const float cosphi =
-                fmaxf(-(dx * hnx + dy * hny), C.arrival_clamp);
-            const float rho = wall_ratio(t_hit, r, sbar);
-            scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);
-          }
-        }
-        atten = atten * scale_edge;
-        newx = hx;
-        newy = hy;
-        a_next = a_h;
-      }
-      new_ob = hit && !collide;
-      if constexpr (ROBIN == ROBIN_CHAIN) {
-        if (ob) {
-          // chord continuation along the wall: branch with q = min(1/2, |c|)
-          // to z = x + zeta t_hat, weight 2 gamma(z) G_s / p_mix / q; the
-          // other wall lanes pay 1 / (1 - q)
-          const float q_c = fminf(F(0.5), c_mag);
-          branch = uni(base, sid, 9) < q_c && q_c > F(1e-6);
-          if (branch) {
-            const float u10 = uni(base, sid, 10), u11 = uni(base, sid, 11);
-            const float q_scr = sqrtf(fmaxf(sbar, F(1e-12)));
-            const float side = u10 < F(0.5) ? F(-1.0) : F(1.0);
-            const float v = fabsf(F(2.0) * u10 - F(1.0));
-            const float u2 = fabsf(F(2.0) * u11 - F(1.0));
-            const float z_log = r * fmaxf(v * u2, F(1e-12));
-            const float trunc = F(1.0) - expf(-q_scr * r);
-            const float z_exp =
-                -logf(fmaxf(F(1.0) - v * trunc, F(1e-12))) / q_scr;
-            const float az = fminf(u11 < F(0.5) ? z_log : z_exp, r);
-            const float zeta = side * az;
-            const float p_log = -logf(fmaxf(az / r, F(1e-12))) / (F(2.0) * r);
-            const float p_exp = q_scr * expf(-q_scr * az) /
-                                (F(2.0) * fmaxf(trunc, F(1e-12)));
-            const float p_mix = F(0.5) * (p_log + p_exp);
-            const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
-            float t_cx, t_cy, s_lo, s_hi;
-            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);
-            const float zx = px + zeta * t_cx, zy = py + zeta * t_cy;
-            float glxz, glyz;
-            grad_log_alpha<TERMS>(zx, zy, glxz, glyz);
-            const float gamma_z = F(-0.5) * (nx * glxz + ny * glyz);
-            const float a_z = alpha_c<TERMS>(zx, zy);
-            float w_ch = F(2.0) * gamma_z * g_ch / fmaxf(p_mix, F(1e-30)) *
-                         sqrtf(a_z / a_p);
-            if (!(zeta >= s_lo && zeta <= s_hi)) w_ch = F(0.0);
-            atten = atten_pre * w_ch / fmaxf(q_c, F(1e-6));
-            newx = zx;
-            newy = zy;
-            a_next = a_z;
-            new_ob = true;
-          } else if (q_c > F(1e-6)) {
-            atten = atten * (F(1.0) / (F(1.0) - q_c));
-          }
-        }
-      }
-      if (C.clip) {  // max_attenuation, symmetric: chord weights can be < 0
-        const float m = C.max_att;
-        atten = atten > m ? m : (atten < -m ? -m : atten);
-      }
-    }
-    px = newx;
-    py = newy;
-    ob = new_ob;
-    if (hit && !branch) {  // a chord stays on its own wall
-      nx = hnx;
-      ny = hny;
-    }
-    steps += 1;
-
-    if (DELTA && C.roulette) {
-      const float thr = C.roulette_thr;
-      const float u_r = uni(hash_base(seed ^ 0x0F1E2D3Cu, ctr), sid, 1);
-      if (fabsf(atten) < thr) {
-        const bool survive = u_r * thr < fabsf(atten);
-        atten = survive ? (atten < F(0.0) ? -thr : thr) : F(0.0);
-        if (!survive) steps = max_steps;
-      }
-    }
-    life += 1;
-    wmax = fmaxf(wmax, fabsf(atten));
-    if constexpr (DELTA) a_cur = a_next;
+    P.quota[lane] = quota;
+    P.steps[lane] = steps;
+    P.ndone[lane] = ndone;
+    P.ob[lane] = ob ? 1 : 0;
+    P.life[lane] = life;
+    P.tn[lane] = tn;
+    P.tw[lane] = tw;
+    P.wmax[lane] = wmax;
+    P.bmax[lane] = bmax;
   }
-
-  P.px[lane] = px;
-  P.py[lane] = py;
-  P.nx[lane] = nx;
-  P.ny[lane] = ny;
-  P.atten[lane] = atten;
-  if constexpr (!WIDE) {
-#pragma unroll
-    for (int i = 0; i < MAX_SRC; ++i) {
-      if (i < n_src) {
-        P.acc[i][lane] = acc[i];
-        P.asum[i][lane] = asum[i];
-        P.asq[i][lane] = asq[i];
-      }
-    }
-  }
-  P.quota[lane] = quota;
-  P.steps[lane] = steps;
-  P.ndone[lane] = ndone;
-  P.ob[lane] = ob ? 1 : 0;
-  P.life[lane] = life;
-  P.tn[lane] = tn;
-  P.tw[lane] = tw;
-  P.wmax[lane] = wmax;
-  P.bmax[lane] = bmax;
 }
 
 }  // namespace
@@ -1834,13 +1827,17 @@ constexpr int BUILT[10] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
                            WALK_TRANSPORT, WALK_WIDE,     WALK_GRID,
                            WALK_TERMS};
 
+// threads (and lanes) per block: the FREEZE builds' repack loop, one
+// thread per lane in the others
+constexpr int BLOCK = WALK_FREEZE ? REPACK_THREADS : THREADS;
+
 void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
                   float thr) {
   walk_kernel<WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0,
               WALK_FREEZE != 0, WALK_TABLE != 0, WALK_DELTA != 0,
               WALK_TRANSPORT != 0, WALK_WIDE != 0, WALK_GRID != 0,
               WALK_TERMS != 0>
-      <<<grid, THREADS, 0, st>>>(n_lanes, budget, thr);
+      <<<grid, BLOCK, 0, st>>>(n_lanes, budget, thr);
 }
 
 // the switches of this library: robin, majorant, mis, freeze, table,
@@ -1849,6 +1846,18 @@ void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
 extern "C" int walk_switches(int* out, int n) {
   if (n != 10) return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 10; ++k) out[k] = BUILT[k];
+  return 0;
+}
+
+// the launch's schedule: threads a block, then the repack loop's
+// iterations a round and the free threads at which a block refills from
+// the pool (0 and 0 in the builds that run one thread a lane for the
+// whole launch); chip_smoke.py replays it
+extern "C" int walk_schedule(int* out, int n) {
+  if (n != 3) return (int)cudaErrorInvalidValue;
+  out[0] = BLOCK;
+  out[1] = WALK_FREEZE ? REPACK_STEPS : 0;
+  out[2] = WALK_FREEZE ? REPACK_REFILL : 0;
   return 0;
 }
 
@@ -2082,8 +2091,15 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                                 cudaMemcpyHostToDevice, st);
     if (e != cudaSuccess) return (int)e;
   }
-  if (n_lanes > 0 && budget > 0)
-    launch_built((n_lanes + THREADS - 1) / THREADS, st, n_lanes, budget,
-                 thr);
+  if (n_lanes > 0 && budget > 0) {
+    if (WALK_FREEZE) {  // the repack loop's pool starts at lane 0 (the
+                        // current card's, as the constant block above)
+      static const unsigned int zero = 0;
+      e = cudaMemcpyToSymbolAsync(next_lane, &zero, sizeof zero, 0,
+                                  cudaMemcpyHostToDevice, st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    launch_built((n_lanes + BLOCK - 1) / BLOCK, st, n_lanes, budget, thr);
+  }
   return (int)cudaGetLastError();
 }

@@ -120,6 +120,7 @@ _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
 _RULES = _SRC.with_name("walk_variant.h")  # the switch rules, included
+_STEP = _SRC.with_name("walk_step.inc")    # a lane's iteration, included
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -1282,9 +1283,10 @@ def variant_macros(variant) -> list:
 
 @functools.lru_cache(maxsize=1)
 def _source_key() -> str:
-    """The hash of the kernel's source, its rules header and the flags:
-    a library built from other sources or flags is never loaded."""
+    """The hash of the kernel's source, the files it includes and the
+    flags: a library built from other sources or flags is never loaded."""
     return hashlib.sha256(_SRC.read_bytes() + _RULES.read_bytes()
+                          + _STEP.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 

@@ -1,7 +1,12 @@
 // A stand-in for the CUDA runtime header, so that a host compiler builds
 // csrc/walk_kernel.cu for the tests: the qualifiers defined away, the
-// thread indices as globals, the constant copy as memcpy. The kernel's
-// launch (`<<<...>>>`) is cut out of the source by the test that uses it.
+// constant copy as memcpy, and blocks run by host threads. The kernel's
+// launch (`<<<...>>>`) is cut out of the source by the test that uses it,
+// which may put host_launch in its place: one std::thread per CUDA
+// thread, a block at a time, the thread indices thread-local, __shared__
+// variables static (one block runs at a time), and __syncthreads /
+// __syncthreads_count a barrier over the block's threads. Warp-level
+// primitives are not emulated.
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -9,19 +14,24 @@
 #include <string.h>
 
 #include <algorithm>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 using std::max;
 using std::min;
 #define __global__
 #define __device__
 #define __host__
 #define __constant__
+#define __shared__ static
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(x)
 struct host_dim3 {
   unsigned x, y, z;
 };
-static host_dim3 blockIdx, threadIdx;
+static thread_local host_dim3 blockIdx, threadIdx;
 struct float4 {
   float x, y, z, w;
 };
@@ -43,3 +53,57 @@ enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1 };
 static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 #define cudaMemcpyToSymbolAsync(sym, src, n, off, kind, st) \
   (memcpy(((char*)&(sym)) + (off), (src), (n)), cudaSuccess)
+static inline unsigned int atomicAdd(unsigned int* p, unsigned int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+
+// the running block's barrier: every thread of the block arrives, then
+// all leave together with the count of those that arrived with a true
+// predicate
+struct host_block_barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int threads = 0, waiting = 0, count = 0, result = 0;
+  unsigned long generation = 0;
+  int arrive(int pred) {
+    std::unique_lock<std::mutex> lock(m);
+    const unsigned long gen = generation;
+    count += pred != 0;
+    if (++waiting == threads) {
+      result = count;
+      count = 0;
+      waiting = 0;
+      ++generation;
+      cv.notify_all();
+      return result;
+    }
+    cv.wait(lock, [&] { return generation != gen; });
+    return result;
+  }
+};
+static host_block_barrier* host_barrier = nullptr;
+
+static inline void __syncthreads() { host_barrier->arrive(0); }
+static inline int __syncthreads_count(int pred) {
+  return host_barrier->arrive(pred);
+}
+
+// runs `body` as `grid` blocks of `block` threads, one block at a time
+template <class F>
+static void host_launch(int grid, int block, F body) {
+  for (int b = 0; b < grid; ++b) {
+    host_block_barrier bar;
+    bar.threads = block;
+    host_barrier = &bar;
+    std::vector<std::thread> threads;
+    threads.reserve(block);
+    for (int t = 0; t < block; ++t)
+      threads.emplace_back([&body, b, t] {
+        blockIdx = host_dim3{(unsigned)b, 0, 0};
+        threadIdx = host_dim3{(unsigned)t, 0, 0};
+        body();
+      });
+    for (auto& th : threads) th.join();
+    host_barrier = nullptr;
+  }
+}

@@ -41,7 +41,10 @@ without the freeze, one launch, a mesh of four shards on one card equal to
 its shards solved one by one, and sharded solves (the survey, the flagship
 with the split) through the kernel and the plain version; and every
 switch combination: the twelve variants of ``chip_smoke.py``'s sweep, one
-launch each, and the survey with the split through the host loop.
+launch each, and the survey with the split through the host loop; and
+the freeze builds' repack loop (the flagship and the grid flagship) in
+the cases of ``chip_smoke.py::REPACK_CASES``, and the flagship's freeze
+build launched on two cards in turns (two cards, else it skips).
 """
 
 import os
@@ -60,6 +63,7 @@ from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
 from dcrmontecarlo_tpu_torch.survey import survey_default_options
+from chip_smoke import REPACK_CASES, repack_case, repack_schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -571,26 +575,96 @@ def test_grid_instantiation_matches_plain_one_launch(device):
     assert bool((zero["asum0"] != state["asum0"]).any())
 
 
-@pytest.mark.parametrize("case", ["chain_mis", "survey"])
+def _freeze_build(device, which):
+    """The flagship's (the notebook survey) or the grid flagship's (the
+    cylinder) freeze build: its solver, points, max_steps and eps."""
+    from chip_smoke import cylinder_problem
+
+    opts = survey_default_options(target_slots=8192, split_threshold=4.0)
+    if which == "grid_flagship":
+        prob, pins = cylinder_problem()
+        pts = pins["electrodes"]
+    else:
+        prob, pts = _notebook_problem("auto", True), NOTEBOOK_ELECTRODES
+    return WoStSolver(prob, opts, device=device), \
+        np.asarray(pts, np.float32), 6000, 1.0
+
+
+@pytest.mark.parametrize("case", ["chain_mis", "survey", "flagship",
+                                  "grid_flagship"])
 def test_one_step_launches_equal_one_launch(device, case):
     # the counter hash depends on (seed, counter, stream, lane) only, so
-    # the diagnostics' one-step launches walk the solver's walks
+    # the diagnostics' one-step launches walk the solver's walks; in the
+    # freeze builds (the repack loop) a lane's budget counts its own
+    # iterations, so a one-step launch takes one iteration a lane
+    thr = None
     if case == "survey":
         prob, pts, ms, eps = _survey_problem(), ELECTRODES, 500, EPS
-    else:
+    elif case == "chain_mis":
         survey, el = notebook_survey()
         survey.source_mis = True
         prob, pts, ms, eps = survey.build_problem(), el, 6000, 1.0
-    solver = WoStSolver(prob, survey_default_options(target_slots=8192),
-                        device=device)
+    if case in ("flagship", "grid_flagship"):
+        solver, pts, ms, eps = _freeze_build(device, case)
+        thr = 4.0
+    else:
+        solver = WoStSolver(prob, survey_default_options(target_slots=8192),
+                            device=device)
     state, params, _, _ = solver._setup(np.asarray(pts, np.float32), 8192,
                                         ms, eps, 7)
+    assert params.freeze == (thr is not None)
     many = {k: v.clone() for k, v in state.items()}
-    wk.run_walk(state, params, 32)
+    wk.run_walk(state, params, 32, freeze_thr=thr)
     for _ in range(32):
-        wk.run_walk(many, params, 1)
+        wk.run_walk(many, params, 1, freeze_thr=thr)
     for k in state_planes(params.n_src):
         assert torch.equal(state[k], many[k]), k
+
+
+@pytest.mark.parametrize("case", REPACK_CASES)
+@pytest.mark.parametrize("which", ["flagship", "grid_flagship"])
+def test_repacked_freeze_build_matches_plain(device, which, case):
+    # the repack loop (csrc/walk_kernel.cu, walk_repacked) against the
+    # plain walk: budgets about a round's length, a block whose every
+    # lane is heavy, one with a single steppable lane, no threshold
+    solver, pts, ms, eps = _freeze_build(device, which)
+    state, params, _, _ = solver._setup(pts, 8192, ms, eps, 3)
+    assert params.freeze and params.grid == (which == "grid_flagship")
+    wk.walk_plain(state, params, 100, freeze_thr=4.0)
+    start, budget, thr = repack_case(
+        state, case, 4.0,
+        repack_schedule(wk._library(wk._canonical(params.variant))))
+    kern = {k: v.clone() for k, v in start.items()}
+    plain = {k: v.clone() for k, v in start.items()}
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(kern, params, budget, freeze_thr=thr)
+    torch.cuda.synchronize()
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    wk.walk_plain(plain, params, budget, freeze_thr=thr)
+    _compare(kern, plain, state_planes(params.n_src))
+    moved = (kern["life"] - start["life"]) + (kern["ndone"] - start["ndone"])
+    assert 0 < int(moved.max()) <= budget
+
+
+def test_freeze_build_on_each_card():
+    # the repack loop's pool counter lives once per card, and each launch
+    # resets the one of its own card: launches that alternate between two
+    # cards walk the same state alike
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    ends = []
+    for d in (0, 1, 1, 0):
+        dev = torch.device("cuda", d)
+        solver, pts, ms, eps = _freeze_build(dev, "flagship")
+        state, params, _, _ = solver._setup(pts, 8192, ms, eps, 3)
+        start = state["life"].clone()
+        wk.run_walk(state, params, 32, freeze_thr=4.0)
+        torch.cuda.synchronize(dev)
+        assert int((state["life"] - start).sum()) > 0, d
+        ends.append({k: v.cpu() for k, v in state.items()})
+    for d, end in zip((1, 1, 0), ends[1:]):
+        for k in state_planes(params.n_src):
+            assert torch.equal(ends[0][k], end[k]), (d, k)
 
 
 def test_cylinder_mc_tier_seed0(device):
