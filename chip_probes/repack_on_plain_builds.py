@@ -3,9 +3,11 @@
 card, each held to the one-thread loop bit for bit.
 
 ``csrc/walk_kernel.cu`` runs the repack loop (``walk_repacked``) in the
-freeze builds only; the others keep one thread a lane for the whole
-launch. This probe asks whether that fork pays. It copies the checkout's
-``csrc/`` with the repack loop switched on for every build (a launch
+builds of ``walk_variant.h::repacked`` (the freeze builds, and the chain +
+MIS builds without the freeze); the others keep one thread a lane for the
+whole launch. This probe asks whether that fork pays. It copies the
+checkout's ``csrc/`` with the repack loop switched on for every build (a
+launch
 without the freeze passes ``thr = +inf``, so the loop's freeze test never
 fires), builds the non-freeze variants of ``chip_smoke.py``'s full-size
 paths from both sources in parallel, and runs each library through this
@@ -57,14 +59,14 @@ import chip_smoke as cs  # noqa: E402
 from repack_tuning import WORK, build, use  # noqa: E402
 
 # the repack loop for every build
-FORCE = (("  if constexpr (FREEZE) {\n    walk_repacked",
+FORCE = (("  if constexpr (repacked(ROBIN, MIS, FREEZE)) {\n    walk_repacked",
           "  if constexpr (true) {\n    walk_repacked"),
-         ("__launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)",
+         ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE)\n"
+          "                                      ? REPACK_THREADS\n"
+          "                                      : THREADS)",
           "__launch_bounds__(REPACK_THREADS)"),
-         ("BLOCK = WALK_FREEZE ? REPACK_THREADS : THREADS;",
-          "BLOCK = REPACK_THREADS;"),
-         ("    if (WALK_FREEZE) {  // the repack loop's pool",
-          "    if (true) {  // the repack loop's pool"))
+         ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
+          "WALK_FREEZE != 0);", "constexpr bool REPACKED = true;"))
 TURNS = ("one_thread", "repack", "repack", "one_thread")
 
 

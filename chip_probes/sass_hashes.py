@@ -11,8 +11,10 @@ trees in one call:
     for t in "_archive/parent p" ". c"; do
         set -- $t; python3 chip_probes/sass_hashes.py $1 $2; done
 
-A checkout that builds variants on demand builds ``chip_smoke.py``'s
-``PATH_VARIANTS`` (the paths' 21); an older one its fixed set.
+A checkout that builds variants on demand builds this checkout's
+``chip_smoke.py`` ``SCRIPT_VARIANTS`` (the 35 the script launches: the
+paths' 21, phases 40-41's two freeze builds and the sweep's twelve); an
+older one its fixed set.
 """
 
 import hashlib
@@ -30,11 +32,10 @@ from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
 assert wk.__file__.startswith(tree), wk.__file__
 from this_checkout import chip_smoke  # noqa: E402
 
-# this checkout's chip_smoke.py names the paths' variants
-PATH_VARIANTS, build_variants = (chip_smoke().PATH_VARIANTS,
-                                 chip_smoke().build_variants)
+# this checkout's chip_smoke.py names the variants
+variants, build_variants = (chip_smoke().SCRIPT_VARIANTS,
+                            chip_smoke().build_variants)
 
-variants = PATH_VARIANTS
 paths, build_s, log = build_variants(wk, variants)
 regs = {}
 for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "

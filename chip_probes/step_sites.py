@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Where a walk step's warp-cycles go, site by site, on one card.
+
+The one-thread-per-lane loop of ``csrc/walk_kernel.cu`` runs several
+sites of ``csrc/walk_step.inc`` on some lanes only: the Robin chain's
+chord mass on lanes standing on the wall, the wall-arrival weight on
+lanes that hit it, the chord branch; the bank of a finished walk; MIS
+next-event estimation (its star test and its mixture pdf apart), the
+sources at its sample, the first hit, the screened radius. This probe
+copies a checkout's ``csrc/`` (``TREE``, default this one) under
+``_archive/step_sites/`` and brackets each site with ``clock64()``: the
+group of a warp's lanes that enters a site is timed by its slowest lane
+(``__reduce_max_sync``), and its leader adds the cycles and the number of
+lanes to per-site sums in device memory (one slot per warp, modulo 512).
+The whole loop of each warp is timed the same way (its lifetime from the
+loop's start to its reconvergence after the last lane leaves), and every
+iteration adds its lanes. A site's share of warp-cycles is its cycles
+over the loops'; its share of lanes is its lane entries over the
+lane-iterations. The shipped source is never touched.
+
+In a tree whose build rule sends a variant to another loop, the copy is
+switched back to the one-thread loop first (``ONE_THREAD``), so a later
+tree measures the same code as its parent. Three builds at their full-size
+states (seed 5, fresh walks):
+
+- ``line``: ``chip_smoke.py`` phase 30's notebook pseudosection, the wide
+  chain + MIS ``<1,false,true,false,false,true,false,true>``, 688,128
+  lanes, 18 sources, 19 components;
+- ``flagship_shard``: phase 38's sharded flagship, shard 0 of 4,
+  ``<1,true,true,false,false,true,false>``, 172,032 lanes;
+- ``accuracy``: phase 11's accuracy path, the chain + majorant
+  ``<1,true,false,false,false,true,false>``, 688,128 lanes.
+
+For each: 256 steps of the tree's own build (best of 3), of the
+instrumented copy (best of 3; its counters from one more run), the site
+table, and whether the instrumented end planes equal the tree's own.
+Writes ``chiprun_out/step_sites.json``.
+
+    python3 chip_probes/step_sites.py [TREE]
+"""
+
+import ctypes
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from dcrmontecarlo_tpu_torch.models import notebook_survey  # noqa: E402
+from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
+from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
+    make_mesh  # noqa: E402
+from dcrmontecarlo_tpu_torch.solver import SolverOptions, \
+    WoStSolver  # noqa: E402
+from dcrmontecarlo_tpu_torch.solver.state import state_planes  # noqa
+from dcrmontecarlo_tpu_torch.survey import dcr as sdcr  # noqa: E402
+from dcrmontecarlo_tpu_torch.survey import survey_default_options  # noqa
+import chip_smoke as cs  # noqa: E402
+
+WORK = ROOT / "_archive" / "step_sites"
+# the sites, in the order of their counters; LOOP is each warp's loop,
+# ITER counts iterations (warps in the cycle sum, lanes in the lane sum)
+SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
+         "RADIUS", "MIS", "STAR", "PDF", "ADD", "ARRIVAL", "BRANCH")
+# the disjoint sites of a step (STAR and PDF lie inside MIS)
+TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
+       "ARRIVAL", "BRANCH")
+SLOTS = 512
+
+PRELUDE = r"""
+// ---- site clocks (chip_probes/step_sites.py) ----
+constexpr int N_SITES = %(n)d, SITE_SLOTS = %(slots)d;
+%(enum)s
+__device__ unsigned long long g_site_cyc[N_SITES][SITE_SLOTS];
+__device__ unsigned long long g_site_lanes[N_SITES][SITE_SLOTS];
+__device__ __forceinline__ unsigned site_slot() {
+  return ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) & (SITE_SLOTS - 1);
+}
+// the group that entered with mask m took dt cycles (its slowest lane)
+__device__ __forceinline__ void site_add(int s, unsigned m, long long dt) {
+  const unsigned d = __reduce_max_sync(m, (unsigned)dt);
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+    atomicAdd(&g_site_cyc[s][site_slot()], (unsigned long long)d);
+    atomicAdd(&g_site_lanes[s][site_slot()], (unsigned long long)__popc(m));
+  }
+}
+__device__ __forceinline__ void site_iter() {
+  const unsigned m = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+    atomicAdd(&g_site_cyc[S_ITER][site_slot()], 1ull);
+    atomicAdd(&g_site_lanes[S_ITER][site_slot()], (unsigned long long)__popc(m));
+  }
+}
+#define SITE_BEGIN(s) const unsigned site_m_##s = __activemask(); \
+  const long long site_t_##s = clock64();
+#define SITE_END(s) site_add(S_##s, site_m_##s, clock64() - site_t_##s);
+"""
+
+EXPORT = r"""
+// the site sums: N_SITES x SITE_SLOTS cycles, then as many lane counts
+extern "C" int site_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_site_cyc, sizeof g_site_cyc);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyFromSymbol(out + N_SITES * SITE_SLOTS, g_site_lanes,
+                                   sizeof g_site_lanes);
+}
+extern "C" int site_reset() {
+  static unsigned long long zero[N_SITES][SITE_SLOTS];
+  cudaError_t e = cudaMemcpyToSymbol(g_site_cyc, zero, sizeof zero);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyToSymbol(g_site_lanes, zero, sizeof zero);
+}
+"""
+
+# (file, anchor, replacement): each anchor occurs exactly once
+STEP_EDITS = (
+    ("    const uint32_t ctr =\n",
+     "    site_iter();\n    const uint32_t ctr =\n"),
+    ("    const float dD = closest_point<TABLE>(px, py, cx, cy);\n",
+     "    SITE_BEGIN(CLOSEST)\n"
+     "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n"
+     "    SITE_END(CLOSEST)\n"),
+    ("    if (done_eps || steps >= max_steps) {\n",
+     "    if (done_eps || steps >= max_steps) {\n      SITE_BEGIN(BANK)\n"),
+    ("      a_cur = a_p0;\n      WALK_NEXT;\n",
+     "      a_cur = a_p0;\n      SITE_END(BANK)\n      WALK_NEXT;\n"),
+    ("      if (ob) {\n        float glx0, gly0;\n",
+     "      if (ob) {\n        SITE_BEGIN(CHORD_MASS)\n"
+     "        float glx0, gly0;\n"),
+    ("          atten = atten / (F(1.0) - c_ch);\n        }\n      }\n",
+     "          atten = atten / (F(1.0) - c_ch);\n        }\n"
+     "        SITE_END(CHORD_MASS)\n      }\n"),
+    ("      const float t_best =\n"
+     "          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);\n",
+     "      SITE_BEGIN(FIRST_HIT)\n      const float t_best =\n"
+     "          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);\n"
+     "      SITE_END(FIRST_HIT)\n"),
+    ("      else\n        r_s = screened_radius(r, sbar, seed, ctr, sid, "
+     "C.rounds, w_rej);\n",
+     "      else {\n        SITE_BEGIN(RADIUS)\n"
+     "        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, "
+     "w_rej);\n        SITE_END(RADIUS)\n      }\n"),
+    ("        float w_mis = mis_nee<true, TABLE, WIDE>(\n"
+     "            base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, "
+     "ob,\n            t_min, yx, yy);\n",
+     "        SITE_BEGIN(MIS)\n        float w_mis = mis_nee<true, TABLE, "
+     "WIDE>(\n            base, sid, px, py, px + r_s * dx, py + r_s * dy, "
+     "r, sbar, ob,\n            t_min, yx, yy);\n        SITE_END(MIS)\n"),
+    ("        add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);\n"
+     "      }\n",
+     "        SITE_BEGIN(ADD)\n"
+     "        add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);\n"
+     "        SITE_END(ADD)\n      }\n"),
+    ("          if (hit) {\n            // Robin wall-arrival weight",
+     "          if (hit) {\n            SITE_BEGIN(ARRIVAL)\n"
+     "            // Robin wall-arrival weight"),
+    ("            scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);"
+     "\n",
+     "            scale_edge = scale_edge * (F(1.0) + gamma * rho / cosphi);"
+     "\n            SITE_END(ARRIVAL)\n"),
+    ("          if (branch) {\n",
+     "          if (branch) {\n            SITE_BEGIN(BRANCH)\n"),
+    ("            new_ob = true;\n          } else if (q_c > F(1e-6)) {\n",
+     "            new_ob = true;\n            SITE_END(BRANCH)\n"
+     "          } else if (q_c > F(1e-6)) {\n"),
+)
+KERNEL_EDITS = (
+    ("  if (C.n_neu > 0)  // a wall between x and y blocks the sample\n"
+     "    in_star = in_ball &&\n"
+     "              !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,\n"
+     "                                   ob ? t_min : F(0.0)) < d_y);\n",
+     "  if (C.n_neu > 0) {  // a wall between x and y blocks the sample\n"
+     "    SITE_BEGIN(STAR)\n"
+     "    in_star = in_ball &&\n"
+     "              !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,\n"
+     "                                   ob ? t_min : F(0.0)) < d_y);\n"
+     "    SITE_END(STAR)\n  }\n"),
+    ("  float q = F(0.0);  // the mixture pdf, one expf per component\n",
+     "  SITE_BEGIN(PDF)\n"
+     "  float q = F(0.0);  // the mixture pdf, one expf per component\n"),
+    ("  // an on-boundary walker samples a hemisphere: double its density\n",
+     "  SITE_END(PDF)\n"
+     "  // an on-boundary walker samples a hemisphere: double its density\n"),
+    ("    for (int it = 0; it < budget && quota > 0; ++it) {\n",
+     "    SITE_BEGIN(LOOP)\n"
+     "    for (int it = 0; it < budget && quota > 0; ++it) {\n"),
+    ("#undef WALK_FROZEN\n    }\n\n    P.px[lane] = px;\n",
+     "#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
+     "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n"),
+    ("// ---- source-directed MIS next-event estimation",
+     "%PRELUDE%\n// ---- source-directed MIS next-event estimation"),
+)
+# a tree whose rule sends these builds to another loop: back to the
+# one-thread loop (the anchors that exist are replaced, each once)
+ONE_THREAD = (
+    ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE)\n"
+     "                                      ? REPACK_THREADS\n"
+     "                                      : THREADS)",
+     "__launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)"),
+    ("  if constexpr (repacked(ROBIN, MIS, FREEZE)) {",
+     "  if constexpr (FREEZE) {"),
+    ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
+     "WALK_FREEZE != 0);", "constexpr bool REPACKED = WALK_FREEZE != 0;"),
+)
+
+
+def _edit(text, edits, what):
+    for old, new in edits:
+        n = text.count(old)
+        assert n == 1, (what, n, old)
+        text = text.replace(old, new)
+    return text
+
+
+def instrumented_source(csrc, dst):
+    """A copy of ``csrc`` under ``dst`` with the site clocks in the
+    one-thread loop; returns ``dst``."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    step = _edit((dst / "walk_step.inc").read_text(), STEP_EDITS,
+                 "walk_step.inc")
+    (dst / "walk_step.inc").write_text(step)
+    src = (dst / "walk_kernel.cu").read_text()
+    for old, new in ONE_THREAD:
+        if old in src:
+            src = _edit(src, ((old, new),), "one-thread fork")
+    src = _edit(src, KERNEL_EDITS, "walk_kernel.cu")
+    enum = "enum {" + ", ".join(f"S_{s}" for s in SITES) + "};"
+    src = src.replace("%PRELUDE%", PRELUDE % dict(
+        n=len(SITES), slots=SLOTS, enum=enum)) + EXPORT
+    (dst / "walk_kernel.cu").write_text(src)
+    return dst
+
+
+def build(tag, csrc, variant):
+    """``(library path, ptxas report)`` of ``variant`` from ``csrc``."""
+    out = WORK / f"{tag}-{wk.variant_code(variant)}.so"
+    cmd = [wk._nvcc(), *wk.NVCC_FLAGS, *wk.variant_macros(variant), "-o",
+           str(out), str(csrc / "walk_kernel.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    report = " | ".join(line.strip() for line in
+                        (proc.stdout + proc.stderr).splitlines()
+                        if "registers" in line or "spill" in line)
+    return out, report
+
+
+def use(paths):
+    """Make ``wk.run_walk`` launch the libraries ``paths`` (by code)."""
+    wk._library.cache_clear()
+    wk._library_path = lambda v: paths[wk.variant_code(v)]
+
+
+def groups(dev):
+    """``name: (state, params)``: the builds' full-size states."""
+    line_survey, line_elec = notebook_survey()
+    line_survey.source_mis = True
+    line_prob, line_pts, _, _ = sdcr._line_problem(line_survey, line_elec, 8)
+    line = WoStSolver(line_prob, SolverOptions(
+        target_slots=1 << 21, min_quota=32, common_random_numbers=True),
+        device=dev)
+    state, params, _, _ = line._setup(line_pts, 1 << 20, 6000, 1.0, 5)
+    out = dict(line=(state, params))
+    flag_survey, nb_elec = notebook_survey()
+    flag_survey.local_majorant = "auto"
+    flag_survey.source_mis = True
+    sharded = ShardedWoStSolver(
+        flag_survey.build_problem(), make_mesh(4, device=dev),
+        survey_default_options(target_slots=1 << 21, min_quota=32,
+                               split_threshold=4.0))
+    nb_pts = np.asarray(nb_elec, np.float32)
+    shard = sharded._shard(sharded._plan(nb_pts, 1 << 20, 6000, 1.0, 5), 0)
+    out["flagship_shard"] = (shard.state, shard.params)
+    acc_survey, _ = notebook_survey()
+    acc_survey.local_majorant = "auto"
+    accuracy = acc_survey.make_solver(survey_default_options(
+        target_slots=1 << 21, min_quota=32), device=dev)
+    out["accuracy"] = accuracy._setup(nb_pts, 1 << 20, 6000, 1.0, 5)[:2]
+    return out
+
+
+def run256(state, params, reps=3):
+    """``(best ms of reps, end planes' hash, end state)`` of 256 steps."""
+    def once():
+        s = {k: v.clone() for k, v in state.items()}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        wk.run_walk(s, params, 256)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b), s
+    once()
+    ms, end = min((once() for _ in range(reps)), key=lambda r: r[0])
+    return ms, hashlib.sha256(b"".join(
+        end[k].cpu().numpy().tobytes()
+        for k in state_planes(params.n_src))).hexdigest()[:16], end
+
+
+def site_table(lib, state, params):
+    """One 256-step run of an instrumented library: per site its cycles,
+    lane entries, share of the loops' warp-cycles and of lane-iterations."""
+    lib.site_read.argtypes = [ctypes.c_void_p]
+    torch.cuda.synchronize()
+    assert lib.site_reset() == 0
+    s = {k: v.clone() for k, v in state.items()}
+    wk.run_walk(s, params, 256)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (2 * len(SITES) * SLOTS))()
+    assert lib.site_read(buf) == 0
+    a = np.frombuffer(buf, np.uint64).astype(np.float64).reshape(
+        2, len(SITES), SLOTS).sum(2)
+    cyc, lanes = dict(zip(SITES, a[0])), dict(zip(SITES, a[1]))
+    loop, iters = cyc["LOOP"], lanes["ITER"]
+    table = {k: dict(cycles=cyc[k], lanes=lanes[k],
+                     cycle_share=cyc[k] / loop, lane_share=lanes[k] / iters)
+             for k in SITES if k not in ("LOOP", "ITER")}
+    table["other"] = dict(cycles=loop - sum(cyc[k] for k in TOP),
+                          cycle_share=1.0 - sum(cyc[k] for k in TOP) / loop)
+    return dict(loop_cycles=loop, warp_iterations=cyc["ITER"],
+                lane_iterations=iters, sites=table)
+
+
+def site_shares(path, state, params):
+    """``site_table`` of the instrumented library at ``path`` (built for
+    ``params``' variant), launched through ``wk.run_walk``; the libraries
+    ``wk`` has loaded stay loaded, and launch again afterwards."""
+    saved_path, saved_library = wk._library_path, wk._library
+    wk._library_path = lambda v: path
+    try:
+        lib = saved_library.__wrapped__(wk._canonical(params.variant))
+        wk._library = lambda v: lib
+        return site_table(lib, state, params)
+    finally:
+        wk._library_path, wk._library = saved_path, saved_library
+
+
+def main():
+    tree = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(cs.NVSMI_QUERY, capture_output=True,
+                          text=True).stdout.strip()
+    WORK.mkdir(parents=True, exist_ok=True)
+    csrc = tree / "dcrmontecarlo_tpu_torch" / "csrc"
+    sources = {"own": csrc,
+               "sites": instrumented_source(csrc, WORK / "csrc_sites")}
+    made = groups(dev)
+    variants = {p.variant for _, p in made.values()}
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        jobs = {(tag, v): pool.submit(build, tag, src, v)
+                for tag, src in sources.items() for v in variants}
+        built = {k: f.result() for k, f in jobs.items()}
+    print(f"built {len(built)} libraries in {time.time() - t0:.1f} s "
+          f"({card})", flush=True)
+    for (tag, v), (_, report) in sorted(built.items(), key=str):
+        print(tag, wk.kernel_name(v), report, flush=True)
+
+    record = dict(card=card, device=torch.cuda.get_device_name(0),
+                  tree=str(tree), groups={})
+    for name, (state, params) in made.items():
+        runs = {}
+        for tag in ("own", "sites", "sites", "own"):
+            use({wk.variant_code(v): built[(tag, v)][0] for v in variants})
+            ms, h, _ = run256(state, params)
+            runs.setdefault(tag, []).append((ms, h))
+        use({wk.variant_code(v): built[("sites", v)][0] for v in variants})
+        table = site_table(wk._library(wk._canonical(params.variant)),
+                           state, params)
+        equal = len({h for r in runs.values() for _, h in r}) == 1
+        rec = dict(kernel=params.kernel_name, lanes=state["px"].numel(),
+                   ms={k: [m for m, _ in v] for k, v in runs.items()},
+                   equal=equal, **table)
+        record["groups"][name] = rec
+        print(f"{name} ({params.kernel_name}, {rec['lanes']} lanes): 256 "
+              f"steps ms own {rec['ms']['own']}, instrumented "
+              f"{rec['ms']['sites']}; end planes "
+              f"{'equal' if equal else 'DIFFER'}; {table['lane_iterations']:.0f} "
+              f"lane-iterations in {table['warp_iterations']:.0f} "
+              f"warp-iterations ({card})", flush=True)
+        for k, v in table["sites"].items():
+            print(f"  {k:10s} warp-cycles {v['cycle_share']:.4f}"
+                  + (f", lanes {v['lane_share']:.4f}" if "lanes" in v
+                     else ""), flush=True)
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / "step_sites.json", "w") as f:
+        json.dump(record, f)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,11 +32,14 @@ line:
    variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
    phases 40-41's two, the sweep's twelve), one ``nvcc`` process per
    CPU at a time; at the end, no library was built after it and as many
-   were loaded. The freeze builds run the repack loop
+   were loaded. The freeze builds and the chain + MIS builds without the
+   freeze (``walk_variant.h::repacked``) run the repack loop
    (``csrc/walk_kernel.cu``, ``walk_repacked``): its block size, round
-   length and refill threshold are printed with each freeze build's
+   length and refill threshold are printed with each such build's
    registers, shared memory and blocks on the card at once, and the
-   phase fails if the flagship's or the grid flagship's build spills;
+   phase fails if the flagship's or the grid flagship's build spills.
+   Beside them, phases 30 and 38's two variants with site clocks in the
+   one-thread loop (``chip_probes/step_sites.py``);
 3. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    survey problem with its default options (``walk_kernel.compare_planes``:
    every plane agrees on >= 99% of lanes to rel 1e-4 above a floor of
@@ -207,7 +210,9 @@ line:
     (``SolverOptions(target_slots=1<<21, min_quota=32,
     common_random_numbers=True)``: 688,128 lanes): ``run_pseudosection`` as
     the warm-up (its launches counted), 2 timed solves, 256 steps of kernel
-    and plain version at that state; then at the figure's own 2000 walks,
+    and plain version at that state, the variant's registers and its
+    step's sites' shares of the one-thread loop's warp-cycles (the site
+    clocks of phase 2); then at the figure's own 2000 walks,
     three source rows against single-source ``DCRSurvey.run`` solves of the
     same dipoles (>= 20/21 electrodes within 4 sigma + 0.25 each).
 31. full size, the survey Jacobian at ``examples/inversion_demo.py``'s
@@ -268,7 +273,8 @@ line:
     flagship configuration without the freeze (a warm-up and 2 timed
     solves: launches, clones, ``max_weight``, ``max_banked``), then 256
     steps at a shard's state (172,032 lanes), the record of its
-    instantiation.
+    instantiation, its registers and its step's sites' shares as in
+    phase 30.
 39. two processes on the card, each holding 2 of a 4-shard mesh
     (``initialize_distributed`` over gloo on a local port): both print the
     survey's 9 x 2^15-walk solve, equal to each other and to the
@@ -527,6 +533,48 @@ def repack_case(state, case, thr, schedule):
     return s, {"budget_1": 1, "budget_round_plus_1": steps + 1,
                "budget_two_rounds_plus_1": 2 * steps + 1,
                "budget_64": 64}[case], thr
+
+
+# the cases in which the chain + MIS builds' queued wall work is held to
+# the one-thread loop and the plain walk (tests/test_torch_host_chain_
+# phases.py on the CPU, tests/test_torch_cuda.py on the card): a block
+# whose every lane stands on the wall, one in which none does, one with
+# a single wall lane, and budgets of one iteration and one past one and
+# two rounds
+CHAIN_CASES = ("every_lane_on_wall", "no_lane_on_wall", "one_wall_lane",
+               "budget_1", "budget_round_plus_1", "budget_two_rounds_plus_1")
+
+
+def chain_case(state, case, block, steps):
+    """``(state, budget)`` of a ``CHAIN_CASES`` case: a copy of ``state``
+    whose first ``block`` lanes stand on the wall as the case says (lanes
+    moved to the positions, normals and wall flags of other lanes of the
+    state), and the launch's iterations (``steps`` a round)."""
+    s = clone_state(state)
+    flat = {k: s[k].view(-1) for k in ("px", "py", "nx", "ny", "ob",
+                                       "quota")}
+    working = flat["quota"] > 0
+    wall = torch.nonzero(working & (flat["ob"] == 1)).squeeze(1)
+    free = torch.nonzero(working & (flat["ob"] == 0)).squeeze(1)
+    free = free[free >= block]
+    dev = s["px"].device
+    first = torch.arange(block, device=dev)
+
+    def place(dst, src):
+        for k in ("px", "py", "nx", "ny", "ob"):
+            flat[k][dst] = flat[k][src].clone()
+
+    if case == "every_lane_on_wall":
+        place(first, wall[first % len(wall)])
+    elif case in ("no_lane_on_wall", "one_wall_lane"):
+        on = torch.nonzero(flat["ob"][:block] == 1).squeeze(1)
+        place(on, free[torch.arange(len(on), device=dev) % len(free)])
+        if case == "one_wall_lane":
+            keep = int(torch.nonzero(working[:block])[7])
+            place(torch.tensor([keep], device=dev), wall[-1:])
+    budget = {"budget_1": 1, "budget_round_plus_1": steps + 1,
+              "budget_two_rounds_plus_1": 2 * steps + 1}.get(case, 64)
+    return s, budget
 
 
 def launch_anatomy(wk, solver, pts, n_walks, max_steps, eps, seed,
@@ -869,6 +917,37 @@ PATH_VARIANTS = tuple((v[0],) + tuple(bool(f) for f in v[1:]) + (False,) * (
     (0, 0, 1, 0, 0, 0, 0), (1, 0, 1, 0, 0, 1, 0), (0, 0, 0, 0, 0, 1, 0, 1),
     (0, 0, 1, 0, 0, 1, 0, 1), (1, 0, 1, 0, 0, 1, 0, 1),
     (1, 1, 1, 1, 0, 1, 0, 0, 1)))
+
+
+# the chain + MIS builds without the freeze that phases 30 and 38 run, whose
+# step's warp-cycles they break down by site with the one-thread loop's
+# site clocks (chip_probes/step_sites.py; its builds start in phase 2)
+SITE_VARIANTS = ((1, False, True, False, False, True, False, True, False),
+                 (1, True, True, False, False, True, False, False, False))
+SITE_BUILDS = {}   # variant code: the instrumented library's build
+SITES_SHOWN = ("CHORD_MASS", "ARRIVAL", "BRANCH", "MIS", "PDF", "STAR", "ADD",
+               "RADIUS", "BANK", "other")
+
+
+def start_site_builds(wk, pool):
+    """Start building ``SITE_VARIANTS``' libraries with the site clocks in
+    the one-thread loop (``step_sites.instrumented_source``) on ``pool``."""
+    from chip_probes import step_sites as ss
+
+    src = ss.instrumented_source(wk._SRC.parent, ss.WORK / "csrc_sites")
+    for v in SITE_VARIANTS:
+        SITE_BUILDS[wk.variant_code(v)] = pool.submit(ss.build, "sites", src,
+                                                      v)
+
+
+def site_shares(wk, state, params):
+    """Each site's share of the one-thread loop's warp-cycles in 256 steps
+    of ``params``' variant from ``state`` (``step_sites.site_table``)."""
+    from chip_probes import step_sites as ss
+
+    path, _ = SITE_BUILDS[wk.variant_code(params.variant)].result()
+    table = ss.site_shares(path, state, params)["sites"]
+    return {k: round(float(table[k]["cycle_share"]), 4) for k in SITES_SHOWN}
 
 
 def build_variants(wk, variants=PATH_VARIANTS):
@@ -1563,10 +1642,13 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     t38f = steps_256(wk, shard.state, shard.params,
                      "phase 38 (flagship shard)", subset=True)
     log(f"[38] 256 steps x {t38f['lanes']} lanes (a flagship shard, "
-        f"{name}): kernel {t38f['ms']:.3f} ms, plain "
-        f"{t38f['plain_ms']:.3f} ms; worst plane agreement "
+        f"{name}, {regs.get(name)} registers): kernel {t38f['ms']:.3f} ms, "
+        f"plain {t38f['plain_ms']:.3f} ms; worst plane agreement "
         f"{t38f['worst']:.5f}, max |err| {t38f['max_err']:.3g}, "
         f"{t38f['steps']} walker-steps ({card})")
+    log(f"[38] its step's sites' shares of the one-thread loop's "
+        f"warp-cycles (256 steps, site clocks): "
+        f"{site_shares(wk, shard.state, shard.params)} ({card})")
     records.append(kernel_record(
         shard.params, "robin_chain+local_majorant+mis (sharded)",
         f38f["counts"][name], t38f, regs, tolerance))
@@ -1815,6 +1897,10 @@ def main():
         f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
 
     # ---- 2. build -------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    site_pool = ThreadPoolExecutor(max_workers=len(SITE_VARIANTS))
+    start_site_builds(wk, site_pool)
     libs, build_s, build_log = wk.build_library(SCRIPT_VARIANTS)
     regs = ptxas_registers(build_log)
     built = set(wk.build_logs)  # the codes built now, not found in _build
@@ -1827,14 +1913,16 @@ def main():
         f": {len(built)} built in {build_s:.1f} s ({os.cpu_count()} nvcc "
         f"processes at a time), {len(libs) - len(built)} found there; "
         f"ptxas registers per variant: {regs}")
-    # the freeze builds run the repack loop; the flagship's and the grid
-    # flagship's must not spill (ptxas picks the others' registers, and
-    # several of those spill a few words, as some one-thread builds do)
+    # the freeze builds and the chain + MIS builds without the freeze run
+    # the repack loop; the flagship's and the grid flagship's must not
+    # spill (ptxas picks the others' registers, and several of those spill
+    # a few words, as some one-thread builds do)
     report = ptxas_report(build_log)
     freeze = {wk.kernel_name(v): library_resources(wk, v)
-              for v in SCRIPT_VARIANTS if v[3]}
+              for v in SCRIPT_VARIANTS if wk.repacked(v)}
     schedules = {wk.kernel_name(v): repack_schedule(
-        wk._library(wk._canonical(v))) for v in SCRIPT_VARIANTS if v[3]}
+        wk._library(wk._canonical(v))) for v in SCRIPT_VARIANTS
+        if wk.repacked(v)}
     schedule = next(iter(schedules.values()))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flagships = {wk.kernel_name(v) for v in PATH_VARIANTS if v[3]}
@@ -1844,12 +1932,13 @@ def main():
     check(len(flagships) == 2 and not set(spills) & flagships,
           f"the flagships' repack loop spills: {spills}")
     check(len(set(schedules.values())) == 1 and schedule[1] is not None,
-          f"the freeze builds' schedules: {schedules}")
+          f"the repack builds' schedules: {schedules}")
     resident = {k: resident_blocks(schedules[k][0], *r, sms)
                 for k, r in freeze.items()}
     resources = {k: (*r, resident[k]) for k, r in sorted(freeze.items())}
-    log(f"[2] the {len(freeze)} freeze builds run the repack "
-        f"loop (as their libraries export it): {schedule[0]} threads a "
+    log(f"[2] the {len(freeze)} freeze and chain + MIS builds run the "
+        f"repack loop (as their libraries export it; the chain + MIS ones "
+        f"with the chain's wall work queued): {schedule[0]} threads a "
         f"block, rounds of {schedule[1]} "
         f"iterations, a block refills from the launch's pool when "
         f"{schedule[2]} threads are free (the others one thread a lane, "
@@ -3318,6 +3407,9 @@ def main():
         f": kernel {t30['ms']:.3f} ms, plain {t30['plain_ms']:.3f} ms; worst "
         f"plane agreement {t30['worst']:.5f}, max |err| {t30['max_err']:.3g}, "
         f"{t30['steps']} walker-steps ({card})")
+    log(f"[30] {p30.kernel_name}: {regs.get(p30.kernel_name)} registers; "
+        f"its step's sites' shares of the one-thread loop's warp-cycles "
+        f"(256 steps, site clocks): {site_shares(wk, state, p30)} ({card})")
     # the figure's own 2000 walks: three source rows against single-source
     # solves of the same dipoles (another mixture and seed: independent)
     t0 = time.perf_counter()

@@ -103,7 +103,12 @@
 // (Bessel polynomials, sqrt/log/exp/sin/cos, the segment scans), not by
 // memory.
 //
-// - Without the freeze: one thread per lane for the whole launch,
+// Which loop a build runs is a build-time rule (walk_variant.h::repacked,
+// ops/walk_kernel.py::repacked): the freeze builds and the chain + MIS
+// builds without the freeze (chain_phases) run the repack loop, every
+// other build one thread per lane.
+//
+// - One thread per lane for the whole launch,
 //   `for (i < budget && quota > 0)`. A lane whose quota drains exits on
 //   its own; that is exact, because a step of a lane without quota
 //   changes nothing (the TPU kernel's per-block exit relies on the same
@@ -141,6 +146,24 @@
 //   latency-bound; refilling keeps the SM's warps full until the pool is
 //   empty. A launch still lasts at least its longest lane's iterations at
 //   one lane's latency.
+// - The chain + MIS builds without the freeze (the sharded flagship, the
+//   notebook line, and their table, TERMS, grid and transport forms):
+//   the repack loop at thr = +inf, and the step in phases that the whole
+//   block runs (walk_step_chain). The chain's wall work (the chord mass
+//   of a lane on the wall, the wall-arrival factor of a lane that reaches
+//   it, the chord branch) ran on ~5% of the lanes but held nearly every
+//   warp, ~20% of the loop's warp-cycles (chip_probes/step_sites.py). A
+//   lane that needs it writes its inputs to a queue in the block's shared
+//   memory (the repack stash, free within a step; the slot from a shared
+//   atomic); after a barrier the block's threads run the entries one a
+//   thread, and after a second each lane reads its results back. Every
+//   entry runs walk_step.inc's arithmetic on the lane's own values, so
+//   the result is the one-thread loop's bit for bit. The same builds sum
+//   the MIS mixture pdf over the components near the sample only
+//   (mis_nee's NEAR: a far component's term is exactly +0).
+// - The one-thread loop stays for the rest: the short walk lost 10% on
+//   the repack loop (chip_probes/repack_on_plain_builds.py), and builds
+//   without the chain have no wall work to queue.
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -641,6 +664,8 @@ __device__ __noinline__ float4 terms_parts(int f, float x, float y,
   return acc;
 }
 
+using walk_rules::chain_phases;
+using walk_rules::repacked;
 using walk_rules::terms_fields;
 
 template <bool TERMS>
@@ -1386,7 +1411,15 @@ __device__ __forceinline__ float mix_at(int c, int k) {
 // the unrolled rule idx = #{i < k-1 : u6 > cum_i}. With delta tracking the
 // ball's screened Green's function and its norm, without it ln(R/r) /
 // (2 pi) and R^2 / 4 (:956-961)
-template <bool DELTA, bool TABLE, bool WIDE>
+//
+// NEAR (the chain_phases builds) sums the mixture pdf over the components
+// near y only: a component with |y - c|^2 > 128 (2 w^2) has an exponent of
+// -128 or less, whose expf is +0 on the card (chip_probes/
+// chain_phases_ab.py checks every float at or below -128), so its term is +0
+// and leaving it out changes no bit of q; the others add in component
+// order. A lane evaluates its own near components (a few of 19 on the
+// notebook line), not those of the whole warp.
+template <bool DELTA, bool TABLE, bool WIDE, bool NEAR = false>
 __device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
                                          float px, float py, float gx,
                                          float gy, float r, float sbar,
@@ -1428,11 +1461,28 @@ __device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
               !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,
                                    ob ? t_min : F(0.0)) < d_y);
   float q = F(0.0);  // the mixture pdf, one expf per component
-  for (int ci = 0; ci < C.n_mix; ++ci) {
-    const float qx = yx - mix_at<WIDE>(ci, 0), qy = yy - mix_at<WIDE>(ci, 1);
-    q = q + mix_at<WIDE>(ci, 3) * expf(-(qx * qx + qy * qy) /
-                                       mix_at<WIDE>(ci, 5)) /
-                mix_at<WIDE>(ci, 6);
+  if constexpr (NEAR) {
+    unsigned long long near = 0ull;
+    for (int ci = 0; ci < C.n_mix; ++ci) {
+      const float qx = yx - mix_at<WIDE>(ci, 0), qy = yy - mix_at<WIDE>(ci, 1);
+      if (!(qx * qx + qy * qy > F(128.0) * mix_at<WIDE>(ci, 5)))
+        near |= 1ull << ci;
+    }
+    while (near) {
+      const int ci = __ffsll((long long)near) - 1;
+      near &= near - 1ull;
+      const float qx = yx - mix_at<WIDE>(ci, 0), qy = yy - mix_at<WIDE>(ci, 1);
+      q = q + mix_at<WIDE>(ci, 3) * expf(-(qx * qx + qy * qy) /
+                                         mix_at<WIDE>(ci, 5)) /
+                  mix_at<WIDE>(ci, 6);
+    }
+  } else {
+    for (int ci = 0; ci < C.n_mix; ++ci) {
+      const float qx = yx - mix_at<WIDE>(ci, 0), qy = yy - mix_at<WIDE>(ci, 1);
+      q = q + mix_at<WIDE>(ci, 3) * expf(-(qx * qx + qy * qy) /
+                                         mix_at<WIDE>(ci, 5)) /
+                  mix_at<WIDE>(ci, 6);
+    }
   }
   // an on-boundary walker samples a hemisphere: double its density
   const float m_ob = ob ? F(2.0) : F(1.0);
@@ -1605,6 +1655,403 @@ __device__ __forceinline__ bool walk_step(Lane& L, const Launch& K) {
   return true;
 }
 
+// ---- the chain_phases builds' step: the chain's wall work in full warps --
+
+// site (a), on a lane standing on the wall: the Robin chord mass
+// c = 4 gamma J(r), the radius r shrunk until |c| <= 1/2 (walk_step.inc's
+// arithmetic, for the chain)
+template <bool TERMS>
+__device__ __forceinline__ void chord_mass(float px, float py, float nx,
+                                           float ny, float rmin, float sbar,
+                                           float& r, float& c_mag) {
+  float glx0, gly0;
+  grad_log_alpha<TERMS>(px, py, glx0, gly0);
+  const float gamma0 = F(-0.5) * (nx * glx0 + ny * gly0);
+  const float g_eff = fmaxf(fabsf(gamma0), C.gamma_floor);
+  float chord_j = chord_integral(r, sbar);
+  c_mag = F(4.0) * g_eff * chord_j;
+  for (int k = 0; k < 4; ++k) {
+    if (c_mag > F(0.5)) {
+      r = fmaxf(rmin, r * (F(0.5) / fmaxf(c_mag, F(1e-12))));
+      chord_j = chord_integral(r, sbar);
+      c_mag = F(4.0) * g_eff * chord_j;
+    }
+  }
+  c_mag = fminf(c_mag, F(0.9));
+}
+
+// site (b), on a lane that reaches the wall at (hx, hy) with the inward
+// normal (hnx, hny): the Robin wall-arrival factor 1 + gamma rho / cos(phi)
+template <bool TERMS>
+__device__ __forceinline__ float arrival_factor(float hx, float hy,
+                                                float hnx, float hny,
+                                                float dx, float dy,
+                                                float t_hit, float r,
+                                                float sbar) {
+  float glx, gly;
+  grad_log_alpha<TERMS>(hx, hy, glx, gly);
+  const float gamma = F(-0.5) * (hnx * glx + hny * gly);
+  const float cosphi = fmaxf(-(dx * hnx + dy * hny), C.arrival_clamp);
+  const float rho = wall_ratio(t_hit, r, sbar);
+  return F(1.0) + gamma * rho / cosphi;
+}
+
+// site (c), on a wall lane that branches: the chord continuation to
+// z = x + zeta t_hat with the weight 2 gamma(z) G_s / p_mix / q; returns
+// the lane's new atten, z and alpha(z)
+template <bool TABLE, bool TERMS>
+__device__ __forceinline__ void chord_branch(float px, float py, float nx,
+                                             float ny, float r, float sbar,
+                                             uint32_t base, uint32_t sid,
+                                             float a_p, float atten_pre,
+                                             float q_c, float& atten,
+                                             float& zx, float& zy,
+                                             float& a_z) {
+  const float u10 = uni(base, sid, 10), u11 = uni(base, sid, 11);
+  const float q_scr = sqrtf(fmaxf(sbar, F(1e-12)));
+  const float side = u10 < F(0.5) ? F(-1.0) : F(1.0);
+  const float v = fabsf(F(2.0) * u10 - F(1.0));
+  const float u2 = fabsf(F(2.0) * u11 - F(1.0));
+  const float z_log = r * fmaxf(v * u2, F(1e-12));
+  const float trunc = F(1.0) - expf(-q_scr * r);
+  const float z_exp = -logf(fmaxf(F(1.0) - v * trunc, F(1e-12))) / q_scr;
+  const float az = fminf(u11 < F(0.5) ? z_log : z_exp, r);
+  const float zeta = side * az;
+  const float p_log = -logf(fmaxf(az / r, F(1e-12))) / (F(2.0) * r);
+  const float p_exp =
+      q_scr * expf(-q_scr * az) / (F(2.0) * fmaxf(trunc, F(1e-12)));
+  const float p_mix = F(0.5) * (p_log + p_exp);
+  const float g_ch = fmaxf(screened_greens(az, r, sbar), F(0.0));
+  float t_cx, t_cy, s_lo, s_hi;
+  chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);
+  zx = px + zeta * t_cx;
+  zy = py + zeta * t_cy;
+  float glxz, glyz;
+  grad_log_alpha<TERMS>(zx, zy, glxz, glyz);
+  const float gamma_z = F(-0.5) * (nx * glxz + ny * glyz);
+  a_z = alpha_c<TERMS>(zx, zy);
+  float w_ch = F(2.0) * gamma_z * g_ch / fmaxf(p_mix, F(1e-30)) *
+               sqrtf(a_z / a_p);
+  if (!(zeta >= s_lo && zeta <= s_hi)) w_ch = F(0.0);
+  atten = atten_pre * w_ch / fmaxf(q_c, F(1e-6));
+}
+
+// the block's queue of wall work, in the repack loop's stash (free within
+// a step): entry k in column k. Rows 0-5 hold the chord mass's entries
+// (x, n, r, sigma_bar in; r and c out in rows 4 and 5); rows 6-14 and the
+// two int rows the second queue's: the branches from column 0 up (x, n,
+// r, sigma_bar, alpha_p, atten, q and the hash base and stream in; atten,
+// z and alpha_z out in rows 6-9), the arrivals from the last column down
+// (the hit, its normal, the direction, t_hit, r, sigma_bar in; the
+// factor out in row 6). Each counter is zeroed after the barrier that
+// ends its queue's work, and taken again only after the other queue's
+// first barrier.
+struct WallQueue {
+  float (*f)[REPACK_THREADS];
+  int (*w)[REPACK_THREADS];
+  unsigned int* n;  // chord masses, branches, arrivals
+};
+
+// the queues' three counters (a template: only the chain_phases builds
+// hold them)
+template <bool>
+__device__ __forceinline__ unsigned int* wall_counts() {
+  __shared__ unsigned int n[3];
+  return n;
+}
+static_assert(LANE_FLOATS >= 15 && LANE_INTS >= 2, "the queue's rows");
+
+// One iteration of a lane of a chain_phases build: walk_step.inc's
+// iteration for the chain with MIS and delta tracking and without the
+// freeze, in three phases that every thread of the block runs, with or
+// without a lane (`on`) and whether or not its lane banks. A lane that
+// stands on the wall queues its chord mass after the first; one that
+// branches queues its chord branch, and one that reaches the wall
+// without branching its arrival factor, after the second; the block's
+// threads then run the queued entries, one a thread, so the wall work
+// that one lane in a warp used to hold the whole warp for runs in full
+// warps. Every entry runs walk_step.inc's arithmetic on the lane's own
+// values, so the lane's result is the same bit for bit. The arrival
+// factor of a branching lane and the collision or edge move of a
+// branching lane are not computed: the branch overwrites them.
+template <bool MAJ, bool TABLE, bool TRANSPORT, bool WIDE, bool GRID,
+          bool TERMS>
+__device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
+                                                bool on,
+                                                const WallQueue& Q) {
+  const int t = threadIdx.x;
+  float &px = L.px, &py = L.py, &nx = L.nx, &ny = L.ny, &atten = L.atten;
+  float(&acc)[MAX_SRC] = L.acc;
+  float(&asum)[MAX_SRC] = L.asum;
+  float(&asq)[MAX_SRC] = L.asq;
+  int &quota = L.quota, &steps = L.steps, &ndone = L.ndone, &life = L.life;
+  bool& ob = L.ob;
+  float &tn = L.tn, &tw = L.tw, &wmax = L.wmax, &bmax = L.bmax;
+  float& a_cur = L.a_cur;
+  [[maybe_unused]] const int lane = L.lane;
+  const uint32_t sid = L.sid;
+  const int n_src = K.n_src;
+  const uint32_t seed = K.seed;
+  const float rmin = K.rmin, t_min = K.t_min;
+
+  // ---- 1. bank a finished walk, or the star radius and the majorant
+  bool go = on;  // the lane takes a step in this iteration
+  uint32_t ctr = 0u, base = 0u;
+  float u1 = F(0.0), u4 = F(0.0), r = F(0.0), sbar = K.sigma_bar;
+  if (go) {
+    ctr = (uint32_t)ndone * (uint32_t)(K.max_steps + 2) + (uint32_t)steps;
+    base = hash_base(seed, ctr);
+    u1 = uni(base, sid, 1);
+    u4 = uni(base, sid, 4);
+    float cx, cy;
+    const float dD = closest_point<TABLE>(px, py, cx, cy);
+    const bool done_eps = dD <= K.eps;
+    if (done_eps || steps >= K.max_steps) {
+      // bank the walk, then recycle the slot into its next walk
+      float bx = (C.project && done_eps) ? cx : px;
+      float by = (C.project && done_eps) ? cy : py;
+      float g_bc;
+      if constexpr (GRID)
+        g_bc = grid_value(bx, by) * atten;
+      else
+        g_bc = field_value<TERMS>(F_BC, bx, by) * atten;
+      float bank_mag = F(0.0);
+      if constexpr (WIDE) {
+#pragma unroll 1
+        for (int i = 0; i < n_src; ++i) {
+          float contrib = C.wacc[i][lane] + g_bc;
+          C.wasum[i][lane] = C.wasum[i][lane] + contrib;
+          C.wasq[i][lane] = C.wasq[i][lane] + contrib * contrib;
+          bank_mag = fmaxf(bank_mag, fabsf(contrib));
+          C.wacc[i][lane] = F(0.0);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < MAX_SRC; ++i) {
+          if (i < n_src) {
+            float contrib = acc[i] + g_bc;
+            asum[i] = asum[i] + contrib;
+            asq[i] = asq[i] + contrib * contrib;
+            bank_mag = fmaxf(bank_mag, fabsf(contrib));
+            acc[i] = F(0.0);
+          }
+        }
+      }
+      bmax = fmaxf(bmax, bank_mag);
+      ndone += 1;
+      quota -= 1;
+      if (!done_eps && fabsf(atten) > F(0.0)) {
+        tn = tn + F(1.0);
+        tw = tw + fabsf(atten);
+      }
+      px = L.p0x;
+      py = L.p0y;
+      atten = F(1.0);
+      if (K.snap) {
+        ob = L.ob0;
+        nx = L.n0x;
+        ny = L.n0y;
+      } else {
+        ob = false;
+      }
+      steps = 0;
+      a_cur = L.a_p0;
+      go = false;
+    } else {
+      // the star radius stops at the nearest silhouette vertex
+      r = fmaxf(rmin, C.n_vert > 0 ? fminf(dD, silhouette<TABLE>(px, py))
+                                   : dD);
+      if constexpr (MAJ) {
+        const float d_far = majorant_distance(px, py);
+        const float rB = fminf(r, d_far);
+        if (d_far >= rmin && fminf(rB, C.mfp_bg) > fminf(r, C.mfp_gl)) {
+          r = rB;
+          sbar = C.sb_bg;
+        }
+      }
+    }
+  }
+
+  // ---- the chord mass of the lanes on the wall, one a thread
+  float c_mag = F(0.0);
+  const bool mass = go && ob;
+  int slot = 0;
+  if (mass) {
+    slot = (int)atomicAdd(&Q.n[0], 1u);
+    Q.f[0][slot] = px, Q.f[1][slot] = py, Q.f[2][slot] = nx;
+    Q.f[3][slot] = ny, Q.f[4][slot] = r, Q.f[5][slot] = sbar;
+  }
+  if (__syncthreads_count(mass) > 0) {
+    if (t < (int)Q.n[0]) {
+      float r_t = Q.f[4][t], c_t;
+      chord_mass<TERMS>(Q.f[0][t], Q.f[1][t], Q.f[2][t], Q.f[3][t], rmin,
+                        Q.f[5][t], r_t, c_t);
+      Q.f[4][t] = r_t;
+      Q.f[5][t] = c_t;
+    }
+    __syncthreads();
+    if (t == 0) Q.n[0] = 0u;
+    if (mass) {
+      r = Q.f[4][slot];
+      c_mag = Q.f[5][slot];
+    }
+  }
+
+  // ---- 2. direction, first hit, screened radius, MIS NEE, the move
+  bool hit = false, branch = false, edge_hit = false, new_ob = false;
+  float hnx = F(0.0), hny = F(0.0), scale = F(0.0), newx = F(0.0);
+  float newy = F(0.0), a_next = F(0.0), q_c = F(0.0);
+  if (go) {
+    // one sin/cos pair: free direction at 2 phi, hemisphere at phi
+    const float phi = F(3.141592653589793) * u1;
+    const float cphi = cosf(phi), sphi = sinf(phi);
+    float dx = F(1.0) - F(2.0) * sphi * sphi;
+    float dy = F(2.0) * sphi * cphi;
+    float hx, hy, t_hit = r;
+    if (C.n_neu > 0) {
+      if (ob) {
+        const float cb = sphi, sb = -cphi;
+        const float hdx = nx * cb - ny * sb;
+        const float hdy = ny * cb + nx * sb;
+        dx = hdx;
+        dy = hdy;
+      }
+      const float tmw = ob ? t_min : F(0.0);
+      float fnx, fny, hxs, hys;
+      const float t_best =
+          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
+      hit = t_best <= r;
+      if (hit) {
+        t_hit = t_best;
+        const bool flip = (fnx * dx + fny * dy) > F(0.0);
+        hnx = flip ? -fnx : fnx;
+        hny = flip ? -fny : fny;
+        hx = hxs;
+        hy = hys;
+      } else {
+        hx = px + r * dx;
+        hy = py + r * dy;
+      }
+    } else {
+      hx = px + r * dx;
+      hy = py + r * dy;
+    }
+    float w_rej;
+    float r_s;
+    if constexpr (TRANSPORT)
+      r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);
+    else
+      r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
+    atten = atten * w_rej;
+    const bool beyond = r_s > t_hit;
+    const float sx = beyond ? hx : px + r_s * dx;
+    const float sy = beyond ? hy : py + r_s * dy;
+    const float a_p = a_cur;
+    const float a_s = alpha_c<TERMS>(sx, sy);
+    // source-directed MIS NEE toward the mixture
+    float yx, yy;
+    float w_mis = mis_nee<true, TABLE, WIDE, true>(
+        base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, ob, t_min,
+        yx, yy);
+    const float a_y = alpha_c<TERMS>(yx, yy);
+    w_mis = w_mis / sqrtf(a_y * a_p) * atten;
+    add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
+
+    const bool interior = u4 < interior_prob(r, sbar);
+    const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
+    // chord continuation along the wall: branch with q = min(1/2, |c|)
+    q_c = fminf(F(0.5), c_mag);
+    branch = ob && uni(base, sid, 9) < q_c && q_c > F(1e-6);
+    if (branch) {
+      slot = (int)atomicAdd(&Q.n[1], 1u);
+      Q.f[6][slot] = px, Q.f[7][slot] = py, Q.f[8][slot] = nx;
+      Q.f[9][slot] = ny, Q.f[10][slot] = r, Q.f[11][slot] = sbar;
+      Q.f[12][slot] = a_p, Q.f[13][slot] = atten, Q.f[14][slot] = q_c;
+      Q.w[0][slot] = (int)base, Q.w[1][slot] = (int)sid;
+    } else {
+      if (collide) {
+        // signed null-collision factor: no zero clamp
+        scale = sqrtf(a_s / a_p) * (F(1.0) - sigma_prime<TERMS>(sx, sy) / sbar);
+        newx = sx;
+        newy = sy;
+        a_next = a_s;
+      } else {
+        const float a_h = alpha_c<TERMS>(hx, hy);
+        scale = sqrtf(a_h / a_p);
+        newx = hx;
+        newy = hy;
+        a_next = a_h;
+      }
+      new_ob = hit && !collide;
+      edge_hit = new_ob;
+      if (edge_hit) {
+        slot = REPACK_THREADS - 1 - (int)atomicAdd(&Q.n[2], 1u);
+        Q.f[6][slot] = hx, Q.f[7][slot] = hy, Q.f[8][slot] = hnx;
+        Q.f[9][slot] = hny, Q.f[10][slot] = dx, Q.f[11][slot] = dy;
+        Q.f[12][slot] = t_hit, Q.f[13][slot] = r, Q.f[14][slot] = sbar;
+      }
+    }
+  }
+
+  // ---- the branches and the arrival factors, one a thread
+  if (__syncthreads_count(branch || edge_hit) > 0) {
+    if (t < (int)Q.n[1]) {
+      float a_br, zx, zy, a_z;
+      chord_branch<TABLE, TERMS>(
+          Q.f[6][t], Q.f[7][t], Q.f[8][t], Q.f[9][t], Q.f[10][t], Q.f[11][t],
+          (uint32_t)Q.w[0][t], (uint32_t)Q.w[1][t], Q.f[12][t], Q.f[13][t],
+          Q.f[14][t], a_br, zx, zy, a_z);
+      Q.f[6][t] = a_br, Q.f[7][t] = zx, Q.f[8][t] = zy, Q.f[9][t] = a_z;
+    } else if (t >= REPACK_THREADS - (int)Q.n[2]) {
+      Q.f[6][t] = arrival_factor<TERMS>(Q.f[6][t], Q.f[7][t], Q.f[8][t],
+                                        Q.f[9][t], Q.f[10][t], Q.f[11][t],
+                                        Q.f[12][t], Q.f[13][t], Q.f[14][t]);
+    }
+    __syncthreads();
+    if (t == 0) Q.n[1] = 0u, Q.n[2] = 0u;
+  }
+
+  // ---- 3. the lane's weight and move
+  if (go) {
+    if (branch) {
+      atten = Q.f[6][slot];
+      newx = Q.f[7][slot];
+      newy = Q.f[8][slot];
+      a_next = Q.f[9][slot];
+      new_ob = true;
+    } else {
+      if (edge_hit) scale = scale * Q.f[6][slot];
+      atten = atten * scale;
+      // the other wall lanes pay 1 / (1 - q)
+      if (ob && q_c > F(1e-6)) atten = atten * (F(1.0) / (F(1.0) - q_c));
+    }
+    if (C.clip) {  // max_attenuation, symmetric: chord weights can be < 0
+      const float m = C.max_att;
+      atten = atten > m ? m : (atten < -m ? -m : atten);
+    }
+    px = newx;
+    py = newy;
+    ob = new_ob;
+    if (hit && !branch) {  // a chord stays on its own wall
+      nx = hnx;
+      ny = hny;
+    }
+    steps += 1;
+    if (C.roulette) {
+      const float thr = C.roulette_thr;
+      const float u_r = uni(hash_base(seed ^ 0x0F1E2D3Cu, ctr), sid, 1);
+      if (fabsf(atten) < thr) {
+        const bool survive = u_r * thr < fabsf(atten);
+        atten = survive ? (atten < F(0.0) ? -thr : thr) : F(0.0);
+        if (!survive) steps = K.max_steps;
+      }
+    }
+    life += 1;
+    wmax = fmaxf(wmax, fabsf(atten));
+    a_cur = a_next;
+  }
+}
+
 // a lane's registers to (PUT) or from its slot of the block's shared
 // stash (word-major: a warp's threads touch consecutive words)
 template <bool WIDE, bool PUT>
@@ -1659,7 +2106,7 @@ __device__ unsigned int next_lane;
 // memory into the block's lowest threads whenever that frees a warp (in
 // lane order), and threads without a lane wait at the barriers.
 template <int ROBIN, bool MAJ, bool MIS, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS>
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS, bool CHAIN>
 __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
                                               float freeze_thr) {
   __shared__ float s_f[LANE_FLOATS][REPACK_THREADS];
@@ -1684,6 +2131,9 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
   Lane L;
   bool live = false, more = budget > 0;  // more: the pool may hold lanes
   int n = 0, packed = REPACK_THREADS;    // live lanes, threads in use
+  if constexpr (CHAIN) {  // zero before the first refill's barriers
+    if (t < 3) wall_counts<true>()[t] = 0u;
+  }
   for (;;) {
     if (more && REPACK_THREADS - n >= REPACK_REFILL) {
       const unsigned int free = REPACK_THREADS - n;
@@ -1700,7 +2150,18 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
         }
       }
     }
-    if (live) {
+    if constexpr (CHAIN) {
+      // every thread runs the step's phases, with a lane or without
+      const WallQueue Q = {s_f, s_w, wall_counts<true>()};
+      for (int k = 0; k < REPACK_STEPS; ++k) {
+        const bool was = live;
+        if (live) ++L.it;
+        walk_step_chain<MAJ, TABLE, TRANSPORT, WIDE, GRID, TERMS>(L, K, live,
+                                                                  Q);
+        live = live && L.it < budget && L.quota > 0;
+        if (was && !live) store_lane<WIDE>(L, K.n_src);
+      }
+    } else if (live) {
       for (int k = 0; k < REPACK_STEPS && live; ++k) {
         ++L.it;
         live = walk_step<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE,
@@ -1718,6 +2179,7 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
       live = t < n;
       if (live) stash_lane<WIDE, false>(L, t, s_f, s_w);
       packed = n;
+      if constexpr (CHAIN) __syncthreads();  // the stash: the next queue
     }
   }
 }
@@ -1727,16 +2189,19 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
           bool TRANSPORT, bool WIDE = false, bool GRID = false,
           bool TERMS_FORM = false>
-__global__ void __launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)
+__global__ void __launch_bounds__(repacked(ROBIN, MIS, FREEZE)
+                                      ? REPACK_THREADS
+                                      : THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
   static_assert(walk_rules::valid_variant(ROBIN, MAJ, MIS, FREEZE, TABLE,
                                           DELTA, TRANSPORT, TERMS_FORM),
                 "not a switch combination the TPU kernel traces");
   constexpr bool TERMS =
       TERMS_FORM || terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
-  if constexpr (FREEZE) {
+  if constexpr (repacked(ROBIN, MIS, FREEZE)) {
     walk_repacked<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE, GRID,
-                  TERMS>(n_lanes, budget, freeze_thr);
+                  TERMS, chain_phases(ROBIN, MIS, FREEZE)>(n_lanes, budget,
+                                                           freeze_thr);
   } else {
     // one thread per lane for the whole launch (its own loads and stores,
     // not load_lane/store_lane: routed through the Lane struct, the
@@ -1827,9 +2292,10 @@ constexpr int BUILT[10] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
                            WALK_TRANSPORT, WALK_WIDE,     WALK_GRID,
                            WALK_TERMS};
 
-// threads (and lanes) per block: the FREEZE builds' repack loop, one
-// thread per lane in the others
-constexpr int BLOCK = WALK_FREEZE ? REPACK_THREADS : THREADS;
+// the repack loop runs the freeze and chain_phases builds (walk_variant.h),
+// one thread per lane the others; threads (and lanes) per block
+constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, WALK_FREEZE != 0);
+constexpr int BLOCK = REPACKED ? REPACK_THREADS : THREADS;
 
 void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
                   float thr) {
@@ -1856,8 +2322,8 @@ extern "C" int walk_switches(int* out, int n) {
 extern "C" int walk_schedule(int* out, int n) {
   if (n != 3) return (int)cudaErrorInvalidValue;
   out[0] = BLOCK;
-  out[1] = WALK_FREEZE ? REPACK_STEPS : 0;
-  out[2] = WALK_FREEZE ? REPACK_REFILL : 0;
+  out[1] = REPACKED ? REPACK_STEPS : 0;
+  out[2] = REPACKED ? REPACK_REFILL : 0;
   return 0;
 }
 
@@ -2092,8 +2558,8 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     if (e != cudaSuccess) return (int)e;
   }
   if (n_lanes > 0 && budget > 0) {
-    if (WALK_FREEZE) {  // the repack loop's pool starts at lane 0 (the
-                        // current card's, as the constant block above)
+    if (REPACKED) {  // the repack loop's pool starts at lane 0 (the
+                     // current card's, as the constant block above)
       static const unsigned int zero = 0;
       e = cudaMemcpyToSymbolAsync(next_lane, &zero, sizeof zero, 0,
                                   cudaMemcpyHostToDevice, st);

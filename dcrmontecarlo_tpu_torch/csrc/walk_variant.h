@@ -50,6 +50,22 @@ WALK_HD constexpr bool valid_variant(int robin, bool maj, bool mis,
          !(terms_form && terms_fields(robin, maj, mis, freeze, table, delta));
 }
 
+// the variants whose Robin chain runs its wall work in full warps: the
+// chain and MIS without the freeze (the sharded flagship, the notebook
+// line, their table, TERMS, grid and transport forms). They step in the
+// repack loop, and their chord mass, wall-arrival weight and chord branch
+// go through a queue in the block's shared memory (csrc/walk_kernel.cu,
+// walk_step_chain; ops/walk_kernel.py::chain_phases holds the same rule)
+WALK_HD constexpr bool chain_phases(int robin, bool mis, bool freeze) {
+  return robin == ROBIN_CHAIN && mis && !freeze;
+}
+
+// the variants that run the repack loop (walk_repacked): the freeze
+// builds and chain_phases'; the others run one thread a lane
+WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze) {
+  return freeze || chain_phases(robin, mis, freeze);
+}
+
 }  // namespace walk_rules
 
 #endif  // WALK_VARIANT_H

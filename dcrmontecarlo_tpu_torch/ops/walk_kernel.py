@@ -173,6 +173,23 @@ def terms_fields(variant) -> bool:
             and robin != ROBIN_REFLECTANCE)
 
 
+def chain_phases(variant) -> bool:
+    """Whether the variant ``variant`` runs the Robin chain's wall work in
+    full warps (``csrc/walk_variant.h::chain_phases``): the chain and MIS
+    without the freeze. Its chord mass, wall-arrival weight and chord
+    branch go through a queue in the block's shared memory of the repack
+    loop, bit for bit the one-thread loop's results."""
+    robin, _, mis, freeze = _switches(variant)[:4]
+    return robin == ROBIN_CHAIN and mis and not freeze
+
+
+def repacked(variant) -> bool:
+    """Whether ``variant`` runs the repack loop (``walk_variant.h::
+    repacked``): the freeze builds and :func:`chain_phases`'; the others
+    run one thread a lane for the whole launch."""
+    return _switches(variant)[3] or chain_phases(variant)
+
+
 def variant_fault(variant) -> Optional[str]:
     """Why ``variant`` is not a switch combination the JAX kernel traces,
     with the reference's reason; None for a valid one

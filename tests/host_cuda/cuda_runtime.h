@@ -2,8 +2,8 @@
 // csrc/walk_kernel.cu for the tests: the qualifiers defined away, the
 // constant copy as memcpy, and blocks run by host threads. The kernel's
 // launch (`<<<...>>>`) is cut out of the source by the test that uses it,
-// which may put host_launch in its place: one std::thread per CUDA
-// thread, a block at a time, the thread indices thread-local, __shared__
+// which may put host_launch in its place: a std::thread per CUDA thread
+// of a block, a block at a time, the thread indices thread-local, __shared__
 // variables static (one block runs at a time), and __syncthreads /
 // __syncthreads_count a barrier over the block's threads. Warp-level
 // primitives are not emulated.
@@ -14,6 +14,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <atomic>
 #include <condition_variable>
 #include <mutex>
 #include <thread>
@@ -56,28 +57,41 @@ static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 static inline unsigned int atomicAdd(unsigned int* p, unsigned int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+static inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 
 // the running block's barrier: every thread of the block arrives, then
 // all leave together with the count of those that arrived with a true
-// predicate
+// predicate. A waiting thread yields a few times, then sleeps until the
+// last one arrives (a block's threads outnumber the cores, and a
+// lock-and-notify barrier alone costs every thread a wake-up)
 struct host_block_barrier {
+  int threads = 0, result = 0;
+  std::atomic<int> waiting{0}, count{0};
+  std::atomic<unsigned long> generation{0};
   std::mutex m;
   std::condition_variable cv;
-  int threads = 0, waiting = 0, count = 0, result = 0;
-  unsigned long generation = 0;
   int arrive(int pred) {
-    std::unique_lock<std::mutex> lock(m);
-    const unsigned long gen = generation;
-    count += pred != 0;
-    if (++waiting == threads) {
-      result = count;
-      count = 0;
-      waiting = 0;
-      ++generation;
+    const unsigned long gen = generation.load(std::memory_order_acquire);
+    if (pred) count.fetch_add(1, std::memory_order_relaxed);
+    if (waiting.fetch_add(1, std::memory_order_acq_rel) + 1 == threads) {
+      result = count.load(std::memory_order_relaxed);
+      count.store(0, std::memory_order_relaxed);
+      waiting.store(0, std::memory_order_relaxed);
+      {
+        std::lock_guard<std::mutex> lock(m);
+        generation.store(gen + 1, std::memory_order_release);
+      }
       cv.notify_all();
       return result;
     }
-    cv.wait(lock, [&] { return generation != gen; });
+    for (int k = 0; k < 64; ++k) {
+      if (generation.load(std::memory_order_acquire) != gen) return result;
+      std::this_thread::yield();
+    }
+    std::unique_lock<std::mutex> lock(m);
+    cv.wait(lock, [&] {
+      return generation.load(std::memory_order_acquire) != gen;
+    });
     return result;
   }
 };
@@ -88,22 +102,25 @@ static inline int __syncthreads_count(int pred) {
   return host_barrier->arrive(pred);
 }
 
-// runs `body` as `grid` blocks of `block` threads, one block at a time
+// runs `body` as `grid` blocks of `block` threads, one block at a time:
+// `block` host threads take the blocks in turn, and a block ends at a
+// barrier before the next begins
 template <class F>
 static void host_launch(int grid, int block, F body) {
-  for (int b = 0; b < grid; ++b) {
-    host_block_barrier bar;
-    bar.threads = block;
-    host_barrier = &bar;
-    std::vector<std::thread> threads;
-    threads.reserve(block);
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&body, b, t] {
+  host_block_barrier bar;
+  bar.threads = block;
+  host_barrier = &bar;
+  std::vector<std::thread> threads;
+  threads.reserve(block);
+  for (int t = 0; t < block; ++t)
+    threads.emplace_back([&body, &bar, grid, t] {
+      threadIdx = host_dim3{(unsigned)t, 0, 0};
+      for (int b = 0; b < grid; ++b) {
         blockIdx = host_dim3{(unsigned)b, 0, 0};
-        threadIdx = host_dim3{(unsigned)t, 0, 0};
         body();
-      });
-    for (auto& th : threads) th.join();
-    host_barrier = nullptr;
-  }
+        bar.arrive(0);
+      }
+    });
+  for (auto& th : threads) th.join();
+  host_barrier = nullptr;
 }

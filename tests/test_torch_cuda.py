@@ -44,7 +44,11 @@ switch combination: the twelve variants of ``chip_smoke.py``'s sweep, one
 launch each, and the survey with the split through the host loop; and
 the freeze builds' repack loop (the flagship and the grid flagship) in
 the cases of ``chip_smoke.py::REPACK_CASES``, and the flagship's freeze
-build launched on two cards in turns (two cards, else it skips).
+build launched on two cards in turns (two cards, else it skips); and the
+chain + MIS builds without the freeze (the sharded flagship's and the
+notebook line's), whose chain's wall work runs from a queue, in the cases
+of ``chip_smoke.py::CHAIN_CASES`` against the same builds with the
+one-thread loop (bit for bit) and the plain walk.
 """
 
 import os
@@ -63,7 +67,8 @@ from dcrmontecarlo_tpu_torch.problems import Problem, fields
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
 from dcrmontecarlo_tpu_torch.solver.state import state_planes
 from dcrmontecarlo_tpu_torch.survey import survey_default_options
-from chip_smoke import REPACK_CASES, repack_case, repack_schedule
+from chip_smoke import CHAIN_CASES, REPACK_CASES, chain_case, \
+    repack_case, repack_schedule
 
 pytestmark = pytest.mark.cuda
 
@@ -641,6 +646,100 @@ def test_repacked_freeze_build_matches_plain(device, which, case):
     torch.cuda.synchronize()
     assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
     wk.walk_plain(plain, params, budget, freeze_thr=thr)
+    _compare(kern, plain, state_planes(params.n_src))
+    moved = (kern["life"] - start["life"]) + (kern["ndone"] - start["ndone"])
+    assert 0 < int(moved.max()) <= budget
+
+
+def _chain_build(device, which):
+    """The chain + MIS builds without the freeze at 8,192 lanes: the
+    sharded flagship's switches on the notebook survey, or the notebook
+    line's 18 sources and 19 components (the wide form). Returns the
+    solver, points, max_steps and eps."""
+    from dcrmontecarlo_tpu_torch.survey.dcr import _line_problem
+
+    survey, el = notebook_survey()
+    survey.source_mis = True
+    if which == "flagship_no_freeze":
+        survey.local_majorant = "auto"
+        return WoStSolver(survey.build_problem(), survey_default_options(
+            target_slots=8192), device=device), \
+            np.asarray(el, np.float32), 6000, 1.0
+    prob, pts, _, _ = _line_problem(survey, el, 8)
+    return WoStSolver(prob, SolverOptions(
+        target_slots=8192, common_random_numbers=True), device=device), \
+        pts, 6000, 1.0
+
+
+@pytest.fixture(scope="module")
+def one_thread_chain(tmp_path_factory):
+    """``variant: library`` of the chain + MIS builds with the one-thread
+    loop in place of the repack loop, built by ``nvcc`` from a copy of the
+    source (``tests/host_cuda/host_walk.py::ONE_THREAD``)."""
+    import shutil
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from host_cuda.host_walk import ONE_THREAD
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = tmp_path_factory.mktemp("one_thread_csrc")
+    shutil.copytree(wk._SRC.parent, src, dirs_exist_ok=True)
+    text = (src / "walk_kernel.cu").read_text()
+    for old, new in ONE_THREAD:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    (src / "walk_kernel.cu").write_text(text)
+    variants = [(1, True, True, False, False, True, False, False, False),
+                (1, False, True, False, False, True, False, True, False)]
+
+    def build(v):
+        out = src / f"one_thread_{wk.variant_code(v)}.so"
+        subprocess.run([wk._nvcc(), *wk.NVCC_FLAGS, *wk.variant_macros(v),
+                        "-o", str(out), str(src / "walk_kernel.cu")],
+                       check=True, capture_output=True)
+        return out
+
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        paths = dict(zip(variants, pool.map(build, variants)))
+    return paths
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+@pytest.mark.parametrize("which", ["flagship_no_freeze", "wide_line"])
+def test_chain_phases_build_matches_one_thread_and_plain(
+        device, which, case, one_thread_chain, monkeypatch):
+    # the chain + MIS builds without the freeze (walk_variant.h::
+    # chain_phases) queue the chain's wall work: bit for bit the
+    # one-thread loop's result, and the plain walk's by compare_planes,
+    # with a block all on the wall, none on it, one lane on it, and
+    # budgets about a round's length
+    solver, pts, ms, eps = _chain_build(device, which)
+    state, params, _, _ = solver._setup(pts, 8192, ms, eps, 3)
+    assert wk.chain_phases(params.variant)
+    assert params.wide == (which == "wide_line")
+    wk.walk_plain(state, params, 100)
+    block, steps, _ = repack_schedule(
+        wk._library(wk._canonical(params.variant)))
+    start, budget = chain_case(state, case, block, steps)
+    kern, one, plain = ({k: v.clone() for k, v in start.items()}
+                        for _ in range(3))
+    launches = wk.run_walk.variant_launches[params.kernel_name]
+    wk.run_walk(kern, params, budget)
+    torch.cuda.synchronize()
+    assert wk.run_walk.variant_launches[params.kernel_name] == launches + 1
+    # the same build with one thread a lane
+    monkeypatch.setattr(wk, "_library_path", lambda v: one_thread_chain[
+        tuple(params.variant)])
+    lib = wk._library.__wrapped__(wk._canonical(params.variant))
+    monkeypatch.setattr(wk, "_library", lambda v: lib)
+    wk.run_walk(one, params, budget)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for k in state_planes(params.n_src):
+        assert torch.equal(kern[k], one[k]), k
+    wk.walk_plain(plain, params, budget)
     _compare(kern, plain, state_planes(params.n_src))
     moved = (kern["life"] - start["life"]) + (kern["ndone"] - start["ndone"])
     assert 0 < int(moved.max()) <= budget

@@ -16,19 +16,14 @@ a block with one steppable lane and without a threshold; and 16 one-step
 launches equal one 16-step launch, bit for bit.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-
 import pytest
 import torch
 
 import chip_smoke as cs
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
 from dcrmontecarlo_tpu_torch.solver import WoStSolver
-from dcrmontecarlo_tpu_torch.solver.state import CONST_PLANES, \
-    SNAP_PLANES, state_planes
+from dcrmontecarlo_tpu_torch.solver.state import state_planes
+from host_cuda.host_walk import load, start_build
 
 torch.set_num_threads(1)
 
@@ -37,83 +32,21 @@ FLAGSHIP = (wk.ROBIN_CHAIN, True, True, True, False, True, False, False,
 SPEC = cs.sweep_spec(("flagship", FLAGSHIP, dict(
     robin="chain", majorant=True, mis=True, split=4.0)))
 THR = 4.0
-SRC = wk._SRC.read_text()
-
-
-def _host_source(one_thread=False):
-    """The kernel's source with its launch run by ``host_launch``; with
-    ``one_thread`` the freeze build runs the one-thread-per-lane loop of
-    the other builds instead of the repack loop (as before the repack)."""
-    src = SRC
-    if one_thread:
-        for old, new in (("  if constexpr (FREEZE) {\n    walk_repacked",
-                          "  if constexpr (false) {\n    walk_repacked"),
-                         ("BLOCK = WALK_FREEZE ? REPACK_THREADS : THREADS;",
-                          "BLOCK = THREADS;")):
-            assert src.count(old) == 1, old
-            src = src.replace(old, new)
-    start = src.index("  walk_kernel<WALK_ROBIN")
-    end = src.index("(n_lanes, budget, thr);") + len("(n_lanes, budget, thr);")
-    launch = src[start:end]
-    m = re.search(r"<<<\s*(\w+)\s*,\s*(\w+)\s*,[^>]*>>>", launch)
-    call = " ".join(launch.replace(m.group(0), "").split())
-    return src.replace(launch, f"  host_launch({m.group(1)}, {m.group(2)}, "
-                               f"[&] {{ {call} }});")
-
-
-def _build(tmp, one_thread):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler")
-    name = "one_thread" if one_thread else "repacked"
-    unit = tmp / f"walk_kernel_{name}.cpp"
-    unit.write_text(_host_source(one_thread))
-    so = tmp / f"walk_kernel_{name}.so"
-    here = wk._SRC.parents[2] / "tests" / "host_cuda"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", "-I", str(here), "-I",
-                    str(wk._SRC.parent), *wk.variant_macros(FLAGSHIP),
-                    "-o", str(so), str(unit)], check=True, timeout=300)
-    return ctypes.CDLL(str(so))
-
-
-def _walk(lib):
-    def walk(state, params, budget, thr):
-        assert params.variant == FLAGSHIP
-        fp, ip = params.pack()
-        ptrs = [None] * len(wk._PLANE_ORDER)
-        names = set(CONST_PLANES) | set(state_planes(params.n_src))
-        names |= set(SNAP_PLANES) if params.snap else set()
-        for n in names:
-            assert state[n].is_contiguous()
-            ptrs[wk._PLANE_INDEX[n]] = state[n].data_ptr()
-        geom = [t.data_ptr() if t.numel() else None
-                for t in params.device_tables("cpu")] or [None] * 3
-        geom.append(None)  # no grid
-        err = lib.walk_launch(
-            ctypes.c_void_p(fp.ctypes.data), len(fp),
-            ctypes.c_void_p(ip.ctypes.data), len(ip),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
-            state["px"].numel(), budget, ctypes.c_float(thr),
-            (ctypes.c_void_p * 4)(*geom), 4, None)
-        assert err == 0
-        return state
-    # the launch's schedule as the library exports it
-    walk.schedule = cs.repack_schedule(lib)
-    return walk
 
 
 @pytest.fixture(scope="module")
 def host_walk(tmp_path_factory):
     """``walk(state, params, budget, thr)``: one launch of the host-built
     flagship variant on CPU planes, in place."""
-    return _walk(_build(tmp_path_factory.mktemp("host_repack"), False))
+    return load(start_build(tmp_path_factory.mktemp("host_repack"),
+                            FLAGSHIP, False), FLAGSHIP)
 
 
 @pytest.fixture(scope="module")
 def one_thread_walk(tmp_path_factory):
     """The same with one thread a lane for the whole launch."""
-    return _walk(_build(tmp_path_factory.mktemp("host_one_thread"), True))
+    return load(start_build(tmp_path_factory.mktemp("host_one_thread"),
+                            FLAGSHIP, True), FLAGSHIP)
 
 
 @pytest.fixture(scope="module")

@@ -184,11 +184,13 @@ int main() {
   for (int c = 0; c < 3 * 512; ++c) {
     const int r = c / 512, b = c % 512;
     auto bit = [&](int k) { return ((b >> k) & 1) != 0; };
-    std::printf("%d %d %d\n", c,
+    std::printf("%d %d %d %d %d\n", c,
                 walk_rules::valid_variant(r, bit(0), bit(1), bit(2), bit(3),
                                           bit(4), bit(5), bit(8)),
                 walk_rules::terms_fields(r, bit(0), bit(1), bit(2), bit(3),
-                                         bit(4)));
+                                         bit(4)),
+                walk_rules::chain_phases(r, bit(1), bit(2)),
+                walk_rules::repacked(r, bit(1), bit(2)));
   }
 }
 """
@@ -197,7 +199,8 @@ int main() {
 def test_kernel_instantiations_match_python(tmp_path):
     # csrc/walk_variant.h's rules, compiled by the host compiler, agree
     # with ops/walk_kernel.py's on all 3 x 2^8 switch tuples (and their
-    # TERMS forms): 400 valid variants, 368 TERMS forms; every valid one
+    # TERMS forms), the loop rules (chain_phases, repacked) too: 400 valid
+    # variants, 368 TERMS forms; every valid one
     # is in KERNEL_VARIANTS under its own code, and the unit builds only
     # with its switches given
     import shutil
@@ -216,11 +219,13 @@ def test_kernel_instantiations_match_python(tmp_path):
                          text=True, timeout=60).stdout.split("\n")
     n_valid, n_terms, codes = 0, 0, set()
     for line in filter(None, out):
-        c, valid, terms = (int(v) for v in line.split())
+        c, valid, terms, chain, repack = (int(v) for v in line.split())
         r, b = divmod(c, 512)  # robin, the eight switches, the TERMS form
         variant = (r,) + tuple(bool((b >> k) & 1) for k in range(9))
         assert valid == wk.valid_variant(variant), variant
         assert terms == wk.terms_fields(variant), variant
+        assert chain == wk.chain_phases(variant), variant
+        assert repack == wk.repacked(variant), variant
         if valid:
             canon = wk._canonical(variant)
             assert canon in wk.KERNEL_VARIANTS
