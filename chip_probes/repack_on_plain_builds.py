@@ -59,14 +59,17 @@ import chip_smoke as cs  # noqa: E402
 from repack_tuning import WORK, build, use  # noqa: E402
 
 # the repack loop for every build
-FORCE = (("  if constexpr (repacked(ROBIN, MIS, FREEZE)) {\n    walk_repacked",
-          "  if constexpr (true) {\n    walk_repacked"),
-         ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE)\n"
+FORCE = (("  if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {"
+          "\n    walk_repacked", "  if constexpr (true) {\n    walk_repacked"),
+         ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE, TABLE,\n"
+          "                                           TERMS_FORM)\n"
           "                                      ? REPACK_THREADS\n"
           "                                      : THREADS)",
           "__launch_bounds__(REPACK_THREADS)"),
-         ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
-          "WALK_FREEZE != 0);", "constexpr bool REPACKED = true;"))
+         ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,\n"
+          "                                   WALK_FREEZE != 0, WALK_TABLE != 0,"
+          "\n                                   WALK_TERMS != 0);",
+          "constexpr bool REPACKED = true;"))
 TURNS = ("one_thread", "repack", "repack", "one_thread")
 
 

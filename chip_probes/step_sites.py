@@ -6,7 +6,8 @@ sites of ``csrc/walk_step.inc`` on some lanes only: the Robin chain's
 chord mass on lanes standing on the wall, the wall-arrival weight on
 lanes that hit it, the chord branch; the bank of a finished walk; MIS
 next-event estimation (its star test and its mixture pdf apart), the
-sources at its sample, the first hit, the screened radius. This probe
+sources at its sample (with MIS or without), the first hit, the screened
+radius and its rejection sampler's redraw rounds. This probe
 copies a checkout's ``csrc/`` (``TREE``, default this one) under
 ``_archive/step_sites/`` and brackets each site with ``clock64()``: the
 group of a warp's lanes that enters a site is timed by its slowest lane
@@ -20,7 +21,7 @@ lane-iterations. The shipped source is never touched.
 
 In a tree whose build rule sends a variant to another loop, the copy is
 switched back to the one-thread loop first (``ONE_THREAD``), so a later
-tree measures the same code as its parent. Three builds at their full-size
+tree measures the same code as its parent. Four builds at their full-size
 states (seed 5, fresh walks):
 
 - ``line``: ``chip_smoke.py`` phase 30's notebook pseudosection, the wide
@@ -29,14 +30,19 @@ states (seed 5, fresh walks):
 - ``flagship_shard``: phase 38's sharded flagship, shard 0 of 4,
   ``<1,true,true,false,false,true,false>``, 172,032 lanes;
 - ``accuracy``: phase 11's accuracy path, the chain + majorant
-  ``<1,true,false,false,false,true,false>``, 688,128 lanes.
+  ``<1,true,false,false,false,true,false>``, 688,128 lanes, 2 rejection
+  rounds;
+- ``varcoeff``: phase 26's variable coefficients, the chain on a
+  ``TERMS`` alpha ``<1,false,false,false,false,true,false>``, 667,648
+  working lanes, 64 rejection rounds.
 
 For each: 256 steps of the tree's own build (best of 3), of the
 instrumented copy (best of 3; its counters from one more run), the site
 table, and whether the instrumented end planes equal the tree's own.
-Writes ``chiprun_out/step_sites.json``.
+Writes ``chiprun_out/step_sites.json``. Names after ``TREE`` pick
+some of the builds.
 
-    python3 chip_probes/step_sites.py [TREE]
+    python3 chip_probes/step_sites.py [TREE [NAME ...]]
 """
 
 import ctypes
@@ -56,7 +62,8 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from dcrmontecarlo_tpu_torch.models import notebook_survey  # noqa: E402
+from dcrmontecarlo_tpu_torch.models import notebook_survey, \
+    varcoeff_solve_points, variable_coefficient_problem  # noqa: E402
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
 from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
     make_mesh  # noqa: E402
@@ -71,10 +78,12 @@ WORK = ROOT / "_archive" / "step_sites"
 # the sites, in the order of their counters; LOOP is each warp's loop,
 # ITER counts iterations (warps in the cycle sum, lanes in the lane sum)
 SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
-         "RADIUS", "MIS", "STAR", "PDF", "ADD", "ARRIVAL", "BRANCH")
-# the disjoint sites of a step (STAR and PDF lie inside MIS)
+         "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
+         "BRANCH")
+# the disjoint sites of a step (REDRAW lies inside RADIUS, STAR and PDF
+# inside MIS)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
-       "ARRIVAL", "BRANCH")
+       "NEE", "ARRIVAL", "BRANCH")
 SLOTS = 512
 
 PRELUDE = r"""
@@ -161,6 +170,13 @@ STEP_EDITS = (
      "        SITE_BEGIN(ADD)\n"
      "        add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);\n"
      "        SITE_END(ADD)\n      }\n"),
+    ("          const float w_src =\n"
+     "              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;\n"
+     "          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);\n",
+     "          SITE_BEGIN(NEE)\n          const float w_src =\n"
+     "              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;\n"
+     "          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);\n"
+     "          SITE_END(NEE)\n"),
     ("          if (hit) {\n            // Robin wall-arrival weight",
      "          if (hit) {\n            SITE_BEGIN(ARRIVAL)\n"
      "            // Robin wall-arrival weight"),
@@ -175,6 +191,31 @@ STEP_EDITS = (
      "          } else if (q_c > F(1e-6)) {\n"),
 )
 KERNEL_EDITS = (
+    ("// ---- screened-radius rejection",
+     "%PRELUDE%\n// ---- screened-radius rejection"),
+    ("  for (int i = 1; i < rounds && !acc; ++i) {\n"
+     "    candidate(q, seed, ctr, sid, (uint32_t)(i + 1), x, s, ua);\n"
+     "    A = accept_prob(q, x, s);\n"
+     "    bool is_final = i >= rounds - 1;\n"
+     "    if (ua < A || is_final) {\n"
+     "      s_cur = s;\n"
+     "      w_r = is_final ? A / a_rate : F(1.0);\n"
+     "      acc = true;\n"
+     "    }\n"
+     "  }\n",
+     "  if (rounds > 1 && !acc) {  // the lanes that rejected round 0\n"
+     "  SITE_BEGIN(REDRAW)\n"
+     "  for (int i = 1; i < rounds && !acc; ++i) {\n"
+     "    candidate(q, seed, ctr, sid, (uint32_t)(i + 1), x, s, ua);\n"
+     "    A = accept_prob(q, x, s);\n"
+     "    bool is_final = i >= rounds - 1;\n"
+     "    if (ua < A || is_final) {\n"
+     "      s_cur = s;\n"
+     "      w_r = is_final ? A / a_rate : F(1.0);\n"
+     "      acc = true;\n"
+     "    }\n"
+     "  }\n"
+     "  SITE_END(REDRAW)\n  }\n"),
     ("  if (C.n_neu > 0)  // a wall between x and y blocks the sample\n"
      "    in_star = in_ball &&\n"
      "              !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,\n"
@@ -197,8 +238,6 @@ KERNEL_EDITS = (
     ("#undef WALK_FROZEN\n    }\n\n    P.px[lane] = px;\n",
      "#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
      "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n"),
-    ("// ---- source-directed MIS next-event estimation",
-     "%PRELUDE%\n// ---- source-directed MIS next-event estimation"),
 )
 # a tree whose rule sends these builds to another loop: back to the
 # one-thread loop (the anchors that exist are replaced, each once)
@@ -211,6 +250,17 @@ ONE_THREAD = (
      "  if constexpr (FREEZE) {"),
     ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
      "WALK_FREEZE != 0);", "constexpr bool REPACKED = WALK_FREEZE != 0;"),
+    ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE, TABLE,\n"
+     "                                           TERMS_FORM)\n"
+     "                                      ? REPACK_THREADS\n"
+     "                                      : THREADS)",
+     "__launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)"),
+    ("  if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {",
+     "  if constexpr (FREEZE) {"),
+    ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,\n"
+     "                                   WALK_FREEZE != 0, WALK_TABLE != 0,\n"
+     "                                   WALK_TERMS != 0);",
+     "constexpr bool REPACKED = WALK_FREEZE != 0;"),
 )
 
 
@@ -287,6 +337,10 @@ def groups(dev):
     accuracy = acc_survey.make_solver(survey_default_options(
         target_slots=1 << 21, min_quota=32), device=dev)
     out["accuracy"] = accuracy._setup(nb_pts, 1 << 20, 6000, 1.0, 5)[:2]
+    varcoeff = WoStSolver(variable_coefficient_problem(), SolverOptions(
+        target_slots=1 << 21, max_attenuation=50.0), device=dev)
+    out["varcoeff"] = varcoeff._setup(varcoeff_solve_points(), 4096, 500,
+                                      1e-3, 5)[:2]
     return out
 
 
@@ -348,6 +402,7 @@ def site_shares(path, state, params):
 
 def main():
     tree = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT
+    names = sys.argv[2:]
     dev = torch.device("cuda", 0)
     card = subprocess.run(cs.NVSMI_QUERY, capture_output=True,
                           text=True).stdout.strip()
@@ -355,7 +410,7 @@ def main():
     csrc = tree / "dcrmontecarlo_tpu_torch" / "csrc"
     sources = {"own": csrc,
                "sites": instrumented_source(csrc, WORK / "csrc_sites")}
-    made = groups(dev)
+    made = {k: v for k, v in groups(dev).items() if k in names or not names}
     variants = {p.variant for _, p in made.values()}
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:

@@ -32,14 +32,14 @@ line:
    variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
    phases 40-41's two, the sweep's twelve), one ``nvcc`` process per
    CPU at a time; at the end, no library was built after it and as many
-   were loaded. The freeze builds and the chain + MIS builds without the
+   were loaded. The freeze builds and the chain builds without the
    freeze (``walk_variant.h::repacked``) run the repack loop
    (``csrc/walk_kernel.cu``, ``walk_repacked``): its block size, round
    length and refill threshold are printed with each such build's
    registers, shared memory and blocks on the card at once, and the
    phase fails if the flagship's or the grid flagship's build spills.
-   Beside them, phases 30 and 38's two variants with site clocks in the
-   one-thread loop (``chip_probes/step_sites.py``);
+   Beside them, phases 11, 26, 30 and 38's four variants with site clocks
+   in the one-thread loop (``chip_probes/step_sites.py``);
 3. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    survey problem with its default options (``walk_kernel.compare_planes``:
    every plane agrees on >= 99% of lanes to rel 1e-4 above a floor of
@@ -78,8 +78,10 @@ line:
     3 timed solves as in phase 6, then 256
     steps of kernel and plain version at that state, timed and held to
     the rule of phase 3 (on the first 147,456 lanes if the plain version
-    would take over 30 s). The accuracy variant's record takes its
-    numbers from here; the reflectance fold with the majorant and the
+    would take over 30 s), the variant's registers and its step's sites'
+    shares (the site clocks of phase 2). The accuracy variant's record
+    takes its numbers from here; the reflectance fold with the majorant
+    and the
     majorant alone, which no path launches, get their times and bounds
     from the same state (a log line each, no record).
 12. kernel vs plain version, one 32-step launch at 8,192 lanes of the
@@ -182,7 +184,9 @@ line:
     max_attenuation=50.0)`` (667,648 working lanes), max_steps 500: a
     warm-up and 3 timed solves (rates, occupancy, truncated share, the
     Robin mode ``"auto"`` resolves to), every solve finite with
-    ``max |mean| < 5``.
+    ``max |mean| < 5``; then 256 steps of kernel and plain version at that
+    state as in phase 11 (the variant's record), its registers and its
+    step's sites' shares.
 27. kernel vs plain version, one launch of each new instantiation: 256
     steps from a fresh 8,192-lane state, held to phase 3's rule and timed:
     MIS without delta tracking on the square of
@@ -535,9 +539,9 @@ def repack_case(state, case, thr, schedule):
                "budget_64": 64}[case], thr
 
 
-# the cases in which the chain + MIS builds' queued wall work is held to
-# the one-thread loop and the plain walk (tests/test_torch_host_chain_
-# phases.py on the CPU, tests/test_torch_cuda.py on the card): a block
+# the cases in which the chain builds' queued wall work is held to the
+# one-thread loop and the plain walk (tests/test_torch_host_chain_
+# phases*.py on the CPU, tests/test_torch_cuda.py on the card): a block
 # whose every lane stands on the wall, one in which none does, one with
 # a single wall lane, and budgets of one iteration and one past one and
 # two rounds
@@ -919,14 +923,17 @@ PATH_VARIANTS = tuple((v[0],) + tuple(bool(f) for f in v[1:]) + (False,) * (
     (1, 1, 1, 1, 0, 1, 0, 0, 1)))
 
 
-# the chain + MIS builds without the freeze that phases 30 and 38 run, whose
-# step's warp-cycles they break down by site with the one-thread loop's
-# site clocks (chip_probes/step_sites.py; its builds start in phase 2)
+# the chain builds without the freeze that phases 30, 38 (with MIS), 11
+# and 26 (without) run, whose step's warp-cycles they break down by site
+# with the one-thread loop's site clocks (chip_probes/step_sites.py; its
+# builds start in phase 2)
 SITE_VARIANTS = ((1, False, True, False, False, True, False, True, False),
-                 (1, True, True, False, False, True, False, False, False))
+                 (1, True, True, False, False, True, False, False, False),
+                 (1, True, False, False, False, True, False, False, False),
+                 (1, False, False, False, False, True, False, False, False))
 SITE_BUILDS = {}   # variant code: the instrumented library's build
 SITES_SHOWN = ("CHORD_MASS", "ARRIVAL", "BRANCH", "MIS", "PDF", "STAR", "ADD",
-               "RADIUS", "BANK", "other")
+               "NEE", "RADIUS", "REDRAW", "BANK", "other")
 
 
 def start_site_builds(wk, pool):
@@ -1913,8 +1920,8 @@ def main():
         f": {len(built)} built in {build_s:.1f} s ({os.cpu_count()} nvcc "
         f"processes at a time), {len(libs) - len(built)} found there; "
         f"ptxas registers per variant: {regs}")
-    # the freeze builds and the chain + MIS builds without the freeze run
-    # the repack loop; the flagship's and the grid flagship's must not
+    # the freeze builds and the chain builds without the freeze run the
+    # repack loop; the flagship's and the grid flagship's must not
     # spill (ptxas picks the others' registers, and several of those spill
     # a few words, as some one-thread builds do)
     report = ptxas_report(build_log)
@@ -1936,9 +1943,10 @@ def main():
     resident = {k: resident_blocks(schedules[k][0], *r, sms)
                 for k, r in freeze.items()}
     resources = {k: (*r, resident[k]) for k, r in sorted(freeze.items())}
-    log(f"[2] the {len(freeze)} freeze and chain + MIS builds run the "
-        f"repack loop (as their libraries export it; the chain + MIS ones "
-        f"with the chain's wall work queued): {schedule[0]} threads a "
+    log(f"[2] the {len(freeze)} freeze and chain builds run the "
+        f"repack loop (as their libraries export it; the chain builds "
+        f"without the freeze with the chain's wall work queued): "
+        f"{schedule[0]} threads a "
         f"block, rounds of {schedule[1]} "
         f"iterations, a block refills from the launch's pool when "
         f"{schedule[2]} threads are free (the others one thread a lane, "
@@ -2177,6 +2185,10 @@ def main():
         f"({t11['plain_ms'] / t11['ms']:.1f}x); worst plane agreement "
         f"{t11['worst']:.5f}, max |err| on agreeing lanes "
         f"{t11['max_err']:.3g} ({card})")
+    log(f"[11] {params.kernel_name}: {regs.get(params.kernel_name)} "
+        f"registers; sites' shares of the one-thread loop's warp-cycles "
+        f"(256 steps, site clocks): {site_shares(wk, state, params)} "
+        f"({card})")
     records.append(kernel_record(
         params, "robin_chain+local_majorant",
         f11["counts"][params.kernel_name], t11, regs, tolerance))
@@ -2928,6 +2940,17 @@ def main():
         f"{[round(v, 4) for v in f26['share']]}, launches of the warm-up "
         f"solve {f26['counts']}, max |mean| "
         f"{float(np.abs(f26['warm'].mean).max()):.4g} ({card})")
+    t26 = steps_256(wk, state, p26, "phase 26", subset=True)
+    log(f"[26] 256 steps x {t26['lanes']} lanes"
+        f"{' (plain 16 steps took %.0f ms)' % t26['t16'] if t26['t16'] else ''}"
+        f": kernel {t26['ms']:.3f} ms, plain {t26['plain_ms']:.3f} ms; "
+        f"worst plane agreement {t26['worst']:.5f}; {p26.kernel_name}: "
+        f"{regs.get(p26.kernel_name)} registers; sites' shares of the "
+        f"one-thread loop's warp-cycles (256 steps, site clocks): "
+        f"{site_shares(wk, state, p26)} ({card})")
+    records.append(kernel_record(
+        p26, "robin_chain+terms_fields", f26["counts"][p26.kernel_name], t26,
+        regs, tolerance))
 
     # ---- the survey products: the pseudosection, the E-field, the -------
     # ---- sensitivity maps and the Jacobian (phases 27-31) ----------------
@@ -3555,7 +3578,7 @@ def main():
             f"against a bound of {b_ms:.4f} ms ({b_by}) for {steps_} "
             f"walker-steps")
     log(f"[guard] phase 6 {f6['rate']:.6g} (earlier runs: 6.51e9-6.64e9), "
-        f"phase 11 {f11['rate']:.6g} (earlier runs: 1.033e9-1.046e9) "
+        f"phase 11 {f11['rate']:.6g} (earlier runs: 3.17e9-3.25e9) "
         f"walker-steps/s; survey "
         f"registers {regs.get(wk.kernel_name(survey_full[2].variant))}")
 

@@ -104,9 +104,9 @@
 // memory.
 //
 // Which loop a build runs is a build-time rule (walk_variant.h::repacked,
-// ops/walk_kernel.py::repacked): the freeze builds and the chain + MIS
-// builds without the freeze (chain_phases) run the repack loop, every
-// other build one thread per lane.
+// ops/walk_kernel.py::repacked): the freeze builds and the chain builds
+// without the freeze (chain_phases) run the repack loop, every other
+// build one thread per lane.
 //
 // - One thread per lane for the whole launch,
 //   `for (i < budget && quota > 0)`. A lane whose quota drains exits on
@@ -146,21 +146,27 @@
 //   latency-bound; refilling keeps the SM's warps full until the pool is
 //   empty. A launch still lasts at least its longest lane's iterations at
 //   one lane's latency.
-// - The chain + MIS builds without the freeze (the sharded flagship, the
-//   notebook line, and their table, TERMS, grid and transport forms):
-//   the repack loop at thr = +inf, and the step in phases that the whole
-//   block runs (walk_step_chain). The chain's wall work (the chord mass
-//   of a lane on the wall, the wall-arrival factor of a lane that reaches
-//   it, the chord branch) ran on ~5% of the lanes but held nearly every
-//   warp, ~20% of the loop's warp-cycles (chip_probes/step_sites.py). A
-//   lane that needs it writes its inputs to a queue in the block's shared
-//   memory (the repack stash, free within a step; the slot from a shared
-//   atomic); after a barrier the block's threads run the entries one a
-//   thread, and after a second each lane reads its results back. Every
-//   entry runs walk_step.inc's arithmetic on the lane's own values, so
-//   the result is the one-thread loop's bit for bit. The same builds sum
-//   the MIS mixture pdf over the components near the sample only
-//   (mis_nee's NEAR: a far component's term is exactly +0).
+// - The chain builds without the freeze (walk_variant.h::chain_phases):
+//   with MIS the sharded flagship, the notebook line and their table,
+//   TERMS, grid and transport forms; without MIS the accuracy path, the
+//   variable coefficients and their grid and transport forms (the table
+//   form and the TERMS forms without MIS ran slower so and keep one
+//   thread a lane): the repack loop at thr = +inf, and the step in
+//   phases that the whole block runs (walk_step_chain). The chain's wall
+//   work (the chord mass of a lane on the wall, the wall-arrival factor
+//   of a lane that reaches it, the chord branch) ran on 5-7% of the lanes
+//   but held nearly every warp, 19-32% of the loop's warp-cycles
+//   (chip_probes/step_sites.py). A lane that needs it writes its inputs
+//   to a queue in the block's shared memory (the repack stash, free
+//   within a step; the slot from a shared atomic); after a barrier the
+//   block's threads run the entries one a thread, and after a second
+//   each lane reads its results back. Every entry runs walk_step.inc's
+//   arithmetic on the lane's own values, so the result is the one-thread
+//   loop's bit for bit. The builds with MIS sum the mixture pdf over the
+//   components near the sample only (mis_nee's NEAR: a far component's
+//   term is exactly +0); those without run the one-thread loop's NEE at
+//   the sample on the lane, and queue the rejection sampler's redraw
+//   rounds where they loop (redraw_queued).
 // - The one-thread loop stays for the rest: the short walk lost 10% on
 //   the repack loop (chip_probes/repack_on_plain_builds.py), and builds
 //   without the chain have no wall work to queue.
@@ -1099,6 +1105,65 @@ __device__ float screened_radius(float R, float sb, uint32_t seed,
   return fminf(fmaxf(s_cur, F(0.0)), F(1.0)) * R;
 }
 
+// screened_radius in three parts, its arithmetic in its order, for the
+// chain_phases builds that queue the redraw rounds (walk_step_chain):
+// round 0 on the lane (whether it accepted, the weight so far), the
+// redraw rounds of a lane that rejected it on any thread (a round's draws
+// depend only on seed, ctr, sid and the round), and the radius. Apart
+// from screened_radius, so that the builds that call it keep their code.
+__device__ __forceinline__ bool radius_round0(float R, float sb,
+                                              uint32_t seed, uint32_t ctr,
+                                              uint32_t sid, int rounds,
+                                              Rej& q, float& a_rate,
+                                              float& s_round0, float& w_r) {
+  q.z = fmaxf(R * sqrtf(sb), F(1e-12));
+  q.small = q.z < F(2.0);
+  q.k0e_z = k0e(q.z);
+  q.i0e_z = i0e(q.z);
+  float p_ii = one_minus_inv_i0_scaled(q.z, q.i0e_z);
+  a_rate = fmaxf(q.small ? F(4.0) * p_ii / (q.z * q.z) : p_ii, F(1e-12));
+  float x, s, ua;
+  candidate(q, seed, ctr, sid, 0u, x, s, ua);
+  s_round0 = s;
+  float A = accept_prob(q, x, s);
+  if (rounds == 1) {
+    w_r = A / a_rate;  // pure importance sampling
+    return true;
+  }
+  w_r = F(1.0);
+  return ua < A;
+}
+
+// the redraw rounds of a lane that rejected round 0: s and w_r of the
+// first accepted (the last round always is)
+__device__ __forceinline__ void radius_redraws(const Rej& q, float a_rate,
+                                               uint32_t seed, uint32_t ctr,
+                                               uint32_t sid, int rounds,
+                                               float& s_cur, float& w_r) {
+  bool acc = false;
+  for (int i = 1; i < rounds && !acc; ++i) {
+    float x, s, ua;
+    candidate(q, seed, ctr, sid, (uint32_t)(i + 1), x, s, ua);
+    float A = accept_prob(q, x, s);
+    bool is_final = i >= rounds - 1;
+    if (ua < A || is_final) {
+      s_cur = s;
+      w_r = is_final ? A / a_rate : F(1.0);
+      acc = true;
+    }
+  }
+}
+
+__device__ __forceinline__ float radius_finish(float R, float z,
+                                               float s_round0, float s_cur,
+                                               float& w_r) {
+  if (z < F(1e-3)) {  // below any screening: round 0's unscreened draw
+    s_cur = s_round0;
+    w_r = F(1.0);
+  }
+  return fminf(fmaxf(s_cur, F(0.0)), F(1.0)) * R;
+}
+
 // ---- the screened radius by the transport map ---------------------------
 // (sampling/radial.py::sample_screened_radius_transport): one 4-uniform
 // draw (the rejection's round-0 streams), loop-free. For z = R sqrt(sb) <=
@@ -1412,11 +1477,11 @@ __device__ __forceinline__ float mix_at(int c, int k) {
 // ball's screened Green's function and its norm, without it ln(R/r) /
 // (2 pi) and R^2 / 4 (:956-961)
 //
-// NEAR (the chain_phases builds) sums the mixture pdf over the components
-// near y only: a component with |y - c|^2 > 128 (2 w^2) has an exponent of
-// -128 or less, whose expf is +0 on the card (chip_probes/
-// chain_phases_ab.py checks every float at or below -128), so its term is +0
-// and leaving it out changes no bit of q; the others add in component
+// NEAR (the chain_phases builds with MIS) sums the mixture pdf over the
+// components near y only: a component with |y - c|^2 > 128 (2 w^2) has an
+// exponent of -128 or less, whose expf is +0 on the card (chip_probes/
+// chain_phases_ab.py checks every float at or below -128), so its term is
+// +0 and leaving it out changes no bit of q; the others add in component
 // order. A lane evaluates its own near components (a few of 19 on the
 // notebook line), not those of the whole warp.
 template <bool DELTA, bool TABLE, bool WIDE, bool NEAR = false>
@@ -1743,9 +1808,10 @@ __device__ __forceinline__ void chord_branch(float px, float py, float nx,
 // r, sigma_bar, alpha_p, atten, q and the hash base and stream in; atten,
 // z and alpha_z out in rows 6-9), the arrivals from the last column down
 // (the hit, its normal, the direction, t_hit, r, sigma_bar in; the
-// factor out in row 6). Each counter is zeroed after the barrier that
-// ends its queue's work, and taken again only after the other queue's
-// first barrier.
+// factor out in row 6); rows 15-18 and int rows 2-4 the redraw queue's
+// (walk_step_chain, the builds without MIS and the majorant). Each
+// counter is zeroed after the barrier that ends its queue's work, and
+// taken again only after another queue's first barrier.
 struct WallQueue {
   float (*f)[REPACK_THREADS];
   int (*w)[REPACK_THREADS];
@@ -1759,23 +1825,41 @@ __device__ __forceinline__ unsigned int* wall_counts() {
   __shared__ unsigned int n[3];
   return n;
 }
-static_assert(LANE_FLOATS >= 15 && LANE_INTS >= 2, "the queue's rows");
+
+// the chain_phases builds that queue the rejection sampler's redraw
+// rounds (walk_step_chain): those without MIS, the transport map and the
+// majorant
+__host__ __device__ constexpr bool redraw_queued(bool maj, bool mis,
+                                                  bool transport) {
+  return !maj && !mis && !transport;
+}
+
+// the redraw queue's counter (only the redraw_queued builds hold it)
+template <bool>
+__device__ __forceinline__ unsigned int& redraw_count() {
+  __shared__ unsigned int n;
+  return n;
+}
+static_assert(LANE_FLOATS >= 19 && LANE_INTS >= 5, "the queues' rows");
 
 // One iteration of a lane of a chain_phases build: walk_step.inc's
-// iteration for the chain with MIS and delta tracking and without the
-// freeze, in three phases that every thread of the block runs, with or
-// without a lane (`on`) and whether or not its lane banks. A lane that
-// stands on the wall queues its chord mass after the first; one that
-// branches queues its chord branch, and one that reaches the wall
-// without branching its arrival factor, after the second; the block's
-// threads then run the queued entries, one a thread, so the wall work
-// that one lane in a warp used to hold the whole warp for runs in full
-// warps. Every entry runs walk_step.inc's arithmetic on the lane's own
-// values, so the lane's result is the same bit for bit. The arrival
+// iteration for the chain with delta tracking, with MIS or without, and
+// without the freeze, in three phases that every thread of the block runs,
+// with or without a lane (`on`) and whether or not its lane banks. A lane
+// that stands on the wall queues its chord mass after the first; one that
+// branches queues its chord branch, and one that reaches the wall without
+// branching its arrival factor, after the second; the block's threads then
+// run the queued entries, one a thread, so the wall work that one lane in
+// a warp used to hold the whole warp for runs in full warps. Without MIS,
+// the transport map and the majorant, where the rejection sampler runs
+// more than two rounds, a lane whose screened radius rejected its round-0
+// draw queues its redraw rounds too, between the chord mass and the
+// second phase. Every entry runs walk_step.inc's arithmetic on the lane's
+// own values, so the lane's result is the same bit for bit. The arrival
 // factor of a branching lane and the collision or edge move of a
 // branching lane are not computed: the branch overwrites them.
-template <bool MAJ, bool TABLE, bool TRANSPORT, bool WIDE, bool GRID,
-          bool TERMS>
+template <bool MAJ, bool MIS, bool TABLE, bool TRANSPORT, bool WIDE,
+          bool GRID, bool TERMS>
 __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
                                                 bool on,
                                                 const WallQueue& Q) {
@@ -1897,7 +1981,57 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
     }
   }
 
-  // ---- 2. direction, first hit, screened radius, MIS NEE, the move
+  // ---- the screened radius of the builds without MIS, the transport
+  // map or the majorant, where its redraw rounds loop (more than two
+  // rounds; the same on every thread): round 0 on the lane, the redraw
+  // rounds of the lanes that rejected it one a thread (float rows 15-18
+  // and int rows 2-4: z, k0e_z, i0e_z, a_rate, the small-z flag, ctr and
+  // sid in; s and w_r out in rows 15 and 16). At two rounds a rejecting
+  // lane runs one round on its lane: the queue's barriers cost more than
+  // that round; and the majorant build (the accuracy path, at two rounds)
+  // ran 4% slower with the queue's code compiled in (PERF.md, section 6).
+  constexpr bool REDRAW = redraw_queued(MAJ, MIS, TRANSPORT);
+  const bool redraw_queue = REDRAW && C.rounds > 2;
+  float r_q = F(0.0), w_q = F(1.0);
+  if constexpr (REDRAW) {
+    if (redraw_queue) {
+      Rej q = {};
+      float a_rate = F(0.0), s_round0 = F(0.0);
+      bool redraw = false;
+      if (go) {
+        redraw = !radius_round0(r, sbar, seed, ctr, sid, C.rounds, q,
+                                a_rate, s_round0, w_q);
+        if (redraw) {
+          slot = (int)atomicAdd(&redraw_count<true>(), 1u);
+          Q.f[15][slot] = q.z, Q.f[16][slot] = q.k0e_z;
+          Q.f[17][slot] = q.i0e_z, Q.f[18][slot] = a_rate;
+          Q.w[2][slot] = q.small ? 1 : 0, Q.w[3][slot] = (int)ctr;
+          Q.w[4][slot] = (int)sid;
+        }
+      }
+      float s_cur = s_round0;
+      if (__syncthreads_count(redraw) > 0) {
+        if (t < (int)redraw_count<true>()) {
+          const Rej qt = {Q.f[15][t], Q.f[16][t], Q.f[17][t],
+                          Q.w[2][t] != 0};
+          float s_t = F(0.0), w_t = F(0.0);
+          radius_redraws(qt, Q.f[18][t], seed, (uint32_t)Q.w[3][t],
+                         (uint32_t)Q.w[4][t], C.rounds, s_t, w_t);
+          Q.f[15][t] = s_t;
+          Q.f[16][t] = w_t;
+        }
+        __syncthreads();
+        if (t == 0) redraw_count<true>() = 0u;
+        if (redraw) {
+          s_cur = Q.f[15][slot];
+          w_q = Q.f[16][slot];
+        }
+      }
+      if (go) r_q = radius_finish(r, q.z, s_round0, s_cur, w_q);
+    }
+  }
+
+  // ---- 2. direction, first hit, screened radius, NEE, the move
   bool hit = false, branch = false, edge_hit = false, new_ob = false;
   float hnx = F(0.0), hny = F(0.0), scale = F(0.0), newx = F(0.0);
   float newy = F(0.0), a_next = F(0.0), q_c = F(0.0);
@@ -1936,11 +2070,11 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
       hx = px + r * dx;
       hy = py + r * dy;
     }
-    float w_rej;
-    float r_s;
+    float w_rej = w_q;
+    float r_s = r_q;  // the redraw queue's radius
     if constexpr (TRANSPORT)
       r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);
-    else
+    else if (!redraw_queue)
       r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, w_rej);
     atten = atten * w_rej;
     const bool beyond = r_s > t_hit;
@@ -1948,14 +2082,20 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
     const float sy = beyond ? hy : py + r_s * dy;
     const float a_p = a_cur;
     const float a_s = alpha_c<TERMS>(sx, sy);
-    // source-directed MIS NEE toward the mixture
-    float yx, yy;
-    float w_mis = mis_nee<true, TABLE, WIDE, true>(
-        base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, ob, t_min,
-        yx, yy);
-    const float a_y = alpha_c<TERMS>(yx, yy);
-    w_mis = w_mis / sqrtf(a_y * a_p) * atten;
-    add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
+    if constexpr (MIS) {
+      // source-directed MIS NEE toward the mixture
+      float yx, yy;
+      float w_mis = mis_nee<true, TABLE, WIDE, true>(
+          base, sid, px, py, px + r_s * dx, py + r_s * dy, r, sbar, ob,
+          t_min, yx, yy);
+      const float a_y = alpha_c<TERMS>(yx, yy);
+      w_mis = w_mis / sqrtf(a_y * a_p) * atten;
+      add_sources<TERMS, WIDE>(acc, lane, n_src, yx, yy, w_mis);
+    } else if (C.has_source && !beyond) {
+      // NEE at the sample, inside the star
+      const float w_src = screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;
+      add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);
+    }
 
     const bool interior = u4 < interior_prob(r, sbar);
     const bool collide = interior && !(hit && (r_s >= t_hit - t_min));
@@ -2133,6 +2273,9 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
   int n = 0, packed = REPACK_THREADS;    // live lanes, threads in use
   if constexpr (CHAIN) {  // zero before the first refill's barriers
     if (t < 3) wall_counts<true>()[t] = 0u;
+    if constexpr (redraw_queued(MAJ, MIS, TRANSPORT)) {
+      if (t == 0) redraw_count<true>() = 0u;
+    }
   }
   for (;;) {
     if (more && REPACK_THREADS - n >= REPACK_REFILL) {
@@ -2156,8 +2299,8 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
       for (int k = 0; k < REPACK_STEPS; ++k) {
         const bool was = live;
         if (live) ++L.it;
-        walk_step_chain<MAJ, TABLE, TRANSPORT, WIDE, GRID, TERMS>(L, K, live,
-                                                                  Q);
+        walk_step_chain<MAJ, MIS, TABLE, TRANSPORT, WIDE, GRID, TERMS>(
+            L, K, live, Q);
         live = live && L.it < budget && L.quota > 0;
         if (was && !live) store_lane<WIDE>(L, K.n_src);
       }
@@ -2189,7 +2332,8 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
           bool TRANSPORT, bool WIDE = false, bool GRID = false,
           bool TERMS_FORM = false>
-__global__ void __launch_bounds__(repacked(ROBIN, MIS, FREEZE)
+__global__ void __launch_bounds__(repacked(ROBIN, MIS, FREEZE, TABLE,
+                                           TERMS_FORM)
                                       ? REPACK_THREADS
                                       : THREADS)
 walk_kernel(int n_lanes, int budget, float freeze_thr) {
@@ -2198,10 +2342,11 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
                 "not a switch combination the TPU kernel traces");
   constexpr bool TERMS =
       TERMS_FORM || terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
-  if constexpr (repacked(ROBIN, MIS, FREEZE)) {
+  if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {
     walk_repacked<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE, GRID,
-                  TERMS, chain_phases(ROBIN, MIS, FREEZE)>(n_lanes, budget,
-                                                           freeze_thr);
+                  TERMS,
+                  chain_phases(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)>(
+        n_lanes, budget, freeze_thr);
   } else {
     // one thread per lane for the whole launch (its own loads and stores,
     // not load_lane/store_lane: routed through the Lane struct, the
@@ -2294,7 +2439,9 @@ constexpr int BUILT[10] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
 
 // the repack loop runs the freeze and chain_phases builds (walk_variant.h),
 // one thread per lane the others; threads (and lanes) per block
-constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, WALK_FREEZE != 0);
+constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,
+                                   WALK_FREEZE != 0, WALK_TABLE != 0,
+                                   WALK_TERMS != 0);
 constexpr int BLOCK = REPACKED ? REPACK_THREADS : THREADS;
 
 void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,

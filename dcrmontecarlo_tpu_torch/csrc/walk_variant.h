@@ -51,19 +51,26 @@ WALK_HD constexpr bool valid_variant(int robin, bool maj, bool mis,
 }
 
 // the variants whose Robin chain runs its wall work in full warps: the
-// chain and MIS without the freeze (the sharded flagship, the notebook
-// line, their table, TERMS, grid and transport forms). They step in the
-// repack loop, and their chord mass, wall-arrival weight and chord branch
-// go through a queue in the block's shared memory (csrc/walk_kernel.cu,
-// walk_step_chain; ops/walk_kernel.py::chain_phases holds the same rule)
-WALK_HD constexpr bool chain_phases(int robin, bool mis, bool freeze) {
-  return robin == ROBIN_CHAIN && mis && !freeze;
+// chain without the freeze (the chain implies delta tracking), with MIS in
+// every form (the sharded flagship, the notebook line, their table, TERMS,
+// grid and transport forms), without MIS except in the table form and the
+// TERMS forms (the accuracy path, the variable coefficients, their
+// transport, grid and wide forms; the table form and the TERMS form
+// without MIS ran slower in the repack loop at the 8,192 lanes their
+// paths launch: PERF.md, section 6). They step in the repack loop, and their
+// chord mass, wall-arrival weight and chord branch go through a queue in
+// the block's shared memory (csrc/walk_kernel.cu, walk_step_chain;
+// ops/walk_kernel.py::chain_phases holds the same rule)
+WALK_HD constexpr bool chain_phases(int robin, bool mis, bool freeze,
+                                    bool table, bool terms_form) {
+  return robin == ROBIN_CHAIN && !freeze && (mis || !(table || terms_form));
 }
 
 // the variants that run the repack loop (walk_repacked): the freeze
 // builds and chain_phases'; the others run one thread a lane
-WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze) {
-  return freeze || chain_phases(robin, mis, freeze);
+WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze,
+                                bool table, bool terms_form) {
+  return freeze || chain_phases(robin, mis, freeze, table, terms_form);
 }
 
 }  // namespace walk_rules

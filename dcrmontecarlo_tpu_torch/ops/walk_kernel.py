@@ -175,12 +175,15 @@ def terms_fields(variant) -> bool:
 
 def chain_phases(variant) -> bool:
     """Whether the variant ``variant`` runs the Robin chain's wall work in
-    full warps (``csrc/walk_variant.h::chain_phases``): the chain and MIS
-    without the freeze. Its chord mass, wall-arrival weight and chord
-    branch go through a queue in the block's shared memory of the repack
-    loop, bit for bit the one-thread loop's results."""
-    robin, _, mis, freeze = _switches(variant)[:4]
-    return robin == ROBIN_CHAIN and mis and not freeze
+    full warps (``csrc/walk_variant.h::chain_phases``): the chain without
+    the freeze, with MIS in every form, without MIS except in the table form
+    and the TERMS forms (which ran slower so). Its chord mass, wall-arrival
+    weight and chord branch go through a queue in the block's shared
+    memory of the repack loop, bit for bit the one-thread loop's
+    results."""
+    robin, _, mis, freeze, table, *_, terms_form = _switches(variant)
+    return (robin == ROBIN_CHAIN and not freeze
+            and (mis or not (table or terms_form)))
 
 
 def repacked(variant) -> bool:

@@ -23,10 +23,12 @@ from dcrmontecarlo_tpu_torch.solver.state import CONST_PLANES, \
 
 # the kernel's loop fork, and the one-thread loop in its place
 ONE_THREAD = (
-    ("  if constexpr (repacked(ROBIN, MIS, FREEZE)) {\n    walk_repacked",
-     "  if constexpr (false) {\n    walk_repacked"),
-    ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
-     "WALK_FREEZE != 0);", "constexpr bool REPACKED = false;"))
+    ("  if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {\n"
+     "    walk_repacked", "  if constexpr (false) {\n    walk_repacked"),
+    ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,\n"
+     "                                   WALK_FREEZE != 0, WALK_TABLE != 0,\n"
+     "                                   WALK_TERMS != 0);",
+     "constexpr bool REPACKED = false;"))
 
 
 def host_source(one_thread=False):

@@ -45,9 +45,11 @@ launch each, and the survey with the split through the host loop; and
 the freeze builds' repack loop (the flagship and the grid flagship) in
 the cases of ``chip_smoke.py::REPACK_CASES``, and the flagship's freeze
 build launched on two cards in turns (two cards, else it skips); and the
-chain + MIS builds without the freeze (the sharded flagship's and the
-notebook line's), whose chain's wall work runs from a queue, in the cases
-of ``chip_smoke.py::CHAIN_CASES`` against the same builds with the
+chain builds without the freeze (with MIS: the sharded flagship's and the
+notebook line's; without it: the accuracy path's and the variable
+coefficients'), whose chain's wall work (and without MIS the rejection
+sampler's redraw rounds) runs from a queue, in the cases of
+``chip_smoke.py::CHAIN_CASES`` against the same builds with the
 one-thread loop (bit for bit) and the plain walk.
 """
 
@@ -652,11 +654,26 @@ def test_repacked_freeze_build_matches_plain(device, which, case):
 
 
 def _chain_build(device, which):
-    """The chain + MIS builds without the freeze at 8,192 lanes: the
-    sharded flagship's switches on the notebook survey, or the notebook
-    line's 18 sources and 19 components (the wide form). Returns the
-    solver, points, max_steps and eps."""
+    """The chain builds without the freeze at 8,192 lanes: the sharded
+    flagship's switches on the notebook survey, or the notebook line's 18
+    sources and 19 components (the wide form); without MIS the accuracy
+    path (the notebook survey with its majorant) and the variable
+    coefficients (the chain on a ``TERMS`` alpha, 64 rejection rounds).
+    Returns the solver, points, max_steps and eps."""
+    from dcrmontecarlo_tpu_torch.models import varcoeff_solve_points, \
+        variable_coefficient_problem
     from dcrmontecarlo_tpu_torch.survey.dcr import _line_problem
+
+    if which == "varcoeff":
+        return WoStSolver(variable_coefficient_problem(), SolverOptions(
+            target_slots=8192, max_attenuation=50.0), device=device), \
+            varcoeff_solve_points(), 500, 1e-3
+    if which == "accuracy":
+        survey, el = notebook_survey()
+        survey.local_majorant = "auto"
+        return survey.make_solver(survey_default_options(
+            target_slots=8192), device=device), \
+            np.asarray(el, np.float32), 6000, 1.0
 
     survey, el = notebook_survey()
     survey.source_mis = True
@@ -673,8 +690,9 @@ def _chain_build(device, which):
 
 @pytest.fixture(scope="module")
 def one_thread_chain(tmp_path_factory):
-    """``variant: library`` of the chain + MIS builds with the one-thread
-    loop in place of the repack loop, built by ``nvcc`` from a copy of the
+    """``variant: library`` of the chain builds without the freeze with
+    the one-thread loop in place of the repack loop, built by ``nvcc`` from
+    a copy of the
     source (``tests/host_cuda/host_walk.py::ONE_THREAD``)."""
     import shutil
     import subprocess
@@ -692,7 +710,9 @@ def one_thread_chain(tmp_path_factory):
         text = text.replace(old, new)
     (src / "walk_kernel.cu").write_text(text)
     variants = [(1, True, True, False, False, True, False, False, False),
-                (1, False, True, False, False, True, False, True, False)]
+                (1, False, True, False, False, True, False, True, False),
+                (1, True, False, False, False, True, False, False, False),
+                (1, False, False, False, False, True, False, False, False)]
 
     def build(v):
         out = src / f"one_thread_{wk.variant_code(v)}.so"
@@ -707,14 +727,15 @@ def one_thread_chain(tmp_path_factory):
 
 
 @pytest.mark.parametrize("case", CHAIN_CASES)
-@pytest.mark.parametrize("which", ["flagship_no_freeze", "wide_line"])
+@pytest.mark.parametrize("which", ["flagship_no_freeze", "wide_line",
+                                   "accuracy", "varcoeff"])
 def test_chain_phases_build_matches_one_thread_and_plain(
         device, which, case, one_thread_chain, monkeypatch):
-    # the chain + MIS builds without the freeze (walk_variant.h::
-    # chain_phases) queue the chain's wall work: bit for bit the
-    # one-thread loop's result, and the plain walk's by compare_planes,
-    # with a block all on the wall, none on it, one lane on it, and
-    # budgets about a round's length
+    # the chain builds without the freeze (walk_variant.h::chain_phases)
+    # queue the chain's wall work (and without MIS the redraw rounds): bit
+    # for bit the one-thread loop's result, and the plain walk's by
+    # compare_planes, with a block all on the wall, none on it, one lane on
+    # it, and budgets about a round's length
     solver, pts, ms, eps = _chain_build(device, which)
     state, params, _, _ = solver._setup(pts, 8192, ms, eps, 3)
     assert wk.chain_phases(params.variant)

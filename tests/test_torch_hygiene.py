@@ -189,8 +189,8 @@ int main() {
                                           bit(4), bit(5), bit(8)),
                 walk_rules::terms_fields(r, bit(0), bit(1), bit(2), bit(3),
                                          bit(4)),
-                walk_rules::chain_phases(r, bit(1), bit(2)),
-                walk_rules::repacked(r, bit(1), bit(2)));
+                walk_rules::chain_phases(r, bit(1), bit(2), bit(3), bit(8)),
+                walk_rules::repacked(r, bit(1), bit(2), bit(3), bit(8)));
   }
 }
 """

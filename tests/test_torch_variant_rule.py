@@ -213,6 +213,73 @@ def test_the_freeze_needs_delta_tracking():
     assert not params.freeze and wk.valid_variant(params.variant)
 
 
+# the loop rules of csrc/walk_variant.h for each kernel variant on stdin
+# (robin, the nine switches), one line each: chain_phases, repacked
+_LOOP_RULES_MAIN = r"""
+#include <cstdio>
+#include "walk_variant.h"
+int main() {
+  int r, s[9];
+  while (std::scanf("%d %d %d %d %d %d %d %d %d %d", &r, &s[0], &s[1],
+                    &s[2], &s[3], &s[4], &s[5], &s[6], &s[7], &s[8]) == 10)
+    std::printf("%d %d\n",
+                walk_rules::chain_phases(r, s[1], s[2], s[3], s[8]),
+                walk_rules::repacked(r, s[1], s[2], s[3], s[8]));
+}
+"""
+
+
+def test_loop_rules_of_header_and_python_agree_on_every_variant(tmp_path):
+    # the header's loop rules, compiled by the host compiler, and
+    # ops/walk_kernel.py's give the same loop to each of the 768 kernel
+    # variants: the Robin chain without the freeze queues its wall work in
+    # the repack loop with MIS in every form, without MIS except in the table
+    # form and the TERMS forms (80 variants, 16 of them without MIS), the
+    # freeze builds take the repack loop too (384), the others one thread
+    # a lane
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    main = tmp_path / "loop_rules.cpp"
+    main.write_text(_LOOP_RULES_MAIN)
+    exe = tmp_path / "loop_rules"
+    subprocess.run([cxx, "-std=c++17", "-I", str(wk._SRC.parent), "-o",
+                    str(exe), str(main)], check=True, timeout=120)
+    variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
+    assert len(variants) == 768
+    stdin = "".join(" ".join(str(int(x)) for x in v) + "\n"
+                    for v in variants)
+    out = subprocess.run([str(exe)], input=stdin, check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.split("\n")
+    got = [tuple(int(x) for x in line.split()) for line in out if line]
+    assert len(got) == 768
+    chain = [v for v in variants if wk.chain_phases(v)]
+    for v, (c, rep) in zip(variants, got):
+        assert c == wk.chain_phases(v), v
+        assert rep == wk.repacked(v), v
+        assert c == (v[0] == wk.ROBIN_CHAIN and not v[3]
+                     and (v[2] or not (v[4] or v[9]))), v
+        assert rep == (v[3] or c), v
+    assert len(chain) == 80 and sum(not v[2] for v in chain) == 16
+    assert sum(v[3] for v in variants) == 384
+    # the paths' chain builds without MIS: the accuracy path's, the
+    # variable coefficients' and the transport chain's take the queued
+    # step; the table chain (phase 18) and the sweep's chain + majorant
+    # TERMS form (phase 42) keep one thread a lane
+    for v in ((1, True, False, False, False, True, False, False, False),
+              (1, False, False, False, False, True, False, False, False),
+              (1, False, False, False, False, True, True, False, False)):
+        assert wk.chain_phases(v) and wk.repacked(v), v
+    for v in ((1, False, False, False, True, True, False, False, False),
+              (1, True, False, False, False, True, False, False, False,
+               True)):
+        assert not wk.chain_phases(v) and not wk.repacked(v), v
+
+
 def test_build_command_names_the_switches():
     v = (wk.ROBIN_CHAIN, True, True, True, False, True, False, False, True)
     cmd = wk.nvcc_command(v, "/tmp/out.so")
