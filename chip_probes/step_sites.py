@@ -34,7 +34,17 @@ states (seed 5, fresh walks):
   rounds;
 - ``varcoeff``: phase 26's variable coefficients, the chain on a
   ``TERMS`` alpha ``<1,false,false,false,false,true,false>``, 667,648
-  working lanes, 64 rejection rounds.
+  working lanes, 64 rejection rounds;
+- ``terrain``: phase 20's topographic survey, the table form
+  ``<0,false,false,false,true,true,false>``, 294,912 lanes, 402 rows;
+- ``terrain_flagship``: phase 41's terrain with the flagship's estimator
+  ``<0,true,true,true,true,true,false>``, 294,912 lanes (its 256 steps
+  without the freeze threshold: no lane freezes, and the clocked copy
+  runs the one-thread loop).
+
+Where a step's scans read the table form's rows, the sites CLOSEST (the
+Dirichlet scan), SILHOUETTE, FIRST_HIT (the step's first hit) and STAR
+(MIS's star test, a second first-hit scan) are those scans.
 
 For each: 256 steps of the tree's own build (best of 3), of the
 instrumented copy (best of 3; its counters from one more run), the site
@@ -62,8 +72,9 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from dcrmontecarlo_tpu_torch.models import notebook_survey, \
-    varcoeff_solve_points, variable_coefficient_problem  # noqa: E402
+from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
+    notebook_survey, topographic_survey_problem, varcoeff_solve_points, \
+    variable_coefficient_problem  # noqa: E402
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
 from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
     make_mesh  # noqa: E402
@@ -79,11 +90,11 @@ WORK = ROOT / "_archive" / "step_sites"
 # ITER counts iterations (warps in the cycle sum, lanes in the lane sum)
 SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
-         "BRANCH")
+         "BRANCH", "SILHOUETTE")
 # the disjoint sites of a step (REDRAW lies inside RADIUS, STAR and PDF
 # inside MIS)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
-       "NEE", "ARRIVAL", "BRANCH")
+       "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE")
 SLOTS = 512
 
 PRELUDE = r"""
@@ -150,10 +161,18 @@ STEP_EDITS = (
      "          atten = atten / (F(1.0) - c_ch);\n        }\n"
      "        SITE_END(CHORD_MASS)\n      }\n"),
     ("      const float t_best =\n"
-     "          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);\n",
+     "          first_hit<TABLE>(px, py, dx, dy, tmw, %(lim)sfnx, fny, hxs, "
+     "hys);\n",
      "      SITE_BEGIN(FIRST_HIT)\n      const float t_best =\n"
-     "          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);\n"
-     "      SITE_END(FIRST_HIT)\n"),
+     "          first_hit<TABLE>(px, py, dx, dy, tmw, %(lim)sfnx, fny, hxs, "
+     "hys);\n      SITE_END(FIRST_HIT)\n"),
+    ("    float r = fmaxf(rmin, C.n_vert > 0\n"
+     "                              ? fminf(dD, silhouette<TABLE>(px, py))\n"
+     "                              : dD);\n",
+     "    SITE_BEGIN(SILHOUETTE)\n"
+     "    float r = fmaxf(rmin, C.n_vert > 0\n"
+     "                              ? fminf(dD, silhouette<TABLE>(px, py))\n"
+     "                              : dD);\n    SITE_END(SILHOUETTE)\n"),
     ("      else\n        r_s = screened_radius(r, sbar, seed, ctr, sid, "
      "C.rounds, w_rej);\n",
      "      else {\n        SITE_BEGIN(RADIUS)\n"
@@ -239,33 +258,48 @@ KERNEL_EDITS = (
      "#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
      "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n"),
 )
-# a tree whose rule sends these builds to another loop: back to the
-# one-thread loop (the anchors that exist are replaced, each once)
+# the clocked copy runs every build in the one-thread loop, the freeze
+# builds too (the anchors that exist are replaced, each once; a frozen
+# lane leaves the loop as it leaves the repack loop's)
 ONE_THREAD = (
     ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE)\n"
      "                                      ? REPACK_THREADS\n"
      "                                      : THREADS)",
      "__launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)"),
     ("  if constexpr (repacked(ROBIN, MIS, FREEZE)) {",
-     "  if constexpr (FREEZE) {"),
+     "  if constexpr (false) {"),
     ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0, "
-     "WALK_FREEZE != 0);", "constexpr bool REPACKED = WALK_FREEZE != 0;"),
+     "WALK_FREEZE != 0);", "constexpr bool REPACKED = false;"),
     ("__launch_bounds__(repacked(ROBIN, MIS, FREEZE, TABLE,\n"
      "                                           TERMS_FORM)\n"
      "                                      ? REPACK_THREADS\n"
      "                                      : THREADS)",
      "__launch_bounds__(FREEZE ? REPACK_THREADS : THREADS)"),
     ("  if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {",
-     "  if constexpr (FREEZE) {"),
+     "  if constexpr (false) {"),
     ("constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,\n"
      "                                   WALK_FREEZE != 0, WALK_TABLE != 0,\n"
      "                                   WALK_TERMS != 0);",
-     "constexpr bool REPACKED = WALK_FREEZE != 0;"),
+     "constexpr bool REPACKED = false;"),
 )
+# the step's first-hit call, before and after it took its limit (the
+# culled scan's): a tree has one of the two spellings
+SPELLINGS = (dict(lim=""), dict(lim="r, "))
+# old fork text (the freeze builds kept the repack loop) in trees that
+# already wrote FREEZE there
+_FREEZE_FORK = (("  if constexpr (FREEZE) {\n    walk_repacked",
+                 "  if constexpr (false) {\n    walk_repacked"),
+                ("constexpr bool REPACKED = WALK_FREEZE != 0;",
+                 "constexpr bool REPACKED = false;"))
 
 
 def _edit(text, edits, what):
     for old, new in edits:
+        if "%(" in old:  # the spelling this tree has
+            found = [(old % sp, new % sp) for sp in SPELLINGS
+                     if text.count(old % sp) == 1]
+            assert len(found) == 1, (what, old)
+            old, new = found[0]
         n = text.count(old)
         assert n == 1, (what, n, old)
         text = text.replace(old, new)
@@ -281,7 +315,7 @@ def instrumented_source(csrc, dst):
                  "walk_step.inc")
     (dst / "walk_step.inc").write_text(step)
     src = (dst / "walk_kernel.cu").read_text()
-    for old, new in ONE_THREAD:
+    for old, new in ONE_THREAD + _FREEZE_FORK:
         if old in src:
             src = _edit(src, ((old, new),), "one-thread fork")
     src = _edit(src, KERNEL_EDITS, "walk_kernel.cu")
@@ -341,6 +375,15 @@ def groups(dev):
         target_slots=1 << 21, max_attenuation=50.0), device=dev)
     out["varcoeff"] = varcoeff._setup(varcoeff_solve_points(), 4096, 500,
                                       1e-3, 5)[:2]
+    topo, height = topographic_survey_problem()
+    topo_pts = drape_electrodes(height, cs.TOPO_XS, nudge=0.5)
+    out["terrain"] = WoStSolver(topo, SolverOptions(
+        target_slots=1 << 21), device=dev)._setup(
+        topo_pts, cs.P2_WALKS, cs.P2_MAX_STEPS, cs.P2_EPS, 5)[:2]
+    flagship, _ = cs.terrain_flagship_problem()
+    out["terrain_flagship"] = WoStSolver(flagship, survey_default_options(
+        target_slots=1 << 21, split_threshold=cs.P2_SPLIT), device=dev
+    )._setup(topo_pts, cs.P2_WALKS, cs.P2_MAX_STEPS, cs.P2_EPS, 5)[:2]
     return out
 
 

@@ -390,8 +390,10 @@ def clone_state(state):
 def ptxas_report(build_log):
     """``ptxas -v``'s report per compiled kernel variant, keyed as
     ``WalkParams.kernel_name`` (``walk_kernel.kernel_name`` of the
-    mangled name's switches): registers, spill stores and loads (bytes)
-    and static shared memory (bytes a block)."""
+    mangled name's switches; the kernel that a launch of several shards
+    runs, in the builds without the freeze, with `` (shards)`` after it):
+    registers, spill stores and loads (bytes) and static shared memory
+    (bytes a block)."""
     from dcrmontecarlo_tpu_torch.ops.walk_kernel import kernel_name
 
     report, entry, spills = {}, None, (0, 0)
@@ -407,8 +409,11 @@ def ptxas_report(build_log):
         if m and entry:
             t = re.search(r"walk_kernelILi(\d)((?:ELb\d)+)E", entry)
             if t:
-                entry = kernel_name((int(t.group(1)), *(
-                    v == "1" for v in re.findall(r"Lb(\d)", t.group(2)))))
+                flags = [v == "1" for v in re.findall(r"Lb(\d)", t.group(2))]
+                # the last switch: the kernel of a launch of several shards
+                sharded = len(flags) == 10 and flags.pop()
+                entry = kernel_name((int(t.group(1)), *flags)) + (
+                    " (shards)" if sharded else "")
             smem = re.search(r"(\d+) bytes smem", line)
             report[entry] = dict(registers=int(m.group(1)),
                                  spill_stores=spills[0],
@@ -455,8 +460,15 @@ def library_resources(wk, variant):
                             str(wk._library_path(variant))],
                            capture_output=True, text=True,
                            timeout=120).stdout
-    return (int(re.search(r"REG:(\d+)", usage).group(1)),
-            int(re.search(r"SHARED:(\d+)", usage).group(1)))
+    # a library of a build without the freeze holds a second kernel, for
+    # launches of several shards (its last switch set): take the other
+    kernels = re.findall(r"Function (\S+):\s*REG:(\d+)[^\n]*?SHARED:(\d+)",
+                         usage)
+    one = [k for k in kernels if not k[0].endswith("Lb1EEEviif")] or kernels
+    if not one:  # a report without function names: its first kernel
+        one = [(None, re.search(r"REG:(\d+)", usage).group(1),
+                re.search(r"SHARED:(\d+)", usage).group(1))]
+    return int(one[0][1]), int(one[0][2])
 
 
 def issued_slots(it, schedule, resident):
@@ -665,7 +677,7 @@ def field_ops(spec):
 TRANSPORT_OPS = 33 + 29 * 24 + 27 * 11 + 46 + 8 + 120
 
 
-def fp32_ops_per_step(params):
+def fp32_ops_per_step(params, rows=None):
     """A lower bound on the FP32 operations of one walker-step of the
     instantiation ``params`` selects, counted by hand from
     ``csrc/walk_kernel.cu``: every add, multiply, compare or select,
@@ -685,9 +697,13 @@ def fp32_ops_per_step(params):
     as with delta tracking but over ``ln(R/r) / (2 pi)`` and ``R^2 / 4``
     (4 in place of the screened Green's function's 102) and no alpha. The
     sources and mixture components count one by one (the wide form's
-    too)."""
+    too). ``rows`` (``cull_rows``): the Neumann rows a lane's culled first
+    hit visits a step, counted in place of every Neumann row of that scan
+    (the other scans visit every row)."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
+    if rows is not None:
+        n_neu = rows["first_hit"]["lane"] if n_neu else 0
     alpha = field_ops(params.specs[1]) + 1      # alpha_c
     src = sum(field_ops(f) for f in params.specs[3:])
     cp_row, hit_row, sil_row = (22, 23, 20) if params.table else (18, 22, 16)
@@ -721,30 +737,37 @@ def fp32_ops_per_step(params):
     return ops
 
 
-def bound(params, lanes, walker_steps, launches):
+def bound(params, lanes, walker_steps, launches, visited=None):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``walker_steps`` steps of ``params``' instantiation over ``lanes``
     lanes in ``launches`` launches, the larger of the operations over the
     FP32 peak and the planes' bytes (inputs read once, outputs written
-    once, per launch) over the memory rate."""
+    once, per launch) over the memory rate; with ``visited``, over the
+    table rows the culled scans visit (``fp32_ops_per_step``)."""
     state = 5 + 3 * params.n_src + 9            # read and written
     const = 3 + (3 if params.snap else 0)       # read
     rows = sum(t.nbytes for t in params.device_tables("cpu"))  # table form
     if params.grid:                             # the grid's nodes
         rows += params.grid_table("cpu").nbytes
     nbytes = (4.0 * lanes * (2 * state + const) + rows) * launches
-    t_ops = fp32_ops_per_step(params) * walker_steps / PEAK_FP32_FLOPS
+    t_ops = (fp32_ops_per_step(params, visited) * walker_steps
+             / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def kernel_record(params, variant, launches, timed, regs, tolerance,
-                  replaces=REPLACES):
+                  replaces=REPLACES, rows=None):
     """The kernels line's entry for ``params``' instantiation: its
     launches on its path's main run and ``timed``, a ``steps_256``
-    result."""
+    result; for a culled table build (``rows``, ``cull_rows``) also the
+    bound over the rows its scans visit."""
     bound_ms, bound_by = bound(params, timed["lanes"], timed["steps"], 1)
+    extra = {} if rows is None else {
+        "bound_visited_ms": bound(params, timed["lanes"], timed["steps"], 1,
+                                  rows)[0],
+        "rows_visited": round(rows["first_hit"]["lane"], 2)}
     return {"name": params.kernel_name, "variant": variant, "route": "cuda",
             "source": SOURCE, "replaces": replaces, "launches": launches,
             "max_abs_err": timed["max_err"], "ms": timed["ms"],
@@ -752,8 +775,31 @@ def kernel_record(params, variant, launches, timed, regs, tolerance,
             "bound_by": bound_by, "library_ms": None,
             "lanes": timed["lanes"], "walker_steps": timed["steps"],
             "agree_frac": timed["worst"],
-            "registers": regs.get(params.kernel_name),
-            "tolerance": tolerance}
+            "registers": regs.get(params.kernel_name + (
+                " (shards)" if len(params.shard_seeds) > 1 else "")),
+            "tolerance": tolerance, **extra}
+
+
+def cull_rows(wk, params, state):
+    """Rows a step's culled first hit visits from ``state`` (the host
+    replay of the kernel's skip test at its chunks,
+    ``chip_probes/table_cull.py``): ``{"first_hit": {lane, warp, pairs,
+    all}}``; None outside the culled build."""
+    if not wk.culled_scans(params.variant):
+        return None
+    from chip_probes import table_cull as tc
+
+    rows = tc.replay(params, state, sizes=(wk.CHUNK_ROWS,))[wk.CHUNK_ROWS]
+    return {"first_hit": rows["first_hit"]}
+
+
+def cull_text(rows):
+    """``cull_rows`` as a log phrase."""
+    if rows is None:
+        return "full scans"
+    v = rows["first_hit"]
+    return (f"first hit {v['lane']:.1f} rows a lane, {v['warp']:.1f} a warp "
+            f"of {v['all']}")
 
 
 def life_steps(before, after):
@@ -1433,6 +1479,20 @@ print("RESULT", json.dumps(out), flush=True)
 """
 
 
+def fused_equal(wk, fused, shards, starts, steps, what):
+    """A fused launch's end planes ``fused`` against each shard launched
+    alone from ``starts`` (its planes before) with its own seed for
+    ``steps`` steps: equal on every lane and plane."""
+    n = starts[0]["px"].numel()
+    for i, (s, st) in enumerate(zip(shards, starts)):
+        wk.run_walk(st, s.params, steps)
+        for k, v in st.items():
+            check(torch.equal(fused[k].reshape(-1)[i * n:(i + 1) * n],
+                              v.reshape(-1)),
+                  f"{what}: the fused launch differs from shard {i} alone "
+                  f"in {k}")
+
+
 def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
                    electrodes, fdm, f6, flag_prob, nb_pts):
     """Phases 36-39: the sharded solve (K9) on virtual shards of one card.
@@ -1483,8 +1543,9 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
         f"+se) {q:.3g} (bound 1e-3), steps kernel {rk.total_steps:.0f} "
         f"plain {rp.total_steps:.0f}, launches per shard "
         f"{stats['shard_launches']}; {t_k:.2f} s kernel, {t_p:.2f} s plain")
-    # the one-stream rule: the four shards advanced together equal the
-    # four solved one by one, bit for bit
+    # the fused launch: the four shards advanced together, one launch over
+    # their buffer a loop step, equal the four solved one by one, bit for
+    # bit
     plan = solver._plan(pts, 128, 500, 0.9, 11)
     together = solver._combine(plan, solver._run_shards(plan, range(4)))
     alone = solver._combine(plan, torch.cat(
@@ -1596,19 +1657,28 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     n_walks, max_steps, eps = 1 << 19, 500, 0.9
     f38 = full_size_solves(wk, solver, pts6, n_walks, max_steps, eps,
                            147456, "phase 38 (survey)")
-    shard = solver._shard(solver._plan(pts6, n_walks, max_steps, eps, 5), 0)
-    name = shard.params.kernel_name
-    check(set(f38["counts"]) == {name} and f38["counts"][name] == sum(
-        f38["stats"][0]["shard_launches"]) and shard.state["px"].numel()
-        == 40960, f"phase 38: the sharded survey launched {f38['counts']}, "
-                  f"{f38['stats'][0]}")
+    plan = solver._plan(pts6, n_walks, max_steps, eps, 5)
+    shards = [solver._shard(plan, d) for d in range(4)]
+    alone = [clone_state(s.state) for s in shards]
+    groups = solver._groups(plan, shards)
+    group = groups[0]
+    name = group.params.kernel_name
+    # one launch a loop step for the card's four shards: the warm-up's
+    # launches are its longest shard's
+    check(set(f38["counts"]) == {name} and f38["counts"][name] == max(
+        f38["stats"][0]["shard_launches"]) and len(groups) == 1
+        and group.state["px"].numel() == 4 * 40960,
+        f"phase 38: the sharded survey launched {f38['counts']}, "
+        f"{f38['stats'][0]}, {len(groups)} launch groups")
     for a, b in zip(f38["raws"], f6["raws"]):
         dev6 = np.abs(a.mean - b.mean) / np.sqrt(a.stderr ** 2
                                                  + b.stderr ** 2)
         check((dev6 < 4.0).all(), f"phase 38: the sharded survey is "
                                   f"{dev6} sigma from phase 6's")
     log(f"[38] full size 9x{n_walks} walks, 4 shards x 36864 working "
-        f"lanes (5 blocks of 8192): "
+        f"lanes (5 blocks of 8192), {group.state['px'].numel()} lanes a "
+        f"launch, 1 launch a loop step on the card, "
+        f"{f38['counts'][name]} launches in the warm-up: "
         f"walker_steps_per_sec {f38['rate']:.6g} (phase 6, one launch: "
         f"{f6['rate']:.6g}) s/solve {f38['times']} steps/solve "
         f"{f38['steps']:.6g} longest lane {f38['longest']}, lane occupancy "
@@ -1616,13 +1686,16 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
         f"{[round(v, 4) for v in f38['share']]}, launches per shard "
         f"{[s['shard_launches'] for s in f38['stats']]}; means within 4 "
         f"sigma of phase 6's ({card})")
-    t38 = steps_256(wk, shard.state, shard.params, "phase 38 (survey shard)")
-    log(f"[38] 256 steps x {t38['lanes']} lanes (a survey shard, "
-        f"{t38['steps']} walker-steps): kernel "
+    t38 = steps_256(wk, group.state, group.params,
+                    "phase 38 (survey, 4 shards fused)")
+    fused_equal(wk, t38["end"], shards, alone, 256, "phase 38 (survey)")
+    log(f"[38] 256 steps x {t38['lanes']} lanes (4 survey shards, one "
+        f"fused launch, {t38['steps']} walker-steps): kernel "
         f"{t38['ms']:.3f} ms, plain {t38['plain_ms']:.3f} ms; worst plane "
-        f"agreement {t38['worst']:.5f} ({card})")
+        f"agreement {t38['worst']:.5f}; = 4 one-shard launches bit for bit "
+        f"({card})")
     records.append(kernel_record(
-        shard.params, "survey_sharded", f38["counts"][name], t38, regs,
+        group.params, "survey_sharded", f38["counts"][name], t38, regs,
         tolerance, replaces="dcrmontecarlo_tpu/parallel/mesh.py:583"))
 
     solver = ShardedWoStSolver(flag_prob, mesh4, survey_default_options(
@@ -1630,12 +1703,16 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     n_walks, max_steps, eps = 1 << 20, 6000, 1.0
     f38f = full_size_solves(wk, solver, nb_pts, n_walks, max_steps, eps,
                             688128, "phase 38 (flagship)", reps=2)
-    shard = solver._shard(solver._plan(nb_pts, n_walks, max_steps, eps, 5),
-                          0)
-    name = shard.params.kernel_name
-    check(shard.params.variant == sharded_flagship
+    plan = solver._plan(nb_pts, n_walks, max_steps, eps, 5)
+    shards = [solver._shard(plan, d) for d in range(4)]
+    shard, alone = shards[0], [clone_state(s.state) for s in shards]
+    site_start = clone_state(shard.state)
+    group = solver._groups(plan, shards)[0]
+    name = group.params.kernel_name
+    check(group.params.variant == sharded_flagship
           and set(f38f["counts"]) == {name}
-          and shard.state["px"].numel() == 172032,
+          and f38f["counts"][name] == max(f38f["stats"][0]["shard_launches"])
+          and group.state["px"].numel() == 4 * 172032,
           f"phase 38: the sharded flagship launched {f38f['counts']}")
     log(f"[38] full size flagship 21x{n_walks} walks, 4 shards x 172032 "
         f"lanes, split 4.0 without the freeze: walker_steps_per_sec "
@@ -1646,18 +1723,23 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
         f"{[(s['launches'], s['clones']) for s in f38f['stats']]}, "
         f"max_weight {[r.max_weight for r in f38f['raws']]}, max_banked "
         f"{[r.max_banked for r in f38f['raws']]} ({card})")
-    t38f = steps_256(wk, shard.state, shard.params,
-                     "phase 38 (flagship shard)", subset=True)
-    log(f"[38] 256 steps x {t38f['lanes']} lanes (a flagship shard, "
-        f"{name}, {regs.get(name)} registers): kernel {t38f['ms']:.3f} ms, "
-        f"plain {t38f['plain_ms']:.3f} ms; worst plane agreement "
-        f"{t38f['worst']:.5f}, max |err| {t38f['max_err']:.3g}, "
+    fused = clone_state(group.state)
+    ms_fused = cuda_ms(lambda: wk.run_walk(fused, group.params, 256))
+    fused_equal(wk, fused, shards, alone, 256, "phase 38 (flagship)")
+    t38f = steps_256(wk, group.state, group.params,
+                     "phase 38 (flagship, 4 shards fused)", subset=True)
+    log(f"[38] 256 steps x {group.state['px'].numel()} lanes (4 flagship "
+        f"shards, one fused launch, {name}, {regs.get(name)} registers): "
+        f"kernel {ms_fused:.3f} ms, = 4 one-shard launches bit for bit; "
+        f"kernel vs plain on {t38f['lanes']} of them: kernel "
+        f"{t38f['ms']:.3f} ms, plain {t38f['plain_ms']:.3f} ms; worst plane "
+        f"agreement {t38f['worst']:.5f}, max |err| {t38f['max_err']:.3g}, "
         f"{t38f['steps']} walker-steps ({card})")
-    log(f"[38] its step's sites' shares of the one-thread loop's "
+    log(f"[38] a shard's step's sites' shares of the one-thread loop's "
         f"warp-cycles (256 steps, site clocks): "
-        f"{site_shares(wk, shard.state, shard.params)} ({card})")
+        f"{site_shares(wk, site_start, shard.params)} ({card})")
     records.append(kernel_record(
-        shard.params, "robin_chain+local_majorant+mis (sharded)",
+        group.params, "robin_chain+local_majorant+mis (sharded)",
         f38f["counts"][name], t38f, regs, tolerance))
 
     # ---- 39. two processes on the card ----------------------------------
@@ -1806,13 +1888,15 @@ def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
         f"{np.round(f20['warm'].stderr, 5).tolist()} ({card})")
     t41 = steps_256(wk, state, params, "phase 41", thr=P2_SPLIT,
                     subset=True)
+    rows41 = cull_rows(wk, params, t41["end"])
     log(f"[41] 256 steps x {t41['lanes']} lanes, freeze {P2_SPLIT}: kernel "
         f"{t41['ms']:.3f} ms, plain {t41['plain_ms']:.3f} ms; worst plane "
         f"agreement {t41['worst']:.5f}, max |err| {t41['max_err']:.3g}, "
-        f"{t41['steps']} walker-steps ({card})")
+        f"{t41['steps']} walker-steps; rows a step visits after them: "
+        f"{cull_text(rows41)} ({card})")
     records.append(kernel_record(params, "terrain_flagship",
                                  f41["counts"][params.kernel_name], t41,
-                                 regs, tolerance))
+                                 regs, tolerance, rows=rows41))
 
     # ---- 42. the variant sweep ---------------------------------------------
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
@@ -1849,12 +1933,15 @@ def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
               f"phase 42 {name}: no walk stepped or ended")
         timed = dict(lanes=8192, ms=ms, plain_ms=plain_ms, worst=worst,
                      max_err=max_err, steps=steps)
+        rows = cull_rows(wk, params, ks)
         records.append(kernel_record(params, f"sweep:{name}", launches,
-                                     timed, regs, tolerance))
+                                     timed, regs, tolerance, rows=rows))
         log(f"[42] {name}: {params.kernel_name} ({regs.get(params.kernel_name)}"
             f" registers), 64 steps x 8192 lanes: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms; worst plane agreement {worst:.5f}, max "
-            f"|err| {max_err:.3g}, {steps} walker-steps")
+            f"|err| {max_err:.3g}, {steps} walker-steps"
+            + ("" if rows is None else f"; rows a step visits: "
+               f"{cull_text(rows)}"))
     log(f"[42] {len(SWEEP)} sweep variants, kernel vs plain: worst plane "
         f"agreement {worst_all:.5f} ({card})")
 
@@ -1911,8 +1998,11 @@ def main():
     libs, build_s, build_log = wk.build_library(SCRIPT_VARIANTS)
     regs = ptxas_registers(build_log)
     built = set(wk.build_logs)  # the codes built now, not found in _build
-    check(set(regs) == {wk.kernel_name(v) for v in SCRIPT_VARIANTS
-                        if wk.variant_code(v) in built},
+    # a build without the freeze holds a second kernel, for launches of
+    # several shards
+    check(set(regs) == {wk.kernel_name(v) + tail for v in SCRIPT_VARIANTS
+                        if wk.variant_code(v) in built
+                        for tail in ("", " (shards)")[:1 + (not v[3])]},
           f"built {sorted(built)}, ptxas reported {regs}")
     log(f"[2] {len(libs)} libraries, one per variant the script launches, "
         f"in "
@@ -2474,9 +2564,11 @@ def main():
                                "(trailing rows)")
     reach = float(torch.maximum(state["px"].abs(), state["py"].abs()).max())
     check(reach <= 1.0 + 1e-5, f"a walker left the square: |x| {reach}")
-    log(f"[16] table form, defaults (402 rows), 256 steps x 8192 lanes: "
+    log(f"[16] table form, defaults (402 rows), 256 steps x 8192 lanes "
+        f"({p16.kernel_name}, {regs.get(p16.kernel_name)} registers): "
         f"kernel {t16['ms']:.3f} ms, plain {t16['plain_ms']:.3f} ms; worst "
         f"plane agreement {t16['worst']:.5f}, max |err| {t16['max_err']:.3g}"
+        f"; rows a step visits: {cull_text(cull_rows(wk, p16, t16['end']))}"
         f"; without the vertices {t16['acts']:.4f} of lanes change; "
         f"trailing rows: agreement {worst_sq:.5f}, farthest walker at "
         f"{reach:.6f} of the half-width ({card})")
@@ -2511,9 +2603,12 @@ def main():
     n18 = solve_launches(solver18, pts18, "phase 18", p18.kernel_name,
                          n_walks=512, max_steps=600, eps=0.5,
                          seed=0)[1][p18.kernel_name]
-    log(f"[18] chain on the table form (102 rows), 256 steps x 8192 lanes: "
+    rows18 = cull_rows(wk, p18, t18["end"])
+    log(f"[18] chain on the table form (102 rows), 256 steps x 8192 lanes "
+        f"({regs.get(p18.kernel_name)} registers): "
         f"kernel {t18['ms']:.3f} ms, plain {t18['plain_ms']:.3f} ms; worst "
         f"plane agreement {t18['worst']:.5f}, max |err| {t18['max_err']:.3g}"
+        f"; rows a step visits: {cull_text(rows18)}"
         f"; Robin off changes {t18['acts']:.4f} of lanes; a 9x512 solve "
         f"launched {n18} ({card})")
 
@@ -2559,17 +2654,20 @@ def main():
         f"solve {f20['counts']}; potentials {np.round(mean20, 5).tolist()} "
         f"({card})")
     t20 = steps_256(wk, state, params, "phase 20", subset=True)
+    rows20 = cull_rows(wk, params, t20["end"])
     log(f"[20] 256 steps x {t20['lanes']} lanes"
         f"{' (plain 16 steps took %.0f ms)' % t20['t16'] if t20['t16'] else ''}"
+        f" ({params.kernel_name}, {regs.get(params.kernel_name)} registers)"
         f": kernel {t20['ms']:.3f} ms, plain {t20['plain_ms']:.3f} ms "
         f"({t20['plain_ms'] / t20['ms']:.1f}x); worst plane agreement "
         f"{t20['worst']:.5f}, max |err| {t20['max_err']:.3g}, "
-        f"{t20['steps']} walker-steps ({card})")
+        f"{t20['steps']} walker-steps; rows a step visits after them: "
+        f"{cull_text(rows20)} ({card})")
     records.append(kernel_record(params, "topography_table",
                                  f20["counts"][params.kernel_name], t20,
-                                 regs, tolerance))
+                                 regs, tolerance, rows=rows20))
     records.append(kernel_record(p18, "topography_table+robin_chain", n18,
-                                 t18, regs, tolerance))
+                                 t18, regs, tolerance, rows=rows18))
     records.append(kernel_record(p17, "topography_static_silhouettes", n17,
                                  t17, regs, tolerance))
     # ---- the analytic-check problems: no delta tracking, the transport --

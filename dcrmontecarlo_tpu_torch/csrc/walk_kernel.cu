@@ -87,14 +87,18 @@
 // rows in all) from global memory and forms edges, normals and chord
 // tangents per step in float32, dividing in the first hit, as the TPU
 // kernel's SMEM loops do; the two arithmetics differ by an ulp, which
-// desynchronizes walks, so each form copies its reference. Every thread
-// of a warp reads the same row in the same iteration and the trip counts
-// are uniform, so the read-only loads are L1 broadcasts and the loops do
-// not diverge; a row's normal or chord tangent (a sqrt and two divides)
-// is formed only when the row wins. The table loops dominate the step on
-// the topographic survey (~200 first-hit and ~199 silhouette rows):
-// FP32 and divide throughput bound them, not bytes. A boundary without
-// vertices never enters the silhouette loop.
+// desynchronizes walks, so each form copies its reference. A row's normal
+// or chord tangent (a sqrt and two divides) is formed only when the row
+// wins. The table loops dominated the step on the topographic survey
+// (~200 first-hit and ~199 silhouette rows a step: FP32 and divide
+// throughput, not bytes), so the culled_scans build (the survey's table
+// form) runs its first hit over chunks of CHUNK_ROWS rows with a box per
+// chunk and skips the chunks that cannot change its result (chunk_skips,
+// below): the rows it visits run the full scan's arithmetic in row order,
+// so the result is the full scan's bit for bit. The lanes of a warp visit
+// the union of their chunks; the row loads are read-only L1 broadcasts
+// where the lanes visit the same chunk. A boundary without vertices never
+// enters the silhouette loop.
 //
 // Design: one iteration of a lane's loop (bank and recycle a finished
 // walk, or take one step) is walk_step.inc, included by both loops below.
@@ -217,6 +221,16 @@ WALK_TRANSPORT, WALK_WIDE, WALK_GRID, WALK_TERMS (nvcc_command)"
 
 #define F(x) ((float)(x))
 
+// the library's variant runs the table form's culled first hit
+// (chunk_skips)
+constexpr bool CULLED = walk_rules::culled_scans(
+    WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
+    WALK_TABLE != 0, WALK_DELTA != 0, WALK_TRANSPORT != 0, WALK_WIDE != 0,
+    WALK_GRID != 0, WALK_TERMS != 0);
+// a culled scan skips the chunks that chunk_skips rules out (false: it
+// visits every chunk, which is the full scan in row order)
+constexpr bool CHUNK_SKIP = true;
+
 namespace {
 
 constexpr int MAX_SEG = 96;    // static form, per boundary
@@ -254,6 +268,11 @@ constexpr int MAX_WIDE_MIX = 64;  // MIS mixture components
 constexpr int DIPOLE_COLS = 6;    // px, py, nx, ny, norm, 2 w^2
 constexpr int N_WIDE_PLANES = 3 * (MAX_WIDE_SRC - MAX_SRC);
 constexpr int LANE_FLOATS = 15 + 3 * MAX_SRC, LANE_INTS = 9;
+// the sharded launch: shards a launch holds (one seed each)
+constexpr int MAX_SHARDS = 64;
+// the table form's culled scans: rows per chunk, and a chunk record's
+// float4s (its box, the Neumann rows' direction cone)
+constexpr int CHUNK_ROWS = 8, CHUNK_F4 = 2;
 
 struct Field {
   int kind;
@@ -272,7 +291,8 @@ struct Planes {
 };
 
 struct WalkConst {
-  uint32_t seed;
+  uint32_t seed;  // ip[0]: a launch of one shard draws from it, one of
+                  // several shards from shard_seed
   int max_steps, rounds, roulette, project, snap, n_src, has_source;
   int n_dir, n_neu;
   float eps, rmin, t_min, sigma_bar, roulette_thr;
@@ -314,6 +334,15 @@ struct WalkConst {
   // Dirichlet field's nodes, (nx, ny) row-major; its parameters are
   // field[F_BC].p
   const float* grid;
+  // the table form's chunk records (after the validation path's fields):
+  // CHUNK_F4 float4 per chunk of CHUNK_ROWS Neumann rows (chunk_skips)
+  const float4* chunk;
+  // the shard table (last, so that a launch copies only the seeds it
+  // uses): a launch over the lanes of n_shards shards, shard_lanes each,
+  // shard after shard; a lane draws from its shard's seed (a launch of one
+  // solve's lanes is a table of one shard)
+  int n_shards, shard_lanes;
+  uint32_t shard_seed[MAX_SHARDS];
 };
 
 __constant__ WalkConst C;
@@ -336,6 +365,17 @@ __device__ __forceinline__ uint32_t hash_base(uint32_t seed, uint32_t ctr) {
 __device__ __forceinline__ float uni(uint32_t base, uint32_t sid, uint32_t k) {
   uint32_t h = mix32(sid ^ (0x9E3779B9u * k) ^ base);
   return (float)(h >> 8) * F(5.9604644775390625e-08);  // 2^-24
+}
+
+// the stream seed of plane index `lane` in a launch of several shards
+// (the SHARDS kernel): its shard's (a shard's lanes are whole warps of the
+// one-thread loop, so a warp reads one entry). A launch of one shard runs
+// the other kernel, which reads the launch's seed (ip[0], its table's one
+// entry) as a constant operand that holds no register: a per-lane seed,
+// and even an operand from the far end of the block, moved the table
+// builds' registers, spills and occupancy (PERF.md, section 6)
+__device__ __forceinline__ uint32_t lane_seed(int lane) {
+  return C.shard_seed[lane / C.shard_lanes];
 }
 
 // ---- Bessel functions (ops/bessel.py) ----------------------------------
@@ -813,6 +853,89 @@ __device__ void grad_log_alpha(float x, float y, float& glx, float& gly) {
 
 // ---- geometry of the accuracy path --------------------------------------
 
+// The table form's culled first hit (chunk_skips, the culled_scans
+// builds). The host cuts the Neumann rows into chunks of CHUNK_ROWS
+// consecutive rows and gives each a record of CHUNK_F4 float4s
+// (ops/walk_kernel.py::chunk_records): the box (x0, y0, x1, y1) of its
+// rows' float32 endpoints, widened by 2^-20 of its largest coordinate, and
+// the cone (mx, my, g): every row of the chunk has a unit direction or its
+// negative within angle asin(g / 2) of the unit m, and g holds 2 sin of
+// the cone's half-angle plus slack (4 when the rows turn too much, or some
+// row is shorter than 1e-20). A lane visits the chunks in row order and
+// runs the rows of a visited chunk as the full scan does, so its winner
+// (the first row on ties), that row's normal and hit point are the full
+// scan's within the limit: a chunk is skipped only where a bound proves
+// that none of its rows can give a t in [tmw, lim], with margins that
+// cover the float32 rounding of the rows' arithmetic. A warp runs the
+// union of its lanes' chunks: a warp's lanes shoot rays in all
+// directions, so the union keeps 68-173 of 200 rows where a lane needs
+// 6-29 (PERF.md, section 6, Step 0). The other scans stay full: a culled
+// closest point and silhouette (their nearest row lies far down the table
+// or far away) and a first hit run cooperatively over a warp (a warp's
+// threads on (lane, chunk) pairs) ran slower on the card, and so did the
+// culled first hit in the builds other than the survey's (culled_scans).
+
+// whether no Neumann row of the chunk (box b, cone c) can give first_hit
+// an accepted t in [tmw, lim], so that its rows cannot change whether and
+// where the ray meets a wall within lim. A row the full scan accepts has
+// its computed s in [0, 1]: its endpoints then lie on both sides of the
+// ray's line, or within eps = 2^-24 (7 |w| + 8 |u|) of it (the roundings
+// of its cross products, |w| + |u| <= 2 rb), so a box whose corners all
+// lie farther than 2^-16 rb on one side holds no such row. Where every
+// row crosses the ray at a sine of at least sig >= 2^-10, its computed t
+// lies within 2^-14.8 rb / sig of the box's extent along the ray (the
+// cross products' and the divide's roundings over |den| >= sig |u|, and
+// |d|^2 = 1 to 2^-17), so a box behind tmw or past lim by 2^-11 rb / sig
+// holds no row with t in [tmw, lim]. A nearly parallel row's t is
+// rounding noise, so only the line test holds there.
+__device__ __forceinline__ bool hit_skips(float4 b, float4 c, float px,
+                                          float py, float dx, float dy,
+                                          float tmw, float lim) {
+  const float x0 = b.x - px, x1 = b.z - px, y0 = b.y - py, y1 = b.w - py;
+  const float rb = fabsf(x0) + fabsf(x1) + fabsf(y0) + fabsf(y1);
+  const float dy0 = dx * y0, dy1 = dx * y1, dx0 = dy * x0, dx1 = dy * x1;
+  // cross(d, corner - p), over the corners
+  const float f_lo = fminf(dy0, dy1) - fmaxf(dx0, dx1);
+  const float f_hi = fmaxf(dy0, dy1) - fminf(dx0, dx1);
+  const float tol = rb * F(1.52587890625e-05) + F(1e-30);  // 2^-16
+  if (f_lo > tol || f_hi < -tol) return true;
+  const float sig = fabsf(dx * c.y - dy * c.x) - c.z;
+  if (!(sig > F(0.0009765625))) return false;  // 2^-10
+  // dot(d, corner - p), over the corners
+  const float t_lo = fminf(dx * x0, dx * x1) + fminf(dy * y0, dy * y1);
+  const float t_hi = fmaxf(dx * x0, dx * x1) + fmaxf(dy * y0, dy * y1);
+  const float m = rb * F(4.8828125e-04);  // 2^-11
+  return (tmw - t_hi) * sig > m || (t_lo - lim) * sig > m;
+}
+
+// the culled first hit's skip test (CHUNK_SKIP false: every chunk, the
+// full scan in row order)
+#define chunk_skips(test) (CHUNK_SKIP && (test))
+
+// one Neumann row of the table form: the first-hit scan's step
+__device__ __forceinline__ void hit_row(int sgi, float px, float py,
+                                        float dx, float dy, float tmw,
+                                        float& t_best, float& fnx,
+                                        float& fny, float& hxs, float& hys) {
+  const float4 g = __ldg(C.tab_neu + sgi);
+  const float ax = g.x, ay = g.y;
+  const float ux = g.z - ax, uy = g.w - ay;
+  float wx = px - ax, wy = py - ay;
+  float den = dx * uy - dy * ux;
+  float den_safe = fabsf(den) < F(1e-30) ? F(1e-30) : den;
+  float t = (ux * wy - uy * wx) / den_safe;
+  float sp = (dx * wy - dy * wx) / den_safe;
+  bool ok = sp >= F(0.0) && sp <= F(1.0) && t >= tmw && fabsf(den) > F(1e-30);
+  if (ok && t < t_best) {
+    t_best = t;
+    const float ulen = sqrtf(fmaxf(ux * ux + uy * uy, F(1e-30)));
+    fnx = -uy / ulen;
+    fny = ux / ulen;
+    hxs = ax + sp * ux;
+    hys = ay + sp * uy;
+  }
+}
+
 // closest point on the Dirichlet boundary (divide, not reciprocal):
 // _closest_point_unrolled / _closest_point_smem
 template <bool TABLE>
@@ -851,17 +974,32 @@ __device__ __forceinline__ float closest_point(float px, float py,
 // the first Neumann hit along (dx, dy) at t >= tmw: its distance (3e38 for
 // none), the winning segment's CCW normal and the on-segment hit point;
 // _first_hit_unrolled (reciprocal multiply, host normals) /
-// _first_hit_smem (divides, normals formed in float32)
+// _first_hit_smem (divides, normals formed in float32). The culled scan
+// gives the full scan's result where the first hit lies within lim, and
+// another distance past lim otherwise.
 template <bool TABLE>
 __device__ __forceinline__ float first_hit(float px, float py, float dx,
-                                           float dy, float tmw, float& fnx,
-                                           float& fny, float& hxs,
-                                           float& hys) {
+                                           float dy, float tmw, float lim,
+                                           float& fnx, float& fny,
+                                           float& hxs, float& hys) {
   float t_best = F(3e38);
   fnx = F(0.0);
   fny = F(0.0);
   hxs = F(0.0);
   hys = F(0.0);
+  if constexpr (TABLE && CULLED) {
+    const int n_ch = (C.n_neu + CHUNK_ROWS - 1) / CHUNK_ROWS;
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const float4* rec = C.chunk + CHUNK_F4 * ch;
+      if (chunk_skips(hit_skips(__ldg(rec), __ldg(rec + 1), px, py, dx, dy,
+                                tmw, lim)))
+        continue;
+      const int end = min(C.n_neu, (ch + 1) * CHUNK_ROWS);
+      for (int sgi = ch * CHUNK_ROWS; sgi < end; ++sgi)
+        hit_row(sgi, px, py, dx, dy, tmw, t_best, fnx, fny, hxs, hys);
+    }
+    return t_best;
+  }
   for (int sgi = 0; sgi < C.n_neu; ++sgi) {
     float ax, ay, ux, uy;
     if constexpr (TABLE) {
@@ -914,7 +1052,8 @@ template <bool TABLE>
 __device__ float first_hit_t(float px, float py, float dx, float dy,
                              float tmw) {
   float fnx, fny, hxs, hys;
-  return first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
+  return first_hit<TABLE>(px, py, dx, dy, tmw, F(3e38), fnx, fny, hxs,
+                          hys);
 }
 
 // the nearest Neumann segment's unit tangent and the chord interval
@@ -1604,7 +1743,7 @@ struct Lane {
 // the launch's constants of the step
 struct Launch {
   int n_src;
-  uint32_t seed;
+  uint32_t seed;  // a launch of one shard: its seed
   bool snap;
   float eps, rmin, t_min, sigma_bar;
   int max_steps;
@@ -1688,7 +1827,7 @@ __device__ __forceinline__ void store_lane(const Lane& L, int n_src) {
 // one iteration of a lane (walk_step.inc); false when the lane freezes:
 // it stays as it is for the rest of the launch
 template <int ROBIN, bool MAJ, bool MIS, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS>
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS, bool SHARDS>
 __device__ __forceinline__ bool walk_step(Lane& L, const Launch& K) {
   constexpr bool FREEZE = true;
   float &px = L.px, &py = L.py, &nx = L.nx, &ny = L.ny, &atten = L.atten;
@@ -1706,7 +1845,7 @@ __device__ __forceinline__ bool walk_step(Lane& L, const Launch& K) {
   const bool ob0 = L.ob0;
   const float n0x = L.n0x, n0y = L.n0y;
   const int n_src = K.n_src;
-  const uint32_t seed = K.seed;
+  const uint32_t seed = SHARDS ? lane_seed(L.lane) : K.seed;
   const bool snap = K.snap;
   const float eps = K.eps, rmin = K.rmin, t_min = K.t_min;
   const float sigma_bar = K.sigma_bar;
@@ -1808,7 +1947,7 @@ __device__ __forceinline__ void chord_branch(float px, float py, float nx,
 // r, sigma_bar, alpha_p, atten, q and the hash base and stream in; atten,
 // z and alpha_z out in rows 6-9), the arrivals from the last column down
 // (the hit, its normal, the direction, t_hit, r, sigma_bar in; the
-// factor out in row 6); rows 15-18 and int rows 2-4 the redraw queue's
+// factor out in row 6); rows 15-18 and int rows 2-5 the redraw queue's
 // (walk_step_chain, the builds without MIS and the majorant). Each
 // counter is zeroed after the barrier that ends its queue's work, and
 // taken again only after another queue's first barrier.
@@ -1840,7 +1979,7 @@ __device__ __forceinline__ unsigned int& redraw_count() {
   __shared__ unsigned int n;
   return n;
 }
-static_assert(LANE_FLOATS >= 19 && LANE_INTS >= 5, "the queues' rows");
+static_assert(LANE_FLOATS >= 19 && LANE_INTS >= 6, "the queues' rows");
 
 // One iteration of a lane of a chain_phases build: walk_step.inc's
 // iteration for the chain with delta tracking, with MIS or without, and
@@ -1859,7 +1998,7 @@ static_assert(LANE_FLOATS >= 19 && LANE_INTS >= 5, "the queues' rows");
 // factor of a branching lane and the collision or edge move of a
 // branching lane are not computed: the branch overwrites them.
 template <bool MAJ, bool MIS, bool TABLE, bool TRANSPORT, bool WIDE,
-          bool GRID, bool TERMS>
+          bool GRID, bool TERMS, bool SHARDS>
 __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
                                                 bool on,
                                                 const WallQueue& Q) {
@@ -1875,7 +2014,7 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
   [[maybe_unused]] const int lane = L.lane;
   const uint32_t sid = L.sid;
   const int n_src = K.n_src;
-  const uint32_t seed = K.seed;
+  const uint32_t seed = SHARDS && on ? lane_seed(L.lane) : K.seed;
   const float rmin = K.rmin, t_min = K.t_min;
 
   // ---- 1. bank a finished walk, or the star radius and the majorant
@@ -1985,8 +2124,9 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
   // map or the majorant, where its redraw rounds loop (more than two
   // rounds; the same on every thread): round 0 on the lane, the redraw
   // rounds of the lanes that rejected it one a thread (float rows 15-18
-  // and int rows 2-4: z, k0e_z, i0e_z, a_rate, the small-z flag, ctr and
-  // sid in; s and w_r out in rows 15 and 16). At two rounds a rejecting
+  // and int rows 2-5: z, k0e_z, i0e_z, a_rate, the small-z flag, ctr, sid
+  // and, in a launch of several shards, the lane's seed in; s and w_r out
+  // in rows 15 and 16). At two rounds a rejecting
   // lane runs one round on its lane: the queue's barriers cost more than
   // that round; and the majorant build (the accuracy path, at two rounds)
   // ran 4% slower with the queue's code compiled in (PERF.md, section 6).
@@ -2007,6 +2147,7 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
           Q.f[17][slot] = q.i0e_z, Q.f[18][slot] = a_rate;
           Q.w[2][slot] = q.small ? 1 : 0, Q.w[3][slot] = (int)ctr;
           Q.w[4][slot] = (int)sid;
+          if constexpr (SHARDS) Q.w[5][slot] = (int)seed;
         }
       }
       float s_cur = s_round0;
@@ -2015,8 +2156,9 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
           const Rej qt = {Q.f[15][t], Q.f[16][t], Q.f[17][t],
                           Q.w[2][t] != 0};
           float s_t = F(0.0), w_t = F(0.0);
-          radius_redraws(qt, Q.f[18][t], seed, (uint32_t)Q.w[3][t],
-                         (uint32_t)Q.w[4][t], C.rounds, s_t, w_t);
+          radius_redraws(qt, Q.f[18][t], SHARDS ? (uint32_t)Q.w[5][t] : seed,
+                         (uint32_t)Q.w[3][t], (uint32_t)Q.w[4][t], C.rounds,
+                         s_t, w_t);
           Q.f[15][t] = s_t;
           Q.f[16][t] = w_t;
         }
@@ -2053,7 +2195,7 @@ __device__ __forceinline__ void walk_step_chain(Lane& L, const Launch& K,
       const float tmw = ob ? t_min : F(0.0);
       float fnx, fny, hxs, hys;
       const float t_best =
-          first_hit<TABLE>(px, py, dx, dy, tmw, fnx, fny, hxs, hys);
+          first_hit<TABLE>(px, py, dx, dy, tmw, r, fnx, fny, hxs, hys);
       hit = t_best <= r;
       if (hit) {
         t_hit = t_best;
@@ -2246,7 +2388,8 @@ __device__ unsigned int next_lane;
 // memory into the block's lowest threads whenever that frees a warp (in
 // lane order), and threads without a lane wait at the barriers.
 template <int ROBIN, bool MAJ, bool MIS, bool TABLE, bool DELTA,
-          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS, bool CHAIN>
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS, bool CHAIN,
+          bool SHARDS>
 __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
                                               float freeze_thr) {
   __shared__ float s_f[LANE_FLOATS][REPACK_THREADS];
@@ -2254,8 +2397,9 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
   __shared__ int s_scan[REPACK_THREADS];
   __shared__ unsigned int s_take;
   const int t = threadIdx.x;
-  const Launch K = {C.n_src,  C.seed,      C.snap != 0,  C.eps,     C.rmin,
-                    C.t_min,  C.sigma_bar, C.max_steps, freeze_thr};
+  const Launch K = {C.n_src, C.seed, C.snap != 0, C.eps,
+                    C.rmin,  C.t_min,        C.sigma_bar, C.max_steps,
+                    freeze_thr};
   // an inclusive scan over the block of one int a thread
   const auto scan = [&](int v) {
     s_scan[t] = v;
@@ -2299,8 +2443,8 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
       for (int k = 0; k < REPACK_STEPS; ++k) {
         const bool was = live;
         if (live) ++L.it;
-        walk_step_chain<MAJ, MIS, TABLE, TRANSPORT, WIDE, GRID, TERMS>(
-            L, K, live, Q);
+        walk_step_chain<MAJ, MIS, TABLE, TRANSPORT, WIDE, GRID, TERMS,
+                        SHARDS>(L, K, live, Q);
         live = live && L.it < budget && L.quota > 0;
         if (was && !live) store_lane<WIDE>(L, K.n_src);
       }
@@ -2308,7 +2452,7 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
       for (int k = 0; k < REPACK_STEPS && live; ++k) {
         ++L.it;
         live = walk_step<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE,
-                         GRID, TERMS>(L, K) &&
+                         GRID, TERMS, SHARDS>(L, K) &&
                L.it < budget && L.quota > 0;
       }
       if (!live) store_lane<WIDE>(L, K.n_src);
@@ -2331,7 +2475,7 @@ __device__ __forceinline__ void walk_repacked(int n_lanes, int budget,
 
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
           bool TRANSPORT, bool WIDE = false, bool GRID = false,
-          bool TERMS_FORM = false>
+          bool TERMS_FORM = false, bool SHARDS = false>
 __global__ void __launch_bounds__(repacked(ROBIN, MIS, FREEZE, TABLE,
                                            TERMS_FORM)
                                       ? REPACK_THREADS
@@ -2345,8 +2489,8 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
   if constexpr (repacked(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)) {
     walk_repacked<ROBIN, MAJ, MIS, TABLE, DELTA, TRANSPORT, WIDE, GRID,
                   TERMS,
-                  chain_phases(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM)>(
-        n_lanes, budget, freeze_thr);
+                  chain_phases(ROBIN, MIS, FREEZE, TABLE, TERMS_FORM),
+                  SHARDS>(n_lanes, budget, freeze_thr);
   } else {
     // one thread per lane for the whole launch (its own loads and stores,
     // not load_lane/store_lane: routed through the Lane struct, the
@@ -2358,7 +2502,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     if (quota <= 0 || budget <= 0) return;  // a no-op lane: nothing to write
 
     const int n_src = C.n_src;
-    const uint32_t seed = C.seed;
+    const uint32_t seed = SHARDS ? lane_seed(lane) : C.seed;
     const uint32_t sid = (uint32_t)P.sid[lane];
     const float p0x = P.p0x[lane], p0y = P.p0y[lane];
     const bool snap = C.snap != 0;
@@ -2444,14 +2588,21 @@ constexpr bool REPACKED = repacked(WALK_ROBIN, WALK_MIS != 0,
                                    WALK_TERMS != 0);
 constexpr int BLOCK = REPACKED ? REPACK_THREADS : THREADS;
 
+// a launch of one shard, or (SHARDS, the builds without the freeze, which
+// the sharded loop launches) of several
+template <bool SHARDS>
 void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
                   float thr) {
   walk_kernel<WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0,
               WALK_FREEZE != 0, WALK_TABLE != 0, WALK_DELTA != 0,
               WALK_TRANSPORT != 0, WALK_WIDE != 0, WALK_GRID != 0,
-              WALK_TERMS != 0>
+              WALK_TERMS != 0, SHARDS>
       <<<grid, BLOCK, 0, st>>>(n_lanes, budget, thr);
 }
+
+// the rows per chunk of the table form's chunk records (ops/walk_kernel.py
+// reads it back after loading the library)
+extern "C" int walk_chunk_rows() { return CHUNK_ROWS; }
 
 // the switches of this library: robin, majorant, mis, freeze, table,
 // delta, transport, wide, grid, terms form (ops/walk_kernel.py reads them
@@ -2495,14 +2646,31 @@ extern "C" int walk_schedule(int* out, int n) {
 // geom: N_GEOM device pointers: the table form's rows (dir, neu, vert;
 //     16-byte aligned float4 rows, the vertices two per row), null in the
 //     static form; the grid's (nx, ny) float32 nodes, null without one.
+// seeds, n_shards, shard_lanes: the shard table, one int32 seed pattern
+//     per shard (1 to MAX_SHARDS), shard s holding lanes [s shard_lanes,
+//     (s + 1) shard_lanes), a multiple of THREADS when several (no freeze
+//     build: the sharded loop never freezes); a launch of one solve passes
+//     ip[0] and n_lanes.
+// chunks: the Neumann rows' chunk records (CHUNK_F4 16-byte aligned
+//     float4 per chunk of CHUNK_ROWS rows) in the culled_scans build; null
+//     otherwise.
 extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                            int n_ip, void* const* planes, int n_planes,
                            int n_lanes, int budget, float thr,
-                           void* const* geom, int n_geom, void* stream) {
+                           void* const* geom, int n_geom, void* stream,
+                           const int* seeds, int n_shards, int shard_lanes,
+                           const void* chunks) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
-  if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES + N_WIDE_PLANES)
+  if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES + N_WIDE_PLANES ||
+      !seeds || n_shards < 1 || n_shards > MAX_SHARDS || shard_lanes < 1 ||
+      n_lanes < 0 || (long long)n_shards * shard_lanes < n_lanes ||
+      (n_shards > 1 && (WALK_FREEZE != 0 || shard_lanes % THREADS != 0)))
     return (int)cudaErrorInvalidValue;
+  h.n_shards = n_shards;
+  h.shard_lanes = shard_lanes;
+  for (int k = 0; k < n_shards; ++k) h.shard_seed[k] = (uint32_t)seeds[k];
+  if (n_shards == 1 && seeds[0] != ip[0]) return (int)cudaErrorInvalidValue;
   h.seed = (uint32_t)ip[0];
   h.max_steps = ip[1];
   h.rounds = ip[2];
@@ -2582,6 +2750,11 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
       return (int)cudaErrorInvalidValue;
     for (int g = 0; g < 3; ++g)
       if ((uintptr_t)geom[g] % 16) return (int)cudaErrorMisalignedAddress;
+    if (CULLED && h.n_neu > 0) {  // no Neumann row: no chunk
+      if (!chunks) return (int)cudaErrorInvalidValue;
+      if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;
+      h.chunk = (const float4*)chunks;
+    }
   } else {
     for (int s = 0; s < h.n_dir; ++s)
       for (int k = 0; k < 5; ++k) h.dir[s][k] = fp[off++];
@@ -2691,16 +2864,19 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     if (!h.wacc[i] || !h.wasum[i] || !h.wasq[i])
       return (int)cudaErrorInvalidValue;
 
-  // a narrow launch reads no wide field, so its copy stops before them:
-  // the copy is part of every launch's host time
-  const size_t n_const = wide ? sizeof(h) : offsetof(WalkConst, wsrc);
+  // a narrow launch reads no wide field, so its copy skips them, and
+  // every launch copies only the seeds of its shards: the copy is part of
+  // every launch's host time
+  const size_t n_end =
+      offsetof(WalkConst, shard_seed) + sizeof(uint32_t) * (size_t)n_shards;
+  const size_t n_head = wide ? n_end : offsetof(WalkConst, wsrc);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e =
-      cudaMemcpyToSymbolAsync(C, &h, n_const, 0, cudaMemcpyHostToDevice, st);
+      cudaMemcpyToSymbolAsync(C, &h, n_head, 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
-  if (grid && !wide) {  // the grid's pointer, past the wide block
-    e = cudaMemcpyToSymbolAsync(C, &h.grid, sizeof(h.grid),
-                                offsetof(WalkConst, grid),
+  if (!wide) {  // the grid's pointer, the chunks and the shard table
+    const size_t off = offsetof(WalkConst, grid);
+    e = cudaMemcpyToSymbolAsync(C, (const char*)&h + off, n_end - off, off,
                                 cudaMemcpyHostToDevice, st);
     if (e != cudaSuccess) return (int)e;
   }
@@ -2712,7 +2888,14 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                                   cudaMemcpyHostToDevice, st);
       if (e != cudaSuccess) return (int)e;
     }
-    launch_built((n_lanes + BLOCK - 1) / BLOCK, st, n_lanes, budget, thr);
+    const int grid = (n_lanes + BLOCK - 1) / BLOCK;
+    if constexpr (WALK_FREEZE == 0) {
+      if (n_shards > 1) {
+        launch_built<true>(grid, st, n_lanes, budget, thr);
+        return (int)cudaGetLastError();
+      }
+    }
+    launch_built<false>(grid, st, n_lanes, budget, thr);
   }
   return (int)cudaGetLastError();
 }

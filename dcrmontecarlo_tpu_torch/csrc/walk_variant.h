@@ -73,6 +73,21 @@ WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze,
   return freeze || chain_phases(robin, mis, freeze, table, terms_form);
 }
 
+// the table-form variant whose first-hit scan skips the chunks of rows
+// that cannot change its result (csrc/walk_kernel.cu, chunk_skips;
+// ops/walk_kernel.py::culled_scans holds the same rule): the survey's on
+// the terrain (phase 20), the one such build that ran faster on the card
+// at its path's size; the terrain flagship, the table chain, the table
+// without delta tracking and the sweep's table builds ran slower and
+// keep the full scans (PERF.md, section 6)
+WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
+                                    bool freeze, bool table, bool delta,
+                                    bool transport, bool wide, bool grid,
+                                    bool terms_form) {
+  return robin == ROBIN_OFF && !maj && !mis && !freeze && table && delta &&
+         !transport && !wide && !grid && !terms_form;
+}
+
 }  // namespace walk_rules
 
 #endif  // WALK_VARIANT_H

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import itertools
@@ -90,7 +91,8 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "walk_plain", "compare_planes", "PLANE_RTOL", "PLANE_FLOOR",
            "PLANE_MIN_FRAC", "build_library", "nvcc_command",
            "variant_macros", "SWITCHES", "NVCC_FLAGS", "ROBIN_OFF",
-           "ROBIN_CHAIN", "ROBIN_REFLECTANCE"]
+           "ROBIN_CHAIN", "ROBIN_REFLECTANCE", "MAX_SHARDS", "CHUNK_ROWS",
+           "culled_scans", "chunk_records"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -103,6 +105,8 @@ MAX_SMEM_SEGMENTS = 8192   # of the table form (ops/pallas_walk.py:50-51)
 MAX_MIX = 8          # MIS mixture components
 MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on dipoles)
 MAX_WIDE_MIX = 64    # and mixture components
+MAX_SHARDS = 64      # shards one launch holds (its shard table)
+CHUNK_ROWS = 8       # rows per chunk of the table form's culled scans
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
 # reflectance fold
@@ -191,6 +195,17 @@ def repacked(variant) -> bool:
     repacked``): the freeze builds and :func:`chain_phases`'; the others
     run one thread a lane for the whole launch."""
     return _switches(variant)[3] or chain_phases(variant)
+
+
+def culled_scans(variant) -> bool:
+    """Whether ``variant``'s first-hit scan skips the chunks of rows that
+    cannot change its result (``walk_variant.h::culled_scans``): the
+    survey's table form ``<0,false,false,false,true,true,false>`` (phase
+    20), the one table build that ran faster so at its path's size. Its
+    launches take the chunk records of its Neumann rows
+    (:meth:`WalkParams.chunk_table`)."""
+    return _switches(variant) == (ROBIN_OFF, False, False, False, True,
+                                  True, False, False, False, False)
 
 
 def variant_fault(variant) -> Optional[str]:
@@ -343,6 +358,59 @@ def _empty(cols: int) -> np.ndarray:
     return np.zeros((0, cols), np.float32)
 
 
+def _outward(x: np.ndarray, up: bool) -> np.ndarray:
+    """float64 values rounded to the float32 at or past them (``up``: at
+    or above)."""
+    y = x.astype(np.float32)
+    past = (y < x) if up else (y > x)
+    return np.where(past, np.nextafter(y, np.float32(np.inf if up else
+                                                        -np.inf)), y)
+
+
+def _chunk_cone(rows: np.ndarray) -> tuple:
+    """A Neumann chunk's second float4 ``(mx, my, g, 0)``: a unit ``m``
+    and ``g >= 2 sin(gamma) + slack``, where every row's unit direction, or
+    its negative, lies within ``gamma`` of ``m`` (rows of zero length never
+    hit); ``g = 4`` (no bound) for a cone of 30 degrees or more, a row
+    shorter than 1e-20 or no row with a direction."""
+    u = rows[:, 2:4].astype(np.float64) - rows[:, 0:2].astype(np.float64)
+    length = np.hypot(u[:, 0], u[:, 1])
+    if ((length > 0) & (length < 1e-20)).any() or not (length > 0).any():
+        return 0.0, 0.0, 4.0, 0.0
+    u = u[length > 0] / length[length > 0, None]
+    u = u * np.where(u @ u[np.argmax(length[length > 0])] < 0, -1.0,
+                     1.0)[:, None]
+    m = u.sum(0)
+    m /= np.hypot(m[0], m[1])
+    gamma = float(np.arccos(np.clip(np.abs(u @ m).min(), -1.0, 1.0)))
+    if gamma >= np.pi / 6:
+        return 0.0, 0.0, 4.0, 0.0
+    return m[0], m[1], 2.0 * np.sin(gamma) + 1e-5, 0.0
+
+
+def chunk_records(neu_rows, rows_per_chunk: Optional[int] = None
+                  ) -> np.ndarray:
+    """The table form's chunk records (``csrc/walk_kernel.cu``,
+    ``chunk_skips``): ``(chunks, 8)`` float32, for each ``CHUNK_ROWS``
+    consecutive Neumann rows ``[ax, ay, bx, by]`` the box ``(x0, y0, x1,
+    y1)`` of their float32 endpoints, widened by ``2^-20`` of their
+    largest coordinate and rounded outward, then their direction cone
+    (:func:`_chunk_cone`). ``rows_per_chunk`` other than ``CHUNK_ROWS``
+    serves the host replay of the cull (``chip_probes/table_cull.py``)."""
+    rows_per_chunk = rows_per_chunk or CHUNK_ROWS
+    rows = np.asarray(neu_rows, np.float32)
+    out = []
+    for c0 in range(0, len(rows), rows_per_chunk):
+        chunk = rows[c0:c0 + rows_per_chunk]
+        pts = chunk[:, :4].reshape(-1, 2).astype(np.float64)
+        widen = float(np.abs(pts).max()) * 2.0 ** -20 + 1e-30
+        lo = _outward(pts.min(0) - widen, up=False)
+        hi = _outward(pts.max(0) + widen, up=True)
+        out.append([lo[0], lo[1], hi[0], hi[1], *_chunk_cone(chunk)])
+    # the boxes are float32 already; g rounds up
+    return _outward(np.asarray(out, np.float64).reshape(-1, 8), up=True)
+
+
 @dataclass(frozen=True)
 class WalkParams:
     """Everything one launch needs besides the planes."""
@@ -392,6 +460,11 @@ class WalkParams:
                                  # the ball's edge or its Neumann hit
     transport: bool = False      # the screened radius by the transport
                                  # map (screened_sampler="transport")
+    shard_seeds: Tuple[int, ...] = ()  # a launch over several shards'
+    shard_lanes: int = 0         # lanes, shard_lanes each, shard after
+                                 # shard, lane i drawing from shard_seeds[
+                                 # i // shard_lanes]; () for one shard that
+                                 # draws from seed (shard_table)
     _cache: dict = field(init=False, default_factory=dict, compare=False,
                          repr=False)  # tables as tensors, per device
 
@@ -529,6 +602,40 @@ class WalkParams:
         if key not in self._cache:
             t = torch.from_numpy(np.array(getattr(self, name).T, np.float32))
             self._cache[key] = [c[None, :] for c in t.to(device)]
+        return self._cache[key]
+
+    def shard_table(self, n_lanes: int):
+        """``(seeds, lanes)``: the launch's shard table, int32 seed
+        patterns and lanes per shard; one shard of ``n_lanes`` lanes with
+        ``seed`` unless :attr:`shard_seeds` is set. Raises above
+        ``MAX_SHARDS`` shards or where a lane lies past the last shard."""
+        if not self.shard_seeds:
+            return np.asarray([self.seed], np.int64).astype(np.int32), \
+                max(int(n_lanes), 1)
+        seeds = np.asarray(self.shard_seeds, np.int64).astype(np.int32)
+        if not 1 <= len(seeds) <= MAX_SHARDS:
+            raise NotImplementedError(
+                f"a launch holds up to {MAX_SHARDS} shards, got "
+                f"{len(seeds)}: launch them in groups")
+        if self.shard_lanes < 1 or len(seeds) * self.shard_lanes < n_lanes:
+            raise ValueError(f"{n_lanes} lanes do not fit {len(seeds)} "
+                             f"shards of {self.shard_lanes}")
+        if self.shard_lanes % LANES or self.freeze:
+            raise ValueError("a launch of several shards holds whole rows "
+                             f"of {LANES} lanes a shard and no freeze (the "
+                             "sharded loop never freezes)")
+        return seeds, int(self.shard_lanes)
+
+    def chunk_table(self, device):
+        """The Neumann rows' chunk records (:func:`chunk_records`) as a
+        contiguous float32 tensor on ``device``, uploaded once per params;
+        None outside the :func:`culled_scans` variant."""
+        if not culled_scans(self.variant):
+            return None
+        key = ("chunks", str(device))
+        if key not in self._cache:
+            self._cache[key] = torch.from_numpy(chunk_records(
+                self.neu_table)).to(device)
         return self._cache[key]
 
     def grid_table(self, device):
@@ -905,8 +1012,9 @@ def _mis_nee(P: WalkParams, u5, u6, u7, u8, px, py, gx, gy, r, sbar, ob,
 
 def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
     """One walk step over every lane (the kernel's step body, masked);
-    ``freeze_thr`` (freeze builds) stops lanes with ``|atten|`` above it."""
-    p0x, p0y, sid, ob0, n0x, n0y = consts
+    ``freeze_thr`` (freeze builds) stops lanes with ``|atten|`` above it.
+    ``consts`` ends with the stream seed."""
+    p0x, p0y, sid, ob0, n0x, n0y, seed = consts
     n_src = P.n_src
     px, py, nxv, nyv, atten = s["px"], s["py"], s["nx"], s["ny"], s["atten"]
     accs = [s[f"acc{i}"] for i in range(n_src)]
@@ -927,7 +1035,7 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
     streams = ((1,) + ((4,) if delta else (2, 3) if P.sources else ())
                + ((5, 6, 7, 8) if mis else ())
                + ((9, 10, 11) if chain else ()))
-    u = dict(zip(streams, _uniforms(P.seed, ctr, sid, streams)))
+    u = dict(zip(streams, _uniforms(seed, ctr, sid, streams)))
     u1 = u[1]
 
     dD, cx, cy = _closest_point(P, px, py)
@@ -1021,7 +1129,7 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
         hit = torch.zeros_like(ob)
 
     def draw_r(round_idx):
-        sd = (P.seed ^ 0xA5A5A5A5 ^ (round_idx * 0x68E31DA4)) & rng.MASK32
+        sd = (seed ^ 0xA5A5A5A5 ^ (round_idx * 0x68E31DA4)) & rng.MASK32
         return _uniforms(sd, ctr, sid, (1, 2, 3, 4))
 
     if delta:
@@ -1146,7 +1254,7 @@ def _step(s, P: WalkParams, consts, a_p0, a_cur, freeze_thr=None):
 
     if P.roulette_threshold is not None:
         thr = P.roulette_threshold
-        (u_r,) = _uniforms(P.seed ^ 0x0F1E2D3C, ctr, sid, (1,))
+        (u_r,) = _uniforms(seed ^ 0x0F1E2D3C, ctr, sid, (1,))
         low = stepping & (torch.abs(atten) < thr)
         survive = u_r * thr < torch.abs(atten)
         atten = torch.where(
@@ -1202,9 +1310,25 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
     stepped until the next check: exact, because a step of a lane without
     quota changes nothing, nor does one of a lane frozen by ``freeze_thr``
     (freeze builds) whose walk is not due to end, for the rest of the
-    launch (the kernel's per-thread exits rest on the same facts). Updates
-    the mutable planes of ``state`` in place and returns it.
+    launch (the kernel's per-thread exits rest on the same facts). A
+    launch over several shards (:meth:`WalkParams.shard_table`) walks each
+    shard's lanes with its seed, one shard after another: the same batches
+    of lanes as a launch of that shard alone (PyTorch's CPU kernels may
+    round an element by where it falls in a batch: its ``sigmoid`` rounds a
+    batch's tail through another ``exp``). Updates the mutable planes of
+    ``state`` in place and returns it.
     """
+    seeds, per = params.shard_table(state["px"].numel())
+    if len(seeds) > 1:
+        for k, seed in enumerate(seeds.tolist()):
+            one = params._cache.get(("shard", k))
+            if one is None:
+                one = params._cache[("shard", k)] = dataclasses.replace(
+                    params, seed=seed, shard_seeds=(), shard_lanes=0)
+            walk_plain({n: v.reshape(-1)[k * per:(k + 1) * per]
+                        for n, v in state.items()}, one, inner_steps,
+                       freeze_thr)
+        return state
     P = params
     thr = _freeze_threshold(P, freeze_thr)
     names = state_planes(P.n_src)
@@ -1231,7 +1355,7 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
             consts = (flat["p0x"][idx], flat["p0y"][idx], flat["sid64"][idx],
                       flat["ob0"][idx] != 0 if P.snap else None,
                       flat["n0x"][idx] if P.snap else None,
-                      flat["n0y"][idx] if P.snap else None)
+                      flat["n0y"][idx] if P.snap else None, P.seed)
             a_p0 = flat["a_p0"][idx]
         sub["a_cur"] = _step(sub, P, consts, a_p0, sub["a_cur"], thr)
     if sub is not None:
@@ -1397,35 +1521,38 @@ def _library(variant):
             tuple(got) != tuple(int(v) for v in _switches(variant)):
         raise RuntimeError(f"{path} holds switches {tuple(got)}, not "
                            f"{kernel_name(variant)}'s")
-    lib.walk_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,   # fp
-                                ctypes.c_void_p, ctypes.c_int,   # ip
-                                ctypes.c_void_p, ctypes.c_int,   # planes
-                                ctypes.c_int, ctypes.c_int,      # lanes,
-                                                                 # budget
-                                ctypes.c_float,                  # freeze
-                                ctypes.c_void_p, ctypes.c_int,   # geom,
-                                                                 # grid
-                                ctypes.c_void_p]                 # stream
+    # (a library built from a checkout before the shard table and the
+    # chunk records, as chip_probes/ launch for an A/B, has no
+    # walk_chunk_rows and leaves the trailing arguments unread)
+    if hasattr(lib, "walk_chunk_rows") and \
+            lib.walk_chunk_rows() != CHUNK_ROWS:
+        raise RuntimeError(f"{path} cuts its tables into chunks of "
+                           f"{lib.walk_chunk_rows()} rows, not {CHUNK_ROWS}")
+    lib.walk_launch.argtypes = LAUNCH_ARGTYPES
     lib.walk_launch.restype = ctypes.c_int
     return lib
 
 
-# the kernel's planes: the narrow form's, then the wide form's moment
-# planes of sources MAX_SRC..
-_PLANE_ORDER = (CONST_PLANES + SNAP_PLANES + tuple(state_planes(MAX_SRC))
-                + tuple(f"{k}{i}" for k in ("acc", "asum", "asq")
-                        for i in range(MAX_SRC, MAX_WIDE_SRC)))
-_PLANE_INDEX = {name: i for i, name in enumerate(_PLANE_ORDER)}
+# walk_launch's arguments (csrc/walk_kernel.cu)
+LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,   # fp
+                   ctypes.c_void_p, ctypes.c_int,   # ip
+                   ctypes.c_void_p, ctypes.c_int,   # planes
+                   ctypes.c_int, ctypes.c_int,      # lanes, budget
+                   ctypes.c_float,                  # freeze
+                   ctypes.c_void_p, ctypes.c_int,   # geom, grid
+                   ctypes.c_void_p,                 # stream
+                   ctypes.c_void_p, ctypes.c_int,   # the shard table
+                   ctypes.c_int,
+                   ctypes.c_void_p]                 # chunk records
 
 
-def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
-                 freeze_thr=None) -> dict:
+def launch_args(state: dict, params: WalkParams):
+    """``walk_launch``'s arguments but the budget, the threshold and the
+    stream, for ``state`` (checked planes) and ``params``: ``(fp, ip,
+    planes, geom, seeds, per_shard, chunks)``, ctypes-ready; the arrays
+    stay alive with the returned tuple."""
     px = state["px"]
-    if px.device.type != "cuda":
-        raise RuntimeError(
-            f"run_walk takes CPU or CUDA tensors, got {px.device}")
     fp, ip = params.pack()
-    thr = _freeze_threshold(params, freeze_thr)
     names = set(CONST_PLANES) | set(state_planes(params.n_src))
     if params.snap:
         names |= set(SNAP_PLANES)
@@ -1443,16 +1570,38 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
             for t in params.device_tables(px.device)] or [None] * 3
     grid = params.grid_table(px.device)
     geom.append(None if grid is None else grid.data_ptr())
+    seeds, per = params.shard_table(px.numel())
+    chunks = params.chunk_table(px.device)
+    return (fp, ip, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_void_p * len(geom))(*geom), seeds, per,
+            None if chunks is None else chunks.data_ptr())
+
+
+# the kernel's planes: the narrow form's, then the wide form's moment
+# planes of sources MAX_SRC..
+_PLANE_ORDER = (CONST_PLANES + SNAP_PLANES + tuple(state_planes(MAX_SRC))
+                + tuple(f"{k}{i}" for k in ("acc", "asum", "asq")
+                        for i in range(MAX_SRC, MAX_WIDE_SRC)))
+_PLANE_INDEX = {name: i for i, name in enumerate(_PLANE_ORDER)}
+
+
+def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
+                 freeze_thr=None) -> dict:
+    px = state["px"]
+    if px.device.type != "cuda":
+        raise RuntimeError(
+            f"run_walk takes CPU or CUDA tensors, got {px.device}")
+    thr = _freeze_threshold(params, freeze_thr)
+    fp, ip, arr, garr, seeds, per, chunks = launch_args(state, params)
     lib = _library(params.variant)
-    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    garr = (ctypes.c_void_p * len(geom))(*geom)
     budget = int(min(max(int(inner_steps), 0), 2**31 - 1))
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         err = lib.walk_launch(fp.ctypes.data, len(fp), ip.ctypes.data,
-                              len(ip), arr, len(ptrs), px.numel(),
+                              len(ip), arr, len(arr), px.numel(),
                               budget, math.inf if thr is None else thr,
-                              garr, len(geom), stream)
+                              garr, len(garr), stream, seeds.ctypes.data,
+                              len(seeds), per, chunks)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     run_walk.launches += 1

@@ -21,15 +21,23 @@ that puts the active lanes first after each launch.
 
 Lockstep is not copied. The JAX loop keeps every device at the same
 launch count (a psum of the active lanes per launch, for interpret mode's
-barrier). Here one process advances its shards together, one launch per
-live shard and then one read of their active counts, and processes do not
-talk per launch: a walk does not depend on how its steps are cut into
+barrier). Here one process advances its shards together and processes do
+not talk per launch: a walk does not depend on how its steps are cut into
 launches, and a shard's split depends only on its own lanes and its
 launch count, so a shard's result is the same whatever the others do.
-Shards that share a device launch in turn on its current stream: the
-kernel's ``__constant__`` block (seed, plane pointers) is written on the
-launch's stream before each launch, so launches on two streams of one
-device would race on it. The only collective is one ``all_gather`` per
+The shards a process holds on one device (up to ``MAX_SHARDS``) keep
+their planes in one buffer, shard after shard, each shard's planes a view
+of its segment, and each loop step launches once over the buffer while
+any of them is live: the kernel's shard table gives each lane its shard's
+seed (``WalkParams.shard_table``), and a drained shard's lanes have no
+quota, so a step changes nothing there. Then each live shard splits and
+packs in its own segment, and one read brings back the device's live
+counts. (The JAX reference advances every shard in one program per loop
+step too, ``mesh.py:576-650``.) A device takes one launch at a time on its
+current stream: the kernel's ``__constant__`` block (shard table, plane
+pointers) and its pool counter exist once per device, written on the
+launch's stream before each launch. The only collective is one
+``all_gather`` per
 solve of every shard's moment row, summed in shard order, so every process
 gets the same bits and a job of several processes equals one process
 holding the same shards, bit for bit.
@@ -50,7 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.walk_kernel import WalkParams, run_walk, stream_ids
+from ..ops.walk_kernel import MAX_SHARDS, WalkParams, run_walk, stream_ids
 from ..problems.problem import Problem
 from ..sampling.rng import shard_seed
 from ..solver.split import make_launch_split, reserve_quota_row
@@ -227,15 +235,43 @@ class _Shard:
         self.launches, self.clones, self.live = 0, 0, self.q0 > 0
 
 
+class _Group:
+    """The shards that one launch advances: up to ``MAX_SHARDS`` shards of
+    one device, their planes moved into one buffer, shard after shard (each
+    shard's ``state`` becomes a view of its segment), with the parameters
+    of a launch over it: the shard table of their seeds (one shard keeps
+    its own parameters)."""
+
+    def __init__(self, shards, rows: int):
+        self.shards = shards
+        n = rows * LANES
+        self.state = {k: torch.cat([s.state[k].reshape(-1) for s in shards]
+                                   ).view(len(shards) * rows, LANES)
+                      for k in shards[0].state}
+        for i, s in enumerate(shards):
+            s.state = {k: v.view(-1)[i * n:(i + 1) * n].view(rows, LANES)
+                       for k, v in self.state.items()}
+        self.params = (shards[0].params if len(shards) == 1 else
+                       dataclasses.replace(
+                           shards[0].params, shard_lanes=n,
+                           shard_seeds=tuple(s.params.seed for s in shards)))
+
+    def live_counts(self):
+        """Each shard's lanes with quota, in one device-to-host read."""
+        quota = self.state["quota"].view(len(self.shards), -1)
+        return (quota > 0).sum(1).tolist()
+
+
 def _pack(state: dict, pid):
-    """Active lanes first, in lane order (a stable sort): every plane and
-    the point ids take the same permutation, so walks are unchanged and
-    only the kernel blocks' occupancy moves (``mesh.py:561-571``)."""
+    """Active lanes first, in lane order (a stable sort), in place: every
+    plane and the point ids take the same permutation, so walks are
+    unchanged and only the kernel blocks' occupancy moves
+    (``mesh.py:561-571``)."""
     perm = torch.argsort((state["quota"].reshape(-1) <= 0).to(torch.int8),
                          stable=True)
-    for k, v in state.items():
-        state[k] = v.reshape(-1)[perm].reshape(v.shape)
-    return pid[perm]
+    for v in list(state.values()) + [pid]:
+        flat = v.view(-1)
+        flat.copy_(flat[perm])
 
 
 class ShardedWoStSolver(WoStSolver):
@@ -343,14 +379,27 @@ class ShardedWoStSolver(WoStSolver):
             bank=torch.zeros(2 * n_src, n_points, dtype=torch.float32,
                              device=dev))
 
+    def _groups(self, plan: _Plan, shards) -> list:
+        """``shards`` in launch groups (:class:`_Group`): those of one
+        device together, in shard order, up to ``MAX_SHARDS`` a group."""
+        by_device = {}
+        for s in shards:
+            by_device.setdefault(str(self.mesh.devices[s.d]), []).append(s)
+        return [_Group(same[i:i + MAX_SHARDS], plan.rows)
+                for same in by_device.values()
+                for i in range(0, len(same), MAX_SHARDS)]
+
     def _run_shards(self, plan: _Plan, shards, walk: Callable = run_walk,
                     progress: Callable = None):
         """The launch loop (K9, ``mesh.py:576-650``) of the global shards
-        ``shards``, advanced together: each launch runs every live shard,
-        then splits, packs and reads its active lanes. Returns their rows
-        ``(len(shards), R)`` float64 on the host: the moments
-        ``(2 n_src, P)`` flattened, then the scalars of ``_STATS``."""
+        ``shards``, advanced together: each loop step launches once over
+        each group of a device's shards that holds a live shard, then each
+        live shard splits and packs, and each group's live counts come back
+        in one read. Returns their rows ``(len(shards), R)`` float64 on the
+        host: the moments ``(2 n_src, P)`` flattened, then the scalars of
+        ``_STATS``."""
         live = [self._shard(plan, d) for d in shards]
+        groups = self._groups(plan, live)
         n_dev = self.mesh.devices.size
         total = plan.points.shape[0] * plan.n_walks
         pack = bool(self.options.compaction)
@@ -358,8 +407,9 @@ class ShardedWoStSolver(WoStSolver):
         launches = 0
         while launches < plan.loop_cap and any(s.live for s in live):
             running = [s for s in live if s.live]
-            for s in running:
-                walk(s.state, s.params, plan.n_inner)
+            for g in groups:
+                if any(s.live for s in g.shards):
+                    walk(g.state, g.params, plan.n_inner)
             launches += 1
             for s in first:  # shard 0 reports, drained or not
                 done = max(s.q0 - int(s.state["quota"].sum()), 0)
@@ -373,10 +423,11 @@ class ShardedWoStSolver(WoStSolver):
                     s.clones += n
                     s.bank += torch.cat([dsum, dsq])
                 if pack:
-                    s.pid = _pack(s.state, s.pid)
-            counts = [(s.state["quota"] > 0).sum() for s in running]
-            for s, c in zip(running, counts):
-                s.live = int(c) > 0
+                    _pack(s.state, s.pid)
+            for g in groups:
+                if any(s.live for s in g.shards):
+                    for s, c in zip(g.shards, g.live_counts()):
+                        s.live = s.live and c > 0
         n_src = plan.params.n_src
         rows = []
         for s in live:

@@ -6,7 +6,9 @@ block's barriers, ``__syncthreads_count`` and the shared-memory atomics
 emulated, a block at a time. Its ``<<<...>>>`` launch becomes
 ``host_launch``. With ``one_thread`` every build runs the
 one-thread-per-lane loop, as the builds outside ``walk_variant.h::
-repacked`` do, in place of the repack loop.
+repacked`` do, in place of the repack loop; with ``full_scans`` the table
+form's culled scans skip no chunk (``FULL_SCANS``): every row in row
+order, the scans as they were before the chunks.
 """
 
 import ctypes
@@ -18,8 +20,6 @@ import pytest
 
 import chip_smoke as cs
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
-from dcrmontecarlo_tpu_torch.solver.state import CONST_PLANES, \
-    SNAP_PLANES, state_planes
 
 # the kernel's loop fork, and the one-thread loop in its place
 ONE_THREAD = (
@@ -29,13 +29,17 @@ ONE_THREAD = (
      "                                   WALK_FREEZE != 0, WALK_TABLE != 0,\n"
      "                                   WALK_TERMS != 0);",
      "constexpr bool REPACKED = false;"))
+# the culled scans' skip test, and false in its place
+FULL_SCANS = (("constexpr bool CHUNK_SKIP = true;",
+               "constexpr bool CHUNK_SKIP = false;"),)
 
 
-def host_source(one_thread=False):
-    """The kernel's source with its launch run by ``host_launch``."""
+def host_source(one_thread=False, full_scans=False, extra=""):
+    """The kernel's source with its launch run by ``host_launch``, and
+    ``extra`` appended (a test's probe of the unit's functions)."""
     src = wk._SRC.read_text()
-    if one_thread:
-        for old, new in ONE_THREAD:
+    for on, edits in ((one_thread, ONE_THREAD), (full_scans, FULL_SCANS)):
+        for old, new in edits if on else ():
             assert src.count(old) == 1, old
             src = src.replace(old, new)
     start = src.index("  walk_kernel<WALK_ROBIN")
@@ -44,18 +48,19 @@ def host_source(one_thread=False):
     m = re.search(r"<<<\s*(\w+)\s*,\s*(\w+)\s*,[^>]*>>>", launch)
     call = " ".join(launch.replace(m.group(0), "").split())
     return src.replace(launch, f"  host_launch({m.group(1)}, {m.group(2)}, "
-                               f"[&] {{ {call} }});")
+                               f"[&] {{ {call} }});") + extra
 
 
-def start_build(tmp, variant, one_thread):
+def start_build(tmp, variant, one_thread, full_scans=False, extra=""):
     """Start the host compiler on ``variant``'s library under ``tmp``;
     returns ``(process, library path)`` (:func:`load` waits for it)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    name = f"{wk.variant_code(variant)}_{'one' if one_thread else 'own'}"
+    name = (f"{wk.variant_code(variant)}_{'one' if one_thread else 'own'}"
+            f"{'_full' if full_scans else ''}")
     unit = tmp / f"walk_kernel_{name}.cpp"
-    unit.write_text(host_source(one_thread))
+    unit.write_text(host_source(one_thread, full_scans, extra))
     so = tmp / f"walk_kernel_{name}.so"
     here = wk._SRC.parents[2] / "tests" / "host_cuda"
     proc = subprocess.Popen(
@@ -69,31 +74,26 @@ def start_build(tmp, variant, one_thread):
 def load(build, variant):
     """``walk(state, params, budget, thr)``: one launch of a started
     build's library on CPU planes, in place; ``walk.schedule`` is the
-    launch's schedule as the library exports it."""
+    launch's schedule as the library exports it, ``walk.lib`` the
+    library."""
     proc, so = build
     out, _ = proc.communicate(timeout=300)
     assert proc.returncode == 0, out
     lib = ctypes.CDLL(str(so))
 
+    lib.walk_launch.argtypes = wk.LAUNCH_ARGTYPES
+    assert lib.walk_chunk_rows() == wk.CHUNK_ROWS
+
     def walk(state, params, budget, thr):
         assert params.variant == variant
-        fp, ip = params.pack()
-        ptrs = [None] * len(wk._PLANE_ORDER)
-        names = set(CONST_PLANES) | set(state_planes(params.n_src))
-        names |= set(SNAP_PLANES) if params.snap else set()
-        for n in names:
-            assert state[n].is_contiguous()
-            ptrs[wk._PLANE_INDEX[n]] = state[n].data_ptr()
-        geom = [t.data_ptr() if t.numel() else None
-                for t in params.device_tables("cpu")] or [None] * 3
-        geom.append(None)  # no grid
+        fp, ip, arr, garr, seeds, per, chunks = wk.launch_args(state,
+                                                              params)
         err = lib.walk_launch(
-            ctypes.c_void_p(fp.ctypes.data), len(fp),
-            ctypes.c_void_p(ip.ctypes.data), len(ip),
-            (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
-            state["px"].numel(), budget, ctypes.c_float(thr),
-            (ctypes.c_void_p * 4)(*geom), 4, None)
+            fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr, len(arr),
+            state["px"].numel(), budget, thr, garr, len(garr), None,
+            seeds.ctypes.data, len(seeds), per, chunks)
         assert err == 0
         return state
     walk.schedule = cs.repack_schedule(lib)
+    walk.lib = lib
     return walk

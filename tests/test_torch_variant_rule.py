@@ -357,19 +357,14 @@ def test_library_refuses_a_header_of_other_switches(tmp_path):
     assert lib.walk_switches(got, 10) == 0
     assert tuple(got) == (0, 0, 0, 1, 0, 1, 0, 0, 0, 0)
 
+    lib.walk_launch.argtypes = wk.LAUNCH_ARGTYPES
+
     def launch(p):
-        fp, ip = p.pack()
-        ptrs = [None] * len(wk._PLANE_ORDER)
-        names = set(wk.CONST_PLANES) | set(wk.state_planes(p.n_src))
-        names |= set(wk.SNAP_PLANES) if p.snap else set()
-        for n in names:
-            ptrs[wk._PLANE_INDEX[n]] = state[n].data_ptr()
-        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        geom = (ctypes.c_void_p * 4)()
+        fp, ip, arr, garr, seeds, per, chunks = wk.launch_args(state, p)
         return lib.walk_launch(
-            ctypes.c_void_p(fp.ctypes.data), len(fp),
-            ctypes.c_void_p(ip.ctypes.data), len(ip), arr, len(ptrs), 0, 0,
-            ctypes.c_float(math.inf), geom, 4, None)
+            fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr, len(arr),
+            0, 0, math.inf, garr, len(garr), None, seeds.ctypes.data,
+            len(seeds), per, chunks)
 
     assert launch(params) == 0
     for other in (dataclasses.replace(params, freeze=False),
