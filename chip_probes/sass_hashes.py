@@ -4,9 +4,13 @@ its SASS instruction count, a hash of its instructions without addresses
 (``cuobjdump -sass``, as ``launch_overhead.py`` hashes one), a second hash
 with the constant-bank operands ``c[bank][offset]`` masked as well (a
 field appended to the kernel's constant block moves the ``__constant__``
-tables placed after it), and its registers (``ptxas -v``). Two checkouts
-whose hashes agree for an instantiation run the same code there. Run both
-trees in one call:
+tables placed after it), and its registers (``ptxas -v``); then the same two hashes and the
+instruction count of each kernel function in the library apart (a
+library holds its variant's one-thread or repack kernel, the kernel of a
+launch of several shards, and in ``walk_kernel.dealt``'s builds the dealt
+loop with its plan and fold kernels). Two checkouts whose hashes agree
+for an instantiation, or for a function, run the same code there. Run
+both trees in one call:
 
     for t in "_archive/parent p" ". c"; do
         set -- $t; python3 chip_probes/sass_hashes.py $1 $2; done
@@ -57,4 +61,23 @@ for code in sorted(paths):
           hashlib.sha256("\n".join(ops).encode()).hexdigest()[:12],
           hashlib.sha256("\n".join(masked).encode()).hexdigest()[:12],
           flush=True)
+    # function by function ("Function : <mangled name>" opens each)
+    fn, body = None, {}
+    for line in sass.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            body[fn] = []
+        elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            body[fn].append(re.sub(r"/\*[0-9a-f]+\*/|;.*$", "", line).strip())
+    for fn in sorted(body):
+        f_ops = body[fn]
+        f_masked = [re.sub(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]", "c[]", op)
+                    for op in f_ops]
+        # the name without its anonymous namespace (which names the file)
+        short = re.sub(r"^_ZN\d+_GLOBAL__N__.*?_cu_[0-9a-f]{8}\d+", "", fn)
+        print(tag, " fn", names[code], short, len(f_ops),
+              hashlib.sha256("\n".join(f_ops).encode()).hexdigest()[:12],
+              hashlib.sha256("\n".join(f_masked).encode()).hexdigest()[:12],
+              flush=True)
 print(tag, "registers by entry", sorted(regs.items()), flush=True)

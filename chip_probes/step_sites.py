@@ -21,7 +21,7 @@ lane-iterations. The shipped source is never touched.
 
 In a tree whose build rule sends a variant to another loop, the copy is
 switched back to the one-thread loop first (``ONE_THREAD``), so a later
-tree measures the same code as its parent. Four builds at their full-size
+tree measures the same code as its parent. The builds at their full-size
 states (seed 5, fresh walks):
 
 - ``line``: ``chip_smoke.py`` phase 30's notebook pseudosection, the wide
@@ -40,7 +40,20 @@ states (seed 5, fresh walks):
 - ``terrain_flagship``: phase 41's terrain with the flagship's estimator
   ``<0,true,true,true,true,true,false>``, 294,912 lanes (its 256 steps
   without the freeze threshold: no lane freezes, and the clocked copy
-  runs the one-thread loop).
+  runs the one-thread loop);
+- ``survey``: phase 6's main path, the survey build
+  ``<0,false,false,false,false,true,false>``, 147,456 lanes;
+- ``jacobian``: phase 31's Jacobian, the wide survey with MIS
+  ``<0,false,true,false,false,true,false,true>``, 65,536 lanes, 8 sources,
+  9 components.
+
+The sites of the survey builds' step: HASH (the counter hash and the
+step's first uniforms), CLOSEST, FIRST_HIT, RADIUS (the rejection
+sampler's first round), ALPHA_S (alpha at the sample), NEE (the sources at
+the sample, with screened_norm), INTERIOR (interior_prob), SIGMA (sigma'
+at a colliding sample), ALPHA_H (alpha at the hit of a lane that does not
+collide), BANK, and with MIS the MIS site (its PDF and STAR within) and
+ADD (the sources at the MIS sample).
 
 Where a step's scans read the table form's rows, the sites CLOSEST (the
 Dirichlet scan), SILHOUETTE, FIRST_HIT (the step's first hit) and STAR
@@ -90,11 +103,13 @@ WORK = ROOT / "_archive" / "step_sites"
 # ITER counts iterations (warps in the cycle sum, lanes in the lane sum)
 SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
-         "BRANCH", "SILHOUETTE")
+         "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S", "INTERIOR", "SIGMA",
+         "ALPHA_H")
 # the disjoint sites of a step (REDRAW lies inside RADIUS, STAR and PDF
 # inside MIS)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
-       "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE")
+       "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S",
+       "INTERIOR", "SIGMA", "ALPHA_H")
 SLOTS = 512
 
 PRELUDE = r"""
@@ -145,7 +160,28 @@ extern "C" int site_reset() {
 # (file, anchor, replacement): each anchor occurs exactly once
 STEP_EDITS = (
     ("    const uint32_t ctr =\n",
-     "    site_iter();\n    const uint32_t ctr =\n"),
+     "    site_iter();\n    SITE_BEGIN(HASH)\n    const uint32_t ctr =\n"),
+    ("    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);\n",
+     "    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);\n"
+     "    SITE_END(HASH)\n"),
+    ("      const float a_s = alpha_c<TERMS>(sx, sy);\n",
+     "      SITE_BEGIN(ALPHA_S)\n"
+     "      const float a_s = alpha_c<TERMS>(sx, sy);\n"
+     "      SITE_END(ALPHA_S)\n"),
+    ("      const bool interior = u4 < interior_prob(r, sbar);\n",
+     "      SITE_BEGIN(INTERIOR)\n"
+     "      const bool interior = u4 < interior_prob(r, sbar);\n"
+     "      SITE_END(INTERIOR)\n"),
+    ("        const float scale_int =\n"
+     "            sqrtf(a_s / a_p) * (F(1.0) - sigma_prime<TERMS>(sx, sy) / "
+     "sbar);\n",
+     "        SITE_BEGIN(SIGMA)\n        const float scale_int =\n"
+     "            sqrtf(a_s / a_p) * (F(1.0) - sigma_prime<TERMS>(sx, sy) / "
+     "sbar);\n        SITE_END(SIGMA)\n"),
+    ("        const float a_h = alpha_c<TERMS>(hx, hy);\n",
+     "        SITE_BEGIN(ALPHA_H)\n"
+     "        const float a_h = alpha_c<TERMS>(hx, hy);\n"
+     "        SITE_END(ALPHA_H)\n"),
     ("    const float dD = closest_point<TABLE>(px, py, cx, cy);\n",
      "    SITE_BEGIN(CLOSEST)\n"
      "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n"
@@ -346,8 +382,35 @@ def use(paths):
     wk._library_path = lambda v: paths[wk.variant_code(v)]
 
 
-def groups(dev):
-    """``name: (state, params)``: the builds' full-size states."""
+def survey_state(dev):
+    """Phase 6's full-size state of the main path (the survey build,
+    147,456 lanes, seed 5)."""
+    survey, electrodes, options = cs.survey_config()
+    solver = WoStSolver(survey.build_problem(), options, device=dev)
+    return solver._setup(cs.survey_points(electrodes, -0.5), *cs.SURVEY_RUN,
+                         5)[:2]
+
+
+def jacobian_state(dev):
+    """Phase 31's state of the Jacobian's wide survey with MIS (the
+    stencil of the Born demo's grid, 1,500 walks a batch, 65,536 lanes,
+    seed 5)."""
+    prob, stencil = cs.born_stencil()
+    solver = WoStSolver(prob, SolverOptions(
+        target_slots=1 << 16, common_random_numbers=True), device=dev)
+    return solver._setup(stencil, *cs.JACOBIAN_RUN, 5)[:2]
+
+
+def groups(dev, names=()):
+    """``name: (state, params)``: the builds' full-size states (those of
+    ``names``, or all)."""
+    out = {}
+    if not names or "survey" in names:
+        out["survey"] = survey_state(dev)
+    if not names or "jacobian" in names:
+        out["jacobian"] = jacobian_state(dev)
+    if names and not set(names) - {"survey", "jacobian"}:
+        return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True
     line_prob, line_pts, _, _ = sdcr._line_problem(line_survey, line_elec, 8)
@@ -355,7 +418,7 @@ def groups(dev):
         target_slots=1 << 21, min_quota=32, common_random_numbers=True),
         device=dev)
     state, params, _, _ = line._setup(line_pts, 1 << 20, 6000, 1.0, 5)
-    out = dict(line=(state, params))
+    out["line"] = (state, params)
     flag_survey, nb_elec = notebook_survey()
     flag_survey.local_majorant = "auto"
     flag_survey.source_mis = True
@@ -453,7 +516,8 @@ def main():
     csrc = tree / "dcrmontecarlo_tpu_torch" / "csrc"
     sources = {"own": csrc,
                "sites": instrumented_source(csrc, WORK / "csrc_sites")}
-    made = {k: v for k, v in groups(dev).items() if k in names or not names}
+    made = {k: v for k, v in groups(dev, names).items()
+            if k in names or not names}
     variants = {p.variant for _, p in made.values()}
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:

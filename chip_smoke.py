@@ -52,12 +52,16 @@ line:
    4 sigma + 2e-4);
 6. full size: the benchmark configuration (9 points x 2^19 walks,
    147,456 walker lanes): one warm-up solve through ``WoStSolver.solve``
-   (its launches counted), then 3 timed solves (walker-steps/s, s/solve,
+   (its launches counted, by variant and by loop: its one launch deals
+   walks to the threads), then 3 timed solves (walker-steps/s, s/solve,
    lane occupancy, the kernel's share of the wall time);
 7. kernel vs plain version for 256 steps at the full-size state of
-   phase 6 (rounds 1, no CRN or roulette): both timed, then held to the
-   rule of phase 3. The survey variant's record takes its numbers from
-   here.
+   phase 6 (rounds 1, no CRN or roulette; one thread a lane): both timed,
+   then held to the rule of phase 3. The survey variant's record takes
+   its numbers from here. Then the solve's single launch from that
+   state, its walks dealt to the threads (``dealt_launch``): timed, its
+   bound, bit for bit equal to the one-thread loop in 256-step launches
+   until drained, and to the plain walk at 1,152 lanes.
 8. kernel vs plain version, one 32-step launch at 8,192 lanes of the
    notebook accuracy configuration (``local_majorant="auto"``, survey
    defaults) after 200 plain steps, with the chord chain and with the
@@ -221,8 +225,10 @@ line:
     same dipoles (>= 20/21 electrodes within 4 sigma + 0.25 each).
 31. full size, the survey Jacobian at ``examples/inversion_demo.py``'s
     configuration (9 electrodes, 84 grid points, 6000 walks,
-    ``n_batches=4``): a warm-up call (its launches counted) and one timed
-    call, then 256 steps of kernel and plain version at its stencil state.
+    ``n_batches=4``): a warm-up call (its launches counted, by variant
+    and by loop: each batch's launch deals walks) and one timed call, then
+    256 steps of kernel and plain version at its stencil state, and a
+    batch's single launch there as phase 7's (``dealt_launch``).
 32. the grid instantiation (the flagship's switches with the cylinder
     oracle's 257 x 257 grid as Dirichlet data): 256 steps of kernel and
     plain version from a fresh 8,192-lane state, freeze 4, held to phase
@@ -350,6 +356,54 @@ SOURCE = "dcrmontecarlo_tpu_torch/csrc/walk_kernel.cu"
 REPLACES = "dcrmontecarlo_tpu/ops/pallas_walk.py:1295"
 
 
+# phase 6's full-size solve: walks, max_steps, eps; and a batch of phase
+# 31's Jacobian (6,000 walks in 4 batches)
+SURVEY_RUN = (1 << 19, 500, 0.9)
+JACOBIAN_RUN = (1500, 500, 0.3)
+
+
+def survey_config():
+    """Phase 6's main path at full size: ``(survey, electrodes,
+    options)``, the geophysical scenario at sharpness 0.5 and the options
+    that lay its solves on 147,456 lanes."""
+    from dcrmontecarlo_tpu_torch.models import geophysical_scenario
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    survey, electrodes = geophysical_scenario(sharpness=0.5)
+    return survey, electrodes, SolverOptions(
+        target_slots=1 << 21, min_quota=32, rejection_rounds=1)
+
+
+def born_line():
+    """The Born demo's line of phases 29-31 (``examples/inversion_demo.py``:
+    9 electrodes, 8 unit dipoles, 9 mixture components): ``(survey,
+    electrodes, the Jacobian's problem, its 84 grid points)``."""
+    from dcrmontecarlo_tpu_torch.problems import fields
+    from dcrmontecarlo_tpu_torch.survey import DCRSurvey, \
+        surface_electrode_line
+    from dcrmontecarlo_tpu_torch.survey import sensitivity as ssens
+
+    elec = surface_electrode_line((-20.0, 20.0), 5.0)
+    survey = DCRSurvey(half_width=60.0, depth=60.0,
+                       current_a=tuple(elec[0]), current_b=tuple(elec[1]),
+                       conductivity=fields.constant(1.0),
+                       source_width=1.5, source_mis=True)
+    gx, gy = np.linspace(-22.0, 22.0, 12), np.linspace(-20.0, -3.0, 7)
+    grid = np.stack([a.ravel() for a in np.meshgrid(gx, gy, indexing="ij")],
+                    1)
+    return survey, elec, ssens._jacobian_problem(survey, elec), grid
+
+
+def born_stencil(h=1.5):
+    """Phase 31's solve points: the 5-point stencil of the Born grid
+    (``survey/efield.py``), with the Jacobian's problem: ``(problem,
+    points)``."""
+    _, _, prob, grid = born_line()
+    return prob, np.concatenate([grid + d for d in (
+        [0.0, 0.0], [h, 0.0], [-h, 0.0], [0.0, h], [0.0, -h])]).astype(
+            np.float32)
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -391,9 +445,11 @@ def ptxas_report(build_log):
     """``ptxas -v``'s report per compiled kernel variant, keyed as
     ``WalkParams.kernel_name`` (``walk_kernel.kernel_name`` of the
     mangled name's switches; the kernel that a launch of several shards
-    runs, in the builds without the freeze, with `` (shards)`` after it):
-    registers, spill stores and loads (bytes) and static shared memory
-    (bytes a block)."""
+    runs, in the builds without the freeze, with `` (shards)`` after it,
+    and the dealt loop's, in ``walk_kernel.dealt``'s builds, with
+    `` (dealt)``; the dealt launch's plan and fold kernels as
+    ``walk_fold<true>`` etc. by their wide switch): registers, spill stores
+    and loads (bytes) and static shared memory (bytes a block)."""
     from dcrmontecarlo_tpu_torch.ops.walk_kernel import kernel_name
 
     report, entry, spills = {}, None, (0, 0)
@@ -407,13 +463,18 @@ def ptxas_report(build_log):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            t = re.search(r"walk_kernelILi(\d)((?:ELb\d)+)E", entry)
+            t = re.search(r"walk_(kernel|dealt)ILi(\d)((?:ELb\d)+)E", entry)
+            aux = re.search(r"(walk_[a-z_]+)ILb(\d)E", entry)
             if t:
-                flags = [v == "1" for v in re.findall(r"Lb(\d)", t.group(2))]
+                flags = [v == "1" for v in re.findall(r"Lb(\d)", t.group(3))]
                 # the last switch: the kernel of a launch of several shards
-                sharded = len(flags) == 10 and flags.pop()
-                entry = kernel_name((int(t.group(1)), *flags)) + (
-                    " (shards)" if sharded else "")
+                sharded = t.group(1) == "kernel" and len(flags) == 10 and \
+                    flags.pop()
+                entry = kernel_name((int(t.group(2)), *flags)) + (
+                    " (shards)" if sharded else
+                    " (dealt)" if t.group(1) == "dealt" else "")
+            elif aux:
+                entry = dealt_aux_name(aux.group(1), aux.group(2) == "1")
             smem = re.search(r"(\d+) bytes smem", line)
             report[entry] = dict(registers=int(m.group(1)),
                                  spill_stores=spills[0],
@@ -421,6 +482,27 @@ def ptxas_report(build_log):
                                  smem=int(smem.group(1)) if smem else 0)
             entry = None
     return report
+
+
+def dealt_aux_name(kernel, wide):
+    """The ``ptxas_report`` key of a dealt launch's plan or fold kernel."""
+    return f"{kernel}<{'true' if wide else 'false'}>"
+
+
+DEALT_AUX = ("walk_plan_tiles", "walk_plan_scan", "walk_plan_offsets",
+             "walk_fold")
+
+
+def built_kernels(wk, v):
+    """The ``ptxas_report`` keys of variant ``v``'s library: its kernel,
+    the shards' kernel without the freeze, and in ``walk_kernel.dealt``'s
+    builds the dealt loop and its plan and fold kernels."""
+    name = wk.kernel_name(v)
+    out = {name} | ({name + " (shards)"} if not v[3] else set())
+    if wk.dealt(v):
+        out |= {name + " (dealt)"} | {dealt_aux_name(k, v[7])
+                                      for k in DEALT_AUX}
+    return out
 
 
 def ptxas_registers(build_log):
@@ -821,16 +903,19 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
     (or ``warm_up()``, a product's entry point) with the launch counts set
     to 0 just before it and read just after, then ``reps`` timed solves
     whose walk launches are bracketed by CUDA events.
-    Returns a dict of the counts, each solve's launches and clones, the
+    Returns a dict of the counts (by instantiation, and by loop:
+    ``loops``), each solve's launches and clones, the
     walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
     lanes x longest lane), the kernel's share of each solve's wall time
     and the longest lane."""
     wk.run_walk.launches = 0
     wk.run_walk.variant_launches.clear()
+    wk.run_walk.loop_launches.clear()
     warm = (warm_up() if warm_up is not None else
             solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
                          seed=0))                              # warm-up
     counts = dict(wk.run_walk.variant_launches)
+    loops = dict(wk.run_walk.loop_launches)
     check(sum(counts.values()) == wk.run_walk.launches > 0,
           f"{what}: the full-size solve launched {counts}")
     stats, events = [solver.last_solve_stats], []
@@ -860,7 +945,8 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
         lane_steps += float(lanes) * res.iterations
         check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
               f"{what}: full-size solve not finite")
-    return dict(counts=counts, stats=stats, rate=steps / sum(times),
+    return dict(counts=counts, loops=loops, stats=stats,
+                rate=steps / sum(times),
                 times=times, steps=steps / reps, occupancy=steps / lane_steps,
                 share=share, longest=res.iterations, warm=warm, trunc=trunc,
                 raws=raws)
@@ -891,6 +977,71 @@ def steps_256(wk, state, params, what, thr=None, subset=False):
     return dict(lanes=state["px"].numel(), ms=ms, plain_ms=plain_ms,
                 worst=worst, max_err=max_err, steps=life_steps(state, ks),
                 t16=t16 if cut else None, end=ks)
+
+
+def dealt_launch(wk, state, params, step_bound, what, plain_lanes=1152,
+                 plain_quota=2):
+    """Phases 7 and 31: a solve's single launch from the fresh ``state``
+    (budget ``step_bound``), which deals its walks to the threads, timed
+    and held bit for bit on every plane to the one-thread loop run in
+    256-step launches until drained (their kernel times summed), then to
+    the plain walk under phase 3's rule on the first ``plain_lanes`` lanes
+    at quotas of at most ``plain_quota``. Returns a dict of the lanes, the
+    whole launch's ms and walker-steps, the loops each side ran, the
+    drained launches and their summed ms, and the plain comparison's
+    worst agreeing share and max |err|."""
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    names = state_planes(params.n_src)
+    wk.run_walk(clone_state(state), params, step_bound)  # warm-up
+    wk.run_walk.loop_launches.clear()
+    dealt = clone_state(state)
+    ms = cuda_ms(lambda: wk.run_walk(dealt, params, step_bound))
+    loops = dict(wk.run_walk.loop_launches)
+    check(loops == {"dealt": 1},
+          f"{what}: the whole-solve launch ran the loops {loops}")
+    wk.run_walk.loop_launches.clear()
+    one, drained_ms, launches = clone_state(state), 0.0, 0
+    while bool((one["quota"] > 0).any()):
+        drained_ms += cuda_ms(lambda: wk.run_walk(one, params, 256))
+        launches += 1
+        check(launches <= step_bound // 256 + 1,
+              f"{what}: 256-step launches did not drain")
+    drained = dict(wk.run_walk.loop_launches)
+    check(drained == {"lanes": launches},
+          f"{what}: the 256-step launches ran the loops {drained}")
+    differ = [k for k in names if not torch.equal(dealt[k], one[k])]
+    check(not differ, f"{what}: the dealt launch and the drained one-thread "
+                      f"loop differ on {differ}")
+    small = {k: v.reshape(-1)[:plain_lanes].clone() for k, v in state.items()}
+    small["quota"].clamp_(max=plain_quota)
+    ks, ps = clone_state(small), clone_state(small)
+    wk.run_walk.loop_launches.clear()
+    wk.run_walk(ks, params, step_bound)
+    check(dict(wk.run_walk.loop_launches) == {"dealt": 1},
+          f"{what}: the reduced launch ran {dict(wk.run_walk.loop_launches)}")
+    wk.walk_plain(ps, params, plain_quota * (params.max_steps + 1))
+    worst, max_err = check_planes(wk, ks, ps, names, f"{what} (plain)")
+    return dict(lanes=state["px"].numel(), ms=ms,
+                steps=life_steps(state, dealt), loops=loops,
+                drained=drained, drained_ms=drained_ms,
+                drained_launches=launches, plain_lanes=plain_lanes,
+                plain_quota=plain_quota, plain_worst=worst,
+                plain_err=max_err)
+
+
+def dealt_text(d, params, card):
+    """``dealt_launch``'s result as a log phrase, with the whole launch's
+    bound over its walker-steps."""
+    b_ms, b_by = bound(params, d["lanes"], d["steps"], 1)
+    return (f"the solve's single launch ({d['steps']} walker-steps, loops "
+            f"{d['loops']}): {d['ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"the one-thread loop in {d['drained_launches']} 256-step "
+            f"launches (loops {d['drained']}) {d['drained_ms']:.3f} ms, "
+            f"every plane bit-equal; against the plain walk at "
+            f"{d['plain_lanes']} lanes, quotas <= {d['plain_quota']}: worst "
+            f"plane agreement {d['plain_worst']:.5f}, max |err| "
+            f"{d['plain_err']:.3g} ({card})")
 
 
 def cuda_ms(fn, reps=1):
@@ -2000,9 +2151,9 @@ def main():
     built = set(wk.build_logs)  # the codes built now, not found in _build
     # a build without the freeze holds a second kernel, for launches of
     # several shards
-    check(set(regs) == {wk.kernel_name(v) + tail for v in SCRIPT_VARIANTS
+    check(set(regs) == {k for v in SCRIPT_VARIANTS
                         if wk.variant_code(v) in built
-                        for tail in ("", " (shards)")[:1 + (not v[3])]},
+                        for k in built_kernels(wk, v)},
           f"built {sorted(built)}, ptxas reported {regs}")
     log(f"[2] {len(libs)} libraries, one per variant the script launches, "
         f"in "
@@ -2108,19 +2259,21 @@ def main():
     log(f"[5] oracle gate: {n_ok}/9 electrodes within 4 sigma + 2e-4")
 
     # ---- 6. full size: the main path ----------------------------------
-    full = SolverOptions(target_slots=1 << 21, min_quota=32,
-                         rejection_rounds=1)
+    _, _, full = survey_config()
     solver = WoStSolver(survey.build_problem(), full, device=dev)
     pts = survey_points(electrodes, -0.5)
-    n_walks, max_steps, eps = 1 << 19, 500, 0.9
+    n_walks, max_steps, eps = SURVEY_RUN
     f6 = full_size_solves(wk, solver, pts, n_walks, max_steps, eps, 147456,
                           "phase 6")
+    check(f6["loops"] == {"dealt": 1},
+          f"phase 6: the warm-up solve's launch ran the loops {f6['loops']}")
     log(f"[6] full size 9x{n_walks} walks, 147456 lanes: "
         f"dcr_survey_walker_steps_per_sec_per_chip {f6['rate']:.6g} "
         f"s/solve {f6['times']} steps/solve {f6['steps']:.6g} longest lane "
         f"{f6['longest']} steps, lane occupancy {f6['occupancy']:.4f}, "
+        f"truncated walks {[round(v, 6) for v in f6['trunc']]}, "
         f"kernel share {[round(v, 4) for v in f6['share']]}, launches of "
-        f"the warm-up solve {f6['counts']} ({card})")
+        f"the warm-up solve {f6['counts']}, by loop {f6['loops']} ({card})")
 
     # ---- 7. kernel vs plain at the full-size state ---------------------
     state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
@@ -2129,19 +2282,25 @@ def main():
     check(set(f6["counts"]) == {params.kernel_name},
           f"the survey path launched {f6['counts']}, expected "
           f"{params.kernel_name} only")
+    wk.run_walk.loop_launches.clear()
     t7 = steps_256(wk, state, params, "phase 7")
-    # the whole solve's single launch, for the kernel's share of a solve
-    solve_ms = cuda_ms(lambda: wk.run_walk(state, params, step_bound))
-    log(f"[7] 256 steps x 147456 lanes: kernel {t7['ms']:.3f} ms, plain "
+    check(set(wk.run_walk.loop_launches) == {"lanes"},
+          f"phase 7: the 256-step launches ran {wk.run_walk.loop_launches}")
+    log(f"[7] 256 steps x 147456 lanes (one thread a lane): kernel "
+        f"{t7['ms']:.3f} ms, plain "
         f"{t7['plain_ms']:.3f} ms ({t7['plain_ms'] / t7['ms']:.1f}x); worst "
         f"plane agreement {t7['worst']:.5f}, max |err| on agreeing lanes "
-        f"{t7['max_err']:.3g}; one whole-solve launch {solve_ms:.3f} ms "
-        f"({card})")
+        f"{t7['max_err']:.3g} ({card})")
+    # the whole solve's single launch: its walks dealt to the threads
+    d7 = dealt_launch(wk, state, params, step_bound, "phase 7")
+    log(f"[7] {dealt_text(d7, params, card)}")
     tolerance = (f">={wk.PLANE_MIN_FRAC:.0%} of lanes per plane within "
                  f"rel {wk.PLANE_RTOL:g} + {wk.PLANE_FLOOR:g} x plane max")
-    records = [kernel_record(params, "survey",
-                             f6["counts"][params.kernel_name], t7, regs,
-                             tolerance)]
+    records = [dict(kernel_record(params, "survey",
+                                  f6["counts"][params.kernel_name], t7,
+                                  regs, tolerance),
+                    whole_launch_ms=d7["ms"], whole_launch_steps=d7["steps"],
+                    loops=f6["loops"])]
     survey_full = (solver, pts, params)   # phase 12 reuses the full state
 
     # ---- the accuracy path: the notebook survey ------------------------
@@ -3053,7 +3212,6 @@ def main():
     # ---- the survey products: the pseudosection, the E-field, the -------
     # ---- sensitivity maps and the Jacobian (phases 27-31) ----------------
     from dcrmontecarlo_tpu_torch.survey import dcr as sdcr
-    from dcrmontecarlo_tpu_torch.survey import sensitivity as ssens
 
     drop_mix = lambda p: dataclasses.replace(p, mis_table=None)
     # MIS without delta tracking: the narrow Gaussian of
@@ -3077,16 +3235,8 @@ def main():
     # unit dipoles, 9 components) and the notebook's
     # (examples/pseudosection_figure.py: 18 sources, 19 components)
     sc_prob, sc_pts, _, _ = sdcr._line_problem(survey, electrodes, 3)
-    born_elec = surface_electrode_line((-20.0, 20.0), 5.0)
-    born_survey = DCRSurvey(half_width=60.0, depth=60.0,
-                            current_a=tuple(born_elec[0]),
-                            current_b=tuple(born_elec[1]),
-                            conductivity=fields.constant(1.0),
-                            source_width=1.5, source_mis=True)
-    born_prob = ssens._jacobian_problem(born_survey, born_elec)
-    gx31, gy31 = np.linspace(-22.0, 22.0, 12), np.linspace(-20.0, -3.0, 7)
-    born_grid = np.stack([a.ravel() for a in np.meshgrid(
-        gx31, gy31, indexing="ij")], 1)
+    born_survey, born_elec, born_prob, born_grid = born_line()
+    gx31, gy31 = np.unique(born_grid[:, 0]), np.unique(born_grid[:, 1])
     nbl_survey, nbl_elec = notebook_survey()
     nbl_survey.source_mis = True
     nbl_prob, nbl_pts, nbl_src, _ = sdcr._line_problem(nbl_survey, nbl_elec,
@@ -3571,11 +3721,15 @@ def main():
                 n_batches=4, device=dev)
     wk.run_walk.launches = 0
     wk.run_walk.variant_launches.clear()
+    wk.run_walk.loop_launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     survey_jacobian(born_survey, born_elec, born_grid, seed=5, **kw31)
     warm31 = time.perf_counter() - t0
     counts31 = dict(wk.run_walk.variant_launches)
+    loops31 = dict(wk.run_walk.loop_launches)
+    check(loops31 == {"dealt": 4},
+          f"phase 31: the Jacobian's launches ran the loops {loops31}")
     t0 = time.perf_counter()
     jac = survey_jacobian(born_survey, born_elec, born_grid, seed=6, **kw31)
     torch.cuda.synchronize()
@@ -3586,10 +3740,8 @@ def main():
           f"phase 31 Jacobian {jac.rows.shape}")
     solver = WoStSolver(born_prob, SolverOptions(
         target_slots=1 << 16, common_random_numbers=True), device=dev)
-    stencil = np.concatenate([born_grid + d for d in (
-        [0.0, 0.0], [1.5, 0.0], [-1.5, 0.0], [0.0, 1.5], [0.0, -1.5])]
-    ).astype(np.float32)
-    state, p31, _, _ = solver._setup(stencil, 1500, 500, 0.3, 5)
+    _, stencil = born_stencil()
+    state, p31, _, bound31 = solver._setup(stencil, *JACOBIAN_RUN, 5)
     check(p31.wide and p31.mis_table is not None and p31.n_src == 8
           and set(counts31) == {p31.kernel_name},
           f"phase 31 runs {p31.kernel_name}, launched {counts31}")
@@ -3597,10 +3749,14 @@ def main():
     log(f"[31] survey Jacobian, 9 electrodes, 8 unit dipoles, 84 grid "
         f"points x 6000 walks in 4 batches ({p31.kernel_name}, "
         f"{regs.get(p31.kernel_name)} registers): warm-up {warm31:.3f} s, "
-        f"timed call {time31:.3f} s, launches of the warm-up {counts31}; 256 "
+        f"timed call {time31:.3f} s, launches of the warm-up {counts31}, "
+        f"by loop {loops31}; 256 "
         f"steps x {t31['lanes']} lanes: kernel {t31['ms']:.3f} ms, plain "
         f"{t31['plain_ms']:.3f} ms, worst plane agreement "
         f"{t31['worst']:.5f} ({card})")
+    d31 = dealt_launch(wk, state, p31, bound31, "phase 31", plain_quota=1)
+    log(f"[31] a batch of {JACOBIAN_RUN[0]} walks x {len(stencil)} points, "
+        f"{dealt_text(d31, p31, card)}")
     # the wide survey at phase 7's full-size state, the line's 6 sources
     solver7, pts7, params7 = survey_full
     state, p_ws, _, _ = WoStSolver(sc_prob, solver7.options,
@@ -3624,9 +3780,11 @@ def main():
     records.append(kernel_record(p_ws, "survey_wide",
                                  counts28[p_ws.kernel_name], t_ws, regs,
                                  tolerance))
-    records.append(kernel_record(p31, "survey+mis_wide",
-                                 counts31[p31.kernel_name], t31, regs,
-                                 tolerance))
+    records.append(dict(kernel_record(p31, "survey+mis_wide",
+                                      counts31[p31.kernel_name], t31, regs,
+                                      tolerance),
+                        whole_launch_ms=d31["ms"],
+                        whole_launch_steps=d31["steps"], loops=loops31))
     records.append(kernel_record(p30, "robin_chain+mis_wide",
                                  f30["counts"][p30.kernel_name], t30, regs,
                                  tolerance))

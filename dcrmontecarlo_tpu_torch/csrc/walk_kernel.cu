@@ -174,6 +174,13 @@
 // - The one-thread loop stays for the rest: the short walk lost 10% on
 //   the repack loop (chip_probes/repack_on_plain_builds.py), and builds
 //   without the chain have no wall work to queue.
+// - The survey builds (walk_variant.h::dealt: the main path's survey and
+//   the Jacobian's wide survey with MIS) hold a third loop beside the
+//   one-thread loop, walk_dealt (below), which a launch of one shard runs
+//   when its budget drains every quota from fresh walks: walks, not
+//   lanes, go to the threads, so no thread idles until the walks run out
+//   (the one-thread loop left 32% of the survey's lane-slots idle). The
+//   launch's shape picks the loop (ops/walk_kernel.py::launch_loop).
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -834,6 +841,39 @@ template <bool TERMS>
 __device__ float sigma_prime(float x, float y) {
   float ac, gx, gy, lap;
   alpha_parts<true, TERMS>(x, y, ac, gx, gy, lap);
+  float la = ac + F(1e-8);
+  float glx = gx / la, gly = gy / la;
+  float gn2 = glx * glx + gly * gly;
+  return field_value<TERMS>(F_SIGMA, x, y) / ac +
+         F(0.5) * (lap / ac - gn2 / F(2.0));
+}
+
+// the dealt loop's alpha at a sample (WALK_ONE_PASS): with a bump sum or a
+// constant, alpha_parts' pass, whose clamped value is alpha_c's bit for bit
+// (field_value's operations in the same order) and whose derivatives
+// sigma_prime_at takes at a colliding sample; another kind, alpha_c
+// (parts false)
+template <bool TERMS>
+__device__ __forceinline__ float alpha_sample(float x, float y, float& gx,
+                                              float& gy, float& lap,
+                                              bool& parts) {
+  const int kind = C.field[F_ALPHA].kind;
+  parts = kind == K_BUMPS || kind == K_CONST;
+  if (parts) {
+    float ac;
+    alpha_parts<true, TERMS>(x, y, ac, gx, gy, lap);
+    return ac;
+  }
+  gx = gy = lap = F(0.0);
+  return alpha_c<TERMS>(x, y);
+}
+
+// sigma_prime at (x, y) from alpha_sample's pass there (ac its value)
+template <bool TERMS>
+__device__ __forceinline__ float sigma_prime_at(float x, float y, float ac,
+                                                float gx, float gy,
+                                                float lap, bool parts) {
+  if (!parts) return sigma_prime<TERMS>(x, y);
   float la = ac + F(1e-8);
   float glx = gx / la, gly = gy / la;
   float gn2 = glx * glx + gly * gly;
@@ -1721,6 +1761,22 @@ __device__ __forceinline__ void add_sources(float (&acc)[MAX_SRC], int lane,
   }
 }
 
+// the dealt loop's wide form: a walk's accumulators in the block's shared
+// memory, source i at p[i * THREADS] (one row a thread), in place of the
+// planes' global read-modify-writes; the same adds in the same order
+struct SharedRow {
+  float* p;
+};
+
+template <bool TERMS, bool WIDE>
+__device__ __forceinline__ void add_sources(SharedRow acc, int, int n_src,
+                                            float x, float y, float w) {
+#pragma unroll 1
+  for (int i = 0; i < n_src; ++i)
+    acc.p[i * THREADS] =
+        acc.p[i * THREADS] + source_value<TERMS, true>(i, x, y) * w;
+}
+
 // ---- the freeze builds' repack loop ----------------------------------------
 
 // one walker lane's state: registers while a thread steps it; the repack
@@ -2374,7 +2430,8 @@ __device__ __forceinline__ void stash_lane(Lane& L, int s,
 }
 
 // the launch's pool: the first lane no block has taken yet (walk_launch
-// sets the current card's to 0 before every freeze launch)
+// sets the current card's to 0 before every repack launch); in a dealt
+// launch, the first walk no thread has taken yet (walk_dealt)
 __device__ unsigned int next_lane;
 
 // The freeze builds' loop. Blocks take lanes from the launch's pool in
@@ -2573,6 +2630,362 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
   }
 }
 
+// ---- the dealt loop: walks, not lanes, to the threads ---------------------
+
+// A launch of a walk_variant.h::dealt build that holds one shard, whose
+// budget covers every lane's quota (quota x (max_steps + 1) iterations,
+// which solver/wost.py's adaptive single launch gives) and whose every
+// lane with quota stands at a walk's start (fresh_lane) deals walks, not
+// lanes, to its threads. Walk k of lane l (k < its quota) starts as the
+// bank's recycle leaves a lane, at ndone = ndone_l + k; its draws are
+// keyed on (seed, its counter, the lane's stream) alone, so any thread may
+// run it at any time and draw what the one-thread loop draws. A walk meets
+// the rest of its lane only at the bank, whose float32 sums add in walk
+// order: each walk writes a record, and walk_fold adds a lane's records in
+// walk order with the bank's operations, leaving every plane as the
+// one-thread loop leaves it. Three plan kernels lay the walks out first
+// (walk_plan: each lane's first record, the walks, the largest quota and
+// whether every lane with quota is fresh); the host reads the plan back
+// and picks the loop. In the one-thread loop a thread walks its lane's
+// walks one after another and its warp waits for the warp's longest lane
+// (a lane occupancy of 0.68 on the survey); here a thread that banks takes
+// the launch's next walk (one atomicAdd on next_lane), so every thread
+// walks until the launch's walks run out.
+constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan
+// a walk's record, int32 words: its steps, the |atten| of a walk the bank
+// counts as cut at max_steps (else 0), its largest |atten| and banked
+// |total|, its last wall normal (REC_UNSET: none; runs without snap
+// starts carry it from walk to walk), then one contribution a source
+constexpr int REC_LIFE = 0, REC_TW = 1, REC_WMAX = 2, REC_BMAX = 3,
+              REC_NX = 4, REC_NY = 5, REC_SRC = 6;
+constexpr uint32_t REC_UNSET = 0x7FC0BEEFu;  // a NaN no step computes
+
+__device__ __forceinline__ int float_bits(float x) {
+  int u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+
+__device__ __forceinline__ float bits_float(int u) {
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+
+// whether a lane stands at a walk's start, as the bank's recycle leaves it
+template <bool WIDE>
+__device__ __forceinline__ bool fresh_lane(int lane) {
+  const Planes& P = C.pl;
+  const bool snap = C.snap != 0;
+  bool ok = P.steps[lane] == 0 && P.px[lane] == P.p0x[lane] &&
+            P.py[lane] == P.p0y[lane] && P.atten[lane] == F(1.0) &&
+            (P.ob[lane] != 0) == (snap && P.ob0[lane] != 0);
+  if (snap) ok = ok && P.nx[lane] == P.n0x[lane] && P.ny[lane] == P.n0y[lane];
+  for (int i = 0; i < C.n_src; ++i)
+    ok = ok && (WIDE ? C.wacc[i][lane] : P.acc[i & (MAX_SRC - 1)][lane]) ==
+                   F(0.0);
+  return ok;
+}
+
+// an inclusive scan over the plan's block of (sum, max) pairs
+__device__ __forceinline__ void plan_scan(long long* s_sum, int* s_max,
+                                          int t) {
+  __syncthreads();
+  for (int d = 1; d < PLAN_THREADS; d <<= 1) {
+    const long long u = s_sum[t] + (t >= d ? s_sum[t - d] : 0);
+    const int m = max(s_max[t], t >= d ? s_max[t - d] : 0);
+    __syncthreads();
+    s_sum[t] = u;
+    s_max[t] = m;
+    __syncthreads();
+  }
+}
+
+// plan, 1 of 3: a tile's lanes, one a thread: each lane's first walk
+// within the tile; the tile's walks, largest quota and stale lanes
+template <bool WIDE>
+__global__ void __launch_bounds__(PLAN_THREADS)
+    walk_plan_tiles(int n_lanes, int* offsets, long long* tiles) {
+  __shared__ long long s_sum[PLAN_THREADS];
+  __shared__ int s_max[PLAN_THREADS];
+  const int t = threadIdx.x, b = blockIdx.x;
+  const int lane = b * PLAN_THREADS + t;
+  const int q = lane < n_lanes ? max(C.pl.quota[lane], 0) : 0;
+  const bool stale = q > 0 && !fresh_lane<WIDE>(lane);
+  s_sum[t] = q;
+  s_max[t] = q;
+  plan_scan(s_sum, s_max, t);
+  const int n_stale = __syncthreads_count(stale);
+  if (lane < n_lanes) offsets[lane] = (int)(s_sum[t] - q);
+  if (t == PLAN_THREADS - 1) {
+    tiles[3 * b] = s_sum[t];
+    tiles[3 * b + 1] = s_max[t];
+    tiles[3 * b + 2] = n_stale;
+  }
+}
+
+// plan, 2 of 3: one block over the tiles: each tile's first walk; stats =
+// (walks, or -1 past INT32_MAX; the largest quota; the stale lanes)
+template <bool WIDE>
+__global__ void __launch_bounds__(PLAN_THREADS)
+    walk_plan_scan(int n_tiles, int n_lanes, int* offsets, long long* tiles,
+                   int* stats) {
+  __shared__ long long s_sum[PLAN_THREADS];
+  __shared__ int s_max[PLAN_THREADS];
+  const int t = threadIdx.x;
+  const int per = (n_tiles + PLAN_THREADS - 1) / PLAN_THREADS;
+  const int lo = min(t * per, n_tiles), hi = min(lo + per, n_tiles);
+  long long sum = 0;
+  int qmax = 0, stale = 0;
+  for (int b = lo; b < hi; ++b) {
+    sum += tiles[3 * b];
+    qmax = max(qmax, (int)tiles[3 * b + 1]);
+    stale = stale || tiles[3 * b + 2] != 0;
+  }
+  s_sum[t] = sum;
+  s_max[t] = qmax;
+  plan_scan(s_sum, s_max, t);
+  const int n_stale = __syncthreads_count(stale);
+  long long run = s_sum[t] - sum;
+  for (int b = lo; b < hi; ++b) {
+    const long long s = tiles[3 * b];
+    tiles[3 * b] = run;
+    run += s;
+  }
+  if (t == PLAN_THREADS - 1) {
+    const long long total = s_sum[t];
+    const bool fits = total <= 0x7FFFFFFFLL;
+    offsets[n_lanes] = fits ? (int)total : 0;
+    stats[0] = fits ? (int)total : -1;
+    stats[1] = s_max[t];
+    stats[2] = n_stale;
+  }
+}
+
+// plan, 3 of 3: each lane's first walk in the launch
+template <bool WIDE>
+__global__ void __launch_bounds__(PLAN_THREADS)
+    walk_plan_offsets(int n_lanes, int* offsets, const long long* tiles) {
+  const int lane = blockIdx.x * PLAN_THREADS + threadIdx.x;
+  if (lane < n_lanes)
+    offsets[lane] = (int)(offsets[lane] + tiles[3 * blockIdx.x]);
+}
+
+// a walk's accumulators: registers in the narrow form, the thread's row of
+// the block's shared memory in the wide form (SharedRow)
+template <bool WIDE>
+struct WalkAcc {
+  typedef float type[MAX_SRC];
+};
+template <>
+struct WalkAcc<true> {
+  typedef SharedRow type;
+};
+
+// the walks, from a launch-wide counter (next_lane, set to 0 on the
+// launch's card), one at a time a thread: walk w is walk w - offsets[l] of
+// the last lane l with offsets[l] <= w, and writes record w. One loop, as
+// the one-thread loop's: a thread whose walk banks writes its record and
+// takes its next walk within that iteration (WALK_NEXT), so a warp
+// reconverges every iteration; a loop over a walk's steps nested in a loop
+// over walks made each thread wait at the inner loop's exit for its warp's
+// longest walk
+template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
+          bool TRANSPORT, bool WIDE, bool GRID, bool TERMS_FORM>
+__global__ void __launch_bounds__(THREADS)
+    walk_dealt(int n_lanes, int n_walks, const int* offsets, int* records) {
+  static_assert(walk_rules::dealt(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA,
+                                  TRANSPORT, WIDE, GRID, TERMS_FORM),
+                "the dealt loop runs the walk_variant.h::dealt builds");
+  constexpr bool TERMS =
+      TERMS_FORM || terms_fields(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA);
+  const Planes& P = C.pl;
+  const int n_src = C.n_src;
+  const uint32_t seed = C.seed;
+  const bool snap = C.snap != 0;
+  const float eps = C.eps, rmin = C.rmin, t_min = C.t_min;
+  const float sigma_bar = C.sigma_bar;
+  const int max_steps = C.max_steps;
+  [[maybe_unused]] const float freeze_thr = F(0.0);  // no freeze here
+  const int words = REC_SRC + n_src;
+  const float unset = bits_float((int)REC_UNSET);
+  typename WalkAcc<WIDE>::type acc;
+  if constexpr (WIDE) {
+    __shared__ float s_acc[MAX_WIDE_SRC * THREADS];
+    acc.p = s_acc + threadIdx.x;
+  }
+  unsigned int w = atomicAdd(&next_lane, 1u);
+  if (w >= (unsigned int)n_walks) return;
+
+  // the walk's lane and its constants, the walk's state, its own
+  // counters; the narrow bank's sums start at -0 each walk, so that each
+  // holds the walk's contribution bit for bit
+  int lane = 0;
+  int* rec = records;
+  uint32_t sid = 0;
+  float p0x = F(0.0), p0y = F(0.0), n0x = F(0.0), n0y = F(0.0);
+  bool ob0 = false;
+  float px, py, nx, ny, atten;
+  bool ob;
+  int steps, life, quota, ndone;
+  float tn, tw, wmax, bmax;
+  float asum[MAX_SRC], asq[MAX_SRC];
+  float a_p0 = F(0.0), a_cur = F(0.0);
+  // walk w from its start, as the bank's recycle leaves a lane
+  const auto start = [&]() {
+    int lo = 0, hi = n_lanes;  // offsets[lo] <= w < offsets[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if ((unsigned int)offsets[mid] <= w)
+        lo = mid;
+      else
+        hi = mid;
+    }
+    lane = lo;
+    rec = records + (size_t)w * words;
+    sid = (uint32_t)P.sid[lane];
+    p0x = P.p0x[lane];
+    p0y = P.p0y[lane];
+    ob0 = snap ? P.ob0[lane] != 0 : false;
+    n0x = snap ? P.n0x[lane] : F(0.0);
+    n0y = snap ? P.n0y[lane] : F(0.0);
+    px = p0x;
+    py = p0y;
+    atten = F(1.0);
+    nx = snap ? n0x : unset;
+    ny = snap ? n0y : unset;
+    ob = ob0;
+    steps = 0;
+    life = 0;
+    quota = 1;
+    ndone = P.ndone[lane] + (int)(w - (unsigned int)offsets[lane]);
+    tn = tw = wmax = bmax = F(0.0);
+#pragma unroll
+    for (int i = 0; i < MAX_SRC; ++i) {
+      asum[i] = F(-0.0);
+      asq[i] = F(-0.0);
+      if constexpr (!WIDE) acc[i] = F(0.0);
+    }
+    if constexpr (WIDE) {
+#pragma unroll 1
+      for (int i = 0; i < n_src; ++i) acc.p[i * THREADS] = F(0.0);
+    }
+    if constexpr (DELTA) {
+      a_p0 = alpha_c<TERMS>(p0x, p0y);
+      a_cur = a_p0;
+    }
+  };
+  // the walk's record, once its bank ran (the wide form's contributions
+  // went in at the bank, WALK_BANK_WIDE)
+  const auto finish = [&]() {
+    rec[REC_LIFE] = life;
+    rec[REC_TW] = float_bits(tw);
+    rec[REC_WMAX] = float_bits(wmax);
+    rec[REC_BMAX] = float_bits(bmax);
+    rec[REC_NX] = float_bits(nx);
+    rec[REC_NY] = float_bits(ny);
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int i = 0; i < MAX_SRC; ++i)
+        if (i < n_src) rec[REC_SRC + i] = float_bits(asum[i]);
+    }
+  };
+  start();
+  for (;;) {
+    // the step's exact saving: alpha and sigma' at a colliding sample in
+    // one pass (alpha_sample)
+#define WALK_ONE_PASS
+#define WALK_NEXT                          \
+  {                                        \
+    finish();                              \
+    w = atomicAdd(&next_lane, 1u);         \
+    if (w >= (unsigned int)n_walks) break; \
+    start();                               \
+    continue;                              \
+  }
+#define WALK_FROZEN break
+#define WALK_BANK_WIDE                               \
+  for (int i = 0; i < n_src; ++i) {                  \
+    const float contrib = acc.p[i * THREADS] + g_bc; \
+    rec[REC_SRC + i] = float_bits(contrib);          \
+    bank_mag = fmaxf(bank_mag, fabsf(contrib));      \
+    acc.p[i * THREADS] = F(0.0);                     \
+  }
+#include "walk_step.inc"
+#undef WALK_BANK_WIDE
+#undef WALK_NEXT
+#undef WALK_FROZEN
+#undef WALK_ONE_PASS
+  }
+  (void)tn;
+  (void)quota;
+}
+
+// a lane's records added in walk order with the bank's float32
+// operations; its planes end as the one-thread loop leaves a drained lane
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+    walk_fold(int n_lanes, const int* offsets, const int* records) {
+  const int lane = blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const Planes& P = C.pl;
+  const int quota = P.quota[lane];
+  if (quota <= 0) return;  // a lane without quota: nothing to write
+  const int n_src = C.n_src, words = REC_SRC + n_src;
+  const bool snap = C.snap != 0;
+  const int* const first = records + (size_t)offsets[lane] * words;
+#pragma unroll 1
+  for (int i = 0; i < n_src; ++i) {
+    float* const sum_p = WIDE ? C.wasum[i] : P.asum[i & (MAX_SRC - 1)];
+    float* const sq_p = WIDE ? C.wasq[i] : P.asq[i & (MAX_SRC - 1)];
+    float* const acc_p = WIDE ? C.wacc[i] : P.acc[i & (MAX_SRC - 1)];
+    float s = sum_p[lane], q = sq_p[lane];
+    const int* r = first + REC_SRC + i;
+    for (int k = 0; k < quota; ++k, r += words) {
+      const float contrib = bits_float(*r);
+      s = s + contrib;
+      q = q + contrib * contrib;
+    }
+    sum_p[lane] = s;
+    sq_p[lane] = q;
+    acc_p[lane] = F(0.0);
+  }
+  float tn = P.tn[lane], tw = P.tw[lane], wmax = P.wmax[lane];
+  float bmax = P.bmax[lane];
+  int life = P.life[lane];
+  float nx = snap ? P.n0x[lane] : P.nx[lane];
+  float ny = snap ? P.n0y[lane] : P.ny[lane];
+  const int* r = first;
+  for (int k = 0; k < quota; ++k, r += words) {
+    life += r[REC_LIFE];
+    wmax = fmaxf(wmax, bits_float(r[REC_WMAX]));
+    bmax = fmaxf(bmax, bits_float(r[REC_BMAX]));
+    const float t = bits_float(r[REC_TW]);
+    if (t > F(0.0)) {
+      tn = tn + F(1.0);
+      tw = tw + t;
+    }
+    if (!snap && (uint32_t)r[REC_NX] != REC_UNSET) {
+      nx = bits_float(r[REC_NX]);
+      ny = bits_float(r[REC_NY]);
+    }
+  }
+  P.px[lane] = P.p0x[lane];
+  P.py[lane] = P.p0y[lane];
+  P.nx[lane] = nx;
+  P.ny[lane] = ny;
+  P.atten[lane] = F(1.0);
+  P.quota[lane] = 0;
+  P.steps[lane] = 0;
+  P.ndone[lane] = P.ndone[lane] + quota;
+  P.ob[lane] = (snap && P.ob0[lane] != 0) ? 1 : 0;
+  P.life[lane] = life;
+  P.tn[lane] = tn;
+  P.tw[lane] = tw;
+  P.wmax[lane] = wmax;
+  P.bmax[lane] = bmax;
+}
+
 }  // namespace
 
 // the library's one variant (walk_variant.h), from its -D macros
@@ -2600,9 +3013,115 @@ void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
       <<<grid, BLOCK, 0, st>>>(n_lanes, budget, thr);
 }
 
+// the library's variant deals walks to its threads in the launches that
+// drain every quota from fresh walks (walk_variant.h::dealt); the
+// preprocessor's copy of the rule keeps the dealt kernels out of the
+// other builds' libraries altogether
+#define WALK_DEALT                                                        \
+  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_FREEZE && !WALK_TABLE &&    \
+   WALK_DELTA && !WALK_TRANSPORT && !WALK_GRID && !WALK_TERMS &&          \
+   (WALK_MIS != 0) == (WALK_WIDE != 0))
+constexpr bool DEALT = walk_rules::dealt(
+    WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
+    WALK_TABLE != 0, WALK_DELTA != 0, WALK_TRANSPORT != 0, WALK_WIDE != 0,
+    WALK_GRID != 0, WALK_TERMS != 0);
+static_assert(DEALT == (WALK_DEALT != 0), "walk_variant.h::dealt");
+
+// a launch of kernel k through the runtime's launch call (the host
+// stand-in of tests/host_cuda runs it by the kernel's parameter types)
+template <class K>
+static cudaError_t launch_kernel(K* k, dim3 grid, dim3 block, void** args,
+                                 cudaStream_t st) {
+#ifdef __CUDACC__
+  return cudaLaunchKernel((const void*)k, grid, block, args, 0, st);
+#else
+  return cudaLaunchKernel(k, grid, block, args, 0, st);
+#endif
+}
+
+// a dealt launch's plan (walk_plan)
+static int plan_dealt(cudaStream_t st, int n_lanes, int* offsets,
+                      long long* tiles, int* stats) {
+#if WALK_DEALT
+  {
+    int n_tiles = (n_lanes + PLAN_THREADS - 1) / PLAN_THREADS;
+    void* a1[] = {&n_lanes, &offsets, &tiles};
+    cudaError_t e = launch_kernel(walk_plan_tiles<WALK_WIDE != 0>,
+                                  dim3(n_tiles), dim3(PLAN_THREADS), a1, st);
+    if (e != cudaSuccess) return (int)e;
+    void* a2[] = {&n_tiles, &n_lanes, &offsets, &tiles, &stats};
+    e = launch_kernel(walk_plan_scan<WALK_WIDE != 0>, dim3(1),
+                      dim3(PLAN_THREADS), a2, st);
+    if (e != cudaSuccess) return (int)e;
+    void* a3[] = {&n_lanes, &offsets, &tiles};
+    e = launch_kernel(walk_plan_offsets<WALK_WIDE != 0>, dim3(n_tiles),
+                      dim3(PLAN_THREADS), a3, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+#else
+  (void)st, (void)n_lanes, (void)offsets, (void)tiles, (void)stats;
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+// a dealt launch: the walks on as many blocks as the card holds at once
+// (the launch-wide counter deals them), then the fold, one thread a lane
+static int launch_dealt(cudaStream_t st, int n_lanes, const int* offsets,
+                        int* records, int n_walks) {
+#if WALK_DEALT
+  {
+    auto* walks =
+        walk_dealt<WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0,
+                   WALK_FREEZE != 0, WALK_TABLE != 0, WALK_DELTA != 0,
+                   WALK_TRANSPORT != 0, WALK_WIDE != 0, WALK_GRID != 0,
+                   WALK_TERMS != 0>;
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walks,
+                                                        THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    const long long need = ((long long)n_walks + THREADS - 1) / THREADS;
+    const int grid = (int)(need < (long long)sms * per_sm
+                               ? need
+                               : (long long)sms * per_sm);
+    static const unsigned int zero = 0;  // the card's counter, as C's
+    e = cudaMemcpyToSymbolAsync(next_lane, &zero, sizeof zero, 0,
+                                cudaMemcpyHostToDevice, st);
+    if (e != cudaSuccess) return (int)e;
+    void* a1[] = {&n_lanes, &n_walks, &offsets, &records};
+    e = launch_kernel(walks, dim3(grid > 0 ? grid : 1), dim3(THREADS), a1, st);
+    if (e != cudaSuccess) return (int)e;
+    const int* recs = records;
+    void* a2[] = {&n_lanes, &offsets, &recs};
+    e = launch_kernel(walk_fold<WALK_WIDE != 0>,
+                      dim3((n_lanes + THREADS - 1) / THREADS), dim3(THREADS),
+                      a2, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+#else
+  (void)st, (void)n_lanes, (void)offsets, (void)records, (void)n_walks;
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
 // the rows per chunk of the table form's chunk records (ops/walk_kernel.py
 // reads it back after loading the library)
 extern "C" int walk_chunk_rows() { return CHUNK_ROWS; }
+
+// a dealt launch's layout: lanes a tile of the plan (walk_plan's tiles:
+// 3 int64 a tile) and the words of a walk's record before its sources'
+// (ops/walk_kernel.py::launch_loop sizes the plan and the records by them)
+extern "C" int walk_dealt_layout(int* out, int n) {
+  if (n != 2) return (int)cudaErrorInvalidValue;
+  out[0] = PLAN_THREADS;
+  out[1] = REC_SRC;
+  return 0;
+}
 
 // the switches of this library: robin, majorant, mis, freeze, table,
 // delta, transport, wide, grid, terms form (ops/walk_kernel.py reads them
@@ -2654,12 +3173,16 @@ extern "C" int walk_schedule(int* out, int n) {
 // chunks: the Neumann rows' chunk records (CHUNK_F4 16-byte aligned
 //     float4 per chunk of CHUNK_ROWS rows) in the culled_scans build; null
 //     otherwise.
-extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
-                           int n_ip, void* const* planes, int n_planes,
-                           int n_lanes, int budget, float thr,
-                           void* const* geom, int n_geom, void* stream,
-                           const int* seeds, int n_shards, int shard_lanes,
-                           const void* chunks) {
+//
+// offsets, records, n_walks: a dealt launch (walk_plan's offsets, n_walks
+//     records of REC_SRC + n_src int32 words, its walks), which the host
+//     asks for after walk_plan found the launch dealable; null, null, 0
+//     otherwise (one thread a lane, or the repack loop).
+static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
+                      void* const* planes, int n_planes, int n_lanes,
+                      void* const* geom, int n_geom, cudaStream_t st,
+                      const int* seeds, int n_shards, int shard_lanes,
+                      const void* chunks) {
   WalkConst h;  // pageable: the async copy stages it before returning
   memset(&h, 0, sizeof(h));
   if (n_ip < N_IP || n_fp < N_FP || n_planes != N_PLANES + N_WIDE_PLANES ||
@@ -2870,7 +3393,6 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
   const size_t n_end =
       offsetof(WalkConst, shard_seed) + sizeof(uint32_t) * (size_t)n_shards;
   const size_t n_head = wide ? n_end : offsetof(WalkConst, wsrc);
-  cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e =
       cudaMemcpyToSymbolAsync(C, &h, n_head, 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
@@ -2880,12 +3402,32 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
                                 cudaMemcpyHostToDevice, st);
     if (e != cudaSuccess) return (int)e;
   }
+  return 0;
+}
+
+extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
+                           int n_ip, void* const* planes, int n_planes,
+                           int n_lanes, int budget, float thr,
+                           void* const* geom, int n_geom, void* stream,
+                           const int* seeds, int n_shards, int shard_lanes,
+                           const void* chunks, const int* offsets,
+                           int* records, int n_walks) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int fault =
+      put_header(fp, n_fp, ip, n_ip, planes, n_planes, n_lanes, geom, n_geom,
+                 st, seeds, n_shards, shard_lanes, chunks);
+  if (fault) return fault;
+  if (records) {
+    if (!DEALT || n_shards != 1 || !offsets || n_walks < 1 || n_lanes < 1)
+      return (int)cudaErrorInvalidValue;
+    return launch_dealt(st, n_lanes, offsets, records, n_walks);
+  }
   if (n_lanes > 0 && budget > 0) {
     if (REPACKED) {  // the repack loop's pool starts at lane 0 (the
                      // current card's, as the constant block above)
       static const unsigned int zero = 0;
-      e = cudaMemcpyToSymbolAsync(next_lane, &zero, sizeof zero, 0,
-                                  cudaMemcpyHostToDevice, st);
+      const cudaError_t e = cudaMemcpyToSymbolAsync(
+          next_lane, &zero, sizeof zero, 0, cudaMemcpyHostToDevice, st);
       if (e != cudaSuccess) return (int)e;
     }
     const int grid = (n_lanes + BLOCK - 1) / BLOCK;
@@ -2898,4 +3440,30 @@ extern "C" int walk_launch(const float* fp, int n_fp, const int* ip,
     launch_built<false>(grid, st, n_lanes, budget, thr);
   }
   return (int)cudaGetLastError();
+}
+
+// the plan of a dealt launch of this library's walk_variant.h::dealt build
+// over the planes (walk_launch's first sixteen arguments, of which it
+// reads the header, the planes and the lanes): offsets (n_lanes + 1
+// int32: each lane's first record, then the walks), tiles (3 int64 a tile
+// of PLAN_THREADS lanes) and stats (3 int32: the walks, or -1 past
+// INT32_MAX; the largest quota; the lanes with quota not at a walk's
+// start), on the launch's stream
+extern "C" int walk_plan(const float* fp, int n_fp, const int* ip, int n_ip,
+                         void* const* planes, int n_planes, int n_lanes,
+                         int budget, float thr, void* const* geom,
+                         int n_geom, void* stream, const int* seeds,
+                         int n_shards, int shard_lanes, const void* chunks,
+                         int* offsets, long long* tiles, int* stats) {
+  (void)budget;
+  (void)thr;
+  if (!DEALT || n_shards != 1 || n_lanes < 1 || !offsets || !tiles ||
+      !stats)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int fault =
+      put_header(fp, n_fp, ip, n_ip, planes, n_planes, n_lanes, geom, n_geom,
+                 st, seeds, n_shards, shard_lanes, chunks);
+  if (fault) return fault;
+  return plan_dealt(st, n_lanes, offsets, tiles, stats);
 }

@@ -88,6 +88,18 @@ WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
          !transport && !wide && !grid && !terms_form;
 }
 
+// the variants that deal walks, not lanes, to their threads in a launch
+// that drains every quota from fresh walks (csrc/walk_kernel.cu,
+// walk_dealt; ops/walk_kernel.py::dealt holds the same rule): the survey's
+// build (phase 6, the main path) and the wide survey with MIS (phase 31's
+// Jacobian). Their other launches run one thread a lane
+WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
+                             bool table, bool delta, bool transport,
+                             bool wide, bool grid, bool terms_form) {
+  return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&
+         !transport && !grid && !terms_form && mis == wide;
+}
+
 }  // namespace walk_rules
 
 #endif  // WALK_VARIANT_H

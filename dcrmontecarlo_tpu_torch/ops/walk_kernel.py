@@ -92,7 +92,7 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "PLANE_MIN_FRAC", "build_library", "nvcc_command",
            "variant_macros", "SWITCHES", "NVCC_FLAGS", "ROBIN_OFF",
            "ROBIN_CHAIN", "ROBIN_REFLECTANCE", "MAX_SHARDS", "CHUNK_ROWS",
-           "culled_scans", "chunk_records"]
+           "culled_scans", "chunk_records", "dealt", "launch_loop"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -195,6 +195,20 @@ def repacked(variant) -> bool:
     repacked``): the freeze builds and :func:`chain_phases`'; the others
     run one thread a lane for the whole launch."""
     return _switches(variant)[3] or chain_phases(variant)
+
+
+def dealt(variant) -> bool:
+    """Whether ``variant`` deals walks, not lanes, to its threads in a
+    launch that drains every quota from fresh walks
+    (``walk_variant.h::dealt``): the survey's build
+    ``<0,false,false,false,false,true,false>`` (the main path, phase 6)
+    and the wide survey with MIS (phase 31's Jacobian). Its other launches
+    run one thread a lane (:func:`launch_loop`)."""
+    robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
+        terms = _switches(variant)
+    return (robin == ROBIN_OFF and delta and mis == wide
+            and not (majorant or freeze or table or transport or grid
+                     or terms))
 
 
 def culled_scans(variant) -> bool:
@@ -1530,6 +1544,9 @@ def _library(variant):
                            f"{lib.walk_chunk_rows()} rows, not {CHUNK_ROWS}")
     lib.walk_launch.argtypes = LAUNCH_ARGTYPES
     lib.walk_launch.restype = ctypes.c_int
+    if hasattr(lib, "walk_plan"):
+        lib.walk_plan.argtypes = PLAN_ARGTYPES
+        lib.walk_plan.restype = ctypes.c_int
     return lib
 
 
@@ -1543,7 +1560,11 @@ LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,   # fp
                    ctypes.c_void_p,                 # stream
                    ctypes.c_void_p, ctypes.c_int,   # the shard table
                    ctypes.c_int,
-                   ctypes.c_void_p]                 # chunk records
+                   ctypes.c_void_p,                 # chunk records
+                   ctypes.c_void_p, ctypes.c_void_p,  # a dealt launch's
+                   ctypes.c_int]                    # plan and records
+# walk_plan's: walk_launch's first sixteen, then the plan's buffers
+PLAN_ARGTYPES = LAUNCH_ARGTYPES[:16] + [ctypes.c_void_p] * 3
 
 
 def launch_args(state: dict, params: WalkParams):
@@ -1585,27 +1606,76 @@ _PLANE_ORDER = (CONST_PLANES + SNAP_PLANES + tuple(state_planes(MAX_SRC))
 _PLANE_INDEX = {name: i for i, name in enumerate(_PLANE_ORDER)}
 
 
+def launch_loop(lib, state: dict, params: WalkParams, inner_steps: int,
+                freeze_thr=None, stream=None) -> str:
+    """One launch of ``lib`` (``params``' variant's library, or a host
+    build of it) over ``state``'s planes, in place; returns the loop it
+    ran: ``"dealt"`` (walks dealt to the threads), ``"lanes"`` (one thread
+    a lane), ``"shards"`` (the same over several shards) or ``"repack"``
+    (the repack loop). A launch of a :func:`dealt` build that holds one
+    shard and whose budget covers a walk (``max_steps + 1`` iterations)
+    asks the library for its plan (``walk_plan``: one read back): if every
+    lane with quota stands at a walk's start and the budget covers every
+    quota (``quota * (max_steps + 1)``), its walks are dealt to the
+    threads and each writes a record that the fold adds in walk order
+    (``"dealt"``); every other launch runs the build's own loop. The plan
+    and the records are tensors on the planes' device."""
+    thr = _freeze_threshold(params, freeze_thr)
+    fp, ip, arr, garr, seeds, per, chunks = launch_args(state, params)
+    budget = int(min(max(int(inner_steps), 0), 2**31 - 1))
+    n = state["px"].numel()
+    head = (fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr,
+            len(arr), n, budget, math.inf if thr is None else thr, garr,
+            len(garr), stream, seeds.ctypes.data, len(seeds), per, chunks)
+    v = params.variant
+    loop = ("repack" if repacked(v) else
+            "shards" if len(seeds) > 1 else "lanes")
+    deal, keep = (None, None, 0), ()
+    if (loop == "lanes" and dealt(v) and n > 0
+            and budget >= params.max_steps + 1 and hasattr(lib, "walk_plan")):
+        dev = state["px"].device
+        layout = (ctypes.c_int * 2)()  # lanes a plan tile, record head
+        if lib.walk_dealt_layout(layout, 2) != 0:
+            raise RuntimeError("the library reports no dealt layout")
+        tile_lanes, rec_head = layout
+        offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        tiles = torch.empty(3 * -(-n // tile_lanes), dtype=torch.int64,
+                            device=dev)
+        stats = torch.empty(3, dtype=torch.int32, device=dev)
+        err = lib.walk_plan(*head, offsets.data_ptr(), tiles.data_ptr(),
+                            stats.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"walk kernel plan failed: CUDA error {err}")
+        walks, quota_max, stale = stats.tolist()
+        if (walks > 0 and stale == 0
+                and budget >= quota_max * (params.max_steps + 1)):
+            records = torch.empty(walks * (rec_head + params.n_src),
+                                  dtype=torch.int32, device=dev)
+            deal = (offsets.data_ptr(), records.data_ptr(), walks)
+            keep = (offsets, records)
+            loop = "dealt"
+    err = lib.walk_launch(*head, *deal)
+    if err != 0:
+        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
+    del keep  # the stream orders the buffers' next use after the launch
+    return loop
+
+
 def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
                  freeze_thr=None) -> dict:
     px = state["px"]
     if px.device.type != "cuda":
         raise RuntimeError(
             f"run_walk takes CPU or CUDA tensors, got {px.device}")
-    thr = _freeze_threshold(params, freeze_thr)
-    fp, ip, arr, garr, seeds, per, chunks = launch_args(state, params)
+    _freeze_threshold(params, freeze_thr)  # before any build
     lib = _library(params.variant)
-    budget = int(min(max(int(inner_steps), 0), 2**31 - 1))
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
-        err = lib.walk_launch(fp.ctypes.data, len(fp), ip.ctypes.data,
-                              len(ip), arr, len(arr), px.numel(),
-                              budget, math.inf if thr is None else thr,
-                              garr, len(garr), stream, seeds.ctypes.data,
-                              len(seeds), per, chunks)
-    if err != 0:
-        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
+        loop = launch_loop(lib, state, params, inner_steps, freeze_thr,
+                           stream)
     run_walk.launches += 1
     run_walk.variant_launches[params.kernel_name] += 1
+    run_walk.loop_launches[loop] += 1
     return state
 
 
@@ -1614,8 +1684,9 @@ def run_walk(state: dict, params: WalkParams, inner_steps: int,
     """Advance every lane by up to ``inner_steps`` steps, in place.
 
     CPU planes run :func:`walk_plain`; CUDA planes launch the kernel (one
-    launch, counted in ``run_walk.launches`` and, per instantiation, in
-    ``run_walk.variant_launches[params.kernel_name]``) or raise.
+    launch, counted in ``run_walk.launches``, per instantiation in
+    ``run_walk.variant_launches[params.kernel_name]`` and per loop in
+    ``run_walk.loop_launches``, :func:`launch_loop`) or raise.
     ``freeze_thr`` is the launch's freeze threshold (freeze builds only;
     ``None`` there means ``+inf``, no lane freezes).
     """
@@ -1626,3 +1697,4 @@ def run_walk(state: dict, params: WalkParams, inner_steps: int,
 
 run_walk.launches = 0
 run_walk.variant_launches = collections.Counter()
+run_walk.loop_launches = collections.Counter()

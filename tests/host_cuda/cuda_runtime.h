@@ -5,8 +5,10 @@
 // which may put host_launch in its place: a std::thread per CUDA thread
 // of a block, a block at a time, the thread indices thread-local, __shared__
 // variables static (one block runs at a time), and __syncthreads /
-// __syncthreads_count a barrier over the block's threads. Warp-level
-// primitives are not emulated.
+// __syncthreads_count a barrier over the block's threads. The dealt
+// loop's launches go through cudaLaunchKernel, which runs host_launch with
+// the kernel's arguments; the device queries answer one SM that holds one
+// block. Warp-level primitives are not emulated.
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -18,6 +20,8 @@
 #include <condition_variable>
 #include <mutex>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 using std::max;
 using std::min;
@@ -31,6 +35,10 @@ using std::min;
 #define __launch_bounds__(x)
 struct host_dim3 {
   unsigned x, y, z;
+};
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 static thread_local host_dim3 blockIdx, threadIdx;
 struct float4 {
@@ -51,7 +59,23 @@ enum {
   cudaErrorMisalignedAddress = 716
 };
 enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 static inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+static inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+static inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr,
+                                                 int) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <class K>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 #define cudaMemcpyToSymbolAsync(sym, src, n, off, kind, st) \
   (memcpy(((char*)&(sym)) + (off), (src), (n)), cudaSuccess)
 static inline unsigned int atomicAdd(unsigned int* p, unsigned int v) {
@@ -123,4 +147,20 @@ static void host_launch(int grid, int block, F body) {
     });
   for (auto& th : threads) th.join();
   host_barrier = nullptr;
+}
+
+// a kernel's launch by the runtime call: its arguments by its parameter
+// types, its blocks by host_launch
+template <class... A, size_t... I>
+static void host_call(void (*k)(A...), void** args,
+                      std::index_sequence<I...>) {
+  k(*static_cast<std::remove_reference_t<A>*>(args[I])...);
+}
+template <class... A>
+static cudaError_t cudaLaunchKernel(void (*k)(A...), dim3 grid, dim3 block,
+                                    void** args, size_t, cudaStream_t) {
+  host_launch((int)grid.x, (int)block.x, [&] {
+    host_call(k, args, std::index_sequence_for<A...>{});
+  });
+  return cudaSuccess;
 }

@@ -73,7 +73,11 @@ def start_build(tmp, variant, one_thread, full_scans=False, extra=""):
 
 def load(build, variant):
     """``walk(state, params, budget, thr)``: one launch of a started
-    build's library on CPU planes, in place; ``walk.schedule`` is the
+    build's library on CPU planes, in place, in the build's own loop (one
+    thread a lane or the repack loop, never the dealt loop);
+    ``walk.loop(state, params, budget, thr)`` launches as the card's
+    wrapper does (``walk_kernel.launch_loop``: the dealt loop where the
+    launch allows it) and returns the loop it ran; ``walk.schedule`` is the
     launch's schedule as the library exports it, ``walk.lib`` the
     library."""
     proc, so = build
@@ -91,9 +95,17 @@ def load(build, variant):
         err = lib.walk_launch(
             fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr, len(arr),
             state["px"].numel(), budget, thr, garr, len(garr), None,
-            seeds.ctypes.data, len(seeds), per, chunks)
+            seeds.ctypes.data, len(seeds), per, chunks, None, None, 0)
         assert err == 0
         return state
+
+    def loop(state, params, budget, thr):
+        assert params.variant == variant
+        return wk.launch_loop(lib, state, params, budget, thr)
+
+    if hasattr(lib, "walk_plan"):
+        lib.walk_plan.argtypes = wk.PLAN_ARGTYPES
+    walk.loop = loop
     walk.schedule = cs.repack_schedule(lib)
     walk.lib = lib
     return walk

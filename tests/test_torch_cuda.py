@@ -50,7 +50,10 @@ notebook line's; without it: the accuracy path's and the variable
 coefficients'), whose chain's wall work (and without MIS the rejection
 sampler's redraw rounds) runs from a queue, in the cases of
 ``chip_smoke.py::CHAIN_CASES`` against the same builds with the
-one-thread loop (bit for bit) and the plain walk.
+one-thread loop (bit for bit) and the plain walk; and the survey builds'
+dealt loop (the survey's and the wide survey with MIS), a launch that
+drains uneven quotas from fresh walks against the one-thread loop in
+256-step launches (bit for bit) and the plain walk.
 """
 
 import os
@@ -963,3 +966,43 @@ def test_survey_split_host_loop_matches_plain(device):
     assert rk.total_steps == rp.total_steps
     se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+
+
+@pytest.mark.parametrize("which", ["survey", "wide_mis"])
+def test_dealt_launch_matches_drained_one_thread_loop(device, which):
+    # a launch of the survey builds that drains every quota from fresh
+    # walks deals its walks to the threads: every plane equals the
+    # one-thread loop's in 256-step launches until drained, bit for bit,
+    # and the plain walk's under compare_planes
+    import chip_smoke as cs
+
+    variant, extra = {
+        "survey": ((0, False, False, False, False, True, False, False,
+                    False), {}),
+        "wide_mis": ((0, False, True, False, False, True, False, True,
+                      False), dict(mis=True, n_src=5))}[which]
+    spec = cs.sweep_spec(("dealt", variant, extra))
+    solver = WoStSolver(cs.sweep_problem(spec), cs.sweep_options(
+        spec, target_slots=8192), device=device)
+    state, params, _, _ = solver._setup(cs.SWEEP_POINTS, 1 << 15, 64,
+                                        cs.SWEEP_EPS, 3)
+    assert params.variant == variant and wk.dealt(variant)
+    n = state["px"].numel()
+    state["quota"] = torch.tensor([0, 1, 7, 40], dtype=torch.int32,
+                                  device=device).repeat(n // 4)[:n].view_as(
+                                      state["quota"]).clone()
+    budget = 40 * (params.max_steps + 1)
+    dealt, one = ({k: v.clone() for k, v in state.items()} for _ in "ab")
+    wk.run_walk.loop_launches.clear()
+    wk.run_walk(dealt, params, budget)
+    assert dict(wk.run_walk.loop_launches) == {"dealt": 1}
+    while bool((one["quota"] > 0).any()):
+        wk.run_walk(one, params, 256)
+    assert set(wk.run_walk.loop_launches) == {"dealt", "lanes"}
+    names = state_planes(params.n_src)
+    for k in names:
+        assert torch.equal(dealt[k], one[k]), k
+    plain = wk.walk_plain({k: v.clone() for k, v in state.items()}, params,
+                          budget)
+    frac, _, finite = wk.compare_planes(dealt, plain, names)
+    assert finite and min(frac.values()) >= wk.PLANE_MIN_FRAC, frac

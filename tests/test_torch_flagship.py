@@ -11,7 +11,8 @@ statistically, per electrode ``|dmean| <= 4 sqrt(se_port^2 + se_jax^2)``.
 The same configuration at 21 x 16 walks also runs through the JAX
 package's own Pallas host loop (in interpret mode, the kernel built with
 MIS, the chain, the majorant and the freeze): equal total steps and
-clone counts, means to ``1e-3 (|mean| + stderr)``.
+clone counts, means to ``1e-3 (|mean| + stderr)``
+(``test_torch_flagship_host_loop.py``).
 
 Two settings differ from the gate's, to keep the solves inside a minute
 on one CPU thread. ``pallas_block_rows=1``: with the default 64-row blocks,
@@ -32,10 +33,8 @@ import torch
 
 from dcrmontecarlo_tpu.models import notebook_survey as j_nb
 from dcrmontecarlo_tpu.survey import dcr as jdcr
-from dcrmontecarlo_tpu_torch import interop
 from dcrmontecarlo_tpu_torch.models import notebook_survey
 from dcrmontecarlo_tpu_torch.survey import survey_default_options
-from test_torch_split import _host_loop_pair
 
 torch.set_num_threads(1)
 
@@ -83,28 +82,3 @@ def test_flagship_path_runs_chain_mis_and_the_split(paired_runs):
     assert pb.source_importance is not None
     stats = solver.last_solve_stats
     assert stats["clones"] > 0 and stats["launches"] > 1
-
-
-def test_flagship_host_loop_matches_pallas_host_loop():
-    js, je = j_nb()
-    js.local_majorant = "auto"
-    js.source_mis = True
-    jprob = js.build_problem()
-    ts, _ = notebook_survey()
-    ts.source_mis = True
-    ts.local_majorant = interop.local_majorant_from(jprob.local_majorant)
-    tprob = ts.build_problem()
-    tprob.set_source_importance(
-        interop.gaussian_mixture_from(jprob.source_importance))
-    r = _host_loop_pair(tprob, jprob, np.asarray(je, np.float32), 16,
-                        MAX_STEPS, 3, 4.0, n_inner=64, eps=EPS,
-                        target_slots=1 << 17, block_rows=1,
-                        common_random_numbers=True, roulette_threshold=0.05,
-                        rejection_rounds=2, robin_correction="chain")
-    got, want = r["got"], r["want"]
-    assert got.total_steps == want.total_steps
-    assert r["stats"]["clones"] == r["j_clones"] > 0
-    wm = np.asarray(want.mean)
-    se = np.sqrt(got.stderr ** 2 + np.asarray(want.stderr) ** 2)
-    assert (np.abs(got.mean - wm) <= 1e-3 * (np.abs(wm) + se)).all()
-    assert r["t_calls"] == r["j_calls"]

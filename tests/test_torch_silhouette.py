@@ -6,9 +6,9 @@ was formed on the host in float64, and a larger one from SMEM-table loops
 that form everything in float32 (``ops/pallas_walk.py:139-451``).
 ``ops/walk_kernel.py`` holds the plain PyTorch version of both; here each
 loop is held against the JAX device function on the same seeded numpy
-points, the silhouette queries against ``geometry/queries.py``, and one
+points, the silhouette queries against ``geometry/queries.py``; one
 16-step launch of the plain walk against the interpreted Pallas kernel in
-each form.
+each form is in ``test_torch_silhouette_walk.py``.
 
 XLA's CPU backend contracts ``a * b + c`` into a fused multiply-add
 (``tests/test_pallas_walk.py:180-182`` notes it too); the TPU kernel and
@@ -291,42 +291,6 @@ def _staircase_problems(step):
 
 # step width -> (geometry size, form)
 STAIRS = {16.0: (52, False), 8.0: (100, True)}
-
-
-@pytest.mark.parametrize("step", sorted(STAIRS))
-def test_plain_walk_matches_pallas_kernel_on_terrain(step):
-    from jax.experimental.pallas import tpu as pltpu
-
-    tprob, jprob = _staircase_problems(step)
-    size, table = STAIRS[step]
-    assert _geometry_size(jprob) == wk.geometry_size(tprob) == size
-    points = np.stack([np.arange(-40.0, 41.0, 10.0), np.full(9, -0.7)],
-                      1).astype(np.float32)
-    eps = 0.5
-    planes = numpy_planes(JSolver(jprob, JOptions(**OPTS)), points, 452, eps)
-    assert planes["px"].size == 1024
-    common = dict(eps=eps, max_steps=600, t_min=1e-5 * jprob.diameter,
-                  rmin=0.5 * eps, project=True, rejection_rounds=2,
-                  roulette_threshold=0.05)
-    plan = make_pallas_walk(jprob, n_inner=STEPS, block_rows=8,
-                            snap_starts=True, **common)
-    with pltpu.force_tpu_interpret_mode():
-        out = plan.run({k: jnp.asarray(v) for k, v in planes.items()},
-                       stream_seed(SEED), inner_steps=STEPS)
-    want = {k: np.asarray(v) for k, v in out.items()}
-    params = wk.make_walk_params(tprob, snap=True, seed=stream_seed(SEED),
-                                 **common)
-    assert params.table == table and len(params.vert_table) > 0
-    got = interop.state_to_numpy(wk.run_walk(
-        interop.state_from_numpy(planes), params, STEPS))
-    _compare(got, want, state_planes(1))
-    assert (want["ob"] != 0).any() and (want["ndone"] > 0).any()
-    # the silhouettes acted: without the vertices the radii change
-    no_vert = interop.state_to_numpy(wk.walk_plain(
-        interop.state_from_numpy(planes),
-        dataclasses.replace(params, vert_table=params.vert_table[:0]), STEPS))
-    differ = (no_vert["px"] != got["px"]) | (no_vert["atten"] != got["atten"])
-    assert differ.mean() >= 0.01
 
 
 def _heightmap_problem(n_seg):

@@ -9,7 +9,8 @@ give bit-equal boundaries and electrodes; a whole solve at the test size
 must agree with the JAX XLA backend within 4 sigma of the combined
 standard error (walks on sloped walls desynchronize on one-ulp
 differences, see ``test_torch_silhouette.py``, so the comparison is
-statistical); and ``tests/test_topography.py`` runs here on the port.
+statistical); and ``tests/test_topography.py`` runs here on the port
+(its whole survey solve in ``test_torch_topography_solve.py``).
 """
 
 import numpy as np
@@ -136,17 +137,3 @@ def test_topographic_problem_builds(test_size):
     assert prob.neumann.num_segments > 40
     assert prob.use_delta_tracking
     assert 0 < prob.sigma_bar < 10
-
-
-def test_topographic_survey_solves(test_size):
-    prob, _, h = test_size
-    electrodes = drape_electrodes(h, XS, nudge=0.5)
-    solver = WoStSolver(prob, SolverOptions(target_slots=8192), device="cpu")
-    res = solver.solve(electrodes, n_walks=600, max_steps=600, eps=0.5,
-                       seed=0)
-    assert np.isfinite(res.mean).all()
-    i_pos = int(np.argmin(np.abs(XS + 20)))
-    i_neg = int(np.argmin(np.abs(XS - 20)))
-    assert res.mean[i_pos] > 0, res.mean
-    assert res.mean[i_neg] < 0, res.mean
-    assert np.abs(res.mean).max() < 1.0

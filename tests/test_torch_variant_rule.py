@@ -280,6 +280,54 @@ def test_loop_rules_of_header_and_python_agree_on_every_variant(tmp_path):
         assert not wk.chain_phases(v) and not wk.repacked(v), v
 
 
+# csrc/walk_variant.h::dealt for each kernel variant on stdin (robin, the
+# nine switches), one line each
+_DEALT_RULE_MAIN = r"""
+#include <cstdio>
+#include "walk_variant.h"
+int main() {
+  int r, s[9];
+  while (std::scanf("%d %d %d %d %d %d %d %d %d %d", &r, &s[0], &s[1],
+                    &s[2], &s[3], &s[4], &s[5], &s[6], &s[7], &s[8]) == 10)
+    std::printf("%d\n", (int)walk_rules::dealt(r, s[0], s[1], s[2], s[3],
+                                                s[4], s[5], s[6], s[7],
+                                                s[8]));
+}
+"""
+
+
+def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
+    # the header's dealt rule, compiled by the host compiler, and
+    # ops/walk_kernel.py's pick the same two of the 768 kernel variants:
+    # the survey's build (the main path) and the wide survey with MIS
+    # (the Jacobian); neither runs the repack loop
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    main = tmp_path / "dealt_rule.cpp"
+    main.write_text(_DEALT_RULE_MAIN)
+    exe = tmp_path / "dealt_rule"
+    subprocess.run([cxx, "-std=c++17", "-I", str(wk._SRC.parent), "-o",
+                    str(exe), str(main)], check=True, timeout=120)
+    variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
+    stdin = "".join(" ".join(str(int(x)) for x in v) + "\n"
+                    for v in variants)
+    out = subprocess.run([str(exe)], input=stdin, check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.split()
+    got = [bool(int(x)) for x in out]
+    assert got == [wk.dealt(v) for v in variants]
+    assert [v for v, d in zip(variants, got) if d] == [
+        (wk.ROBIN_OFF, False, False, False, False, True, False, False, False,
+         False),
+        (wk.ROBIN_OFF, False, True, False, False, True, False, True, False,
+         False)]
+    assert not any(wk.repacked(v) for v, d in zip(variants, got) if d)
+
+
 def test_build_command_names_the_switches():
     v = (wk.ROBIN_CHAIN, True, True, True, False, True, False, False, True)
     cmd = wk.nvcc_command(v, "/tmp/out.so")
@@ -364,7 +412,7 @@ def test_library_refuses_a_header_of_other_switches(tmp_path):
         return lib.walk_launch(
             fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr, len(arr),
             0, 0, math.inf, garr, len(garr), None, seeds.ctypes.data,
-            len(seeds), per, chunks)
+            len(seeds), per, chunks, None, None, 0)
 
     assert launch(params) == 0
     for other in (dataclasses.replace(params, freeze=False),

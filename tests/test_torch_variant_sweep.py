@@ -18,8 +18,8 @@ agree to rounding. The interpolant itself is held to the JAX package's
 ``grid_continuation`` in ``test_torch_grid.py``, and a grid solve to its
 XLA backend there.
 
-The cases split across this file, ``test_torch_variant_sweep_b.py`` and
-``_c.py`` (each under a minute alone on the CPU); the CUDA kernel is held
+The cases split across this file and ``test_torch_variant_sweep_b.py`` to
+``_e.py`` (each under a minute alone on the CPU); the CUDA kernel is held
 to the plain walk on the same cases by ``chip_smoke.py`` phase 42 and
 ``test_torch_cuda.py``.
 """
@@ -43,12 +43,12 @@ CASES = {c[0]: c for c in cs.SWEEP}
 # the cases of this file and of test_torch_variant_sweep_b.py and _c.py
 # (~40 s each alone on the CPU; the table form's interpreted loops are the
 # slowest)
-GROUPS = (("table+mis", "table+wide", "chain+freeze+terms",
-           "no_delta_wide+terms"),
-          ("reflectance_table_all", "reflectance+mis", "grid_no_delta",
-           "chain+majorant+terms"),
-          ("table+majorant", "flagship_wide", "survey+grid",
-           "transport+mis"))
+GROUPS = (("table+mis", "grid_no_delta"),
+          ("reflectance_table_all",),
+          ("table+majorant", "survey+grid", "no_delta_wide+terms"),
+          ("table+wide", "reflectance+mis"),
+          ("flagship_wide", "chain+freeze+terms", "transport+mis",
+           "chain+majorant+terms"))
 assert sorted(sum(GROUPS, ())) == sorted(CASES)
 
 
