@@ -45,7 +45,13 @@ states (seed 5, fresh walks):
   ``<0,false,false,false,false,true,false>``, 147,456 lanes;
 - ``jacobian``: phase 31's Jacobian, the wide survey with MIS
   ``<0,false,true,false,false,true,false,true>``, 65,536 lanes, 8 sources,
-  9 components.
+  9 components;
+- ``transport``: phase 6's state with the transport sampler
+  ``<0,false,false,false,false,true,true>`` (phase 43's first solve),
+  147,456 lanes;
+- ``survey_mis``: phase 6's state with the survey's MIS mixture
+  ``<0,false,true,false,false,true,false>`` (phase 43's second solve),
+  147,456 lanes, 2 components.
 
 The sites of the survey builds' step: HASH (the counter hash and the
 step's first uniforms), CLOSEST, FIRST_HIT, RADIUS (the rejection
@@ -53,7 +59,15 @@ sampler's first round), ALPHA_S (alpha at the sample), NEE (the sources at
 the sample, with screened_norm), INTERIOR (interior_prob), SIGMA (sigma'
 at a colliding sample), ALPHA_H (alpha at the hit of a lane that does not
 collide), BANK, and with MIS the MIS site (its PDF and STAR within) and
-ADD (the sources at the MIS sample).
+ADD (the sources at the MIS sample). The transport build's TRANSPORT
+(the map's whole draw) holds CHEB (the 29 x 13 Chebyshev tensor and the
+warp), FREE (the free density's draw) and TWEIGHT (the exact weight's
+Bessel terms); its counters ZWARPS, ZFREE and ZMIXED count the warps that
+draw (and their lanes), those with a lane past ``Z_SW`` (and those
+lanes) and those with lanes on both sides. The survey MIS build's MIS
+holds BOXMULLER (the four uniforms, the component and the Box-Muller
+sample), STAR, GREENS (``screened_greens`` and ``screened_norm``) and PDF;
+ALPHA_Y is alpha at the MIS sample.
 
 Where a step's scans read the table form's rows, the sites CLOSEST (the
 Dirichlet scan), SILHOUETTE, FIRST_HIT (the step's first hit) and STAR
@@ -104,12 +118,16 @@ WORK = ROOT / "_archive" / "step_sites"
 SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
          "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S", "INTERIOR", "SIGMA",
-         "ALPHA_H")
-# the disjoint sites of a step (REDRAW lies inside RADIUS, STAR and PDF
-# inside MIS)
+         "ALPHA_H", "TRANSPORT", "CHEB", "FREE", "TWEIGHT", "BOXMULLER",
+         "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED")
+# the disjoint sites of a step (REDRAW lies inside RADIUS; STAR, PDF,
+# BOXMULLER and GREENS inside MIS; CHEB, FREE and TWEIGHT inside
+# TRANSPORT)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
        "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S",
-       "INTERIOR", "SIGMA", "ALPHA_H")
+       "INTERIOR", "SIGMA", "ALPHA_H", "TRANSPORT", "ALPHA_Y")
+# counters, not clocks: warps (in the cycle sums) and lanes
+COUNTS = ("ZWARPS", "ZFREE", "ZMIXED")
 SLOTS = 512
 
 PRELUDE = r"""
@@ -139,6 +157,20 @@ __device__ __forceinline__ void site_iter() {
 #define SITE_BEGIN(s) const unsigned site_m_##s = __activemask(); \
   const long long site_t_##s = clock64();
 #define SITE_END(s) site_add(S_##s, site_m_##s, clock64() - site_t_##s);
+// the transport map's regime: warps that draw, those with a lane past Z_SW,
+// those with lanes on both sides (a warp each in the cycle sums)
+__device__ __forceinline__ void site_count(int s, unsigned m) {
+  atomicAdd(&g_site_cyc[s][site_slot()], 1ull);
+  atomicAdd(&g_site_lanes[s][site_slot()], (unsigned long long)__popc(m));
+}
+#define SITE_REGIME(pred) {                                        \
+  const unsigned rg_a = __activemask();                           \
+  const unsigned rg_b = __ballot_sync(rg_a, pred);                \
+  if ((int)(threadIdx.x & 31) == __ffs(rg_a) - 1) {               \
+    site_count(S_ZWARPS, rg_a);                                   \
+    if (rg_b) site_count(S_ZFREE, rg_b);                          \
+    if (rg_b && rg_b != rg_a) site_count(S_ZMIXED, rg_b);         \
+  } }
 """
 
 EXPORT = r"""
@@ -209,9 +241,9 @@ STEP_EDITS = (
      "    float r = fmaxf(rmin, C.n_vert > 0\n"
      "                              ? fminf(dD, silhouette<TABLE>(px, py))\n"
      "                              : dD);\n    SITE_END(SILHOUETTE)\n"),
-    ("      else\n        r_s = screened_radius(r, sbar, seed, ctr, sid, "
-     "C.rounds, w_rej);\n",
-     "      else {\n        SITE_BEGIN(RADIUS)\n"
+    ("        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, "
+     "w_rej);\n",
+     "      {\n        SITE_BEGIN(RADIUS)\n"
      "        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, "
      "w_rej);\n        SITE_END(RADIUS)\n      }\n"),
     ("        float w_mis = mis_nee<true, TABLE, WIDE>(\n"
@@ -232,6 +264,15 @@ STEP_EDITS = (
      "              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;\n"
      "          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);\n"
      "          SITE_END(NEE)\n"),
+    ("      if constexpr (TRANSPORT)\n"
+     "        r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);\n",
+     "      if constexpr (TRANSPORT) {\n        SITE_BEGIN(TRANSPORT)\n"
+     "        r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);\n"
+     "        SITE_END(TRANSPORT)\n      }\n"),
+    ("        const float a_y = alpha_c<TERMS>(yx, yy);\n",
+     "        SITE_BEGIN(ALPHA_Y)\n"
+     "        const float a_y = alpha_c<TERMS>(yx, yy);\n"
+     "        SITE_END(ALPHA_Y)\n"),
     ("          if (hit) {\n            // Robin wall-arrival weight",
      "          if (hit) {\n            SITE_BEGIN(ARRIVAL)\n"
      "            // Robin wall-arrival weight"),
@@ -281,6 +322,36 @@ KERNEL_EDITS = (
      "              !(first_hit_t<TABLE>(px, py, ex / d_safe, ey / d_safe,\n"
      "                                   ob ? t_min : F(0.0)) < d_y);\n"
      "    SITE_END(STAR)\n  }\n"),
+    ("  const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);\n",
+     "  SITE_BEGIN(BOXMULLER)\n"
+     "  const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);\n"),
+    ("  my = my + mw * rad * sinf(ang);\n",
+     "  my = my + mw * rad * sinf(ang);\n  SITE_END(BOXMULLER)\n"),
+    (("    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
+      "    norm = screened_norm(r, sbar);\n",
+      "    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
+      "    norm = DEALT ? norm_in : screened_norm(r, sbar);\n"),
+     ("    SITE_BEGIN(GREENS)\n"
+      "    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
+      "    norm = screened_norm(r, sbar);\n    SITE_END(GREENS)\n",
+      "    SITE_BEGIN(GREENS)\n"
+      "    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
+      "    norm = DEALT ? norm_in : screened_norm(r, sbar);\n"
+      "    SITE_END(GREENS)\n")),
+    ("  // the map at z_eff = clip(z, Z_LO, Z_SW)\n",
+     "  SITE_BEGIN(CHEB)\n  // the map at z_eff = clip(z, Z_LO, Z_SW)\n"),
+    ("  const float mp = F(2.0) * v * (F(1.0) - v) / (w1 * w1);\n",
+     "  const float mp = F(2.0) * v * (F(1.0) - v) / (w1 * w1);\n"
+     "  SITE_END(CHEB)\n"),
+    ("  // the free density's exact draw (z > Z_SW)\n",
+     "  SITE_BEGIN(FREE)\n  // the free density's exact draw (z > Z_SW)\n"),
+    ("  const bool use_f = z > F(Z_SW);\n",
+     "  const bool use_f = z > F(Z_SW);\n  SITE_END(FREE)\n"
+     "  SITE_REGIME(use_f)\n"),
+    ("  // the exact importance weight\n",
+     "  SITE_BEGIN(TWEIGHT)\n  // the exact importance weight\n"),
+    ("  w = invalid ? F(0.0) : (use_f ? w_f : w_t);\n",
+     "  w = invalid ? F(0.0) : (use_f ? w_f : w_t);\n  SITE_END(TWEIGHT)\n"),
     ("  float q = F(0.0);  // the mixture pdf, one expf per component\n",
      "  SITE_BEGIN(PDF)\n"
      "  float q = F(0.0);  // the mixture pdf, one expf per component\n"),
@@ -331,6 +402,10 @@ _FREEZE_FORK = (("  if constexpr (FREEZE) {\n    walk_repacked",
 
 def _edit(text, edits, what):
     for old, new in edits:
+        if isinstance(old, tuple):  # the spelling this tree has
+            found = [(o, n) for o, n in zip(old, new) if text.count(o) == 1]
+            assert len(found) == 1, (what, old)
+            old, new = found[0]
         if "%(" in old:  # the spelling this tree has
             found = [(old % sp, new % sp) for sp in SPELLINGS
                      if text.count(old % sp) == 1]
@@ -382,10 +457,11 @@ def use(paths):
     wk._library_path = lambda v: paths[wk.variant_code(v)]
 
 
-def survey_state(dev):
+def survey_state(dev, build="survey"):
     """Phase 6's full-size state of the main path (the survey build,
-    147,456 lanes, seed 5)."""
-    survey, electrodes, options = cs.survey_config()
+    147,456 lanes, seed 5), or with ``build`` (``chip_smoke.py::
+    survey_config``) the transport sampler's or the MIS mixture's."""
+    survey, electrodes, options = cs.survey_config(build)
     solver = WoStSolver(survey.build_problem(), options, device=dev)
     return solver._setup(cs.survey_points(electrodes, -0.5), *cs.SURVEY_RUN,
                          5)[:2]
@@ -409,7 +485,11 @@ def groups(dev, names=()):
         out["survey"] = survey_state(dev)
     if not names or "jacobian" in names:
         out["jacobian"] = jacobian_state(dev)
-    if names and not set(names) - {"survey", "jacobian"}:
+    for name, build in (("transport", "transport"), ("survey_mis", "mis")):
+        if not names or name in names:
+            out[name] = survey_state(dev, build)
+    if names and not set(names) - {"survey", "jacobian", "transport",
+                                   "survey_mis"}:
         return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True
@@ -485,11 +565,19 @@ def site_table(lib, state, params):
     loop, iters = cyc["LOOP"], lanes["ITER"]
     table = {k: dict(cycles=cyc[k], lanes=lanes[k],
                      cycle_share=cyc[k] / loop, lane_share=lanes[k] / iters)
-             for k in SITES if k not in ("LOOP", "ITER")}
+             for k in SITES if k not in ("LOOP", "ITER") + COUNTS}
     table["other"] = dict(cycles=loop - sum(cyc[k] for k in TOP),
                           cycle_share=1.0 - sum(cyc[k] for k in TOP) / loop)
-    return dict(loop_cycles=loop, warp_iterations=cyc["ITER"],
-                lane_iterations=iters, sites=table)
+    out = dict(loop_cycles=loop, warp_iterations=cyc["ITER"],
+               lane_iterations=iters, sites=table)
+    if cyc["ZWARPS"]:  # the transport map's regime, by warp and by lane
+        out["regime"] = dict(
+            warps=cyc["ZWARPS"], lanes=lanes["ZWARPS"],
+            free_warp_share=cyc["ZFREE"] / cyc["ZWARPS"],
+            mixed_warp_share=cyc["ZMIXED"] / cyc["ZWARPS"],
+            free_lane_share=lanes["ZFREE"] / lanes["ZWARPS"],
+            free_lanes_in_mixed_warps=lanes["ZMIXED"])
+    return out
 
 
 def site_shares(path, state, params):
@@ -555,6 +643,8 @@ def main():
             print(f"  {k:10s} warp-cycles {v['cycle_share']:.4f}"
                   + (f", lanes {v['lane_share']:.4f}" if "lanes" in v
                      else ""), flush=True)
+        if "regime" in table:
+            print(f"  regime {json.dumps(table['regime'])}", flush=True)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "step_sites.json", "w") as f:
         json.dump(record, f)

@@ -26,11 +26,24 @@ in one call:
     for t in "_archive/parent p1" ". c1" ". c2" "_archive/parent p2"; do
         set -- $t; python3 chip_probes/survey_ab.py $1 $2; done
 
+``--build transport`` or ``--build mis`` times, in place of the two
+builds above, the survey build with the transport sampler
+``<0,false,false,false,false,true,true>`` or with the survey's MIS mixture
+``<0,false,true,false,false,true,false>`` at the same full-size state
+(``chip_smoke.py::survey_config``, phase 43's solves): its registers and
+SASS mix, the single launch, 256 steps and the three solves, no Jacobian
+or budgeted launches.
+
 ``--ablate PIECE[,PIECE]`` (this checkout) builds the two libraries from
 a copy of ``csrc/`` under ``_archive/survey_ab/`` with the named pieces of
 the dealt loop taken out, the shipped source untouched: ``one_pass``
 (alpha and sigma' at a colliding sample in two passes, as the one-thread
-loop does). Writes ``chiprun_out/survey_ab_TAG.json``.
+loop does), ``ball_once`` (the survey MIS build's interior probability
+anew for the MIS norm and the interior test) and ``sincos`` (its
+Box-Muller pair by ``cosf`` and ``sinf``) and ``min_blocks_1`` (the
+transport build's dealt loop with launch bounds of 1 block a SM in place
+of 8). Writes
+``chiprun_out/survey_ab_TAG.json``.
 
     python3 chip_probes/survey_ab.py . ablate --ablate one_pass
 """
@@ -51,6 +64,8 @@ ap = argparse.ArgumentParser()
 ap.add_argument("tree")
 ap.add_argument("tag")
 ap.add_argument("--ablate", default="")
+ap.add_argument("--build", choices=("survey", "transport", "mis"),
+                default="survey")
 args = ap.parse_args()
 tree = os.path.abspath(args.tree)
 sys.path.insert(0, tree)
@@ -75,10 +90,21 @@ card = subprocess.run(cs.NVSMI_QUERY, capture_output=True,
 
 SURVEY = (0, False, False, False, False, True, False, False, False)
 WIDE_MIS = (0, False, True, False, False, True, False, True, False)
-# the dealt loop's pieces: (anchor, replacement) edits that take one out
+TRANSPORT = (0, False, False, False, False, True, True, False, False)
+SURVEY_MIS = (0, False, True, False, False, True, False, False, False)
+BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS}
+# the dealt loop's pieces: (file, anchor, replacement) edits that take one
+# out
 PIECES = {
-    "one_pass": (("#define WALK_ONE_PASS\n", ""),
-                 ("#undef WALK_ONE_PASS\n", "")),
+    "one_pass": (("walk_kernel.cu", "#define WALK_ONE_PASS\n", ""),
+                 ("walk_kernel.cu", "#undef WALK_ONE_PASS\n", "")),
+    "ball_once": (("walk_kernel.cu", "#define WALK_BALL_ONCE\n", ""),
+                  ("walk_kernel.cu", "#undef WALK_BALL_ONCE\n", "")),
+    "sincos": (("walk_kernel.cu", "    sincosf(ang, &s_ang, &c_ang);\n",
+                "    c_ang = cosf(ang);\n    s_ang = sinf(ang);\n"),),
+    "min_blocks_1": (("walk_kernel.cu",
+                      "constexpr int DEALT_MIN_BLOCKS = 8;\n",
+                      "constexpr int DEALT_MIN_BLOCKS = 1;\n"),),
 }
 # SASS opcode classes, by the mnemonic's first part
 CLASSES = (("fp32", r"F(ADD|MUL|FMA|MNMX|SETP|SEL|CHK|SET|RND)\b"),
@@ -102,16 +128,18 @@ def short_name(fn):
 
 
 def sass_mix(lib):
-    """``{function: {class: count}}`` of a library's SASS."""
+    """``({function: {class: count}}, {function: {MUFU opcode: count}})`` of
+    a library's SASS (the MUFU opcodes: the special-function unit's exp2,
+    log2, sin, cos, rsqrt, rcp)."""
     cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120).stdout
-    out, fn = {}, None
+    out, mufu, fn = {}, {}, None
     for line in sass.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
             fn = short_name(m.group(1))
-            out[fn] = {}
+            out[fn], mufu[fn] = {}, {}
             continue
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                      line)
@@ -119,16 +147,25 @@ def sass_mix(lib):
             op = m.group(1)
             cls = next((c for c, rx in CLASSES if re.match(rx, op)), "other")
             out[fn][cls] = out[fn].get(cls, 0) + 1
-    return out
+            if op.startswith("MUFU."):
+                mufu[fn][op] = mufu[fn].get(op, 0) + 1
+    return out, mufu
 
 
 def res_usage(lib):
-    """``{function: registers}`` (``cuobjdump -res-usage``)."""
+    """``{function: registers}`` and ``{function: (stack, local) bytes}``
+    (``cuobjdump -res-usage``; local memory holds the spills)."""
     cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-res-usage", str(lib)],
                           capture_output=True, text=True, timeout=120).stdout
-    return {short_name(m.group(1)): int(m.group(2))
-            for m in re.finditer(r"Function (\S+):\s*REG:(\d+)", text)}
+    regs, mem = {}, {}
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+)([^\n]*)", text):
+        fn = short_name(m.group(1))
+        regs[fn] = int(m.group(2))
+        mem[fn] = tuple(int(x.group(1)) if x else None for x in (
+            re.search(r"STACK:(\d+)", m.group(3)),
+            re.search(r"LOCAL:(\d+)", m.group(3))))
+    return regs, mem
 
 
 def build(variants):
@@ -142,12 +179,11 @@ def build(variants):
     work = HERE / "_archive" / "survey_ab" / args.tag
     shutil.rmtree(work, ignore_errors=True)
     shutil.copytree(src, work / "csrc")
-    text = (work / "csrc" / "walk_kernel.cu").read_text()
     for p in pieces:
-        for old, new in PIECES[p]:
+        for name, old, new in PIECES[p]:
+            text = (work / "csrc" / name).read_text()
             assert text.count(old) == 1, (p, old)
-            text = text.replace(old, new)
-    (work / "csrc" / "walk_kernel.cu").write_text(text)
+            (work / "csrc" / name).write_text(text.replace(old, new))
 
     def one(v):
         out = work / f"walk-{wk.variant_code(v)}.so"
@@ -212,9 +248,10 @@ def launches(state, params, step_bound):
     lp = loops()
     ms256, _ = timed(state, params, 256)
     life = end["life"]
-    return dict(whole_ms=ms, whole_loops=lp, ms256=ms256,
-                steps=int(life.sum(dtype=torch.int64)),
-                longest_lane=int(life.max()),
+    steps, longest = int(life.sum(dtype=torch.int64)), int(life.max())
+    return dict(whole_ms=ms, whole_loops=lp, ms256=ms256, steps=steps,
+                lanes=life.numel(), longest_lane=longest,
+                occupancy=steps / (life.numel() * longest),
                 truncated=float(end["tn"].sum()),
                 planes=plane_hash(end, params))
 
@@ -226,7 +263,7 @@ def raw_hash(res):
 
 
 def survey_group():
-    survey, electrodes, options = cs.survey_config()
+    survey, electrodes, options = cs.survey_config(args.build)
     solver = WoStSolver(survey.build_problem(), options, device=dev)
     pts = cs.survey_points(electrodes, -0.5)
     state, params, _, bound = solver._setup(pts, *cs.SURVEY_RUN, 5)
@@ -320,25 +357,33 @@ def budgeted_group():
 
 
 def main():
-    variants = [SURVEY, WIDE_MIS]
+    groups = ((BUILDS[args.build], args.build, survey_group),)
+    if args.build == "survey":
+        groups += ((WIDE_MIS, "jacobian", jacobian_group),)
+    variants = [v for v, _, _ in groups]
     t0 = time.time()
     paths = build(variants)
     record = dict(tag=args.tag, tree=tree, card=card,
                   device=torch.cuda.get_device_name(0), ablate=args.ablate,
-                  build_s=time.time() - t0, groups={})
-    for v, name, fn in ((SURVEY, "survey", survey_group),
-                        (WIDE_MIS, "jacobian", jacobian_group)):
+                  build=args.build, build_s=time.time() - t0, groups={})
+    for v, name, fn in groups:
         lib = paths[wk.variant_code(v)]
         rec = fn()
-        rec.update(registers=res_usage(lib), sass=sass_mix(lib))
+        assert rec["kernel"] == wk.kernel_name(v), rec["kernel"]
+        regs, mem = res_usage(lib)
+        mix, mufu = sass_mix(lib)
+        rec.update(registers=regs, stack_local=mem, sass=mix, mufu=mufu)
         record["groups"][name] = rec
         print(args.tag, name, json.dumps({k: rec[k] for k in rec
-                                          if k != "sass"}), flush=True)
+                                          if k not in ("sass", "mufu")}),
+              flush=True)
         for f, mix in rec["sass"].items():
             print(args.tag, name, "sass", f, sum(mix.values()),
-                  sorted(mix.items()), flush=True)
-    record["groups"]["budgeted"] = rec = budgeted_group()
-    print(args.tag, "budgeted", json.dumps(rec), flush=True)
+                  sorted(mix.items()), sorted(rec["mufu"][f].items()),
+                  flush=True)
+    if args.build == "survey":
+        record["groups"]["budgeted"] = rec = budgeted_group()
+        print(args.tag, "budgeted", json.dumps(rec), flush=True)
     os.makedirs(HERE / "chiprun_out", exist_ok=True)
     with open(HERE / "chiprun_out" / f"survey_ab_{args.tag}.json", "w") as f:
         json.dump(record, f)

@@ -24,8 +24,9 @@ range, on virtual shards of the one card and across two processes
 (phases 36-39), and the paths the kernel's other switch combinations open
 on the card: the survey with the high-weight split, the terrain with the
 flagship's estimator, and a sweep of twelve variants in which every pair
-of switch values occurs (phases 40-42). Each phase reports on its own
-line:
+of switch values occurs (phases 40-42), and the main path's survey with
+the transport sampler and with MIS at full size (phase 43). Each phase
+reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -97,7 +98,9 @@ line:
     differs. Then the same for the survey with ``source_mis`` (MIS on the
     survey path), whose record takes its times from 256 steps at phase
     7's full-size state with the mixture, and its launches from a survey
-    solve with ``source_mis``.
+    solve with ``source_mis``; then the solve's single launch from that
+    state, its walks dealt to the threads, as in phase 7
+    (``dealt_launch``).
 13. kernel vs plain version, a whole host-loop solve of the flagship
     configuration, 21 points x 256 walks, ``target_slots=1<<17``, with
     ``max_steps=150``: equal total steps, launches and clone counts, each
@@ -162,7 +165,10 @@ line:
     counted over that test's solve; then 256 steps at phase 7's full-size
     survey state with the exact sampler at rounds 1 and 2 and with the
     transport map (best of 3 each), and the transport kernel vs plain
-    there. The transport variant's record takes its numbers from here.
+    there; then the solve's single launch with the transport map from
+    that state, its walks dealt to the threads, as in phase 7
+    (``dealt_launch``). The transport variant's record takes its numbers
+    from here.
 23. ``TERMS`` field specs on the card: ``variable_coefficient_problem()``
     (a ``TERMS`` alpha through the chain's alpha parts), one launch as in
     phase 21.
@@ -313,6 +319,13 @@ line:
     ``sweep_problem`` builds it): one 64-step launch of 8,192 lanes from
     fresh starts per variant (its launch counted), kernel vs plain under
     phase 3's rule, timed, a record each.
+43. full size, the survey's transport and MIS builds
+    (``survey_build_phase``): phase 6's configuration with
+    ``SolverOptions(screened_sampler="transport")`` and with
+    ``source_mis=True``, a warm-up (its launches counted, by variant and
+    by loop: its one launch deals walks) and 3 timed solves each
+    (walker-steps/s, s/solve, lane occupancy, kernel share), each within
+    4 sigma of phase 6's solve of the same seed.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -362,16 +375,20 @@ SURVEY_RUN = (1 << 19, 500, 0.9)
 JACOBIAN_RUN = (1500, 500, 0.3)
 
 
-def survey_config():
+def survey_config(build="survey"):
     """Phase 6's main path at full size: ``(survey, electrodes,
     options)``, the geophysical scenario at sharpness 0.5 and the options
-    that lay its solves on 147,456 lanes."""
+    that lay its solves on 147,456 lanes; ``build`` "transport" draws the
+    screened radius by the transport map, "mis" adds the survey's MIS
+    mixture (phase 43's two solves)."""
     from dcrmontecarlo_tpu_torch.models import geophysical_scenario
     from dcrmontecarlo_tpu_torch.solver import SolverOptions
 
     survey, electrodes = geophysical_scenario(sharpness=0.5)
+    survey.source_mis = build == "mis"
     return survey, electrodes, SolverOptions(
-        target_slots=1 << 21, min_quota=32, rejection_rounds=1)
+        target_slots=1 << 21, min_quota=32, rejection_rounds=1,
+        screened_sampler="transport" if build == "transport" else "exact")
 
 
 def born_line():
@@ -2097,6 +2114,46 @@ def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
         f"agreement {worst_all:.5f} ({card})")
 
 
+def survey_build_phase(wk, dev, card, report, electrodes, f6):
+    """Phase 43: phase 6's configuration (``bench.py``'s full preset) with
+    the transport sampler and with the survey's MIS mixture
+    (``survey_config``), a warm-up and 3 timed solves each, every solve's
+    single launch dealt; each solve within 4 sigma of phase 6's of the same
+    seed; the dealt loop's registers and spills from phase 2's ``ptxas``
+    ``report``. Returns ``{build: full_size_solves result}``."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+
+    out = {}
+    pts = survey_points(electrodes, -0.5)
+    for build in ("transport", "mis"):
+        survey, _, options = survey_config(build)
+        solver = WoStSolver(survey.build_problem(), options, device=dev)
+        what = f"phase 43 ({build})"
+        f = full_size_solves(wk, solver, pts, *SURVEY_RUN, 147456, what)
+        name = wk.kernel_name((wk.ROBIN_OFF, False, build == "mis", False,
+                               False, True, build == "transport", False,
+                               False))
+        check(f["loops"] == {"dealt": 1} and set(f["counts"]) == {name},
+              f"{what}: the warm-up solve launched {f['counts']}, by loop "
+              f"{f['loops']}")
+        z = [float(np.max(np.abs(a.mean - b.mean)
+                          / np.hypot(a.stderr, b.stderr)))
+             for a, b in zip(f["raws"], f6["raws"])]
+        check(max(z) < 4.0, f"{what}: the solves differ from phase 6's by "
+                            f"{z} sigma")
+        log(f"[43] full size 9x{SURVEY_RUN[0]} walks, 147456 lanes, "
+            f"{build} ({name}; its dealt loop {report.get(name + ' (dealt)')}"
+            f"): walker_steps_per_sec {f['rate']:.6g} s/solve "
+            f"{f['times']} steps/solve {f['steps']:.6g} longest lane "
+            f"{f['longest']} steps, lane occupancy {f['occupancy']:.4f}, "
+            f"kernel share {[round(v, 4) for v in f['share']]}, launches of "
+            f"the warm-up solve {f['counts']}, by loop {f['loops']}; largest "
+            f"|{build} - phase 6| per solve {[round(v, 3) for v in z]} sigma "
+            f"(bound 4); phase 6 in this run {f6['rate']:.6g} ({card})")
+        out[build] = f
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2522,7 +2579,7 @@ def main():
     solver7, pts7, params7 = survey_full
     solver = WoStSolver(mis_survey.build_problem(), solver7.options,
                         device=dev)
-    state, params, _, _ = solver._setup(pts7, 1 << 19, 500, 0.9, 5)
+    state, params, _, bound12 = solver._setup(pts7, 1 << 19, 500, 0.9, 5)
     check(params.variant == dataclasses.replace(
         params7, mis_table=params.mis_table).variant,
           "the survey+mis state is not phase 7's configuration with MIS")
@@ -2535,8 +2592,14 @@ def main():
         f"({t12['plain_ms'] / t12['ms']:.1f}x); worst plane agreement "
         f"{t12['worst']:.5f}, max |err| {t12['max_err']:.3g}; the survey "
         f"solve with source_mis launched {counts12} ({card})")
-    records.append(kernel_record(params, "survey+mis", counts12[mis_name],
-                                 t12, regs, tolerance))
+    # the solve's single launch with MIS: its walks dealt to the threads
+    d12 = dealt_launch(wk, state, params, bound12, "phase 12 (survey+mis)")
+    log(f"[12] survey+mis, {dealt_text(d12, params, card)}")
+    records.append(dict(kernel_record(params, "survey+mis",
+                                      counts12[mis_name], t12, regs,
+                                      tolerance),
+                        whole_launch_ms=d12["ms"],
+                        whole_launch_steps=d12["steps"], loops=d12["loops"]))
 
     # ---- 13. kernel vs plain, whole host-loop solve, flagship ----------
     solver = WoStSolver(flag_prob, survey_default_options(
@@ -2928,7 +2991,8 @@ def main():
         solver = WoStSolver(solver7.problem, dataclasses.replace(
             solver7.options, screened_sampler=sampler,
             rejection_rounds=rounds), device=dev)
-        state, params, _, _ = solver._setup(pts7, 1 << 19, 500, 0.9, 5)
+        state, params, _, bound22 = solver._setup(pts7, 1 << 19, 500, 0.9,
+                                                  5)
         check(state["px"].numel() == 147456, "phase 22 full state")
         wk.run_walk(clone_state(state), params, 16)
         ms = []
@@ -2944,6 +3008,10 @@ def main():
         + f"; transport kernel vs plain on {tr_full['lanes']} lanes: "
         f"{tr_full['ms']:.3f} / {tr_full['plain_ms']:.3f} ms, worst plane "
         f"agreement {tr_full['worst']:.5f} ({card})")
+    # the solve's single launch with the transport map: walks dealt
+    d22 = dealt_launch(wk, state, params, bound22,
+                       "phase 22 (survey + transport)")
+    log(f"[22] survey + transport, {dealt_text(d22, params, card)}")
 
     # ---- 23. TERMS field specs on the card: variable coefficients -------
     vc_prob = variable_coefficient_problem()
@@ -3801,6 +3869,9 @@ def main():
     # ---- estimator, the variant sweep (phases 40-42) ---------------------
     new_path_phases(wk, dev, card, regs, records, tolerance, survey,
                     electrodes, f6, f20, topo_pts)
+
+    # ---- 43. full size: the survey with the transport sampler, with MIS --
+    survey_build_phase(wk, dev, card, report, electrodes, f6)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,
@@ -3820,11 +3891,12 @@ def main():
         counts24.get(name_t, {}).get("poisson_bubble_zero_bc", 0), t21t, regs,
         tolerance))
     p_tr = times22["transport"][2]
-    records.append(kernel_record(
+    records.append(dict(kernel_record(
         p_tr, "transport",
         counts24.get(p_tr.kernel_name, {}).get(
             "transport_sampler_solution_unbiased", 0), tr_full, regs,
-        tolerance))
+        tolerance), whole_launch_ms=d22["ms"],
+        whole_launch_steps=d22["steps"], loops=d22["loops"]))
     records.append(kernel_record(p22, "transport+robin_chain",
                                  counts22[p22.kernel_name], t22, regs,
                                  tolerance))

@@ -1656,6 +1656,12 @@ __device__ __forceinline__ float mix_at(int c, int k) {
 // ball's screened Green's function and its norm, without it ln(R/r) /
 // (2 pi) and R^2 / 4 (:956-961)
 //
+// DEALT (the dealt loop's exact savings in the survey's MIS build) takes
+// the screened norm from the caller (norm_in: interior_prob / sb, the
+// operations of screened_norm) and the Box-Muller pair from one sincosf
+// (on the card the bits of cosf and sinf for every float in [0, 2 pi]:
+// chip_probes/sincos_bits.py).
+//
 // NEAR (the chain_phases builds with MIS) sums the mixture pdf over the
 // components near y only: a component with |y - c|^2 > 128 (2 w^2) has an
 // exponent of -128 or less, whose expf is +0 on the card (chip_probes/
@@ -1663,12 +1669,13 @@ __device__ __forceinline__ float mix_at(int c, int k) {
 // +0 and leaving it out changes no bit of q; the others add in component
 // order. A lane evaluates its own near components (a few of 19 on the
 // notebook line), not those of the whole warp.
-template <bool DELTA, bool TABLE, bool WIDE, bool NEAR = false>
+template <bool DELTA, bool TABLE, bool WIDE, bool NEAR = false,
+          bool DEALT = false>
 __device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
                                          float px, float py, float gx,
                                          float gy, float r, float sbar,
                                          bool ob, float t_min, float& yx,
-                                         float& yy) {
+                                         float& yy, float norm_in = F(0.0)) {
   const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);
   const float u7 = uni(base, sid, 7), u8 = uni(base, sid, 8);
   float mx = mix_at<WIDE>(0, 0), my = mix_at<WIDE>(0, 1);
@@ -1682,8 +1689,15 @@ __device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
   }
   const float rad = sqrtf(F(-2.0) * logf(fmaxf(u7, F(1e-12))));
   const float ang = F(TWO_PI) * u8;
-  mx = mx + mw * rad * cosf(ang);
-  my = my + mw * rad * sinf(ang);
+  if constexpr (DEALT) {
+    float s_ang, c_ang;
+    sincosf(ang, &s_ang, &c_ang);
+    mx = mx + mw * rad * c_ang;
+    my = my + mw * rad * s_ang;
+  } else {
+    mx = mx + mw * rad * cosf(ang);
+    my = my + mw * rad * sinf(ang);
+  }
   const bool take_src = u5 < F(0.5);
   yx = take_src ? mx : gx;
   yy = take_src ? my : gy;
@@ -1693,7 +1707,7 @@ __device__ __forceinline__ float mis_nee(uint32_t base, uint32_t sid,
   float g_val, norm;
   if constexpr (DELTA) {
     g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));
-    norm = screened_norm(r, sbar);
+    norm = DEALT ? norm_in : screened_norm(r, sbar);
   } else {
     g_val = fmaxf(logf(r / fmaxf(d_safe, F(1e-12))) / F(TWO_PI), F(0.0));
     norm = r * r / F(4.0);
@@ -2789,10 +2803,19 @@ struct WalkAcc<true> {
 // takes its next walk within that iteration (WALK_NEXT), so a warp
 // reconverges every iteration; a loop over a walk's steps nested in a loop
 // over walks made each thread wait at the inner loop's exit for its warp's
-// longest walk
+// longest walk. The transport build's launch bounds ask for
+// DEALT_MIN_BLOCKS blocks a SM, at most 64 registers a thread (ptxas alone
+// chose 96, 5 blocks a SM, and ran slower on the card: PERF.md, section
+// 6); the other builds keep ptxas's choice (64 or 63 registers)
+constexpr int DEALT_MIN_BLOCKS = 8;
+#if WALK_TRANSPORT
+#define WALK_DEALT_BOUNDS __launch_bounds__(THREADS, DEALT_MIN_BLOCKS)
+#else
+#define WALK_DEALT_BOUNDS __launch_bounds__(THREADS)
+#endif
 template <int ROBIN, bool MAJ, bool MIS, bool FREEZE, bool TABLE, bool DELTA,
           bool TRANSPORT, bool WIDE, bool GRID, bool TERMS_FORM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void WALK_DEALT_BOUNDS
     walk_dealt(int n_lanes, int n_walks, const int* offsets, int* records) {
   static_assert(walk_rules::dealt(ROBIN, MAJ, MIS, FREEZE, TABLE, DELTA,
                                   TRANSPORT, WIDE, GRID, TERMS_FORM),
@@ -2892,9 +2915,11 @@ __global__ void __launch_bounds__(THREADS)
   };
   start();
   for (;;) {
-    // the step's exact saving: alpha and sigma' at a colliding sample in
-    // one pass (alpha_sample)
+    // the step's exact savings: alpha and sigma' at a colliding sample in
+    // one pass (alpha_sample); in the survey's MIS build the ball's
+    // interior probability once a step and one sincosf (mis_nee's DEALT)
 #define WALK_ONE_PASS
+#define WALK_BALL_ONCE
 #define WALK_NEXT                          \
   {                                        \
     finish();                              \
@@ -2915,6 +2940,7 @@ __global__ void __launch_bounds__(THREADS)
 #undef WALK_BANK_WIDE
 #undef WALK_NEXT
 #undef WALK_FROZEN
+#undef WALK_BALL_ONCE
 #undef WALK_ONE_PASS
   }
   (void)tn;
@@ -3019,8 +3045,8 @@ void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
 // other builds' libraries altogether
 #define WALK_DEALT                                                        \
   (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_FREEZE && !WALK_TABLE &&    \
-   WALK_DELTA && !WALK_TRANSPORT && !WALK_GRID && !WALK_TERMS &&          \
-   (WALK_MIS != 0) == (WALK_WIDE != 0))
+   WALK_DELTA && !WALK_GRID && !WALK_TERMS && (WALK_MIS || !WALK_WIDE) && \
+   !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE)))
 constexpr bool DEALT = walk_rules::dealt(
     WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
     WALK_TABLE != 0, WALK_DELTA != 0, WALK_TRANSPORT != 0, WALK_WIDE != 0,

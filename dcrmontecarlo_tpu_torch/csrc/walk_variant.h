@@ -91,13 +91,17 @@ WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
 // the variants that deal walks, not lanes, to their threads in a launch
 // that drains every quota from fresh walks (csrc/walk_kernel.cu,
 // walk_dealt; ops/walk_kernel.py::dealt holds the same rule): the survey's
-// build (phase 6, the main path) and the wide survey with MIS (phase 31's
-// Jacobian). Their other launches run one thread a lane
+// build (phase 6, the main path), the wide survey with MIS (phase 31's
+// Jacobian), and the survey's build with the transport sampler or with MIS
+// (phase 43). Their other launches run one thread a lane; the wide survey
+// without MIS, the wide transport builds and transport with MIS stay on
+// their own loops (ROADMAP.md, Queue 2)
 WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
                              bool table, bool delta, bool transport,
                              bool wide, bool grid, bool terms_form) {
   return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&
-         !transport && !grid && !terms_form && mis == wide;
+         !grid && !terms_form && (mis || !wide) &&
+         !(transport && (mis || wide));
 }
 
 }  // namespace walk_rules

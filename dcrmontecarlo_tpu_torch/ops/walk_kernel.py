@@ -201,14 +201,16 @@ def dealt(variant) -> bool:
     """Whether ``variant`` deals walks, not lanes, to its threads in a
     launch that drains every quota from fresh walks
     (``walk_variant.h::dealt``): the survey's build
-    ``<0,false,false,false,false,true,false>`` (the main path, phase 6)
-    and the wide survey with MIS (phase 31's Jacobian). Its other launches
-    run one thread a lane (:func:`launch_loop`)."""
+    ``<0,false,false,false,false,true,false>`` (the main path, phase 6),
+    the wide survey with MIS (phase 31's Jacobian), and the survey's build
+    with the transport sampler ``<0,false,false,false,false,true,true>``
+    or with MIS ``<0,false,true,false,false,true,false>`` (phase 43). Its
+    other launches run one thread a lane (:func:`launch_loop`)."""
     robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
         terms = _switches(variant)
-    return (robin == ROBIN_OFF and delta and mis == wide
-            and not (majorant or freeze or table or transport or grid
-                     or terms))
+    return (robin == ROBIN_OFF and delta and (mis or not wide)
+            and not (transport and (mis or wide))
+            and not (majorant or freeze or table or grid or terms))
 
 
 def culled_scans(variant) -> bool:

@@ -32,7 +32,7 @@ using std::min;
 #define __shared__ static
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct host_dim3 {
   unsigned x, y, z;
 };

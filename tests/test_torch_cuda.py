@@ -51,7 +51,8 @@ coefficients'), whose chain's wall work (and without MIS the rejection
 sampler's redraw rounds) runs from a queue, in the cases of
 ``chip_smoke.py::CHAIN_CASES`` against the same builds with the
 one-thread loop (bit for bit) and the plain walk; and the survey builds'
-dealt loop (the survey's and the wide survey with MIS), a launch that
+dealt loop (the survey's, the wide survey with MIS, and the survey's
+with the transport sampler and with MIS), a launch that
 drains uneven quotas from fresh walks against the one-thread loop in
 256-step launches (bit for bit) and the plain walk.
 """
@@ -968,7 +969,8 @@ def test_survey_split_host_loop_matches_plain(device):
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
 
 
-@pytest.mark.parametrize("which", ["survey", "wide_mis"])
+@pytest.mark.parametrize("which", ["survey", "wide_mis", "transport",
+                                   "survey_mis"])
 def test_dealt_launch_matches_drained_one_thread_loop(device, which):
     # a launch of the survey builds that drains every quota from fresh
     # walks deals its walks to the threads: every plane equals the
@@ -980,7 +982,11 @@ def test_dealt_launch_matches_drained_one_thread_loop(device, which):
         "survey": ((0, False, False, False, False, True, False, False,
                     False), {}),
         "wide_mis": ((0, False, True, False, False, True, False, True,
-                      False), dict(mis=True, n_src=5))}[which]
+                      False), dict(mis=True, n_src=5)),
+        "transport": ((0, False, False, False, False, True, True, False,
+                       False), dict(sampler="transport")),
+        "survey_mis": ((0, False, True, False, False, True, False, False,
+                        False), dict(mis=True))}[which]
     spec = cs.sweep_spec(("dealt", variant, extra))
     solver = WoStSolver(cs.sweep_problem(spec), cs.sweep_options(
         spec, target_slots=8192), device=device)

@@ -2,7 +2,10 @@
 
 A launch of ``csrc/walk_variant.h::dealt``'s builds (the survey's
 ``<0,false,false,false,false,true,false>`` and the wide survey with MIS
-``<0,false,true,false,false,true,false,true>``) that holds one shard,
+``<0,false,true,false,false,true,false,true>`` here; the survey's build
+with the transport sampler and with MIS in
+``test_torch_host_dealt_walks_tm.py``, through the same cases) that holds
+one shard,
 whose budget covers every quota (``quota * (max_steps + 1)``) and whose
 lanes with quota stand at a walk's start deals walks, not lanes, to the
 threads (``walk_dealt``) and folds each lane's records in walk order
@@ -35,18 +38,31 @@ SURVEY = (wk.ROBIN_OFF, False, False, False, False, True, False, False,
           False)
 WIDE_MIS = (wk.ROBIN_OFF, False, True, False, False, True, False, True,
             False)
-BUILDS = {SURVEY: {}, WIDE_MIS: dict(mis=True, n_src=5)}
+TRANSPORT = (wk.ROBIN_OFF, False, False, False, False, True, True, False,
+             False)
+SURVEY_MIS = (wk.ROBIN_OFF, False, True, False, False, True, False, False,
+              False)
+# the dealt builds, each with its sweep case's build and its test id
+BUILDS = {SURVEY: {}, WIDE_MIS: dict(mis=True, n_src=5),
+          TRANSPORT: dict(sampler="transport"), SURVEY_MIS: dict(mis=True)}
+NAMES = {SURVEY: "survey", WIDE_MIS: "wide_mis", TRANSPORT: "transport",
+         SURVEY_MIS: "survey_mis"}
+HERE = (SURVEY, WIDE_MIS)  # this file's builds
 QUOTAS = (0, 1, 7, 40)
 MAX_STEPS = 16
 
 
-@pytest.fixture(scope="module")
-def host_walks(tmp_path_factory):
-    """``{variant: walk}``: the host builds of the two dealt builds
+def host_builds(tmp_path_factory, variants):
+    """``{variant: walk}``: the host builds of ``variants``
     (``host_walk.load``; ``walk.loop`` launches as the card's wrapper)."""
     tmp = tmp_path_factory.mktemp("host_dealt")
-    builds = {v: start_build(tmp, v, False) for v in BUILDS}
+    builds = {v: start_build(tmp, v, False) for v in variants}
     return {v: load(b, v) for v, b in builds.items()}
+
+
+@pytest.fixture(scope="module")
+def host_walks(tmp_path_factory):
+    return host_builds(tmp_path_factory, HERE)
 
 
 def _clone(state):
@@ -83,11 +99,11 @@ def _budget(state, params):
     return int(state["quota"].max()) * (params.max_steps + 1)
 
 
-@pytest.mark.parametrize("snap", ["auto", None], ids=["snap", "no_snap"])
-@pytest.mark.parametrize("variant", list(BUILDS), ids=["survey", "wide_mis"])
-def test_dealt_launch_equals_drained_one_thread_loop(host_walks, variant,
-                                                     snap):
-    walk = host_walks[variant]
+def dealt_launch_case(walk, variant, snap):
+    """The dealt launch of ``variant``'s host build ``walk`` from the box
+    state with or without snap starts: every plane equal to the drained
+    one-thread loop's, bit for bit, and to ``walk_plain``'s by
+    ``compare_planes``; returns the start and the dealt launch's end."""
     state, params = _box_state(variant, snap)
     if snap is not None:
         assert 0 < int(state["ob0"].sum()) < state["ob0"].numel()
@@ -104,6 +120,14 @@ def test_dealt_launch_equals_drained_one_thread_loop(host_walks, variant,
     frac, _, finite = wk.compare_planes(dealt, plain, names)
     assert finite
     assert min(frac.values()) >= wk.PLANE_MIN_FRAC, frac
+    return state, dealt
+
+
+@pytest.mark.parametrize("snap", ["auto", None], ids=["snap", "no_snap"])
+@pytest.mark.parametrize("variant", HERE, ids=[NAMES[v] for v in HERE])
+def test_dealt_launch_equals_drained_one_thread_loop(host_walks, variant,
+                                                     snap):
+    dealt_launch_case(host_walks[variant], variant, snap)
 
 
 @pytest.mark.parametrize("case", ["budget_short", "mid_walk", "shards",
@@ -135,8 +159,15 @@ def test_launch_off_the_rule_runs_the_one_thread_loop(host_walks, case):
     assert int((got["life"] - state["life"]).sum()) > 0
 
 
-def test_dealt_rule_names_the_two_builds():
-    assert wk.dealt(SURVEY) and wk.dealt(WIDE_MIS)
+def test_dealt_rule_names_the_four_builds():
+    assert all(wk.dealt(v) for v in BUILDS)
     dealt = [v for v in wk.KERNEL_VARIANTS if wk.dealt(v)]
-    assert sorted(dealt) == sorted([SURVEY, WIDE_MIS])
+    assert sorted(dealt) == sorted(BUILDS)
     assert not any(wk.repacked(v) for v in dealt)
+    # the wide survey without MIS and the transport builds with MIS or the
+    # wide form stay on their own loops
+    wide = (wk.ROBIN_OFF, False, False, False, False, True, False, True,
+            False)
+    assert not any(wk.dealt(v) for v in (
+        wide, (*TRANSPORT[:2], True, *TRANSPORT[3:]),
+        (*TRANSPORT[:7], True, False), (*WIDE_MIS[:6], True, True, False)))

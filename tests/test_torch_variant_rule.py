@@ -298,9 +298,10 @@ int main() {
 
 def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     # the header's dealt rule, compiled by the host compiler, and
-    # ops/walk_kernel.py's pick the same two of the 768 kernel variants:
-    # the survey's build (the main path) and the wide survey with MIS
-    # (the Jacobian); neither runs the repack loop
+    # ops/walk_kernel.py's pick the same four of the 768 kernel variants:
+    # the survey's build (the main path), the survey's build with MIS and
+    # with the transport sampler, and the wide survey with MIS (the
+    # Jacobian); none runs the repack loop
     import shutil
     import subprocess
 
@@ -322,6 +323,10 @@ def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     assert got == [wk.dealt(v) for v in variants]
     assert [v for v, d in zip(variants, got) if d] == [
         (wk.ROBIN_OFF, False, False, False, False, True, False, False, False,
+         False),
+        (wk.ROBIN_OFF, False, False, False, False, True, True, False, False,
+         False),
+        (wk.ROBIN_OFF, False, True, False, False, True, False, False, False,
          False),
         (wk.ROBIN_OFF, False, True, False, False, True, False, True, False,
          False)]
