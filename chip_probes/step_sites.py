@@ -51,7 +51,14 @@ states (seed 5, fresh walks):
   147,456 lanes;
 - ``survey_mis``: phase 6's state with the survey's MIS mixture
   ``<0,false,true,false,false,true,false>`` (phase 43's second solve),
-  147,456 lanes, 2 components.
+  147,456 lanes, 2 components;
+- ``wide_survey``: phase 44's scenario pseudosection, the wide survey
+  without MIS ``<0,false,false,false,false,true,false,true>``, 147,456
+  lanes, 6 sources (``chip_smoke.py::pseudosection_config``);
+- ``short``: phase 25's short walk, the static form without delta
+  tracking ``<0,false,false,false,false,false,false>``, 196,608 lanes of
+  32 walks (``chip_smoke.py::short_config``; its step has no source: HASH,
+  CLOSEST, BANK and the rest).
 
 The sites of the survey builds' step: HASH (the counter hash and the
 step's first uniforms), CLOSEST, FIRST_HIT, RADIUS (the rejection
@@ -477,6 +484,22 @@ def jacobian_state(dev):
     return solver._setup(stencil, *cs.JACOBIAN_RUN, 5)[:2]
 
 
+def wide_survey_state(dev):
+    """Phase 44's state of the wide survey without MIS (the scenario
+    pseudosection's line problem, 147,456 lanes, 6 sources, seed 5)."""
+    survey, electrodes, options = cs.pseudosection_config()
+    prob, pts, _, _ = sdcr._line_problem(survey, electrodes, 3)
+    return WoStSolver(prob, options, device=dev)._setup(
+        pts, *cs.SURVEY_RUN, 5)[:2]
+
+
+def short_state(dev):
+    """Phase 25's state of the short walk (196,608 lanes, seed 5)."""
+    prob, options = cs.short_config()
+    return WoStSolver(prob, options, device=dev)._setup(
+        cs.SHORT_POINTS, *cs.SHORT_RUN, 5)[:2]
+
+
 def groups(dev, names=()):
     """``name: (state, params)``: the builds' full-size states (those of
     ``names``, or all)."""
@@ -488,8 +511,12 @@ def groups(dev, names=()):
     for name, build in (("transport", "transport"), ("survey_mis", "mis")):
         if not names or name in names:
             out[name] = survey_state(dev, build)
+    for name, state in (("wide_survey", wide_survey_state),
+                        ("short", short_state)):
+        if not names or name in names:
+            out[name] = state(dev)
     if names and not set(names) - {"survey", "jacobian", "transport",
-                                   "survey_mis"}:
+                                   "survey_mis", "wide_survey", "short"}:
         return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True

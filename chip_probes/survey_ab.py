@@ -32,7 +32,17 @@ builds above, the survey build with the transport sampler
 ``<0,false,true,false,false,true,false>`` at the same full-size state
 (``chip_smoke.py::survey_config``, phase 43's solves): its registers and
 SASS mix, the single launch, 256 steps and the three solves, no Jacobian
-or budgeted launches.
+or budgeted launches. ``--build wide`` does the same for the wide survey
+without MIS ``<0,false,false,false,false,true,false,true>`` at phase 44's
+scenario pseudosection (``chip_smoke.py::pseudosection_config``: 6
+sources, 147,456 lanes), with one ``run_pseudosection`` call whose
+potentials are hashed too; ``--build short`` for the static form without
+delta tracking ``<0,false,false,false,false,false,false>`` at phase 25's
+short walk (``chip_smoke.py::short_config``: 196,608 lanes of 32 walks,
+ten timed solves). Each build's record also holds ``ptxas -v``'s
+registers and spills of its kernels (where this run built the library),
+the walks of the single launch, their mean length and the launch's bound
+(``chip_smoke.py::bound``).
 
 ``--ablate PIECE[,PIECE]`` (this checkout) builds the two libraries from
 a copy of ``csrc/`` under ``_archive/survey_ab/`` with the named pieces of
@@ -42,7 +52,16 @@ loop does), ``ball_once`` (the survey MIS build's interior probability
 anew for the MIS norm and the interior test) and ``sincos`` (its
 Box-Muller pair by ``cosf`` and ``sinf``) and ``min_blocks_1`` (the
 transport build's dealt loop with launch bounds of 1 block a SM in place
-of 8). Writes
+of 8); ``short_dealt`` puts the short walk's build on the dealt loop (the
+rule admits the static form without delta tracking in the copy and in the
+probe's ``walk_kernel.dealt``; it takes runs of ``DEALT_RUN`` = 8
+consecutive walks, one atomicAdd a run), and with it ``run_1``,
+``run_2``, ``run_4``, ``run_16``, ``run_32`` (walks a take) and
+``warp_atomic`` (one atomicAdd a warp iteration for the threads that
+take, in place of one a thread); ``no_fold`` and ``no_records`` (any
+dealt build) leave out the fold's launch or the records' writes, for
+timing only (the planes come out wrong). A dealt build's record also
+holds the plan's time (its three kernels and the read back). Writes
 ``chiprun_out/survey_ab_TAG.json``.
 
     python3 chip_probes/survey_ab.py . ablate --ablate one_pass
@@ -64,7 +83,8 @@ ap = argparse.ArgumentParser()
 ap.add_argument("tree")
 ap.add_argument("tag")
 ap.add_argument("--ablate", default="")
-ap.add_argument("--build", choices=("survey", "transport", "mis"),
+ap.add_argument("--build", choices=("survey", "transport", "mis", "wide",
+                                   "short"),
                 default="survey")
 args = ap.parse_args()
 tree = os.path.abspath(args.tree)
@@ -77,7 +97,9 @@ import torch  # noqa: E402
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk  # noqa: E402
 from dcrmontecarlo_tpu_torch.solver import SolverOptions, \
     WoStSolver  # noqa: E402
-from dcrmontecarlo_tpu_torch.survey import survey_jacobian  # noqa: E402
+from dcrmontecarlo_tpu_torch.survey import dcr as sdcr  # noqa: E402
+from dcrmontecarlo_tpu_torch.survey import run_pseudosection, \
+    survey_jacobian  # noqa: E402
 
 assert wk.__file__.startswith(tree), wk.__file__
 sys.path.insert(1, str(HERE / "chip_probes"))
@@ -92,7 +114,11 @@ SURVEY = (0, False, False, False, False, True, False, False, False)
 WIDE_MIS = (0, False, True, False, False, True, False, True, False)
 TRANSPORT = (0, False, False, False, False, True, True, False, False)
 SURVEY_MIS = (0, False, True, False, False, True, False, False, False)
-BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS}
+WIDE = (0, False, False, False, False, True, False, True, False)
+SHORT = (0, False, False, False, False, False, False, False, False)
+BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS,
+          "wide": WIDE, "short": SHORT}
+BUILD_LOG = []  # the build's nvcc output (ptxas -v)
 # the dealt loop's pieces: (file, anchor, replacement) edits that take one
 # out
 PIECES = {
@@ -105,6 +131,48 @@ PIECES = {
     "min_blocks_1": (("walk_kernel.cu",
                       "constexpr int DEALT_MIN_BLOCKS = 8;\n",
                       "constexpr int DEALT_MIN_BLOCKS = 1;\n"),),
+    # the short walk's build on the dealt loop (the rule admits the static
+    # form without delta tracking, which takes runs of DEALT_RUN = 8
+    # consecutive walks, one atomicAdd a run, the run's next walk by a
+    # forward scan from its lane; the probe's walk_kernel.dealt admits it
+    # too), and without the fold or the records' writes (timing only: the
+    # planes come out wrong)
+    "short_dealt": (('walk_variant.h', '  return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&\n         !grid && !terms_form && !(transport && (mis || wide));\n', '  return robin == ROBIN_OFF && !maj && !freeze && !table && !grid &&\n         !terms_form &&\n         (delta ? !(transport && (mis || wide)) : !(mis || wide));\n'), ('walk_kernel.cu', '   WALK_DELTA && !WALK_GRID && !WALK_TERMS &&                          \\\n   !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE)))', '   !WALK_GRID && !WALK_TERMS &&                                        \\\n   (WALK_DELTA ? !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE))          \\\n               : !(WALK_MIS || WALK_WIDE)))'), ('walk_kernel.cu', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\n', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\nconstexpr int DEALT_RUN = 8;       // walks a take, without delta tracking\n'), ('walk_kernel.cu', '  unsigned int w = atomicAdd(&next_lane, 1u);\n  if (w >= (unsigned int)n_walks) return;\n', "  // walks a take, and the end of the thread's run\n  constexpr unsigned int RUN = DELTA ? 1u : (unsigned int)DEALT_RUN;\n  unsigned int w = atomicAdd(&next_lane, RUN);\n  if (w >= (unsigned int)n_walks) return;\n  [[maybe_unused]] unsigned int w_end = min(w + RUN, (unsigned int)n_walks);\n"), ('walk_kernel.cu', "  // walk w from its start, as the bank's recycle leaves a lane\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;  // offsets[lo] <= w < offsets[hi]\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    rec = records + (size_t)w * words;", '  const auto begin = [&]() {\n    rec = records + (size_t)w * words;'), ('walk_kernel.cu', "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  // the walk's record, once its bank ran", "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    begin();\n  };\n  [[maybe_unused]] const auto next = [&]() {\n    while ((unsigned int)offsets[lane + 1] <= w) ++lane;\n    begin();\n  };\n  // the walk's record, once its bank ran"), ('walk_kernel.cu', '#define WALK_NEXT                          \\\n  {                                        \\\n    finish();                              \\\n    w = atomicAdd(&next_lane, 1u);         \\\n    if (w >= (unsigned int)n_walks) break; \\\n    start();                               \\\n    continue;                              \\\n  }', '#define WALK_NEXT                                                      \\\n  {                                                                    \\\n    finish();                                                          \\\n    if constexpr (RUN > 1u) {                                          \\\n      if (++w < w_end) {                                               \\\n        next();                                                        \\\n        continue;                                                      \\\n      }                                                                \\\n    }                                                                  \\\n    w = atomicAdd(&next_lane, RUN);                                    \\\n    if (w >= (unsigned int)n_walks) break;                             \\\n    if constexpr (RUN > 1u) w_end = min(w + RUN, (unsigned int)n_walks); \\\n    start();                                                           \\\n    continue;                                                          \\\n  }')),
+    "no_fold": (("walk_kernel.cu",
+                 "    e = launch_kernel(walk_fold<WALK_WIDE != 0>,",
+                 "    if (n_walks < 0) e = launch_kernel(walk_fold<WALK_WIDE "
+                 "!= 0>,"),),
+    "no_records": (("walk_kernel.cu",
+                    "  const auto finish = [&]() {\n",
+                    "  const auto finish = [&]() {\n"
+                    "    if (n_walks > 0) return;\n"),),
+    # the short walk's turnover: walks a take, and one atomicAdd a warp
+    # iteration for the warp's threads that take (ballot, popc, each
+    # thread's run at the base plus its rank)
+    **{f"run_{n}": (("walk_kernel.cu",
+                     "constexpr int DEALT_RUN = 8;",
+                     f"constexpr int DEALT_RUN = {n};"),)
+       for n in (1, 2, 4, 16, 32)},
+    "warp_atomic": (
+        ("walk_kernel.cu",
+         "constexpr int DEALT_MIN_BLOCKS = 8;\n",
+         "constexpr int DEALT_MIN_BLOCKS = 8;\n"
+         "__device__ __forceinline__ unsigned int warp_take(unsigned int "
+         "run) {\n"
+         "  const unsigned int m = __activemask();\n"
+         "  const int me = threadIdx.x & 31, leader = __ffs(m) - 1;\n"
+         "  unsigned int base = 0;\n"
+         "  if (me == leader) base = atomicAdd(&next_lane, run * "
+         "__popc(m));\n"
+         "  base = __shfl_sync(m, base, leader);\n"
+         "  return base + run * __popc(m & ((1u << me) - 1u));\n"
+         "}\n"),
+        ("walk_kernel.cu",
+         "  unsigned int w = atomicAdd(&next_lane, RUN);\n",
+         "  unsigned int w = warp_take(RUN);\n"),
+        ("walk_kernel.cu",
+         "    w = atomicAdd(&next_lane, RUN);      ",
+         "    w = warp_take(RUN);                  ")),
 }
 # SASS opcode classes, by the mnemonic's first part
 CLASSES = (("fp32", r"F(ADD|MUL|FMA|MNMX|SETP|SEL|CHK|SET|RND)\b"),
@@ -173,7 +241,8 @@ def build(variants):
     ``--ablate`` this checkout's source less the named pieces."""
     pieces = [p for p in args.ablate.split(",") if p]
     if not pieces:
-        paths, _, _ = wk.build_library(variants)
+        paths, _, log = wk.build_library(variants)
+        BUILD_LOG.append(log)
         return paths
     src = HERE / "dcrmontecarlo_tpu_torch" / "csrc"
     work = HERE / "_archive" / "survey_ab" / args.tag
@@ -192,12 +261,16 @@ def build(variants):
              str(out), str(work / "csrc" / "walk_kernel.cu")],
             capture_output=True, text=True)
         assert proc.returncode == 0, proc.stdout + proc.stderr
+        BUILD_LOG.append(proc.stdout + proc.stderr)
         return wk.variant_code(v), out
 
     with ThreadPoolExecutor(max_workers=len(variants)) as pool:
         paths = dict(pool.map(one, variants))
     wk._library.cache_clear()
     wk._library_path = lambda v: paths[wk.variant_code(v)]
+    if "short_dealt" in pieces:  # the launches plan the short walk's too
+        rule = wk.dealt
+        wk.dealt = lambda v: rule(v) or wk._switches(v)[:9] == SHORT
     return paths
 
 
@@ -239,6 +312,40 @@ def loops():
     return dict(getattr(wk.run_walk, "loop_launches", {}))
 
 
+def plan_ms(state, params, budget, reps=3):
+    """Best of ``reps`` ms (CUDA events) of a dealt launch's plan alone
+    (``walk_plan``'s three kernels and the read back of its stats), as
+    ``walk_kernel.launch_loop`` makes it."""
+    import ctypes
+
+    lib = wk._library(wk._canonical(params.variant))
+    fp, ip, arr, garr, seeds, per, chunks = wk.launch_args(state, params)
+    n = state["px"].numel()
+    head = (fp.ctypes.data, len(fp), ip.ctypes.data, len(ip), arr, len(arr),
+            n, budget, float("inf"), garr, len(garr),
+            torch.cuda.current_stream().cuda_stream, seeds.ctypes.data,
+            len(seeds), per, chunks)
+    layout = (ctypes.c_int * 2)()
+    assert lib.walk_dealt_layout(layout, 2) == 0
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    tiles = torch.empty(3 * -(-n // layout[0]), dtype=torch.int64,
+                        device=dev)
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    best = None
+    for _ in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        assert lib.walk_plan(*head, offsets.data_ptr(), tiles.data_ptr(),
+                             stats.data_ptr()) == 0
+        stats.tolist()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
 def launches(state, params, step_bound):
     """The solve's single launch from ``state`` and 256 steps there."""
     wk.run_walk(clone(state), params, step_bound)  # the library's load
@@ -249,9 +356,16 @@ def launches(state, params, step_bound):
     ms256, _ = timed(state, params, 256)
     life = end["life"]
     steps, longest = int(life.sum(dtype=torch.int64)), int(life.max())
+    walks = int(state["quota"].sum(dtype=torch.int64))
+    bound_ms, bound_by = cs.bound(params, life.numel(), steps, 1)
+    plan = (plan_ms(state, params, step_bound) if lp == {"dealt": 3}
+            else None)
     return dict(whole_ms=ms, whole_loops=lp, ms256=ms256, steps=steps,
                 lanes=life.numel(), longest_lane=longest,
-                occupancy=steps / (life.numel() * longest),
+                occupancy=steps / max(life.numel() * longest, 1),
+                walks=walks, mean_walk=steps / max(walks, 1),
+                whole_bound_ms=bound_ms, whole_bound_by=bound_by,
+                plan_ms=plan,
                 truncated=float(end["tn"].sum()),
                 planes=plane_hash(end, params))
 
@@ -262,15 +376,29 @@ def raw_hash(res):
                    res.truncated_weight, res.max_weight, res.max_banked])
 
 
-def survey_group():
+def full_size():
+    """``(solver, points, (walks, max_steps, eps), timed solves)`` of
+    ``--build``'s full-size configuration."""
+    if args.build == "wide":
+        survey, electrodes, options = cs.pseudosection_config()
+        prob, pts, _, _ = sdcr._line_problem(survey, electrodes, 3)
+        return WoStSolver(prob, options, device=dev), pts, cs.SURVEY_RUN, 3
+    if args.build == "short":
+        prob, options = cs.short_config()
+        return (WoStSolver(prob, options, device=dev), cs.SHORT_POINTS,
+                cs.SHORT_RUN, 10)
     survey, electrodes, options = cs.survey_config(args.build)
-    solver = WoStSolver(survey.build_problem(), options, device=dev)
-    pts = cs.survey_points(electrodes, -0.5)
-    state, params, _, bound = solver._setup(pts, *cs.SURVEY_RUN, 5)
+    return (WoStSolver(survey.build_problem(), options, device=dev),
+            cs.survey_points(electrodes, -0.5), cs.SURVEY_RUN, 3)
+
+
+def survey_group():
+    solver, pts, run, reps = full_size()
+    state, params, _, bound = solver._setup(pts, *run, 5)
     out = launches(state, params, bound)
-    solver.solve(pts, *cs.SURVEY_RUN[:2], eps=cs.SURVEY_RUN[2], seed=0)
+    solver.solve(pts, *run[:2], eps=run[2], seed=0)
     times, shares, hashes, steps = [], [], [], 0.0
-    for seed in (1, 2, 3):
+    for seed in range(1, reps + 1):
         events = []
 
         def walk(st, pr, n, thr=None):
@@ -283,7 +411,7 @@ def survey_group():
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = solver._solve_raw(pts, *cs.SURVEY_RUN, seed, walk=walk)
+        res = solver._solve_raw(pts, *run, seed, walk=walk)
         times.append(time.perf_counter() - t0)
         shares.append(sum(a.elapsed_time(b) for a, b in events) / 1e3
                       / times[-1])
@@ -292,6 +420,17 @@ def survey_group():
     out.update(s_per_solve=times, rate=steps / sum(times),
                kernel_share=shares, solve_hashes=hashes,
                kernel=params.kernel_name)
+    if args.build == "wide":  # the product's entry point, seed 7
+        survey, electrodes, options = cs.pseudosection_config()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps = run_pseudosection(survey, electrodes, num_rx_per_src=3,
+                               n_walks=run[0], max_steps=run[1], eps=run[2],
+                               seed=7, options=options, device=dev)
+        out.update(pseudosection_s=time.perf_counter() - t0,
+                   pseudosection_hash=digest(ps.potentials,
+                                             ps.potentials_stderr,
+                                             ps.voltage))
     return out
 
 
@@ -372,7 +511,11 @@ def main():
         assert rec["kernel"] == wk.kernel_name(v), rec["kernel"]
         regs, mem = res_usage(lib)
         mix, mufu = sass_mix(lib)
-        rec.update(registers=regs, stack_local=mem, sass=mix, mufu=mufu)
+        ptxas = {k: r for log in BUILD_LOG
+                 for k, r in cs.ptxas_report(log).items()
+                 if k.startswith(wk.kernel_name(v))}
+        rec.update(registers=regs, stack_local=mem, sass=mix, mufu=mufu,
+                   ptxas=ptxas)
         record["groups"][name] = rec
         print(args.tag, name, json.dumps({k: rec[k] for k in rec
                                           if k not in ("sass", "mufu")}),

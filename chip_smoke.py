@@ -25,8 +25,9 @@ range, on virtual shards of the one card and across two processes
 on the card: the survey with the high-weight split, the terrain with the
 flagship's estimator, and a sweep of twelve variants in which every pair
 of switch values occurs (phases 40-42), and the main path's survey with
-the transport sampler and with MIS at full size (phase 43). Each phase
-reports on its own line:
+the transport sampler and with MIS at full size (phase 43), and the
+scenario's dipole-dipole pseudosection at the main path's size (phase
+44). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -185,10 +186,12 @@ reports on its own line:
 25. the short-walk harmonic preset at full size (``bench.py --preset
     short``: ``x + 2y`` on the unit square, 3 points x 2^21 walks,
     ``SolverOptions(target_slots=1<<19, min_quota=32)``: 196,608 lanes):
-    a warm-up and 10 timed solves (walker-steps/s, s/solve, mean walk
-    length, the kernel's share), every mean within 4 sigma + 5e-3 of
-    ``x + 2y``, then 256 steps at that state, whose numbers the no-delta
-    record takes.
+    a warm-up (its launches counted, by variant and by loop: its one
+    launch runs one thread a lane; dealt, it ran slower) and 10 timed
+    solves (walker-steps/s, s/solve, mean walk length, the kernel's
+    share), every mean within 4 sigma + 5e-3 of ``x + 2y``, then 256 steps
+    at that state, whose numbers the no-delta record takes; then the
+    solve's single launch from that state, timed against its bound.
 26. variable coefficients at full size: ``varcoeff_solve_points()`` (652
     points) x 4096 walks, ``SolverOptions(target_slots=1<<21,
     max_attenuation=50.0)`` (667,648 working lanes), max_steps 500: a
@@ -326,6 +329,17 @@ reports on its own line:
     by loop: its one launch deals walks) and 3 timed solves each
     (walker-steps/s, s/solve, lane occupancy, kernel share), each within
     4 sigma of phase 6's solve of the same seed.
+44. full size, the scenario pseudosection (``pseudosection_phase``):
+    ``run_pseudosection`` on ``survey_config()``'s survey and electrodes,
+    3 receivers a source (6 sources), 2^19 walks per electrode,
+    ``survey_default_options(target_slots=1<<21, min_quota=32)`` (CRN,
+    roulette 0.05, rounds 2: 147,456 lanes, the wide survey without MIS):
+    a warm-up (its launches counted, by variant and by loop: its one
+    launch deals walks), 3 timed solves (walker-steps/s, kernel share)
+    and 3 timed calls (s/call); the solve's single launch as phase 7's
+    (``dealt_launch``); three source rows within 4 sigma of
+    single-source ``DCRSurvey.run`` solves of those dipoles. The wide
+    survey's record takes its launches and single launch from here.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -389,6 +403,39 @@ def survey_config(build="survey"):
     return survey, electrodes, SolverOptions(
         target_slots=1 << 21, min_quota=32, rejection_rounds=1,
         screened_sampler="transport" if build == "transport" else "exact")
+
+
+def pseudosection_config():
+    """Phase 44's scenario pseudosection at the main path's size:
+    ``(survey, electrodes, options)``, ``survey_config()``'s survey and
+    electrodes with the product's own defaults at phase 6's slot count
+    (CRN, roulette 0.05, rounds 2, snap): 6 sources and 9 electrodes on
+    147,456 lanes at ``SURVEY_RUN``'s walks."""
+    from dcrmontecarlo_tpu_torch.survey import survey_default_options
+
+    survey, electrodes, _ = survey_config()
+    return survey, electrodes, survey_default_options(target_slots=1 << 21,
+                                                      min_quota=32)
+
+
+# phase 25's short walk (bench.py --preset short): points, walks,
+# max_steps, eps
+SHORT_POINTS = np.array([[0.0, 0.0], [0.5, 0.3], [-0.4, 0.6]], np.float32)
+SHORT_RUN = (1 << 21, 200, 1e-3)
+
+
+def short_config():
+    """Phase 25's short walk: ``(problem, options)``, the harmonic ``x +
+    2y`` on the unit square without delta tracking, laid out on 196,608
+    lanes of 32 walks at ``SHORT_RUN``."""
+    from dcrmontecarlo_tpu_torch.geometry import square_loop
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    return (Problem(dirichlet=square_loop(1.0),
+                    bc_dirichlet=fields.polynomial({(1, 0): 1.0,
+                                                    (0, 1): 2.0})),
+            SolverOptions(target_slots=1 << 19, min_quota=32))
 
 
 def born_line():
@@ -2154,6 +2201,94 @@ def survey_build_phase(wk, dev, card, report, electrodes, f6):
     return out
 
 
+def pseudosection_phase(wk, dev, card, report, records):
+    """Phase 44: the scenario pseudosection at the main path's size
+    (``pseudosection_config``: 6 sources, 9 electrodes, 147,456 lanes):
+    ``run_pseudosection`` as the warm-up (its launches counted, by variant
+    and by loop: its one launch deals walks), 3 timed solves of its line
+    problem (walker-steps/s, kernel share) and 3 timed ``run_pseudosection``
+    calls (s/call); the solve's single launch from a fresh state held bit
+    for bit to the one-thread loop drained in 256-step launches and to the
+    plain walk (``dealt_launch``); three source rows within 4 sigma of
+    single-source ``DCRSurvey.run`` solves of those dipoles at the same
+    walks. The wide survey's record takes its launches and its single
+    launch from here. Returns the ``full_size_solves`` result."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.survey import dcr as sdcr
+    from dcrmontecarlo_tpu_torch.survey import run_pseudosection
+
+    survey, electrodes, options = pseudosection_config()
+    prob, pts, sources, _ = sdcr._line_problem(survey, electrodes, 3)
+    n_walks, max_steps, eps = SURVEY_RUN
+    kw = dict(num_rx_per_src=3, n_walks=n_walks, max_steps=max_steps,
+              eps=eps, options=options, device=dev)
+    solver = WoStSolver(prob, options, device=dev)
+    what = "phase 44"
+    f = full_size_solves(wk, solver, pts, n_walks, max_steps, eps, 147456,
+                         what, warm_up=lambda: run_pseudosection(
+                             survey, electrodes, seed=0, **kw))
+    state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
+                                                 eps, 5)
+    check(state["px"].numel() == 147456 and params.wide
+          and params.n_src == len(sources) == 6
+          and params.mis_table is None
+          and set(f["counts"]) == {params.kernel_name}
+          and f["loops"] == {"dealt": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, "
+          f"{params.n_src} sources, the warm-up launched {f['counts']}, by "
+          f"loop {f['loops']}")
+    calls = []
+    for seed in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps = run_pseudosection(survey, electrodes, seed=seed, **kw)
+        calls.append(time.perf_counter() - t0)
+        check(ps.potentials.shape == (6, 9)
+              and np.isfinite(ps.potentials).all()
+              and np.isfinite(ps.potentials_stderr).all(),
+              f"{what}: run_pseudosection gave {ps.potentials.shape}")
+    # the dealt loop's 32 sources' sums in shared memory: its blocks a SM
+    dealt_res = report.get(params.kernel_name + " (dealt)")
+    per_sm = None if dealt_res is None else resident_blocks(
+        128, dealt_res["registers"], dealt_res["smem"], 1)
+    log(f"[44] scenario pseudosection 9x{n_walks} walks, 6 sources, 147456 "
+        f"lanes ({params.kernel_name}; its dealt loop {dealt_res}, "
+        f"{per_sm} blocks of 128 threads a SM): s/call "
+        f"{[round(v, 4) for v in calls]}, walker_steps_per_sec "
+        f"{f['rate']:.6g} s/solve {[round(v, 4) for v in f['times']]} "
+        f"steps/solve {f['steps']:.6g} longest lane {f['longest']} steps, "
+        f"lane occupancy {f['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f['share']]}, launches of the "
+        f"run_pseudosection warm-up {f['counts']}, by loop {f['loops']} "
+        f"({card})")
+    d = dealt_launch(wk, state, params, step_bound, what)
+    log(f"[44] {dealt_text(d, params, card)}")
+    # three source rows against single-source solves of those dipoles
+    # (another seed: independent)
+    warm = f["warm"]
+    for s_i in (0, 2, 5):
+        a, b = sources[s_i]
+        one_src = dataclasses.replace(survey, current_a=tuple(electrodes[a]),
+                                      current_b=tuple(electrodes[b]))
+        r = one_src.run(electrodes, n_walks=n_walks, max_steps=max_steps,
+                        eps=eps, seed=11 + s_i, options=options, device=dev)
+        z = [round(float(v), 3) for v in np.abs(
+            warm.potentials[s_i] - r.potentials) / np.hypot(
+                warm.potentials_stderr[s_i], r.potentials_stderr)]
+        check(max(z) < 4.0, f"{what} source {s_i} ({a}, {b}): {z} sigma "
+                            f"from the single-source solve (bound 4)")
+        log(f"[44] source {s_i} ({a}, {b}): |pseudosection - "
+            f"DCRSurvey.run| {z} sigma (bound 4), "
+            f"potentials {float(np.abs(r.potentials).max()):.4g} at most")
+    rec = next(r for r in records if r["variant"] == "survey_wide")
+    check(rec["name"] == params.kernel_name,
+          f"{what}: the wide survey's record is {rec['name']}")
+    rec.update(launches=f["counts"][params.kernel_name],
+               whole_launch_ms=d["ms"], whole_launch_steps=d["steps"],
+               loops=f["loops"])
+    return f
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2911,9 +3046,7 @@ def main():
                        bc_dirichlet=xy2, source=fields.constant(-4.0))
 
     # ---- 21. no delta tracking, one launch ------------------------------
-    harmonic = Problem(dirichlet=square_loop(1.0),
-                       bc_dirichlet=fields.polynomial({(1, 0): 1.0,
-                                                       (0, 1): 2.0}))
+    harmonic, _ = short_config()
     # the Green's-radius NEE acts: the same launch without the source
     # banks otherwise on >= 1% of lanes
     no_source = lambda p: dataclasses.replace(p, sources=(),
@@ -3207,21 +3340,22 @@ def main():
         f"0.02 after {res.iterations} batches ({res.n_walks} walks)")
 
     # ---- 25. the short-walk harmonic preset at full size ----------------
-    sw_pts = np.array([[0.0, 0.0], [0.5, 0.3], [-0.4, 0.6]], np.float32)
-    solver = WoStSolver(harmonic, SolverOptions(target_slots=1 << 19,
-                                                min_quota=32), device=dev)
-    n_walks = 1 << 21
-    f25 = full_size_solves(wk, solver, sw_pts, n_walks, 200, 1e-3, 196608,
+    sw_pts = SHORT_POINTS
+    solver = WoStSolver(harmonic, short_config()[1], device=dev)
+    n_walks = SHORT_RUN[0]
+    f25 = full_size_solves(wk, solver, sw_pts, *SHORT_RUN, 196608,
                            "phase 25", reps=10)
     exact25 = sw_pts[:, 0] + 2 * sw_pts[:, 1]
     for res in [f25["warm"]] + f25["raws"]:
         check(within(res, exact25, 4.0, 5e-3),
               f"phase 25: means {res.mean} off x + 2y {exact25} (stderr "
               f"{res.stderr})")
-    state, p25, _, _ = solver._setup(sw_pts, n_walks, 200, 1e-3, 5)
+    state, p25, _, bound25 = solver._setup(sw_pts, *SHORT_RUN, 5)
     check(state["px"].numel() == 196608 and not p25.delta
-          and set(f25["counts"]) == {p25.kernel_name},
-          f"phase 25: {state['px'].numel()} lanes, {f25['counts']}")
+          and set(f25["counts"]) == {p25.kernel_name}
+          and f25["loops"] == {"lanes": 1},
+          f"phase 25: {state['px'].numel()} lanes, {f25['counts']}, by loop "
+          f"{f25['loops']}")
     log(f"[25] short-walk harmonic 3x{n_walks} walks, 196608 lanes: "
         f"walker_steps_per_sec {f25['rate']:.6g} s/solve "
         f"{[round(v, 5) for v in f25['times']]} steps/solve "
@@ -3229,12 +3363,26 @@ def main():
         f"{f25['steps'] / (3 * n_walks):.3f} steps, longest lane "
         f"{f25['longest']}, lane occupancy {f25['occupancy']:.4f}, kernel "
         f"share {[round(v, 4) for v in f25['share']]}, launches of the "
-        f"warm-up solve {f25['counts']}; means "
+        f"warm-up solve {f25['counts']}, by loop {f25['loops']}; means "
         f"{np.round(f25['warm'].mean, 5).tolist()} ({card})")
     t25 = steps_256(wk, state, p25, "phase 25", subset=True)
     log(f"[25] 256 steps x {t25['lanes']} lanes: kernel {t25['ms']:.3f} ms, "
         f"plain {t25['plain_ms']:.3f} ms; worst plane agreement "
         f"{t25['worst']:.5f}, {t25['steps']} walker-steps ({card})")
+    # the whole solve's single launch (one thread a lane: the build stays
+    # off the dealt loop, which ran slower here)
+    wk.run_walk(clone_state(state), p25, bound25)  # warm-up
+    wk.run_walk.loop_launches.clear()
+    whole25 = clone_state(state)
+    ms25 = cuda_ms(lambda: wk.run_walk(whole25, p25, bound25))
+    d25 = dict(ms=ms25, steps=life_steps(state, whole25),
+               loops=dict(wk.run_walk.loop_launches))
+    check(d25["loops"] == {"lanes": 1} and int(whole25["quota"].max()) == 0,
+          f"phase 25: the single launch ran {d25['loops']}")
+    b25_ms, b25_by = bound(p25, 196608, d25["steps"], 1)
+    log(f"[25] the solve's single launch ({d25['steps']} walker-steps, "
+        f"loops {d25['loops']}): {ms25:.3f} ms, bound {b25_ms:.4f} ms "
+        f"({b25_by}) ({card})")
 
     # ---- 26. variable coefficients at full size -------------------------
     solver = WoStSolver(vc_prob, SolverOptions(target_slots=1 << 21,
@@ -3872,6 +4020,8 @@ def main():
 
     # ---- 43. full size: the survey with the transport sampler, with MIS --
     survey_build_phase(wk, dev, card, report, electrodes, f6)
+    # ---- 44. full size: the scenario pseudosection -----------------------
+    pseudosection_phase(wk, dev, card, report, records)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,
@@ -3884,8 +4034,11 @@ def main():
     p21t, t21t = t21["table-form square"]
     name_s, name_t = p21s.kernel_name, p21t.kernel_name
     check(name_s == p25.kernel_name, "phases 21 and 25 run other variants")
-    records.append(kernel_record(p25, "no_delta_static",
-                                 f25["counts"][name_s], t25, regs, tolerance))
+    records.append(dict(kernel_record(p25, "no_delta_static",
+                                      f25["counts"][name_s], t25, regs,
+                                      tolerance),
+                        whole_launch_ms=d25["ms"],
+                        whole_launch_steps=d25["steps"], loops=d25["loops"]))
     records.append(kernel_record(
         p21t, "no_delta_table",
         counts24.get(name_t, {}).get("poisson_bubble_zero_bc", 0), t21t, regs,

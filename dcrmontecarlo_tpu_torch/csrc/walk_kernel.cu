@@ -174,13 +174,16 @@
 // - The one-thread loop stays for the rest: the short walk lost 10% on
 //   the repack loop (chip_probes/repack_on_plain_builds.py), and builds
 //   without the chain have no wall work to queue.
-// - The survey builds (walk_variant.h::dealt: the main path's survey and
-//   the Jacobian's wide survey with MIS) hold a third loop beside the
-//   one-thread loop, walk_dealt (below), which a launch of one shard runs
-//   when its budget drains every quota from fresh walks: walks, not
-//   lanes, go to the threads, so no thread idles until the walks run out
-//   (the one-thread loop left 32% of the survey's lane-slots idle). The
-//   launch's shape picks the loop (ops/walk_kernel.py::launch_loop).
+// - The survey builds (walk_variant.h::dealt: the main path's survey, its
+//   transport and MIS builds, and the wide survey with MIS and without)
+//   hold a third loop beside the one-thread loop, walk_dealt (below),
+//   which a launch of one shard runs when its budget drains every quota
+//   from fresh walks: walks, not lanes, go to the threads, so no thread
+//   idles until the walks run out (the one-thread loop left 32% of the
+//   survey's lane-slots idle, 41% of the wide survey's). The launch's
+//   shape picks the loop (ops/walk_kernel.py::launch_loop). The short
+//   walk's build keeps one thread a lane: dealt, it ran slower on the
+//   card (PERF.md, section 6).
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -3043,9 +3046,9 @@ void launch_built(int grid, cudaStream_t st, int n_lanes, int budget,
 // drain every quota from fresh walks (walk_variant.h::dealt); the
 // preprocessor's copy of the rule keeps the dealt kernels out of the
 // other builds' libraries altogether
-#define WALK_DEALT                                                        \
-  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_FREEZE && !WALK_TABLE &&    \
-   WALK_DELTA && !WALK_GRID && !WALK_TERMS && (WALK_MIS || !WALK_WIDE) && \
+#define WALK_DEALT                                                     \
+  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_FREEZE && !WALK_TABLE && \
+   WALK_DELTA && !WALK_GRID && !WALK_TERMS &&                          \
    !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE)))
 constexpr bool DEALT = walk_rules::dealt(
     WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,

@@ -92,16 +92,17 @@ WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
 // that drains every quota from fresh walks (csrc/walk_kernel.cu,
 // walk_dealt; ops/walk_kernel.py::dealt holds the same rule): the survey's
 // build (phase 6, the main path), the wide survey with MIS (phase 31's
-// Jacobian), and the survey's build with the transport sampler or with MIS
-// (phase 43). Their other launches run one thread a lane; the wide survey
-// without MIS, the wide transport builds and transport with MIS stay on
-// their own loops (ROADMAP.md, Queue 2)
+// Jacobian) and without (phase 44's scenario pseudosection), and the
+// survey's build with the transport sampler or with MIS (phase 43). Their
+// other launches run one thread a lane; the wide transport builds and
+// transport with MIS stay on their own loops (ROADMAP.md, Queue 2), and so
+// do the builds without delta tracking: the short walk's static form ran
+// slower dealt at phase 25's size (PERF.md, section 6)
 WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
                              bool table, bool delta, bool transport,
                              bool wide, bool grid, bool terms_form) {
   return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&
-         !grid && !terms_form && (mis || !wide) &&
-         !(transport && (mis || wide));
+         !grid && !terms_form && !(transport && (mis || wide));
 }
 
 }  // namespace walk_rules

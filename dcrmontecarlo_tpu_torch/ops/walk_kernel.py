@@ -202,13 +202,17 @@ def dealt(variant) -> bool:
     launch that drains every quota from fresh walks
     (``walk_variant.h::dealt``): the survey's build
     ``<0,false,false,false,false,true,false>`` (the main path, phase 6),
-    the wide survey with MIS (phase 31's Jacobian), and the survey's build
-    with the transport sampler ``<0,false,false,false,false,true,true>``
-    or with MIS ``<0,false,true,false,false,true,false>`` (phase 43). Its
-    other launches run one thread a lane (:func:`launch_loop`)."""
+    the wide survey with MIS (phase 31's Jacobian) and without
+    ``<0,false,false,false,false,true,false,true>`` (phase 44's scenario
+    pseudosection), the survey's build with the transport sampler
+    ``<0,false,false,false,false,true,true>`` or with MIS
+    ``<0,false,true,false,false,true,false>`` (phase 43). Its other
+    launches run one thread a lane (:func:`launch_loop`); the builds
+    without delta tracking keep one thread a lane (the short walk's ran
+    slower dealt)."""
     robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
         terms = _switches(variant)
-    return (robin == ROBIN_OFF and delta and (mis or not wide)
+    return (robin == ROBIN_OFF and delta
             and not (transport and (mis or wide))
             and not (majorant or freeze or table or grid or terms))
 

@@ -42,11 +42,15 @@ TRANSPORT = (wk.ROBIN_OFF, False, False, False, False, True, True, False,
              False)
 SURVEY_MIS = (wk.ROBIN_OFF, False, True, False, False, True, False, False,
               False)
+WIDE = (wk.ROBIN_OFF, False, False, False, False, True, False, True, False)
+SHORT = (wk.ROBIN_OFF, False, False, False, False, False, False, False,
+         False)
 # the dealt builds, each with its sweep case's build and its test id
 BUILDS = {SURVEY: {}, WIDE_MIS: dict(mis=True, n_src=5),
-          TRANSPORT: dict(sampler="transport"), SURVEY_MIS: dict(mis=True)}
+          TRANSPORT: dict(sampler="transport"), SURVEY_MIS: dict(mis=True),
+          WIDE: dict(n_src=5)}
 NAMES = {SURVEY: "survey", WIDE_MIS: "wide_mis", TRANSPORT: "transport",
-         SURVEY_MIS: "survey_mis"}
+         SURVEY_MIS: "survey_mis", WIDE: "wide", SHORT: "short"}
 HERE = (SURVEY, WIDE_MIS)  # this file's builds
 QUOTAS = (0, 1, 7, 40)
 MAX_STEPS = 16
@@ -69,13 +73,20 @@ def _clone(state):
     return {k: v.clone() for k, v in state.items()}
 
 
-def _box_state(variant, snap, n_walks=4096, max_steps=MAX_STEPS):
-    """512 fresh lanes of ``variant`` on the sweep box (CRN, roulette,
-    ``boundary_snap=snap``), quotas 0, 1, 7, 40 in turn."""
-    spec = cs.sweep_spec(("dealt", variant, BUILDS[variant]))
-    solver = WoStSolver(cs.sweep_problem(spec), cs.sweep_options(
+def _box_state(variant, snap, n_walks=4096, max_steps=MAX_STEPS, crn=True,
+               case=None, sources=None):
+    """512 fresh lanes of ``variant`` on the sweep box (its sweep ``case``,
+    by default ``BUILDS``'; ``sources`` in place of its own; CRN unless
+    ``crn`` is false, roulette, ``boundary_snap=snap``), quotas 0, 1, 7,
+    40 in turn."""
+    spec = cs.sweep_spec(("dealt", variant,
+                          BUILDS[variant] if case is None else case))
+    problem = cs.sweep_problem(spec)
+    if sources is not None:
+        problem.set_source_term(sources)
+    solver = WoStSolver(problem, dataclasses.replace(cs.sweep_options(
         spec, target_slots=512, pallas_block_rows=1, boundary_snap=snap),
-        device="cpu")
+        common_random_numbers=crn), device="cpu")
     state, params, _, _ = solver._setup(cs.SWEEP_POINTS, n_walks,
                                         max_steps, cs.SWEEP_EPS, 3)
     assert params.variant == variant and params.snap == (snap is not None)
@@ -160,14 +171,16 @@ def test_launch_off_the_rule_runs_the_one_thread_loop(host_walks, case):
 
 
 def test_dealt_rule_names_the_four_builds():
+    # the survey's four builds, and since the wide survey without MIS: the
+    # five of BUILDS
     assert all(wk.dealt(v) for v in BUILDS)
     dealt = [v for v in wk.KERNEL_VARIANTS if wk.dealt(v)]
     assert sorted(dealt) == sorted(BUILDS)
     assert not any(wk.repacked(v) for v in dealt)
-    # the wide survey without MIS and the transport builds with MIS or the
-    # wide form stay on their own loops
-    wide = (wk.ROBIN_OFF, False, False, False, False, True, False, True,
-            False)
+    # the transport builds with MIS or the wide form, and the builds
+    # without delta tracking (the short walk's static form ran slower
+    # dealt) stay on their own loops
     assert not any(wk.dealt(v) for v in (
-        wide, (*TRANSPORT[:2], True, *TRANSPORT[3:]),
-        (*TRANSPORT[:7], True, False), (*WIDE_MIS[:6], True, True, False)))
+        (*TRANSPORT[:2], True, *TRANSPORT[3:]),
+        (*TRANSPORT[:7], True, False), (*WIDE_MIS[:6], True, True, False),
+        SHORT, (*SHORT[:2], True, *SHORT[3:]), (*SHORT[:7], True, False)))

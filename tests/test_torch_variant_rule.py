@@ -298,10 +298,11 @@ int main() {
 
 def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     # the header's dealt rule, compiled by the host compiler, and
-    # ops/walk_kernel.py's pick the same four of the 768 kernel variants:
+    # ops/walk_kernel.py's pick the same five of the 768 kernel variants:
     # the survey's build (the main path), the survey's build with MIS and
     # with the transport sampler, and the wide survey with MIS (the
-    # Jacobian); none runs the repack loop
+    # Jacobian) and without (the scenario pseudosection); none runs the
+    # repack loop
     import shutil
     import subprocess
 
@@ -323,6 +324,8 @@ def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     assert got == [wk.dealt(v) for v in variants]
     assert [v for v, d in zip(variants, got) if d] == [
         (wk.ROBIN_OFF, False, False, False, False, True, False, False, False,
+         False),
+        (wk.ROBIN_OFF, False, False, False, False, True, False, True, False,
          False),
         (wk.ROBIN_OFF, False, False, False, False, True, True, False, False,
          False),
@@ -424,3 +427,31 @@ def test_library_refuses_a_header_of_other_switches(tmp_path):
                   dataclasses.replace(params, transport=True),
                   dataclasses.replace(params, robin=wk.ROBIN_CHAIN)):
         assert launch(other) == 1, other.kernel_name  # cudaErrorInvalidValue
+
+
+_F, _T = False, True
+
+
+@pytest.mark.parametrize("variant,dealt", [
+    # the wide survey without MIS (the scenario pseudosection) deals its
+    # walks; the static form without delta tracking (the short walk) ran
+    # slower dealt and keeps one thread a lane
+    ((0, _F, _F, _F, _F, _T, _F, _T, _F), True),
+    ((0, _F, _F, _F, _F, _F, _F, _F, _F), False),
+    # the wide transport builds, with MIS and without, stay on their loops
+    ((0, _F, _F, _F, _F, _T, _T, _T, _F), False),
+    ((0, _F, _T, _F, _F, _T, _T, _T, _F), False),
+    # MIS without delta tracking, narrow and wide, the wide form and the
+    # table form without it, the static form's TERMS form and grid form
+    ((0, _F, _T, _F, _F, _F, _F, _F, _F), False),
+    ((0, _F, _T, _F, _F, _F, _F, _T, _F), False),
+    ((0, _F, _F, _F, _F, _F, _F, _T, _F), False),
+    ((0, _F, _F, _F, _T, _F, _F, _F, _F), False),
+    ((0, _F, _F, _F, _F, _F, _F, _F, _T), False),
+], ids=["wide_survey", "short_walk", "wide_transport", "wide_transport_mis",
+        "mis_no_delta", "wide_mis_no_delta", "wide_no_delta",
+        "table_no_delta", "grid_no_delta"])
+def test_dealt_rule_names_each_build(variant, dealt):
+    assert wk.valid_variant(variant)
+    assert wk.dealt(variant) is dealt
+    assert not (dealt and wk.repacked(variant))
