@@ -27,7 +27,9 @@ flagship's estimator, and a sweep of twelve variants in which every pair
 of switch values occurs (phases 40-42), and the main path's survey with
 the transport sampler and with MIS at full size (phase 43), and the
 scenario's dipole-dipole pseudosection at the main path's size (phase
-44). Each phase reports on its own line:
+44), and the topographic survey over a 5 cm DEM, a boundary of 16,002
+rows, past the 8,192 the JAX package's fused kernel holds (phase 45).
+Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -104,11 +106,11 @@ scenario's dipole-dipole pseudosection at the main path's size (phase
     (``dealt_launch``).
 13. kernel vs plain version, a whole host-loop solve of the flagship
     configuration, 21 points x 256 walks, ``target_slots=1<<17``, with
-    ``max_steps=150``: equal total steps, launches and clone counts, each
-    mean within 1e-3 x (|mean| + combined stderr); launches and clones
-    printed. (The host loop runs ~quota x max_steps steps while the
-    splits go on, and the plain version's step is a few hundred small
-    kernels: at ``max_steps=6000`` it had not finished after 950 s.)
+    ``max_steps=150``, one walk a slot: equal total steps, launches and clone
+    counts, each mean within 1e-3 x (|mean| + combined stderr); launches and
+    clones printed. (The host loop runs ~quota x max_steps steps while the
+    splits go on, and the plain version's step is a few hundred small kernels:
+    at ``max_steps=6000`` it had not finished after 950 s.)
 14. physics: the flagship notebook gate (``tests/test_dcr_survey.py``
     ``test_notebook_survey_matches_fdm_oracle``) on the card:
     ``survey_default_options(target_slots=65536, split_threshold=4.0)``,
@@ -244,9 +246,9 @@ scenario's dipole-dipole pseudosection at the main path's size (phase
     3's rule and timed; with zero Dirichlet data the same paths, and >= 1%
     of lanes bank otherwise; 64 one-step launches equal one 64-step launch
     on every plane, bit for bit, on chain + MIS, the survey and the grid
-    instantiation; a host-loop solve (21 x 128 walks, max_steps 100)
-    kernel vs plain: equal steps and clones, means within 1e-3 x (|mean| +
-    combined stderr).
+    instantiation; a host-loop solve (21 x 128 walks, max_steps 100, one
+    walk a slot) kernel vs plain: equal steps and clones, means within
+    1e-3 x (|mean| + combined stderr).
 33. the cylinder oracle's Monte Carlo tier at its test's configuration
     (``tests/test_cylinder_oracle.py::test_mc_matches_cylinder_series``:
     ``survey_default_options(target_slots=16384, split_threshold=4.0)``,
@@ -266,18 +268,17 @@ scenario's dipole-dipole pseudosection at the main path's size (phase
     the survey against a solve of the same walks (equal totals and steps);
     ``profile_occupancy`` against a solve's steps.
 36. the sharded launch loop (K9): a 4-shard mesh on the card
-    (``make_mesh(4)``), the survey with ``survey_default_options()``, 9
-    points x 128 walks, kernel vs the plain version on the same shards
-    (equal steps, launches and clones per shard, phase 4's rule for the
-    means); the same four shards advanced together equal them solved one
-    by one, bit for bit (shards on one card launch in turn on one
-    stream); one 32-step launch at 8,192 lanes of the flagship's
-    instantiation without the freeze (chain + majorant + MIS, the
-    flagship on a mesh) after 200 plain steps under phase 3's rule, the
-    mixture shown to act; a whole sharded flagship solve with the split
-    at 4.0, 21 x 64 walks, ``max_steps=100``, on 2 shards (shard 1's
-    clone ids start at 0xA0000000, negative as an int32): kernel vs
-    plain, equal steps and clones.
+    (``make_mesh(4)``), the survey with ``survey_default_options()``, one walk
+    a slot, 9 points x 128 walks, kernel vs the plain version on the same
+    shards (equal steps, launches and clones per shard, phase 4's rule for the
+    means); the same four shards advanced together equal them solved one by
+    one, bit for bit (shards on one card launch in turn on one stream); one
+    32-step launch at 8,192 lanes of the flagship's instantiation without the
+    freeze (chain + majorant + MIS, the flagship on a mesh) after 200 plain
+    steps under phase 3's rule, the mixture shown to act; a whole sharded
+    flagship solve with the split at 4.0, 21 x 64 walks, ``max_steps=100``, on
+    2 shards (shard 1's clone ids start at 0xA0000000, negative as an int32):
+    kernel vs plain, equal steps and clones.
 37. the configurations of ``__graft_entry__.py::dryrun_multichip`` on a
     4-shard mesh at the sizes of the tests they mirror: the survey
     against phase 5's finite-volume oracle and bound (1500 walks); CRN
@@ -340,6 +341,21 @@ scenario's dipole-dipole pseudosection at the main path's size (phase
     (``dealt_launch``); three source rows within 4 sigma of
     single-source ``DCRSurvey.run`` solves of those dipoles. The wide
     survey's record takes its launches and single launch from here.
+45. full size, the terrain over a 5 cm DEM (``large_table_phase``):
+    ``topographic_survey_problem(resolution=0.05)`` (8,000 Neumann
+    segments, 7,999 vertices: 16,002 rows), phase 20's electrodes,
+    walks and options otherwise (294,912 lanes): a warm-up (its launches
+    counted, every one the culled table build) and 3 timed solves (as
+    phase 20), phase 20's physics gate; each potential's difference from
+    phase 20's warm-up in combined standard errors and both truncated
+    shares, printed, not a gate; 256 steps of kernel and plain version
+    on 8,192 lanes of a fresh state under phase 3's rule, the rows a step
+    visits and the bound over every row and over those; a sharded solve
+    on ``make_mesh(4)`` at 9 x 2^15 walks within 4 sigma of one device's
+    of the same size and seed; a sharded solve at 9 x 128 walks of at
+    most 200 steps with the kernel and with the plain version on the same
+    four shards, under phase 36's rule. The table build's record at 16,002 rows
+    (``topography_table_16002``) takes its numbers from here.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -358,6 +374,7 @@ A variant launched outside ``SCRIPT_VARIANTS`` would build its library at
 its first launch (a few seconds of ``nvcc``).
 """
 
+import collections
 import ctypes
 import dataclasses
 import json
@@ -1479,10 +1496,10 @@ def validation_phases(wk, dev, card, regs, records, tolerance, schedules,
             f"one 64-step launch on every plane, bit for bit; "
             f"{life_steps(st, one)} walker-steps")
 
-    # the kernel vs the plain host loop at a cut size (the plain version
-    # takes ~27 ms a step on the card whatever the lanes: a short walk)
+    # the kernel vs the plain host loop at a cut size, one walk a slot (the
+    # plain version takes ~27 ms a step on the card whatever the lanes)
     solver = WoStSolver(cyl_prob, survey_default_options(
-        target_slots=1 << 17, split_threshold=4.0), device=dev)
+        target_slots=1 << 17, split_threshold=4.0, min_quota=1), device=dev)
     t0 = time.perf_counter()
     rk = solver._solve_raw(el, 128, 100, 1.0, 11)
     stats_k = solver.last_solve_stats
@@ -1708,6 +1725,27 @@ def fused_equal(wk, fused, shards, starts, steps, what):
                   f"in {k}")
 
 
+def kernel_vs_plain(wk, solver, pts, n_walks, max_steps, eps, seed, what):
+    """A sharded solve with the kernel and with the plain version on the
+    same shards: equal steps, launches and clones per shard, means within
+    phase 4's rule. Returns the two results, the kernel's stats, both
+    times and the largest |dmean| / (|mean| + se)."""
+    t0 = time.perf_counter()
+    rk = solver._solve_raw(pts, n_walks, max_steps, eps, seed)
+    stats_k, t_k = solver.last_solve_stats, time.perf_counter() - t0
+    rp = solver._solve_raw(pts, n_walks, max_steps, eps, seed,
+                           walk=wk.walk_plain)
+    stats_p, t_p = solver.last_solve_stats, time.perf_counter() - t0
+    dm = np.abs(rk.mean - rp.mean)
+    scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+          and (dm <= 1e-3 * scale).all()
+          and rk.total_steps == rp.total_steps and stats_k == stats_p,
+          f"{what}: kernel {rk.total_steps} steps {stats_k}, plain "
+          f"{rp.total_steps} steps {stats_p}, |dmean|/scale {dm / scale}")
+    return rk, rp, stats_k, t_k, t_p - t_k, float((dm / scale).max())
+
+
 def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
                    electrodes, fdm, f6, flag_prob, nb_pts):
     """Phases 36-39: the sharded solve (K9) on virtual shards of one card.
@@ -1725,34 +1763,16 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     sharded_flagship = (wk.ROBIN_CHAIN, True, True, False, False, True,
                         False, False, False)
 
-    def kernel_vs_plain(solver, pts, n_walks, max_steps, eps, seed, what):
-        """A sharded solve with the kernel and with the plain version on
-        the same shards: equal steps, launches and clones per shard, means
-        within phase 4's rule. Returns the two results, the kernel's stats
-        and both times."""
-        t0 = time.perf_counter()
-        rk = solver._solve_raw(pts, n_walks, max_steps, eps, seed)
-        stats_k, t_k = solver.last_solve_stats, time.perf_counter() - t0
-        rp = solver._solve_raw(pts, n_walks, max_steps, eps, seed,
-                               walk=wk.walk_plain)
-        stats_p, t_p = solver.last_solve_stats, time.perf_counter() - t0
-        dm = np.abs(rk.mean - rp.mean)
-        scale = np.abs(rp.mean) + np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
-        check(np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
-              and (dm <= 1e-3 * scale).all()
-              and rk.total_steps == rp.total_steps and stats_k == stats_p,
-              f"{what}: kernel {rk.total_steps} steps {stats_k}, plain "
-              f"{rp.total_steps} steps {stats_p}, |dmean|/scale "
-              f"{dm / scale}")
-        return rk, rp, stats_k, t_k, t_p - t_k, float((dm / scale).max())
-
     # ---- 36. K9: the sharded launch loop, kernel vs plain ---------------
     mesh4 = make_mesh(4)
     check(mesh4.devices.size == 4 and mesh4.local_shards == [0, 1, 2, 3],
           f"phase 36: make_mesh(4) gave {mesh4.devices}")
-    solver = ShardedWoStSolver(prob, mesh4, survey_default_options())
+    # one walk a slot: the plain loop's step costs ~40 ms on the card
+    # whatever the lanes, so fewer walks a lane, fewer launches
+    solver = ShardedWoStSolver(prob, mesh4, survey_default_options(
+        min_quota=1))
     rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
-        solver, pts, 128, 500, 0.9, 11, "phase 36 (survey, 4 shards)")
+        wk, solver, pts, 128, 500, 0.9, 11, "phase 36 (survey, 4 shards)")
     log(f"[36] sharded survey 9x128, 4 shards on "
         f"{sorted({str(d) for d in mesh4.devices})}: max |dmean|/(|mean|"
         f"+se) {q:.3g} (bound 1e-3), steps kernel {rk.total_steps:.0f} "
@@ -1810,7 +1830,7 @@ def sharded_phases(wk, dev, card, regs, records, tolerance, survey,
     solver = ShardedWoStSolver(flag_prob, make_mesh(2), survey_default_options(
         target_slots=1 << 17, split_threshold=4.0))
     rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
-        solver, nb_pts, 64, 100, 1.0, 11, "phase 36 (sharded flagship)")
+        wk, solver, nb_pts, 64, 100, 1.0, 11, "phase 36 (sharded flagship)")
     check(min(stats["shard_clones"]) > 0,
           f"phase 36: a shard of the flagship made no clone: {stats}")
     log(f"[36] sharded flagship solve 21x64, max_steps 100, 2 shards: max "
@@ -2289,6 +2309,141 @@ def pseudosection_phase(wk, dev, card, report, records):
     return f
 
 
+# phase 45: the terrain over a 5 cm DEM (16,002 rows), phase 20's solve
+# otherwise; the lanes of its kernel-vs-plain comparison, the walks of its
+# sharded check against one device and of its sharded kernel-vs-plain
+# solve
+P45_RESOLUTION, P45_ROWS = 0.05, 16002
+P45_PLAIN_LANES, P45_SHARDED_WALKS = 8192, 1 << 15
+P45_SHARDED_PLAIN_WALKS, P45_SHARDED_PLAIN_STEPS = 128, 200
+
+
+def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
+    """Phase 45: ``topographic_survey_problem(resolution=0.05)`` (8,000
+    Neumann segments, 7,999 vertices: 16,002 rows, past the JAX Pallas
+    kernel's 8,192), phase 20's electrodes, walks and options otherwise:
+    a warm-up (every launch the culled table build) and 3 timed solves,
+    the physics of ``tests/test_topography.py``, each potential's
+    difference from phase 20's warm-up in combined standard errors and
+    both warm-ups' truncated shares (printed, not a gate: the step cap
+    truncates either); 256 steps of kernel and plain version on the first
+    ``P45_PLAIN_LANES`` lanes of a fresh state under phase 3's rule, the
+    rows a step visits and the bound over all 16,002 rows and over those;
+    a sharded solve on ``make_mesh(4)`` at 9 x ``P45_SHARDED_WALKS``
+    walks, every potential within 4 sigma of a single-device solve of the
+    same size and seed; and a sharded solve at 9 x
+    ``P45_SHARDED_PLAIN_WALKS`` walks of at most
+    ``P45_SHARDED_PLAIN_STEPS`` steps (a slot a walk, 128-lane blocks)
+    with the kernel and with the plain version on the same shards
+    (``kernel_vs_plain``), every launch the culled build. Appends the
+    table build's record at this size. Returns the ``full_size_solves``
+    result."""
+    from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
+        topographic_survey_problem
+    from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
+        make_mesh
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions, WoStSolver
+
+    what = "phase 45"
+    prob, h = topographic_survey_problem(resolution=P45_RESOLUTION)
+    rows = wk.geometry_size(prob)
+    check(rows == P45_ROWS, f"{what}: the terrain is {rows} rows")
+    pts = drape_electrodes(h, TOPO_XS, nudge=0.5)
+    options = SolverOptions(target_slots=1 << 21)
+    solver = WoStSolver(prob, options, device=dev)
+    n_walks, max_steps, eps = P2_WALKS, P2_MAX_STEPS, P2_EPS
+    f = full_size_solves(wk, solver, pts, n_walks, max_steps, eps,
+                         P2_LANES, what)
+    state, params, _, _ = solver._setup(pts, n_walks, max_steps, eps, 5)
+    culled = wk.kernel_name((wk.ROBIN_OFF, False, False, False, True, True,
+                             False, False, False))
+    check(state["px"].numel() == P2_LANES and params.table
+          and params.kernel_name == culled
+          and wk.culled_scans(params.variant)
+          and set(f["counts"]) == {culled} and f["loops"] == {"lanes": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, the "
+          f"warm-up launched {f['counts']}, by loop {f['loops']}")
+    warm, warm20 = f["warm"], f20["warm"]
+    i_pos = int(np.argmin(np.abs(TOPO_XS + 20)))
+    i_neg = int(np.argmin(np.abs(TOPO_XS - 20)))
+    check(warm.mean[i_pos] > 0 and warm.mean[i_neg] < 0
+          and np.abs(warm.mean).max() < 1.0,
+          f"{what}: potentials break the survey's physics: {warm.mean}")
+    z20 = (warm.mean - warm20.mean) / np.hypot(warm.stderr, warm20.stderr)
+    walks = len(pts) * n_walks
+    log(f"[45] full size 9x{n_walks} walks, {P2_LANES} lanes, {rows} rows "
+        f"({len(params.neu_table)} Neumann segments, "
+        f"{len(params.vert_table)} vertices; {params.kernel_name}, "
+        f"{regs.get(params.kernel_name)} registers): walker_steps_per_sec "
+        f"{f['rate']:.6g} s/solve {f['times']} steps/solve "
+        f"{f['steps']:.6g} longest lane {f['longest']} steps, lane "
+        f"occupancy {f['occupancy']:.4f}, truncated share "
+        f"{[round(v, 4) for v in f['trunc']]}, kernel share "
+        f"{[round(v, 4) for v in f['share']]}, launches of the warm-up "
+        f"solve {f['counts']}, by loop {f['loops']}; potentials "
+        f"{np.round(warm.mean, 5).tolist()} ({card})")
+    log(f"[45] against phase 20 (402 rows, the same hills, electrodes and "
+        f"walks; not a gate): (5 cm - 2 m) / combined stderr "
+        f"{np.round(z20, 3).tolist()}; truncated share of the warm-ups "
+        f"{warm.truncated_walks / walks:.4f} (5 cm), "
+        f"{warm20.truncated_walks / walks:.4f} (2 m); steps/solve "
+        f"{f['steps']:.6g} against {f20['steps']:.6g}")
+    sub = {k: v[:P45_PLAIN_LANES // 128].clone() for k, v in state.items()}
+    t = steps_256(wk, sub, params, what)
+    cull = cull_rows(wk, params, t["end"])
+    rec = kernel_record(params, "topography_table_16002",
+                        f["counts"][params.kernel_name], t, regs, tolerance,
+                        rows=cull)
+    log(f"[45] 256 steps x {t['lanes']} lanes: kernel {t['ms']:.3f} ms, "
+        f"plain {t['plain_ms']:.3f} ms ({t['plain_ms'] / t['ms']:.1f}x); "
+        f"worst plane agreement {t['worst']:.5f}, max |err| "
+        f"{t['max_err']:.3g}, {t['steps']} walker-steps; rows a step visits "
+        f"after them: {cull_text(cull)}, silhouette and closest point every "
+        f"row; bound {rec['bound_ms']:.4f} ms over every row "
+        f"({rec['bound_by']}), {rec['bound_visited_ms']:.4f} ms over the "
+        f"rows visited ({card})")
+    records.append(rec)
+    kw = dict(n_walks=P45_SHARDED_WALKS, max_steps=max_steps, eps=eps,
+              seed=7)
+    t0 = time.perf_counter()
+    single = solver.solve(pts, **kw)
+    t_single = time.perf_counter() - t0
+    sharded_solver = ShardedWoStSolver(prob, make_mesh(4), options)
+    t0 = time.perf_counter()
+    sharded = sharded_solver.solve(pts, **kw)
+    t_sharded = time.perf_counter() - t0
+    z = np.abs(sharded.mean - single.mean) / np.hypot(sharded.stderr,
+                                                      single.stderr)
+    check(np.isfinite(sharded.mean).all() and float(z.max()) < 4.0,
+          f"{what}: the sharded solve differs from one device's by {z} "
+          f"sigma")
+    log(f"[45] sharded, make_mesh(4), 9x{P45_SHARDED_WALKS} walks: "
+        f"|sharded - one device| {np.round(z, 3).tolist()} sigma (bound 4)"
+        f", {sharded_solver.last_solve_stats}; {t_sharded:.3f} s sharded, "
+        f"{t_single:.3f} s one device ({card})")
+    # the sharded launches (the culled build's SHARDS instantiation) held
+    # to the plain version on the same shards: a slot a walk and 128-lane
+    # blocks, so the plain host loop walks 9 x 128 lanes, not 64-row
+    # blocks of padding, and walks of at most P45_SHARDED_PLAIN_STEPS
+    # steps, one launch (the plain loop takes ~50 ms a step)
+    before = collections.Counter(wk.run_walk.variant_launches)
+    rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
+        wk, ShardedWoStSolver(prob, make_mesh(4), dataclasses.replace(
+            options, min_quota=1, pallas_block_rows=1)),
+        pts, P45_SHARDED_PLAIN_WALKS, P45_SHARDED_PLAIN_STEPS, eps, 11,
+        f"{what} (sharded, 4 shards)")
+    grown = collections.Counter(wk.run_walk.variant_launches) - before
+    check(set(grown) == {culled}
+          and grown[culled] == stats["launches"] > 0,
+          f"{what}: the sharded solve launched {dict(grown)}, {stats}")
+    log(f"[45] sharded 9x{P45_SHARDED_PLAIN_WALKS}, max_steps "
+        f"{P45_SHARDED_PLAIN_STEPS}, 4 shards, kernel vs plain: max "
+        f"|dmean|/(|mean|+se) {q:.3g} (bound 1e-3), steps kernel "
+        f"{rk.total_steps:.0f} plain {rp.total_steps:.0f}, {stats}, "
+        f"{dict(grown)}; {t_k:.2f} s kernel, {t_p:.2f} s plain ({card})")
+    return f
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2737,8 +2892,10 @@ def main():
                         whole_launch_steps=d12["steps"], loops=d12["loops"]))
 
     # ---- 13. kernel vs plain, whole host-loop solve, flagship ----------
+    # (one walk a slot: the plain loop's ~30 ms a step on the card does not
+    # depend on the lanes, so fewer walks a lane, fewer launches)
     solver = WoStSolver(flag_prob, survey_default_options(
-        target_slots=1 << 17, split_threshold=4.0), device=dev)
+        target_slots=1 << 17, split_threshold=4.0, min_quota=1), device=dev)
     t0 = time.perf_counter()
     rk = solver._solve_raw(nb_pts, 256, 150, 1.0, 11)
     stats_k = solver.last_solve_stats
@@ -4022,6 +4179,8 @@ def main():
     survey_build_phase(wk, dev, card, report, electrodes, f6)
     # ---- 44. full size: the scenario pseudosection -----------------------
     pseudosection_phase(wk, dev, card, report, records)
+    # ---- 45. full size: the terrain over a 5 cm DEM, 16,002 rows --------
+    large_table_phase(wk, dev, card, regs, records, tolerance, f20)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,

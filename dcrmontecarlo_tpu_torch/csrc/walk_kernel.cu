@@ -83,8 +83,9 @@
 // form reads __constant__ tables whose edge vectors, normals and
 // silhouette edges were formed on the host in float64 and rounded once,
 // and its first hit multiplies by 1/den, as the TPU kernel's register
-// unroll does. The table form reads float32 endpoint rows (up to 8192
-// rows in all) from global memory and forms edges, normals and chord
+// unroll does. The table form reads float32 endpoint rows (any count
+// its int fields hold; the JAX package's Pallas kernel stops at the 8,192
+// its SMEM holds) from global memory and forms edges, normals and chord
 // tangents per step in float32, dividing in the first hit, as the TPU
 // kernel's SMEM loops do; the two arithmetics differ by an ulp, which
 // desynchronizes walks, so each form copies its reference. A row's normal
@@ -245,7 +246,6 @@ namespace {
 
 constexpr int MAX_SEG = 96;    // static form, per boundary
 constexpr int MAX_VERT = 96;   // static form, silhouette vertices
-constexpr int MAX_TABLE = 8192;  // table form, all rows
 constexpr int MAX_SRC = 4;
 constexpr int MAX_BUMPS = 8;
 constexpr int MAX_FP = 1 + 6 * MAX_BUMPS;
@@ -3256,8 +3256,10 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
   h.mfp_gl = fp[9];
   h.max_att = fp[10];
   const int n_fields = 3 + (h.has_source ? h.n_src : 0);
+  // the table form's rows lie in global memory, so any count goes but
+  // one whose vertex index 2 v (two float4 a row) leaves an int
   const bool rows_fit =
-      table ? h.n_dir + h.n_neu + h.n_vert <= MAX_TABLE
+      table ? h.n_vert < (1 << 30)
             : h.n_dir <= MAX_SEG && h.n_neu <= MAX_SEG && h.n_vert <= MAX_VERT;
   const bool wide = h.n_src > MAX_SRC || h.n_mix > MAX_MIX;
   if (h.n_src < 1 || h.n_src > MAX_WIDE_SRC || !rows_fit || table < 0 ||

@@ -15,7 +15,7 @@ of heavy lanes for the host loop's high-weight split, and the
 Neumann polyline with silhouette vertices, in the two geometry forms of
 the JAX kernel (the static form up to ``MAX_UNROLL_SEGMENTS`` boundary
 rows, with segment data formed on the host in float64 and rounded once,
-and the table form up to ``MAX_SMEM_SEGMENTS`` rows of float32 endpoints,
+and the table form above it, any number of rows of float32 endpoints,
 everything else formed in float32 per step); and the analytic-check
 problems: walks without delta tracking (no alpha or sigma: the walker
 jumps to the ball's edge or its Neumann hit, and sources are sampled at
@@ -100,13 +100,18 @@ PLANE_RTOL = 1e-4    # compare_planes: per-lane relative tolerance,
 PLANE_FLOOR = 1e-6   # absolute floor as a fraction of the plane's scale,
 PLANE_MIN_FRAC = 0.99  # and the share of lanes that must agree per plane
 MAX_SRC = 4          # kernel capacities (csrc/walk_kernel.cu)
-MAX_UNROLL_SEGMENTS = 96   # boundary rows of the static form, and
-MAX_SMEM_SEGMENTS = 8192   # of the table form (ops/pallas_walk.py:50-51)
+MAX_UNROLL_SEGMENTS = 96   # boundary rows of the static form
+MAX_SMEM_SEGMENTS = 8192   # rows above which the JAX package leaves its
+                           # Pallas kernel for its XLA step (ops/
+                           # pallas_walk.py:50-51); the table form here
+                           # takes any count, and backend="pallas" raises
+                           # above it as the JAX solver does
 MAX_MIX = 8          # MIS mixture components
 MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on dipoles)
 MAX_WIDE_MIX = 64    # and mixture components
 MAX_SHARDS = 64      # shards one launch holds (its shard table)
 CHUNK_ROWS = 8       # rows per chunk of the table form's culled scans
+SCAN_ELEMS = 1 << 24  # lanes x rows a plain scan forms at once
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
 # reflectance fold
@@ -566,11 +571,10 @@ class WalkParams:
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         rows = (len(self.dir_table) + len(self.neu_table)
                 + len(self.vert_table))
-        if rows > (MAX_SMEM_SEGMENTS if self.table else MAX_UNROLL_SEGMENTS):
-            raise NotImplementedError(
-                f"the CUDA walk holds up to {MAX_SMEM_SEGMENTS} boundary "
-                f"rows, got {rows}; reference: "
-                "dcrmontecarlo_tpu/solver/wost.py::_build_solve_fn_xla")
+        if not self.table and rows > MAX_UNROLL_SEGMENTS:
+            raise ValueError(
+                f"the static form holds up to {MAX_UNROLL_SEGMENTS} boundary "
+                f"rows, got {rows}: a larger boundary takes the table form")
         mj = self.majorant
         boxes, bands = (mj.table() if mj is not None
                         else (np.zeros((0, 4), np.float32),
@@ -793,17 +797,47 @@ def _uniforms(seed: int, ctr, sid, streams):
     return rng._to_unit(rng.mix32((sid ^ base)[None] ^ ks))
 
 
-def _first_min(key, payloads):
+def _row_blocks(lanes: int, rows: int):
+    """The plain scans' row blocks ``[(r0, r1), ...]``: ``SCAN_ELEMS``
+    lane-rows at most a block (one row at least), so a scan's lanes x rows
+    temporaries stay bounded at any table size; one empty block for no
+    row."""
+    per = max(1, SCAN_ELEMS // max(int(lanes), 1))
+    return [(r0, min(r0 + per, rows)) for r0 in range(0, rows, per)] \
+        or [(0, 0)]
+
+
+def _first_min(block, lanes: int, rows: int):
     """Row-wise the sequential scan ``if key < best: take the row`` from
-    ``best = _BIG`` over ``(W, S)`` ``key``: the minimum below ``_BIG`` and
-    the payloads (``(W, S)`` or ``(1, S)``) of its FIRST row, ``_BIG`` and
-    zeros where no row is below ``_BIG``."""
-    idx = torch.argmin(key, dim=1, keepdim=True)
-    best = torch.gather(key, 1, idx)[:, 0]
+    ``best = _BIG`` over the ``(W, S)`` keys that ``block(r0, r1)`` gives
+    with their payloads (``(W, r1 - r0)`` or ``(1, r1 - r0)``) block by
+    block (:func:`_row_blocks`): the minimum below ``_BIG`` and the
+    payloads of its FIRST row, ``_BIG`` and zeros where no row is below
+    ``_BIG``. A block's first minimum replaces the running one only where
+    strictly smaller (or NaN where the running one is not, as ``argmin``
+    takes the first NaN), so the result is the one-pass ``argmin``'s at
+    any block size."""
+    best, out = None, None
+    for r0, r1 in _row_blocks(lanes, rows):
+        key, payloads = block(r0, r1)
+        idx = torch.argmin(key, dim=1, keepdim=True)
+        kb = torch.gather(key, 1, idx)[:, 0]
+        pb = [torch.gather(p.expand_as(key), 1, idx)[:, 0]
+              for p in payloads]
+        if best is None:
+            best, out = kb, pb
+            continue
+        take = (kb < best) | (torch.isnan(kb) & ~torch.isnan(best))
+        best = torch.where(take, kb, best)
+        out = [torch.where(take, b, a) for a, b in zip(out, pb)]
     found = best < _BIG
-    out = [torch.where(found, torch.gather(p.expand_as(key), 1, idx)[:, 0],
-                       0.0) for p in payloads]
-    return torch.where(found, best, _BIG), out
+    return torch.where(found, best, _BIG), [torch.where(found, p, 0.0)
+                                            for p in out]
+
+
+def _cols(cols, r0, r1):
+    """Rows ``r0:r1`` of ``(1, S)`` row columns."""
+    return [c[:, r0:r1] for c in cols]
 
 
 def _closest_point(P: WalkParams, px, py):
@@ -817,14 +851,19 @@ def _closest_point(P: WalkParams, px, py):
         uu = torch.clamp(ux * ux + uy * uy, min=1e-30)
     else:
         ax, ay, ux, uy, uu = P.columns("dir_table", px.device)
-    vx = px[:, None] - ax
-    vy = py[:, None] - ay
-    # divide, not reciprocal-multiply: a 1-ulp t flips dD at the shell
-    t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
-    cx = ax + t * ux
-    cy = ay + t * uy
-    ex, ey = cx - px[:, None], cy - py[:, None]
-    best, (bcx, bcy) = _first_min(ex * ex + ey * ey, (cx, cy))
+
+    def block(r0, r1):
+        a_x, a_y, u_x, u_y, u_u = _cols((ax, ay, ux, uy, uu), r0, r1)
+        vx = px[:, None] - a_x
+        vy = py[:, None] - a_y
+        # divide, not reciprocal-multiply: a 1-ulp t flips dD at the shell
+        t = torch.clamp((vx * u_x + vy * u_y) / u_u, 0.0, 1.0)
+        cx = a_x + t * u_x
+        cy = a_y + t * u_y
+        ex, ey = cx - px[:, None], cy - py[:, None]
+        return ex * ex + ey * ey, (cx, cy)
+
+    best, (bcx, bcy) = _first_min(block, px.numel(), ax.shape[1])
     return torch.sqrt(best), bcx, bcy
 
 
@@ -840,23 +879,29 @@ def _first_hit(P: WalkParams, px, py, dx, dy, r, t_min):
         nxs, nys = -uy / ulen, ux / ulen
     else:
         ax, ay, ux, uy, nxs, nys = P.columns("neu_table", px.device)
-    wx = px[:, None] - ax
-    wy = py[:, None] - ay
     dxe, dye = dx[:, None], dy[:, None]
-    den = dxe * uy - dye * ux
-    den_safe = torch.where(torch.abs(den) < 1e-30, 1e-30, den)
-    if P.table:
-        t = (ux * wy - uy * wx) / den_safe
-        s = (dxe * wy - dye * wx) / den_safe
-    else:
-        inv_den = 1.0 / den_safe
-        t = (ux * wy - uy * wx) * inv_den
-        s = (dxe * wy - dye * wx) * inv_den
-    if isinstance(t_min, torch.Tensor):
-        t_min = t_min[:, None]
-    ok = (s >= 0.0) & (s <= 1.0) & (t >= t_min) & (torch.abs(den) > 1e-30)
-    t_best, (nx, ny, hxs, hys) = _first_min(
-        torch.where(ok, t, _BIG), (nxs, nys, ax + s * ux, ay + s * uy))
+    t_lo = t_min[:, None] if isinstance(t_min, torch.Tensor) else t_min
+
+    def block(r0, r1):
+        a_x, a_y, u_x, u_y, n_x, n_y = _cols((ax, ay, ux, uy, nxs, nys),
+                                             r0, r1)
+        wx = px[:, None] - a_x
+        wy = py[:, None] - a_y
+        den = dxe * u_y - dye * u_x
+        den_safe = torch.where(torch.abs(den) < 1e-30, 1e-30, den)
+        if P.table:
+            t = (u_x * wy - u_y * wx) / den_safe
+            s = (dxe * wy - dye * wx) / den_safe
+        else:
+            inv_den = 1.0 / den_safe
+            t = (u_x * wy - u_y * wx) * inv_den
+            s = (dxe * wy - dye * wx) * inv_den
+        ok = ((s >= 0.0) & (s <= 1.0) & (t >= t_lo)
+              & (torch.abs(den) > 1e-30))
+        return torch.where(ok, t, _BIG), (n_x, n_y, a_x + s * u_x,
+                                          a_y + s * u_y)
+
+    t_best, (nx, ny, hxs, hys) = _first_min(block, px.numel(), ax.shape[1])
     hit = t_best <= r
     t_hit = torch.where(hit, t_best, r)
     flip = (nx * dx + ny * dy) > 0.0
@@ -882,13 +927,18 @@ def _chord_frame(P: WalkParams, px, py):
         tx, ty = ux / ul, uy / ul
     else:
         ax, ay, ux, uy, uu, ul, tx, ty = P.columns("chord_table", px.device)
-    vx = px[:, None] - ax
-    vy = py[:, None] - ay
-    t = torch.clamp((vx * ux + vy * uy) / uu, 0.0, 1.0)
-    ex = (ax + t * ux) - px[:, None]
-    ey = (ay + t * uy) - py[:, None]
-    _, (btx, bty, bslo, bshi) = _first_min(
-        ex * ex + ey * ey, (tx, ty, -t * ul, (1.0 - t) * ul))
+
+    def block(r0, r1):
+        a_x, a_y, u_x, u_y, u_u, u_l, t_x, t_y = _cols(
+            (ax, ay, ux, uy, uu, ul, tx, ty), r0, r1)
+        vx = px[:, None] - a_x
+        vy = py[:, None] - a_y
+        t = torch.clamp((vx * u_x + vy * u_y) / u_u, 0.0, 1.0)
+        ex = (a_x + t * u_x) - px[:, None]
+        ey = (a_y + t * u_y) - py[:, None]
+        return ex * ex + ey * ey, (t_x, t_y, -t * u_l, (1.0 - t) * u_l)
+
+    _, (btx, bty, bslo, bshi) = _first_min(block, px.numel(), ax.shape[1])
     return btx, bty, bslo, bshi
 
 
@@ -896,20 +946,27 @@ def _silhouette(P: WalkParams, px, py):
     """Distance to the nearest silhouette vertex, ``sqrt(3e38)`` for none:
     vertex ``b`` is one seen from ``p`` when ``cross(ab, ap) *
     cross(bc, bp) < 0`` (``_silhouette_unrolled`` with host-formed edges,
-    ``_silhouette_smem`` with float32 ones)."""
+    ``_silhouette_smem`` with float32 ones); the rows in blocks
+    (:func:`_row_blocks`), whose minima give the one-pass minimum."""
     if P.table:
         ax, ay, bx, by, cx, cy = P.columns("vert_table", px.device)
         abx, aby, bcx, bcy = bx - ax, by - ay, cx - bx, cy - by
     else:
         ax, ay, bx, by, abx, aby, bcx, bcy = P.columns("vert_table",
                                                        px.device)
-    apx = px[:, None] - ax
-    apy = py[:, None] - ay
-    bpx = px[:, None] - bx
-    bpy = py[:, None] - by
-    sgn = (abx * apy - aby * apx) * (bcx * bpy - bcy * bpx)
-    d2 = torch.where(sgn < 0, bpx * bpx + bpy * bpy, _BIG)
-    return torch.sqrt(torch.clamp(torch.min(d2, dim=1).values, max=_BIG))
+    d2_min = None
+    for r0, r1 in _row_blocks(px.numel(), ax.shape[1]):
+        a_x, a_y, b_x, b_y, ab_x, ab_y, bc_x, bc_y = _cols(
+            (ax, ay, bx, by, abx, aby, bcx, bcy), r0, r1)
+        apx = px[:, None] - a_x
+        apy = py[:, None] - a_y
+        bpx = px[:, None] - b_x
+        bpy = py[:, None] - b_y
+        sgn = (ab_x * apy - ab_y * apx) * (bc_x * bpy - bc_y * bpx)
+        d2 = torch.min(torch.where(sgn < 0, bpx * bpx + bpy * bpy, _BIG),
+                       dim=1).values
+        d2_min = d2 if d2_min is None else torch.minimum(d2_min, d2)
+    return torch.sqrt(torch.clamp(d2_min, max=_BIG))
 
 
 def _robin_chord_mass(P: WalkParams, px, py, nxv, nyv, ob, r, sbar):

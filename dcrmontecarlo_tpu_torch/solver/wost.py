@@ -255,11 +255,15 @@ class WoStSolver:
     def _check_supported(self):
         """Raise on every option the port does not run yet."""
         pb, o = self.problem, self.options
-        if geometry_size(pb) > MAX_SMEM_SEGMENTS:
-            # the JAX package walks such a boundary on its XLA path
-            raise _unported(f"a boundary of more than {MAX_SMEM_SEGMENTS} "
-                            "segments and vertices",
-                            "solver/wost.py::_build_solve_fn_xla")
+        rows = geometry_size(pb)
+        if o.backend == "pallas" and rows > MAX_SMEM_SEGMENTS:
+            # the option names the JAX package's fused kernel, whose SMEM
+            # table ends here, and raises there (solver/wost.py:1506-1511);
+            # "auto" walks any boundary on the table form
+            raise ValueError(
+                "backend='pallas' requires statically-unrollable geometry "
+                f"(see ops/pallas_walk.MAX_UNROLL_SEGMENTS): {rows} boundary "
+                f"rows, more than {MAX_SMEM_SEGMENTS}")
         robin = self._robin_enabled()
         if robin == "arrival-only":
             # the reference runs this diagnostic arm on its XLA path only

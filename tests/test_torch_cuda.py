@@ -22,7 +22,9 @@ a whole host-loop solve with the split (equal steps and clone counts),
 and the flagship notebook gate itself at seed 0 against the pinned
 oracle; and the topographic survey: the table form (Robin off, and with
 the chord chain) and the static form with silhouette vertices, one launch
-each, and a whole solve at the test size; and the analytic-check problems:
+each, a whole solve at the test size, and a terrain of 16,002 rows (past
+the JAX kernel's 8,192), one launch and a whole solve; and the
+analytic-check problems:
 walks without delta tracking in both geometry forms and the transport
 sampler (with the chain and with Robin off) with ``TERMS`` field specs,
 one launch each, a whole Poisson solve, and the reference's
@@ -306,6 +308,33 @@ def test_kernel_whole_topography_solve_matches_plain(device):
     rk = solver._solve_raw(pts, 512, 600, 0.5, 5)
     assert wk.run_walk.variant_launches[name] > launches
     rp = solver._solve_raw(pts, 512, 600, 0.5, 5, walk=wk.walk_plain)
+    assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
+    se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
+    assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()
+    assert rk.total_steps == rp.total_steps
+
+
+def test_large_table_matches_plain(device):
+    # chip_smoke.py phase 45's terrain over a 5 cm DEM: 16,002 rows, past
+    # the JAX kernel's 8,192; one launch and a whole solve, both sides
+    # drawing the same streams
+    prob, h = topographic_survey_problem(resolution=0.05)
+    assert wk.geometry_size(prob) == 16002
+    pts = drape_electrodes(h, np.arange(-40.0, 41.0, 10.0), 0.5)
+    solver = WoStSolver(prob, SolverOptions(target_slots=8192),
+                        device=device)
+    state, params, _, _ = solver._setup(pts, 4096, 600, 0.5, 3)
+    assert params.table and wk.culled_scans(params.variant)
+    wk.walk_plain(state, params, 100)
+    ref = {k: v.clone() for k, v in state.items()}
+    launches = wk.run_walk.launches
+    wk.run_walk(state, params, 48)
+    torch.cuda.synchronize()
+    assert wk.run_walk.launches == launches + 1
+    wk.walk_plain(ref, params, 48)
+    _compare(state, ref, state_planes(params.n_src))
+    rk = solver._solve_raw(pts, 64, 300, 0.5, 5)
+    rp = solver._solve_raw(pts, 64, 300, 0.5, 5, walk=wk.walk_plain)
     assert np.isfinite(rk.mean).all() and np.isfinite(rk.stderr).all()
     se = np.sqrt(rk.stderr ** 2 + rp.stderr ** 2)
     assert (np.abs(rk.mean - rp.mean) <= 1e-3 * (np.abs(rp.mean) + se)).all()

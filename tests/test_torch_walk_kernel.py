@@ -27,7 +27,7 @@ from dcrmontecarlo_tpu.solver import SolverOptions as JOptions
 from dcrmontecarlo_tpu.solver import WoStSolver as JSolver
 from dcrmontecarlo_tpu_torch import interop
 from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
-from dcrmontecarlo_tpu_torch.geometry import Polyline, square_loop
+from dcrmontecarlo_tpu_torch.geometry import square_loop
 from dcrmontecarlo_tpu_torch.models import geophysical_scenario, \
     notebook_survey
 from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
@@ -243,17 +243,6 @@ def test_kernel_params_need_field_specs(survey):
     assert ip[0] == -5 and len(ip) == 21 + 2 * 4
 
 
-def _over_table_budget():
-    # a heightmap wall of 4,200 segments and 4,199 vertices: 8,402 rows,
-    # more than the table form's 8,192 (the JAX package walks it on XLA)
-    tprob = geophysical_scenario()[0].build_problem()
-    x = np.linspace(-100.0, 100.0, 4201)
-    wall = Polyline.from_points(np.stack([x, 0.1 * np.sin(x)], 1))
-    return Problem(dirichlet=tprob.dirichlet, neumann=wall,
-                   alpha=tprob.alpha, source=tprob.source,
-                   sigma_bar_override=0.1)
-
-
 def _survey_solver(**opts):
     return geophysical_scenario()[0].make_solver(SolverOptions(**opts),
                                                  device="cpu")
@@ -369,8 +358,6 @@ UNPORTED = {
         [[0.0, -1.0]], 8, 5, EPS),
     "sample_screened_radius_exact": lambda: sample_screened_radius_exact(
         None, torch.ones(4), 1.0),
-    "geometry_over_table_budget": lambda: WoStSolver(
-        _over_table_budget(), device="cpu").solve([[0.0, -1.0]], 8, 5, EPS),
 }
 
 
