@@ -10,15 +10,16 @@ library holds its variant's one-thread or repack kernel, the kernel of a
 launch of several shards, and in ``walk_kernel.dealt``'s builds the dealt
 loop with its plan and fold kernels). Two checkouts whose hashes agree
 for an instantiation, or for a function, run the same code there. Run
-both trees in one call:
+both trees in one call, each by its own copy of this script:
 
     for t in "_archive/parent p" ". c"; do
-        set -- $t; python3 chip_probes/sass_hashes.py $1 $2; done
+        set -- $t; python3 $1/chip_probes/sass_hashes.py $1 $2; done
 
-A checkout that builds variants on demand builds this checkout's
-``chip_smoke.py`` ``SCRIPT_VARIANTS`` (the 35 the script launches: the
-paths' 21, phases 40-41's two freeze builds and the sweep's twelve); an
-older one its fixed set.
+A checkout that builds variants on demand builds the ``SCRIPT_VARIANTS``
+of the ``chip_smoke.py`` beside the copy that runs (this one's: the 40
+the script launches, the paths' 21, phases 40-41's two freeze builds,
+phase 46's general rows build and the sweep's sixteen, of which an
+older checkout builds only its own 35); an older one its fixed set.
 """
 
 import hashlib

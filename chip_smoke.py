@@ -24,17 +24,20 @@ range, on virtual shards of the one card and across two processes
 (phases 36-39), and the paths the kernel's other switch combinations open
 on the card: the survey with the high-weight split, the terrain with the
 flagship's estimator, and a sweep of twelve variants in which every pair
-of switch values occurs (phases 40-42), and the main path's survey with
+of switch values occurs, and four general rows builds (phases 40-42),
+and the main path's survey with
 the transport sampler and with MIS at full size (phase 43), and the
 scenario's dipole-dipole pseudosection at the main path's size (phase
 44), and the topographic survey over a 5 cm DEM, a boundary of 16,002
-rows, past the 8,192 the JAX package's fused kernel holds (phase 45).
-Each phase reports on its own line:
+rows, past the 8,192 the JAX package's fused kernel holds (phase 45), and
+a pole-pole line of nine unit current poles, the wide form's general rows
+at the main path's size (phase 46). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
    variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
-   phases 40-41's two, the sweep's twelve), one ``nvcc`` process per
+   phases 40-41's two, phase 46's one, the sweep's sixteen), one ``nvcc``
+   process per
    CPU at a time; at the end, no library was built after it and as many
    were loaded. The freeze builds and the chain builds without the
    freeze (``walk_variant.h::repacked``) run the repack loop
@@ -319,10 +322,11 @@ Each phase reports on its own line:
     gate, the warm-up's means within 4 sigma of phase 20's (the same
     walks and seed, the survey's estimator); 256 steps at that state,
     freeze 4, the record of its variant.
-42. the variant sweep (``SWEEP``: twelve variants, each built as
-    ``sweep_problem`` builds it): one 64-step launch of 8,192 lanes from
-    fresh starts per variant (its launch counted), kernel vs plain under
-    phase 3's rule, timed, a record each.
+42. the variant sweep (``SWEEP``: twelve variants, and four general rows
+    builds with constant, bump-sum, ``TERMS`` and dipole sources past the
+    fourth, each built as ``sweep_problem`` builds it): one 64-step launch
+    of 8,192 lanes from fresh starts per variant (its launch counted),
+    kernel vs plain under phase 3's rule, timed, a record each.
 43. full size, the survey's transport and MIS builds
     (``survey_build_phase``): phase 6's configuration with
     ``SolverOptions(screened_sampler="transport")`` and with
@@ -356,6 +360,23 @@ Each phase reports on its own line:
     most 200 steps with the kernel and with the plain version on the same
     four shards, under phase 36's rule. The table build's record at 16,002 rows
     (``topography_table_16002``) takes its numbers from here.
+46. full size, a pole-pole line (``pole_line_phase``, ``pole_config``):
+    ``survey_config()``'s survey, electrodes and options with nine unit
+    current poles (``fields.gaussian_bump`` at the buried electrodes, the
+    return at the grounded walls) as sources, MIS off, solved at the
+    electrodes at 2^19 walks each (147,456 lanes, one adaptive launch of
+    the wide survey's general rows build, its walks dealt; five of the
+    poles are wide rows): a warm-up (its launches counted, by variant and
+    by loop) and 3 timed solves (walker-steps/s, s/solve, kernel share);
+    the solve's single launch as phase 7's (``dealt_launch``), timed
+    against its bound; the build's registers and spills; the 9 x 9
+    potential matrix and its largest reciprocity gap |V_am - V_ma| /
+    sigma (printed, not a gate); the first, fifth and ninth pole's
+    columns within 4 sigma of solves of that pole alone (the narrow
+    form); every potential above -4 sigma (the maximum principle); 256
+    steps of the kernel and of the plain version at the solve's full
+    state (``steps_256``), from which the general rows build's record
+    (``pole_line``) takes its numbers.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -433,6 +454,27 @@ def pseudosection_config():
     survey, electrodes, _ = survey_config()
     return survey, electrodes, survey_default_options(target_slots=1 << 21,
                                                       min_quota=32)
+
+
+def pole_config():
+    """Phase 46's pole-pole line at the main path's size: ``(survey,
+    electrodes, problem, options)``, ``survey_config()``'s survey,
+    electrodes and options, the survey's problem with nine unit current
+    poles as its sources, one at each buried electrode
+    (``fields.gaussian_bump`` of amplitude ``1 / (2 pi w^2)``, the norm of
+    ``gaussian_dipole``'s ends, at the survey's source width ``w``; the
+    return current leaves through the grounded walls), MIS off: sources
+    0-3 in the header, 4-8 the wide form's general rows."""
+    from dcrmontecarlo_tpu_torch.problems import fields
+
+    survey, electrodes, options = survey_config()
+    problem = survey.build_problem()
+    w = survey.source_width
+    problem.set_source_term([
+        fields.gaussian_bump(survey._bury_source(e),
+                             1.0 / (2.0 * math.pi * w * w), w)
+        for e in electrodes])
+    return survey, electrodes, problem, options
 
 
 # phase 25's short walk (bench.py --preset short): points, walks,
@@ -522,10 +564,12 @@ def clone_state(state):
     return {k: v.clone() for k, v in state.items()}
 
 
-def ptxas_report(build_log):
+def ptxas_report(build_log, rows=False):
     """``ptxas -v``'s report per compiled kernel variant, keyed as
     ``WalkParams.kernel_name`` (``walk_kernel.kernel_name`` of the
-    mangled name's switches; the kernel that a launch of several shards
+    mangled name's switches and of ``rows``: whether the log is a general
+    rows build's, a macro and not in the name; the kernel that a launch of
+    several shards
     runs, in the builds without the freeze, with `` (shards)`` after it,
     and the dealt loop's, in ``walk_kernel.dealt``'s builds, with
     `` (dealt)``; the dealt launch's plan and fold kernels as
@@ -551,7 +595,7 @@ def ptxas_report(build_log):
                 # the last switch: the kernel of a launch of several shards
                 sharded = t.group(1) == "kernel" and len(flags) == 10 and \
                     flags.pop()
-                entry = kernel_name((int(t.group(2)), *flags)) + (
+                entry = kernel_name((int(t.group(2)), *flags, rows)) + (
                     " (shards)" if sharded else
                     " (dealt)" if t.group(1) == "dealt" else "")
             elif aux:
@@ -589,6 +633,18 @@ def built_kernels(wk, v):
 def ptxas_registers(build_log):
     """Registers per compiled kernel variant (``ptxas_report``)."""
     return {k: v["registers"] for k, v in ptxas_report(build_log).items()}
+
+
+def built_report(wk, variants):
+    """``ptxas_report`` over the libraries of ``variants`` this process
+    built, each from its own log (``walk_kernel.build_logs``), so that a
+    general rows build's kernels take its name."""
+    out = {}
+    for v in variants:
+        text = wk.build_logs.get(wk.variant_code(v))
+        if text:
+            out.update(ptxas_report(text, rows=wk._switches(v)[10]))
+    return out
 
 
 def repack_schedule(lib):
@@ -1260,7 +1316,13 @@ def build_variants(wk, variants=PATH_VARIANTS):
 # "grid": a bilinear field the grid holds exactly), 1 or 5 dipole sources,
 # MIS toward the first dipole, a local majorant, the Robin mode, the split
 # (its freeze threshold) and the screened sampler. Axis-aligned walls with
-# exact corners keep walks in step across math libraries.
+# exact corners keep walks in step across math libraries. The last four
+# cases run the general rows builds (the eleventh switch): up to 32
+# sources, those at the indices of their ``rows`` of another kind than the
+# dipole (``sweep_sources``): the wide survey with MIS (phase 31's build,
+# dealt; no TERMS row, whose TERMS form deals no walk), the wide chain with
+# MIS (phase 30's build, the repack loop, in its TERMS form), the wide
+# table form (its TERMS form) and the wide form without delta tracking.
 _F, _T = False, True
 SWEEP = (
     ("reflectance+mis", (2, _F, _T, _F, _F, _T, _F, _F, _F),
@@ -1288,15 +1350,31 @@ SWEEP = (
           sampler="transport")),
     ("no_delta_wide+terms", (0, _F, _F, _F, _F, _F, _F, _T, _F),
      dict(alpha=None, bc="poly", n_src=5)),
+    ("wide_mis+rows", (0, _F, _T, _F, _F, _T, _F, _T, _F, _F, _T),
+     dict(mis=True, n_src=32, rows=((4, "bumps"), (9, "const"),
+                                    (20, "bumps"), (31, "const")))),
+    ("chain_mis_wide+rows", (1, _F, _T, _F, _F, _T, _F, _T, _F, _T, _T),
+     dict(robin="chain", mis=True, n_src=8,
+          rows=((4, "const"), (5, "bumps"), (6, "bump")))),
+    ("table_wide+rows", (0, _F, _F, _F, _T, _T, _F, _T, _F, _T, _T),
+     dict(geometry="table", n_src=9,
+          rows=((4, "poly"), (6, "const"), (7, "bumps")))),
+    ("no_delta_wide+rows", (0, _F, _F, _F, _F, _F, _F, _T, _F, _F, _T),
+     dict(alpha=None, bc="poly", n_src=7,
+          rows=((4, "bump"), (5, "bumps"), (6, "const")))),
 )
-# every variant the script launches: the paths', phases 40-41's, the sweep
+# phase 46's build: the wide survey's general rows build
+POLE_VARIANT = (0, False, False, False, False, True, False, True, False,
+                False, True)
+# every variant the script launches: the paths', phases 40-41's, phase
+# 46's, the sweep
 SCRIPT_VARIANTS = PATH_VARIANTS + (
     (0, False, False, True, False, True, False, False, False),
-    (0, True, True, True, True, True, False, False, False)) + tuple(
-        c[1] for c in SWEEP)
+    (0, True, True, True, True, True, False, False, False),
+    POLE_VARIANT) + tuple(c[1] for c in SWEEP)
 SWEEP_DEFAULTS = dict(geometry="box", alpha="bumps", bc="zero", n_src=1,
                       mis=False, majorant=False, robin=False, split=None,
-                      sampler="exact")
+                      sampler="exact", rows=())
 SWEEP_BOX = [[-2.0, 0.0], [-2.0, -4.0], [2.0, -4.0], [2.0, 0.0]]
 SWEEP_WALL = [[-2.0, 0.0], [-0.5, 0.0], [-0.5, -0.25], [0.5, -0.25],
               [0.5, 0.0], [2.0, 0.0]]
@@ -1312,6 +1390,13 @@ SWEEP_POINTS = np.array([[0.0, -1.0], [0.5, -0.5], [-1.5, -0.004],
                          [1.2, -3.5], [0.0, -0.252], [-1.9, -2.0]],
                         np.float32)
 SWEEP_EPS, SWEEP_MAX_STEPS = 1e-2, 500
+# the sources of another kind than the dipole in the general rows cases:
+# a constant, a bump sum (one smoothed disk on a background), a Gaussian
+# bump and a polynomial (TERMS specs)
+SWEEP_ROWS = dict(const=("constant", 0.4),
+                  bumps=("bump_sum", 0.1, 1.5, (-0.8, -2.0), 0.5, 8.0),
+                  bump=("gaussian_bump", (0.6, -1.4), 2.0, 0.4),
+                  poly=("polynomial", 0.3, 0.2))
 
 
 def sweep_spec(case):
@@ -1338,6 +1423,30 @@ def sweep_grid_values(xs, ys):
     return 0.5 + 0.3 * x - 0.2 * y + 0.1 * x * y
 
 
+def sweep_sources(spec):
+    """A sweep case's ``n_src`` sources: the Gaussian dipoles of
+    ``SWEEP_DIPOLES`` in turn, those at the indices of its ``rows`` the
+    field of ``SWEEP_ROWS`` it names."""
+    from dcrmontecarlo_tpu_torch.problems import fields
+
+    rows, out = dict(spec["rows"]), []
+    for i in range(spec["n_src"]):
+        kind, *a = SWEEP_ROWS[rows[i]] if i in rows else ("dipole",)
+        if kind == "dipole":
+            out.append(fields.gaussian_dipole(
+                *SWEEP_DIPOLES[i % len(SWEEP_DIPOLES)], 1.0, SWEEP_WIDTH))
+        elif kind == "constant":
+            out.append(fields.constant(a[0]))
+        elif kind == "bump_sum":
+            out.append(fields.bump_sum(a[0], [(a[1], fields.smooth_circle(
+                a[2], a[3], a[4]))]))
+        elif kind == "gaussian_bump":
+            out.append(fields.gaussian_bump(*a))
+        else:
+            out.append(fields.polynomial({(1, 0): a[0], (0, 1): a[1]}))
+    return out
+
+
 def sweep_problem(spec):
     """The port's problem of a sweep case (``sweep_spec``)."""
     from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
@@ -1357,8 +1466,7 @@ def sweep_problem(spec):
           "grid": grid_continuation(*SWEEP_GRID,
                                     sweep_grid_values(*SWEEP_GRID))}[
                                         spec["bc"]]
-    sources = [fields.gaussian_dipole(a, b, 1.0, SWEEP_WIDTH)
-               for a, b in SWEEP_DIPOLES[:spec["n_src"]]]
+    sources = sweep_sources(spec)
     a, b = SWEEP_DIPOLES[0]
     return Problem(
         dirichlet=Polyline.from_points(dirichlet),
@@ -2136,8 +2244,9 @@ def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
     # ---- 42. the variant sweep ---------------------------------------------
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
 
-    worst_all = 1.0
+    worst_all, t42, rows_s = 1.0, time.perf_counter(), 0.0
     for case in SWEEP:
+        t_case = time.perf_counter()
         name, variant, _ = case
         spec = sweep_spec(case)
         solver = WoStSolver(sweep_problem(spec),
@@ -2177,8 +2286,12 @@ def new_path_phases(wk, dev, card, regs, records, tolerance, survey,
             f"|err| {max_err:.3g}, {steps} walker-steps"
             + ("" if rows is None else f"; rows a step visits: "
                f"{cull_text(rows)}"))
+        if spec["rows"]:
+            rows_s += time.perf_counter() - t_case
     log(f"[42] {len(SWEEP)} sweep variants, kernel vs plain: worst plane "
-        f"agreement {worst_all:.5f} ({card})")
+        f"agreement {worst_all:.5f}; phase time "
+        f"{time.perf_counter() - t42:.1f} s, the general rows cases "
+        f"{rows_s:.1f} s of it ({card})")
 
 
 def survey_build_phase(wk, dev, card, report, electrodes, f6):
@@ -2444,6 +2557,94 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
     return f
 
 
+def pole_line_phase(wk, dev, card, report, regs, records, tolerance):
+    """Phase 46: the pole-pole line (``pole_config``: nine unit poles at
+    the electrodes, 147,456 lanes at ``SURVEY_RUN``): a warm-up solve (its
+    launches counted, by variant and by loop: its one launch deals walks
+    in the wide survey's general rows build) and 3 timed solves
+    (walker-steps/s, s/solve, kernel share); the solve's single launch as
+    phase 7's (``dealt_launch``) against its bound; the build's registers
+    and spills (phase 2's ``report``); the 9 x 9 potential matrix and its
+    largest reciprocity gap (printed); the first, fifth and ninth pole
+    within 4 sigma of solves of that pole alone (the narrow form, another
+    seed); every potential above -4 sigma; 256 steps of the kernel and of
+    the plain version at the solve's full state (``steps_256``), from
+    which the general rows build's record takes its numbers."""
+    from dcrmontecarlo_tpu_torch.problems import fields
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+
+    t0 = time.perf_counter()
+    survey, electrodes, problem, options = pole_config()
+    pts = survey_points(electrodes, -0.5)
+    n_walks, max_steps, eps = SURVEY_RUN
+    solver = WoStSolver(problem, options, device=dev)
+    what = "phase 46"
+    f = full_size_solves(wk, solver, pts, n_walks, max_steps, eps, 147456,
+                         what)
+    state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
+                                                 eps, 5)
+    rows = [s_.kind for s_ in params.specs[3 + wk.MAX_SRC:]]
+    check(state["px"].numel() == 147456 and params.variant == POLE_VARIANT
+          and params.n_src == 9 and rows == [fields.TERMS] * 5
+          and set(f["counts"]) == {params.kernel_name}
+          and f["loops"] == {"dealt": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, "
+          f"{params.n_src} sources (wide rows of kinds {rows}), the warm-up "
+          f"launched {f['counts']}, by loop {f['loops']}")
+    res = report.get(params.kernel_name + " (dealt)")
+    log(f"[46] pole-pole line, 9 unit poles x 9 electrodes, 9x{n_walks} "
+        f"walks, 147456 lanes ({params.kernel_name}: its one-thread loop "
+        f"{report.get(params.kernel_name)}, its dealt loop {res}): "
+        f"walker_steps_per_sec {f['rate']:.6g} s/solve "
+        f"{[round(v, 4) for v in f['times']]} steps/solve {f['steps']:.6g} "
+        f"longest lane {f['longest']} steps, lane occupancy "
+        f"{f['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f['share']]}, launches of the warm-up "
+        f"{f['counts']}, by loop {f['loops']} ({card})")
+    d = dealt_launch(wk, state, params, step_bound, what)
+    log(f"[46] {dealt_text(d, params, card)}")
+    # the potential matrix: row a, pole a's potentials at the electrodes
+    warm = f["warm"]
+    v, se = np.atleast_2d(warm.mean), np.atleast_2d(warm.stderr)
+    check(v.shape == (9, 9) and np.isfinite(v).all()
+          and np.isfinite(se).all() and (se > 0).all(),
+          f"{what}: the potential matrix is {v.shape}, finite "
+          f"{np.isfinite(v).all()}")
+    gap = np.abs(v - v.T) / np.hypot(se, se.T)
+    check(bool((v >= -4.0 * se).all()),
+          f"{what}: a potential below -4 sigma: {(v / se).min():.3f} sigma "
+          f"(f >= 0, u = 0 on the walls)")
+    log(f"[46] potentials V[pole, electrode] {np.round(v, 6).tolist()}, "
+        f"stderr at most {float(se.max()):.3g}; largest reciprocity gap "
+        f"|V_am - V_ma| / sigma {float(gap.max()):.3f} (smoothed poles in "
+        f"a heterogeneous half-space: printed, not a gate); smallest "
+        f"V / sigma {float((v / se).min()):.3f} (bound -4)")
+    # three poles alone: the narrow form, another seed
+    for a in (0, 4, 8):
+        one = survey.build_problem()
+        one.set_source_term(problem.source_fields[a])
+        r = WoStSolver(one, options, device=dev).solve(
+            pts, n_walks=n_walks, max_steps=max_steps, eps=eps, seed=21 + a)
+        z = np.abs(v[a] - r.mean) / np.hypot(se[a], r.stderr)
+        check(float(z.max()) < 4.0, f"{what} pole {a}: {z.round(3)} sigma "
+                                    f"from the pole alone (bound 4)")
+        log(f"[46] pole {a}: |line - pole alone| "
+            f"{[round(float(x), 3) for x in z]} sigma (bound 4)")
+    t46 = steps_256(wk, state, params, what)
+    bound_ms, by = bound(params, t46["lanes"], t46["steps"], 1)
+    log(f"[46] 256 steps x {t46['lanes']} lanes: kernel {t46['ms']:.3f} ms "
+        f"(bound {bound_ms:.3f} ms by {by}), plain {t46['plain_ms']:.1f} "
+        f"ms; worst plane agreement {t46['worst']:.5f}, max |err| "
+        f"{t46['max_err']:.3g}, {t46['steps']} walker-steps ({card})")
+    records.append(dict(kernel_record(params, "pole_line",
+                                      f["counts"][params.kernel_name],
+                                      t46, regs, tolerance),
+                        whole_launch_ms=d["ms"], whole_launch_steps=d["steps"],
+                        loops=f["loops"]))
+    log(f"[46] phase time {time.perf_counter() - t0:.1f} s")
+    return f
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2493,8 +2694,9 @@ def main():
 
     site_pool = ThreadPoolExecutor(max_workers=len(SITE_VARIANTS))
     start_site_builds(wk, site_pool)
-    libs, build_s, build_log = wk.build_library(SCRIPT_VARIANTS)
-    regs = ptxas_registers(build_log)
+    libs, build_s, _ = wk.build_library(SCRIPT_VARIANTS)
+    report = built_report(wk, SCRIPT_VARIANTS)
+    regs = {k: v["registers"] for k, v in report.items()}
     built = set(wk.build_logs)  # the codes built now, not found in _build
     # a build without the freeze holds a second kernel, for launches of
     # several shards
@@ -2512,7 +2714,6 @@ def main():
     # repack loop; the flagship's and the grid flagship's must not
     # spill (ptxas picks the others' registers, and several of those spill
     # a few words, as some one-thread builds do)
-    report = ptxas_report(build_log)
     freeze = {wk.kernel_name(v): library_resources(wk, v)
               for v in SCRIPT_VARIANTS if wk.repacked(v)}
     schedules = {wk.kernel_name(v): repack_schedule(
@@ -4181,6 +4382,8 @@ def main():
     pseudosection_phase(wk, dev, card, report, records)
     # ---- 45. full size: the terrain over a 5 cm DEM, 16,002 rows --------
     large_table_phase(wk, dev, card, regs, records, tolerance, f20)
+    # ---- 46. full size: a pole-pole line, the wide form's general rows ---
+    pole_line_phase(wk, dev, card, report, regs, records, tolerance)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,

@@ -42,15 +42,21 @@
 // its planes, NEE and banking over any number of sources (:663-677, :929,
 // :995) and its mixture pick and pdf over any number of components
 // (:941-945, :974-977). Here the wide form holds up to MAX_WIDE_SRC
-// sources, those from MAX_SRC on Gaussian dipoles (the only kind the
-// products make), as dipole rows, and up to MAX_WIDE_MIX mixture
-// components, all after the older WalkConst fields. It loops over its
-// sources at run time and adds every NEE term and every finished walk to
-// the source's planes in global memory, in place (a read and a write per
-// source and step, a few percent of the card's memory rate at these step
-// rates), which keeps its registers near the narrow form's. A narrow
-// instantiation (up to MAX_SRC sources and MAX_MIX components) is compiled
-// as before.
+// sources and up to MAX_WIDE_MIX mixture components, all after the older
+// WalkConst fields. Its sources from MAX_SRC on are 6-float dipole rows
+// (the only kind the products make), or in the general rows build
+// (WALK_ROWS, a library of its own that a launch asks for when one of
+// those sources is not a dipole) WideRow records of any kind the header's
+// fields take but the grid: a constant, a bump sum, a dipole or a TERMS
+// field, evaluated by field_value's own text (row_value), so that the
+// dipole-only builds keep their code and their constant copy. It
+// loops over its sources at run time, so a row's kind is the same in
+// every thread of a warp (a uniform branch over the constant bank), and
+// adds every NEE term and every finished walk to the source's planes in
+// global memory, in place (a read and a write per source and step, a few
+// percent of the card's memory rate at these step rates), which keeps its
+// registers near the narrow form's. A narrow instantiation (up to MAX_SRC
+// sources and MAX_MIX components) is compiled as before.
 //
 // The validation path (the cylinder-series oracle's Monte Carlo tier) adds
 // a gridded Dirichlet field (GRID): the bilinear interpolant of a float32
@@ -67,12 +73,14 @@
 // DELTA, TRANSPORT, WIDE, GRID, TERMS_FORM>. Every combination the TPU
 // kernel traces is one (walk_variant.h: Robin, the majorant, the freeze
 // and the transport sampler need delta tracking; 400 variants, and the
-// TERMS forms of the 368 that lack the kind). A library holds exactly one
-// of them: its switches come as -D macros (WALK_ROBIN, WALK_MAJORANT,
-// WALK_MIS, WALK_FREEZE, WALK_TABLE, WALK_DELTA, WALK_TRANSPORT,
-// WALK_WIDE, WALK_GRID, WALK_TERMS; ops/walk_kernel.py::nvcc_command),
-// and the host
-// builds the library of a variant the first time a launch needs it.
+// TERMS forms of the 368 that lack the kind), and each of the 384 wide
+// ones has its general rows build (WALK_ROWS, not a template switch: the
+// row code is compiled only there). A library holds exactly one of them:
+// its switches come as -D macros (WALK_ROBIN, WALK_MAJORANT, WALK_MIS,
+// WALK_FREEZE, WALK_TABLE, WALK_DELTA, WALK_TRANSPORT, WALK_WIDE,
+// WALK_GRID, WALK_TERMS, WALK_ROWS; ops/walk_kernel.py::nvcc_command), and
+// the host builds the library of a variant the first time a launch needs
+// it.
 // walk_kernel<ROBIN_OFF, false, false, false, false, true, false> carries
 // none of the other variants' code or registers. max_attenuation is a
 // run-time switch (three selects per step) in every instantiation with
@@ -224,10 +232,13 @@
 #if !(defined(WALK_ROBIN) && defined(WALK_MAJORANT) && defined(WALK_MIS) && \
       defined(WALK_FREEZE) && defined(WALK_TABLE) && defined(WALK_DELTA) &&  \
       defined(WALK_TRANSPORT) && defined(WALK_WIDE) && defined(WALK_GRID) && \
-      defined(WALK_TERMS))
+      defined(WALK_TERMS) && defined(WALK_ROWS))
 #error "one library per variant: its switches as -D macros WALK_ROBIN, \
 WALK_MAJORANT, WALK_MIS, WALK_FREEZE, WALK_TABLE, WALK_DELTA, \
-WALK_TRANSPORT, WALK_WIDE, WALK_GRID, WALK_TERMS (nvcc_command)"
+WALK_TRANSPORT, WALK_WIDE, WALK_GRID, WALK_TERMS, WALK_ROWS (nvcc_command)"
+#endif
+#if WALK_ROWS && !WALK_WIDE
+#error "the general rows (WALK_ROWS) are the wide form's sources"
 #endif
 
 #define F(x) ((float)(x))
@@ -290,6 +301,16 @@ struct Field {
   float p[MAX_FP];
 };
 
+#if WALK_ROWS
+// a wide source of the general rows build: its field as the header holds
+// one (a TERMS row's background in f.p[0], its terms apart)
+struct WideRow {
+  Field f;
+  int n_terms;
+  float terms[MAX_TERMS][TERM_COLS];
+};
+#endif
+
 struct Planes {
   const float *p0x, *p0y;
   const int *sid, *ob0;
@@ -347,6 +368,12 @@ struct WalkConst {
   // the table form's chunk records (after the validation path's fields):
   // CHUNK_F4 float4 per chunk of CHUNK_ROWS Neumann rows (chunk_skips)
   const float4* chunk;
+#if WALK_ROWS
+  // the general rows build's sources MAX_SRC.. (in that build only, so
+  // that the other builds' block stays as it was; before the shard table,
+  // so that a launch copies the rows of its own sources and its seeds)
+  WideRow wrow[MAX_WIDE_SRC - MAX_SRC];
+#endif
   // the shard table (last, so that a launch copies only the seeds it
   // uses): a launch over the lanes of n_shards shards, shard_lanes each,
   // shard after shard; a lane draws from its shard's seed (a launch of one
@@ -354,6 +381,11 @@ struct WalkConst {
   int n_shards, shard_lanes;
   uint32_t shard_seed[MAX_SHARDS];
 };
+
+// the block and the module's other constant tables share the 64 KB
+// constant bank (the general rows take 17.9 KB of it)
+static_assert(sizeof(WalkConst) <= 56 * 1024, "WalkConst outgrows the "
+              "constant bank");
 
 __constant__ WalkConst C;
 
@@ -641,24 +673,31 @@ __device__ __forceinline__ void term_factor(const float* s, float t, float& v,
   d2v = -kk * v;
 }
 
-__device__ __noinline__ float terms_value(int f, float x, float y) {
-  float total = C.field[f].p[0] + F(0.0) * x;
-  for (int t = 0; t < C.n_terms[f]; ++t) {
-    const float* q = C.terms[f][t];
-    float val = horner4(horner4(q[0], q[1], q[2], q[3], y),
-                        horner4(q[4], q[5], q[6], q[7], y),
-                        horner4(q[8], q[9], q[10], q[11], y),
-                        horner4(q[12], q[13], q[14], q[15], y), x);
-    if (term_has_exp(q)) val = val * term_exp(q, x, y);
-    if (q[21] != F(S_NONE)) val = val * (q[21] == F(S_SIN)
-                                             ? sinf(q[22] * x + q[23])
-                                             : cosf(q[22] * x + q[23]));
-    if (q[24] != F(S_NONE)) val = val * (q[24] == F(S_SIN)
-                                             ? sinf(q[25] * y + q[26])
-                                             : cosf(q[25] * y + q[26]));
-    total = total + val;
-  }
+// terms_value's body over a field's term table: BG its background, N its
+// term count, ROWS its term rows (the header's field here, a general row
+// in row_terms_value: one text, so that the two evaluate op for op alike
+// and the header's fields compile as they did)
+#define TERMS_VALUE_BODY(BG, N, ROWS)                                   \
+  float total = BG + F(0.0) * x;                                        \
+  for (int t = 0; t < N; ++t) {                                         \
+    const float* q = ROWS[t];                                           \
+    float val = horner4(horner4(q[0], q[1], q[2], q[3], y),             \
+                        horner4(q[4], q[5], q[6], q[7], y),             \
+                        horner4(q[8], q[9], q[10], q[11], y),           \
+                        horner4(q[12], q[13], q[14], q[15], y), x);     \
+    if (term_has_exp(q)) val = val * term_exp(q, x, y);                 \
+    if (q[21] != F(S_NONE)) val = val * (q[21] == F(S_SIN)              \
+                                             ? sinf(q[22] * x + q[23])  \
+                                             : cosf(q[22] * x + q[23])); \
+    if (q[24] != F(S_NONE)) val = val * (q[24] == F(S_SIN)              \
+                                             ? sinf(q[25] * y + q[26])  \
+                                             : cosf(q[25] * y + q[26])); \
+    total = total + val;                                                \
+  }                                                                     \
   return total;
+
+__device__ __noinline__ float terms_value(int f, float x, float y) {
+  TERMS_VALUE_BODY(C.field[f].p[0], C.n_terms[f], C.terms[f])
 }
 
 // adds each term's value, gradient and Laplacian to acc = (v, gx, gy, lap);
@@ -724,29 +763,35 @@ using walk_rules::chain_phases;
 using walk_rules::repacked;
 using walk_rules::terms_fields;
 
+// field_value's body over a field record FD whose TERMS kind TERMS_CALL
+// evaluates (the header's field here, a general row in row_value: one
+// text, as TERMS_VALUE_BODY)
+#define FIELD_VALUE_BODY(FD, TERMS_CALL)                              \
+  const Field& fd = FD;                                               \
+  const float* p = fd.p;                                              \
+  if (fd.kind == K_CONST) return p[0] + F(0.0) * x;                   \
+  if constexpr (TERMS) {                                              \
+    if (fd.kind == K_TERMS) return TERMS_CALL;                        \
+  }                                                                   \
+  if (fd.kind == K_DIPOLE) {                                          \
+    float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3]; \
+    float dp = epx * epx + epy * epy;                                 \
+    float dn = enx * enx + eny * eny;                                 \
+    return p[4] * (expf(-dp / p[5]) - expf(-dn / p[5]));              \
+  }                                                                   \
+  float total = p[0] + F(0.0) * x;                                    \
+  const int nb = (fd.n - 1) / 6;                                      \
+  for (int b = 0; b < nb; ++b) {                                      \
+    const float* q = p + 1 + 6 * b; /* amp, cx, cy, radius, k, w2 */  \
+    float ex = x - q[1], ey = y - q[2];                               \
+    float rho = sqrtf((ex * ex + ey * ey) + q[5]);                    \
+    total = total + q[0] * sigmoid(-q[4] * (rho - q[3]));             \
+  }                                                                   \
+  return total;
+
 template <bool TERMS>
 __device__ float field_value(int f, float x, float y) {
-  const Field& fd = C.field[f];
-  const float* p = fd.p;
-  if (fd.kind == K_CONST) return p[0] + F(0.0) * x;
-  if constexpr (TERMS) {
-    if (fd.kind == K_TERMS) return terms_value(f, x, y);
-  }
-  if (fd.kind == K_DIPOLE) {
-    float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3];
-    float dp = epx * epx + epy * epy;
-    float dn = enx * enx + eny * eny;
-    return p[4] * (expf(-dp / p[5]) - expf(-dn / p[5]));
-  }
-  float total = p[0] + F(0.0) * x;
-  const int nb = (fd.n - 1) / 6;
-  for (int b = 0; b < nb; ++b) {
-    const float* q = p + 1 + 6 * b;  // amp, cx, cy, radius, k, w2
-    float ex = x - q[1], ey = y - q[2];
-    float rho = sqrtf((ex * ex + ey * ey) + q[5]);
-    total = total + q[0] * sigmoid(-q[4] * (rho - q[3]));
-  }
-  return total;
+  FIELD_VALUE_BODY(C.field[f], terms_value(f, x, y))
 }
 
 // the gridded Dirichlet field (problems/fields.py::Grid): the bilinear
@@ -778,16 +823,36 @@ __device__ __forceinline__ float alpha_c(float x, float y) {
   return fmaxf(field_value<TERMS>(F_ALPHA, x, y), F(1e-8));
 }
 
+#if WALK_ROWS
+// the general rows build's wide source r, by terms_value's and
+// field_value's own text (TERMS_VALUE_BODY, FIELD_VALUE_BODY; the builds
+// without rows compile as before); the row index is the same in every
+// thread of a warp, so the kind's branch is uniform and the row's loads
+// broadcast
+__device__ __noinline__ float row_terms_value(int r, float x, float y) {
+  TERMS_VALUE_BODY(C.wrow[r].f.p[0], C.wrow[r].n_terms, C.wrow[r].terms)
+}
+
+template <bool TERMS>
+__device__ float row_value(int r, float x, float y) {
+  FIELD_VALUE_BODY(C.wrow[r].f, row_terms_value(r, x, y))
+}
+#endif
+
 // source i of the walk: a field of the header, or from MAX_SRC on in the
-// wide form a dipole row
+// wide form a dipole row (a row of any kind in the general rows build)
 template <bool TERMS, bool WIDE>
 __device__ __forceinline__ float source_value(int i, float x, float y) {
   if (!WIDE || i < MAX_SRC) return field_value<TERMS>(F_SRC0 + i, x, y);
+#if WALK_ROWS
+  return row_value<TERMS>(i - MAX_SRC, x, y);
+#else
   const float* p = C.wsrc[i - MAX_SRC];
   float epx = x - p[0], epy = y - p[1], enx = x - p[2], eny = y - p[3];
   float dp = epx * epx + epy * epy;
   float dn = enx * enx + eny * eny;
   return p[4] * (expf(-dp / p[5]) - expf(-dn / p[5]));
+#endif
 }
 
 // alpha_c = max(alpha, 1e-8) with its gradient (and, for LAP, Laplacian),
@@ -3018,10 +3083,10 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // the library's one variant (walk_variant.h), from its -D macros
-constexpr int BUILT[10] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
+constexpr int BUILT[11] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
                            WALK_FREEZE,    WALK_TABLE,    WALK_DELTA,
                            WALK_TRANSPORT, WALK_WIDE,     WALK_GRID,
-                           WALK_TERMS};
+                           WALK_TERMS,     WALK_ROWS};
 
 // the repack loop runs the freeze and chain_phases builds (walk_variant.h),
 // one thread per lane the others; threads (and lanes) per block
@@ -3153,11 +3218,11 @@ extern "C" int walk_dealt_layout(int* out, int n) {
 }
 
 // the switches of this library: robin, majorant, mis, freeze, table,
-// delta, transport, wide, grid, terms form (ops/walk_kernel.py reads them
-// back after loading it)
+// delta, transport, wide, grid, terms form, general rows
+// (ops/walk_kernel.py reads them back after loading it)
 extern "C" int walk_switches(int* out, int n) {
-  if (n != 10) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < 10; ++k) out[k] = BUILT[k];
+  if (n != 11) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 11; ++k) out[k] = BUILT[k];
   return 0;
 }
 
@@ -3185,8 +3250,10 @@ extern "C" int walk_schedule(int* out, int n) {
 //     alpha, sigma, sources[n_src if has_source]. A TERMS field's
 //     parameters are its background, then TERM_COLS per term. More than
 //     MAX_SRC sources or MAX_MIX mixture components launch the wide form,
-//     whose sources from MAX_SRC on are dipoles. A bc of kind K_GRID
-//     (GRID_COLS parameters) launches the grid form.
+//     whose sources from MAX_SRC on are dipoles, or of any kind but
+//     K_GRID in the general rows build (which takes a launch with one
+//     that is not a dipole). A bc of kind K_GRID (GRID_COLS parameters)
+//     launches the grid form.
 // planes: N_PLANES + N_WIDE_PLANES device pointers in
 //     ops/walk_kernel.py::_PLANE_ORDER (the wide form's acc, asum and asq
 //     planes of sources MAX_SRC.. last).
@@ -3207,6 +3274,37 @@ extern "C" int walk_schedule(int* out, int n) {
 //     records of REC_SRC + n_src int32 words, its walks), which the host
 //     asks for after walk_plan found the launch dealable; null, null, 0
 //     otherwise (one thread a lane, or the repack loop).
+// one field of kind `kind` and `n` parameters from fp[off..] into fd (a
+// TERMS field's background; its terms into terms, their count n_terms),
+// checked as the kernel reads it; false for a field it cannot read (a
+// grid goes by its own rule)
+static bool load_field(int kind, int n, const float* fp, int n_fp, int& off,
+                       Field& fd, int& n_terms,
+                       float (*terms)[TERM_COLS]) {
+  const bool is_terms = kind == K_TERMS;
+  if (n < 1 || n > (is_terms ? 1 + MAX_TERMS * TERM_COLS : MAX_FP) ||
+      off + n > n_fp || (kind == K_CONST && n != 1) ||
+      (kind == K_DIPOLE && n != 6) ||
+      (kind == K_BUMPS && (n - 1) % 6 != 0) ||
+      (is_terms && (n - 1) % TERM_COLS != 0) ||
+      (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE && !is_terms))
+    return false;
+  fd.kind = kind;
+  fd.n = is_terms ? 1 : n;
+  for (int k = 0; k < (is_terms ? 1 : n); ++k) fd.p[k] = fp[off++];
+  if (is_terms) {
+    n_terms = (n - 1) / TERM_COLS;
+    for (int t = 0; t < n_terms; ++t) {
+      for (int k = 0; k < TERM_COLS; ++k) terms[t][k] = fp[off++];
+      for (int k = 21; k < TERM_COLS; k += 3) {  // the factors' kinds
+        const float sk = terms[t][k];
+        if (sk != F(S_NONE) && sk != F(S_SIN) && sk != F(S_COS)) return false;
+      }
+    }
+  }
+  return true;
+}
+
 static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
                       void* const* planes, int n_planes, int n_lanes,
                       void* const* geom, int n_geom, cudaStream_t st,
@@ -3278,18 +3376,22 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       n_ip != N_IP + 2 * n_fields)
     return (int)cudaErrorInvalidValue;
   // the Dirichlet field's kind picks the grid form, a TERMS field the
-  // TERMS form of a variant that lacks the kind; the header's switches
-  // must be this library's
+  // TERMS form of a variant that lacks the kind, a wide source that is not
+  // a dipole the general rows build; the header's switches must be this
+  // library's
   const int grid = ip[N_IP] == K_GRID;
-  bool any_terms = false;
-  for (int f = 0; f < n_fields && f < N_FIELDS; ++f)
+  bool any_terms = false, rows = false;
+  for (int f = 0; f < n_fields; ++f) {
     any_terms = any_terms || ip[N_IP + 2 * f] == K_TERMS;
+    rows = rows || (f >= N_FIELDS && ip[N_IP + 2 * f] != K_DIPOLE);
+  }
   const bool mis = h.n_mix > 0;
-  const int switches[10] = {
+  const int switches[11] = {
       h.robin, h.majorant, mis, freeze, table, delta, transport, wide, grid,
       any_terms && !terms_fields(h.robin, h.majorant, mis, freeze, table,
-                                 delta)};
-  for (int k = 0; k < 10; ++k)
+                                 delta),
+      rows};
+  for (int k = 0; k < 11; ++k)
     if (switches[k] != BUILT[k]) return (int)cudaErrorInvalidValue;
   const int n_static = table ? 0 : 5 * h.n_dir + 14 * h.n_neu + 8 * h.n_vert;
   int off = N_FP;
@@ -3329,13 +3431,18 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       for (int k = 0; k < 8; ++k) h.vert[v][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
     const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
-    if (f >= N_FIELDS) {  // the wide form's dipole rows
+    if (f >= N_FIELDS) {  // the wide form's rows
+#if WALK_ROWS
+      WideRow& w = h.wrow[f - N_FIELDS];
+      if (!load_field(kind, n, fp, n_fp, off, w.f, w.n_terms, w.terms))
+        return (int)cudaErrorInvalidValue;
+#else
       if (kind != K_DIPOLE || n != DIPOLE_COLS || off + n > n_fp)
         return (int)cudaErrorInvalidValue;
       for (int k = 0; k < n; ++k) h.wsrc[f - N_FIELDS][k] = fp[off++];
+#endif
       continue;
     }
-    const bool terms = kind == K_TERMS;
     if (kind == K_GRID) {  // the Dirichlet field only, nodes by geom[3]
       if (f != F_BC || n != GRID_COLS || off + n > n_fp || !geom[3] ||
           (uintptr_t)geom[3] % 4)
@@ -3353,27 +3460,9 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       h.grid = (const float*)geom[3];
       continue;
     }
-    if (n < 1 || n > (terms ? 1 + MAX_TERMS * TERM_COLS : MAX_FP) ||
-        off + n > n_fp || (kind == K_CONST && n != 1) ||
-        (kind == K_DIPOLE && n != 6) ||
-        (kind == K_BUMPS && (n - 1) % 6 != 0) ||
-        (terms && (n - 1) % TERM_COLS != 0) ||
-        (kind != K_CONST && kind != K_BUMPS && kind != K_DIPOLE && !terms))
+    if (!load_field(kind, n, fp, n_fp, off, h.field[f], h.n_terms[f],
+                    h.terms[f]))
       return (int)cudaErrorInvalidValue;
-    h.field[f].kind = kind;
-    h.field[f].n = terms ? 1 : n;
-    for (int k = 0; k < (terms ? 1 : n); ++k) h.field[f].p[k] = fp[off++];
-    if (terms) {
-      h.n_terms[f] = (n - 1) / TERM_COLS;
-      for (int t = 0; t < h.n_terms[f]; ++t) {
-        for (int k = 0; k < TERM_COLS; ++k) h.terms[f][t][k] = fp[off++];
-        for (int k = 21; k < TERM_COLS; k += 3) {  // the factors' kinds
-          const float sk = h.terms[f][t][k];
-          if (sk != F(S_NONE) && sk != F(S_SIN) && sk != F(S_COS))
-            return (int)cudaErrorInvalidValue;
-        }
-      }
-    }
   }
   if (off != n_fp) return (int)cudaErrorInvalidValue;
 
@@ -3419,16 +3508,24 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       return (int)cudaErrorInvalidValue;
 
   // a narrow launch reads no wide field, so its copy skips them, and
-  // every launch copies only the seeds of its shards: the copy is part of
-  // every launch's host time
+  // every launch copies only the seeds of its shards (and in the general
+  // rows build the rows of its sources): the copy is part of every
+  // launch's host time
   const size_t n_end =
       offsetof(WalkConst, shard_seed) + sizeof(uint32_t) * (size_t)n_shards;
+#if WALK_ROWS
+  const size_t n_head = offsetof(WalkConst, wrow) +
+                        sizeof(WideRow) * (size_t)(n_fields - N_FIELDS);
+#else
   const size_t n_head = wide ? n_end : offsetof(WalkConst, wsrc);
+#endif
   cudaError_t e =
       cudaMemcpyToSymbolAsync(C, &h, n_head, 0, cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
-  if (!wide) {  // the grid's pointer, the chunks and the shard table
-    const size_t off = offsetof(WalkConst, grid);
+  if (WALK_ROWS || !wide) {  // the grid's pointer, the chunks and the
+                             // shard table, or the shard table after rows
+    const size_t off = WALK_ROWS ? offsetof(WalkConst, n_shards)
+                                 : offsetof(WalkConst, grid);
     e = cudaMemcpyToSymbolAsync(C, (const char*)&h + off, n_end - off, off,
                                 cudaMemcpyHostToDevice, st);
     if (e != cudaSuccess) return (int)e;

@@ -24,8 +24,9 @@ transport sampler of the screened radius, and the ``TERMS`` field kind of
 their coefficients; and the survey products: MIS next-event estimation
 without delta tracking, and the wide form of the kernel for more than
 ``MAX_SRC`` sources or ``MAX_MIX`` mixture components (up to
-``MAX_WIDE_SRC`` and ``MAX_WIDE_MIX``; sources from ``MAX_SRC`` on are
-Gaussian dipoles); and the validation path: a gridded Dirichlet field
+``MAX_WIDE_SRC`` and ``MAX_WIDE_MIX``; sources from ``MAX_SRC`` on of any
+kind but the grid, in the general rows build where one is not a Gaussian
+dipole); and the validation path: a gridded Dirichlet field
 (``fields.Grid``, the cylinder oracle's Monte Carlo tier) on the
 flagship's switches; and the sharded solve (``parallel/mesh.py``), whose
 launch loop splits without the freeze: the flagship's switches without
@@ -107,7 +108,7 @@ MAX_SMEM_SEGMENTS = 8192   # rows above which the JAX package leaves its
                            # takes any count, and backend="pallas" raises
                            # above it as the JAX solver does
 MAX_MIX = 8          # MIS mixture components
-MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on dipoles)
+MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on rows)
 MAX_WIDE_MIX = 64    # and mixture components
 MAX_SHARDS = 64      # shards one launch holds (its shard table)
 CHUNK_ROWS = 8       # rows per chunk of the table form's culled scans
@@ -119,12 +120,13 @@ ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE = 0, 1, 2
 _ROBIN_CODES = {False: ROBIN_OFF, True: ROBIN_CHAIN, "chain": ROBIN_CHAIN,
                 "reflectance": ROBIN_REFLECTANCE}
 # a variant's switches: (robin, majorant, mis, freeze, table, delta,
-# transport, wide, grid), then True for a TERMS form; wide, for more than
-# MAX_SRC sources or MAX_MIX mixture components, carries the survey
-# products' lines; grid, a gridded Dirichlet field (fields.Grid), the
-# cylinder oracle's Monte Carlo tier
+# transport, wide, grid), then True for a TERMS form, then True for the
+# general rows build; wide, for more than MAX_SRC sources or MAX_MIX
+# mixture components, carries the survey products' lines; grid, a gridded
+# Dirichlet field (fields.Grid), the cylinder oracle's Monte Carlo tier;
+# rows, a wide source past the MAX_SRC-th that is not a Gaussian dipole
 SWITCHES = ("robin", "majorant", "mis", "freeze", "table", "delta",
-            "transport", "wide", "grid", "terms")
+            "transport", "wide", "grid", "terms", "rows")
 _TWO_PI = 2.0 * np.pi
 _BIG = float(np.float32(3e38))
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "walk_kernel.cu"
@@ -141,27 +143,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------- #
 
 def _switches(variant) -> tuple:
-    """The ten switches of a variant tuple (9 items, or 10 with the TERMS
-    form last): the Robin mode as an int, the others as bools."""
+    """The eleven switches of a variant tuple (9 items, 10 with the TERMS
+    form, 11 with the general rows last): the Robin mode as an int, the
+    others as bools."""
     v = tuple(variant)
-    if len(v) not in (9, 10):
-        raise ValueError(f"a variant has 9 or 10 switches {SWITCHES}, got "
+    if len(v) not in (9, 10, 11):
+        raise ValueError(f"a variant has 9 to 11 switches {SWITCHES}, got "
                          f"{v!r}")
     return (int(v[0]),) + tuple(bool(f) for f in v[1:]) + (False,) * (
-        10 - len(v))
+        11 - len(v))
 
 
 def _canonical(variant) -> tuple:
     """A variant as :attr:`WalkParams.variant` gives it: nine switches,
-    then ``True`` for a TERMS form."""
+    then the TERMS form and the general rows up to the last one set."""
     s = _switches(variant)
-    return s[:9] + ((True,) if s[9] else ())
+    return s[:9] + (s[9:] if s[10] else (True,) if s[9] else ())
 
 
 def kernel_name(variant) -> str:
     """``walk_kernel<robin,majorant,mis,freeze,table,delta,transport>``
-    for a variant tuple, then ``wide``, ``grid`` and the TERMS form up to
-    the last one set (the template's defaulted switches)."""
+    for a variant tuple, then ``wide``, ``grid``, the TERMS form and the
+    general rows up to the last one set (the template's defaulted
+    switches; the general rows build is a macro of its library, not a
+    template switch)."""
     r, *flags = _switches(variant)
     head, tail = flags[:6], flags[6:]
     while tail and not tail[-1]:
@@ -190,7 +195,7 @@ def chain_phases(variant) -> bool:
     weight and chord branch go through a queue in the block's shared
     memory of the repack loop, bit for bit the one-thread loop's
     results."""
-    robin, _, mis, freeze, table, *_, terms_form = _switches(variant)
+    robin, _, mis, freeze, table, *_, terms_form, _ = _switches(variant)
     return (robin == ROBIN_CHAIN and not freeze
             and (mis or not (table or terms_form)))
 
@@ -211,12 +216,13 @@ def dealt(variant) -> bool:
     ``<0,false,false,false,false,true,false,true>`` (phase 44's scenario
     pseudosection), the survey's build with the transport sampler
     ``<0,false,false,false,false,true,true>`` or with MIS
-    ``<0,false,true,false,false,true,false>`` (phase 43). Its other
+    ``<0,false,true,false,false,true,false>`` (phase 43), and the two
+    wide builds' general rows builds (phase 46's pole line). Its other
     launches run one thread a lane (:func:`launch_loop`); the builds
     without delta tracking keep one thread a lane (the short walk's ran
     slower dealt)."""
     robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
-        terms = _switches(variant)
+        terms, _ = _switches(variant)
     return (robin == ROBIN_OFF and delta
             and not (transport and (mis or wide))
             and not (majorant or freeze or table or grid or terms))
@@ -230,17 +236,20 @@ def culled_scans(variant) -> bool:
     launches take the chunk records of its Neumann rows
     (:meth:`WalkParams.chunk_table`)."""
     return _switches(variant) == (ROBIN_OFF, False, False, False, True,
-                                  True, False, False, False, False)
+                                  True, False, False, False, False, False)
 
 
 def variant_fault(variant) -> Optional[str]:
     """Why ``variant`` is not a switch combination the JAX kernel traces,
     with the reference's reason; None for a valid one
     (``csrc/walk_variant.h::valid_variant`` holds the same rule)."""
-    robin, majorant, _, freeze, _, delta, transport, _, _, terms = \
-        _switches(variant)
+    robin, majorant, _, freeze, _, delta, transport, wide, _, terms, \
+        rows = _switches(variant)
     if robin not in (ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE):
         return f"unknown Robin mode {robin}"
+    if rows and not wide:
+        return ("the general rows are the wide form's sources past the "
+                f"{MAX_SRC}th (dcrmontecarlo_tpu/ops/pallas_walk.py:663-677)")
     if not delta:
         ref = "dcrmontecarlo_tpu/ops/pallas_walk.py"
         for on, what, where in (
@@ -265,32 +274,36 @@ def variant_fault(variant) -> Optional[str]:
 
 
 def valid_variant(variant) -> bool:
-    """Whether ``variant`` (nine switches, or ten with the TERMS form) is
-    one the kernel builds: the JAX kernel's rule (the Robin correction,
-    the local majorant, the freeze and the transport sampler need delta
-    tracking; every other combination is traced), and a TERMS form only
-    where :func:`terms_fields` is false."""
+    """Whether ``variant`` (nine switches, ten with the TERMS form, eleven
+    with the general rows) is one the kernel builds: the JAX kernel's rule
+    (the Robin correction, the local majorant, the freeze and the
+    transport sampler need delta tracking; every other combination is
+    traced), a TERMS form only where :func:`terms_fields` is false, and
+    the general rows only in the wide form."""
     return variant_fault(variant) is None
 
 
-# every variant the kernel builds: 400 switch combinations, and the TERMS
-# forms of the 368 that lack the kind
+# every variant the kernel builds: 400 switch combinations, the TERMS
+# forms of the 368 that lack the kind, and the general rows builds of the
+# 384 wide ones of those
 KERNEL_VARIANTS = frozenset(
     _canonical(v) for v in itertools.product(
-        (ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE), *[(False, True)] * 9)
+        (ROBIN_OFF, ROBIN_CHAIN, ROBIN_REFLECTANCE), *[(False, True)] * 10)
     if valid_variant(v))
 
 
 def variant_code(variant) -> int:
     """The variant's code, in its library's name: its switches up to
     ``transport`` read as binary digits after the Robin mode, plus 256 for
-    the wide form, 512 for the grid and 1024 for the TERMS form."""
+    the wide form, 512 for the grid, 1024 for the TERMS form and 2048 for
+    the general rows."""
     r, *flags = _switches(variant)
     code = r
     for f in flags[:6]:
         code = 2 * code + int(f)
-    wide, grid, terms = flags[6:]
-    return code + 256 * int(wide) + 512 * int(grid) + 1024 * int(terms)
+    wide, grid, terms, rows = flags[6:]
+    return (code + 256 * int(wide) + 512 * int(grid) + 1024 * int(terms)
+            + 2048 * int(rows))
 
 
 def geometry_size(problem) -> int:
@@ -500,12 +513,13 @@ class WalkParams:
     @property
     def variant(self) -> tuple:
         """The kernel's variant ``(robin, majorant, mis, freeze, table,
-        delta, transport, wide, grid)``, then ``True`` in its TERMS form
-        (:attr:`terms_form`)."""
+        delta, transport, wide, grid)``, then the TERMS form
+        (:attr:`terms_form`) and the general rows (:attr:`rows`) up to the
+        last one set."""
         base = (self.robin, self.majorant is not None,
                 self.mis_table is not None, self.freeze, self.table,
                 self.delta, self.transport, self.wide, self.grid)
-        return base + ((True,) if self.terms_form else ())
+        return _canonical(base + (self.terms_form, self.rows))
 
     @property
     def terms_form(self) -> bool:
@@ -532,6 +546,14 @@ class WalkParams:
                     and len(self.mis_table) > MAX_MIX))
 
     @property
+    def rows(self) -> bool:
+        """Whether a launch takes its wide variant's general rows build: a
+        source past the ``MAX_SRC``-th that is not a Gaussian dipole."""
+        return (self.specs is not None
+                and any(f.kind != fields.DIPOLE
+                        for f in self.specs[3 + MAX_SRC:]))
+
+    @property
     def kernel_name(self) -> str:
         """The instantiation's name (the launch counters' key)."""
         return kernel_name(self.variant)
@@ -549,6 +571,11 @@ class WalkParams:
             raise NotImplementedError(
                 "the CUDA walk takes a constant, bump-sum or terms "
                 "conductivity")
+        if any(isinstance(f, fields.Grid) for f in self.specs[1:]):
+            raise NotImplementedError(
+                "a gridded field may be the Dirichlet data only (it has no "
+                "derivatives); reference: dcrmontecarlo_tpu/diagnostics/"
+                "martingale.py::grid_continuation")
         fault = variant_fault(self.variant)
         if fault is not None:
             raise ValueError(f"{self.kernel_name}: {fault}")
@@ -559,15 +586,16 @@ class WalkParams:
                     f"the CUDA walk holds up to {fields.MAX_TERMS} terms "
                     f"per field, got {len(spec.terms)}; reference: "
                     "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
+            if spec.kind == fields.BUMPS and len(spec.bumps) > \
+                    fields.MAX_BUMPS:
+                raise NotImplementedError(
+                    f"the CUDA walk holds up to {fields.MAX_BUMPS} bumps "
+                    f"per field, got {len(spec.bumps)}; reference: "
+                    "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         if len(self.sources) > MAX_WIDE_SRC:
             raise NotImplementedError(
                 f"the CUDA walk holds up to {MAX_WIDE_SRC} sources, got "
                 f"{len(self.sources)}; reference: "
-                "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
-        if any(f.kind != fields.DIPOLE for f in self.specs[3 + MAX_SRC:]):
-            raise NotImplementedError(
-                f"the CUDA walk's wide form takes Gaussian dipoles as "
-                f"sources {MAX_SRC} and on; reference: "
                 "dcrmontecarlo_tpu/ops/pallas_walk.py::make_pallas_walk")
         rows = (len(self.dir_table) + len(self.neu_table)
                 + len(self.vert_table))

@@ -42,7 +42,7 @@ through the kernel; and the sharded solve: the flagship's instantiation
 without the freeze, one launch, a mesh of four shards on one card equal to
 its shards solved one by one, and sharded solves (the survey, the flagship
 with the split) through the kernel and the plain version; and every
-switch combination: the twelve variants of ``chip_smoke.py``'s sweep, one
+switch combination: the sixteen variants of ``chip_smoke.py``'s sweep, one
 launch each, and the survey with the split through the host loop; and
 the freeze builds' repack loop (the flagship and the grid flagship) in
 the cases of ``chip_smoke.py::REPACK_CASES``, and the flagship's freeze
@@ -54,9 +54,11 @@ sampler's redraw rounds) runs from a queue, in the cases of
 ``chip_smoke.py::CHAIN_CASES`` against the same builds with the
 one-thread loop (bit for bit) and the plain walk; and the survey builds'
 dealt loop (the survey's, the wide survey with MIS and without, and the
-survey's with the transport sampler and with MIS), a launch that
-drains uneven quotas from fresh walks against the one-thread loop in
-256-step launches (bit for bit) and the plain walk.
+survey's with the transport sampler and with MIS, and the wide surveys'
+general rows builds with constants, bump sums, ``TERMS`` fields and
+dipoles past the fourth source), a launch that drains uneven quotas from
+fresh walks against the one-thread loop in 256-step launches (bit for
+bit) and the plain walk.
 """
 
 import os
@@ -999,12 +1001,14 @@ def test_survey_split_host_loop_matches_plain(device):
 
 
 @pytest.mark.parametrize("which", ["survey", "wide_mis", "transport",
-                                   "survey_mis", "wide"])
+                                   "survey_mis", "wide", "wide_rows",
+                                   "wide_mis_rows"])
 def test_dealt_launch_matches_drained_one_thread_loop(device, which):
     # a launch of the survey builds that drains every quota from fresh
     # walks deals its walks to the threads: every plane equals the
     # one-thread loop's in 256-step launches until drained, bit for bit,
-    # and the plain walk's under compare_planes
+    # and the plain walk's under compare_planes; the wide survey's general
+    # rows builds with sources of mixed kinds past the fourth too
     import chip_smoke as cs
 
     variant, extra = {
@@ -1017,7 +1021,15 @@ def test_dealt_launch_matches_drained_one_thread_loop(device, which):
         "survey_mis": ((0, False, True, False, False, True, False, False,
                         False), dict(mis=True)),
         "wide": ((0, False, False, False, False, True, False, True, False),
-                 dict(n_src=5))}[which]
+                 dict(n_src=5)),
+        "wide_rows": ((0, False, False, False, False, True, False, True,
+                       False, False, True),
+                      dict(n_src=8, rows=((4, "bump"), (5, "bumps"),
+                                          (6, "const"), (7, "poly")))),
+        "wide_mis_rows": ((0, False, True, False, False, True, False, True,
+                           False, False, True),
+                          dict(mis=True, n_src=6, rows=((4, "const"),
+                                                        (5, "bumps"))))}[which]
     spec = cs.sweep_spec(("dealt", variant, extra))
     solver = WoStSolver(cs.sweep_problem(spec), cs.sweep_options(
         spec, target_slots=8192), device=device)

@@ -20,7 +20,7 @@ chosen lanes holds the shipped first hit to the full one: points on the
 chunk boxes' edges and corners and on the rows' endpoints, rays along rows
 and boxes' edges, and limits equal to a row's distance and one float
 either side. The rule that picks the build is the same in the header and
-in Python on all 768 kernel variants.
+in Python on all 1,152 kernel variants.
 """
 
 import ctypes
@@ -284,9 +284,11 @@ def test_culled_rule_of_header_and_python_agree(tmp_path):
                     str(exe), str(tmp_path / "rule.cpp")], check=True,
                    timeout=120)
     variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
+    # (the general rows switch, last, takes no part in the rule)
     out = subprocess.run([str(exe)], input="".join(
-        " ".join(str(int(x)) for x in v) + "\n" for v in variants),
+        " ".join(str(int(x)) for x in v[:10]) + "\n" for v in variants),
         check=True, capture_output=True, text=True, timeout=60).stdout
     got = [bool(int(x)) for x in out.split()]
     assert got == [wk.culled_scans(v) for v in variants]
-    assert [v for v, c in zip(variants, got) if c] == [SURVEY + (False,)]
+    assert [v for v, c in zip(variants, got) if c] == [
+        SURVEY + (False, False)]

@@ -172,10 +172,11 @@ def test_launch_off_the_rule_runs_the_one_thread_loop(host_walks, case):
 
 def test_dealt_rule_names_the_four_builds():
     # the survey's four builds, and since the wide survey without MIS: the
-    # five of BUILDS
+    # five of BUILDS, and the general rows builds of its two wide ones
     assert all(wk.dealt(v) for v in BUILDS)
     dealt = [v for v in wk.KERNEL_VARIANTS if wk.dealt(v)]
-    assert sorted(dealt) == sorted(BUILDS)
+    assert sorted(dealt) == sorted(list(BUILDS) + [
+        v + (False, True) for v in BUILDS if v[7]])
     assert not any(wk.repacked(v) for v in dealt)
     # the transport builds with MIS or the wide form, and the builds
     # without delta tracking (the short walk's static form ran slower

@@ -200,9 +200,9 @@ def test_kernel_instantiations_match_python(tmp_path):
     # csrc/walk_variant.h's rules, compiled by the host compiler, agree
     # with ops/walk_kernel.py's on all 3 x 2^8 switch tuples (and their
     # TERMS forms), the loop rules (chain_phases, repacked) too: 400 valid
-    # variants, 368 TERMS forms; every valid one
-    # is in KERNEL_VARIANTS under its own code, and the unit builds only
-    # with its switches given
+    # variants, 368 TERMS forms, and the general rows builds of the 384
+    # wide ones; every valid one is in KERNEL_VARIANTS under its own code,
+    # and the unit builds only with its switches given
     import shutil
 
     from dcrmontecarlo_tpu_torch.ops import walk_kernel as wk
@@ -217,7 +217,7 @@ def test_kernel_instantiations_match_python(tmp_path):
                     str(exe), str(main)], check=True, timeout=120)
     out = subprocess.run([str(exe)], check=True, capture_output=True,
                          text=True, timeout=60).stdout.split("\n")
-    n_valid, n_terms, codes = 0, 0, set()
+    n_valid, n_terms, n_rows, codes = 0, 0, 0, set()
     for line in filter(None, out):
         c, valid, terms, chain, repack = (int(v) for v in line.split())
         r, b = divmod(c, 512)  # robin, the eight switches, the TERMS form
@@ -232,8 +232,15 @@ def test_kernel_instantiations_match_python(tmp_path):
             codes.add(wk.variant_code(canon))
             n_valid += not variant[9]
             n_terms += variant[9]
-    assert (n_valid, n_terms) == (400, 368)
-    assert len(wk.KERNEL_VARIANTS) == len(codes) == 768
+            if variant[7]:  # its general rows build, wide ones only
+                rows = wk._canonical(variant + (True,))
+                assert rows in wk.KERNEL_VARIANTS
+                codes.add(wk.variant_code(rows))
+                n_rows += 1
+            else:
+                assert not wk.valid_variant(variant + (True,))
+    assert (n_valid, n_terms, n_rows) == (400, 368, 384)
+    assert len(wk.KERNEL_VARIANTS) == len(codes) == 1152
     src = (PORT / "csrc" / "walk_kernel.cu").read_text()
     assert "walk_pick" not in src and "WALK_CASE" not in src
     for name in wk.SWITCHES:

@@ -5,12 +5,13 @@ combination of its switches; the port's CUDA kernel builds each valid
 one as a library of its own the first time a launch needs it. Here, on
 the CPU: ``walk_kernel.valid_variant`` accepts exactly the 400
 combinations of the Robin mode and eight switches that the reference
-traces, and rejects each other class with the reference's reason; the
-paths that used to raise on the card take their variants and pack; and a
-variant's build command names its switches as macros under a cache key of
-its own. The C++ side of the rule is held to this one in
-``test_torch_hygiene.py``; the plain walk of each new interaction to the
-reference in ``test_torch_variant_sweep*.py``.
+traces, and rejects each other class with the reference's reason; each
+wide variant has a general rows build, for sources past the fourth that
+are not Gaussian dipoles; the paths that used to raise on the card take
+their variants and pack; and a variant's build command names its switches
+as macros under a cache key of its own. The C++ side of the rule is held
+to this one in ``test_torch_hygiene.py``; the plain walk of each new
+interaction to the reference in ``test_torch_variant_sweep*.py``.
 """
 
 import dataclasses
@@ -50,10 +51,18 @@ def test_valid_variant_accepts_exactly_the_reference_combinations():
     assert len(forms) == 368 and all(wk.valid_variant(f) for f in forms)
     assert not any(wk.valid_variant(v + (True,)) for v in valid
                    if wk.terms_fields(v))
-    assert wk.KERNEL_VARIANTS == frozenset(valid) | frozenset(forms)
+    # the general rows build of each wide variant and TERMS form, and of
+    # no other
+    rows = [v + (False, True) for v in valid if v[7]] + [
+        f + (True,) for f in forms if f[7]]
+    assert len(rows) == 384 and all(wk.valid_variant(r) for r in rows)
+    assert not any(wk.valid_variant(v + (False, True)) for v in valid
+                   if not v[7])
+    assert wk.KERNEL_VARIANTS == (frozenset(valid) | frozenset(forms)
+                                  | frozenset(rows))
     # the paths' 21 and the script's others are all valid
     assert set(cs.SCRIPT_VARIANTS) <= wk.KERNEL_VARIANTS
-    assert len(set(cs.SCRIPT_VARIANTS)) == len(cs.SCRIPT_VARIANTS) == 35
+    assert len(set(cs.SCRIPT_VARIANTS)) == len(cs.SCRIPT_VARIANTS) == 40
 
 
 NO_DELTA = (wk.ROBIN_OFF, False, False, False, False, False, False, False,
@@ -72,6 +81,8 @@ NO_DELTA = (wk.ROBIN_OFF, False, False, False, False, False, False, False,
     (NO_DELTA[:6] + (True,) + NO_DELTA[7:],
      r"transport sampler needs delta tracking .*pallas_walk.py:884-900"),
     (NO_DELTA + (True,), r"TERMS form exists only for a variant that lacks"),
+    (NO_DELTA + (False, True),
+     r"general rows are the wide form's sources .*pallas_walk.py:663-677"),
     ((3,) + NO_DELTA[1:], r"unknown Robin mode 3"),
 ])
 def test_invalid_classes_carry_the_reference_reason(variant, reason):
@@ -80,7 +91,7 @@ def test_invalid_classes_carry_the_reference_reason(variant, reason):
     import re
     assert re.search(reason, wk.variant_fault(variant)), \
         wk.variant_fault(variant)
-    with pytest.raises(ValueError, match="variant has 9 or 10"):
+    with pytest.raises(ValueError, match="variant has 9 to 11"):
         wk.valid_variant(variant[:8])
 
 
@@ -124,6 +135,12 @@ def _varcoeff_majorant():
                       device="cpu"), [[0.7, 0.7], [-1.0, 0.2]]
 
 
+def _pole_line():
+    survey, el, prob, _ = cs.pole_config()
+    return WoStSolver(prob, SolverOptions(target_slots=1024),
+                      device="cpu"), cs.survey_points(el, -0.5)
+
+
 def _grid_chain():
     from dcrmontecarlo_tpu_torch.diagnostics import grid_continuation
 
@@ -161,6 +178,11 @@ PATHS = {
         (1, True, False, False, False, True, False, False, False, True),
         "walk_kernel<1,true,false,false,false,true,false,false,false,true>",
         1024 + 98),
+    "a pole line's fifth pole and on": (
+        _pole_line, (0, False, False, False, False, True, False, True, False,
+                     False, True),
+        "walk_kernel<0,false,false,false,false,true,false,true,false,false,"
+        "true>", 2048 + 256 + 2),
     "a grid on the accuracy path's chain": (
         _grid_chain, (1, False, False, False, False, True, False, False,
                       True),
@@ -176,7 +198,8 @@ def test_new_paths_take_their_variant_and_pack(path):
     params = _params(solver, pts)
     assert params.variant == variant and params.variant in wk.KERNEL_VARIANTS
     assert params.kernel_name == name and wk.variant_code(variant) == code
-    assert params.terms_form == (len(variant) == 10)
+    assert params.terms_form == (len(variant) >= 10 and variant[9])
+    assert params.rows == (len(variant) == 11)
     fp, ip = params.pack()
     assert ip[10] == variant[0] and ip[11] == int(variant[1])
     assert (ip[15] > 0) == variant[2] and ip[16] == int(variant[3])
@@ -231,12 +254,12 @@ int main() {
 
 def test_loop_rules_of_header_and_python_agree_on_every_variant(tmp_path):
     # the header's loop rules, compiled by the host compiler, and
-    # ops/walk_kernel.py's give the same loop to each of the 768 kernel
+    # ops/walk_kernel.py's give the same loop to each of the 1,152 kernel
     # variants: the Robin chain without the freeze queues its wall work in
     # the repack loop with MIS in every form, without MIS except in the table
-    # form and the TERMS forms (80 variants, 16 of them without MIS), the
-    # freeze builds take the repack loop too (384), the others one thread
-    # a lane
+    # form and the TERMS forms (120 variants with the general rows builds,
+    # 24 of them without MIS), the freeze builds take the repack loop too
+    # (576), the others one thread a lane
     import shutil
     import subprocess
 
@@ -249,14 +272,15 @@ def test_loop_rules_of_header_and_python_agree_on_every_variant(tmp_path):
     subprocess.run([cxx, "-std=c++17", "-I", str(wk._SRC.parent), "-o",
                     str(exe), str(main)], check=True, timeout=120)
     variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
-    assert len(variants) == 768
-    stdin = "".join(" ".join(str(int(x)) for x in v) + "\n"
+    assert len(variants) == 1152
+    # (the general rows switch, last, takes no part in the loop rules)
+    stdin = "".join(" ".join(str(int(x)) for x in v[:10]) + "\n"
                     for v in variants)
     out = subprocess.run([str(exe)], input=stdin, check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.split("\n")
     got = [tuple(int(x) for x in line.split()) for line in out if line]
-    assert len(got) == 768
+    assert len(got) == 1152
     chain = [v for v in variants if wk.chain_phases(v)]
     for v, (c, rep) in zip(variants, got):
         assert c == wk.chain_phases(v), v
@@ -264,8 +288,8 @@ def test_loop_rules_of_header_and_python_agree_on_every_variant(tmp_path):
         assert c == (v[0] == wk.ROBIN_CHAIN and not v[3]
                      and (v[2] or not (v[4] or v[9]))), v
         assert rep == (v[3] or c), v
-    assert len(chain) == 80 and sum(not v[2] for v in chain) == 16
-    assert sum(v[3] for v in variants) == 384
+    assert len(chain) == 120 and sum(not v[2] for v in chain) == 24
+    assert sum(v[3] for v in variants) == 576
     # the paths' chain builds without MIS: the accuracy path's, the
     # variable coefficients' and the transport chain's take the queued
     # step; the table chain (phase 18) and the sweep's chain + majorant
@@ -298,10 +322,11 @@ int main() {
 
 def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     # the header's dealt rule, compiled by the host compiler, and
-    # ops/walk_kernel.py's pick the same five of the 768 kernel variants:
-    # the survey's build (the main path), the survey's build with MIS and
-    # with the transport sampler, and the wide survey with MIS (the
-    # Jacobian) and without (the scenario pseudosection); none runs the
+    # ops/walk_kernel.py's pick the same seven of the 1,152 kernel
+    # variants: the survey's build (the main path), the survey's build with
+    # MIS and with the transport sampler, and the wide survey with MIS (the
+    # Jacobian) and without (the scenario pseudosection), each of these two
+    # also in its general rows build (phase 46's pole line); none runs the
     # repack loop
     import shutil
     import subprocess
@@ -315,7 +340,7 @@ def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     subprocess.run([cxx, "-std=c++17", "-I", str(wk._SRC.parent), "-o",
                     str(exe), str(main)], check=True, timeout=120)
     variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
-    stdin = "".join(" ".join(str(int(x)) for x in v) + "\n"
+    stdin = "".join(" ".join(str(int(x)) for x in v[:10]) + "\n"
                     for v in variants)
     out = subprocess.run([str(exe)], input=stdin, check=True,
                          capture_output=True, text=True,
@@ -324,15 +349,19 @@ def test_dealt_rule_of_header_and_python_agree_on_every_variant(tmp_path):
     assert got == [wk.dealt(v) for v in variants]
     assert [v for v, d in zip(variants, got) if d] == [
         (wk.ROBIN_OFF, False, False, False, False, True, False, False, False,
-         False),
+         False, False),
         (wk.ROBIN_OFF, False, False, False, False, True, False, True, False,
-         False),
+         False, False),
+        (wk.ROBIN_OFF, False, False, False, False, True, False, True, False,
+         False, True),
         (wk.ROBIN_OFF, False, False, False, False, True, True, False, False,
-         False),
+         False, False),
         (wk.ROBIN_OFF, False, True, False, False, True, False, False, False,
-         False),
+         False, False),
         (wk.ROBIN_OFF, False, True, False, False, True, False, True, False,
-         False)]
+         False, False),
+        (wk.ROBIN_OFF, False, True, False, False, True, False, True, False,
+         False, True)]
     assert not any(wk.repacked(v) for v, d in zip(variants, got) if d)
 
 
@@ -344,12 +373,12 @@ def test_build_command_names_the_switches():
     assert macros == ["-DWALK_ROBIN=1", "-DWALK_MAJORANT=1", "-DWALK_MIS=1",
                       "-DWALK_FREEZE=1", "-DWALK_TABLE=0", "-DWALK_DELTA=1",
                       "-DWALK_TRANSPORT=0", "-DWALK_WIDE=0", "-DWALK_GRID=1",
-                      "-DWALK_TERMS=0"]
+                      "-DWALK_TERMS=0", "-DWALK_ROWS=0"]
     assert cmd[-3:] == ["-o", "/tmp/out.so", str(wk._SRC)]
     assert "-fmad=false" in cmd and not any("fast" in c for c in cmd)
     # a cache key of its own per variant, one source hash for all
     paths = {wk._library_path(u) for u in wk.KERNEL_VARIANTS}
-    assert len(paths) == len(wk.KERNEL_VARIANTS) == 768
+    assert len(paths) == len(wk.KERNEL_VARIANTS) == 1152
     assert len({p.name.split("-")[1] for p in paths}) == 1
     assert wk._library_path(v).name.endswith(f"-{122 + 512}.so")
 
@@ -409,9 +438,9 @@ def test_library_refuses_a_header_of_other_switches(tmp_path):
     state, params, _, _ = solver._setup(np.asarray(pts, np.float32), 64,
                                         100, 0.5, 0)
     lib = _host_library(tmp_path, params.variant)
-    got = (ctypes.c_int * 10)()
-    assert lib.walk_switches(got, 10) == 0
-    assert tuple(got) == (0, 0, 0, 1, 0, 1, 0, 0, 0, 0)
+    got = (ctypes.c_int * 11)()
+    assert lib.walk_switches(got, 11) == 0
+    assert tuple(got) == (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0)
 
     lib.walk_launch.argtypes = wk.LAUNCH_ARGTYPES
 

@@ -3,7 +3,9 @@
 The CUDA kernel builds any switch combination the JAX kernel traces
 (``ops/walk_kernel.py::valid_variant``). ``chip_smoke.py::SWEEP`` lists
 twelve variants in which, with the paths' own, every pair of switch values
-occurs; each is built here the same way on both sides (the port by
+occurs, and four general rows builds (constants, bump sums, ``TERMS``
+fields and dipoles among up to 32 sources); each is built here the same
+way on both sides (the port by
 ``chip_smoke.py::sweep_problem``, the JAX package by :func:`jax_problem`)
 and one 32-step launch from one numpy-built state of 256 lanes goes
 through the interpreted Pallas kernel (``make_pallas_walk(...).run`` under
@@ -19,7 +21,7 @@ agree to rounding. The interpolant itself is held to the JAX package's
 XLA backend there.
 
 The cases split across this file and ``test_torch_variant_sweep_b.py`` to
-``_e.py`` (each under a minute alone on the CPU); the CUDA kernel is held
+``_g.py`` (each under a minute alone on the CPU); the CUDA kernel is held
 to the plain walk on the same cases by ``chip_smoke.py`` phase 42 and
 ``test_torch_cuda.py``.
 """
@@ -40,7 +42,7 @@ torch.set_num_threads(1)
 
 SEED, STEPS, N_WALKS = 7, 32, 64
 CASES = {c[0]: c for c in cs.SWEEP}
-# the cases of this file and of test_torch_variant_sweep_b.py and _c.py
+# the cases of this file and of test_torch_variant_sweep_b.py to _g.py
 # (~40 s each alone on the CPU; the table form's interpreted loops are the
 # slowest)
 GROUPS = (("table+mis", "grid_no_delta"),
@@ -48,8 +50,33 @@ GROUPS = (("table+mis", "grid_no_delta"),
           ("table+majorant", "survey+grid", "no_delta_wide+terms"),
           ("table+wide", "reflectance+mis"),
           ("flagship_wide", "chain+freeze+terms", "transport+mis",
-           "chain+majorant+terms"))
+           "chain+majorant+terms"),
+          ("wide_mis+rows", "no_delta_wide+rows"),
+          ("table_wide+rows", "chain_mis_wide+rows"))
 assert sorted(sum(GROUPS, ())) == sorted(CASES)
+
+
+def jax_sources(spec):
+    """The JAX package's fields of ``chip_smoke.py::sweep_sources``."""
+    from dcrmontecarlo_tpu.problems import fields as jf
+
+    rows, out = dict(spec["rows"]), []
+    for i in range(spec["n_src"]):
+        kind, *a = cs.SWEEP_ROWS[rows[i]] if i in rows else ("dipole",)
+        if kind == "dipole":
+            out.append(jf.gaussian_dipole(
+                *cs.SWEEP_DIPOLES[i % len(cs.SWEEP_DIPOLES)], 1.0,
+                cs.SWEEP_WIDTH))
+        elif kind == "constant":
+            out.append(jf.constant(a[0]))
+        elif kind == "bump_sum":
+            disk = jf.smooth_circle(a[2], a[3], a[4])
+            out.append(lambda x, y, a=a, disk=disk: a[0] + a[1] * disk(x, y))
+        elif kind == "gaussian_bump":
+            out.append(jf.gaussian_bump(*a))
+        else:
+            out.append(lambda x, y, a=a: a[0] * x + a[1] * y)
+    return out
 
 
 def jax_problem(spec):
@@ -60,8 +87,7 @@ def jax_problem(spec):
     from dcrmontecarlo_tpu.geometry import Polyline
     from dcrmontecarlo_tpu.models.dcr_scenarios import \
         _anomalous_conductivity
-    from dcrmontecarlo_tpu.problems.fields import GaussianMixture, \
-        gaussian_dipole
+    from dcrmontecarlo_tpu.problems.fields import GaussianMixture
     from dcrmontecarlo_tpu.problems.majorant import LocalMajorant
 
     dirichlet, neumann = cs.sweep_boundary(spec["geometry"])
@@ -72,8 +98,7 @@ def jax_problem(spec):
     bc = {"zero": lambda x, y: 0.0 * x, "poly": lambda x, y: x + y,
           "grid": lambda x, y: 0.5 + 0.3 * x - 0.2 * y + 0.1 * x * y}[
               spec["bc"]]
-    sources = [gaussian_dipole(a, b, 1.0, cs.SWEEP_WIDTH)
-               for a, b in cs.SWEEP_DIPOLES[:spec["n_src"]]]
+    sources = jax_sources(spec)
     a, b = cs.SWEEP_DIPOLES[0]
     return Problem(
         dirichlet=Polyline.from_points(dirichlet),

@@ -278,9 +278,18 @@ def _sources_over_kernel_table():
 
 
 def _wide_source_not_dipole():
-    # the wide form takes Gaussian dipoles from the fifth source on
+    # a constant fifth source: the wide form's general rows build
     p = _line_problem(wk.MAX_SRC)
     p.set_source_term(p.source_fields + [fields.constant(1.0)])
+    return _kernel_params(p)
+
+
+def _wide_source_grid():
+    # a gridded fifth source: the grid is Dirichlet data only
+    p = _line_problem(wk.MAX_SRC)
+    xs = np.linspace(-50.0, 50.0, 11)
+    p.set_source_term(p.source_fields + [
+        grid_continuation(xs, xs, np.zeros((11, 11)))])
     _kernel_params(p).pack()
 
 
@@ -348,7 +357,7 @@ UNPORTED = {
     "majorant_over_kernel_table": _majorant_over_kernel_table,
     "mis_over_kernel_table": _mis_over_kernel_table,
     "sources_over_kernel_table": _sources_over_kernel_table,
-    "wide_source_not_dipole": _wide_source_not_dipole,
+    "wide_source_grid": _wide_source_grid,
     "terms_over_kernel_table": _terms_over_kernel_table,
     "compaction_pack": lambda: _survey_solver(
         compaction="pack").solve([[0.0, -1.0]], 8, 5, EPS),
@@ -387,6 +396,10 @@ ONCE_UNPORTED = {
         _grid_on_gridless_instantiation,
         (wk.ROBIN_OFF, False, False, False, False, True, False, False,
          True)),
+    "wide_source_not_dipole": (
+        _wide_source_not_dipole,
+        (wk.ROBIN_OFF, False, False, False, False, True, False, True,
+         False, False, True)),
 }
 
 
