@@ -19,7 +19,8 @@ A checkout that builds variants on demand builds the ``SCRIPT_VARIANTS``
 of the ``chip_smoke.py`` beside the copy that runs (this one's: the 40
 the script launches, the paths' 21, phases 40-41's two freeze builds,
 phase 46's general rows build and the sweep's sixteen, of which an
-older checkout builds only its own 35); an older one its fixed set.
+older checkout builds only its own 35), and a checkout with large-table
+builds those of its ``LARGE_VARIANTS`` too; an older one its fixed set.
 """
 
 import hashlib
@@ -42,12 +43,22 @@ variants, build_variants = (chip_smoke().SCRIPT_VARIANTS,
                             chip_smoke().build_variants)
 
 paths, build_s, log = build_variants(wk, variants)
+# and the large-table builds, in a checkout that has them
+large = getattr(chip_smoke(), "LARGE_VARIANTS", ()) if hasattr(
+    wk, "large_scans") else ()
+if large:
+    more, more_s, more_log = wk.build_library(large, large=large)
+    paths.update(more)
+    build_s += more_s
+    log += more_log
 regs = {}
 for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "
                      r"registers", log, re.S):
     regs[m.group(1)] = int(m.group(2))
 cuobjdump = os.path.join(os.path.dirname(wk._nvcc()), "cuobjdump")
 names = {wk.variant_code(v): wk.kernel_name(v) for v in variants}
+names.update({wk.build_code(v, True): wk.kernel_name(v) + " (large)"
+              for v in large})
 print(f"{tag}: {len(paths)} libraries in {build_s:.1f} s", flush=True)
 for code in sorted(paths):
     sass = subprocess.run([cuobjdump, "-sass", str(paths[code])],

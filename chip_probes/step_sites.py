@@ -241,13 +241,16 @@ STEP_EDITS = (
      "      SITE_BEGIN(FIRST_HIT)\n      const float t_best =\n"
      "          first_hit<TABLE>(px, py, dx, dy, tmw, %(lim)sfnx, fny, hxs, "
      "hys);\n      SITE_END(FIRST_HIT)\n"),
-    ("    float r = fmaxf(rmin, C.n_vert > 0\n"
-     "                              ? fminf(dD, silhouette<TABLE>(px, py))\n"
-     "                              : dD);\n",
-     "    SITE_BEGIN(SILHOUETTE)\n"
-     "    float r = fmaxf(rmin, C.n_vert > 0\n"
-     "                              ? fminf(dD, silhouette<TABLE>(px, py))\n"
-     "                              : dD);\n    SITE_END(SILHOUETTE)\n"),
+    tuple(zip(*[  # the spelling this tree has (the macro, or the call)
+        ("    float r = fmaxf(rmin, C.n_vert > 0\n"
+         f"                              ? fminf(dD, {call})\n"
+         "                              : dD);\n",
+         "    SITE_BEGIN(SILHOUETTE)\n"
+         "    float r = fmaxf(rmin, C.n_vert > 0\n"
+         f"                              ? fminf(dD, {call})\n"
+         "                              : dD);\n    SITE_END(SILHOUETTE)\n")
+        for call in ("STAR_SILHOUETTE(px, py, dD)",
+                     "silhouette<TABLE>(px, py)")])),
     ("        r_s = screened_radius(r, sbar, seed, ctr, sid, C.rounds, "
      "w_rej);\n",
      "      {\n        SITE_BEGIN(RADIUS)\n"

@@ -20,6 +20,14 @@ MIS's star test is not replayed (its sample needs the step's whole draw),
 nor the majorant's shrinking of the star radius (the replay keeps more
 rows).
 
+``replay_large(params, state)`` replays the large-table build's scans as
+the kernel runs them (``walk_kernel.large_scans``): the silhouette's
+group and chunk records (``sil_skips``: the box distance against the
+running minimum from ``dD^2 (1 + 2^-20)``, and the oriented cone), in row
+order, and the first hit's group records (``group_skips``) above its
+chunks, all in float32 with the kernel's margins; it counts the rows and
+the records a lane and a warp read a step.
+
 ``replay(params, state)`` returns a dict per chunk size and scan; as a
 script it runs ``chip_smoke.py`` phase 20's configuration (the terrain,
 294,912 lanes) for 256 steps on the card and replays the end planes,
@@ -75,6 +83,48 @@ def _hit_skips(rec, px, py, dx, dy, tmw, lim):
     along = (sig > np.float32(2.0 ** -10)) & (
         ((tmw[:, None] - t_hi) * sig > m) | ((t_lo - lim[:, None]) * sig > m))
     return line | along
+
+
+def _group_skips(rec, px, py, dx, dy, tmw, lim):
+    """``group_skips`` of the kernel over ``(L, G)`` lanes and groups."""
+    c = lambda k: rec[None, :, k]
+    x0, x1 = c(0) - px[:, None], c(2) - px[:, None]
+    y0, y1 = c(1) - py[:, None], c(3) - py[:, None]
+    rb = x0.abs() + x1.abs() + y0.abs() + y1.abs()
+    dxc, dyc = dx[:, None], dy[:, None]
+    sig = (dxc * c(5) - dyc * c(4)).abs() - c(6)
+    ex = torch.clamp(torch.maximum(x0, -x1), min=0.0)
+    ey = torch.clamp(torch.maximum(y0, -y1), min=0.0)
+    far = (sig > np.float32(2.0 ** -10)) & (
+        (torch.maximum(ex, ey) * np.float32(1.0 - 2.0 ** -16)
+         - lim[:, None]) * sig > rb * np.float32(2.0 ** -11))
+    return _hit_skips(rec, px, py, dx, dy, tmw, lim) | far
+
+
+def _sil_skips(rec, px, py, best):
+    """``sil_skips`` of the kernel: ``(L,)`` lanes against one record."""
+    r = [rec[k] for k in range(12)]
+    ex = torch.clamp(torch.maximum(r[4] - px, px - r[6]), min=0.0)
+    ey = torch.clamp(torch.maximum(r[5] - py, py - r[7]), min=0.0)
+    near = ex * ex + ey * ey >= best
+    x0, x1, y0, y1 = r[0] - px, r[2] - px, r[1] - py, r[3] - py
+    rb = torch.maximum(x0.abs(), x1.abs()) + torch.maximum(y0.abs(), y1.abs())
+    my0, my1, mx0, mx1 = r[8] * y0, r[8] * y1, r[9] * x0, r[9] * x1
+    f_lo = torch.minimum(my0, my1) - torch.maximum(mx0, mx1)
+    f_hi = torch.maximum(my0, my1) - torch.minimum(mx0, mx1)
+    tol = (r[10] + np.float32(2.0 ** -16)) * rb + np.float32(1e-20)
+    return near | (f_lo > tol) | (f_hi < -tol)
+
+
+def _warp_any(mask, go):
+    """``(W, K)``: whether any stepping lane of each warp of ``WARP``
+    consecutive lanes has ``mask`` (``(L, K)``), and the warps that
+    step."""
+    n = go.numel()
+    pad = (-n) % WARP
+    v = torch.nn.functional.pad(mask & go[:, None], (0, 0, 0, pad))
+    warps = torch.nn.functional.pad(go, (0, pad)).view(-1, WARP).any(1)
+    return v.view(-1, WARP, v.shape[1]).any(1), warps
 
 
 def _boxes(points, per):
@@ -206,6 +256,112 @@ def replay(params, state, sizes=SIZES):
             res["silhouette_nearest_first"] = _counts(vis, sizes(len(vert_t)),
                                                       go)
         out[per] = res
+    return out
+
+
+def _step_inputs(P, state):
+    """The lanes that step from ``state`` and their scans' inputs: ``go,
+    px, py, dD, r, dx, dy, tmw`` (float32, as the kernel forms them)."""
+    dev = state["px"].device
+    flat = {k: v.reshape(-1) for k, v in state.items()}
+    px, py = flat["px"], flat["py"]
+    dD, _, _ = wk._closest_point(P, px, py)
+    go = (flat["quota"] > 0) & (dD > P.eps) & (flat["steps"] < P.max_steps)
+    r = dD
+    if len(P.vert_table):
+        r = torch.minimum(dD, wk._silhouette(P, px, py))
+    r = torch.clamp(r, min=P.rmin)
+    ctr = (wk.rng.mul32(flat["ndone"].to(torch.int64), P.max_steps + 2)
+           + flat["steps"].to(torch.int64)) & wk.rng.MASK32
+    sid = flat["sid"].to(torch.int64) & wk.rng.MASK32
+    (u1,) = wk._uniforms(P.seed, ctr, sid, (1,))
+    phi = math.pi * u1
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    ob = flat["ob"] != 0
+    dx = torch.where(ob, flat["nx"] * sphi + flat["ny"] * cphi,
+                     1.0 - 2.0 * sphi * sphi)
+    dy = torch.where(ob, flat["ny"] * sphi - flat["nx"] * cphi,
+                     2.0 * sphi * cphi)
+    tmw = torch.where(ob, torch.tensor(P.t_min, device=dev),
+                      torch.tensor(0.0, device=dev)).float()
+    return go, px, py, dD, r, dx, dy, tmw
+
+
+def replay_large(params, state):
+    """Rows and records a step of the large-table build's scans reads
+    from ``state``: ``{"lanes", "silhouette": {...}, "first_hit": {...}}``,
+    each with ``lane`` and ``warp`` (rows a lane visits; the rows of the
+    union of a warp's lanes' chunks, which the warp runs), ``lane_records``
+    and ``warp_records`` (group and chunk records tested; a warp tests a
+    chunk's record where any of its lanes enters the chunk's group),
+    ``groups`` (a lane's visited groups) and ``all`` (the rows)."""
+    P = params
+    dev = state["px"].device
+    go, px, py, dD, r, dx, dy, tmw = _step_inputs(P, state)
+    n_l = px.numel()
+    out = {"lanes": int(go.sum())}
+    grp = wk.GROUP_CHUNKS
+
+    def counts(chunk_visit, group_visit, rows_per, n_rows):
+        n_ch = chunk_visit.shape[1]
+        sizes = torch.as_tensor([min(rows_per, n_rows - c * rows_per)
+                                 for c in range(n_ch)], device=dev).float()
+        gsz = torch.as_tensor([min(grp, n_ch - g * grp)
+                               for g in range(group_visit.shape[1])],
+                              device=dev).float()
+        union_c, warps = _warp_any(chunk_visit, go)
+        union_g, _ = _warp_any(group_visit, go)
+        n_g = group_visit.shape[1]
+        return dict(
+            lane=float((chunk_visit.float() @ sizes)[go].mean()),
+            warp=float((union_c.float() @ sizes)[warps].mean()),
+            lane_records=float(n_g + (group_visit.float() @ gsz)[go].mean()),
+            warp_records=float(n_g + (union_g.float() @ gsz)[warps].mean()),
+            groups=float(group_visit[go].float().sum(1).mean()),
+            all=int(n_rows))
+
+    if len(P.neu_table):
+        hit = torch.as_tensor(wk.chunk_records(P.neu_table), device=dev)
+        hgrp = torch.as_tensor(wk.chunk_records(P.neu_table,
+                                                wk.CHUNK_ROWS * grp),
+                               device=dev)
+        gvis = ~_group_skips(hgrp, px, py, dx, dy, tmw, r)
+        cvis = ~_hit_skips(hit, px, py, dx, dy, tmw, r)
+        cvis &= gvis.repeat_interleave(grp, 1)[:, :cvis.shape[1]]
+        out["first_hit"] = counts(cvis, gvis, wk.CHUNK_ROWS,
+                                  len(P.neu_table))
+    if len(P.vert_table):
+        vt = torch.as_tensor(P.vert_table, device=dev)
+        ax, ay, bx, by, cx, cy = vt.T
+        apx, apy = px[:, None] - ax, py[:, None] - ay
+        bpx, bpy = px[:, None] - bx, py[:, None] - by
+        sgn = (((bx - ax) * apy - (by - ay) * apx)
+               * ((cx - bx) * bpy - (cy - by) * bpx))
+        d2 = torch.where(sgn < 0, bpx * bpx + bpy * bpy,
+                         float(np.float32(3e38)))
+        best = torch.full((n_l,), float(np.float32(3e38)), device=dev)
+        seed = torch.minimum(best, dD * dD * np.float32(1.0 + 2.0 ** -20))
+        best = torch.where(torch.sqrt(seed) >= dD, seed, best)
+        sch = torch.as_tensor(wk.silhouette_records(P.vert_table),
+                              device=dev)
+        sgr = torch.as_tensor(wk.silhouette_records(
+            P.vert_table, wk.SIL_ROWS * grp), device=dev)
+        n_ch, n_g = len(sch), len(sgr)
+        cvis = torch.zeros(n_l, n_ch, dtype=torch.bool, device=dev)
+        gvis = torch.zeros(n_l, n_g, dtype=torch.bool, device=dev)
+        for g in range(n_g):
+            gvis[:, g] = ~_sil_skips(sgr[g], px, py, best)
+            for ch in range(g * grp, min(n_ch, (g + 1) * grp)):
+                v = gvis[:, g] & ~_sil_skips(sch[ch], px, py, best)
+                cvis[:, ch] = v
+                rows = d2[:, ch * wk.SIL_ROWS:(ch + 1) * wk.SIL_ROWS]
+                low = torch.where(v[:, None], rows, float("inf")).min(1)
+                best = torch.minimum(best, low.values)
+        full = torch.sqrt(d2.min(1).values)
+        same = torch.minimum(dD, torch.sqrt(best)) == torch.minimum(dD, full)
+        assert bool(same[go].all()), "the replayed cull changed a radius"
+        out["silhouette"] = counts(cvis, gvis, wk.SIL_ROWS,
+                                   len(P.vert_table))
     return out
 
 

@@ -29,16 +29,17 @@ and the main path's survey with
 the transport sampler and with MIS at full size (phase 43), and the
 scenario's dipole-dipole pseudosection at the main path's size (phase
 44), and the topographic survey over a 5 cm DEM, a boundary of 16,002
-rows, past the 8,192 the JAX package's fused kernel holds (phase 45), and
+rows, past the 8,192 the JAX package's fused kernel holds, in the table
+variant's large-table build (phase 45), and
 a pole-pole line of nine unit current poles, the wide form's general rows
 at the main path's size (phase 46). Each phase reports on its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
    variant the script launches (``SCRIPT_VARIANTS``: the paths' 21,
-   phases 40-41's two, phase 46's one, the sweep's sixteen), one ``nvcc``
-   process per
-   CPU at a time; at the end, no library was built after it and as many
+   phases 40-41's two, phase 46's one, the sweep's sixteen) and one per
+   large-table build (``LARGE_VARIANTS``: phase 45's), one ``nvcc``
+   process per CPU at a time; at the end, no library was built after it and as many
    were loaded. The freeze builds and the chain builds without the
    freeze (``walk_variant.h::repacked``) run the repack loop
    (``csrc/walk_kernel.cu``, ``walk_repacked``): its block size, round
@@ -137,7 +138,8 @@ at the main path's size (phase 46). Each phase reports on its own line:
 16. the table form, one launch: ``topographic_survey_problem()`` at its
     defaults (200 Neumann segments, 199 vertices: 402 rows), 9 electrodes
     draped at x = -40..40, 8,192 lanes, 256 steps of kernel and plain
-    version, timed and held to the rule of phase 3; the silhouettes act
+    version, timed and held to the rule of phase 3, in the culled table
+    build (below ``walk_kernel.LARGE_TABLE_ROWS``); the silhouettes act
     (the same launch without the vertex table changes >= 1% of lanes in
     ``px`` or ``atten``); and a 100-segment square whose right edge is its
     table's last three rows keeps every walker inside.
@@ -151,8 +153,9 @@ at the main path's size (phase 46). Each phase reports on its own line:
     electrodes x 512 walks, eps 0.5, max_steps 600, under phase 4's rule.
 20. full size of the topographic path: the defaults, the 9 electrodes x
     2^17 walks, ``SolverOptions(target_slots=1<<21)`` (294,912 lanes),
-    eps 0.5, max_steps 600: a warm-up and 3 timed solves as in phase 6
-    (with the share of walks the step cap truncated), the physics of
+    eps 0.5, max_steps 600: a warm-up (every launch the culled table
+    build) and 3 timed solves as in phase 6 (with the share of walks the
+    step cap truncated), the physics of
     ``tests/test_topography.py`` (the +20 m side positive, the -20 m side
     negative, every |potential| < 1), then 256 steps of kernel and plain
     version at that state. The topographic variant's record takes its
@@ -349,17 +352,20 @@ at the main path's size (phase 46). Each phase reports on its own line:
     ``topographic_survey_problem(resolution=0.05)`` (8,000 Neumann
     segments, 7,999 vertices: 16,002 rows), phase 20's electrodes,
     walks and options otherwise (294,912 lanes): a warm-up (its launches
-    counted, every one the culled table build) and 3 timed solves (as
-    phase 20), phase 20's physics gate; each potential's difference from
+    counted, by build: every one the culled table variant's large-table
+    build, ``walk_kernel.large_scans``) and 3 timed solves (as phase 20),
+    phase 20's physics gate; each potential's difference from
     phase 20's warm-up in combined standard errors and both truncated
     shares, printed, not a gate; 256 steps of kernel and plain version
-    on 8,192 lanes of a fresh state under phase 3's rule, the rows a step
-    visits and the bound over every row and over those; a sharded solve
+    on 8,192 lanes of a fresh state under phase 3's rule, the rows and
+    records a step reads (``chip_probes/table_cull.py::replay_large``) and
+    the bound over every row and over those; a sharded solve
     on ``make_mesh(4)`` at 9 x 2^15 walks within 4 sigma of one device's
     of the same size and seed; a sharded solve at 9 x 128 walks of at
     most 200 steps with the kernel and with the plain version on the same
-    four shards, under phase 36's rule. The table build's record at 16,002 rows
-    (``topography_table_16002``) takes its numbers from here.
+    four shards, under phase 36's rule, every launch the large-table
+    build. The large-table build's record (``topography_table_16002``)
+    takes its numbers from here.
 46. full size, a pole-pole line (``pole_line_phase``, ``pole_config``):
     ``survey_config()``'s survey, electrodes and options with nine unit
     current poles (``fields.gaussian_bump`` at the buried electrodes, the
@@ -618,11 +624,12 @@ DEALT_AUX = ("walk_plan_tiles", "walk_plan_scan", "walk_plan_offsets",
              "walk_fold")
 
 
-def built_kernels(wk, v):
-    """The ``ptxas_report`` keys of variant ``v``'s library: its kernel,
-    the shards' kernel without the freeze, and in ``walk_kernel.dealt``'s
+def built_kernels(wk, v, large=False):
+    """The ``ptxas_report`` keys of variant ``v``'s library (its
+    large-table build with ``large``, ``built_report``): its kernel, the
+    shards' kernel without the freeze, and in ``walk_kernel.dealt``'s
     builds the dealt loop and its plan and fold kernels."""
-    name = wk.kernel_name(v)
+    name = wk.kernel_name(v) + (" (large)" if large else "")
     out = {name} | ({name + " (shards)"} if not v[3] else set())
     if wk.dealt(v):
         out |= {name + " (dealt)"} | {dealt_aux_name(k, v[7])
@@ -635,15 +642,19 @@ def ptxas_registers(build_log):
     return {k: v["registers"] for k, v in ptxas_report(build_log).items()}
 
 
-def built_report(wk, variants):
-    """``ptxas_report`` over the libraries of ``variants`` this process
-    built, each from its own log (``walk_kernel.build_logs``), so that a
-    general rows build's kernels take its name."""
+def built_report(wk, variants, large=()):
+    """``ptxas_report`` over the libraries of ``variants`` (and of the
+    large-table builds of ``large``) this process built, each from its own
+    log (``walk_kernel.build_logs``), so that a general rows build's
+    kernels take its name and a large-table build's ``" (large)"`` after
+    the kernel's name, as ``WalkParams.build_name``."""
     out = {}
-    for v in variants:
-        text = wk.build_logs.get(wk.variant_code(v))
+    for v, big in [(v, False) for v in variants] + [(v, True)
+                                                     for v in large]:
+        text = wk.build_logs.get(wk.build_code(v, big))
         if text:
-            out.update(ptxas_report(text, rows=wk._switches(v)[10]))
+            for k, r in ptxas_report(text, rows=wk._switches(v)[10]).items():
+                out[k.replace(">", "> (large)", 1) if big else k] = r
     return out
 
 
@@ -896,6 +907,11 @@ def field_ops(spec):
 TRANSPORT_OPS = 33 + 29 * 24 + 27 * 11 + 46 + 8 + 120
 
 
+# a record test's least operations: hit_skips' line test (hit_skips,
+# group_skips) and sil_skips' distance test
+HIT_REC_OPS, SIL_REC_OPS = 21, 10
+
+
 def fp32_ops_per_step(params, rows=None):
     """A lower bound on the FP32 operations of one walker-step of the
     instantiation ``params`` selects, counted by hand from
@@ -917,18 +933,26 @@ def fp32_ops_per_step(params, rows=None):
     (4 in place of the screened Green's function's 102) and no alpha. The
     sources and mixture components count one by one (the wide form's
     too). ``rows`` (``cull_rows``): the Neumann rows a lane's culled first
-    hit visits a step, counted in place of every Neumann row of that scan
-    (the other scans visit every row)."""
+    hit visits a step, counted in place of every Neumann row of that scan,
+    and the records it tests; in the large-table build also the
+    silhouette's rows and records (the other scans visit every row)."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
+    records = 0.0
     if rows is not None:
-        n_neu = rows["first_hit"]["lane"] if n_neu else 0
+        hit = rows["first_hit"]
+        n_neu = hit["lane"] if n_neu else 0
+        records += HIT_REC_OPS * hit["lane_records"] if n_neu else 0.0
+        if "silhouette" in rows:
+            n_vert = rows["silhouette"]["lane"]
+            records += SIL_REC_OPS * rows["silhouette"]["lane_records"]
     alpha = field_ops(params.specs[1]) + 1      # alpha_c
     src = sum(field_ops(f) for f in params.specs[3:])
     cp_row, hit_row, sil_row = (22, 23, 20) if params.table else (18, 22, 16)
     ops = cp_row * n_dir + 2                    # closest point
     ops += 9 + 6 + hit_row * n_neu              # radius, direction, hit
     ops += sil_row * n_vert + (2 if n_vert else 0)  # silhouette radius
+    ops += records                              # culled scans' records
     if not params.delta:
         ops += 4                                # counters
         if params.mis_table is not None:
@@ -987,38 +1011,48 @@ def kernel_record(params, variant, launches, timed, regs, tolerance,
         "bound_visited_ms": bound(params, timed["lanes"], timed["steps"], 1,
                                   rows)[0],
         "rows_visited": round(rows["first_hit"]["lane"], 2)}
-    return {"name": params.kernel_name, "variant": variant, "route": "cuda",
+    if rows is not None and "silhouette" in rows:
+        extra["silhouette_rows_visited"] = round(rows["silhouette"]["lane"],
+                                                 2)
+    return {"name": params.build_name, "variant": variant, "route": "cuda",
             "source": SOURCE, "replaces": replaces, "launches": launches,
             "max_abs_err": timed["max_err"], "ms": timed["ms"],
             "plain_ms": timed["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "lanes": timed["lanes"], "walker_steps": timed["steps"],
             "agree_frac": timed["worst"],
-            "registers": regs.get(params.kernel_name + (
+            "registers": regs.get(params.build_name + (
                 " (shards)" if len(params.shard_seeds) > 1 else "")),
             "tolerance": tolerance, **extra}
 
 
 def cull_rows(wk, params, state):
-    """Rows a step's culled first hit visits from ``state`` (the host
-    replay of the kernel's skip test at its chunks,
-    ``chip_probes/table_cull.py``): ``{"first_hit": {lane, warp, pairs,
-    all}}``; None outside the culled build."""
+    """Rows and records a step's culled scans read from ``state`` (the
+    host replay of the kernel's skip tests, ``chip_probes/table_cull.py``):
+    ``{"first_hit": {lane, warp, lane_records, ..., all}}``, in the
+    large-table build also ``"silhouette"`` (``replay_large``); None
+    outside the culled variant."""
     if not wk.culled_scans(params.variant):
         return None
     from chip_probes import table_cull as tc
 
+    if params.large:
+        out = tc.replay_large(params, state)
+        return {k: out[k] for k in ("first_hit", "silhouette") if k in out}
     rows = tc.replay(params, state, sizes=(wk.CHUNK_ROWS,))[wk.CHUNK_ROWS]
-    return {"first_hit": rows["first_hit"]}
+    n_ch = -(-len(params.neu_table) // wk.CHUNK_ROWS)
+    return {"first_hit": dict(rows["first_hit"], lane_records=n_ch,
+                              warp_records=n_ch)}
 
 
 def cull_text(rows):
     """``cull_rows`` as a log phrase."""
     if rows is None:
         return "full scans"
-    v = rows["first_hit"]
-    return (f"first hit {v['lane']:.1f} rows a lane, {v['warp']:.1f} a warp "
-            f"of {v['all']}")
+    return "; ".join(
+        f"{k.replace('_', ' ')} {v['lane']:.1f} rows a lane, {v['warp']:.1f} "
+        f"a warp of {v['all']}, {v['lane_records']:.1f} records a lane, "
+        f"{v['warp_records']:.1f} a warp" for k, v in rows.items())
 
 
 def life_steps(before, after):
@@ -1040,18 +1074,20 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
     (or ``warm_up()``, a product's entry point) with the launch counts set
     to 0 just before it and read just after, then ``reps`` timed solves
     whose walk launches are bracketed by CUDA events.
-    Returns a dict of the counts (by instantiation, and by loop:
-    ``loops``), each solve's launches and clones, the
+    Returns a dict of the counts (by instantiation, by build:
+    ``builds``, and by loop: ``loops``), each solve's launches and clones, the
     walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
     lanes x longest lane), the kernel's share of each solve's wall time
     and the longest lane."""
     wk.run_walk.launches = 0
     wk.run_walk.variant_launches.clear()
+    wk.run_walk.build_launches.clear()
     wk.run_walk.loop_launches.clear()
     warm = (warm_up() if warm_up is not None else
             solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
                          seed=0))                              # warm-up
     counts = dict(wk.run_walk.variant_launches)
+    builds = dict(wk.run_walk.build_launches)
     loops = dict(wk.run_walk.loop_launches)
     check(sum(counts.values()) == wk.run_walk.launches > 0,
           f"{what}: the full-size solve launched {counts}")
@@ -1082,7 +1118,7 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
         lane_steps += float(lanes) * res.iterations
         check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
               f"{what}: full-size solve not finite")
-    return dict(counts=counts, loops=loops, stats=stats,
+    return dict(counts=counts, builds=builds, loops=loops, stats=stats,
                 rate=steps / sum(times),
                 times=times, steps=steps / reps, occupancy=steps / lane_steps,
                 share=share, longest=res.iterations, warm=warm, trunc=trunc,
@@ -1372,6 +1408,10 @@ SCRIPT_VARIANTS = PATH_VARIANTS + (
     (0, False, False, True, False, True, False, False, False),
     (0, True, True, True, True, True, False, False, False),
     POLE_VARIANT) + tuple(c[1] for c in SWEEP)
+# the variants whose large-table build the script launches (phase 45's:
+# the culled table variant past walk_kernel.LARGE_TABLE_ROWS rows)
+LARGE_VARIANTS = ((0, False, False, False, True, True, False, False,
+                   False),)
 SWEEP_DEFAULTS = dict(geometry="box", alpha="bumps", bc="zero", n_src=1,
                       mis=False, majorant=False, robin=False, split=None,
                       sampler="exact", rows=())
@@ -2435,22 +2475,23 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
     """Phase 45: ``topographic_survey_problem(resolution=0.05)`` (8,000
     Neumann segments, 7,999 vertices: 16,002 rows, past the JAX Pallas
     kernel's 8,192), phase 20's electrodes, walks and options otherwise:
-    a warm-up (every launch the culled table build) and 3 timed solves,
-    the physics of ``tests/test_topography.py``, each potential's
+    a warm-up (every launch the culled table variant's large-table build,
+    ``walk_kernel.large_scans``) and 3 timed solves, the physics of
+    ``tests/test_topography.py``, each potential's
     difference from phase 20's warm-up in combined standard errors and
     both warm-ups' truncated shares (printed, not a gate: the step cap
     truncates either); 256 steps of kernel and plain version on the first
     ``P45_PLAIN_LANES`` lanes of a fresh state under phase 3's rule, the
-    rows a step visits and the bound over all 16,002 rows and over those;
+    rows and records a step reads and the bound over all 16,002 rows and
+    over those;
     a sharded solve on ``make_mesh(4)`` at 9 x ``P45_SHARDED_WALKS``
     walks, every potential within 4 sigma of a single-device solve of the
     same size and seed; and a sharded solve at 9 x
     ``P45_SHARDED_PLAIN_WALKS`` walks of at most
     ``P45_SHARDED_PLAIN_STEPS`` steps (a slot a walk, 128-lane blocks)
     with the kernel and with the plain version on the same shards
-    (``kernel_vs_plain``), every launch the culled build. Appends the
-    table build's record at this size. Returns the ``full_size_solves``
-    result."""
+    (``kernel_vs_plain``), every launch the large-table build. Appends
+    its record. Returns the ``full_size_solves`` result."""
     from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
         topographic_survey_problem
     from dcrmontecarlo_tpu_torch.parallel import ShardedWoStSolver, \
@@ -2470,12 +2511,15 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
     state, params, _, _ = solver._setup(pts, n_walks, max_steps, eps, 5)
     culled = wk.kernel_name((wk.ROBIN_OFF, False, False, False, True, True,
                              False, False, False))
+    large = culled + " (large)"
     check(state["px"].numel() == P2_LANES and params.table
           and params.kernel_name == culled
-          and wk.culled_scans(params.variant)
-          and set(f["counts"]) == {culled} and f["loops"] == {"lanes": 1},
-          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, the "
-          f"warm-up launched {f['counts']}, by loop {f['loops']}")
+          and wk.culled_scans(params.variant) and params.large
+          and params.build_name == large
+          and set(f["counts"]) == {culled} and set(f["builds"]) == {large}
+          and f["loops"] == {"lanes": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.build_name}, the "
+          f"warm-up launched {f['builds']}, by loop {f['loops']}")
     warm, warm20 = f["warm"], f20["warm"]
     i_pos = int(np.argmin(np.abs(TOPO_XS + 20)))
     i_neg = int(np.argmin(np.abs(TOPO_XS - 20)))
@@ -2486,14 +2530,14 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
     walks = len(pts) * n_walks
     log(f"[45] full size 9x{n_walks} walks, {P2_LANES} lanes, {rows} rows "
         f"({len(params.neu_table)} Neumann segments, "
-        f"{len(params.vert_table)} vertices; {params.kernel_name}, "
-        f"{regs.get(params.kernel_name)} registers): walker_steps_per_sec "
+        f"{len(params.vert_table)} vertices; {params.build_name}, "
+        f"{regs.get(params.build_name)} registers): walker_steps_per_sec "
         f"{f['rate']:.6g} s/solve {f['times']} steps/solve "
         f"{f['steps']:.6g} longest lane {f['longest']} steps, lane "
         f"occupancy {f['occupancy']:.4f}, truncated share "
         f"{[round(v, 4) for v in f['trunc']]}, kernel share "
         f"{[round(v, 4) for v in f['share']]}, launches of the warm-up "
-        f"solve {f['counts']}, by loop {f['loops']}; potentials "
+        f"solve {f['builds']}, by loop {f['loops']}; potentials "
         f"{np.round(warm.mean, 5).tolist()} ({card})")
     log(f"[45] against phase 20 (402 rows, the same hills, electrodes and "
         f"walks; not a gate): (5 cm - 2 m) / combined stderr "
@@ -2505,14 +2549,14 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
     t = steps_256(wk, sub, params, what)
     cull = cull_rows(wk, params, t["end"])
     rec = kernel_record(params, "topography_table_16002",
-                        f["counts"][params.kernel_name], t, regs, tolerance,
+                        f["builds"][params.build_name], t, regs, tolerance,
                         rows=cull)
     log(f"[45] 256 steps x {t['lanes']} lanes: kernel {t['ms']:.3f} ms, "
         f"plain {t['plain_ms']:.3f} ms ({t['plain_ms'] / t['ms']:.1f}x); "
         f"worst plane agreement {t['worst']:.5f}, max |err| "
         f"{t['max_err']:.3g}, {t['steps']} walker-steps; rows a step visits "
-        f"after them: {cull_text(cull)}, silhouette and closest point every "
-        f"row; bound {rec['bound_ms']:.4f} ms over every row "
+        f"after them: {cull_text(cull)}, the closest point every row; bound "
+        f"{rec['bound_ms']:.4f} ms over every row "
         f"({rec['bound_by']}), {rec['bound_visited_ms']:.4f} ms over the "
         f"rows visited ({card})")
     records.append(rec)
@@ -2534,20 +2578,20 @@ def large_table_phase(wk, dev, card, regs, records, tolerance, f20):
         f"|sharded - one device| {np.round(z, 3).tolist()} sigma (bound 4)"
         f", {sharded_solver.last_solve_stats}; {t_sharded:.3f} s sharded, "
         f"{t_single:.3f} s one device ({card})")
-    # the sharded launches (the culled build's SHARDS instantiation) held
+    # the sharded launches (the large-table build's SHARDS kernel) held
     # to the plain version on the same shards: a slot a walk and 128-lane
     # blocks, so the plain host loop walks 9 x 128 lanes, not 64-row
     # blocks of padding, and walks of at most P45_SHARDED_PLAIN_STEPS
     # steps, one launch (the plain loop takes ~50 ms a step)
-    before = collections.Counter(wk.run_walk.variant_launches)
+    before = collections.Counter(wk.run_walk.build_launches)
     rk, rp, stats, t_k, t_p, q = kernel_vs_plain(
         wk, ShardedWoStSolver(prob, make_mesh(4), dataclasses.replace(
             options, min_quota=1, pallas_block_rows=1)),
         pts, P45_SHARDED_PLAIN_WALKS, P45_SHARDED_PLAIN_STEPS, eps, 11,
         f"{what} (sharded, 4 shards)")
-    grown = collections.Counter(wk.run_walk.variant_launches) - before
-    check(set(grown) == {culled}
-          and grown[culled] == stats["launches"] > 0,
+    grown = collections.Counter(wk.run_walk.build_launches) - before
+    check(set(grown) == {large}
+          and grown[large] == stats["launches"] > 0,
           f"{what}: the sharded solve launched {dict(grown)}, {stats}")
     log(f"[45] sharded 9x{P45_SHARDED_PLAIN_WALKS}, max_steps "
         f"{P45_SHARDED_PLAIN_STEPS}, 4 shards, kernel vs plain: max "
@@ -2694,18 +2738,20 @@ def main():
 
     site_pool = ThreadPoolExecutor(max_workers=len(SITE_VARIANTS))
     start_site_builds(wk, site_pool)
-    libs, build_s, _ = wk.build_library(SCRIPT_VARIANTS)
-    report = built_report(wk, SCRIPT_VARIANTS)
+    libs, build_s, _ = wk.build_library(SCRIPT_VARIANTS,
+                                        large=LARGE_VARIANTS)
+    report = built_report(wk, SCRIPT_VARIANTS, LARGE_VARIANTS)
     regs = {k: v["registers"] for k, v in report.items()}
     built = set(wk.build_logs)  # the codes built now, not found in _build
     # a build without the freeze holds a second kernel, for launches of
     # several shards
-    check(set(regs) == {k for v in SCRIPT_VARIANTS
-                        if wk.variant_code(v) in built
-                        for k in built_kernels(wk, v)},
+    check(set(regs) == {k for v, big in [(v, False) for v in SCRIPT_VARIANTS]
+                        + [(v, True) for v in LARGE_VARIANTS]
+                        if wk.build_code(v, big) in built
+                        for k in built_kernels(wk, v, big)},
           f"built {sorted(built)}, ptxas reported {regs}")
-    log(f"[2] {len(libs)} libraries, one per variant the script launches, "
-        f"in "
+    log(f"[2] {len(libs)} libraries, one per variant the script launches "
+        f"and the large-table build of {len(LARGE_VARIANTS)}, in "
         f"{os.path.relpath(os.path.dirname(next(iter(libs.values()))), ROOT)}"
         f": {len(built)} built in {build_s:.1f} s ({os.cpu_count()} nvcc "
         f"processes at a time), {len(libs) - len(built)} found there; "
@@ -3252,8 +3298,9 @@ def main():
     _, _, p16, t16 = launch_256(topo_prob, topo_pts, SolverOptions(),
                                 "phase 16", 8192, 600, 0.5, no_vertices)
     check(p16.table and p16.variant == (wk.ROBIN_OFF, False, False, False,
-                                        True, True, False, False, False),
-          f"phase 16 runs {p16}")
+                                        True, True, False, False, False)
+          and not p16.large and p16.build_name == p16.kernel_name,
+          f"phase 16 runs {p16.build_name}")
     # the JAX regression test_pallas_smem_sees_trailing_segments: a square
     # whose right edge is its table's last three rows
     sq = []
@@ -3358,8 +3405,9 @@ def main():
           f"phase 20 potentials break the survey's physics: {mean20}")
     state, params, _, _ = solver._setup(topo_pts, n_walks, max_steps, eps, 5)
     check(state["px"].numel() == 294912, "phase 20 state is not 294912 lanes")
-    check(set(f20["counts"]) == {params.kernel_name} and params.table,
-          f"the topographic path launched {f20['counts']}")
+    check(set(f20["counts"]) == {params.kernel_name} and params.table
+          and set(f20["builds"]) == {params.kernel_name} and not params.large,
+          f"the topographic path launched {f20['builds']}")
     log(f"[20] full size 9x{n_walks} walks, 294912 lanes, table form: "
         f"walker_steps_per_sec {f20['rate']:.6g} s/solve {f20['times']} "
         f"steps/solve {f20['steps']:.6g} longest lane {f20['longest']} "
@@ -4388,9 +4436,10 @@ def main():
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,
           f"built after phase 2: {sorted(set(wk.build_logs) - built)}")
-    check(wk._library.cache_info().currsize == len(SCRIPT_VARIANTS),
+    n_libs = len(SCRIPT_VARIANTS) + len(LARGE_VARIANTS)
+    check(wk._library.cache_info().currsize == n_libs,
           f"{wk._library.cache_info().currsize} libraries loaded, "
-          f"{len(SCRIPT_VARIANTS)} built")
+          f"{n_libs} built")
 
     p21s, t21s = t21["Poisson square + circle obstacle"]
     p21t, t21t = t21["table-form square"]

@@ -240,6 +240,12 @@ WALK_TRANSPORT, WALK_WIDE, WALK_GRID, WALK_TERMS, WALK_ROWS (nvcc_command)"
 #if WALK_ROWS && !WALK_WIDE
 #error "the general rows (WALK_ROWS) are the wide form's sources"
 #endif
+// the culled variant's large-table build (walk_variant.h::large_scans), a
+// build switch that ops/walk_kernel.py::variant_macros names only where it
+// is set
+#if !defined(WALK_LARGE)
+#define WALK_LARGE 0
+#endif
 
 #define F(x) ((float)(x))
 
@@ -252,6 +258,8 @@ constexpr bool CULLED = walk_rules::culled_scans(
 // a culled scan skips the chunks that chunk_skips rules out (false: it
 // visits every chunk, which is the full scan in row order)
 constexpr bool CHUNK_SKIP = true;
+static_assert(!WALK_LARGE || (CULLED && !WALK_ROWS),
+              "the large-table scans are the culled table build's");
 
 namespace {
 
@@ -294,6 +302,11 @@ constexpr int MAX_SHARDS = 64;
 // the table form's culled scans: rows per chunk, and a chunk record's
 // float4s (its box, the Neumann rows' direction cone)
 constexpr int CHUNK_ROWS = 8, CHUNK_F4 = 2;
+// the large-table build's (WALK_LARGE): vertex rows per silhouette chunk,
+// a silhouette record's float4s (the box of its a, b and c points, the box
+// of its b points, its oriented cone) and the chunks a group record
+// covers, in both scans
+constexpr int SIL_ROWS = 8, SIL_F4 = 3, GROUP_CHUNKS = 8;
 
 struct Field {
   int kind;
@@ -368,6 +381,14 @@ struct WalkConst {
   // the table form's chunk records (after the validation path's fields):
   // CHUNK_F4 float4 per chunk of CHUNK_ROWS Neumann rows (chunk_skips)
   const float4* chunk;
+#if WALK_LARGE
+  // the large-table build's records, in the chunks' buffer after them
+  // (ops/walk_kernel.py::large_records): the first hit's groups, the
+  // silhouette's chunks and groups
+  const float4* hit_group;
+  const float4* sil_chunk;
+  const float4* sil_group;
+#endif
 #if WALK_ROWS
   // the general rows build's sources MAX_SRC.. (in that build only, so
   // that the other builds' block stays as it was; before the shard table,
@@ -1020,6 +1041,94 @@ __device__ __forceinline__ bool hit_skips(float4 b, float4 c, float px,
 // full scan in row order)
 #define chunk_skips(test) (CHUNK_SKIP && (test))
 
+#if WALK_LARGE
+// The large-table build's first hit (WALK_LARGE) runs the chunks above a
+// level of group records (ops/walk_kernel.py::large_records: the records
+// chunk_records forms, over GROUP_CHUNKS chunks' rows at once) and visits
+// a group's chunks only where group_skips does not rule the group out; the
+// chunks and rows of a visited group run as above, in row order.
+//
+// whether no Neumann row of a group (box b, cone c, as a chunk's) can give
+// first_hit an accepted t in [tmw, lim]: hit_skips on the group, or a
+// distance test where every row crosses the ray at a sine of at least sig
+// > 2^-10. There a row's computed t lies within 2^-20 rb / sig of the t of
+// a point h of the box on the ray (the roundings of hit_skips' argument:
+// the cross products', the divide's and |den| >= sig |u|), and t |d| =
+// |h - p| is at least the box's distance from p, which fmaxf(ex, ey)
+// bounds from below to one rounding; with |d|^2 = 1 to 2^-17 a box with
+// (fmaxf(ex, ey) (1 - 2^-16) - lim) sig > 2^-11 rb holds no row with t <=
+// lim. A row nearly parallel to the ray has its t from rounding noise
+// (from the noise of cross products near zero: a ray along the line of a
+// far row can compute any t), so the distance test holds there only at a
+// sine bound, as hit_skips' t test does.
+__device__ __forceinline__ bool group_skips(float4 b, float4 c, float px,
+                                            float py, float dx, float dy,
+                                            float tmw, float lim) {
+  if (hit_skips(b, c, px, py, dx, dy, tmw, lim)) return true;
+  const float sig = fabsf(dx * c.y - dy * c.x) - c.z;
+  if (!(sig > F(0.0009765625))) return false;  // 2^-10
+  const float x0 = b.x - px, x1 = b.z - px, y0 = b.y - py, y1 = b.w - py;
+  const float rb = fabsf(x0) + fabsf(x1) + fabsf(y0) + fabsf(y1);
+  const float ex = fmaxf(fmaxf(x0, -x1), F(0.0));
+  const float ey = fmaxf(fmaxf(y0, -y1), F(0.0));
+  return (fmaxf(ex, ey) * F(0.9999847412109375) - lim) * sig >  // 1 - 2^-16
+         rb * F(4.8828125e-04);                                 // 2^-11
+}
+
+// The large-table build's silhouette (silhouette_large). The host cuts the
+// vertex rows [a, b, c] into chunks of SIL_ROWS rows and groups of
+// GROUP_CHUNKS chunks, each with a record of SIL_F4 float4s
+// (ops/walk_kernel.py::silhouette_records): the box of the float32 a, b
+// and c points, widened by 2^-20 of its largest coordinate; the box of the
+// b points, as they are; the oriented cone (mx, my, g): every ab = b - a
+// and bc = c - b of the record (as float32 differences of its points, a
+// zero one aside) has its unit direction u within |u - m| <= g (g rounded
+// up, with slack; 4, which skips nothing, where the directions spread past
+// |u - m| = 1, a segment is shorter than 1e-20 or none has a length). A
+// lane keeps best, the least d2 so far of a vertex that passes the sign
+// test, from min(3e38, dD^2 (1 + 2^-20)) (3e38 where the square root of
+// that lies below dD), and skips a record where sil_skips holds: no vertex
+// of it can lower best. Visited rows run silhouette's arithmetic, so
+// fminf(dD, silhouette_large) equals fminf(dD, silhouette) on every input:
+// a skipped vertex either fails the sign test or has d2 >= best, and fminf
+// over a set of values does not depend on their order, so best ends at
+// min(start, every passing d2); where that is the start dD^2 (1 + 2^-20)
+// (past every passing d2), both results are dD.
+//
+// whether no vertex of a silhouette record (box b of its a, b, c points, box
+// q of its b points, cone c) can lower best. The distance test: ex and ey
+// round as a row's bpx and bpy do (its b lies in q, and rounding is
+// monotone), so ex^2 + ey^2, rounded as the row's d2 is, bounds every d2 of
+// the record from below, exactly. The cone test: a segment from a point a
+// of the box along v = |v| u (the row's float32 edge) has cross(v, p - a) =
+// |v| (cross(m, p - a) + cross(u - m, p - a)), the second term at most
+// g |p - a| <= g rb (rb, the far corner's |dx| + |dy|, bounds |p - a| over
+// the box), the first -f(a), f(a) = cross(m, a - p) linear over the box,
+// so its corners bound it: f_lo > tol gives every segment a cross product
+// below -|v| (f_lo - g rb). The row
+// rounds its cross products to within 3 2^-24 |v| |p - a| + 2^-148 (each a
+// difference of two rounded products of rounded differences), and the test
+// its own f_lo to within 6 2^-24 rb: with tol = (g + 2^-16) rb + 1e-20 and
+// |v| >= 1e-20 (a zero edge's cross product is 0), every rounded cross
+// product of the record keeps that sign, so each vertex's product of its
+// two is >= 0 and fails the sign test; f_hi < -tol the same on the other
+// side.
+__device__ __forceinline__ bool sil_skips(float4 b, float4 q, float4 c,
+                                          float px, float py, float best) {
+  const float ex = fmaxf(fmaxf(q.x - px, px - q.z), F(0.0));
+  const float ey = fmaxf(fmaxf(q.y - py, py - q.w), F(0.0));
+  if (ex * ex + ey * ey >= best) return true;
+  const float x0 = b.x - px, x1 = b.z - px, y0 = b.y - py, y1 = b.w - py;
+  const float rb = fmaxf(fabsf(x0), fabsf(x1)) + fmaxf(fabsf(y0), fabsf(y1));
+  const float my0 = c.x * y0, my1 = c.x * y1, mx0 = c.y * x0, mx1 = c.y * x1;
+  // cross(m, corner - p), over the corners
+  const float f_lo = fminf(my0, my1) - fmaxf(mx0, mx1);
+  const float f_hi = fmaxf(my0, my1) - fminf(mx0, mx1);
+  const float tol = (c.z + F(1.52587890625e-05)) * rb + F(1e-20);  // 2^-16
+  return f_lo > tol || f_hi < -tol;
+}
+#endif
+
 // one Neumann row of the table form: the first-hit scan's step
 __device__ __forceinline__ void hit_row(int sgi, float px, float py,
                                         float dx, float dy, float tmw,
@@ -1097,7 +1206,18 @@ __device__ __forceinline__ float first_hit(float px, float py, float dx,
   hys = F(0.0);
   if constexpr (TABLE && CULLED) {
     const int n_ch = (C.n_neu + CHUNK_ROWS - 1) / CHUNK_ROWS;
+#if WALK_LARGE
+    const int n_grp = (n_ch + GROUP_CHUNKS - 1) / GROUP_CHUNKS;
+    for (int grp = 0; grp < n_grp; ++grp) {
+      const float4* gr = C.hit_group + CHUNK_F4 * grp;
+      if (chunk_skips(group_skips(__ldg(gr), __ldg(gr + 1), px, py, dx, dy,
+                                  tmw, lim)))
+        continue;
+      const int ch_end = min(n_ch, (grp + 1) * GROUP_CHUNKS);
+      for (int ch = grp * GROUP_CHUNKS; ch < ch_end; ++ch) {
+#else
     for (int ch = 0; ch < n_ch; ++ch) {
+#endif
       const float4* rec = C.chunk + CHUNK_F4 * ch;
       if (chunk_skips(hit_skips(__ldg(rec), __ldg(rec + 1), px, py, dx, dy,
                                 tmw, lim)))
@@ -1105,6 +1225,9 @@ __device__ __forceinline__ float first_hit(float px, float py, float dx,
       const int end = min(C.n_neu, (ch + 1) * CHUNK_ROWS);
       for (int sgi = ch * CHUNK_ROWS; sgi < end; ++sgi)
         hit_row(sgi, px, py, dx, dy, tmw, t_best, fnx, fny, hxs, hys);
+#if WALK_LARGE
+      }
+#endif
     }
     return t_best;
   }
@@ -1253,6 +1376,53 @@ __device__ float silhouette(float px, float py) {
   }
   return sqrtf(best);
 }
+
+#if WALK_LARGE
+// the distance to the nearest silhouette vertex where it lies within dD,
+// another distance >= dD otherwise (the large-table build; sil_skips):
+// silhouette's table rows, by groups and chunks of rows in row order (the
+// row written out again, so that silhouette and the other builds keep
+// their code)
+__device__ float silhouette_large(float px, float py, float dD) {
+  float best = F(3e38);
+  if (CHUNK_SKIP) {  // the full scan (CHUNK_SKIP false) starts at 3e38
+    best = fminf(best, dD * dD * F(1.00000095367431640625));  // 1 + 2^-20
+    if (!(sqrtf(best) >= dD)) best = F(3e38);
+  }
+  const int n_ch = (C.n_vert + SIL_ROWS - 1) / SIL_ROWS;
+  const int n_grp = (n_ch + GROUP_CHUNKS - 1) / GROUP_CHUNKS;
+  for (int grp = 0; grp < n_grp; ++grp) {
+    const float4* gr = C.sil_group + SIL_F4 * grp;
+    if (chunk_skips(sil_skips(__ldg(gr), __ldg(gr + 1), __ldg(gr + 2), px, py,
+                              best)))
+      continue;
+    const int ch_end = min(n_ch, (grp + 1) * GROUP_CHUNKS);
+    for (int ch = grp * GROUP_CHUNKS; ch < ch_end; ++ch) {
+      const float4* rec = C.sil_chunk + SIL_F4 * ch;
+      if (chunk_skips(sil_skips(__ldg(rec), __ldg(rec + 1), __ldg(rec + 2),
+                                px, py, best)))
+        continue;
+      const int end = min(C.n_vert, (ch + 1) * SIL_ROWS);
+      for (int v = ch * SIL_ROWS; v < end; ++v) {
+        const float4 g = __ldg(C.tab_vert + 2 * v);
+        const float4 h = __ldg(C.tab_vert + 2 * v + 1);
+        const float abx = g.z - g.x, aby = g.w - g.y;
+        const float bcx = h.x - g.z, bcy = h.y - g.w;
+        const float apx = px - g.x, apy = py - g.y;
+        const float bpx = px - g.z, bpy = py - g.w;
+        const float sgn = (abx * apy - aby * apx) * (bcx * bpy - bcy * bpx);
+        const float d2 = bpx * bpx + bpy * bpy;
+        if (sgn < F(0.0)) best = fminf(best, d2);
+      }
+    }
+  }
+  return sqrtf(best);
+}
+// the star radius's silhouette term in walk_step.inc
+#define STAR_SILHOUETTE(px, py, dD) silhouette_large(px, py, dD)
+#else
+#define STAR_SILHOUETTE(px, py, dD) silhouette<TABLE>(px, py)
+#endif
 
 // distance to the nearest high-sigma' region of the local majorant, 0
 // inside (majorant.py LocalMajorant.distance)
@@ -3083,10 +3253,10 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // the library's one variant (walk_variant.h), from its -D macros
-constexpr int BUILT[11] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
+constexpr int BUILT[12] = {WALK_ROBIN,     WALK_MAJORANT, WALK_MIS,
                            WALK_FREEZE,    WALK_TABLE,    WALK_DELTA,
                            WALK_TRANSPORT, WALK_WIDE,     WALK_GRID,
-                           WALK_TERMS,     WALK_ROWS};
+                           WALK_TERMS,     WALK_ROWS,     WALK_LARGE};
 
 // the repack loop runs the freeze and chain_phases builds (walk_variant.h),
 // one thread per lane the others; threads (and lanes) per block
@@ -3218,11 +3388,20 @@ extern "C" int walk_dealt_layout(int* out, int n) {
 }
 
 // the switches of this library: robin, majorant, mis, freeze, table,
-// delta, transport, wide, grid, terms form, general rows
-// (ops/walk_kernel.py reads them back after loading it)
+// delta, transport, wide, grid, terms form, general rows, then (n = 12) the
+// large-table build (ops/walk_kernel.py reads them back after loading it)
 extern "C" int walk_switches(int* out, int n) {
-  if (n != 11) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < 11; ++k) out[k] = BUILT[k];
+  if (n != 11 && n != 12) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < n; ++k) out[k] = BUILT[k];
+  return 0;
+}
+
+// the large-table build's record layout: vertex rows a silhouette chunk,
+// chunks a group (ops/walk_kernel.py checks them after loading it)
+extern "C" int walk_large_layout(int* out, int n) {
+  if (n != 2) return (int)cudaErrorInvalidValue;
+  out[0] = SIL_ROWS;
+  out[1] = GROUP_CHUNKS;
   return 0;
 }
 
@@ -3267,8 +3446,11 @@ extern "C" int walk_schedule(int* out, int n) {
 //     build: the sharded loop never freezes); a launch of one solve passes
 //     ip[0] and n_lanes.
 // chunks: the Neumann rows' chunk records (CHUNK_F4 16-byte aligned
-//     float4 per chunk of CHUNK_ROWS rows) in the culled_scans build; null
-//     otherwise.
+//     float4 per chunk of CHUNK_ROWS rows) in the culled_scans build, in
+//     its large-table build followed by the first hit's group records
+//     (CHUNK_F4 float4 per GROUP_CHUNKS chunks), the silhouette's chunk
+//     records (SIL_F4 float4 per SIL_ROWS vertex rows) and their group
+//     records (SIL_F4 per GROUP_CHUNKS chunks); null otherwise.
 //
 // offsets, records, n_walks: a dealt launch (walk_plan's offsets, n_walks
 //     records of REC_SRC + n_src int32 words, its walks), which the host
@@ -3410,6 +3592,14 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       if (!chunks) return (int)cudaErrorInvalidValue;
       if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;
       h.chunk = (const float4*)chunks;
+#if WALK_LARGE
+      const int n_ch = (h.n_neu + CHUNK_ROWS - 1) / CHUNK_ROWS;
+      const int n_sil = (h.n_vert + SIL_ROWS - 1) / SIL_ROWS;
+      h.hit_group = h.chunk + CHUNK_F4 * n_ch;
+      h.sil_chunk =
+          h.hit_group + CHUNK_F4 * ((n_ch + GROUP_CHUNKS - 1) / GROUP_CHUNKS);
+      h.sil_group = h.sil_chunk + SIL_F4 * n_sil;
+#endif
     }
   } else {
     for (int s = 0; s < h.n_dir; ++s)

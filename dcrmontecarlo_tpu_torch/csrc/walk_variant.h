@@ -88,6 +88,26 @@ WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
          !transport && !wide && !grid && !terms_form;
 }
 
+// the twelfth switch, a build of the culled_scans variant (WALK_LARGE, not
+// a template switch, so that the variant's name and the other builds stay
+// as they were): its silhouette scan culls chunks and groups of vertex
+// rows by box distance and oriented cone, and its first hit skips groups
+// of chunks, so that a step reads a few of the rows and records of a large
+// boundary; below LARGE_TABLE_ROWS Neumann and vertex rows the culled
+// build's own scans ran faster (PERF.md, section 6), so the host asks for
+// this build only from there on (csrc/walk_kernel.cu, silhouette_large,
+// group_skips; ops/walk_kernel.py::large_scans holds the same rule)
+constexpr int LARGE_TABLE_ROWS = 1000;
+
+WALK_HD constexpr bool large_scans(int robin, bool maj, bool mis, bool freeze,
+                                   bool table, bool delta, bool transport,
+                                   bool wide, bool grid, bool terms_form,
+                                   int n_neu, int n_vert) {
+  return culled_scans(robin, maj, mis, freeze, table, delta, transport, wide,
+                      grid, terms_form) &&
+         (n_neu >= LARGE_TABLE_ROWS || n_vert >= LARGE_TABLE_ROWS);
+}
+
 // the variants that deal walks, not lanes, to their threads in a launch
 // that drains every quota from fresh walks (csrc/walk_kernel.cu,
 // walk_dealt; ops/walk_kernel.py::dealt holds the same rule): the survey's

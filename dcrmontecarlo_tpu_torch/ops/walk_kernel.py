@@ -32,9 +32,12 @@ flagship's switches; and the sharded solve (``parallel/mesh.py``), whose
 launch loop splits without the freeze: the flagship's switches without
 it. Any combination of these switches that the JAX kernel traces is a
 variant (:func:`valid_variant`; :data:`KERNEL_VARIANTS` holds them all).
-The kernel is ``csrc/walk_kernel.cu`` (one thread per walker lane, one
-library per variant); :func:`walk_plain` is the same step, op for op, on
-tensors of lanes, on any device.
+The survey's culled table variant has a second build for large
+boundaries (:func:`large_scans`: its silhouette and first hit culled by
+chunk and group records, :func:`large_records`), which the host asks for
+by the table's size. The kernel is ``csrc/walk_kernel.cu`` (one thread
+per walker lane, one library per variant); :func:`walk_plain` is the
+same step, op for op, on tensors of lanes, on any device.
 
 :func:`run_walk` advances every lane by up to ``inner_steps`` steps and
 updates ``state`` in place. A CPU state runs :func:`walk_plain`; a CUDA
@@ -93,7 +96,9 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "PLANE_MIN_FRAC", "build_library", "nvcc_command",
            "variant_macros", "SWITCHES", "NVCC_FLAGS", "ROBIN_OFF",
            "ROBIN_CHAIN", "ROBIN_REFLECTANCE", "MAX_SHARDS", "CHUNK_ROWS",
-           "culled_scans", "chunk_records", "dealt", "launch_loop"]
+           "culled_scans", "chunk_records", "dealt", "launch_loop",
+           "LARGE_TABLE_ROWS", "SIL_ROWS", "GROUP_CHUNKS", "large_scans",
+           "silhouette_records", "large_records", "build_code"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -112,6 +117,12 @@ MAX_WIDE_SRC = 32    # the wide form: sources (from MAX_SRC on rows)
 MAX_WIDE_MIX = 64    # and mixture components
 MAX_SHARDS = 64      # shards one launch holds (its shard table)
 CHUNK_ROWS = 8       # rows per chunk of the table form's culled scans
+SIL_ROWS = 8         # the large-table build: vertex rows per silhouette
+GROUP_CHUNKS = 8     # chunk and chunks per group record, both scans
+LARGE_TABLE_ROWS = 1000  # Neumann or vertex rows from which the culled
+                         # variant takes its large-table build
+                         # (csrc/walk_variant.h::large_scans)
+LARGE_CODE = 4096    # added to a variant's code for its large-table build
 SCAN_ELEMS = 1 << 24  # lanes x rows a plain scan forms at once
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
@@ -237,6 +248,24 @@ def culled_scans(variant) -> bool:
     (:meth:`WalkParams.chunk_table`)."""
     return _switches(variant) == (ROBIN_OFF, False, False, False, True,
                                   True, False, False, False, False, False)
+
+
+def large_scans(variant, n_neu: int, n_vert: int) -> bool:
+    """Whether a launch of ``variant`` over a table of ``n_neu`` Neumann
+    and ``n_vert`` vertex rows takes the variant's large-table build
+    (``walk_variant.h::large_scans``): the :func:`culled_scans` variant at
+    ``LARGE_TABLE_ROWS`` rows of either kind or more, where its silhouette
+    culls chunks and groups of vertex rows by box distance and oriented
+    cone and its first hit skips groups of chunks; the same variant, its
+    name and its results bit for bit, another library."""
+    return culled_scans(variant) and max(int(n_neu), int(n_vert)) >= \
+        LARGE_TABLE_ROWS
+
+
+def build_code(variant, large: bool = False) -> int:
+    """The code of a build in its library's name: the variant's, plus
+    ``LARGE_CODE`` for its large-table build."""
+    return variant_code(variant) + (LARGE_CODE if large else 0)
 
 
 def variant_fault(variant) -> Optional[str]:
@@ -449,6 +478,73 @@ def chunk_records(neu_rows, rows_per_chunk: Optional[int] = None
     return _outward(np.asarray(out, np.float64).reshape(-1, 8), up=True)
 
 
+def _oriented_cone(edges: np.ndarray) -> tuple:
+    """A silhouette record's third float4 ``(mx, my, g, 0)``: a float32
+    ``m`` and ``g`` such that every edge of ``edges`` ``(k, 2)`` (float32
+    differences) but a zero one has its unit direction ``u`` within ``|u
+    - m| <= g``, ``g`` rounded up with slack; ``g = 4`` (no bound) where
+    an edge is shorter than 1e-20, none has a length, or the directions
+    spread past ``|u - m| = 1``."""
+    e = edges.astype(np.float64)
+    length = np.hypot(e[:, 0], e[:, 1])
+    if ((length > 0) & (length < 1e-20)).any() or not (length > 0).any():
+        return 0.0, 0.0, 4.0, 0.0
+    u = e[length > 0] / length[length > 0, None]
+    m = u.sum(0)
+    norm = float(np.hypot(m[0], m[1]))
+    if not norm > 0.0:
+        return 0.0, 0.0, 4.0, 0.0
+    m32 = (m / norm).astype(np.float32).astype(np.float64)
+    g = float(np.hypot(*(u - m32).T).max())
+    if g > 1.0:
+        return 0.0, 0.0, 4.0, 0.0
+    return m32[0], m32[1], g * (1.0 + 2.0 ** -20) + 1e-6, 0.0
+
+
+def silhouette_records(vert_rows, rows_per_chunk: Optional[int] = None
+                       ) -> np.ndarray:
+    """The large-table build's silhouette records (``csrc/walk_kernel.cu``,
+    ``sil_skips``): ``(chunks, 12)`` float32, for each ``SIL_ROWS``
+    consecutive vertex rows ``[ax, ay, bx, by, cx, cy]`` the box ``(x0,
+    y0, x1, y1)`` of their a, b and c points widened as
+    :func:`chunk_records` widens a chunk's, the box of their b points as
+    they are, and the oriented cone of their float32 edges ``b - a`` and
+    ``c - b`` (:func:`_oriented_cone`). ``rows_per_chunk`` other than
+    ``SIL_ROWS`` forms the group records (``SIL_ROWS * GROUP_CHUNKS``) and
+    serves the host replay (``chip_probes/table_cull.py``)."""
+    rows_per_chunk = rows_per_chunk or SIL_ROWS
+    rows = np.asarray(vert_rows, np.float32).reshape(-1, 6)
+    out = []
+    for c0 in range(0, len(rows), rows_per_chunk):
+        chunk = rows[c0:c0 + rows_per_chunk]
+        pts = chunk.reshape(-1, 2).astype(np.float64)
+        widen = float(np.abs(pts).max()) * 2.0 ** -20 + 1e-30
+        lo = _outward(pts.min(0) - widen, up=False)
+        hi = _outward(pts.max(0) + widen, up=True)
+        b = chunk[:, 2:4]
+        edges = np.concatenate([chunk[:, 2:4] - chunk[:, 0:2],
+                                chunk[:, 4:6] - chunk[:, 2:4]])
+        cone = _oriented_cone(edges)
+        out.append([lo[0], lo[1], hi[0], hi[1], *b.min(0), *b.max(0),
+                    cone[0], cone[1], float(_outward(np.float64(cone[2]),
+                                                     up=True)), 0.0])
+    return np.asarray(out, np.float32).reshape(-1, 12)
+
+
+def large_records(neu_rows, vert_rows) -> np.ndarray:
+    """The large-table build's records, one float32 buffer in the order
+    ``walk_launch`` reads it: the first hit's chunk records
+    (:func:`chunk_records`), its group records (the same over
+    ``CHUNK_ROWS * GROUP_CHUNKS`` rows), the silhouette's chunk records
+    (:func:`silhouette_records`) and its group records."""
+    group = CHUNK_ROWS * GROUP_CHUNKS
+    parts = [chunk_records(neu_rows), chunk_records(neu_rows, group),
+             silhouette_records(vert_rows),
+             silhouette_records(vert_rows, SIL_ROWS * GROUP_CHUNKS)]
+    return np.ascontiguousarray(np.concatenate([a.reshape(-1)
+                                                for a in parts]), np.float32)
+
+
 @dataclass(frozen=True)
 class WalkParams:
     """Everything one launch needs besides the planes."""
@@ -557,6 +653,19 @@ class WalkParams:
     def kernel_name(self) -> str:
         """The instantiation's name (the launch counters' key)."""
         return kernel_name(self.variant)
+
+    @property
+    def large(self) -> bool:
+        """Whether a launch takes its variant's large-table build
+        (:func:`large_scans`, by the table's rows)."""
+        return large_scans(self.variant, len(self.neu_table),
+                           len(self.vert_table))
+
+    @property
+    def build_name(self) -> str:
+        """The library's build: :attr:`kernel_name`, with ``" (large)"``
+        for the large-table build (``run_walk.build_launches``' key)."""
+        return self.kernel_name + (" (large)" if self.large else "")
 
     def pack(self):
         """Kernel parameter buffers ``(float32 array, int32 array)`` in the
@@ -679,15 +788,17 @@ class WalkParams:
         return seeds, int(self.shard_lanes)
 
     def chunk_table(self, device):
-        """The Neumann rows' chunk records (:func:`chunk_records`) as a
-        contiguous float32 tensor on ``device``, uploaded once per params;
-        None outside the :func:`culled_scans` variant."""
+        """The Neumann rows' chunk records (:func:`chunk_records`; in the
+        large-table build all of :func:`large_records`, which begin with
+        them) as a contiguous float32 tensor on ``device``, uploaded once
+        per params; None outside the :func:`culled_scans` variant."""
         if not culled_scans(self.variant):
             return None
         key = ("chunks", str(device))
         if key not in self._cache:
-            self._cache[key] = torch.from_numpy(chunk_records(
-                self.neu_table)).to(device)
+            recs = (large_records(self.neu_table, self.vert_table)
+                    if self.large else chunk_records(self.neu_table))
+            self._cache[key] = torch.from_numpy(recs).to(device)
         return self._cache[key]
 
     def grid_table(self, device):
@@ -1523,11 +1634,13 @@ def _nvcc() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def variant_macros(variant) -> list:
+def variant_macros(variant, large: bool = False) -> list:
     """The ``-D`` macros that build ``variant``'s library
-    (``csrc/walk_kernel.cu`` compiles the one variant they name)."""
+    (``csrc/walk_kernel.cu`` compiles the one variant they name), and
+    ``WALK_LARGE`` for its large-table build (:func:`large_scans`)."""
     return [f"-DWALK_{name.upper()}={int(v)}"
-            for name, v in zip(SWITCHES, _switches(variant))]
+            for name, v in zip(SWITCHES, _switches(variant))] + (
+                ["-DWALK_LARGE=1"] if large else [])
 
 
 @functools.lru_cache(maxsize=1)
@@ -1539,41 +1652,47 @@ def _source_key() -> str:
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 
-def _library_path(variant) -> Path:
-    return (_BUILD_DIR
-            / f"walk_kernel-{_source_key()}-{variant_code(variant)}.so")
+def _library_path(variant, large: bool = False) -> Path:
+    return (_BUILD_DIR / f"walk_kernel-{_source_key()}-"
+                         f"{build_code(variant, large)}.so")
 
 
-def nvcc_command(variant, out) -> list:
-    """The ``nvcc`` command line that builds ``variant``'s library into
-    ``out``: the flags, the variant's switches as macros, the source."""
-    return [_nvcc(), *NVCC_FLAGS, *variant_macros(variant), "-o", str(out),
-            str(_SRC)]
+def nvcc_command(variant, out, large: bool = False) -> list:
+    """The ``nvcc`` command line that builds ``variant``'s library (its
+    large-table build with ``large``) into ``out``: the flags, the
+    variant's switches as macros, the source."""
+    return [_nvcc(), *NVCC_FLAGS, *variant_macros(variant, large), "-o",
+            str(out), str(_SRC)]
 
 
 # ptxas's resource report of each library this process built, by code
 build_logs = {}
 
 
-def _build_one(variant):
-    """Compile ``variant``'s library unless it is there; atomic (a build
-    into a private file, then ``os.replace``), so processes building the
-    same variant at once each leave a whole library. Returns ``(code,
-    path, log, built)``; raises with nvcc's log when it fails."""
-    code, path = variant_code(variant), _library_path(variant)
+def _build_one(variant, large=False):
+    """Compile ``variant``'s library (its large-table build with
+    ``large``) unless it is there; atomic (a build into a private file,
+    then ``os.replace``), so processes building the same variant at once
+    each leave a whole library. Returns ``(code, path, log, built)``, the
+    code :func:`build_code`'s; raises with nvcc's log when it fails."""
+    # (the variant's own build by one argument, as callers that stand in
+    # for _library_path and _library give them)
+    code = build_code(variant, large)
+    path = _library_path(variant, True) if large else _library_path(variant)
     if path.exists():
         return code, path, "", False
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(nvcc_command(variant, tmp),
+        proc = subprocess.run(nvcc_command(variant, tmp, large),
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) building "
-                f"{kernel_name(variant)} (code {code}):\n{proc.stdout}")
+                f"{kernel_name(variant)}{' (large)' if large else ''} "
+                f"(code {code}):\n{proc.stdout}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -1582,23 +1701,28 @@ def _build_one(variant):
     return code, path, proc.stdout, True
 
 
-def build_library(variants):
+def build_library(variants, large=()):
     """Build the libraries of ``variants`` (variant tuples; invalid ones
-    raise) into ``_build/``, one ``nvcc`` process per CPU at a time,
-    skipping those of the same source and flags already there. Returns ``(paths, seconds, log)``: the libraries by
-    variant code, the wall time and nvcc's resource reports of the
+    raise), and the large-table builds of the variants in ``large``
+    (:func:`culled_scans` ones), into ``_build/``, one ``nvcc`` process
+    per CPU at a time, skipping those of the same source and flags already
+    there. Returns ``(paths, seconds, log)``: the libraries by build code
+    (:func:`build_code`), the wall time and nvcc's resource reports of the
     libraries built (empty when nothing was built). Every failure raises,
     with nvcc's log, after the other builds end."""
     todo = {}
-    for v in variants:
+    for v, big in [(v, False) for v in variants] + [(v, True)
+                                                     for v in large]:
         fault = variant_fault(v)
+        if fault is None and big and not culled_scans(v):
+            fault = "a large-table build is the culled variant's"
         if fault is not None:
             raise ValueError(f"{kernel_name(v)}: {fault}")
-        todo[variant_code(v)] = _canonical(v)
+        todo[build_code(v, big)] = (_canonical(v), big)
     t0 = time.perf_counter()
     paths, logs, failed, built = {}, [], [], False
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
-        futures = [pool.submit(_build_one, v) for v in todo.values()]
+        futures = [pool.submit(_build_one, *b) for b in todo.values()]
         for fut in futures:
             try:
                 code, path, out, fresh = fut.result()
@@ -1615,17 +1739,24 @@ def build_library(variants):
 
 
 @functools.lru_cache(maxsize=None)
-def _library(variant):
-    """The loaded library of ``variant`` (canonical), built first if it is
-    not there; its compiled switches are read back and must be the
-    variant's."""
-    _, path, _, _ = _build_one(variant)
+def _library(variant, large=False):
+    """The loaded library of ``variant`` (canonical; its large-table
+    build with ``large``), built first if it is not there; its compiled
+    switches are read back and must be the build's."""
+    _, path, _, _ = _build_one(variant, large)
     lib = ctypes.CDLL(str(path))
-    got = (ctypes.c_int * len(SWITCHES))()
-    if lib.walk_switches(got, len(SWITCHES)) != 0 or \
-            tuple(got) != tuple(int(v) for v in _switches(variant)):
+    got = (ctypes.c_int * (len(SWITCHES) + 1))()
+    if lib.walk_switches(got, len(SWITCHES) + 1) != 0 or \
+            tuple(got) != tuple(int(v) for v in _switches(variant)) + (
+                int(large),):
         raise RuntimeError(f"{path} holds switches {tuple(got)}, not "
-                           f"{kernel_name(variant)}'s")
+                           f"{kernel_name(variant)}'s"
+                           f"{' large-table build' if large else ''}")
+    layout = (ctypes.c_int * 2)()
+    if large and (lib.walk_large_layout(layout, 2) != 0
+                  or tuple(layout) != (SIL_ROWS, GROUP_CHUNKS)):
+        raise RuntimeError(f"{path} reads records of {tuple(layout)} rows "
+                           f"and chunks, not {(SIL_ROWS, GROUP_CHUNKS)}")
     # (a library built from a checkout before the shard table and the
     # chunk records, as chip_probes/ launch for an A/B, has no
     # walk_chunk_rows and leaves the trailing arguments unread)
@@ -1759,13 +1890,15 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
         raise RuntimeError(
             f"run_walk takes CPU or CUDA tensors, got {px.device}")
     _freeze_threshold(params, freeze_thr)  # before any build
-    lib = _library(params.variant)
+    lib = (_library(params.variant, True) if params.large
+           else _library(params.variant))
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         loop = launch_loop(lib, state, params, inner_steps, freeze_thr,
                            stream)
     run_walk.launches += 1
     run_walk.variant_launches[params.kernel_name] += 1
+    run_walk.build_launches[params.build_name] += 1
     run_walk.loop_launches[loop] += 1
     return state
 
@@ -1776,7 +1909,8 @@ def run_walk(state: dict, params: WalkParams, inner_steps: int,
 
     CPU planes run :func:`walk_plain`; CUDA planes launch the kernel (one
     launch, counted in ``run_walk.launches``, per instantiation in
-    ``run_walk.variant_launches[params.kernel_name]`` and per loop in
+    ``run_walk.variant_launches[params.kernel_name]``, per build in
+    ``run_walk.build_launches[params.build_name]`` and per loop in
     ``run_walk.loop_launches``, :func:`launch_loop`) or raise.
     ``freeze_thr`` is the launch's freeze threshold (freeze builds only;
     ``None`` there means ``+inf``, no lane freezes).
@@ -1788,4 +1922,5 @@ def run_walk(state: dict, params: WalkParams, inner_steps: int,
 
 run_walk.launches = 0
 run_walk.variant_launches = collections.Counter()
+run_walk.build_launches = collections.Counter()
 run_walk.loop_launches = collections.Counter()

@@ -7,8 +7,9 @@ emulated, a block at a time. Its ``<<<...>>>`` launch becomes
 ``host_launch``. With ``one_thread`` every build runs the
 one-thread-per-lane loop, as the builds outside ``walk_variant.h::
 repacked`` do, in place of the repack loop; with ``full_scans`` the table
-form's culled scans skip no chunk (``FULL_SCANS``): every row in row
-order, the scans as they were before the chunks.
+form's culled scans skip no chunk or group (``FULL_SCANS``): every row in
+row order, the scans as they were before the chunks; with ``large`` the
+culled variant's large-table build (``walk_kernel.large_scans``).
 """
 
 import ctypes
@@ -51,13 +52,16 @@ def host_source(one_thread=False, full_scans=False, extra=""):
                                f"[&] {{ {call} }});") + extra
 
 
-def start_build(tmp, variant, one_thread, full_scans=False, extra=""):
-    """Start the host compiler on ``variant``'s library under ``tmp``;
-    returns ``(process, library path)`` (:func:`load` waits for it)."""
+def start_build(tmp, variant, one_thread, full_scans=False, extra="",
+                large=False):
+    """Start the host compiler on ``variant``'s library (its large-table
+    build with ``large``) under ``tmp``; returns ``(process, library
+    path)`` (:func:`load` waits for it)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    name = (f"{wk.variant_code(variant)}_{'one' if one_thread else 'own'}"
+    name = (f"{wk.build_code(variant, large)}_"
+            f"{'one' if one_thread else 'own'}"
             f"{'_full' if full_scans else ''}")
     unit = tmp / f"walk_kernel_{name}.cpp"
     unit.write_text(host_source(one_thread, full_scans, extra))
@@ -66,7 +70,7 @@ def start_build(tmp, variant, one_thread, full_scans=False, extra=""):
     proc = subprocess.Popen(
         [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          "-pthread", "-I", str(here), "-I", str(wk._SRC.parent),
-         *wk.variant_macros(variant), "-o", str(so), str(unit)],
+         *wk.variant_macros(variant, large), "-o", str(so), str(unit)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, so
 
