@@ -59,11 +59,15 @@ states (seed 5, fresh walks):
   tracking ``<0,false,false,false,false,false,false>``, 196,608 lanes of
   32 walks (``chip_smoke.py::short_config``; its step has no source: HASH,
   CLOSEST, BANK and the rest).
+- ``pole``: phase 46's pole-pole line, the wide survey's general rows
+  build ``<0,false,false,false,false,true,false,true,false,false,true>``,
+  147,456 lanes, nine ``TERMS`` poles (``chip_smoke.py::pole_config``).
 
 The sites of the survey builds' step: HASH (the counter hash and the
 step's first uniforms), CLOSEST, FIRST_HIT, RADIUS (the rejection
 sampler's first round), ALPHA_S (alpha at the sample), NEE (the sources at
-the sample, with screened_norm), INTERIOR (interior_prob), SIGMA (sigma'
+the sample, with screened_norm; SOURCES within it, the sources' values
+and adds alone), INTERIOR (interior_prob), SIGMA (sigma'
 at a colliding sample), ALPHA_H (alpha at the hit of a lane that does not
 collide), BANK, and with MIS the MIS site (its PDF and STAR within) and
 ADD (the sources at the MIS sample). The transport build's TRANSPORT
@@ -126,10 +130,10 @@ SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
          "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S", "INTERIOR", "SIGMA",
          "ALPHA_H", "TRANSPORT", "CHEB", "FREE", "TWEIGHT", "BOXMULLER",
-         "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED")
+         "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED", "SOURCES")
 # the disjoint sites of a step (REDRAW lies inside RADIUS; STAR, PDF,
 # BOXMULLER and GREENS inside MIS; CHEB, FREE and TWEIGHT inside
-# TRANSPORT)
+# TRANSPORT; SOURCES, the sources' values and adds, inside NEE)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
        "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S",
        "INTERIOR", "SIGMA", "ALPHA_H", "TRANSPORT", "ALPHA_Y")
@@ -272,8 +276,9 @@ STEP_EDITS = (
      "          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);\n",
      "          SITE_BEGIN(NEE)\n          const float w_src =\n"
      "              screened_norm(r, sbar) / sqrtf(a_s * a_p) * atten;\n"
+     "          SITE_BEGIN(SOURCES)\n"
      "          add_sources<TERMS, WIDE>(acc, lane, n_src, sx, sy, w_src);\n"
-     "          SITE_END(NEE)\n"),
+     "          SITE_END(SOURCES)\n          SITE_END(NEE)\n"),
     ("      if constexpr (TRANSPORT)\n"
      "        r_s = transport_radius(r, sbar, seed, ctr, sid, w_rej);\n",
      "      if constexpr (TRANSPORT) {\n        SITE_BEGIN(TRANSPORT)\n"
@@ -503,6 +508,14 @@ def short_state(dev):
         cs.SHORT_POINTS, *cs.SHORT_RUN, 5)[:2]
 
 
+def pole_state(dev):
+    """Phase 46's state of the pole-pole line (nine unit poles, 147,456
+    lanes, seed 5)."""
+    survey, electrodes, problem, options = cs.pole_config()
+    return WoStSolver(problem, options, device=dev)._setup(
+        cs.survey_points(electrodes, -0.5), *cs.SURVEY_RUN, 5)[:2]
+
+
 def groups(dev, names=()):
     """``name: (state, params)``: the builds' full-size states (those of
     ``names``, or all)."""
@@ -515,11 +528,12 @@ def groups(dev, names=()):
         if not names or name in names:
             out[name] = survey_state(dev, build)
     for name, state in (("wide_survey", wide_survey_state),
-                        ("short", short_state)):
+                        ("short", short_state), ("pole", pole_state)):
         if not names or name in names:
             out[name] = state(dev)
     if names and not set(names) - {"survey", "jacobian", "transport",
-                                   "survey_mis", "wide_survey", "short"}:
+                                   "survey_mis", "wide_survey", "short",
+                                   "pole"}:
         return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True

@@ -39,10 +39,15 @@ sources, 147,456 lanes), with one ``run_pseudosection`` call whose
 potentials are hashed too; ``--build short`` for the static form without
 delta tracking ``<0,false,false,false,false,false,false>`` at phase 25's
 short walk (``chip_smoke.py::short_config``: 196,608 lanes of 32 walks,
-ten timed solves). Each build's record also holds ``ptxas -v``'s
+ten timed solves); ``--build pole`` for the wide survey's general rows
+build ``<0,false,false,false,false,true,false,true,false,false,true>`` at
+phase 46's pole-pole line (``chip_smoke.py::pole_config``: nine unit
+poles, 147,456 lanes), with the sources the host marks as poles. Each
+build's record also holds ``ptxas -v``'s
 registers and spills of its kernels (where this run built the library),
 the walks of the single launch, their mean length and the launch's bound
-(``chip_smoke.py::bound``).
+(``chip_smoke.py::bound``), and hashes of the 256 steps' end planes and of
+the warm-up solve.
 
 ``--ablate PIECE[,PIECE]`` (this checkout) builds the two libraries from
 a copy of ``csrc/`` under ``_archive/survey_ab/`` with the named pieces of
@@ -60,8 +65,11 @@ consecutive walks, one atomicAdd a run), and with it ``run_1``,
 ``warp_atomic`` (one atomicAdd a warp iteration for the threads that
 take, in place of one a thread); ``no_fold`` and ``no_records`` (any
 dealt build) leave out the fold's launch or the records' writes, for
-timing only (the planes come out wrong). A dealt build's record also
-holds the plan's time (its three kernels and the read back). Writes
+timing only (the planes come out wrong); ``header_call`` (with ``--build
+pole``) leaves the poles among sources 0-3 unmarked, so the header's
+fields take ``field_value``'s call, and marks only the rows' poles (the
+host's marks, no source edit). A dealt build's record also holds the
+plan's time (its three kernels and the read back). Writes
 ``chiprun_out/survey_ab_TAG.json``.
 
     python3 chip_probes/survey_ab.py . ablate --ablate one_pass
@@ -84,7 +92,7 @@ ap.add_argument("tree")
 ap.add_argument("tag")
 ap.add_argument("--ablate", default="")
 ap.add_argument("--build", choices=("survey", "transport", "mis", "wide",
-                                   "short"),
+                                   "short", "pole"),
                 default="survey")
 args = ap.parse_args()
 tree = os.path.abspath(args.tree)
@@ -116,8 +124,9 @@ TRANSPORT = (0, False, False, False, False, True, True, False, False)
 SURVEY_MIS = (0, False, True, False, False, True, False, False, False)
 WIDE = (0, False, False, False, False, True, False, True, False)
 SHORT = (0, False, False, False, False, False, False, False, False)
+POLE = WIDE + (False, True)
 BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS,
-          "wide": WIDE, "short": SHORT}
+          "wide": WIDE, "short": SHORT, "pole": POLE}
 BUILD_LOG = []  # the build's nvcc output (ptxas -v)
 # the dealt loop's pieces: (file, anchor, replacement) edits that take one
 # out
@@ -236,10 +245,25 @@ def res_usage(lib):
     return regs, mem
 
 
+def header_call():
+    """Mark only the poles past the header's sources (``--ablate
+    header_call``): the header's poles take ``field_value``'s call."""
+    marks = wk.WalkParams.poles
+    wk.WalkParams.poles = property(
+        lambda self: tuple(i for i in marks.fget(self) if i >= wk.MAX_SRC))
+
+
+# the host's pieces: no source edit
+HOST_PIECES = {"header_call": header_call}
+
+
 def build(variants):
     """The libraries of ``variants`` by code: the checkout's, or with
     ``--ablate`` this checkout's source less the named pieces."""
     pieces = [p for p in args.ablate.split(",") if p]
+    for p in [p for p in pieces if p in HOST_PIECES]:
+        HOST_PIECES[p]()
+        pieces.remove(p)
     if not pieces:
         paths, _, log = wk.build_library(variants)
         BUILD_LOG.append(log)
@@ -353,7 +377,7 @@ def launches(state, params, step_bound):
         wk.run_walk.loop_launches.clear()
     ms, end = timed(state, params, step_bound)
     lp = loops()
-    ms256, _ = timed(state, params, 256)
+    ms256, end256 = timed(state, params, 256)
     life = end["life"]
     steps, longest = int(life.sum(dtype=torch.int64)), int(life.max())
     walks = int(state["quota"].sum(dtype=torch.int64))
@@ -367,7 +391,9 @@ def launches(state, params, step_bound):
                 whole_bound_ms=bound_ms, whole_bound_by=bound_by,
                 plan_ms=plan,
                 truncated=float(end["tn"].sum()),
-                planes=plane_hash(end, params))
+                planes=plane_hash(end, params),
+                planes256=plane_hash(end256, params),
+                poles=list(getattr(params, "poles", ())))
 
 
 def raw_hash(res):
@@ -383,6 +409,10 @@ def full_size():
         survey, electrodes, options = cs.pseudosection_config()
         prob, pts, _, _ = sdcr._line_problem(survey, electrodes, 3)
         return WoStSolver(prob, options, device=dev), pts, cs.SURVEY_RUN, 3
+    if args.build == "pole":
+        survey, electrodes, prob, options = cs.pole_config()
+        return (WoStSolver(prob, options, device=dev),
+                cs.survey_points(electrodes, -0.5), cs.SURVEY_RUN, 3)
     if args.build == "short":
         prob, options = cs.short_config()
         return (WoStSolver(prob, options, device=dev), cs.SHORT_POINTS,
@@ -396,7 +426,8 @@ def survey_group():
     solver, pts, run, reps = full_size()
     state, params, _, bound = solver._setup(pts, *run, 5)
     out = launches(state, params, bound)
-    solver.solve(pts, *run[:2], eps=run[2], seed=0)
+    out["warm_hash"] = raw_hash(solver.solve(pts, *run[:2], eps=run[2],
+                                             seed=0))
     times, shares, hashes, steps = [], [], [], 0.0
     for seed in range(1, reps + 1):
         events = []

@@ -373,9 +373,12 @@ at the main path's size (phase 46). Each phase reports on its own line:
     electrodes at 2^19 walks each (147,456 lanes, one adaptive launch of
     the wide survey's general rows build, its walks dealt; five of the
     poles are wide rows): a warm-up (its launches counted, by variant and
-    by loop) and 3 timed solves (walker-steps/s, s/solve, kernel share);
-    the solve's single launch as phase 7's (``dealt_launch``), timed
-    against its bound; the build's registers and spills; the 9 x 9
+    by loop, and its sources marked as poles: 9 of 9, each evaluated from
+    its pole record, ``walk_kernel.pole_record``) and 3 timed solves
+    (walker-steps/s, s/solve, kernel share); the solve's single launch as
+    phase 7's (``dealt_launch``), timed against its bound (printed also
+    with a pole counted as the ``TERMS`` text, the older count); the
+    build's registers and spills; the 9 x 9
     potential matrix and its largest reciprocity gap |V_am - V_ma| /
     sigma (printed, not a gate); the first, fifth and ninth pole's
     columns within 4 sigma of solves of that pole alone (the narrow
@@ -533,8 +536,13 @@ def born_stencil(h=1.5):
             np.float32)
 
 
+# the run's start, for the elapsed time on each log line (a phase's time
+# is the difference of its lines' stamps)
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg):
@@ -883,11 +891,20 @@ def launch_anatomy(wk, solver, pts, n_walks, max_steps, eps, seed,
         / max(sum(r["issued_sched"] for r in replayed), 1))
 
 
-def field_ops(spec):
+def field_ops(spec, pole_records=True):
     """FP32 operations of one evaluation of a field spec's value
     (``field_value``): a constant 2, a bump 16, the dipole 20; a ``TERMS``
     term 31 (five Horner rules and the add), 12 more with its exponential
-    and 4 per sin/cos factor."""
+    and 4 per sin/cos factor; a Gaussian pole (``walk_kernel.pole_record``:
+    one term of a constant polynomial, no sin or cos) 10, its own work (the
+    general rows build's ``pole_value``), unless ``pole_records`` is false
+    (the ``TERMS`` count above, the older count; a probe's older
+    checkout has no pole records)."""
+    from dcrmontecarlo_tpu_torch.ops import walk_kernel
+
+    pole_record = getattr(walk_kernel, "pole_record", None)
+    if pole_records and pole_record and pole_record(spec) is not None:
+        return 10
     kind, tab = spec.table()
     if kind == 0:
         return 2
@@ -912,7 +929,7 @@ TRANSPORT_OPS = 33 + 29 * 24 + 27 * 11 + 46 + 8 + 120
 HIT_REC_OPS, SIL_REC_OPS = 21, 10
 
 
-def fp32_ops_per_step(params, rows=None):
+def fp32_ops_per_step(params, rows=None, pole_records=True):
     """A lower bound on the FP32 operations of one walker-step of the
     instantiation ``params`` selects, counted by hand from
     ``csrc/walk_kernel.cu``: every add, multiply, compare or select,
@@ -935,7 +952,8 @@ def fp32_ops_per_step(params, rows=None):
     too). ``rows`` (``cull_rows``): the Neumann rows a lane's culled first
     hit visits a step, counted in place of every Neumann row of that scan,
     and the records it tests; in the large-table build also the
-    silhouette's rows and records (the other scans visit every row)."""
+    silhouette's rows and records (the other scans visit every row).
+    ``pole_records``: ``field_ops``'."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
     records = 0.0
@@ -946,8 +964,8 @@ def fp32_ops_per_step(params, rows=None):
         if "silhouette" in rows:
             n_vert = rows["silhouette"]["lane"]
             records += SIL_REC_OPS * rows["silhouette"]["lane_records"]
-    alpha = field_ops(params.specs[1]) + 1      # alpha_c
-    src = sum(field_ops(f) for f in params.specs[3:])
+    alpha = field_ops(params.specs[1], pole_records) + 1  # alpha_c
+    src = sum(field_ops(f, pole_records) for f in params.specs[3:])
     cp_row, hit_row, sil_row = (22, 23, 20) if params.table else (18, 22, 16)
     ops = cp_row * n_dir + 2                    # closest point
     ops += 9 + 6 + hit_row * n_neu              # radius, direction, hit
@@ -980,20 +998,22 @@ def fp32_ops_per_step(params, rows=None):
     return ops
 
 
-def bound(params, lanes, walker_steps, launches, visited=None):
+def bound(params, lanes, walker_steps, launches, visited=None,
+          pole_records=True):
     """``(bound_ms, bound_by)``: the least time the card could take for
     ``walker_steps`` steps of ``params``' instantiation over ``lanes``
     lanes in ``launches`` launches, the larger of the operations over the
     FP32 peak and the planes' bytes (inputs read once, outputs written
     once, per launch) over the memory rate; with ``visited``, over the
-    table rows the culled scans visit (``fp32_ops_per_step``)."""
+    table rows the culled scans visit (``fp32_ops_per_step``, which takes
+    ``pole_records``)."""
     state = 5 + 3 * params.n_src + 9            # read and written
     const = 3 + (3 if params.snap else 0)       # read
     rows = sum(t.nbytes for t in params.device_tables("cpu"))  # table form
     if params.grid:                             # the grid's nodes
         rows += params.grid_table("cpu").nbytes
     nbytes = (4.0 * lanes * (2 * state + const) + rows) * launches
-    t_ops = (fp32_ops_per_step(params, visited) * walker_steps
+    t_ops = (fp32_ops_per_step(params, visited, pole_records) * walker_steps
              / PEAK_FP32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
@@ -1005,12 +1025,17 @@ def kernel_record(params, variant, launches, timed, regs, tolerance,
     """The kernels line's entry for ``params``' instantiation: its
     launches on its path's main run and ``timed``, a ``steps_256``
     result; for a culled table build (``rows``, ``cull_rows``) also the
-    bound over the rows its scans visit."""
+    bound over the rows its scans visit; where a Gaussian pole's count
+    moves the bound (``field_ops``), also the bound with the pole counted
+    as the ``TERMS`` text (``bound_terms_ms``)."""
     bound_ms, bound_by = bound(params, timed["lanes"], timed["steps"], 1)
-    extra = {} if rows is None else {
+    terms_ms = bound(params, timed["lanes"], timed["steps"], 1,
+                     pole_records=False)[0]
+    extra = {} if terms_ms == bound_ms else {"bound_terms_ms": terms_ms}
+    extra.update({} if rows is None else {
         "bound_visited_ms": bound(params, timed["lanes"], timed["steps"], 1,
                                   rows)[0],
-        "rows_visited": round(rows["first_hit"]["lane"], 2)}
+        "rows_visited": round(rows["first_hit"]["lane"], 2)})
     if rows is not None and "silhouette" in rows:
         extra["silhouette_rows_visited"] = round(rows["silhouette"]["lane"],
                                                  2)
@@ -1075,7 +1100,8 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
     to 0 just before it and read just after, then ``reps`` timed solves
     whose walk launches are bracketed by CUDA events.
     Returns a dict of the counts (by instantiation, by build:
-    ``builds``, and by loop: ``loops``), each solve's launches and clones, the
+    ``builds``, by loop: ``loops``, and the sources marked as poles by
+    build: ``poles``), each solve's launches and clones, the
     walker-steps/s, s/solve, steps/solve, lane occupancy (steps over
     lanes x longest lane), the kernel's share of each solve's wall time
     and the longest lane."""
@@ -1083,12 +1109,14 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
     wk.run_walk.variant_launches.clear()
     wk.run_walk.build_launches.clear()
     wk.run_walk.loop_launches.clear()
+    wk.run_walk.pole_sources.clear()
     warm = (warm_up() if warm_up is not None else
             solver.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
                          seed=0))                              # warm-up
     counts = dict(wk.run_walk.variant_launches)
     builds = dict(wk.run_walk.build_launches)
     loops = dict(wk.run_walk.loop_launches)
+    poles = dict(wk.run_walk.pole_sources)
     check(sum(counts.values()) == wk.run_walk.launches > 0,
           f"{what}: the full-size solve launched {counts}")
     stats, events = [solver.last_solve_stats], []
@@ -1118,7 +1146,8 @@ def full_size_solves(wk, solver, pts, n_walks, max_steps, eps, lanes, what,
         lane_steps += float(lanes) * res.iterations
         check(np.isfinite(res.mean).all() and np.isfinite(res.stderr).all(),
               f"{what}: full-size solve not finite")
-    return dict(counts=counts, builds=builds, loops=loops, stats=stats,
+    return dict(counts=counts, builds=builds, loops=loops, poles=poles,
+                stats=stats,
                 rate=steps / sum(times),
                 times=times, steps=steps / reps, occupancy=steps / lane_steps,
                 share=share, longest=res.iterations, warm=warm, trunc=trunc,
@@ -1131,8 +1160,8 @@ def steps_256(wk, state, params, what, thr=None, subset=False):
     rule. With ``subset``, the first 147,456 lanes when the plain version
     would take over 30 s. Returns a dict of the lanes, ms, plain_ms, the
     worst plane's agreeing share, the max |err| on agreeing lanes, the
-    walker-steps the kernel took, the plain 16-step time when cut and the
-    kernel's end state."""
+    walker-steps the kernel took, the plain 16-step time when cut, the
+    kernel's and the plain version's end states and the start."""
     from dcrmontecarlo_tpu_torch.solver.state import state_planes
 
     wk.run_walk(clone_state(state), params, 16, freeze_thr=thr)
@@ -1149,7 +1178,8 @@ def steps_256(wk, state, params, what, thr=None, subset=False):
                                   what)
     return dict(lanes=state["px"].numel(), ms=ms, plain_ms=plain_ms,
                 worst=worst, max_err=max_err, steps=life_steps(state, ks),
-                t16=t16 if cut else None, end=ks)
+                t16=t16 if cut else None, end=ks, plain_end=ps,
+                start=state)
 
 
 def dealt_launch(wk, state, params, step_bound, what, plain_lanes=1152,
@@ -2635,7 +2665,15 @@ def pole_line_phase(wk, dev, card, report, regs, records, tolerance):
           f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, "
           f"{params.n_src} sources (wide rows of kinds {rows}), the warm-up "
           f"launched {f['counts']}, by loop {f['loops']}")
+    # the warm-up's one launch evaluated every source from its pole record
+    # (the host marked 9 of 9, which the kernel refuses on any other field)
+    check(params.poles == tuple(range(9))
+          and f["poles"] == {params.build_name: 9},
+          f"{what}: the host marked {params.poles} as poles, the warm-up's "
+          f"launch {f['poles']} (9 of 9 expected)")
     res = report.get(params.kernel_name + " (dealt)")
+    log(f"[46] the warm-up's launch marked {f['poles'][params.build_name]} "
+        f"of {params.n_src} sources as poles (pole records)")
     log(f"[46] pole-pole line, 9 unit poles x 9 electrodes, 9x{n_walks} "
         f"walks, 147456 lanes ({params.kernel_name}: its one-thread loop "
         f"{report.get(params.kernel_name)}, its dealt loop {res}): "
@@ -2647,6 +2685,12 @@ def pole_line_phase(wk, dev, card, report, regs, records, tolerance):
         f"{f['counts']}, by loop {f['loops']} ({card})")
     d = dealt_launch(wk, state, params, step_bound, what)
     log(f"[46] {dealt_text(d, params, card)}")
+    old_ms, old_by = bound(params, d["lanes"], d["steps"], 1,
+                           pole_records=False)
+    new_ms = bound(params, d["lanes"], d["steps"], 1)[0]
+    log(f"[46] the single launch's bound with a pole counted as the TERMS "
+        f"text (the older count): {old_ms:.4f} ms ({old_by}); with its own "
+        f"work: {new_ms:.4f} ms")
     # the potential matrix: row a, pole a's potentials at the electrodes
     warm = f["warm"]
     v, se = np.atleast_2d(warm.mean), np.atleast_2d(warm.stderr)
@@ -2676,8 +2720,11 @@ def pole_line_phase(wk, dev, card, report, regs, records, tolerance):
             f"{[round(float(x), 3) for x in z]} sigma (bound 4)")
     t46 = steps_256(wk, state, params, what)
     bound_ms, by = bound(params, t46["lanes"], t46["steps"], 1)
+    old_ms = bound(params, t46["lanes"], t46["steps"], 1,
+                   pole_records=False)[0]
     log(f"[46] 256 steps x {t46['lanes']} lanes: kernel {t46['ms']:.3f} ms "
-        f"(bound {bound_ms:.3f} ms by {by}), plain {t46['plain_ms']:.1f} "
+        f"(bound {bound_ms:.3f} ms by {by}; {old_ms:.3f} ms with a pole "
+        f"counted as the TERMS text), plain {t46['plain_ms']:.1f} "
         f"ms; worst plane agreement {t46['worst']:.5f}, max |err| "
         f"{t46['max_err']:.3g}, {t46['steps']} walker-steps ({card})")
     records.append(dict(kernel_record(params, "pole_line",
@@ -2885,6 +2932,23 @@ def main():
         f"{t7['plain_ms']:.3f} ms ({t7['plain_ms'] / t7['ms']:.1f}x); worst "
         f"plane agreement {t7['worst']:.5f}, max |err| on agreeing lanes "
         f"{t7['max_err']:.3g} ({card})")
+    # the plain version's steps replayed from a CUDA graph
+    # (walk_kernel._graphable) equal its kernels launched one by one
+    eager = clone_state(t7["start"])
+    graphable = wk._graphable
+    wk._graphable = lambda P: False
+    try:
+        eager_ms = cuda_ms(lambda: wk.walk_plain(eager, params, 256))
+    finally:
+        wk._graphable = graphable
+    differ = [k for k in state_planes(params.n_src)
+              if not torch.equal(eager[k], t7["plain_end"][k])]
+    check(graphable(params) and not differ,
+          f"phase 7: the plain steps from a CUDA graph differ from those "
+          f"launched one by one on {differ}")
+    log(f"[7] the plain 256 steps from a CUDA graph {t7['plain_ms']:.1f} "
+        f"ms, launched one kernel at a time {eager_ms:.1f} ms: every plane "
+        f"bit-equal ({card})")
     # the whole solve's single launch: its walks dealt to the threads
     d7 = dealt_launch(wk, state, params, step_bound, "phase 7")
     log(f"[7] {dealt_text(d7, params, card)}")
@@ -4475,11 +4539,15 @@ def main():
         f"registers {regs.get(wk.kernel_name(survey_full[2].variant))}")
 
     for r in records:
+        terms = (f" ({r['bound_terms_ms']:.4f} ms with a pole counted as "
+                 f"the TERMS text)" if "bound_terms_ms" in r else "")
         log(f"[bound] {r['name']} ({r['variant']}): {r['ms']:.3f} ms against "
-            f"a bound of {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"a bound of {r['bound_ms']:.4f} ms ({r['bound_by']}){terms}, "
             f"{r['registers']} registers")
 
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s ({card}); phase 7's "
+        f"plain 256 steps launched one kernel at a time {eager_ms:.1f} ms "
+        f"(the host's speed), from a CUDA graph {t7['plain_ms']:.1f} ms")
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": records}))
     print(card)

@@ -49,7 +49,11 @@
 // those sources is not a dipole) WideRow records of any kind the header's
 // fields take but the grid: a constant, a bump sum, a dipole or a TERMS
 // field, evaluated by field_value's own text (row_value), so that the
-// dipole-only builds keep their code and their constant copy. It
+// dipole-only builds keep their code and their constant copy; there a
+// source, header or row, that the host marks as one Gaussian pole
+// (K_POLE) is evaluated from a compact record (pole_value), bit for bit
+// the TERMS text's value (the pole-pole line's nine poles spent ~40% of
+// the step in that text, chip_probes/step_sites.py). It
 // loops over its sources at run time, so a row's kind is the same in
 // every thread of a warp (a uniform branch over the constant bank), and
 // adds every NEE term and every finished walk to the source's planes in
@@ -272,6 +276,9 @@ constexpr int F_BC = 0, F_ALPHA = 1, F_SIGMA = 2, F_SRC0 = 3;
 constexpr int N_FIELDS = 3 + MAX_SRC;
 constexpr int K_CONST = 0, K_BUMPS = 1, K_DIPOLE = 2, K_TERMS = 3;
 constexpr int K_GRID = 4;      // the Dirichlet field only (GRID_COLS params)
+// a source's kind word in the general rows build for a TERMS field that is
+// one Gaussian pole (pole_record): evaluated from its record (pole_value)
+constexpr int K_POLE = 5;
 constexpr int GRID_COLS = 8;   // x0, dx, y0, dy, hi_x, hi_y, nx, ny
 constexpr int MAX_TERMS = 4;   // TERMS field terms (problems/fields.py)
 constexpr int TERM_COLS = 27;  // poly[4][4], ax, ay, g, cx, cy, S1, S2
@@ -390,6 +397,11 @@ struct WalkConst {
   const float4* sil_group;
 #endif
 #if WALK_ROWS
+  // the general rows build's Gaussian pole sources (K_POLE): bit i of
+  // pole_mask marks source i, header or row, and pole[i] is its record
+  // (cx, cy, amp, g)
+  float4 pole[MAX_WIDE_SRC];
+  uint32_t pole_mask;
   // the general rows build's sources MAX_SRC.. (in that build only, so
   // that the other builds' block stays as it was; before the shard table,
   // so that a launch copies the rows of its own sources and its seeds)
@@ -404,7 +416,7 @@ struct WalkConst {
 };
 
 // the block and the module's other constant tables share the 64 KB
-// constant bank (the general rows take 17.9 KB of it)
+// constant bank (the general rows take 18.4 KB of it)
 static_assert(sizeof(WalkConst) <= 56 * 1024, "WalkConst outgrows the "
               "constant bank");
 
@@ -858,12 +870,31 @@ template <bool TERMS>
 __device__ float row_value(int r, float x, float y) {
   FIELD_VALUE_BODY(C.wrow[r].f, row_terms_value(r, x, y))
 }
+
+// the Gaussian pole source i from its record (cx, cy, amp, g): terms_value
+// on its field bit for bit (pole_record's term; x and y finite): the
+// background 0 + 0 x is +0; each Horner step over the zero coefficients
+// gives +-0, and +-0 + amp is amp; the exponent (0 x + 0 y) - g d^2 is
+// -(g d^2) (+-0 - z is -z for z != 0, and for z = +-0 both are +-0, whose
+// expf is 1); the sum's +0 + amp e stays. Nine operations and an expf in
+// place of TERMS_VALUE_BODY's call, its 30 Horner operations (unfused
+// under -fmad=false) and its selectors
+__device__ __forceinline__ float pole_value(int i, float x, float y) {
+  const float4 q = C.pole[i];
+  const float dx = x - q.x, dy = y - q.y;
+  return F(0.0) + q.z * expf(-(q.w * (dx * dx + dy * dy)));
+}
 #endif
 
 // source i of the walk: a field of the header, or from MAX_SRC on in the
-// wide form a dipole row (a row of any kind in the general rows build)
+// wide form a dipole row (a row of any kind in the general rows build,
+// and there a marked pole from its record); i is the same in every thread
+// of a warp, so the branches are uniform
 template <bool TERMS, bool WIDE>
 __device__ __forceinline__ float source_value(int i, float x, float y) {
+#if WALK_ROWS
+  if ((C.pole_mask >> i) & 1u) return pole_value(i, x, y);
+#endif
   if (!WIDE || i < MAX_SRC) return field_value<TERMS>(F_SRC0 + i, x, y);
 #if WALK_ROWS
   return row_value<TERMS>(i - MAX_SRC, x, y);
@@ -3487,6 +3518,28 @@ static bool load_field(int kind, int n, const float* fp, int n_fp, int& off,
   return true;
 }
 
+#if WALK_ROWS
+// a loaded TERMS source's pole record (cx, cy, amp, g), where the field is
+// one Gaussian pole amp exp(-g |p - c|^2): background +0 (its bits), one
+// term whose polynomial is its constant amp != 0 alone, ax = ay = 0,
+// g != 0 and no sin or cos factor (ops/walk_kernel.py::pole_record, the
+// same rule); false for any other field
+static bool pole_record(const Field& fd, int n_terms,
+                        const float (*terms)[TERM_COLS], float4& rec) {
+  uint32_t bg;
+  memcpy(&bg, &fd.p[0], sizeof bg);
+  if (fd.kind != K_TERMS || bg != 0u || n_terms != 1) return false;
+  const float* q = terms[0];
+  for (int k = 1; k < 16; ++k)
+    if (q[k] != F(0.0)) return false;
+  if (q[0] == F(0.0) || q[16] != F(0.0) || q[17] != F(0.0) ||
+      q[18] == F(0.0) || q[21] != F(S_NONE) || q[24] != F(S_NONE))
+    return false;
+  rec = make_float4(q[19], q[20], q[0], q[18]);
+  return true;
+}
+#endif
+
 static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
                       void* const* planes, int n_planes, int n_lanes,
                       void* const* geom, int n_geom, cudaStream_t st,
@@ -3564,8 +3617,9 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
   const int grid = ip[N_IP] == K_GRID;
   bool any_terms = false, rows = false;
   for (int f = 0; f < n_fields; ++f) {
-    any_terms = any_terms || ip[N_IP + 2 * f] == K_TERMS;
-    rows = rows || (f >= N_FIELDS && ip[N_IP + 2 * f] != K_DIPOLE);
+    const int kind = ip[N_IP + 2 * f];
+    any_terms = any_terms || kind == K_TERMS || kind == K_POLE;
+    rows = rows || (f >= N_FIELDS && kind != K_DIPOLE);
   }
   const bool mis = h.n_mix > 0;
   const int switches[11] = {
@@ -3620,12 +3674,23 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
     for (int v = 0; v < h.n_vert; ++v)
       for (int k = 0; k < 8; ++k) h.vert[v][k] = fp[off++];
   for (int f = 0; f < n_fields; ++f) {
-    const int kind = ip[N_IP + 2 * f], n = ip[N_IP + 1 + 2 * f];
+    int kind = ip[N_IP + 2 * f];
+    const int n = ip[N_IP + 1 + 2 * f];
+    // a source marked as a pole: a TERMS field, which must be one pole (a
+    // mark on any other field, or outside the general rows build, is
+    // refused: a marked source never takes the general text)
+    const bool pole = kind == K_POLE;
+    if (pole) {
+      if (!WALK_ROWS || f < F_SRC0) return (int)cudaErrorInvalidValue;
+      kind = K_TERMS;
+    }
     if (f >= N_FIELDS) {  // the wide form's rows
 #if WALK_ROWS
       WideRow& w = h.wrow[f - N_FIELDS];
-      if (!load_field(kind, n, fp, n_fp, off, w.f, w.n_terms, w.terms))
+      if (!load_field(kind, n, fp, n_fp, off, w.f, w.n_terms, w.terms) ||
+          (pole && !pole_record(w.f, w.n_terms, w.terms, h.pole[f - F_SRC0])))
         return (int)cudaErrorInvalidValue;
+      if (pole) h.pole_mask |= 1u << (f - F_SRC0);
 #else
       if (kind != K_DIPOLE || n != DIPOLE_COLS || off + n > n_fp)
         return (int)cudaErrorInvalidValue;
@@ -3653,6 +3718,14 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
     if (!load_field(kind, n, fp, n_fp, off, h.field[f], h.n_terms[f],
                     h.terms[f]))
       return (int)cudaErrorInvalidValue;
+#if WALK_ROWS
+    if (pole) {
+      if (!pole_record(h.field[f], h.n_terms[f], h.terms[f],
+                       h.pole[f - F_SRC0]))
+        return (int)cudaErrorInvalidValue;
+      h.pole_mask |= 1u << (f - F_SRC0);
+    }
+#endif
   }
   if (off != n_fp) return (int)cudaErrorInvalidValue;
 

@@ -98,7 +98,8 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "ROBIN_CHAIN", "ROBIN_REFLECTANCE", "MAX_SHARDS", "CHUNK_ROWS",
            "culled_scans", "chunk_records", "dealt", "launch_loop",
            "LARGE_TABLE_ROWS", "SIL_ROWS", "GROUP_CHUNKS", "large_scans",
-           "silhouette_records", "large_records", "build_code"]
+           "silhouette_records", "large_records", "build_code",
+           "pole_record", "POLE_KIND"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -124,6 +125,9 @@ LARGE_TABLE_ROWS = 1000  # Neumann or vertex rows from which the culled
                          # (csrc/walk_variant.h::large_scans)
 LARGE_CODE = 4096    # added to a variant's code for its large-table build
 SCAN_ELEMS = 1 << 24  # lanes x rows a plain scan forms at once
+POLE_KIND = 5        # a source's kind word in the general rows build for a
+                     # TERMS field that is one Gaussian pole (pole_record;
+                     # csrc/walk_kernel.cu's K_POLE)
 # Robin realization, as the kernel's template parameter: off, the chord
 # chain (``True`` means the chain, as in the JAX package), the
 # reflectance fold
@@ -531,6 +535,29 @@ def silhouette_records(vert_rows, rows_per_chunk: Optional[int] = None
     return np.asarray(out, np.float32).reshape(-1, 12)
 
 
+def pole_record(spec) -> Optional[Tuple[float, float, float, float]]:
+    """``(cx, cy, amp, g)`` of a field spec that is exactly one Gaussian
+    pole ``amp exp(-g |p - c|^2)`` (``fields.gaussian_bump``): a ``TERMS``
+    field of background +0, one term whose polynomial is its constant
+    ``amp != 0`` alone, ``ax = ay = 0``, ``g != 0`` and no sin or cos
+    factor; None for any other spec (a non-zero background, a second term,
+    any other coefficient, ax, ay or a factor). The general rows build
+    evaluates such a source from this record, bit for bit the ``TERMS``
+    text (``csrc/walk_kernel.cu``: ``pole_value``, and ``pole_record``,
+    the same rule, which refuses a mark on any other field)."""
+    if (spec.kind != fields.TERMS or len(spec.terms) != 1
+            or spec.background != 0.0
+            or math.copysign(1.0, spec.background) < 0.0):
+        return None
+    t = spec.terms[0]
+    amp, *rest = sum(t.poly, ())
+    if (amp == 0.0 or any(c != 0.0 for c in rest) or t.ax != 0.0
+            or t.ay != 0.0 or t.g == 0.0 or t.s1[0] != fields.S_NONE
+            or t.s2[0] != fields.S_NONE):
+        return None
+    return t.cx, t.cy, amp, t.g
+
+
 def large_records(neu_rows, vert_rows) -> np.ndarray:
     """The large-table build's records, one float32 buffer in the order
     ``walk_launch`` reads it: the first hit's chunk records
@@ -650,6 +677,17 @@ class WalkParams:
                         for f in self.specs[3 + MAX_SRC:]))
 
     @property
+    def poles(self) -> Tuple[int, ...]:
+        """The sources a launch evaluates from pole records
+        (:func:`pole_record`): in the general rows build every source, in
+        the header or past it, that is one Gaussian pole; ``()`` in any
+        other build."""
+        if not self.rows:
+            return ()
+        return tuple(i for i, f in enumerate(self.specs[3:])
+                     if pole_record(f) is not None)
+
+    @property
     def kernel_name(self) -> str:
         """The instantiation's name (the launch counters' key)."""
         return kernel_name(self.variant)
@@ -750,9 +788,10 @@ class WalkParams:
         fp += mix.ravel().tolist()
         if not self.table:
             fp += self.vert_table.ravel().tolist()
-        for spec in self.specs:
+        poles = {3 + i for i in self.poles}
+        for f, spec in enumerate(self.specs):
             kind, params = spec.table()
-            ip += [kind, len(params)]
+            ip += [POLE_KIND if f in poles else kind, len(params)]
             fp += list(params)
         return np.asarray(fp, np.float32), np.asarray(ip, np.int32)
 
@@ -926,12 +965,20 @@ def stream_ids(rows: int, crn=None, device=None):
 # plain version                                                          #
 # ---------------------------------------------------------------------- #
 
+@functools.lru_cache(maxsize=None)
+def _stream_keys(streams: tuple, device) -> torch.Tensor:
+    """The hash keys of stream indices ``streams`` on ``device``, made
+    once: a copy from the host in every step would wait for the device
+    (and could not be captured in a CUDA graph)."""
+    return torch.tensor([(rng.C_STREAM * k) & rng.MASK32 for k in streams],
+                        dtype=torch.int64, device=device)
+
+
 def _uniforms(seed: int, ctr, sid, streams):
     """Counter-hash uniforms for stream indices ``streams`` (1-based),
     stacked on a leading axis: one hash over every stream at once."""
     base = rng.mix32((seed & rng.MASK32) ^ rng.mul32(ctr, rng.C_COUNTER))
-    ks = torch.tensor([(rng.C_STREAM * k) & rng.MASK32 for k in streams],
-                      dtype=torch.int64, device=ctr.device)
+    ks = _stream_keys(tuple(streams), ctr.device)
     ks = ks.view((-1,) + (1,) * ctr.dim())
     return rng._to_unit(rng.mix32((sid ^ base)[None] ^ ks))
 
@@ -1514,6 +1561,33 @@ def _movable(P: WalkParams, thr: float, flat: dict, idx):
     return (torch.abs(atten) <= thr) | due
 
 
+def _graphable(P: WalkParams) -> bool:
+    """Whether the plain step holds no host synchronization, so that a
+    CUDA graph can capture it: without the Robin correction (its wall
+    tests and chain branch ask the host) and with at most four rejection
+    rounds (more loop on a host test)."""
+    return P.robin == ROBIN_OFF and (not P.delta or P.transport
+                                     or P.rejection_rounds <= 4)
+
+
+def _captured_step(flat: dict, carried, P: WalkParams, consts, a_p0, thr):
+    """One :func:`_step` over every lane of ``flat``, its ``carried``
+    planes updated in place, captured as a CUDA graph: each replay runs the
+    step's kernels, the same as launched one by one, from one host call."""
+    side = torch.cuda.Stream(device=flat["px"].device)
+    side.wait_stream(torch.cuda.current_stream(flat["px"].device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        s = {k: flat[k] for k in carried}
+        s["a_cur"] = _step(s, P, consts, a_p0, s["a_cur"], thr)
+        for k in carried:
+            flat[k].copy_(s[k])
+        graph.capture_end()
+    torch.cuda.current_stream(flat["px"].device).wait_stream(side)
+    return graph
+
+
 def walk_plain(state: dict, params: WalkParams, inner_steps: int,
                freeze_thr=None) -> dict:
     """The plain PyTorch version of the walk kernel, on any device.
@@ -1526,9 +1600,15 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
     stepped until the next check: exact, because a step of a lane without
     quota changes nothing, nor does one of a lane frozen by ``freeze_thr``
     (freeze builds) whose walk is not due to end, for the rest of the
-    launch (the kernel's per-thread exits rest on the same facts). A
-    launch over several shards (:meth:`WalkParams.shard_table`) walks each
-    shard's lanes with its seed, one shard after another: the same batches
+    launch (the kernel's per-thread exits rest on the same facts). On a
+    card, a step without host synchronization (:func:`_graphable`) is
+    captured once as a CUDA graph over every lane after the launch's first
+    step and replayed, the lanes still checked every ``EXIT_CHECK`` steps:
+    the same kernels on the same values (a step that leaves a lane
+    unchanged does so on every lane it covers), without the host's cost of
+    some hundred kernel launches a step. A launch over several shards
+    (:meth:`WalkParams.shard_table`) walks each shard's lanes with its
+    seed, one shard after another: the same batches
     of lanes as a launch of that shard alone (PyTorch's CPU kernels may
     round an element by where it falls in a batch: its ``sigmoid`` rounds a
     batch's tail through another ``exp``). Updates the mutable planes of
@@ -1556,7 +1636,27 @@ def walk_plain(state: dict, params: WalkParams, inner_steps: int,
     flat["sid64"] = flat["sid"].to(torch.int64) & rng.MASK32
     carried = list(names) + ["a_cur"]
     idx, sub = None, None
+    graph = flat["px"].is_cuda and _graphable(P)
     for i in range(int(inner_steps)):
+        if graph and i > 0:
+            if i == 1:  # the first step ran: every table is on the card
+                for k in carried:
+                    flat[k][idx] = sub[k]
+                sub = None
+                consts = (flat["p0x"], flat["p0y"], flat["sid64"],
+                          flat["ob0"] != 0 if P.snap else None,
+                          flat["n0x"] if P.snap else None,
+                          flat["n0y"] if P.snap else None, P.seed)
+                step = _captured_step(flat, carried, P, consts,
+                                      flat["a_p0"], thr)
+            if i % EXIT_CHECK == 0:
+                live = flat["quota"] > 0
+                if thr is not None:
+                    live = live & _movable(P, thr, flat, slice(None))
+                if not bool(live.any()):
+                    break
+            step.replay()
+            continue
         if i % EXIT_CHECK == 0:
             if sub is not None:
                 for k in carried:
@@ -1900,6 +2000,7 @@ def _launch_cuda(state: dict, params: WalkParams, inner_steps: int,
     run_walk.variant_launches[params.kernel_name] += 1
     run_walk.build_launches[params.build_name] += 1
     run_walk.loop_launches[loop] += 1
+    run_walk.pole_sources[params.build_name] += len(params.poles)
     return state
 
 
@@ -1911,7 +2012,9 @@ def run_walk(state: dict, params: WalkParams, inner_steps: int,
     launch, counted in ``run_walk.launches``, per instantiation in
     ``run_walk.variant_launches[params.kernel_name]``, per build in
     ``run_walk.build_launches[params.build_name]`` and per loop in
-    ``run_walk.loop_launches``, :func:`launch_loop`) or raise.
+    ``run_walk.loop_launches``, :func:`launch_loop`; the sources the host
+    marked as poles, :attr:`WalkParams.poles`, summed per build in
+    ``run_walk.pole_sources``) or raise.
     ``freeze_thr`` is the launch's freeze threshold (freeze builds only;
     ``None`` there means ``+inf``, no lane freezes).
     """
@@ -1924,3 +2027,4 @@ run_walk.launches = 0
 run_walk.variant_launches = collections.Counter()
 run_walk.build_launches = collections.Counter()
 run_walk.loop_launches = collections.Counter()
+run_walk.pole_sources = collections.Counter()

@@ -58,7 +58,11 @@ survey's with the transport sampler and with MIS, and the wide surveys'
 general rows builds with constants, bump sums, ``TERMS`` fields and
 dipoles past the fourth source), a launch that drains uneven quotas from
 fresh walks against the one-thread loop in 256-step launches (bit for
-bit) and the plain walk.
+bit) and the plain walk; and the general rows build's Gaussian pole
+sources, from their records, against the same launch by the ``TERMS``
+text (bit for bit) and the plain walk; and the plain walk's steps
+replayed from a CUDA graph against its kernels launched one by one (bit
+for bit).
 """
 
 import os
@@ -1055,3 +1059,87 @@ def test_dealt_launch_matches_drained_one_thread_loop(device, which):
                           budget)
     frac, _, finite = wk.compare_planes(dealt, plain, names)
     assert finite and min(frac.values()) >= wk.PLANE_MIN_FRAC, frac
+
+
+def _poles_state(device, n_src=9):
+    """The sweep box's 8,192 lanes with ``n_src`` Gaussian poles in the
+    wide survey's general rows build (every source marked)."""
+    import chip_smoke as cs
+
+    rows = WIDE_ROWS
+    spec = cs.sweep_spec(("poles", rows, dict(n_src=n_src)))
+    problem = cs.sweep_problem(spec)
+    problem.set_source_term([
+        fields.gaussian_bump((-1.6 + 0.4 * i, -0.5 - 0.35 * (i % 4)),
+                             1.0 + 0.15 * i, 0.3 + 0.02 * i)
+        for i in range(n_src)])
+    solver = WoStSolver(problem, cs.sweep_options(spec, target_slots=8192),
+                        device=device)
+    state, params, _, _ = solver._setup(cs.SWEEP_POINTS, 1 << 15, 64,
+                                        cs.SWEEP_EPS, 3)
+    assert params.variant == rows and params.poles == tuple(range(n_src))
+    return state, params
+
+
+WIDE_ROWS = (0, False, False, False, False, True, False, True, False, False,
+             True)
+
+
+def test_pole_records_equal_the_terms_text_and_plain(device):
+    # the general rows build evaluates the marked poles from their records:
+    # the dealt launch equals the same launch with no source marked (every
+    # pole by the TERMS text) bit for bit, and the plain walk
+    import dataclasses
+
+    state, params = _poles_state(device)
+
+    class Unmarked(type(params)):
+        poles = ()
+
+    unmarked = Unmarked(**{f.name: getattr(params, f.name)
+                           for f in dataclasses.fields(params) if f.init})
+    budget = int(state["quota"].max()) * (params.max_steps + 1)
+    marked, general = ({k: v.clone() for k, v in state.items()}
+                       for _ in "ab")
+    wk.run_walk.loop_launches.clear()
+    wk.run_walk(marked, params, budget)
+    wk.run_walk(general, unmarked, budget)
+    assert dict(wk.run_walk.loop_launches) == {"dealt": 2}
+    names = state_planes(params.n_src)
+    for k in names:
+        assert torch.equal(marked[k], general[k]), k
+    plain = wk.walk_plain({k: v.clone() for k, v in state.items()}, params,
+                          budget)
+    _compare(marked, plain, names)
+
+
+@pytest.mark.parametrize("case", ["survey_defaults", "poles", "split"])
+def test_plain_graph_equals_its_kernels_one_by_one(device, case):
+    # walk_plain replays a captured CUDA graph of its step: the same
+    # planes, bit for bit, as the step's kernels launched one by one
+    import dataclasses
+
+    thr = None
+    if case == "poles":  # at 2 rejection rounds (64 loop on a host test)
+        state, params = _poles_state(device)
+        params = dataclasses.replace(params, rejection_rounds=2)
+    else:
+        opts = (dict(split_threshold=4.0) if case == "split" else
+                dict(common_random_numbers=True, roulette_threshold=0.05,
+                     rejection_rounds=2))
+        solver = WoStSolver(_survey_problem(), survey_default_options(
+            target_slots=8192, **opts), device=device)
+        state, params, _, _ = solver._setup(ELECTRODES, 4096, 500, EPS, 3)
+        thr = 4.0 if case == "split" else None
+    assert wk._graphable(params)
+    graphed, eager = ({k: v.clone() for k, v in state.items()}
+                      for _ in "ab")
+    wk.walk_plain(graphed, params, 200, thr)
+    graphable = wk._graphable
+    wk._graphable = lambda P: False
+    try:
+        wk.walk_plain(eager, params, 200, thr)
+    finally:
+        wk._graphable = graphable
+    for k in state_planes(params.n_src):
+        assert torch.equal(graphed[k], eager[k]), k
