@@ -62,6 +62,13 @@ states (seed 5, fresh walks):
 - ``pole``: phase 46's pole-pole line, the wide survey's general rows
   build ``<0,false,false,false,false,true,false,true,false,false,true>``,
   147,456 lanes, nine ``TERMS`` poles (``chip_smoke.py::pole_config``).
+- ``bubble``: phase 47's Poisson bubble, the table form without delta
+  tracking ``<0,false,false,false,true,false,false>``, 196,608 lanes of
+  32 walks on the 256-segment disk (``chip_smoke.py::bubble_config``).
+
+The walks without delta tracking (``short``, ``bubble``) have two sites of
+their own: DIRECTION (the angle's sine and cosine and the direction) and
+GNEE (the Green's-radius source sample and its sources).
 
 The sites of the survey builds' step: HASH (the counter hash and the
 step's first uniforms), CLOSEST, FIRST_HIT, RADIUS (the rejection
@@ -130,13 +137,15 @@ SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "RADIUS", "REDRAW", "MIS", "STAR", "PDF", "ADD", "NEE", "ARRIVAL",
          "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S", "INTERIOR", "SIGMA",
          "ALPHA_H", "TRANSPORT", "CHEB", "FREE", "TWEIGHT", "BOXMULLER",
-         "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED", "SOURCES")
+         "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED", "SOURCES",
+         "DIRECTION", "GNEE")
 # the disjoint sites of a step (REDRAW lies inside RADIUS; STAR, PDF,
 # BOXMULLER and GREENS inside MIS; CHEB, FREE and TWEIGHT inside
 # TRANSPORT; SOURCES, the sources' values and adds, inside NEE)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
        "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S",
-       "INTERIOR", "SIGMA", "ALPHA_H", "TRANSPORT", "ALPHA_Y")
+       "INTERIOR", "SIGMA", "ALPHA_H", "TRANSPORT", "ALPHA_Y", "DIRECTION",
+       "GNEE")
 # counters, not clocks: warps (in the cycle sums) and lanes
 COUNTS = ("ZWARPS", "ZFREE", "ZMIXED")
 SLOTS = 512
@@ -207,6 +216,17 @@ STEP_EDITS = (
     ("    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);\n",
      "    const float u4 = DELTA ? uni(base, sid, 4) : F(0.0);\n"
      "    SITE_END(HASH)\n"),
+    ("    const float phi = F(3.141592653589793) * u1;\n",
+     "    SITE_BEGIN(DIRECTION)\n"
+     "    const float phi = F(3.141592653589793) * u1;\n"),
+    ("    float dy = F(2.0) * sphi * cphi;\n",
+     "    float dy = F(2.0) * sphi * cphi;\n    SITE_END(DIRECTION)\n"),
+    ("      if (C.has_source) {\n        const float r_s = r * sqrtf(",
+     "      SITE_BEGIN(GNEE)\n"
+     "      if (C.has_source) {\n        const float r_s = r * sqrtf("),
+    ("      newx = hx;\n      newy = hy;\n      new_ob = hit;\n",
+     "      SITE_END(GNEE)\n"
+     "      newx = hx;\n      newy = hy;\n      new_ob = hit;\n"),
     ("      const float a_s = alpha_c<TERMS>(sx, sy);\n",
      "      SITE_BEGIN(ALPHA_S)\n"
      "      const float a_s = alpha_c<TERMS>(sx, sy);\n"
@@ -225,10 +245,18 @@ STEP_EDITS = (
      "        SITE_BEGIN(ALPHA_H)\n"
      "        const float a_h = alpha_c<TERMS>(hx, hy);\n"
      "        SITE_END(ALPHA_H)\n"),
-    ("    const float dD = closest_point<TABLE>(px, py, cx, cy);\n",
-     "    SITE_BEGIN(CLOSEST)\n"
-     "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n"
-     "    SITE_END(CLOSEST)\n"),
+    (("    float cx, cy;\n"
+      "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n",
+      "    float cx, cy;\n#ifdef WALK_CLOSEST\n"
+      "    const float dD = WALK_CLOSEST(px, py, cx, cy);\n#else\n"
+      "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n#endif\n"),
+     ("    float cx, cy;\n    SITE_BEGIN(CLOSEST)\n"
+      "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n"
+      "    SITE_END(CLOSEST)\n",
+      "    float cx, cy;\n    SITE_BEGIN(CLOSEST)\n#ifdef WALK_CLOSEST\n"
+      "    const float dD = WALK_CLOSEST(px, py, cx, cy);\n#else\n"
+      "    const float dD = closest_point<TABLE>(px, py, cx, cy);\n#endif\n"
+      "    SITE_END(CLOSEST)\n")),
     ("    if (done_eps || steps >= max_steps) {\n",
      "    if (done_eps || steps >= max_steps) {\n      SITE_BEGIN(BANK)\n"),
     ("      a_cur = a_p0;\n      WALK_NEXT;\n",
@@ -376,9 +404,14 @@ KERNEL_EDITS = (
     ("    for (int it = 0; it < budget && quota > 0; ++it) {\n",
      "    SITE_BEGIN(LOOP)\n"
      "    for (int it = 0; it < budget && quota > 0; ++it) {\n"),
-    ("#undef WALK_FROZEN\n    }\n\n    P.px[lane] = px;\n",
-     "#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
-     "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n"),
+    (("#undef WALK_FROZEN\n    }\n\n    P.px[lane] = px;\n",
+      "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
+      "\n    P.px[lane] = px;\n"),
+     ("#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
+      "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n",
+      "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
+      "    __syncwarp(site_m_LOOP);\n    SITE_END(LOOP)\n\n"
+      "    P.px[lane] = px;\n")),
 )
 # the clocked copy runs every build in the one-thread loop, the freeze
 # builds too (the anchors that exist are replaced, each once; a frozen
@@ -516,6 +549,13 @@ def pole_state(dev):
         cs.survey_points(electrodes, -0.5), *cs.SURVEY_RUN, 5)[:2]
 
 
+def bubble_state(dev):
+    """Phase 47's state of the Poisson bubble (196,608 lanes, seed 5)."""
+    prob, options, _ = cs.bubble_config()
+    return WoStSolver(prob, options, device=dev)._setup(
+        cs.BUBBLE_POINTS, *cs.BUBBLE_RUN, 5)[:2]
+
+
 def groups(dev, names=()):
     """``name: (state, params)``: the builds' full-size states (those of
     ``names``, or all)."""
@@ -528,12 +568,13 @@ def groups(dev, names=()):
         if not names or name in names:
             out[name] = survey_state(dev, build)
     for name, state in (("wide_survey", wide_survey_state),
-                        ("short", short_state), ("pole", pole_state)):
+                        ("short", short_state), ("pole", pole_state),
+                        ("bubble", bubble_state)):
         if not names or name in names:
             out[name] = state(dev)
     if names and not set(names) - {"survey", "jacobian", "transport",
                                    "survey_mis", "wide_survey", "short",
-                                   "pole"}:
+                                   "pole", "bubble"}:
         return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True

@@ -42,12 +42,19 @@ short walk (``chip_smoke.py::short_config``: 196,608 lanes of 32 walks,
 ten timed solves); ``--build pole`` for the wide survey's general rows
 build ``<0,false,false,false,false,true,false,true,false,false,true>`` at
 phase 46's pole-pole line (``chip_smoke.py::pole_config``: nine unit
-poles, 147,456 lanes), with the sources the host marks as poles. Each
+poles, 147,456 lanes), with the sources the host marks as poles;
+``--build bubble`` for the table form without delta tracking
+``<0,false,false,false,true,false,false>`` at phase 47's Poisson bubble
+(``chip_smoke.py::bubble_config``: the 256-segment disk, 196,608 lanes of
+32 walks, ten timed solves). Each
 build's record also holds ``ptxas -v``'s
 registers and spills of its kernels (where this run built the library),
 the walks of the single launch, their mean length and the launch's bound
-(``chip_smoke.py::bound``), and hashes of the 256 steps' end planes and of
-the warm-up solve.
+(``chip_smoke.py::bound``), hashes of the 256 steps' end planes and of
+the warm-up solve, and the single launch (one thread a lane) and 256 steps
+timed ten at a time queued back to back (``whole_queued_ms``,
+``ms256_queued``: a ~1 ms kernel's one-launch time carries the host's gap
+before it).
 
 ``--ablate PIECE[,PIECE]`` (this checkout) builds the two libraries from
 a copy of ``csrc/`` under ``_archive/survey_ab/`` with the named pieces of
@@ -68,8 +75,9 @@ dealt build) leave out the fold's launch or the records' writes, for
 timing only (the planes come out wrong); ``header_call`` (with ``--build
 pole``) leaves the poles among sources 0-3 unmarked, so the header's
 fields take ``field_value``'s call, and marks only the rows' poles (the
-host's marks, no source edit). A dealt build's record also holds the
-plan's time (its three kernels and the read back). Writes
+host's marks, no source edit); with ``--build short``, ``sincos_dir``
+(the direction by ``cosf`` and ``sinf``). A dealt build's record also
+holds the plan's time (its three kernels and the read back). Writes
 ``chiprun_out/survey_ab_TAG.json``.
 
     python3 chip_probes/survey_ab.py . ablate --ablate one_pass
@@ -92,7 +100,7 @@ ap.add_argument("tree")
 ap.add_argument("tag")
 ap.add_argument("--ablate", default="")
 ap.add_argument("--build", choices=("survey", "transport", "mis", "wide",
-                                   "short", "pole"),
+                                   "short", "pole", "bubble"),
                 default="survey")
 args = ap.parse_args()
 tree = os.path.abspath(args.tree)
@@ -125,8 +133,9 @@ SURVEY_MIS = (0, False, True, False, False, True, False, False, False)
 WIDE = (0, False, False, False, False, True, False, True, False)
 SHORT = (0, False, False, False, False, False, False, False, False)
 POLE = WIDE + (False, True)
+BUBBLE = (0, False, False, False, True, False, False, False, False)
 BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS,
-          "wide": WIDE, "short": SHORT, "pole": POLE}
+          "wide": WIDE, "short": SHORT, "pole": POLE, "bubble": BUBBLE}
 BUILD_LOG = []  # the build's nvcc output (ptxas -v)
 # the dealt loop's pieces: (file, anchor, replacement) edits that take one
 # out
@@ -147,6 +156,8 @@ PIECES = {
     # too), and without the fold or the records' writes (timing only: the
     # planes come out wrong)
     "short_dealt": (('walk_variant.h', '  return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&\n         !grid && !terms_form && !(transport && (mis || wide));\n', '  return robin == ROBIN_OFF && !maj && !freeze && !table && !grid &&\n         !terms_form &&\n         (delta ? !(transport && (mis || wide)) : !(mis || wide));\n'), ('walk_kernel.cu', '   WALK_DELTA && !WALK_GRID && !WALK_TERMS &&                          \\\n   !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE)))', '   !WALK_GRID && !WALK_TERMS &&                                        \\\n   (WALK_DELTA ? !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE))          \\\n               : !(WALK_MIS || WALK_WIDE)))'), ('walk_kernel.cu', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\n', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\nconstexpr int DEALT_RUN = 8;       // walks a take, without delta tracking\n'), ('walk_kernel.cu', '  unsigned int w = atomicAdd(&next_lane, 1u);\n  if (w >= (unsigned int)n_walks) return;\n', "  // walks a take, and the end of the thread's run\n  constexpr unsigned int RUN = DELTA ? 1u : (unsigned int)DEALT_RUN;\n  unsigned int w = atomicAdd(&next_lane, RUN);\n  if (w >= (unsigned int)n_walks) return;\n  [[maybe_unused]] unsigned int w_end = min(w + RUN, (unsigned int)n_walks);\n"), ('walk_kernel.cu', "  // walk w from its start, as the bank's recycle leaves a lane\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;  // offsets[lo] <= w < offsets[hi]\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    rec = records + (size_t)w * words;", '  const auto begin = [&]() {\n    rec = records + (size_t)w * words;'), ('walk_kernel.cu', "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  // the walk's record, once its bank ran", "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    begin();\n  };\n  [[maybe_unused]] const auto next = [&]() {\n    while ((unsigned int)offsets[lane + 1] <= w) ++lane;\n    begin();\n  };\n  // the walk's record, once its bank ran"), ('walk_kernel.cu', '#define WALK_NEXT                          \\\n  {                                        \\\n    finish();                              \\\n    w = atomicAdd(&next_lane, 1u);         \\\n    if (w >= (unsigned int)n_walks) break; \\\n    start();                               \\\n    continue;                              \\\n  }', '#define WALK_NEXT                                                      \\\n  {                                                                    \\\n    finish();                                                          \\\n    if constexpr (RUN > 1u) {                                          \\\n      if (++w < w_end) {                                               \\\n        next();                                                        \\\n        continue;                                                      \\\n      }                                                                \\\n    }                                                                  \\\n    w = atomicAdd(&next_lane, RUN);                                    \\\n    if (w >= (unsigned int)n_walks) break;                             \\\n    if constexpr (RUN > 1u) w_end = min(w + RUN, (unsigned int)n_walks); \\\n    start();                                                           \\\n    continue;                                                          \\\n  }')),
+    # the short walk's build (walk_variant.h::one_sincos): cosf and sinf
+    "sincos_dir": (("walk_kernel.cu", "#define WALK_SINCOS\n", ""),),
     "no_fold": (("walk_kernel.cu",
                  "    e = launch_kernel(walk_fold<WALK_WIDE != 0>,",
                  "    if (n_walks < 0) e = launch_kernel(walk_fold<WALK_WIDE "
@@ -332,6 +343,27 @@ def timed(state, params, budget, reps=3):
     return best, out
 
 
+def queued(state, params, budget, n=10, reps=3):
+    """Best of ``reps`` ms a launch (CUDA events) of ``n`` launches of
+    ``budget`` steps queued back to back, each on its own copy of
+    ``state`` made before: the host's part of a launch overlaps the kernel
+    before it, so a short kernel's time carries no host gap."""
+    best = None
+    for _ in range(reps):
+        copies = [clone(state) for _ in range(n)]
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for c in copies:
+            wk.run_walk(c, params, budget)
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / n
+        best = ms if best is None else min(best, ms)
+    return best
+
+
 def loops():
     return dict(getattr(wk.run_walk, "loop_launches", {}))
 
@@ -384,7 +416,11 @@ def launches(state, params, step_bound):
     bound_ms, bound_by = cs.bound(params, life.numel(), steps, 1)
     plan = (plan_ms(state, params, step_bound) if lp == {"dealt": 3}
             else None)
-    return dict(whole_ms=ms, whole_loops=lp, ms256=ms256, steps=steps,
+    queued_ms = queued(state, params, step_bound) if lp == {"lanes": 3} \
+        else None
+    return dict(whole_ms=ms, whole_queued_ms=queued_ms, whole_loops=lp,
+                ms256=ms256, ms256_queued=queued(state, params, 256),
+                steps=steps,
                 lanes=life.numel(), longest_lane=longest,
                 occupancy=steps / max(life.numel() * longest, 1),
                 walks=walks, mean_walk=steps / max(walks, 1),
@@ -417,6 +453,10 @@ def full_size():
         prob, options = cs.short_config()
         return (WoStSolver(prob, options, device=dev), cs.SHORT_POINTS,
                 cs.SHORT_RUN, 10)
+    if args.build == "bubble":
+        prob, options, _ = cs.bubble_config()
+        return (WoStSolver(prob, options, device=dev), cs.BUBBLE_POINTS,
+                cs.BUBBLE_RUN, 10)
     survey, electrodes, options = cs.survey_config(args.build)
     return (WoStSolver(survey.build_problem(), options, device=dev),
             cs.survey_points(electrodes, -0.5), cs.SURVEY_RUN, 3)

@@ -28,6 +28,13 @@ order, and the first hit's group records (``group_skips``) above its
 chunks, all in float32 with the kernel's margins; it counts the rows and
 the records a lane and a warp read a step.
 
+``replay_closest(params, state)`` replays the culled closest point of
+the table form without delta tracking (``walk_kernel.culled_closest``:
+the Dirichlet rows by chunks from the chunk of the least box distance
+outward, ``box_d2`` against the running minimum) over iterations of
+``walk_plain`` from a state, and counts the rows and records a lane and a
+warp read a closest point.
+
 ``replay(params, state)`` returns a dict per chunk size and scan; as a
 script it runs ``chip_smoke.py`` phase 20's configuration (the terrain,
 294,912 lanes) for 256 steps on the card and replays the end planes,
@@ -257,6 +264,74 @@ def replay(params, state, sizes=SIZES):
                                                       go)
         out[per] = res
     return out
+
+
+def replay_closest(params, state, steps=32, lanes=8192):
+    """The culled closest point's reads over ``steps`` iterations of
+    ``walk_plain`` (a bank or a step each) from ``lanes`` lanes of
+    ``state`` (whole warps of ``WARP`` consecutive lanes, spread evenly
+    over it), a copy: the kernel's chunk order from the chunk of the least
+    ``box_d2`` (k, k + 1, k - 1, ...), a chunk skipped where its record's
+    ``box_d2`` exceeds the running minimum. ``{lane, warp, lane_records,
+    warp_records, all, calls}``: rows a lane reads a closest point and a
+    warp (the row loop of an iteration runs when any of its lanes visits),
+    the record tests of each (every chunk's, twice: the least box first),
+    the rows of a full scan, and the lanes' calls counted."""
+    P = params
+    flat = {k: v.reshape(-1) for k, v in state.items()}
+    n_warps = max(1, min(lanes, flat["px"].numel()) // WARP)
+    first = torch.linspace(0, flat["px"].numel() // WARP - 1, n_warps,
+                           device=flat["px"].device).long() * WARP
+    idx = (first[:, None] + torch.arange(WARP, device=first.device)).ravel()
+    sub = {k: v[idx].clone() for k, v in flat.items()}
+    dev = sub["px"].device
+    n = sub["px"].numel()
+    per = wk.CHUNK_ROWS
+    ax, ay, bx, by = P.columns("dir_table", dev)
+    n_dir = ax.shape[1]
+    box = torch.as_tensor(wk.chunk_records(P.dir_table)[:, :4], device=dev)
+    n_ch = box.shape[0]
+    size = torch.as_tensor([min(per, n_dir - c * per) for c in range(n_ch)],
+                           device=dev)
+    pad = (-n) % WARP
+    lane_rows = warp_rows = calls = warp_calls = 0.0
+    for _ in range(steps):
+        go = sub["quota"] > 0
+        if not bool(go.any()):
+            break
+        px, py = sub["px"], sub["py"]
+        d2 = _rows_d2(ax, ay, bx, by, px, py)
+        cmin = torch.nn.functional.pad(d2, (0, n_ch * per - n_dir),
+                                       value=float("inf")).view(
+                                           n, n_ch, per).min(2).values
+        ex = torch.clamp(torch.maximum(box[None, :, 0] - px[:, None],
+                                       px[:, None] - box[None, :, 2]), min=0)
+        ey = torch.clamp(torch.maximum(box[None, :, 1] - py[:, None],
+                                       py[:, None] - box[None, :, 3]), min=0)
+        bd = ex * ex + ey * ey
+        k0 = bd.argmin(1)
+        best = torch.full((n,), float(np.float32(3e38)), device=dev)
+        rows = torch.zeros(n, device=dev)
+        warp = torch.zeros((n + pad) // WARP, device=dev)
+        for i in range(n_ch):
+            o = (i + 1) // 2
+            ch = torch.remainder(k0 + (o if i % 2 else -o), n_ch)[:, None]
+            visit = ~(bd.gather(1, ch)[:, 0] > best) & go
+            best = torch.where(visit, torch.minimum(
+                best, cmin.gather(1, ch)[:, 0]), best)
+            took = torch.where(visit, size[ch[:, 0]], 0).float()
+            rows += took
+            warp += torch.nn.functional.pad(took, (0, pad)).view(
+                -1, WARP).max(1).values
+        warps = torch.nn.functional.pad(go, (0, pad)).view(-1, WARP).any(1)
+        lane_rows += float(rows[go].sum())
+        calls += float(go.sum())
+        warp_rows += float(warp[warps].sum())
+        warp_calls += float(warps.sum())
+        wk.walk_plain(sub, P, 1)
+    return dict(lane=lane_rows / max(calls, 1.0),
+                warp=warp_rows / max(warp_calls, 1.0), lane_records=2 * n_ch,
+                warp_records=2 * n_ch, all=n_dir, calls=int(calls))
 
 
 def _step_inputs(P, state):

@@ -32,7 +32,10 @@ scenario's dipole-dipole pseudosection at the main path's size (phase
 rows, past the 8,192 the JAX package's fused kernel holds, in the table
 variant's large-table build (phase 45), and
 a pole-pole line of nine unit current poles, the wide form's general rows
-at the main path's size (phase 46). Each phase reports on its own line:
+at the main path's size (phase 46), and the reference's Poisson bubble on
+a 256-segment disk at the short walk's size, the table form without delta
+tracking with its closest point culled (phase 47). Each phase reports on
+its own line:
 
 1. environment: torch, CUDA, nvcc and the card (name and power limit);
 2. build of the walk kernel from ``csrc/walk_kernel.cu``, one library per
@@ -199,7 +202,10 @@ at the main path's size (phase 46). Each phase reports on its own line:
     solves (walker-steps/s, s/solve, mean walk length, the kernel's
     share), every mean within 4 sigma + 5e-3 of ``x + 2y``, then 256 steps
     at that state, whose numbers the no-delta record takes; then the
-    solve's single launch from that state, timed against its bound.
+    solve's single launch from that state (its direction from one
+    ``sincosf``, ``walk_kernel.one_sincos``), timed against its bound and
+    bit for bit the loop run in 256-step launches until drained
+    (``single_launch``).
 26. variable coefficients at full size: ``varcoeff_solve_points()`` (652
     points) x 4096 walks, ``SolverOptions(target_slots=1<<21,
     max_attenuation=50.0)`` (667,648 working lanes), max_steps 500: a
@@ -386,6 +392,22 @@ at the main path's size (phase 46). Each phase reports on its own line:
     steps of the kernel and of the plain version at the solve's full
     state (``steps_256``), from which the general rows build's record
     (``pole_line``) takes its numbers.
+47. full size, the Poisson bubble (``bubble_phase``, ``bubble_config``:
+    ``tests/test_solver_source.py:33-46``'s ``-lap u = 1`` on
+    ``circle_loop(1.0, n=256)``, ``u = 0`` on it, points (0, 0), (0.5, 0),
+    (0, -0.8), 2^21 walks each, max_steps 300, eps 1e-3,
+    ``SolverOptions(target_slots=1<<19, min_quota=32)``: 196,608 lanes):
+    a warm-up (its launches counted: one, one thread a lane, in the table
+    form without delta tracking, ``walk_kernel.culled_closest``) and 10
+    timed solves (walker-steps/s, s/solve, mean walk length, kernel
+    share), every mean within 4 sigma + 5e-3 of (1 - r^2) / 4; the
+    solve's single launch, bit for bit the loop in 256-step launches until
+    drained, against its bound over every row and over the rows a lane's
+    culled closest point reads (``chip_probes/table_cull.py::
+    replay_closest``), and against the plain walk under phase 3's rule on
+    1,152 lanes; 256 steps of kernel and plain version at the solve's
+    state, from which the table form's no-delta record
+    (``no_delta_table``) takes its numbers.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -504,6 +526,30 @@ def short_config():
                     bc_dirichlet=fields.polynomial({(1, 0): 1.0,
                                                     (0, 1): 2.0})),
             SolverOptions(target_slots=1 << 19, min_quota=32))
+
+
+# phase 47's Poisson bubble (tests/test_solver_source.py:33-46): points,
+# walks, max_steps, eps
+BUBBLE_POINTS = np.array([[0.0, 0.0], [0.5, 0.0], [0.0, -0.8]], np.float32)
+BUBBLE_RUN = (1 << 21, 300, 1e-3)
+P47_LANES = 196608  # its lanes (a rehearsal at a cut size sets its own)
+
+
+def bubble_config():
+    """Phase 47's Poisson bubble: ``(problem, options, exact)``, ``-lap u
+    = 1`` on the unit disk of 256 segments (the table form, no delta
+    tracking) with ``u = 0`` on its boundary, laid out on 196,608 lanes of
+    32 walks at ``BUBBLE_RUN``, and the exact solution ``(1 - r^2) / 4``
+    at an ``(n, 2)`` array of points."""
+    from dcrmontecarlo_tpu_torch.geometry import circle_loop
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    return (Problem(dirichlet=circle_loop(1.0, n=256),
+                    bc_dirichlet=fields.constant(0.0),
+                    source=fields.constant(1.0)),
+            SolverOptions(target_slots=1 << 19, min_quota=32),
+            lambda p: (1.0 - p[:, 0] ** 2 - p[:, 1] ** 2) / 4.0)
 
 
 def born_line():
@@ -925,8 +971,8 @@ TRANSPORT_OPS = 33 + 29 * 24 + 27 * 11 + 46 + 8 + 120
 
 
 # a record test's least operations: hit_skips' line test (hit_skips,
-# group_skips) and sil_skips' distance test
-HIT_REC_OPS, SIL_REC_OPS = 21, 10
+# group_skips), sil_skips' distance test and box_d2 with its compare
+HIT_REC_OPS, SIL_REC_OPS, BOX_REC_OPS = 21, 10, 12
 
 
 def fp32_ops_per_step(params, rows=None, pole_records=True):
@@ -952,15 +998,21 @@ def fp32_ops_per_step(params, rows=None, pole_records=True):
     too). ``rows`` (``cull_rows``): the Neumann rows a lane's culled first
     hit visits a step, counted in place of every Neumann row of that scan,
     and the records it tests; in the large-table build also the
-    silhouette's rows and records (the other scans visit every row).
+    silhouette's rows and records; in the culled closest point's build the
+    Dirichlet rows and records of its closest point (the other scans visit
+    every row).
     ``pole_records``: ``field_ops``'."""
     n_dir, n_neu = len(params.dir_table), len(params.neu_table)
     n_vert = len(params.vert_table)
     records = 0.0
     if rows is not None:
-        hit = rows["first_hit"]
-        n_neu = hit["lane"] if n_neu else 0
-        records += HIT_REC_OPS * hit["lane_records"] if n_neu else 0.0
+        hit = rows.get("first_hit")
+        if hit is not None:
+            n_neu = hit["lane"] if n_neu else 0
+            records += HIT_REC_OPS * hit["lane_records"] if n_neu else 0.0
+        if "closest" in rows:
+            n_dir = rows["closest"]["lane"]
+            records += BOX_REC_OPS * rows["closest"]["lane_records"]
         if "silhouette" in rows:
             n_vert = rows["silhouette"]["lane"]
             records += SIL_REC_OPS * rows["silhouette"]["lane_records"]
@@ -1035,7 +1087,8 @@ def kernel_record(params, variant, launches, timed, regs, tolerance,
     extra.update({} if rows is None else {
         "bound_visited_ms": bound(params, timed["lanes"], timed["steps"], 1,
                                   rows)[0],
-        "rows_visited": round(rows["first_hit"]["lane"], 2)})
+        "rows_visited": round(rows.get("first_hit",
+                                       rows.get("closest"))["lane"], 2)})
     if rows is not None and "silhouette" in rows:
         extra["silhouette_rows_visited"] = round(rows["silhouette"]["lane"],
                                                  2)
@@ -1055,11 +1108,15 @@ def cull_rows(wk, params, state):
     """Rows and records a step's culled scans read from ``state`` (the
     host replay of the kernel's skip tests, ``chip_probes/table_cull.py``):
     ``{"first_hit": {lane, warp, lane_records, ..., all}}``, in the
-    large-table build also ``"silhouette"`` (``replay_large``); None
-    outside the culled variant."""
+    large-table build also ``"silhouette"`` (``replay_large``), in the
+    culled closest point's build ``{"closest": ...}`` over 32 iterations of
+    the plain walk (``replay_closest``); None outside those variants."""
+    from chip_probes import table_cull as tc
+
+    if wk.culled_closest(params.variant):
+        return {"closest": tc.replay_closest(params, state)}
     if not wk.culled_scans(params.variant):
         return None
-    from chip_probes import table_cull as tc
 
     if params.large:
         out = tc.replay_large(params, state)
@@ -1245,6 +1302,41 @@ def dealt_text(d, params, card):
             f"{d['plain_lanes']} lanes, quotas <= {d['plain_quota']}: worst "
             f"plane agreement {d['plain_worst']:.5f}, max |err| "
             f"{d['plain_err']:.3g} ({card})")
+
+
+def single_launch(wk, state, params, step_bound, what):
+    """Phases 25 and 47: a solve's single launch from the fresh ``state``
+    (budget ``step_bound``) in the build's own loop, timed, every quota
+    drained, and held bit for bit on every plane to the same build run in
+    256-step launches until drained. Returns a dict of the lanes, ms,
+    walker-steps, the loops each side ran and the drained launches and
+    their summed ms."""
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    wk.run_walk(clone_state(state), params, step_bound)  # warm-up
+    wk.run_walk.loop_launches.clear()
+    whole = clone_state(state)
+    ms = cuda_ms(lambda: wk.run_walk(whole, params, step_bound))
+    loops = dict(wk.run_walk.loop_launches)
+    check(loops == {"lanes": 1} and int(whole["quota"].max()) == 0,
+          f"{what}: the single launch ran {loops}, largest quota left "
+          f"{int(whole['quota'].max())}")
+    wk.run_walk.loop_launches.clear()
+    one, drained_ms, launches = clone_state(state), 0.0, 0
+    while bool((one["quota"] > 0).any()):
+        drained_ms += cuda_ms(lambda: wk.run_walk(one, params, 256))
+        launches += 1
+        check(launches <= step_bound // 256 + 1,
+              f"{what}: 256-step launches did not drain")
+    drained = dict(wk.run_walk.loop_launches)
+    differ = [k for k in state_planes(params.n_src)
+              if not torch.equal(whole[k], one[k])]
+    check(drained == {"lanes": launches} and not differ,
+          f"{what}: the single launch and the 256-step launches (loops "
+          f"{drained}) differ on {differ}")
+    return dict(lanes=state["px"].numel(), ms=ms,
+                steps=life_steps(state, whole), loops=loops, drained=drained,
+                drained_ms=drained_ms, drained_launches=launches, end=whole)
 
 
 def cuda_ms(fn, reps=1):
@@ -2736,6 +2828,95 @@ def pole_line_phase(wk, dev, card, report, regs, records, tolerance):
     return f
 
 
+def bubble_phase(wk, dev, card, regs, records, tolerance):
+    """Phase 47: the Poisson bubble (``bubble_config``: -lap u = 1 on the
+    256-segment disk, 196,608 lanes of 32 walks at ``BUBBLE_RUN``, the
+    table form without delta tracking, its closest point culled by chunks,
+    ``walk_kernel.culled_closest``): a warm-up solve (its launches counted,
+    by variant and by loop: one, one thread a lane) and 10 timed solves
+    (walker-steps/s, s/solve, kernel share, mean walk length), every mean
+    within 4 sigma + 5e-3 of (1 - r^2) / 4 (``tests/test_solver_source.py``
+    's bound); the solve's single launch timed, bit for bit the loop run in
+    256-step launches until drained (``single_launch``), against its bound
+    over every row and over the rows a lane's culled closest point reads
+    (``cull_rows``), and against the plain walk under phase 3's rule on
+    1,152 lanes of the three points at quotas of at most 4; 256 steps of
+    the kernel and of the plain version at the solve's full state
+    (``steps_256``), from which the build's record takes its numbers."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    t0 = time.perf_counter()
+    what = "phase 47"
+    problem, options, exact = bubble_config()
+    pts = BUBBLE_POINTS
+    n_walks, max_steps, eps = BUBBLE_RUN
+    solver = WoStSolver(problem, options, device=dev)
+    f = full_size_solves(wk, solver, pts, n_walks, max_steps, eps,
+                         P47_LANES, what, reps=10)
+    u = exact(pts)
+    for res in [f["warm"]] + f["raws"]:
+        check(bool((np.abs(res.mean - u) < 4.0 * res.stderr + 5e-3).all()),
+              f"{what}: means {res.mean} off (1 - r^2) / 4 {u} (stderr "
+              f"{res.stderr})")
+    state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
+                                                 eps, 5)
+    check(state["px"].numel() == P47_LANES and len(params.dir_table) == 256
+          and wk.culled_closest(params.variant)
+          and set(f["counts"]) == {params.kernel_name}
+          and f["loops"] == {"lanes": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name} over "
+          f"{len(params.dir_table)} rows, the warm-up launched "
+          f"{f['counts']}, by loop {f['loops']}")
+    log(f"[47] Poisson bubble, 3x{n_walks} walks, {P47_LANES} lanes, 256 rows "
+        f"({params.kernel_name}, {regs.get(params.build_name)} registers): "
+        f"walker_steps_per_sec {f['rate']:.6g} s/solve "
+        f"{[round(v, 5) for v in f['times']]} steps/solve {f['steps']:.6g} "
+        f"mean walk length {f['steps'] / (3 * n_walks):.3f} steps, longest "
+        f"lane {f['longest']}, lane occupancy {f['occupancy']:.4f}, kernel "
+        f"share {[round(v, 4) for v in f['share']]}, launches of the warm-up "
+        f"{f['counts']}, by loop {f['loops']}; means "
+        f"{np.round(f['warm'].mean, 5).tolist()} against (1 - r^2) / 4 "
+        f"{np.round(u, 5).tolist()} ({card})")
+    d = single_launch(wk, state, params, step_bound, what)
+    # the rows the culled closest point reads, on 8,192 lanes of the three
+    # points, and the same launch against the plain walk on 1,152
+    rows = cull_rows(wk, params, state)
+    b_all, by_all = bound(params, d["lanes"], d["steps"], 1)
+    b_vis, by_vis = bound(params, d["lanes"], d["steps"], 1, rows)
+    idx = torch.arange(0, P47_LANES, max(1, P47_LANES // 1152), device=dev)
+    small = {k: v.reshape(-1)[idx].clone() for k, v in state.items()}
+    small["quota"].clamp_(max=4)
+    ks, ps = clone_state(small), clone_state(small)
+    wk.run_walk(ks, params, 4 * (max_steps + 1))
+    wk.walk_plain(ps, params, 4 * (max_steps + 1))
+    worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
+                                  f"{what} (plain)")
+    c = rows["closest"]
+    log(f"[47] the solve's single launch ({d['steps']} walker-steps, loops "
+        f"{d['loops']}): {d['ms']:.3f} ms, bound {b_all:.4f} ms ({by_all}) "
+        f"over every row, {b_vis:.4f} ms ({by_vis}) over the rows a lane "
+        f"reads ({c['lane']:.1f} rows a lane, {c['warp']:.1f} a warp of "
+        f"{c['all']}, {c['lane_records']} record tests a closest point); "
+        f"the loop in {d['drained_launches']} 256-step launches "
+        f"{d['drained_ms']:.3f} ms, every plane bit-equal; against the "
+        f"plain walk at {ks['px'].numel()} lanes, quotas <= 4: worst plane "
+        f"agreement {worst:.5f}, max |err| {max_err:.3g} ({card})")
+    t47 = steps_256(wk, state, params, what, subset=True)
+    log(f"[47] 256 steps x {t47['lanes']} lanes: kernel {t47['ms']:.3f} ms, "
+        f"plain {t47['plain_ms']:.1f} ms; worst plane agreement "
+        f"{t47['worst']:.5f}, max |err| {t47['max_err']:.3g}, "
+        f"{t47['steps']} walker-steps ({card})")
+    records.append(dict(kernel_record(params, "no_delta_table",
+                                      f["counts"][params.kernel_name], t47,
+                                      regs, tolerance, rows=rows),
+                        whole_launch_ms=d["ms"], whole_launch_steps=d["steps"],
+                        whole_bound_ms=b_all, whole_bound_visited_ms=b_vis,
+                        loops=f["loops"]))
+    log(f"[47] phase time {time.perf_counter() - t0:.1f} s")
+    return f
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3839,20 +4020,18 @@ def main():
     log(f"[25] 256 steps x {t25['lanes']} lanes: kernel {t25['ms']:.3f} ms, "
         f"plain {t25['plain_ms']:.3f} ms; worst plane agreement "
         f"{t25['worst']:.5f}, {t25['steps']} walker-steps ({card})")
-    # the whole solve's single launch (one thread a lane: the build stays
-    # off the dealt loop, which ran slower here)
-    wk.run_walk(clone_state(state), p25, bound25)  # warm-up
-    wk.run_walk.loop_launches.clear()
-    whole25 = clone_state(state)
-    ms25 = cuda_ms(lambda: wk.run_walk(whole25, p25, bound25))
-    d25 = dict(ms=ms25, steps=life_steps(state, whole25),
-               loops=dict(wk.run_walk.loop_launches))
-    check(d25["loops"] == {"lanes": 1} and int(whole25["quota"].max()) == 0,
-          f"phase 25: the single launch ran {d25['loops']}")
+    # the whole solve's single launch (one thread a lane, the direction
+    # from one sincosf: walk_kernel.one_sincos), bit for bit the loop run in
+    # 256-step launches until drained
+    check(wk.one_sincos(p25.variant), f"phase 25: {p25.kernel_name} is not "
+                                      f"the one_sincos build")
+    d25 = single_launch(wk, state, p25, bound25, "phase 25")
     b25_ms, b25_by = bound(p25, 196608, d25["steps"], 1)
     log(f"[25] the solve's single launch ({d25['steps']} walker-steps, "
-        f"loops {d25['loops']}): {ms25:.3f} ms, bound {b25_ms:.4f} ms "
-        f"({b25_by}) ({card})")
+        f"loops {d25['loops']}): {d25['ms']:.3f} ms, bound {b25_ms:.4f} ms "
+        f"({b25_by}); the loop in {d25['drained_launches']} 256-step "
+        f"launches (loops {d25['drained']}) {d25['drained_ms']:.3f} ms, "
+        f"every plane bit-equal ({card})")
 
     # ---- 26. variable coefficients at full size -------------------------
     solver = WoStSolver(vc_prob, SolverOptions(target_slots=1 << 21,
@@ -4496,6 +4675,8 @@ def main():
     large_table_phase(wk, dev, card, regs, records, tolerance, f20)
     # ---- 46. full size: a pole-pole line, the wide form's general rows ---
     pole_line_phase(wk, dev, card, report, regs, records, tolerance)
+    # ---- 47. full size: the Poisson bubble, the culled closest point -----
+    bubble_phase(wk, dev, card, regs, records, tolerance)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,
@@ -4505,19 +4686,16 @@ def main():
           f"{wk._library.cache_info().currsize} libraries loaded, "
           f"{n_libs} built")
 
-    p21s, t21s = t21["Poisson square + circle obstacle"]
-    p21t, t21t = t21["table-form square"]
-    name_s, name_t = p21s.kernel_name, p21t.kernel_name
+    p21s, _ = t21["Poisson square + circle obstacle"]
+    name_s = p21s.kernel_name
     check(name_s == p25.kernel_name, "phases 21 and 25 run other variants")
+    check(wk.culled_closest(t21["table-form square"][0].variant),
+          "phases 21 and 47 run other table variants")
     records.append(dict(kernel_record(p25, "no_delta_static",
                                       f25["counts"][name_s], t25, regs,
                                       tolerance),
                         whole_launch_ms=d25["ms"],
                         whole_launch_steps=d25["steps"], loops=d25["loops"]))
-    records.append(kernel_record(
-        p21t, "no_delta_table",
-        counts24.get(name_t, {}).get("poisson_bubble_zero_bc", 0), t21t, regs,
-        tolerance))
     p_tr = times22["transport"][2]
     records.append(dict(kernel_record(
         p_tr, "transport",

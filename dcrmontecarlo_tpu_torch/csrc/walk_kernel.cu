@@ -197,6 +197,12 @@
 //   shape picks the loop (ops/walk_kernel.py::launch_loop). The short
 //   walk's build keeps one thread a lane: dealt, it ran slower on the
 //   card (PERF.md, section 6).
+// - The builds without delta tracking keep the one-thread loop with a
+//   hook each in walk_step.inc: the static form's (the short walk,
+//   walk_variant.h::one_sincos) takes the step's direction from one
+//   sincosf (WALK_SINCOS), the table form's (the Poisson bubble,
+//   walk_variant.h::culled_closest) culls its closest point by chunks of
+//   the Dirichlet rows (closest_point_culled, WALK_CLOSEST).
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -264,6 +270,32 @@ constexpr bool CULLED = walk_rules::culled_scans(
 constexpr bool CHUNK_SKIP = true;
 static_assert(!WALK_LARGE || (CULLED && !WALK_ROWS),
               "the large-table scans are the culled table build's");
+// the library's variant runs the culled closest point
+// (walk_variant.h::culled_closest) or takes its direction from one sincosf
+// (walk_variant.h::one_sincos); the preprocessor's copies of the two rules
+// pick walk_step.inc's hooks in the one-thread loop, so that the other
+// builds compile the text they compiled before
+#define WALK_CULLED_CLOSEST                                               \
+  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_MIS && !WALK_FREEZE &&      \
+   WALK_TABLE && !WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE &&          \
+   !WALK_GRID && !WALK_TERMS)
+#define WALK_ONE_SINCOS                                                   \
+  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_MIS && !WALK_FREEZE &&      \
+   !WALK_TABLE && !WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE &&         \
+   !WALK_GRID && !WALK_TERMS)
+constexpr bool CULLED_CLOSEST = walk_rules::culled_closest(
+    WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
+    WALK_TABLE != 0, WALK_DELTA != 0, WALK_TRANSPORT != 0, WALK_WIDE != 0,
+    WALK_GRID != 0, WALK_TERMS != 0);
+static_assert(CULLED_CLOSEST == (WALK_CULLED_CLOSEST != 0),
+              "walk_variant.h::culled_closest");
+static_assert(walk_rules::one_sincos(WALK_ROBIN, WALK_MAJORANT != 0,
+                                     WALK_MIS != 0, WALK_FREEZE != 0,
+                                     WALK_TABLE != 0, WALK_DELTA != 0,
+                                     WALK_TRANSPORT != 0, WALK_WIDE != 0,
+                                     WALK_GRID != 0, WALK_TERMS != 0) ==
+                  (WALK_ONE_SINCOS != 0),
+              "walk_variant.h::one_sincos");
 
 namespace {
 
@@ -386,7 +418,8 @@ struct WalkConst {
   // field[F_BC].p
   const float* grid;
   // the table form's chunk records (after the validation path's fields):
-  // CHUNK_F4 float4 per chunk of CHUNK_ROWS Neumann rows (chunk_skips)
+  // CHUNK_F4 float4 per chunk of CHUNK_ROWS Neumann rows (chunk_skips), in
+  // the culled_closest build of Dirichlet rows (closest_point_culled)
   const float4* chunk;
 #if WALK_LARGE
   // the large-table build's records, in the chunks' buffer after them
@@ -1215,6 +1248,81 @@ __device__ __forceinline__ float closest_point(float px, float py,
     float ex = qx - px, ey = qy - py;
     float d2 = ex * ex + ey * ey;
     if (d2 < best) { best = d2; cx = qx; cy = qy; }
+  }
+  return sqrtf(best);
+}
+
+// The culled closest point (the culled_closest build: the table form
+// without delta tracking, phase 47's Poisson bubble, whose step is nearly
+// all closest point: 93% of the one-thread loop's warp-cycles over 256
+// rows a step, chip_probes/step_sites.py). The host cuts the Dirichlet rows
+// into chunks of CHUNK_ROWS with a record each
+// (ops/walk_kernel.py::chunk_records: the box of the rows' float32
+// endpoints, widened by 2^-20 of its largest coordinate; the cone unread).
+// A lane first finds the chunk of the least box_d2, then visits the chunks
+// from it outward (k, k + 1, k - 1, k + 2, ...) and skips a chunk whose
+// box_d2 exceeds the running minimum: its running minimum falls at the
+// first chunk, and the lanes of a warp, each at its own nearest chunk,
+// need their rows at the same few iterations (a warp reads ~35% of the
+// rows; from each lane's last winner's chunk, which lies anywhere after a
+// bank, ~71%: chip_probes/table_cull.py).
+// A visited row runs closest_point's arithmetic (written out again, so
+// that closest_point and the other builds keep their code), and the winner
+// is the least (d2, row) pair, the full scan's first minimum in row order:
+// its foot (cx, cy) and sqrtf(best) are closest_point's bit for bit.
+//
+// the least d2 that closest_point's rows of a chunk with box b can compute
+// from p: a row's foot q = a + t u (t in [0, 1], u = b - a rounded) rounds
+// to within 5 2^-24 of its largest coordinate of the segment, inside the
+// widened box, so |q.x - p.x| >= ex for the box's ex, and as the row's
+// differences, squares and sum round as these do (rounding is monotone),
+// its d2 >= box_d2, exactly
+__device__ __forceinline__ float box_d2(float4 b, float px, float py) {
+  const float ex = fmaxf(fmaxf(b.x - px, px - b.z), F(0.0));
+  const float ey = fmaxf(fmaxf(b.y - py, py - b.w), F(0.0));
+  return ex * ex + ey * ey;
+}
+
+__device__ __forceinline__ float closest_point_culled(float px, float py,
+                                                      float& cx, float& cy) {
+  const int n_ch = (C.n_dir + CHUNK_ROWS - 1) / CHUNK_ROWS;
+  int k0 = 0;  // the chunk of the least box_d2 (the first, on ties)
+  float lb0 = F(3e38);
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const float lb = box_d2(__ldg(C.chunk + CHUNK_F4 * ch), px, py);
+    if (lb < lb0) {
+      lb0 = lb;
+      k0 = ch;
+    }
+  }
+  float best = F(3e38);
+  int win = -1;  // no row yet: a row must give d2 < 3e38, as in the scan
+  cx = F(0.0);
+  cy = F(0.0);
+  for (int i = 0; i < n_ch; ++i) {
+    const int o = (i + 1) >> 1;
+    int ch = (i & 1) ? k0 + o : k0 - o;
+    ch = ch < 0 ? ch + n_ch : (ch >= n_ch ? ch - n_ch : ch);
+    if (chunk_skips(box_d2(__ldg(C.chunk + CHUNK_F4 * ch), px, py) > best))
+      continue;
+    const int end = min(C.n_dir, (ch + 1) * CHUNK_ROWS);
+    for (int sgi = ch * CHUNK_ROWS; sgi < end; ++sgi) {
+      const float4 g = __ldg(C.tab_dir + sgi);
+      const float ax = g.x, ay = g.y;
+      const float ux = g.z - ax, uy = g.w - ay;
+      const float uu = fmaxf(ux * ux + uy * uy, F(1e-30));
+      float vx = px - ax, vy = py - ay;
+      float t = fminf(fmaxf((vx * ux + vy * uy) / uu, F(0.0)), F(1.0));
+      float qx = ax + t * ux, qy = ay + t * uy;
+      float ex = qx - px, ey = qy - py;
+      float d2 = ex * ex + ey * ey;
+      if (d2 < best || (d2 == best && sgi < win)) {
+        best = d2;
+        win = sgi;
+        cx = qx;
+        cy = qy;
+      }
+    }
   }
   return sqrtf(best);
 }
@@ -2877,6 +2985,12 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
       a_p0 = alpha_c<TERMS>(p0x, p0y);
       a_cur = alpha_c<TERMS>(px, py);
     }
+#if WALK_CULLED_CLOSEST
+#define WALK_CLOSEST closest_point_culled
+#endif
+#if WALK_ONE_SINCOS
+#define WALK_SINCOS
+#endif
 
     for (int it = 0; it < budget && quota > 0; ++it) {
 #define WALK_NEXT continue
@@ -2885,6 +2999,8 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 #undef WALK_NEXT
 #undef WALK_FROZEN
     }
+#undef WALK_CLOSEST
+#undef WALK_SINCOS
 
     P.px[lane] = px;
     P.py[lane] = py;
@@ -3481,7 +3597,8 @@ extern "C" int walk_schedule(int* out, int n) {
 //     its large-table build followed by the first hit's group records
 //     (CHUNK_F4 float4 per GROUP_CHUNKS chunks), the silhouette's chunk
 //     records (SIL_F4 float4 per SIL_ROWS vertex rows) and their group
-//     records (SIL_F4 per GROUP_CHUNKS chunks); null otherwise.
+//     records (SIL_F4 per GROUP_CHUNKS chunks); the Dirichlet rows' chunk
+//     records in the culled_closest build; null otherwise.
 //
 // offsets, records, n_walks: a dealt launch (walk_plan's offsets, n_walks
 //     records of REC_SRC + n_src int32 words, its walks), which the host
@@ -3642,6 +3759,11 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       return (int)cudaErrorInvalidValue;
     for (int g = 0; g < 3; ++g)
       if ((uintptr_t)geom[g] % 16) return (int)cudaErrorMisalignedAddress;
+    if (CULLED_CLOSEST) {  // the Dirichlet rows' chunk records
+      if (!chunks) return (int)cudaErrorInvalidValue;
+      if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;
+      h.chunk = (const float4*)chunks;
+    }
     if (CULLED && h.n_neu > 0) {  // no Neumann row: no chunk
       if (!chunks) return (int)cudaErrorInvalidValue;
       if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;

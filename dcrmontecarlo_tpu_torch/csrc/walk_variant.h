@@ -79,12 +79,32 @@ WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze,
 // the terrain (phase 20), the one such build that ran faster on the card
 // at its path's size; the terrain flagship, the table chain, the table
 // without delta tracking and the sweep's table builds ran slower and
-// keep the full scans (PERF.md, section 6)
+// keep the full scans (PERF.md, section 6). The table form without delta
+// tracking culls its closest point instead (culled_closest: phase 47's
+// single launch 24.8-25.2 -> 11.6-11.7 ms on the card)
 WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
                                     bool freeze, bool table, bool delta,
                                     bool transport, bool wide, bool grid,
                                     bool terms_form) {
   return robin == ROBIN_OFF && !maj && !mis && !freeze && table && delta &&
+         !transport && !wide && !grid && !terms_form;
+}
+
+// the table-form variant without delta tracking (phase 47's Poisson
+// bubble: a walk whose every step is a closest point over the Dirichlet
+// rows and a jump to the ball's edge), whose closest point runs the
+// Dirichlet rows by chunks of CHUNK_ROWS from the chunk of the least box
+// distance outward and skips a chunk whose box proves no row of it can win
+// (csrc/walk_kernel.cu, closest_point_culled; ops/walk_kernel.py::
+// culled_closest holds the same rule); its first hit keeps the full scan,
+// and every other build its closest point. The walk's start taken from a
+// closest point found once a launch bought nothing at phase 47's size
+// (PERF.md, section 6)
+WALK_HD constexpr bool culled_closest(int robin, bool maj, bool mis,
+                                      bool freeze, bool table, bool delta,
+                                      bool transport, bool wide, bool grid,
+                                      bool terms_form) {
+  return robin == ROBIN_OFF && !maj && !mis && !freeze && table && !delta &&
          !transport && !wide && !grid && !terms_form;
 }
 
@@ -117,12 +137,30 @@ WALK_HD constexpr bool large_scans(int robin, bool maj, bool mis, bool freeze,
 // other launches run one thread a lane; the wide transport builds and
 // transport with MIS stay on their own loops (ROADMAP.md, Queue 2), and so
 // do the builds without delta tracking: the short walk's static form ran
-// slower dealt at phase 25's size (PERF.md, section 6)
+// slower dealt at phase 25's size (PERF.md, section 6), and so did its
+// one-thread loop with a lane that drains its quota banking and stepping
+// in one iteration (one_sincos)
 WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
                              bool table, bool delta, bool transport,
                              bool wide, bool grid, bool terms_form) {
   return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&
          !grid && !terms_form && !(transport && (mis || wide));
+}
+
+// the static form without delta tracking (phase 25's short walk, ~10
+// steps a walk), whose one-thread loop takes the step's direction from one
+// sincosf, the bits of cosf and sinf on [0, 2 pi] (chip_probes/
+// sincos_bits.py; csrc/walk_kernel.cu, WALK_SINCOS; ops/walk_kernel.py::
+// one_sincos holds the same rule). It keeps one thread a lane: dealt walks
+// (PR 16), a bank and the next walk's first step in one iteration of a lane
+// whose budget covers its quota (+13%, at 70 registers) and 12 blocks a SM
+// (40 registers, 160 B spilled) each ran its single launch slower on the
+// card (PERF.md, section 6); every other build keeps cosf and sinf
+WALK_HD constexpr bool one_sincos(int robin, bool maj, bool mis, bool freeze,
+                                  bool table, bool delta, bool transport,
+                                  bool wide, bool grid, bool terms_form) {
+  return robin == ROBIN_OFF && !maj && !mis && !freeze && !table && !delta &&
+         !transport && !wide && !grid && !terms_form;
 }
 
 }  // namespace walk_rules

@@ -99,7 +99,7 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "culled_scans", "chunk_records", "dealt", "launch_loop",
            "LARGE_TABLE_ROWS", "SIL_ROWS", "GROUP_CHUNKS", "large_scans",
            "silhouette_records", "large_records", "build_code",
-           "pole_record", "POLE_KIND"]
+           "pole_record", "POLE_KIND", "culled_closest", "one_sincos"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -235,7 +235,8 @@ def dealt(variant) -> bool:
     wide builds' general rows builds (phase 46's pole line). Its other
     launches run one thread a lane (:func:`launch_loop`); the builds
     without delta tracking keep one thread a lane (the short walk's ran
-    slower dealt)."""
+    slower dealt, and with a draining lane's bank and next step in one
+    iteration: :func:`one_sincos`)."""
     robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
         terms, _ = _switches(variant)
     return (robin == ROBIN_OFF and delta
@@ -247,11 +248,38 @@ def culled_scans(variant) -> bool:
     """Whether ``variant``'s first-hit scan skips the chunks of rows that
     cannot change its result (``walk_variant.h::culled_scans``): the
     survey's table form ``<0,false,false,false,true,true,false>`` (phase
-    20), the one table build that ran faster so at its path's size. Its
-    launches take the chunk records of its Neumann rows
-    (:meth:`WalkParams.chunk_table`)."""
+    20), the one table build that ran faster so at its path's size (the
+    table form without delta tracking culls its closest point instead,
+    :func:`culled_closest`). Its launches take the chunk records of its
+    Neumann rows (:meth:`WalkParams.chunk_table`)."""
     return _switches(variant) == (ROBIN_OFF, False, False, False, True,
                                   True, False, False, False, False, False)
+
+
+def culled_closest(variant) -> bool:
+    """Whether ``variant``'s closest point runs the Dirichlet rows by
+    chunks from the chunk of the least box distance outward and skips the
+    chunks whose box proves no row of them can win
+    (``walk_variant.h::culled_closest``): the table form without delta
+    tracking ``<0,false,false,false,true,false,false>`` (phase 47's
+    Poisson bubble, every row of its 256 a step in the full scan); the
+    first minimum in row order, bit for bit the full scan's. Its launches
+    take the chunk records of its Dirichlet rows
+    (:meth:`WalkParams.chunk_table`)."""
+    return _switches(variant) == (ROBIN_OFF, False, False, False, True,
+                                  False, False, False, False, False, False)
+
+
+def one_sincos(variant) -> bool:
+    """Whether ``variant``'s step takes its direction from one ``sincosf``
+    (``walk_variant.h::one_sincos``, the bits of ``cosf`` and ``sinf``):
+    the static form without delta tracking
+    ``<0,false,false,false,false,false,false>`` (phase 25's short walk),
+    which keeps one thread a lane and one bank or step an iteration (dealt
+    walks and a bank with the next walk's first step in one iteration ran
+    slower on the card)."""
+    return _switches(variant) == (ROBIN_OFF, False, False, False, False,
+                                  False, False, False, False, False, False)
 
 
 def large_scans(variant, n_neu: int, n_vert: int) -> bool:
@@ -829,13 +857,17 @@ class WalkParams:
     def chunk_table(self, device):
         """The Neumann rows' chunk records (:func:`chunk_records`; in the
         large-table build all of :func:`large_records`, which begin with
-        them) as a contiguous float32 tensor on ``device``, uploaded once
-        per params; None outside the :func:`culled_scans` variant."""
-        if not culled_scans(self.variant):
+        them), or in the :func:`culled_closest` variant the Dirichlet
+        rows', as a contiguous float32 tensor on ``device``, uploaded once
+        per params; None outside those variants."""
+        if not (culled_scans(self.variant)
+                or culled_closest(self.variant)):
             return None
         key = ("chunks", str(device))
         if key not in self._cache:
-            recs = (large_records(self.neu_table, self.vert_table)
+            recs = (chunk_records(self.dir_table)
+                    if culled_closest(self.variant) else
+                    large_records(self.neu_table, self.vert_table)
                     if self.large else chunk_records(self.neu_table))
             self._cache[key] = torch.from_numpy(recs).to(device)
         return self._cache[key]

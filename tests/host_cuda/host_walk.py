@@ -9,7 +9,11 @@ one-thread-per-lane loop, as the builds outside ``walk_variant.h::
 repacked`` do, in place of the repack loop; with ``full_scans`` the table
 form's culled scans skip no chunk or group (``FULL_SCANS``): every row in
 row order, the scans as they were before the chunks; with ``large`` the
-culled variant's large-table build (``walk_kernel.large_scans``).
+culled variant's large-table build (``walk_kernel.large_scans``); with
+``plain_loop`` the one-thread loop without its builds' hooks
+(``PLAIN_LOOP``: the full closest point of ``walk_kernel.culled_closest``'s
+build, ``cosf`` and ``sinf`` in ``walk_kernel.one_sincos``'s), the loop
+those builds ran before them.
 """
 
 import ctypes
@@ -33,13 +37,21 @@ ONE_THREAD = (
 # the culled scans' skip test, and false in its place
 FULL_SCANS = (("constexpr bool CHUNK_SKIP = true;",
                "constexpr bool CHUNK_SKIP = false;"),)
+# the one-thread loop's hooks of the culled_closest and one_sincos builds,
+# and none in their place
+PLAIN_LOOP = (("#if WALK_CULLED_CLOSEST\n#define WALK_CLOSEST",
+               "#if 0\n#define WALK_CLOSEST"),
+              ("#if WALK_ONE_SINCOS\n#define WALK_SINCOS",
+               "#if 0\n#define WALK_SINCOS"))
 
 
-def host_source(one_thread=False, full_scans=False, extra=""):
+def host_source(one_thread=False, full_scans=False, extra="",
+                plain_loop=False):
     """The kernel's source with its launch run by ``host_launch``, and
     ``extra`` appended (a test's probe of the unit's functions)."""
     src = wk._SRC.read_text()
-    for on, edits in ((one_thread, ONE_THREAD), (full_scans, FULL_SCANS)):
+    for on, edits in ((one_thread, ONE_THREAD), (full_scans, FULL_SCANS),
+                      (plain_loop, PLAIN_LOOP)):
         for old, new in edits if on else ():
             assert src.count(old) == 1, old
             src = src.replace(old, new)
@@ -53,7 +65,7 @@ def host_source(one_thread=False, full_scans=False, extra=""):
 
 
 def start_build(tmp, variant, one_thread, full_scans=False, extra="",
-                large=False):
+                large=False, plain_loop=False):
     """Start the host compiler on ``variant``'s library (its large-table
     build with ``large``) under ``tmp``; returns ``(process, library
     path)`` (:func:`load` waits for it)."""
@@ -62,9 +74,10 @@ def start_build(tmp, variant, one_thread, full_scans=False, extra="",
         pytest.skip("no host C++ compiler")
     name = (f"{wk.build_code(variant, large)}_"
             f"{'one' if one_thread else 'own'}"
-            f"{'_full' if full_scans else ''}")
+            f"{'_full' if full_scans else ''}"
+            f"{'_plain' if plain_loop else ''}")
     unit = tmp / f"walk_kernel_{name}.cpp"
-    unit.write_text(host_source(one_thread, full_scans, extra))
+    unit.write_text(host_source(one_thread, full_scans, extra, plain_loop))
     so = tmp / f"walk_kernel_{name}.so"
     here = wk._SRC.parents[2] / "tests" / "host_cuda"
     proc = subprocess.Popen(

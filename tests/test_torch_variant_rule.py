@@ -484,3 +484,58 @@ def test_dealt_rule_names_each_build(variant, dealt):
     assert wk.valid_variant(variant)
     assert wk.dealt(variant) is dealt
     assert not (dealt and wk.repacked(variant))
+
+
+# csrc/walk_variant.h's culled_closest and one_sincos for each kernel
+# variant on stdin (robin, the nine switches), one line each
+_NODELTA_RULES_MAIN = r"""
+#include <cstdio>
+#include "walk_variant.h"
+int main() {
+  int r, s[9];
+  while (std::scanf("%d %d %d %d %d %d %d %d %d %d", &r, &s[0], &s[1],
+                    &s[2], &s[3], &s[4], &s[5], &s[6], &s[7], &s[8]) == 10)
+    std::printf("%d %d\n",
+                (int)walk_rules::culled_closest(r, s[0], s[1], s[2], s[3],
+                                                s[4], s[5], s[6], s[7],
+                                                s[8]),
+                (int)walk_rules::one_sincos(r, s[0], s[1], s[2], s[3], s[4],
+                                            s[5], s[6], s[7], s[8]));
+}
+"""
+
+
+@pytest.mark.parametrize("rule,column,build", [
+    # the table form without delta tracking (phase 47's Poisson bubble)
+    # culls its closest point; the static form without it (phase 25's
+    # short walk) takes its direction from one sincosf
+    ("culled_closest", 0, (0, _F, _F, _F, _T, _F, _F, _F, _F, _F, _F)),
+    ("one_sincos", 1, (0, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F)),
+])
+def test_nodelta_rules_of_header_and_python_agree_on_every_variant(
+        tmp_path, rule, column, build):
+    # the header's rule, compiled by the host compiler, and
+    # ops/walk_kernel.py's pick the same one of the 1,152 kernel variants,
+    # which runs one thread a lane and none of the other builds' scans
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    main = tmp_path / "nodelta_rules.cpp"
+    main.write_text(_NODELTA_RULES_MAIN)
+    exe = tmp_path / "nodelta_rules"
+    subprocess.run([cxx, "-std=c++17", "-I", str(wk._SRC.parent), "-o",
+                    str(exe), str(main)], check=True, timeout=120)
+    variants = sorted(wk._switches(v) for v in wk.KERNEL_VARIANTS)
+    stdin = "".join(" ".join(str(int(x)) for x in v[:10]) + "\n"
+                    for v in variants)
+    out = subprocess.run([str(exe)], input=stdin, check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.split("\n")
+    got = [bool(int(line.split()[column])) for line in out if line]
+    assert got == [getattr(wk, rule)(v) for v in variants]
+    assert [v for v, g in zip(variants, got) if g] == [build]
+    assert not (wk.repacked(build) or wk.dealt(build)
+                or wk.culled_scans(build))
