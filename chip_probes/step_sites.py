@@ -65,6 +65,13 @@ states (seed 5, fresh walks):
 - ``bubble``: phase 47's Poisson bubble, the table form without delta
   tracking ``<0,false,false,false,true,false,false>``, 196,608 lanes of
   32 walks on the 256-segment disk (``chip_smoke.py::bubble_config``).
+- ``shallow_terrain``: phase 48's terrain over shallow bodies, the table
+  chain ``<1,false,false,false,true,true,false>``, 294,912 lanes, 402 rows
+  (``chip_smoke.py::shallow_terrain_config``; the chain's CHORD_FRAME, the
+  nearest Neumann row's frame, lies within BRANCH).
+- ``narrow_mis``: phase 49's narrow source, MIS without delta tracking
+  ``<0,false,true,false,false,false,false>``, 262,144 lanes of 32 walks
+  (``chip_smoke.py::narrow_source_config``; its MIS lies within GNEE).
 
 The walks without delta tracking (``short``, ``bubble``) have two sites of
 their own: DIRECTION (the angle's sine and cosine and the direction) and
@@ -138,10 +145,11 @@ SITES = ("LOOP", "ITER", "BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT",
          "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S", "INTERIOR", "SIGMA",
          "ALPHA_H", "TRANSPORT", "CHEB", "FREE", "TWEIGHT", "BOXMULLER",
          "GREENS", "ALPHA_Y", "ZWARPS", "ZFREE", "ZMIXED", "SOURCES",
-         "DIRECTION", "GNEE")
+         "DIRECTION", "GNEE", "CHORD_FRAME")
 # the disjoint sites of a step (REDRAW lies inside RADIUS; STAR, PDF,
 # BOXMULLER and GREENS inside MIS; CHEB, FREE and TWEIGHT inside
-# TRANSPORT; SOURCES, the sources' values and adds, inside NEE)
+# TRANSPORT; SOURCES, the sources' values and adds, inside NEE;
+# CHORD_FRAME inside BRANCH)
 TOP = ("BANK", "CLOSEST", "CHORD_MASS", "FIRST_HIT", "RADIUS", "MIS", "ADD",
        "NEE", "ARRIVAL", "BRANCH", "SILHOUETTE", "HASH", "ALPHA_S",
        "INTERIOR", "SIGMA", "ALPHA_H", "TRANSPORT", "ALPHA_Y", "DIRECTION",
@@ -325,6 +333,22 @@ STEP_EDITS = (
      "\n            SITE_END(ARRIVAL)\n"),
     ("          if (branch) {\n",
      "          if (branch) {\n            SITE_BEGIN(BRANCH)\n"),
+    ((  # the chord frame's call, before and after its hook
+        "            float t_cx, t_cy, s_lo, s_hi;\n"
+        "            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);\n",
+        "            float t_cx, t_cy, s_lo, s_hi;\n#ifdef WALK_CHORD\n"
+        "            WALK_CHORD(px, py, t_cx, t_cy, s_lo, s_hi);\n#else\n"
+        "            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);\n"
+        "#endif\n"),
+     ("            float t_cx, t_cy, s_lo, s_hi;\n"
+      "            SITE_BEGIN(CHORD_FRAME)\n"
+      "            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);\n"
+      "            SITE_END(CHORD_FRAME)\n",
+      "            float t_cx, t_cy, s_lo, s_hi;\n"
+      "            SITE_BEGIN(CHORD_FRAME)\n#ifdef WALK_CHORD\n"
+      "            WALK_CHORD(px, py, t_cx, t_cy, s_lo, s_hi);\n#else\n"
+      "            chord_frame<TABLE>(px, py, t_cx, t_cy, s_lo, s_hi);\n"
+      "#endif\n            SITE_END(CHORD_FRAME)\n")),
     ("            new_ob = true;\n          } else if (q_c > F(1e-6)) {\n",
      "            new_ob = true;\n            SITE_END(BRANCH)\n"
      "          } else if (q_c > F(1e-6)) {\n"),
@@ -368,8 +392,8 @@ KERNEL_EDITS = (
     ("  const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);\n",
      "  SITE_BEGIN(BOXMULLER)\n"
      "  const float u5 = uni(base, sid, 5), u6 = uni(base, sid, 6);\n"),
-    ("  my = my + mw * rad * sinf(ang);\n",
-     "  my = my + mw * rad * sinf(ang);\n  SITE_END(BOXMULLER)\n"),
+    ("  const bool take_src = u5 < F(0.5);\n",
+     "  SITE_END(BOXMULLER)\n  const bool take_src = u5 < F(0.5);\n"),
     (("    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
       "    norm = screened_norm(r, sbar);\n",
       "    g_val = fmaxf(screened_greens(d_safe, r, sbar), F(0.0));\n"
@@ -406,12 +430,17 @@ KERNEL_EDITS = (
      "    for (int it = 0; it < budget && quota > 0; ++it) {\n"),
     (("#undef WALK_FROZEN\n    }\n\n    P.px[lane] = px;\n",
       "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
-      "\n    P.px[lane] = px;\n"),
+      "\n    P.px[lane] = px;\n",
+      "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
+      "#undef WALK_CHORD\n\n    P.px[lane] = px;\n"),
      ("#undef WALK_FROZEN\n    }\n    __syncwarp(site_m_LOOP);\n"
       "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n",
       "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
       "    __syncwarp(site_m_LOOP);\n    SITE_END(LOOP)\n\n"
-      "    P.px[lane] = px;\n")),
+      "    P.px[lane] = px;\n",
+      "#undef WALK_FROZEN\n    }\n#undef WALK_CLOSEST\n#undef WALK_SINCOS\n"
+      "#undef WALK_CHORD\n    __syncwarp(site_m_LOOP);\n"
+      "    SITE_END(LOOP)\n\n    P.px[lane] = px;\n")),
 )
 # the clocked copy runs every build in the one-thread loop, the freeze
 # builds too (the anchors that exist are replaced, each once; a frozen
@@ -556,6 +585,22 @@ def bubble_state(dev):
         cs.BUBBLE_POINTS, *cs.BUBBLE_RUN, 5)[:2]
 
 
+def shallow_terrain_state(dev):
+    """Phase 48's state of the terrain over shallow bodies (the table
+    chain, 294,912 lanes, seed 5)."""
+    prob, pts, options = cs.shallow_terrain_config()
+    return WoStSolver(prob, options, device=dev)._setup(
+        pts, cs.P2_WALKS, cs.P2_MAX_STEPS, cs.P2_EPS, 5)[:2]
+
+
+def narrow_mis_state(dev):
+    """Phase 49's state of the narrow source with MIS (262,144 lanes of 32
+    walks, seed 5)."""
+    prob, options = cs.narrow_source_config()
+    return WoStSolver(prob, options, device=dev)._setup(
+        cs.NARROW_POINTS, *cs.NARROW_RUN, 5)[:2]
+
+
 def groups(dev, names=()):
     """``name: (state, params)``: the builds' full-size states (those of
     ``names``, or all)."""
@@ -569,12 +614,15 @@ def groups(dev, names=()):
             out[name] = survey_state(dev, build)
     for name, state in (("wide_survey", wide_survey_state),
                         ("short", short_state), ("pole", pole_state),
-                        ("bubble", bubble_state)):
+                        ("bubble", bubble_state),
+                        ("shallow_terrain", shallow_terrain_state),
+                        ("narrow_mis", narrow_mis_state)):
         if not names or name in names:
             out[name] = state(dev)
     if names and not set(names) - {"survey", "jacobian", "transport",
                                    "survey_mis", "wide_survey", "short",
-                                   "pole", "bubble"}:
+                                   "pole", "bubble", "shallow_terrain",
+                                   "narrow_mis"}:
         return out
     line_survey, line_elec = notebook_survey()
     line_survey.source_mis = True

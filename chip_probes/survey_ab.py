@@ -46,15 +46,21 @@ poles, 147,456 lanes), with the sources the host marks as poles;
 ``--build bubble`` for the table form without delta tracking
 ``<0,false,false,false,true,false,false>`` at phase 47's Poisson bubble
 (``chip_smoke.py::bubble_config``: the 256-segment disk, 196,608 lanes of
-32 walks, ten timed solves). Each
+32 walks, ten timed solves); ``--build chain`` for the table chain
+``<1,false,false,false,true,true,false>`` at phase 48's terrain over
+shallow bodies (``chip_smoke.py::shallow_terrain_config``: 402 rows,
+294,912 lanes, three timed solves); ``--build mis_nodelta`` for MIS
+without delta tracking ``<0,false,true,false,false,false,false>`` at
+phase 49's narrow source (``chip_smoke.py::narrow_source_config``:
+262,144 lanes of 32 walks, five timed solves). Each
 build's record also holds ``ptxas -v``'s
 registers and spills of its kernels (where this run built the library),
 the walks of the single launch, their mean length and the launch's bound
 (``chip_smoke.py::bound``), hashes of the 256 steps' end planes and of
 the warm-up solve, and the single launch (one thread a lane) and 256 steps
-timed ten at a time queued back to back (``whole_queued_ms``,
-``ms256_queued``: a ~1 ms kernel's one-launch time carries the host's gap
-before it).
+timed ten at a time queued back to back where they take under 50 ms
+(``whole_queued_ms``, ``ms256_queued``: a ~1 ms kernel's one-launch time
+carries the host's gap before it).
 
 ``--ablate PIECE[,PIECE]`` (this checkout) builds the two libraries from
 a copy of ``csrc/`` under ``_archive/survey_ab/`` with the named pieces of
@@ -76,7 +82,13 @@ timing only (the planes come out wrong); ``header_call`` (with ``--build
 pole``) leaves the poles among sources 0-3 unmarked, so the header's
 fields take ``field_value``'s call, and marks only the rows' poles (the
 host's marks, no source edit); with ``--build short``, ``sincos_dir``
-(the direction by ``cosf`` and ``sinf``). A dealt build's record also
+(the direction by ``cosf`` and ``sinf``); with ``--build chain``,
+``chord_full`` (the chain's chord frame over every Neumann row in row
+order, as before ``walk_variant.h::culled_chord``) and ``hit_culled`` (its
+first hit culled as the ``culled_scans`` build's is, by the same chunk
+records); with ``--build mis_nodelta``, ``sincos_dir`` (the
+direction by ``cosf`` and ``sinf``) and ``bm_cossin`` (the Box-Muller
+pair by ``cosf`` and ``sinf``). A dealt build's record also
 holds the plan's time (its three kernels and the read back). Writes
 ``chiprun_out/survey_ab_TAG.json``.
 
@@ -100,7 +112,8 @@ ap.add_argument("tree")
 ap.add_argument("tag")
 ap.add_argument("--ablate", default="")
 ap.add_argument("--build", choices=("survey", "transport", "mis", "wide",
-                                   "short", "pole", "bubble"),
+                                   "short", "pole", "bubble", "chain",
+                                   "mis_nodelta"),
                 default="survey")
 args = ap.parse_args()
 tree = os.path.abspath(args.tree)
@@ -134,8 +147,11 @@ WIDE = (0, False, False, False, False, True, False, True, False)
 SHORT = (0, False, False, False, False, False, False, False, False)
 POLE = WIDE + (False, True)
 BUBBLE = (0, False, False, False, True, False, False, False, False)
+CHAIN = (1, False, False, False, True, True, False, False, False)
+MIS_NODELTA = (0, False, True, False, False, False, False, False, False)
 BUILDS = {"survey": SURVEY, "transport": TRANSPORT, "mis": SURVEY_MIS,
-          "wide": WIDE, "short": SHORT, "pole": POLE, "bubble": BUBBLE}
+          "wide": WIDE, "short": SHORT, "pole": POLE, "bubble": BUBBLE,
+          "chain": CHAIN, "mis_nodelta": MIS_NODELTA}
 BUILD_LOG = []  # the build's nvcc output (ptxas -v)
 # the dealt loop's pieces: (file, anchor, replacement) edits that take one
 # out
@@ -158,6 +174,15 @@ PIECES = {
     "short_dealt": (('walk_variant.h', '  return robin == ROBIN_OFF && !maj && !freeze && !table && delta &&\n         !grid && !terms_form && !(transport && (mis || wide));\n', '  return robin == ROBIN_OFF && !maj && !freeze && !table && !grid &&\n         !terms_form &&\n         (delta ? !(transport && (mis || wide)) : !(mis || wide));\n'), ('walk_kernel.cu', '   WALK_DELTA && !WALK_GRID && !WALK_TERMS &&                          \\\n   !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE)))', '   !WALK_GRID && !WALK_TERMS &&                                        \\\n   (WALK_DELTA ? !(WALK_TRANSPORT && (WALK_MIS || WALK_WIDE))          \\\n               : !(WALK_MIS || WALK_WIDE)))'), ('walk_kernel.cu', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\n', 'constexpr int PLAN_THREADS = 256;  // lanes a tile of the plan\nconstexpr int DEALT_RUN = 8;       // walks a take, without delta tracking\n'), ('walk_kernel.cu', '  unsigned int w = atomicAdd(&next_lane, 1u);\n  if (w >= (unsigned int)n_walks) return;\n', "  // walks a take, and the end of the thread's run\n  constexpr unsigned int RUN = DELTA ? 1u : (unsigned int)DEALT_RUN;\n  unsigned int w = atomicAdd(&next_lane, RUN);\n  if (w >= (unsigned int)n_walks) return;\n  [[maybe_unused]] unsigned int w_end = min(w + RUN, (unsigned int)n_walks);\n"), ('walk_kernel.cu', "  // walk w from its start, as the bank's recycle leaves a lane\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;  // offsets[lo] <= w < offsets[hi]\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    rec = records + (size_t)w * words;", '  const auto begin = [&]() {\n    rec = records + (size_t)w * words;'), ('walk_kernel.cu', "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  // the walk's record, once its bank ran", "    if constexpr (DELTA) {\n      a_p0 = alpha_c<TERMS>(p0x, p0y);\n      a_cur = a_p0;\n    }\n  };\n  const auto start = [&]() {\n    int lo = 0, hi = n_lanes;\n    while (hi - lo > 1) {\n      const int mid = (lo + hi) >> 1;\n      if ((unsigned int)offsets[mid] <= w)\n        lo = mid;\n      else\n        hi = mid;\n    }\n    lane = lo;\n    begin();\n  };\n  [[maybe_unused]] const auto next = [&]() {\n    while ((unsigned int)offsets[lane + 1] <= w) ++lane;\n    begin();\n  };\n  // the walk's record, once its bank ran"), ('walk_kernel.cu', '#define WALK_NEXT                          \\\n  {                                        \\\n    finish();                              \\\n    w = atomicAdd(&next_lane, 1u);         \\\n    if (w >= (unsigned int)n_walks) break; \\\n    start();                               \\\n    continue;                              \\\n  }', '#define WALK_NEXT                                                      \\\n  {                                                                    \\\n    finish();                                                          \\\n    if constexpr (RUN > 1u) {                                          \\\n      if (++w < w_end) {                                               \\\n        next();                                                        \\\n        continue;                                                      \\\n      }                                                                \\\n    }                                                                  \\\n    w = atomicAdd(&next_lane, RUN);                                    \\\n    if (w >= (unsigned int)n_walks) break;                             \\\n    if constexpr (RUN > 1u) w_end = min(w + RUN, (unsigned int)n_walks); \\\n    start();                                                           \\\n    continue;                                                          \\\n  }')),
     # the short walk's build (walk_variant.h::one_sincos): cosf and sinf
     "sincos_dir": (("walk_kernel.cu", "#define WALK_SINCOS\n", ""),),
+    # the table chain's culled chord frame (walk_variant.h::culled_chord)
+    # back to the full scan, and its first hit culled as culled_scans' is
+    "chord_full": (("walk_kernel.cu",
+                    "#define WALK_CHORD chord_frame_culled\n", ""),),
+    "hit_culled": (("walk_kernel.cu", "if constexpr (TABLE && CULLED) {",
+                    "if constexpr (TABLE && (CULLED || CULLED_CHORD)) {"),),
+    # MIS without delta tracking: its Box-Muller pair by cosf and sinf
+    "bm_cossin": (("walk_step.inc", "mis_nee<false, TABLE, WIDE, false, true>(",
+                   "mis_nee<false, TABLE, WIDE>("),),
     "no_fold": (("walk_kernel.cu",
                  "    e = launch_kernel(walk_fold<WALK_WIDE != 0>,",
                  "    if (n_walks < 0) e = launch_kernel(walk_fold<WALK_WIDE "
@@ -416,10 +441,12 @@ def launches(state, params, step_bound):
     bound_ms, bound_by = cs.bound(params, life.numel(), steps, 1)
     plan = (plan_ms(state, params, step_bound) if lp == {"dealt": 3}
             else None)
-    queued_ms = queued(state, params, step_bound) if lp == {"lanes": 3} \
-        else None
+    queued_ms = (queued(state, params, step_bound)
+                 if lp == {"lanes": 3} and ms < 50.0 else None)
     return dict(whole_ms=ms, whole_queued_ms=queued_ms, whole_loops=lp,
-                ms256=ms256, ms256_queued=queued(state, params, 256),
+                ms256=ms256,
+                ms256_queued=(queued(state, params, 256) if ms256 < 50.0
+                              else None),
                 steps=steps,
                 lanes=life.numel(), longest_lane=longest,
                 occupancy=steps / max(life.numel() * longest, 1),
@@ -457,6 +484,14 @@ def full_size():
         prob, options, _ = cs.bubble_config()
         return (WoStSolver(prob, options, device=dev), cs.BUBBLE_POINTS,
                 cs.BUBBLE_RUN, 10)
+    if args.build == "chain":
+        prob, pts, options = cs.shallow_terrain_config()
+        return (WoStSolver(prob, options, device=dev), pts,
+                (cs.P2_WALKS, cs.P2_MAX_STEPS, cs.P2_EPS), 3)
+    if args.build == "mis_nodelta":
+        prob, options = cs.narrow_source_config()
+        return (WoStSolver(prob, options, device=dev), cs.NARROW_POINTS,
+                cs.NARROW_RUN, 5)
     survey, electrodes, options = cs.survey_config(args.build)
     return (WoStSolver(survey.build_problem(), options, device=dev),
             cs.survey_points(electrodes, -0.5), cs.SURVEY_RUN, 3)

@@ -408,6 +408,34 @@ its own line:
     1,152 lanes; 256 steps of kernel and plain version at the solve's
     state, from which the table form's no-delta record
     (``no_delta_table``) takes its numbers.
+48. full size, the terrain over shallow bodies
+    (``shallow_terrain_phase``, ``shallow_terrain_config``: the
+    topographic survey with the defaults' two bodies raised to 25 and 30
+    m depth, 402 rows, phase 20's 9 draped electrodes, 2^17 walks each,
+    max_steps 600, eps 0.5, ``SolverOptions(target_slots=1<<21)``:
+    294,912 lanes): Robin ``"auto"`` resolves to the chain; a warm-up (its
+    launches counted: one, one thread a lane, in the table chain with its
+    chord frame culled, ``walk_kernel.culled_chord``) and 3 timed solves (walker-steps/s, s/solve, kernel
+    share, truncated share), each held to ``tests/test_topography.py``'s
+    physics; the solve's single launch, bit for bit the loop in 256-step
+    launches until drained, against its bound; one 32-step launch against
+    the plain walk under phase 3's rule on 8,192 lanes; 256 steps of
+    kernel and plain version at the solve's state, from which the table
+    chain's record (``table_chain_shallow``) takes its numbers.
+49. full size, the narrow source (``narrow_source_phase``,
+    ``narrow_source_config``: ``tests/test_pseudosection.py:150-176``'s
+    unit Gaussian of width 0.05 on ``square_loop(2.0)``, points (0.5, 0)
+    and (1, 1), 2^22 walks each, max_steps 300, eps 1e-3,
+    ``SolverOptions(target_slots=1<<19, min_quota=32)``: 262,144 lanes):
+    a warm-up (its launches counted: one, one thread a lane, in MIS
+    without delta tracking, its direction and Box-Muller pair from one
+    ``sincosf`` each, ``walk_kernel.one_sincos``) and 5 timed solves with
+    the mixture, then the same without it; the test's gates on each seed's
+    pair (within 4 sigma, the MIS stderr below a third of the plain one);
+    the MIS solve's single launch, bit for bit the loop in 256-step
+    launches, against its bound and against the plain walk on 1,152 lanes;
+    256 steps of kernel and plain version at the solve's state, from which
+    the build's record (``mis_no_delta_narrow``) takes its numbers.
 
 The second to last line of standard output is the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, the line before it the
@@ -550,6 +578,61 @@ def bubble_config():
                     source=fields.constant(1.0)),
             SolverOptions(target_slots=1 << 19, min_quota=32),
             lambda p: (1.0 - p[:, 0] ** 2 - p[:, 1] ** 2) / 4.0)
+
+
+# phase 48's terrain over shallow bodies: the defaults' two bodies (radii
+# and resistivities) raised from 50 and 60 m to 25 and 30 m depth, their
+# tops 10-15 m below the hills; walks, max_steps, eps as phase 20's
+SHALLOW_ANOMALIES = (((-40.0, -25.0), 15.0, 1e1), ((50.0, -30.0), 15.0, 1e3))
+P48_LANES = 294912  # its lanes (a rehearsal at a cut size sets its own)
+
+
+def shallow_terrain_config(**size):
+    """Phase 48's terrain over shallow bodies: ``(problem, electrodes,
+    options)``, ``topographic_survey_problem(anomalies=
+    SHALLOW_ANOMALIES, **size)`` (at the defaults 200 Neumann rows, 199
+    vertices, 3 Dirichlet rows: the table form), phase 20's 9 draped
+    electrodes and ``SolverOptions(target_slots=1<<21)``, Robin at
+    ``"auto"`` (which resolves to the chain here), laid out on 294,912
+    lanes at ``P2_WALKS`` walks an electrode."""
+    from dcrmontecarlo_tpu_torch.models import drape_electrodes, \
+        topographic_survey_problem
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    prob, height = topographic_survey_problem(anomalies=SHALLOW_ANOMALIES,
+                                              **size)
+    return (prob, drape_electrodes(height, TOPO_XS, nudge=0.5),
+            SolverOptions(target_slots=1 << 21))
+
+
+# phase 49's narrow source (tests/test_pseudosection.py:150-176): points,
+# walks, max_steps, eps, the Gaussian's width
+NARROW_POINTS = np.array([[0.5, 0.0], [1.0, 1.0]], np.float32)
+NARROW_RUN = (1 << 22, 300, 1e-3)
+NARROW_WIDTH = 0.05
+P49_LANES = 262144  # its lanes (a rehearsal at a cut size sets its own)
+
+
+def narrow_source_config(mis=True):
+    """Phase 49's narrow source: ``(problem, options)``, ``square_loop(
+    2.0)`` with ``u = 0`` on it and the unit-mass Gaussian ``amp exp(-r^2
+    / 2 w^2)``, ``w = NARROW_WIDTH``, ``amp = 1 / (2 pi w^2)``
+    (``fields.gaussian_bump``), with (``mis``) or without its one-component
+    ``GaussianMixture`` at the origin; no delta tracking, laid out on
+    262,144 lanes of 32 walks at ``NARROW_RUN``."""
+    from dcrmontecarlo_tpu_torch.geometry import square_loop
+    from dcrmontecarlo_tpu_torch.problems import Problem, fields
+    from dcrmontecarlo_tpu_torch.solver import SolverOptions
+
+    w = NARROW_WIDTH
+    mix = fields.GaussianMixture.from_components([((0.0, 0.0), w, 1.0)])
+    return (Problem(dirichlet=square_loop(2.0),
+                    bc_dirichlet=fields.constant(0.0),
+                    source=fields.gaussian_bump((0.0, 0.0),
+                                                1.0 / (2 * math.pi * w * w),
+                                                w),
+                    source_importance=mix if mis else None),
+            SolverOptions(target_slots=1 << 19, min_quota=32))
 
 
 def born_line():
@@ -2917,6 +3000,190 @@ def bubble_phase(wk, dev, card, regs, records, tolerance):
     return f
 
 
+def shallow_terrain_phase(wk, dev, card, regs, records, tolerance):
+    """Phase 48: the terrain over shallow bodies (``shallow_terrain_config``:
+    402 rows, 294,912 lanes at ``P2_WALKS`` walks an electrode), Robin at
+    ``"auto"`` resolving to the chain, the table chain with its chord frame
+    culled (``walk_kernel.culled_chord``): a
+    warm-up solve (its launches counted, by variant and by loop: one, one
+    thread a lane) and 3 timed solves (walker-steps/s, s/solve, kernel
+    share, truncated share), each held to ``tests/test_topography.py``'s
+    physics (finite, the +20 m side positive, the -20 m side negative,
+    every |potential| < 1: the JAX package passes them on this
+    configuration at the test's size); the solve's single launch timed,
+    bit for bit the loop in 256-step launches until drained, against its
+    bound; the kernel against the plain walk under phase 3's rule on 8,192
+    of its lanes (64 plain steps into their walks, then 32 steps each);
+    256 steps of the kernel and of the plain version at the solve's full
+    state (``steps_256``), from which the build's record takes its
+    numbers."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    t0 = time.perf_counter()
+    what = "phase 48"
+    problem, pts, options = shallow_terrain_config()
+    solver = WoStSolver(problem, options, device=dev)
+    check(solver._robin_enabled() == "chain",
+          f"{what}: Robin auto resolved to {solver._robin_enabled()!r}")
+    f = full_size_solves(wk, solver, pts, P2_WALKS, P2_MAX_STEPS, P2_EPS,
+                         P48_LANES, what)
+    i_pos = int(np.argmin(np.abs(TOPO_XS + 20.0)))
+    i_neg = int(np.argmin(np.abs(TOPO_XS - 20.0)))
+    for res in [f["warm"]] + f["raws"]:
+        m = np.asarray(res.mean).reshape(-1)
+        check(bool(np.isfinite(m).all()) and m[i_pos] > 0 and m[i_neg] < 0
+              and float(np.abs(m).max()) < 1.0,
+              f"{what}: potentials {m} fail the terrain's physics")
+    state, params, _, step_bound = solver._setup(pts, P2_WALKS, P2_MAX_STEPS,
+                                                 P2_EPS, 5)
+    check(state["px"].numel() == P48_LANES and params.variant == (
+        wk.ROBIN_CHAIN, False, False, False, True, True, False, False, False)
+          and wk.culled_chord(params.variant)
+          and set(f["counts"]) == {params.kernel_name}
+          and f["loops"] == {"lanes": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, the "
+          f"warm-up launched {f['counts']}, by loop {f['loops']}")
+    log(f"[48] terrain over shallow bodies, 9x{P2_WALKS} walks, {P48_LANES} "
+        f"lanes, {wk.geometry_size(problem)} rows, Robin auto -> chain "
+        f"({params.kernel_name}, {regs.get(params.build_name)} registers): "
+        f"walker_steps_per_sec {f['rate']:.6g} s/solve "
+        f"{[round(v, 5) for v in f['times']]} steps/solve {f['steps']:.6g} "
+        f"longest lane {f['longest']}, lane occupancy {f['occupancy']:.4f}, "
+        f"truncated walks {[round(v, 6) for v in f['trunc']]}, kernel share "
+        f"{[round(v, 4) for v in f['share']]}, launches of the warm-up "
+        f"{f['counts']}, by loop {f['loops']}; potentials "
+        f"{np.round(np.asarray(f['warm'].mean).reshape(-1), 5).tolist()} "
+        f"({card})")
+    d = single_launch(wk, state, params, step_bound, what)
+    b_all, by_all = bound(params, d["lanes"], d["steps"], 1)
+    # the plain walk on 8,192 lanes, 64 steps into their walks (lanes on
+    # the wall, chain branches), then 32 steps of each
+    small = {k: v.reshape(-1)[:8192].clone() for k, v in state.items()}
+    wk.walk_plain(small, params, 64)
+    ks, ps = clone_state(small), clone_state(small)
+    wk.run_walk(ks, params, 32)
+    wk.walk_plain(ps, params, 32)
+    worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
+                                  f"{what} (plain)")
+    log(f"[48] the solve's single launch ({d['steps']} walker-steps, loops "
+        f"{d['loops']}): {d['ms']:.3f} ms, bound {b_all:.4f} ms ({by_all}); "
+        f"the loop in {d['drained_launches']} 256-step launches "
+        f"{d['drained_ms']:.3f} ms, every plane bit-equal; one 32-step "
+        f"launch against the plain walk at 8192 lanes: worst plane "
+        f"agreement {worst:.5f}, max |err| {max_err:.3g} ({card})")
+    t48 = steps_256(wk, state, params, what, subset=True)
+    rows = cull_rows(wk, params, t48["end"])
+    log(f"[48] 256 steps x {t48['lanes']} lanes: kernel {t48['ms']:.3f} ms, "
+        f"plain {t48['plain_ms']:.1f} ms; worst plane agreement "
+        f"{t48['worst']:.5f}, max |err| {t48['max_err']:.3g}, "
+        f"{t48['steps']} walker-steps; rows a step visits after them: "
+        f"{cull_text(rows)} ({card})")
+    records.append(dict(kernel_record(params, "table_chain_shallow",
+                                      f["counts"][params.kernel_name], t48,
+                                      regs, tolerance, rows=rows),
+                        whole_launch_ms=d["ms"], whole_launch_steps=d["steps"],
+                        whole_bound_ms=b_all, loops=f["loops"]))
+    log(f"[48] phase time {time.perf_counter() - t0:.1f} s")
+    return f
+
+
+def narrow_source_phase(wk, dev, card, regs, records, tolerance):
+    """Phase 49: the reference's narrow-source MIS test at full size
+    (``narrow_source_config``: ``tests/test_pseudosection.py:150-176``'s
+    problem, 2 points x 2^22 walks on 262,144 lanes of 32, MIS without
+    delta tracking, its direction and Box-Muller pair from one ``sincosf``
+    each, ``walk_kernel.one_sincos``): a warm-up (its launches counted, by
+    variant and by loop: one, one thread a lane) and 5 timed solves with
+    the mixture, then the same without it (the static form without delta
+    tracking, phase 25's build); the test's gates on every pair of the same
+    seed (the two within 4 sigma of each other at both points, the MIS
+    stderr below a third of the plain one); the MIS solve's single launch
+    timed, bit for bit the loop in 256-step launches until drained, against
+    its bound, and against the plain walk under phase 3's rule on 1,152
+    lanes at quotas of at most 4; 256 steps of the kernel and of the plain
+    version at the solve's full state (``steps_256``), from which the
+    build's record takes its numbers."""
+    from dcrmontecarlo_tpu_torch.solver import WoStSolver
+    from dcrmontecarlo_tpu_torch.solver.state import state_planes
+
+    t0 = time.perf_counter()
+    what = "phase 49"
+    pts = NARROW_POINTS
+    n_walks, max_steps, eps = NARROW_RUN
+    solved, kernels = {}, {}
+    for label, mis in (("mis", True), ("plain", False)):
+        problem, options = narrow_source_config(mis)
+        solver = WoStSolver(problem, options, device=dev)
+        solved[label] = full_size_solves(wk, solver, pts, n_walks, max_steps,
+                                         eps, P49_LANES, f"{what} {label}",
+                                         reps=5)
+        kernels[label] = solver
+    f, fp = solved["mis"], solved["plain"]
+    for a, b in zip([fp["warm"]] + fp["raws"], [f["warm"]] + f["raws"]):
+        dev49 = np.abs(a.mean - b.mean) / np.sqrt(a.stderr ** 2
+                                                  + b.stderr ** 2)
+        check(bool((dev49 < 4).all()) and bool((b.stderr < a.stderr / 3)
+                                               .all()),
+              f"{what}: plain {a.mean} +- {a.stderr}, MIS {b.mean} +- "
+              f"{b.stderr}: the test's gates fail")
+    solver = kernels["mis"]
+    state, params, _, step_bound = solver._setup(pts, n_walks, max_steps,
+                                                 eps, 5)
+    check(state["px"].numel() == P49_LANES and params.variant == (
+        0, False, True, False, False, False, False, False, False)
+          and wk.one_sincos(params.variant)
+          and set(f["counts"]) == {params.kernel_name}
+          and f["loops"] == {"lanes": 1},
+          f"{what}: {state['px'].numel()} lanes, {params.kernel_name}, the "
+          f"warm-up launched {f['counts']}, by loop {f['loops']}")
+    ratio = [np.round(a.stderr / b.stderr, 2).tolist()
+             for a, b in zip(fp["raws"], f["raws"])]
+    log(f"[49] narrow source, 2x{n_walks} walks, {P49_LANES} lanes "
+        f"({params.kernel_name}, {regs.get(params.build_name)} registers): "
+        f"MIS walker_steps_per_sec {f['rate']:.6g} s/solve "
+        f"{[round(v, 5) for v in f['times']]} steps/solve {f['steps']:.6g} "
+        f"mean walk length {f['steps'] / (2 * n_walks):.3f} steps, lane "
+        f"occupancy {f['occupancy']:.4f}, kernel share "
+        f"{[round(v, 4) for v in f['share']]}, launches of the warm-up "
+        f"{f['counts']}, by loop {f['loops']}; without the mixture "
+        f"{fp['rate']:.6g} walker-steps/s, s/solve "
+        f"{[round(v, 5) for v in fp['times']]}, launches {fp['counts']}; "
+        f"means MIS {np.round(f['warm'].mean, 5).tolist()} +- "
+        f"{np.round(f['warm'].stderr, 6).tolist()}, plain "
+        f"{np.round(fp['warm'].mean, 5).tolist()} +- "
+        f"{np.round(fp['warm'].stderr, 6).tolist()}; stderr ratio plain / "
+        f"MIS by seed {ratio} ({card})")
+    d = single_launch(wk, state, params, step_bound, what)
+    b_all, by_all = bound(params, d["lanes"], d["steps"], 1)
+    idx = torch.arange(0, P49_LANES, max(1, P49_LANES // 1152), device=dev)
+    small = {k: v.reshape(-1)[idx].clone() for k, v in state.items()}
+    small["quota"].clamp_(max=4)
+    ks, ps = clone_state(small), clone_state(small)
+    wk.run_walk(ks, params, 4 * (max_steps + 1))
+    wk.walk_plain(ps, params, 4 * (max_steps + 1))
+    worst, max_err = check_planes(wk, ks, ps, state_planes(params.n_src),
+                                  f"{what} (plain)")
+    log(f"[49] the solve's single launch ({d['steps']} walker-steps, loops "
+        f"{d['loops']}): {d['ms']:.3f} ms, bound {b_all:.4f} ms ({by_all}); "
+        f"the loop in {d['drained_launches']} 256-step launches "
+        f"{d['drained_ms']:.3f} ms, every plane bit-equal; against the "
+        f"plain walk at {ks['px'].numel()} lanes, quotas <= 4: worst plane "
+        f"agreement {worst:.5f}, max |err| {max_err:.3g} ({card})")
+    t49 = steps_256(wk, state, params, what, subset=True)
+    log(f"[49] 256 steps x {t49['lanes']} lanes: kernel {t49['ms']:.3f} ms, "
+        f"plain {t49['plain_ms']:.1f} ms; worst plane agreement "
+        f"{t49['worst']:.5f}, max |err| {t49['max_err']:.3g}, "
+        f"{t49['steps']} walker-steps ({card})")
+    records.append(dict(kernel_record(params, "mis_no_delta_narrow",
+                                      f["counts"][params.kernel_name], t49,
+                                      regs, tolerance),
+                        whole_launch_ms=d["ms"], whole_launch_steps=d["steps"],
+                        whole_bound_ms=b_all, loops=f["loops"]))
+    log(f"[49] phase time {time.perf_counter() - t0:.1f} s")
+    return f
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -4677,6 +4944,10 @@ def main():
     pole_line_phase(wk, dev, card, report, regs, records, tolerance)
     # ---- 47. full size: the Poisson bubble, the culled closest point -----
     bubble_phase(wk, dev, card, regs, records, tolerance)
+    # ---- 48. full size: the terrain over shallow bodies, the table chain --
+    shallow_terrain_phase(wk, dev, card, regs, records, tolerance)
+    # ---- 49. full size: the narrow source, MIS without delta tracking ----
+    narrow_source_phase(wk, dev, card, regs, records, tolerance)
     # what phase 2 built is what the phases launched: no library was built
     # after it, and as many were loaded
     check(set(wk.build_logs) == built,

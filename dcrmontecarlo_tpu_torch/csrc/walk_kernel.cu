@@ -200,9 +200,15 @@
 // - The builds without delta tracking keep the one-thread loop with a
 //   hook each in walk_step.inc: the static form's (the short walk,
 //   walk_variant.h::one_sincos) takes the step's direction from one
-//   sincosf (WALK_SINCOS), the table form's (the Poisson bubble,
+//   sincosf (WALK_SINCOS; with MIS, phase 49's narrow source, its
+//   Box-Muller pair too), the table form's (the Poisson bubble,
 //   walk_variant.h::culled_closest) culls its closest point by chunks of
 //   the Dirichlet rows (closest_point_culled, WALK_CLOSEST).
+// - The table chain (phase 48's terrain over shallow bodies) keeps the
+//   one-thread loop (its repack loop ran slower) and culls its chain's
+//   chord frame by chunks of the Neumann rows (chord_frame_culled,
+//   WALK_CHORD; walk_variant.h::culled_chord); its first hit keeps the
+//   full scan (culled beside it, it ran slower: PERF.md, section 6).
 //
 // MIS adds per step, on every stepping lane (not only those whose radius
 // stays inside the star, so it adds work but no divergence): four more
@@ -271,17 +277,23 @@ constexpr bool CHUNK_SKIP = true;
 static_assert(!WALK_LARGE || (CULLED && !WALK_ROWS),
               "the large-table scans are the culled table build's");
 // the library's variant runs the culled closest point
-// (walk_variant.h::culled_closest) or takes its direction from one sincosf
-// (walk_variant.h::one_sincos); the preprocessor's copies of the two rules
-// pick walk_step.inc's hooks in the one-thread loop, so that the other
-// builds compile the text they compiled before
+// (walk_variant.h::culled_closest), takes its direction (and with MIS its
+// Box-Muller pair) from one sincosf (walk_variant.h::one_sincos) or runs
+// the culled chord frame (walk_variant.h::culled_chord); the
+// preprocessor's copies of the three rules pick walk_step.inc's hooks in
+// the one-thread loop, so that the other builds compile the text they
+// compiled before
 #define WALK_CULLED_CLOSEST                                               \
   (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_MIS && !WALK_FREEZE &&      \
    WALK_TABLE && !WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE &&          \
    !WALK_GRID && !WALK_TERMS)
 #define WALK_ONE_SINCOS                                                   \
-  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_MIS && !WALK_FREEZE &&      \
-   !WALK_TABLE && !WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE &&         \
+  (WALK_ROBIN == 0 && !WALK_MAJORANT && !WALK_FREEZE && !WALK_TABLE &&    \
+   !WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE && !WALK_GRID &&          \
+   !WALK_TERMS)
+#define WALK_CULLED_CHORD                                                 \
+  (WALK_ROBIN == 1 && !WALK_MAJORANT && !WALK_MIS && !WALK_FREEZE &&      \
+   WALK_TABLE && WALK_DELTA && !WALK_TRANSPORT && !WALK_WIDE &&           \
    !WALK_GRID && !WALK_TERMS)
 constexpr bool CULLED_CLOSEST = walk_rules::culled_closest(
     WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
@@ -296,6 +308,12 @@ static_assert(walk_rules::one_sincos(WALK_ROBIN, WALK_MAJORANT != 0,
                                      WALK_GRID != 0, WALK_TERMS != 0) ==
                   (WALK_ONE_SINCOS != 0),
               "walk_variant.h::one_sincos");
+constexpr bool CULLED_CHORD = walk_rules::culled_chord(
+    WALK_ROBIN, WALK_MAJORANT != 0, WALK_MIS != 0, WALK_FREEZE != 0,
+    WALK_TABLE != 0, WALK_DELTA != 0, WALK_TRANSPORT != 0, WALK_WIDE != 0,
+    WALK_GRID != 0, WALK_TERMS != 0);
+static_assert(CULLED_CHORD == (WALK_CULLED_CHORD != 0),
+              "walk_variant.h::culled_chord");
 
 namespace {
 
@@ -1477,6 +1495,73 @@ __device__ void chord_frame(float px, float py, float& tx, float& ty,
   }
 }
 
+// The table chain's culled chord frame (the culled_chord build: phase
+// 48's terrain over shallow bodies, where a lane that takes the chain's
+// branch scans the terrain's 200 Neumann rows, and its warp with it). Its
+// records are the culled_scans build's, the Neumann rows' chunks
+// (ops/walk_kernel.py::chunk_records: the box of the rows' float32
+// endpoints, widened by 2^-20 of its largest coordinate), its visit order
+// and skip test closest_point_culled's: the chunk of the least box_d2
+// first, then the chunks outward from it, a chunk skipped where its
+// box_d2 exceeds the running minimum. chord_frame's row forms its foot a +
+// t u and d2 as closest_point's row does, so box_d2 bounds every d2 of the
+// chunk from below, exactly. The winner is the least (d2, row) pair, the
+// full scan's first minimum in row order, and the frame (tangent and
+// chord extents) is formed from the winning row and its t alone, by
+// chord_frame's arithmetic: bit for bit chord_frame<true>.
+__device__ __forceinline__ void chord_frame_culled(float px, float py,
+                                                   float& tx, float& ty,
+                                                   float& s_lo, float& s_hi) {
+  const int n_ch = (C.n_neu + CHUNK_ROWS - 1) / CHUNK_ROWS;
+  int k0 = 0;  // the chunk of the least box_d2 (the first, on ties)
+  float lb0 = F(3e38);
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const float lb = box_d2(__ldg(C.chunk + CHUNK_F4 * ch), px, py);
+    if (lb < lb0) {
+      lb0 = lb;
+      k0 = ch;
+    }
+  }
+  float best = F(3e38), t_win = F(0.0);
+  int win = -1;  // no row yet: a row must give d2 < 3e38, as in the scan
+  for (int i = 0; i < n_ch; ++i) {
+    const int o = (i + 1) >> 1;
+    int ch = (i & 1) ? k0 + o : k0 - o;
+    ch = ch < 0 ? ch + n_ch : (ch >= n_ch ? ch - n_ch : ch);
+    if (chunk_skips(box_d2(__ldg(C.chunk + CHUNK_F4 * ch), px, py) > best))
+      continue;
+    const int end = min(C.n_neu, (ch + 1) * CHUNK_ROWS);
+    for (int sgi = ch * CHUNK_ROWS; sgi < end; ++sgi) {
+      const float4 g = __ldg(C.tab_neu + sgi);
+      const float ax = g.x, ay = g.y;
+      const float ux = g.z - ax, uy = g.w - ay;
+      const float uu = fmaxf(ux * ux + uy * uy, F(1e-30));
+      float vx = px - ax, vy = py - ay;
+      float t = fminf(fmaxf((vx * ux + vy * uy) / uu, F(0.0)), F(1.0));
+      float ex = (ax + t * ux) - px, ey = (ay + t * uy) - py;
+      float d2 = ex * ex + ey * ey;
+      if (d2 < best || (d2 == best && sgi < win)) {
+        best = d2;
+        win = sgi;
+        t_win = t;
+      }
+    }
+  }
+  tx = F(0.0);
+  ty = F(0.0);
+  s_lo = F(0.0);
+  s_hi = F(0.0);
+  if (win >= 0) {
+    const float4 g = __ldg(C.tab_neu + win);
+    const float ux = g.z - g.x, uy = g.w - g.y;
+    const float ul = sqrtf(fmaxf(ux * ux + uy * uy, F(1e-30)));
+    tx = ux / ul;
+    ty = uy / ul;
+    s_lo = -t_win * ul;
+    s_hi = (F(1.0) - t_win) * ul;
+  }
+}
+
 // distance to the nearest silhouette vertex (3e38 squared for none):
 // vertex b is one seen from p when cross(ab, ap) * cross(bc, bp) < 0
 // (_silhouette_unrolled with host edges / _silhouette_smem)
@@ -2037,7 +2122,9 @@ __device__ __forceinline__ float mix_at(int c, int k) {
 // the screened norm from the caller (norm_in: interior_prob / sb, the
 // operations of screened_norm) and the Box-Muller pair from one sincosf
 // (on the card the bits of cosf and sinf for every float in [0, 2 pi]:
-// chip_probes/sincos_bits.py).
+// chip_probes/sincos_bits.py). Without delta tracking (the one_sincos
+// build with MIS, phase 49's narrow source) it takes only the pair: the
+// norm there is R^2 / 4, one product.
 //
 // NEAR (the chain_phases builds with MIS) sums the mixture pdf over the
 // components near y only: a component with |y - c|^2 > 128 (2 w^2) has an
@@ -2991,6 +3078,9 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
 #if WALK_ONE_SINCOS
 #define WALK_SINCOS
 #endif
+#if WALK_CULLED_CHORD
+#define WALK_CHORD chord_frame_culled
+#endif
 
     for (int it = 0; it < budget && quota > 0; ++it) {
 #define WALK_NEXT continue
@@ -3001,6 +3091,7 @@ walk_kernel(int n_lanes, int budget, float freeze_thr) {
     }
 #undef WALK_CLOSEST
 #undef WALK_SINCOS
+#undef WALK_CHORD
 
     P.px[lane] = px;
     P.py[lane] = py;
@@ -3764,7 +3855,7 @@ static int put_header(const float* fp, int n_fp, const int* ip, int n_ip,
       if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;
       h.chunk = (const float4*)chunks;
     }
-    if (CULLED && h.n_neu > 0) {  // no Neumann row: no chunk
+    if ((CULLED || CULLED_CHORD) && h.n_neu > 0) {  // no Neumann row: none
       if (!chunks) return (int)cudaErrorInvalidValue;
       if ((uintptr_t)chunks % 16) return (int)cudaErrorMisalignedAddress;
       h.chunk = (const float4*)chunks;

@@ -77,11 +77,14 @@ WALK_HD constexpr bool repacked(int robin, bool mis, bool freeze,
 // that cannot change its result (csrc/walk_kernel.cu, chunk_skips;
 // ops/walk_kernel.py::culled_scans holds the same rule): the survey's on
 // the terrain (phase 20), the one such build that ran faster on the card
-// at its path's size; the terrain flagship, the table chain, the table
-// without delta tracking and the sweep's table builds ran slower and
-// keep the full scans (PERF.md, section 6). The table form without delta
-// tracking culls its closest point instead (culled_closest: phase 47's
-// single launch 24.8-25.2 -> 11.6-11.7 ms on the card)
+// at its path's size; the terrain flagship, the table without delta
+// tracking and the sweep's table builds ran slower and keep the full
+// scans, and so does the table chain: its culled first hit lost at 8,192
+// lanes on 102 rows (6.21-6.33 -> 6.71 ms) and, at phase 48's
+// 294,912 lanes on 402 rows, gained 3.8% alone but lost 2-3% beside its
+// culled chord frame (culled_chord; PERF.md, section 6). The table form
+// without delta tracking culls its closest point instead (culled_closest:
+// phase 47's single launch 24.8-25.2 -> 11.6-11.7 ms on the card)
 WALK_HD constexpr bool culled_scans(int robin, bool maj, bool mis,
                                     bool freeze, bool table, bool delta,
                                     bool transport, bool wide, bool grid,
@@ -105,6 +108,22 @@ WALK_HD constexpr bool culled_closest(int robin, bool maj, bool mis,
                                       bool transport, bool wide, bool grid,
                                       bool terms_form) {
   return robin == ROBIN_OFF && !maj && !mis && !freeze && table && !delta &&
+         !transport && !wide && !grid && !terms_form;
+}
+
+// the table chain (phase 48's terrain over shallow bodies: the Robin
+// chain on the table form, one thread a lane), whose chord frame runs the
+// Neumann rows by chunks of CHUNK_ROWS from the chunk of the least box
+// distance outward and skips a chunk whose box proves no row of it can win
+// (csrc/walk_kernel.cu, chord_frame_culled, WALK_CHORD;
+// ops/walk_kernel.py::culled_chord holds the same rule): phase 48's single
+// launch 1023 -> 854-860 ms on the card. Its first hit keeps the full scan
+// (culled_scans), and every other build its chord frame
+WALK_HD constexpr bool culled_chord(int robin, bool maj, bool mis,
+                                    bool freeze, bool table, bool delta,
+                                    bool transport, bool wide, bool grid,
+                                    bool terms_form) {
+  return robin == ROBIN_CHAIN && !maj && !mis && !freeze && table && delta &&
          !transport && !wide && !grid && !terms_form;
 }
 
@@ -148,8 +167,9 @@ WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
 }
 
 // the static form without delta tracking (phase 25's short walk, ~10
-// steps a walk), whose one-thread loop takes the step's direction from one
-// sincosf, the bits of cosf and sinf on [0, 2 pi] (chip_probes/
+// steps a walk; with MIS phase 49's narrow source), whose one-thread loop
+// takes the step's direction, and with MIS its Box-Muller pair, from one
+// sincosf each, the bits of cosf and sinf on [0, 2 pi] (chip_probes/
 // sincos_bits.py; csrc/walk_kernel.cu, WALK_SINCOS; ops/walk_kernel.py::
 // one_sincos holds the same rule). It keeps one thread a lane: dealt walks
 // (PR 16), a bank and the next walk's first step in one iteration of a lane
@@ -159,7 +179,7 @@ WALK_HD constexpr bool dealt(int robin, bool maj, bool mis, bool freeze,
 WALK_HD constexpr bool one_sincos(int robin, bool maj, bool mis, bool freeze,
                                   bool table, bool delta, bool transport,
                                   bool wide, bool grid, bool terms_form) {
-  return robin == ROBIN_OFF && !maj && !mis && !freeze && !table && !delta &&
+  return robin == ROBIN_OFF && !maj && !freeze && !table && !delta &&
          !transport && !wide && !grid && !terms_form;
 }
 

@@ -99,7 +99,8 @@ __all__ = ["EXIT_CHECK", "MAX_SRC", "MAX_UNROLL_SEGMENTS",
            "culled_scans", "chunk_records", "dealt", "launch_loop",
            "LARGE_TABLE_ROWS", "SIL_ROWS", "GROUP_CHUNKS", "large_scans",
            "silhouette_records", "large_records", "build_code",
-           "pole_record", "POLE_KIND", "culled_closest", "one_sincos"]
+           "pole_record", "POLE_KIND", "culled_closest", "one_sincos",
+           "culled_chord"]
 
 EXIT_CHECK = 16      # plain-path drain check cadence (steps): exact, since
                      # a step of a lane without quota mutates nothing
@@ -249,10 +250,26 @@ def culled_scans(variant) -> bool:
     cannot change its result (``walk_variant.h::culled_scans``): the
     survey's table form ``<0,false,false,false,true,true,false>`` (phase
     20), the one table build that ran faster so at its path's size (the
-    table form without delta tracking culls its closest point instead,
+    table chain culls its chord frame instead, :func:`culled_chord`, and
+    the table form without delta tracking its closest point,
     :func:`culled_closest`). Its launches take the chunk records of its
     Neumann rows (:meth:`WalkParams.chunk_table`)."""
     return _switches(variant) == (ROBIN_OFF, False, False, False, True,
+                                  True, False, False, False, False, False)
+
+
+def culled_chord(variant) -> bool:
+    """Whether ``variant``'s Robin chain takes its chord frame (the nearest
+    Neumann row's tangent and chord extents) by chunks of the Neumann rows
+    from the chunk of the least box distance outward, skipping the chunks
+    whose box proves no row of them can win
+    (``walk_variant.h::culled_chord``): the table chain
+    ``<1,false,false,false,true,true,false>`` (phase 48's terrain over
+    shallow bodies); the first minimum in row order, bit for bit the full
+    scan's. Its launches take the chunk records of its Neumann rows
+    (:meth:`WalkParams.chunk_table`); its first hit keeps the full scan
+    (culled beside the chord frame, it ran slower on the card)."""
+    return _switches(variant) == (ROBIN_CHAIN, False, False, False, True,
                                   True, False, False, False, False, False)
 
 
@@ -271,15 +288,21 @@ def culled_closest(variant) -> bool:
 
 
 def one_sincos(variant) -> bool:
-    """Whether ``variant``'s step takes its direction from one ``sincosf``
+    """Whether ``variant``'s step takes its direction, and with MIS its
+    Box-Muller pair, from one ``sincosf`` each
     (``walk_variant.h::one_sincos``, the bits of ``cosf`` and ``sinf``):
     the static form without delta tracking
     ``<0,false,false,false,false,false,false>`` (phase 25's short walk),
     which keeps one thread a lane and one bank or step an iteration (dealt
     walks and a bank with the next walk's first step in one iteration ran
-    slower on the card)."""
-    return _switches(variant) == (ROBIN_OFF, False, False, False, False,
-                                  False, False, False, False, False, False)
+    slower on the card), and the same with MIS
+    ``<0,false,true,false,false,false,false>`` (phase 49's narrow
+    source)."""
+    robin, majorant, mis, freeze, table, delta, transport, wide, grid, \
+        terms, rows = _switches(variant)
+    return (robin == ROBIN_OFF and not (majorant or freeze or table or delta
+                                        or transport or wide or grid or terms
+                                        or rows))
 
 
 def large_scans(variant, n_neu: int, n_vert: int) -> bool:
@@ -855,12 +878,14 @@ class WalkParams:
         return seeds, int(self.shard_lanes)
 
     def chunk_table(self, device):
-        """The Neumann rows' chunk records (:func:`chunk_records`; in the
-        large-table build all of :func:`large_records`, which begin with
-        them), or in the :func:`culled_closest` variant the Dirichlet
-        rows', as a contiguous float32 tensor on ``device``, uploaded once
-        per params; None outside those variants."""
-        if not (culled_scans(self.variant)
+        """The Neumann rows' chunk records (:func:`chunk_records`) in the
+        :func:`culled_scans` and :func:`culled_chord` variants (in the
+        large-table build all of
+        :func:`large_records`, which begin with them), or in the
+        :func:`culled_closest` variant the Dirichlet rows', as a contiguous
+        float32 tensor on ``device``, uploaded once per params; None
+        outside those variants."""
+        if not (culled_scans(self.variant) or culled_chord(self.variant)
                 or culled_closest(self.variant)):
             return None
         key = ("chunks", str(device))

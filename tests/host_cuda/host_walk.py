@@ -12,8 +12,9 @@ row order, the scans as they were before the chunks; with ``large`` the
 culled variant's large-table build (``walk_kernel.large_scans``); with
 ``plain_loop`` the one-thread loop without its builds' hooks
 (``PLAIN_LOOP``: the full closest point of ``walk_kernel.culled_closest``'s
-build, ``cosf`` and ``sinf`` in ``walk_kernel.one_sincos``'s), the loop
-those builds ran before them.
+build, ``cosf`` and ``sinf`` in ``walk_kernel.one_sincos``'s, the full
+chord frame in ``walk_kernel.culled_chord``'s), the loop those builds ran
+before them.
 """
 
 import ctypes
@@ -37,12 +38,14 @@ ONE_THREAD = (
 # the culled scans' skip test, and false in its place
 FULL_SCANS = (("constexpr bool CHUNK_SKIP = true;",
                "constexpr bool CHUNK_SKIP = false;"),)
-# the one-thread loop's hooks of the culled_closest and one_sincos builds,
-# and none in their place
+# the one-thread loop's hooks of the culled_closest, one_sincos and
+# culled_chord builds, and none in their place
 PLAIN_LOOP = (("#if WALK_CULLED_CLOSEST\n#define WALK_CLOSEST",
                "#if 0\n#define WALK_CLOSEST"),
               ("#if WALK_ONE_SINCOS\n#define WALK_SINCOS",
-               "#if 0\n#define WALK_SINCOS"))
+               "#if 0\n#define WALK_SINCOS"),
+              ("#if WALK_CULLED_CHORD\n#define WALK_CHORD",
+               "#if 0\n#define WALK_CHORD"))
 
 
 def host_source(one_thread=False, full_scans=False, extra="",

@@ -62,7 +62,11 @@ bit) and the plain walk; and the general rows build's Gaussian pole
 sources, from their records, against the same launch by the ``TERMS``
 text (bit for bit) and the plain walk; and the plain walk's steps
 replayed from a CUDA graph against its kernels launched one by one (bit
-for bit).
+for bit); and the table chain at ``chip_smoke.py`` phase 48's state (its
+chord frame and first hit culled) and MIS without delta tracking at phase
+49's (its direction and Box-Muller pair from one ``sincosf``), the solve's
+single launch against the same build in 256-step launches (bit for bit)
+and a launch of 8,192 of its lanes against the plain walk.
 """
 
 import os
@@ -1143,3 +1147,40 @@ def test_plain_graph_equals_its_kernels_one_by_one(device, case):
         wk._graphable = graphable
     for k in state_planes(params.n_src):
         assert torch.equal(graphed[k], eager[k]), k
+
+
+@pytest.mark.parametrize("which", ["table_chain", "mis_no_delta"])
+def test_redesigned_build_at_its_full_state_matches_loop_and_plain(device,
+                                                                   which):
+    # phase 48's table chain and phase 49's MIS without delta tracking at
+    # their full-size states: the single launch drains every quota and
+    # equals the build's own 256-step launches on every plane; 64 plain
+    # steps into 8,192 of the lanes' walks, a 32-step launch follows the
+    # plain walk under phase 3's rule
+    import chip_smoke as cs
+
+    if which == "table_chain":
+        prob, pts, options = cs.shallow_terrain_config()
+        run = (cs.P2_WALKS, cs.P2_MAX_STEPS, cs.P2_EPS)
+        rule, lanes = wk.culled_chord, cs.P48_LANES
+    else:
+        (prob, options), pts = cs.narrow_source_config(), cs.NARROW_POINTS
+        run, rule, lanes = cs.NARROW_RUN, wk.one_sincos, cs.P49_LANES
+    solver = WoStSolver(prob, options, device=device)
+    state, params, _, step_bound = solver._setup(pts, *run, 5)
+    assert state["px"].numel() == lanes and rule(params.variant)
+    whole, drained = ({k: v.clone() for k, v in state.items()}
+                      for _ in "ab")
+    wk.run_walk(whole, params, step_bound)
+    assert int(whole["quota"].max()) == 0
+    while bool((drained["quota"] > 0).any()):
+        wk.run_walk(drained, params, 256)
+    for k in state_planes(params.n_src):
+        assert torch.equal(whole[k], drained[k]), k
+    small = {k: v.reshape(-1)[:8192].clone() for k, v in state.items()}
+    wk.walk_plain(small, params, 64)
+    ks, ps = ({k: v.clone() for k, v in small.items()} for _ in "ab")
+    wk.run_walk(ks, params, 32)
+    wk.walk_plain(ps, params, 32)
+    frac, _, finite = wk.compare_planes(ks, ps, state_planes(params.n_src))
+    assert finite and min(frac.values()) >= wk.PLANE_MIN_FRAC, frac

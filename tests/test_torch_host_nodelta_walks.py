@@ -262,11 +262,15 @@ def test_culled_closest_point_takes_the_first_row_of_a_tie(builds, kind):
 
 
 def test_rules_name_one_build_each():
-    # the one_sincos and culled_closest builds are one variant each, the
-    # static and the table form without delta tracking, off the repack and
-    # dealt loops
-    got = {rule: [v for v in wk.KERNEL_VARIANTS if getattr(wk, rule)(v)]
+    # the culled_closest build is one variant, the table form without
+    # delta tracking; the one_sincos builds are the static form without it
+    # and the same with MIS (phase 49's, tests/
+    # test_torch_host_mis_nodelta_walks.py); all off the repack and dealt
+    # loops
+    mis = (0, _F, _T, _F, _F, _F, _F, _F, _F)
+    got = {rule: {v for v in wk.KERNEL_VARIANTS if getattr(wk, rule)(v)}
            for rule in ("one_sincos", "culled_closest")}
-    assert got == {"one_sincos": [SHORT], "culled_closest": [BUBBLE]}
-    for v in (SHORT, BUBBLE):
-        assert not (wk.repacked(v) or wk.dealt(v) or wk.culled_scans(v))
+    assert got == {"one_sincos": {SHORT, mis}, "culled_closest": {BUBBLE}}
+    for v in (SHORT, mis, BUBBLE):
+        assert not (wk.repacked(v) or wk.dealt(v) or wk.culled_scans(v)
+                    or wk.culled_chord(v))

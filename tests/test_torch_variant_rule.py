@@ -486,8 +486,8 @@ def test_dealt_rule_names_each_build(variant, dealt):
     assert not (dealt and wk.repacked(variant))
 
 
-# csrc/walk_variant.h's culled_closest and one_sincos for each kernel
-# variant on stdin (robin, the nine switches), one line each
+# csrc/walk_variant.h's culled_closest, one_sincos and culled_chord for
+# each kernel variant on stdin (robin, the nine switches), one line each
 _NODELTA_RULES_MAIN = r"""
 #include <cstdio>
 #include "walk_variant.h"
@@ -495,28 +495,22 @@ int main() {
   int r, s[9];
   while (std::scanf("%d %d %d %d %d %d %d %d %d %d", &r, &s[0], &s[1],
                     &s[2], &s[3], &s[4], &s[5], &s[6], &s[7], &s[8]) == 10)
-    std::printf("%d %d\n",
+    std::printf("%d %d %d\n",
                 (int)walk_rules::culled_closest(r, s[0], s[1], s[2], s[3],
                                                 s[4], s[5], s[6], s[7],
                                                 s[8]),
                 (int)walk_rules::one_sincos(r, s[0], s[1], s[2], s[3], s[4],
-                                            s[5], s[6], s[7], s[8]));
+                                            s[5], s[6], s[7], s[8]),
+                (int)walk_rules::culled_chord(r, s[0], s[1], s[2], s[3],
+                                              s[4], s[5], s[6], s[7], s[8]));
 }
 """
 
 
-@pytest.mark.parametrize("rule,column,build", [
-    # the table form without delta tracking (phase 47's Poisson bubble)
-    # culls its closest point; the static form without it (phase 25's
-    # short walk) takes its direction from one sincosf
-    ("culled_closest", 0, (0, _F, _F, _F, _T, _F, _F, _F, _F, _F, _F)),
-    ("one_sincos", 1, (0, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F)),
-])
-def test_nodelta_rules_of_header_and_python_agree_on_every_variant(
-        tmp_path, rule, column, build):
-    # the header's rule, compiled by the host compiler, and
-    # ops/walk_kernel.py's pick the same one of the 1,152 kernel variants,
-    # which runs one thread a lane and none of the other builds' scans
+def _header_rules(tmp_path, column):
+    """``(variants, picked)``: the 1,152 kernel variants' switches, sorted,
+    and whether the header's rule in ``column`` of ``_NODELTA_RULES_MAIN``,
+    compiled by the host compiler, picks each."""
     import shutil
     import subprocess
 
@@ -534,8 +528,45 @@ def test_nodelta_rules_of_header_and_python_agree_on_every_variant(
     out = subprocess.run([str(exe)], input=stdin, check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.split("\n")
-    got = [bool(int(line.split()[column])) for line in out if line]
+    return variants, [bool(int(line.split()[column])) for line in out
+                      if line]
+
+
+@pytest.mark.parametrize("rule,column,build", [
+    # the table form without delta tracking (phase 47's Poisson bubble)
+    # culls its closest point; the static form without it takes its
+    # direction from one sincosf (phase 25's short walk), and with MIS its
+    # Box-Muller pair too (phase 49's narrow source)
+    ("culled_closest", 0, [(0, _F, _F, _F, _T, _F, _F, _F, _F, _F, _F)]),
+    ("one_sincos", 1, [(0, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F),
+                       (0, _F, _T, _F, _F, _F, _F, _F, _F, _F, _F)]),
+])
+def test_nodelta_rules_of_header_and_python_agree_on_every_variant(
+        tmp_path, rule, column, build):
+    # the header's rule, compiled by the host compiler, and
+    # ops/walk_kernel.py's pick the same of the 1,152 kernel variants,
+    # which run one thread a lane and none of the other builds' scans
+    variants, got = _header_rules(tmp_path, column)
     assert got == [getattr(wk, rule)(v) for v in variants]
-    assert [v for v, g in zip(variants, got) if g] == [build]
-    assert not (wk.repacked(build) or wk.dealt(build)
-                or wk.culled_scans(build))
+    assert [v for v, g in zip(variants, got) if g] == build
+    for b in build:
+        assert not (wk.repacked(b) or wk.dealt(b) or wk.culled_scans(b))
+
+
+@pytest.mark.parametrize("rule,column,build", [
+    # the table chain (phase 48's terrain over shallow bodies) culls its
+    # chord frame
+    ("culled_chord", 2, [(1, _F, _F, _F, _T, _T, _F, _F, _F, _F, _F)]),
+])
+def test_chain_rules_of_header_and_python_agree_on_every_variant(
+        tmp_path, rule, column, build):
+    # as above; the table chain runs one thread a lane, keeps its first hit
+    # and closest point (it is not the culled table variant, and has no
+    # large-table build)
+    variants, got = _header_rules(tmp_path, column)
+    assert got == [getattr(wk, rule)(v) for v in variants]
+    assert [v for v, g in zip(variants, got) if g] == build
+    chain = (1, _F, _F, _F, _T, _T, _F, _F, _F, _F, _F)
+    assert not (wk.repacked(chain) or wk.dealt(chain)
+                or wk.culled_scans(chain) or wk.culled_closest(chain)
+                or wk.large_scans(chain, 10 ** 6, 10 ** 6))
